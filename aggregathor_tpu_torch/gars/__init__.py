@@ -1,0 +1,158 @@
+"""Gradient Aggregation Rules (GARs), the heart of the framework.
+
+A GAR reduces the ``(n, d)`` matrix of per-worker flattened gradients to one
+``(d,)`` aggregated gradient while tolerating up to ``f`` Byzantine rows.
+Counterpart of ``aggregathor_tpu/gars``: the same registry names, the same
+``GAR`` contract and the same ``(n, f)`` feasibility checks.
+
+Distance-based rules (Krum, Bulyan) factor into ``selection_weights(dist2)``
+(O(n^2), tiny) and a ``(t, n) x (n, d)`` combine; the ``(n, n)`` distance
+matrix comes from the K1 kernel (``ops/kernels.py``).  Coordinate-wise rules
+call the rank-selection kernels K3-K5.  Dispatch is by device alone: a CUDA
+matrix always goes through the kernel, a CPU matrix through its plain
+PyTorch version; there is no column threshold.
+
+Unlike the JAX package the registry does not walk its directory: it imports
+the rules this package ports, by name, at the bottom of this module.
+"""
+
+from ..utils import ClassRegister
+
+gars = ClassRegister("GAR")
+
+
+def register(name, cls):
+    return gars.register(name, cls)
+
+
+def itemize():
+    return gars.itemize()
+
+
+def _split_args(text):
+    """Split ``k=v,k=v`` on top-level commas only — a parenthesized value
+    (a nested rule spec like ``hier(g=4,outer=krum)``) keeps its commas."""
+    parts, depth, cur = [], 0, []
+    for ch in text:
+        if ch == "(":
+            depth += 1
+        elif ch == ")":
+            depth -= 1
+        if ch == "," and depth == 0:
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    parts.append("".join(cur))
+    return [p for p in (p.strip() for p in parts) if p]
+
+
+def parse_spec(spec):
+    """Parse an inline GAR spec into ``(name, [key:value, ...])``.
+
+    Three forms (all equivalent)::
+
+        krum
+        trimmed-mean:trim=1
+        trimmed-mean(trim=1)
+
+    The returned args use the ``key:value`` convention ``parse_keyval``
+    expects.  A plain registered name passes through untouched.
+    """
+    from ..utils import UserException
+
+    spec = str(spec).strip()
+    ci, pi = spec.find(":"), spec.find("(")
+    if pi != -1 and spec.endswith(")") and (ci == -1 or pi < ci):
+        name, _, body = spec.partition("(")
+        body = body[:-1]
+    elif ci != -1:
+        name, _, body = spec.partition(":")
+    else:
+        return spec, []
+    name = name.strip()
+    args = []
+    for item in _split_args(body):
+        if "=" not in item:
+            raise UserException(
+                "GAR spec argument %r wants key=value (in spec %r)" % (item, spec)
+            )
+        key, _, value = item.partition("=")
+        args.append("%s:%s" % (key.strip(), value.strip()))
+    return name, args
+
+
+def instantiate(name, nb_workers, nb_byz_workers, args=None):
+    """Build the GAR registered under ``name`` (or an inline spec, see
+    :func:`parse_spec`); spec args and explicit ``args`` concatenate, with
+    duplicate keys rejected by ``parse_keyval``."""
+    name, spec_args = parse_spec(name)
+    return gars.get(name)(nb_workers, nb_byz_workers, spec_args + list(args or []))
+
+
+class GAR:
+    """Base Gradient Aggregation Rule.
+
+    Subclasses implement ``aggregate_block``; ``aggregate`` is the dense
+    convenience entry that computes the distance matrix when needed.
+
+    Attributes:
+      coordinate_wise: True if the rule treats coordinates independently.
+      needs_distances: True if ``aggregate_block`` requires the (n, n)
+        pairwise squared-distance matrix (Krum/Bulyan family).
+      nan_row_tolerant: True if an all-NaN row is cleanly excluded from the
+        aggregate rather than poisoning it.
+    """
+
+    coordinate_wise = False
+    needs_distances = False
+    nan_row_tolerant = False
+    #: typed key:value argument defaults accepted by this rule (strict: an
+    #: unknown key raises instead of being silently ignored)
+    ARG_DEFAULTS = {}
+
+    def __init__(self, nb_workers, nb_byz_workers, args=None):
+        from ..utils import parse_keyval
+
+        self.nb_workers = int(nb_workers)
+        self.nb_byz_workers = int(nb_byz_workers)
+        self.args = parse_keyval(args, self.ARG_DEFAULTS, strict=True)
+        self.check()
+
+    def check(self):
+        """Validate the (n, f) relation; raise UserException when unsatisfiable."""
+        from ..utils import UserException
+
+        if self.nb_workers < 1:
+            raise UserException("GAR %r needs at least 1 worker" % type(self).__name__)
+        if self.nb_byz_workers < 0:
+            raise UserException("Negative declared Byzantine count")
+        # Universal feasibility floor: no rule can tolerate a Byzantine
+        # majority of everyone (f >= n leaves zero honest rows).
+        if self.nb_byz_workers >= self.nb_workers:
+            raise UserException(
+                "GAR %r cannot declare f=%d >= n=%d: at least one worker "
+                "must be honest for any aggregate to mean anything"
+                % (type(self).__name__, self.nb_byz_workers, self.nb_workers)
+            )
+
+    def aggregate(self, grads):
+        """Dense entry: reduce the full (n, d) float32 matrix to (d,)."""
+        from .common import pairwise_sq_distances
+
+        dist2 = pairwise_sq_distances(grads) if self.needs_distances else None
+        return self._call_aggregate(grads, dist2)
+
+    def _call_aggregate(self, block, dist2):
+        """The single dispatch point the engine uses (``dist2`` already
+        clamped at 0 when the rule needs distances, None otherwise)."""
+        return self.aggregate_block(block, dist2)
+
+    def aggregate_block(self, block, dist2=None):
+        """Reduce an (n, d) block to (d,); ``dist2`` is the (n, n)
+        squared-distance matrix when ``needs_distances`` is set."""
+        raise NotImplementedError
+
+
+# The ported rules register themselves on import, in the slice's order.
+from . import average, krum, median, averaged_median, bulyan, trimmed_mean, pallas_tier  # noqa: E402,F401

@@ -1,0 +1,72 @@
+"""Shared GAR numerics: distances, NaN conventions, rank selections.
+
+Counterpart of ``aggregathor_tpu/gars/common.py``.  A non-finite pairwise
+distance counts as +inf for scoring, and non-finite coordinates sort last
+(as if +inf) in the coordinate-wise rules; both are explicit ``isfinite``
+masks, never NaN comparisons.
+"""
+
+import torch
+
+from ..ops import kernels
+
+
+def nonfinite_to_inf(x):
+    """Replace every non-finite entry with +inf (NaN-last ordering convention)."""
+    return torch.where(torch.isfinite(x), x, torch.inf)
+
+
+def pairwise_sq_distances(grads):
+    """All-pairs squared L2 distances of the rows of an (n, d) float32 matrix.
+
+    A CUDA matrix goes to the K1 kernel (difference form, n <= 64; for
+    n > 64 K1 raises NotImplementedError naming K2, the Gram-form kernel not
+    yet ported); a CPU matrix to K1's plain version.  NaN rows give NaN
+    entries, which the scoring maps to +inf."""
+    return kernels.pairwise_sq_distances(grads)
+
+
+def smallest_k_sum(values, k):
+    """Sum of the k smallest entries along the last axis (non-finite = +inf)."""
+    return torch.sum(torch.sort(nonfinite_to_inf(values), dim=-1).values[..., :k], dim=-1)
+
+
+def smallest_k_mask(scores, k):
+    """Boolean (n,) mask of the k smallest scores, ties to the lowest index.
+
+    Non-finite scores count as +inf.  rank(i) = #{j : s_j < s_i, or s_j ==
+    s_i and j < i}, the rank rule of the JAX package."""
+    clean = nonfinite_to_inf(scores)
+    idx = torch.arange(clean.shape[0], device=clean.device)
+    smaller = (clean[None, :] < clean[:, None]) | (
+        (clean[None, :] == clean[:, None]) & (idx[None, :] < idx[:, None])
+    )
+    return torch.sum(smaller, dim=1) < k
+
+
+def selection_mean_weights(scores, k):
+    """(n,) weights averaging the k smallest-scoring rows: mask / k."""
+    return smallest_k_mask(scores, k).to(torch.float32) / float(k)
+
+
+def select_combine(weights, block):
+    """Weighted row combination that ignores NaNs in *unselected* rows.
+
+    ``weights @ block`` alone would propagate NaN from rows with weight 0
+    (0 x NaN = NaN), letting an excluded row poison the output.  So the
+    combine runs on the block with non-finite entries zeroed, and exactly
+    the coordinates where a row with nonzero weight was non-finite are
+    re-poisoned to NaN.
+
+    Args:
+      weights: (n,) or (t, n) selection weights.
+      block:   (n, d) gradient rows.
+    Returns:
+      (d,) or (t, d) combined rows, NaN-faithful.
+    """
+    w = weights if weights.dim() == 2 else weights[None, :]
+    finite = torch.isfinite(block)
+    out = w.to(torch.float32) @ torch.where(finite, block, 0.0)
+    touched = (torch.abs(w) > 0).to(torch.float32) @ (~finite).to(torch.float32)
+    out = torch.where(touched > 0, torch.nan, out)
+    return out if weights.dim() == 2 else out[0]

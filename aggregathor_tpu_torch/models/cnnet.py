@@ -1,0 +1,92 @@
+"""CIFAR-10 CNN experiment.
+
+Counterpart of ``aggregathor_tpu/models/cnnet.py`` at its published width:
+two conv5x5-64 + 3x3/2 max-pool stages with GroupNorm(8), dense 384, dense
+192, linear 10 (d = 1,756,682).  Default batch 128, mean softmax CE loss,
+top-1 accuracy on the eval split.  The layer-by-layer match with flax:
+
+- inputs arrive NHWC (the JAX layout) and are permuted to NCHW inside;
+- flax ``max_pool(padding="SAME")`` 3x3/2 pads 0 before and 1 after with
+  -inf (32 -> 16 -> 8), so the pool pads explicitly instead of torch's
+  symmetric padding;
+- flax ``GroupNorm`` has eps 1e-6 (torch's default is 1e-5);
+- the features are flattened in NHWC order before ``dense1``, so its rows
+  line up with the flax kernel's.
+"""
+
+import torch.nn.functional as F
+from torch import nn
+
+from ..utils import UserException, parse_keyval
+from . import Experiment, register
+from .datasets import WorkerBatchIterator, eval_batches, load_cifar10
+
+
+def max_pool_same(x):
+    """flax ``max_pool(x, (3, 3), strides=(2, 2), padding="SAME")`` on NCHW
+    input with even height and width: pad 0 before, 1 after, with -inf."""
+    return F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=float("-inf")), kernel_size=3, stride=2)
+
+
+class CNNet(nn.Module):
+    def __init__(self, classes=10):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 5, padding=2)
+        self.norm1 = nn.GroupNorm(8, 64, eps=1e-6)
+        self.conv2 = nn.Conv2d(64, 64, 5, padding=2)
+        self.norm2 = nn.GroupNorm(8, 64, eps=1e-6)
+        self.dense1 = nn.Linear(8 * 8 * 64, 384)
+        self.dense2 = nn.Linear(384, 192)
+        self.logits = nn.Linear(192, classes)
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        x = max_pool_same(F.relu(self.conv1(x)))
+        x = self.norm1(x)
+        x = self.norm2(F.relu(self.conv2(x)))
+        x = max_pool_same(x)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten in NHWC order
+        x = F.relu(self.dense1(x))
+        x = F.relu(self.dense2(x))
+        return self.logits(x)
+
+
+class CNNetExperiment(Experiment):
+    def __init__(self, args):
+        super().__init__(args)
+        kv = parse_keyval(args, {
+            "batch-size": 128,
+            "eval-batch-size": 256,
+            "preprocessing": "cifarnet",
+            # the same arg surface as the JAX experiment; the in-step
+            # augmentation tier and bfloat16 compute are not ported yet
+            "augment": "host",
+            "dtype": "float32",
+            "nb-fetcher-threads": 0,
+            "nb-batcher-threads": 0,
+        })
+        from .preprocessing import check as check_preprocessing
+
+        if kv["augment"] != "host":
+            raise UserException("augment:%s is not available in the PyTorch port (host only)" % kv["augment"])
+        if kv["dtype"] != "float32":
+            raise UserException("dtype:%s is not available in the PyTorch port (float32 only)" % kv["dtype"])
+        self.batch_size = kv["batch-size"]
+        self.eval_batch_size = kv["eval-batch-size"]
+        self.preprocessing = check_preprocessing(kv["preprocessing"])
+        self.dataset = load_cifar10()
+        self.model = CNNet(classes=self.dataset.nb_classes)
+
+    def make_train_iterator(self, nb_workers, seed=0):
+        from .preprocessing import instantiate as make_preprocessing
+
+        return WorkerBatchIterator(
+            self.dataset.x_train, self.dataset.y_train, nb_workers, self.batch_size, seed=seed,
+            transform=make_preprocessing(self.preprocessing, seed=seed),
+        )
+
+    def make_eval_iterator(self, nb_workers):
+        return eval_batches(self.dataset.x_test, self.dataset.y_test, nb_workers, self.eval_batch_size)
+
+
+register("cnnet", CNNetExperiment)

@@ -1,0 +1,171 @@
+"""Input pipelines: real data when present, deterministic synthetic otherwise.
+
+Copies of the numpy loaders of ``aggregathor_tpu/models/datasets.py`` (the
+npz and synthetic branches; the CIFAR-10 TFRecord reader is not ported yet),
+so both packages see the same batches, bit for bit.  Each loader first looks
+for a local ``.npz`` file (search order: the ``AGGREGATHOR_DATA`` env dir,
+``~/.aggregathor/data``, ``./data``) and otherwise derives a deterministic
+synthetic stand-in: class-conditional Gaussians around fixed random
+templates, flagged by ``.synthetic``.
+
+File formats accepted: ``mnist.npz`` / ``cifar10.npz`` with x_train/y_train/
+x_test/y_test (the keras layout).
+"""
+
+import os
+
+import numpy as np
+
+from ..utils import UserException, info, warning
+
+
+def _data_dirs():
+    dirs = []
+    env = os.environ.get("AGGREGATHOR_DATA")
+    if env:
+        dirs.append(env)
+    dirs.append(os.path.expanduser("~/.aggregathor/data"))
+    dirs.append(os.path.join(os.getcwd(), "data"))
+    return dirs
+
+
+def _find_npz(basename, subdirs=None):
+    """Probe <data>/<basename> plus <data>/<subdir>/<basename> for each
+    candidate subdir (default: the basename's stem)."""
+    stem = basename.split(".")[0]
+    subdirs = (stem,) if subdirs is None else tuple(subdirs)
+    for dirname in _data_dirs():
+        for path in [os.path.join(dirname, basename)] + [
+            os.path.join(dirname, sub, basename) for sub in subdirs
+        ]:
+            if os.path.isfile(path):
+                return path
+    return None
+
+
+class ArrayDataset:
+    """An in-memory labeled dataset split into train/test."""
+
+    def __init__(self, x_train, y_train, x_test, y_test, nb_classes, synthetic):
+        self.x_train = x_train
+        self.y_train = y_train
+        self.x_test = x_test
+        self.y_test = y_test
+        self.nb_classes = nb_classes
+        self.synthetic = synthetic
+
+
+def _synthetic_classification(name, shape, nb_classes, nb_train, nb_test, seed, separation=2.0):
+    """Class-conditional Gaussians around fixed random unit templates."""
+    rng = np.random.default_rng(seed)
+    templates = rng.normal(size=(nb_classes,) + shape).astype(np.float32)
+    templates /= np.linalg.norm(templates.reshape(nb_classes, -1), axis=1).reshape((-1,) + (1,) * len(shape))
+
+    def make(count, split_seed):
+        r = np.random.default_rng(split_seed)
+        labels = r.integers(0, nb_classes, size=count)
+        noise = r.normal(size=(count,) + shape).astype(np.float32)
+        images = separation * templates[labels] + noise
+        return images.astype(np.float32), labels.astype(np.int32)
+
+    x_train, y_train = make(nb_train, seed + 1)
+    x_test, y_test = make(nb_test, seed + 2)
+    warning(
+        "Dataset %r not found on disk; using a deterministic synthetic stand-in "
+        "(drop an %s.npz under $AGGREGATHOR_DATA to use real data)" % (name, name)
+    )
+    return ArrayDataset(x_train, y_train, x_test, y_test, nb_classes, synthetic=True)
+
+
+def _head_size(requested, y_train, y_test, name):
+    """Class count for the model head: covers both the requested class count
+    and every label actually observed (train and test)."""
+    seen = max(
+        [int(np.max(y)) + 1 for y in (y_train, y_test) if np.size(y)] or [1]
+    )
+    if requested and seen < requested:
+        warning(
+            "%s labels only cover %d of the requested %d classes; keeping the "
+            "%d-way head (subset accuracy is not full-dataset accuracy)"
+            % (name, seen, requested, requested)
+        )
+    return max(int(requested or 0), seen)
+
+
+def _load_npz(path, shape, scale, nb_classes=None):
+    import zipfile
+
+    try:
+        data = np.load(path)
+    except (OSError, ValueError, zipfile.BadZipFile) as exc:
+        raise UserException("Cannot load dataset %r: %s" % (path, exc))
+
+    def prep(x):
+        x = x.astype(np.float32) / scale
+        return x.reshape((x.shape[0],) + shape)
+
+    info("Loaded dataset from %s" % path)
+    y_train = data["y_train"].astype(np.int32).ravel()
+    y_test = data["y_test"].astype(np.int32).ravel()
+    return ArrayDataset(
+        prep(data["x_train"]), y_train, prep(data["x_test"]), y_test,
+        nb_classes=_head_size(nb_classes, y_train, y_test, os.path.basename(path)),
+        synthetic=False,
+    )
+
+
+def load_mnist():
+    """28x28x1 digits in [0, 1]; real file or synthetic stand-in."""
+    path = _find_npz("mnist.npz")
+    if path:
+        return _load_npz(path, (28, 28, 1), 255.0, nb_classes=10)
+    return _synthetic_classification("mnist", (28, 28, 1), 10, nb_train=8192, nb_test=2048, seed=7)
+
+
+def load_cifar10():
+    """32x32x3 images in [0, 1]; a cifar10.npz or the synthetic stand-in."""
+    path = _find_npz("cifar10.npz")
+    if path:
+        return _load_npz(path, (32, 32, 3), 255.0, nb_classes=10)
+    return _synthetic_classification("cifar10", (32, 32, 3), 10, nb_train=8192, nb_test=2048, seed=11)
+
+
+class WorkerBatchIterator:
+    """Infinite iterator of worker-major numpy batches [n_workers, batch, ...].
+
+    Worker w's sample stream is ``default_rng([seed, w])`` alone,
+    independent of nb_workers and of the other workers."""
+
+    def __init__(self, x, y, nb_workers, batch_size, seed=0, transform=None):
+        self.x, self.y = x, y
+        self.nb_workers = nb_workers
+        self.batch_size = batch_size
+        self.rngs = [np.random.default_rng([seed, w]) for w in range(nb_workers)]
+        self.transform = transform
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        idx = np.empty((self.nb_workers, self.batch_size), dtype=np.int64)
+        for w, rng in enumerate(self.rngs):
+            idx[w] = rng.integers(0, self.x.shape[0], size=self.batch_size)
+        flat = idx.reshape(-1)
+        bx = self.x[flat].reshape((self.nb_workers, self.batch_size) + self.x.shape[1:])
+        by = self.y[flat].reshape(self.nb_workers, self.batch_size)
+        if self.transform is not None:
+            bx, by = self.transform(bx, by)
+        return {"image": bx, "label": by}
+
+
+def eval_batches(x, y, nb_workers, batch_size):
+    """Finite worker-major pass over an eval split (pads by wrapping; the
+    wrapped duplicates are marked invalid so metric counts stay exact)."""
+    per_step = nb_workers * batch_size
+    total = x.shape[0]
+    for start in range(0, total, per_step):
+        idx = np.arange(start, start + per_step) % total
+        valid = (np.arange(start, start + per_step) < total)
+        bx = x[idx].reshape((nb_workers, batch_size) + x.shape[1:])
+        by = y[idx].reshape(nb_workers, batch_size)
+        yield {"image": bx, "label": by, "valid": valid.reshape(nb_workers, batch_size)}

@@ -1,0 +1,223 @@
+"""The GAR hot-path kernels: hand-written CUDA beside plain PyTorch versions.
+
+Counterpart of ``aggregathor_tpu/ops/pallas_kernels.py``, with its public
+names.  Each wrapper takes an (n, d) float32, contiguous matrix:
+
+- a tensor on the CPU goes through the plain PyTorch version below it (the
+  CPU tests, and the reference ``chip_smoke.py`` holds each kernel against);
+- a tensor on a CUDA device launches the kernel of ``ops/csrc`` on the
+  current stream, or raises.  There is no fallback to the plain version.
+
+Every wrapper counts its launches (``KERNELS[name].launches``, incremented
+where the kernel is launched and nowhere else), so a run can show that its
+main path went through the kernels.
+
+Conventions (identical to the TPU kernels and the jnp tier): a non-finite
+value keys as +inf; ties go to the lower row index; the median returns the
+original value, NaN included; a NaN row of the distance input makes its row
+and column NaN.  The plain versions use a stable ``torch.sort`` on the
+inf-mapped keys, never ``torch.median``/``nanmedian``/``kthvalue``, whose NaN
+and even-count rules differ.
+"""
+
+import math
+
+import torch
+
+from . import build
+
+
+class Kernel:
+    """Book-keeping of one kernel: where it lives, what it replaces, launches."""
+
+    def __init__(self, label, source, replaces):
+        self.label = label
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+
+KERNELS = {
+    "pairwise_sq_distances": Kernel(
+        "K1", "aggregathor_tpu_torch/ops/csrc/distances.cu",
+        "aggregathor_tpu/ops/pallas_kernels.py:237"),
+    "coordinate_median": Kernel(
+        "K3", "aggregathor_tpu_torch/ops/csrc/coordinate.cu",
+        "aggregathor_tpu/ops/pallas_kernels.py:143"),
+    "coordinate_averaged_median": Kernel(
+        "K4", "aggregathor_tpu_torch/ops/csrc/coordinate.cu",
+        "aggregathor_tpu/ops/pallas_kernels.py:148"),
+    "coordinate_trimmed_mean": Kernel(
+        "K5", "aggregathor_tpu_torch/ops/csrc/coordinate.cu",
+        "aggregathor_tpu/ops/pallas_kernels.py:156"),
+}
+
+#: largest worker count K1 serves; beyond it the JAX package switches to the
+#: Gram-form kernel K2, which is not ported yet
+DISTANCE_MAX_ROWS = 64
+
+
+def launch_counts():
+    """{kernel name: launches since the last reset}."""
+    return {name: kernel.launches for name, kernel in KERNELS.items()}
+
+
+def reset_launch_counts():
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def _check(x):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError("expected a torch.Tensor, got %s" % type(x).__name__)
+    if x.dtype != torch.float32:
+        raise TypeError("expected float32, got %s" % x.dtype)
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError("expected a non-empty (n, d) matrix, got shape %s" % (tuple(x.shape),))
+    if not x.is_contiguous():
+        raise ValueError("expected a contiguous matrix")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError("unsupported device %s (cpu or cuda)" % x.device)
+    return x.device.type == "cuda"
+
+
+def _launch(name, source, symbol, x, *args):
+    """Run C entry ``symbol`` of ``source`` on x's device and current stream."""
+    fn = getattr(build.library(source), symbol)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = fn(*args, stream)
+    if status != 0:
+        raise RuntimeError("CUDA error %d launching %s (%s)" % (status, name, symbol))
+    KERNELS[name].launches += 1
+
+
+def _inf_key(x):
+    return torch.where(torch.isfinite(x), x, torch.inf)
+
+
+# --------------------------------------------------------------------------- #
+# K1: pairwise squared distances
+
+def distance_chunk(n):
+    """Columns per K1 block: the largest power of two <= 1024 whose (n, chunk)
+    float32 slab fits in 64 KB of shared memory (256 at n = 64)."""
+    chunk = 1024
+    while chunk > 32 and n * chunk * 4 > 65536:
+        chunk //= 2
+    return chunk
+
+
+def pairwise_sq_distances_plain(x):
+    """(n, n) all-pairs squared L2 distances, one (n, d) pass per row."""
+    n = x.shape[0]
+    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        diff = x - x[i]
+        out[i] = torch.sum(diff * diff, dim=1)
+    return out
+
+
+def pairwise_sq_distances(x):
+    """(n, n) all-pairs squared L2 distances of the rows of (n, d) (K1)."""
+    if not _check(x):
+        return pairwise_sq_distances_plain(x)
+    n, d = x.shape
+    if n > DISTANCE_MAX_ROWS:
+        raise NotImplementedError(
+            "pairwise distances for n=%d > %d need K2, the Gram-form kernel "
+            "(pallas_kernels.py:248 _dist_gram_kernel), which is not yet ported"
+            % (n, DISTANCE_MAX_ROWS)
+        )
+    chunk = distance_chunk(n)
+    nb_chunks = -(-d // chunk)
+    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((n * (n + 1) // 2, nb_chunks), dtype=torch.float32, device=x.device)
+    _launch("pairwise_sq_distances", "distances", "agg_pairwise_sq_distances",
+            x, x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, d, chunk)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# K3-K5: coordinate-wise rank selection
+
+def _ranks(key):
+    """rank[i, c] = #{j : key[j, c] < key[i, c], ties to the lower j}: the
+    inverse of the stable ascending sort's permutation."""
+    return torch.argsort(torch.argsort(key, dim=0, stable=True), dim=0)
+
+
+def coordinate_median_plain(x):
+    """(d,) per-column value at ascending rank n//2 (keys: non-finite -> +inf)."""
+    order = torch.argsort(_inf_key(x), dim=0, stable=True)
+    mid = x.shape[0] // 2
+    return torch.gather(x, 0, order[mid:mid + 1])[0]
+
+
+def coordinate_median(x):
+    """(d,) upper median per column of an (n, d) matrix, non-finite last (K3)."""
+    if not _check(x):
+        return coordinate_median_plain(x)
+    n, d = x.shape
+    out = torch.empty(d, dtype=torch.float32, device=x.device)
+    _launch("coordinate_median", "coordinate", "agg_coordinate_median",
+            x, x.data_ptr(), out.data_ptr(), n, d)
+    return out
+
+
+def coordinate_averaged_median_plain(x, beta):
+    """(d,) per-column mean of the ``beta`` values closest to the median,
+    summed in row order like the kernel."""
+    med = coordinate_median_plain(x)
+    chosen = _ranks(_inf_key(torch.abs(x - med[None, :]))) < beta
+    return torch.sum(torch.where(chosen, x, 0.0), dim=0) / beta
+
+
+def coordinate_averaged_median(x, beta):
+    """(d,) per-column mean of the ``beta`` values closest to the median (K4)."""
+    beta = int(beta)
+    on_cuda = _check(x)
+    n, d = x.shape
+    if not 1 <= beta <= n:
+        raise ValueError("beta must lie in [1, n=%d], got %d" % (n, beta))
+    if not on_cuda:
+        return coordinate_averaged_median_plain(x, beta)
+    out = torch.empty(d, dtype=torch.float32, device=x.device)
+    _launch("coordinate_averaged_median", "coordinate", "agg_coordinate_averaged_median",
+            x, x.data_ptr(), out.data_ptr(), n, d, beta)
+    return out
+
+
+def coordinate_trimmed_mean_plain(x, trim, keep):
+    """(d,) per-column mean of the inf-mapped values at ranks [trim, trim+keep),
+    summed in row order like the kernel."""
+    key = _inf_key(x)
+    ranks = _ranks(key)
+    band = (ranks >= trim) & (ranks < trim + keep)
+    mean = torch.sum(torch.where(band, key, 0.0), dim=0) / keep
+    return torch.where(torch.isfinite(mean), mean, math.nan)
+
+
+def coordinate_trimmed_mean(x, trim, keep):
+    """(d,) per-column mean of the values at sorted ranks [trim, trim+keep)
+    with non-finite mapped to +inf; NaN where the kept band is poisoned (K5)."""
+    trim, keep = int(trim), int(keep)
+    on_cuda = _check(x)
+    n, d = x.shape
+    if trim < 0 or keep < 1 or trim + keep > n:
+        raise ValueError("need 0 <= trim, 1 <= keep, trim + keep <= n=%d (got %d, %d)" % (n, trim, keep))
+    if not on_cuda:
+        return coordinate_trimmed_mean_plain(x, trim, keep)
+    out = torch.empty(d, dtype=torch.float32, device=x.device)
+    _launch("coordinate_trimmed_mean", "coordinate", "agg_coordinate_trimmed_mean",
+            x, x.data_ptr(), out.data_ptr(), n, d, trim, keep)
+    return out
+
+
+#: kernel name -> its plain version, for the checks that hold one against the other
+PLAIN = {
+    "pairwise_sq_distances": pairwise_sq_distances_plain,
+    "coordinate_median": coordinate_median_plain,
+    "coordinate_averaged_median": coordinate_averaged_median_plain,
+    "coordinate_trimmed_mean": coordinate_trimmed_mean_plain,
+}
