@@ -3,10 +3,10 @@
 Counterpart of ``aggregathor_tpu/cli/runner.py`` for the main path, with
 the same flags and defaults: experiment / aggregator selection with
 ``key:value`` sub-arguments, the n/f/r worker counts and their checks, the
-attack, the optimizer and learning-rate registries, the step count, the
-seed, the evaluation cadence and TSV, plus ``--device``.  It runs on CUDA
-unless ``--device cpu`` is given; with no GPU and no ``--device cpu`` it
-fails instead of falling back.
+attack, the lossy link (``--UDP``), the optimizer and learning-rate
+registries, the step count, the seed, the evaluation cadence and TSV, plus
+``--device``.  It runs on CUDA unless ``--device cpu`` is given; with no GPU
+and no ``--device cpu`` it fails instead of falling back.
 
 At the end it prints steps/s excluding the first step (the reference's own
 metric, runner.py:595-597), the final evaluation and each kernel's launch
@@ -40,6 +40,8 @@ def build_parser():
     parser.add_argument("--nb-real-byz-workers", type=int, default=0, help="actual attacking worker count")
     parser.add_argument("--attack", default=None, help="gradient attack name")
     parser.add_argument("--attack-args", nargs="*", default=[], help="key:value attack arguments")
+    parser.add_argument("--UDP", type=int, default=0, dest="udp", help="first k workers use the lossy link")
+    parser.add_argument("--UDP-args", nargs="*", default=[], dest="udp_args", help="key:value lossy-link arguments")
     parser.add_argument("--optimizer", default="sgd", help="optimizer name")
     parser.add_argument("--optimizer-args", nargs="*", default=[], help="key:value optimizer arguments")
     parser.add_argument("--learning-rate", default="fixed", help="learning-rate schedule name")
@@ -67,6 +69,7 @@ def main(argv=None):
     from ..obs.evalfile import EvalFile
     from ..ops import kernels
     from ..parallel import RobustEngine, attacks
+    from ..parallel.lossy import LossyLink
     from ..utils import Context, UserException, info, resolve_device, warning
 
     device = resolve_device(args.device)
@@ -91,9 +94,10 @@ def main(argv=None):
         experiment = models.instantiate(args.experiment, args.experiment_args)
         gar = gars.instantiate(args.aggregator, n, f, args.aggregator_args)
         attack = attacks.instantiate(args.attack, n, r, args.attack_args) if args.attack else None
+        lossy = LossyLink(args.udp, args.udp_args) if args.udp > 0 else None
         tx = build_optimizer(args.optimizer, build_schedule(args.learning_rate, args.learning_rate_args),
                              args.optimizer_args)
-        engine = RobustEngine(gar, n, nb_real_byz=r, attack=attack, device=device)
+        engine = RobustEngine(gar, n, nb_real_byz=r, attack=attack, lossy_link=lossy, device=device)
         state = engine.init_state(experiment.init(args.seed), tx, seed=args.seed)
         step_fn = engine.build_step(experiment.loss, tx)
         eval_fn = engine.build_eval_sums(experiment.metrics)

@@ -7,10 +7,11 @@ Counterpart of ``aggregathor_tpu/gars``: the same registry names, the same
 
 Distance-based rules (Krum, Bulyan) factor into ``selection_weights(dist2)``
 (O(n^2), tiny) and a ``(t, n) x (n, d)`` combine; the ``(n, n)`` distance
-matrix comes from the K1 kernel (``ops/kernels.py``).  Coordinate-wise rules
-call the rank-selection kernels K3-K5.  Dispatch is by device alone: a CUDA
-matrix always goes through the kernel, a CPU matrix through its plain
-PyTorch version; there is no column threshold.
+matrix comes from the distance kernels (``ops/kernels.py``: K1 up to 64
+workers, K2 beyond).  Coordinate-wise rules call the rank-selection kernels
+K3-K5, and average-nan the finite-mean kernel K6.  Dispatch is by device
+alone: a CUDA matrix always goes through the kernel, a CPU matrix through
+its plain PyTorch version; there is no column threshold.
 
 Unlike the JAX package the registry does not walk its directory: it imports
 the rules this package ports, by name, at the bottom of this module.
@@ -155,4 +156,4 @@ class GAR:
 
 
 # The ported rules register themselves on import, in the slice's order.
-from . import average, krum, median, averaged_median, bulyan, trimmed_mean, pallas_tier  # noqa: E402,F401
+from . import average, average_nan, krum, median, averaged_median, bulyan, trimmed_mean, pallas_tier  # noqa: E402,F401

@@ -19,10 +19,12 @@ def nonfinite_to_inf(x):
 def pairwise_sq_distances(grads):
     """All-pairs squared L2 distances of the rows of an (n, d) float32 matrix.
 
-    A CUDA matrix goes to the K1 kernel (difference form, n <= 64; for
-    n > 64 K1 raises NotImplementedError naming K2, the Gram-form kernel not
-    yet ported); a CPU matrix to K1's plain version.  NaN rows give NaN
-    entries, which the scoring maps to +inf."""
+    A CUDA matrix goes to K1 (difference form) for n <= 64 and, for n > 64,
+    to K2 (Gram form) after centring the rows by their NaN-ignoring column
+    median; a CPU matrix to the same forms' plain versions.  The Gram form
+    is clamped at 0 inside the wrapper, as in the JAX package, so
+    ``GAR.aggregate``'s dense entry gets clamped distances too.  NaN rows
+    give NaN entries, which the scoring maps to +inf."""
     return kernels.pairwise_sq_distances(grads)
 
 

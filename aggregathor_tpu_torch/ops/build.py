@@ -21,7 +21,7 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
 #: the sources, each built into lib<name>.so
-SOURCES = ("distances", "coordinate")
+SOURCES = ("distances", "gram", "coordinate")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -109,6 +109,10 @@ _SIGNATURES = {
         "agg_coordinate_median": (_P, _P, _I, _LL, _P),
         "agg_coordinate_averaged_median": (_P, _P, _I, _LL, _I, _P),
         "agg_coordinate_trimmed_mean": (_P, _P, _I, _LL, _I, _I, _P),
+        "agg_average_nan_columns": (_P, _P, _I, _LL, _P),
+    },
+    "gram": {
+        "agg_gram_sq_distances": (_P, _P, _P, _I, _LL, _I, _P),
     },
 }
 

@@ -18,6 +18,11 @@ original value, NaN included; a NaN row of the distance input makes its row
 and column NaN.  The plain versions use a stable ``torch.sort`` on the
 inf-mapped keys, never ``torch.median``/``nanmedian``/``kthvalue``, whose NaN
 and even-count rules differ.
+
+Distances switch form at ``DISTANCE_MAX_ROWS`` rows, as the JAX wrapper does
+(pallas_kernels.py:280-290): up to 64 rows the difference form (K1), beyond
+it the Gram form (K2) on rows centred by their NaN-ignoring column median
+(``nanmedian_columns``, numpy's even-count rule), clamped at 0.
 """
 
 import math
@@ -50,11 +55,23 @@ KERNELS = {
     "coordinate_trimmed_mean": Kernel(
         "K5", "aggregathor_tpu_torch/ops/csrc/coordinate.cu",
         "aggregathor_tpu/ops/pallas_kernels.py:156"),
+    "pairwise_sq_distances_gram": Kernel(
+        "K2", "aggregathor_tpu_torch/ops/csrc/gram.cu",
+        "aggregathor_tpu/ops/pallas_kernels.py:248"),
+    "average_nan_columns": Kernel(
+        "K6", "aggregathor_tpu_torch/ops/csrc/coordinate.cu",
+        "aggregathor_tpu/ops/pallas_kernels.py:218"),
 }
 
-#: largest worker count K1 serves; beyond it the JAX package switches to the
-#: Gram-form kernel K2, which is not ported yet
+#: largest worker count K1 serves; beyond it the Gram form K2 takes over, as
+#: the JAX wrapper switches at ``n > 64`` (pallas_kernels.py:280-281)
 DISTANCE_MAX_ROWS = 64
+
+#: K2's row tile (the kernel's compile-time tile edge) and column slab
+GRAM_TILE = 64
+GRAM_SLAB = 32
+#: K2 blocks to aim for: two waves on the H100's 132 SMs
+GRAM_TARGET_BLOCKS = 2 * 132
 
 
 def launch_counts():
@@ -109,8 +126,12 @@ def distance_chunk(n):
 
 
 def pairwise_sq_distances_plain(x):
-    """(n, n) all-pairs squared L2 distances, one (n, d) pass per row."""
+    """(n, n) all-pairs squared L2 distances: the difference form, one (n, d)
+    pass per row, up to ``DISTANCE_MAX_ROWS`` rows; beyond, the centred Gram
+    form of K2 (``pairwise_sq_distances_gram_plain``)."""
     n = x.shape[0]
+    if n > DISTANCE_MAX_ROWS:
+        return pairwise_sq_distances_gram_plain(x - nanmedian_columns(x)[None, :])
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     for i in range(n):
         diff = x - x[i]
@@ -119,21 +140,80 @@ def pairwise_sq_distances_plain(x):
 
 
 def pairwise_sq_distances(x):
-    """(n, n) all-pairs squared L2 distances of the rows of (n, d) (K1)."""
+    """(n, n) all-pairs squared L2 distances of the rows of (n, d): K1 for
+    n <= ``DISTANCE_MAX_ROWS``, else median centring and K2."""
     if not _check(x):
         return pairwise_sq_distances_plain(x)
     n, d = x.shape
     if n > DISTANCE_MAX_ROWS:
-        raise NotImplementedError(
-            "pairwise distances for n=%d > %d need K2, the Gram-form kernel "
-            "(pallas_kernels.py:248 _dist_gram_kernel), which is not yet ported"
-            % (n, DISTANCE_MAX_ROWS)
-        )
+        return pairwise_sq_distances_gram(x - nanmedian_columns(x)[None, :])
     chunk = distance_chunk(n)
     nb_chunks = -(-d // chunk)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     scratch = torch.empty((n * (n + 1) // 2, nb_chunks), dtype=torch.float32, device=x.device)
     _launch("pairwise_sq_distances", "distances", "agg_pairwise_sq_distances",
+            x, x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, d, chunk)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# K2: Gram-form distances of median-centred rows
+
+def nanmedian_columns(x):
+    """(d,) per-column median of the finite entries, numpy's rule: an even
+    count averages its two middle values; a column with nothing finite gives
+    0 (``jnp.nan_to_num(jnp.nanmedian(...))``, pallas_kernels.py:289).
+
+    A stable sort of the inf-mapped keys puts each column's k finite values
+    first, in ascending order; the median is read at ranks (k-1)//2 and k//2.
+    Plain torch ops on every device: the JAX package computes it outside the
+    kernel too."""
+    n = x.shape[0]
+    ordered = torch.sort(_inf_key(x), dim=0, stable=True).values
+    count = torch.sum(torch.isfinite(x), dim=0, keepdim=True)
+    low = torch.gather(ordered, 0, torch.clamp((count - 1) // 2, 0, n - 1))[0]
+    high = torch.gather(ordered, 0, torch.clamp(count // 2, 0, n - 1))[0]
+    count = count[0]
+    median = torch.where(count % 2 == 1, low, (low + high) / 2)
+    return torch.nan_to_num(torch.where(count > 0, median, 0.0))
+
+
+def gram_chunk(n, d):
+    """Columns per K2 block: a multiple of the slab, wide enough that the
+    (tile pairs x chunks) grid comes near ``GRAM_TARGET_BLOCKS``."""
+    tiles = -(-n // GRAM_TILE)
+    pairs = tiles * (tiles + 1) // 2
+    chunks = max(1, -(-GRAM_TARGET_BLOCKS // pairs))
+    chunk = -(-d // chunks)
+    return -(-chunk // GRAM_SLAB) * GRAM_SLAB
+
+
+def pairwise_sq_distances_gram_plain(x):
+    """(n, n) |a|^2 + |b|^2 - 2 a.b of the rows of an already centred matrix,
+    clamped at 0: the Gram matrix first (one (n, d) pass per row), the norms
+    from its diagonal (so the diagonal is exactly 0), as K2 orders it."""
+    n = x.shape[0]
+    gram = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        gram[i] = torch.sum(x * x[i], dim=1)
+    norms = torch.diagonal(gram)
+    return torch.clamp_min(norms[:, None] + norms[None, :] - 2.0 * gram, 0.0)
+
+
+def pairwise_sq_distances_gram(x):
+    """(n, n) clamped Gram-form squared distances of the rows of an already
+    centred (n, d) matrix (K2).  A non-finite entry in row i makes row and
+    column i non-finite."""
+    if not _check(x):
+        return pairwise_sq_distances_gram_plain(x)
+    n, d = x.shape
+    tiles = -(-n // GRAM_TILE)
+    chunk = gram_chunk(n, d)
+    nb_chunks = -(-d // chunk)
+    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((tiles * (tiles + 1) // 2, nb_chunks, GRAM_TILE, GRAM_TILE),
+                          dtype=torch.float32, device=x.device)
+    _launch("pairwise_sq_distances_gram", "gram", "agg_gram_sq_distances",
             x, x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, d, chunk)
     return out
 
@@ -214,10 +294,35 @@ def coordinate_trimmed_mean(x, trim, keep):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# K6: finite-only column mean
+
+def average_nan_columns_plain(x):
+    """(d,) per-column mean of the finite entries, 0 where there is none,
+    summed in row order like the kernel."""
+    finite = torch.isfinite(x)
+    total = torch.sum(torch.where(finite, x, 0.0), dim=0)
+    count = torch.sum(finite, dim=0).to(torch.float32)
+    return torch.where(count > 0, total / torch.clamp_min(count, 1.0), 0.0)
+
+
+def average_nan_columns(x):
+    """(d,) per-column mean of the finite entries; 0 where a column has none (K6)."""
+    if not _check(x):
+        return average_nan_columns_plain(x)
+    n, d = x.shape
+    out = torch.empty(d, dtype=torch.float32, device=x.device)
+    _launch("average_nan_columns", "coordinate", "agg_average_nan_columns",
+            x, x.data_ptr(), out.data_ptr(), n, d)
+    return out
+
+
 #: kernel name -> its plain version, for the checks that hold one against the other
 PLAIN = {
     "pairwise_sq_distances": pairwise_sq_distances_plain,
+    "pairwise_sq_distances_gram": pairwise_sq_distances_gram_plain,
     "coordinate_median": coordinate_median_plain,
     "coordinate_averaged_median": coordinate_averaged_median_plain,
     "coordinate_trimmed_mean": coordinate_trimmed_mean_plain,
+    "average_nan_columns": average_nan_columns_plain,
 }

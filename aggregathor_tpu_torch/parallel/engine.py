@@ -10,20 +10,25 @@ Counterpart of the flat mode of ``aggregathor_tpu/parallel/engine.py``
    plain training step, at the memory of one worker), and its gradient is
    written into row w of the (n, d) float32 matrix in the JAX package's
    coordinate order (``core/flatten.py``).
-2. **Local attack** (``_perturb_local``): rows w < r pass through the
-   attack's ``apply_local`` with a generator seeded from (seed, step, w, 1).
+2. **Local attack and transport** (``_perturb_local``): rows w < r pass
+   through the attack's ``apply_local`` with a generator seeded from
+   (seed, step, w, 1); then the lossy link (``--UDP``) masks the lost
+   packets of rows w < k from the (seed, step, w, 2) stream, with NaN or,
+   under ``clever:true``, the carry's row.  The carry then takes every
+   row as it arrived (post-transport, before the omniscient attack).
 3. **Omniscient attack** (``_prepare_rows``): coalition attacks rewrite rows
    w < r from the honest statistics.
 4. **Aggregation** (``_aggregate_block``): when the rule needs distances,
-   one K1 launch gives the (n, n) matrix, clamped at 0; then the rule
-   (K3-K5 for the coordinate-wise rules and Bulyan's last phase).
+   one launch gives the (n, n) matrix (K1 up to 64 workers, median centring
+   and K2 beyond), clamped at 0; then the rule (K3-K5 for the rank-based
+   rules and Bulyan's last phase, K6 for average-nan).
 5. **Update**: the (d,) aggregate is inflated to torch-layout views and the
    optimizer applies it in place to the one copy of the parameters.
 
 Left out of this port so far, each refused with a UserException when asked
-for: chaos schedules, the lossy link, the wire codec and exchange dtype,
-secure submission, reputation/quarantine, worker momentum, worker metrics,
-the flight recorder, bounded-wait, the sharded mode and leaf granularity.
+for: chaos schedules, the wire codec and exchange dtype, secure submission,
+reputation/quarantine, worker momentum, worker metrics, the flight recorder,
+bounded-wait, the sharded mode and leaf granularity.
 """
 
 import numpy as np
@@ -39,7 +44,7 @@ ATTACK_TAG = 1
 
 #: engine options of the JAX package this port does not carry yet
 UNPORTED_OPTIONS = (
-    "lossy_link", "exchange_dtype", "exchange", "worker_momentum", "batch_transform",
+    "exchange_dtype", "exchange", "worker_momentum", "batch_transform",
     "worker_metrics", "reputation_decay", "quarantine_threshold", "chaos", "secure",
     "flight", "step_deadline", "l1_regularize", "l2_regularize",
 )
@@ -61,12 +66,13 @@ class RobustEngine:
       nb_workers: n logical workers (default: the rule's n).
       nb_real_byz: r, the workers that actually attack (the first r rows).
       attack: an ``attacks.Attack`` or None.
+      lossy_link: a ``lossy.LossyLink`` (``--UDP``) or None.
       device: "cuda" (default) or "cpu"; CUDA without a GPU raises.
       sharding / granularity: only "flat" / "vector" are ported.
     """
 
-    def __init__(self, gar, nb_workers=None, nb_real_byz=0, attack=None, device="cuda",
-                 sharding="flat", granularity="vector", **options):
+    def __init__(self, gar, nb_workers=None, nb_real_byz=0, attack=None, lossy_link=None,
+                 device="cuda", sharding="flat", granularity="vector", **options):
         for name, value in options.items():
             if name not in UNPORTED_OPTIONS:
                 raise TypeError("RobustEngine got an unexpected keyword argument %r" % name)
@@ -82,6 +88,9 @@ class RobustEngine:
         self.nb_workers = int(nb_workers if nb_workers is not None else gar.nb_workers)
         self.nb_real_byz = int(nb_real_byz)
         self.attack = attack
+        self.lossy_link = lossy_link
+        # CLEVER infill reads the rows received last step (TrainState.carry)
+        self.carries_gradients = lossy_link is not None and lossy_link.clever
         self.device = resolve_device(device)
         if self.nb_real_byz > self.nb_workers:
             raise UserException("More real Byzantine workers than workers")
@@ -105,13 +114,23 @@ class RobustEngine:
             flatmap.flatten_into(rows[w], dict(zip(names, grads)))
         return losses, rows
 
-    def _perturb_local(self, rows, seed, step):
-        """Local attack on the first r rows, each with its own stream."""
-        if self.attack is None or self.attack.omniscient:
-            return rows
-        for w in range(self.nb_real_byz):
-            generator = stream_generator(seed, step, w, ATTACK_TAG, self.device)
-            rows[w] = self.attack.apply_local(rows[w], generator)
+    def _perturb_local(self, rows, seed, step, carry=None):
+        """Local attack on the first r rows, then the lossy link on the first
+        k, each row with its own streams; ``carry`` (the rows received last
+        step, under clever infill) is then overwritten with the rows as they
+        arrived, in place."""
+        if self.attack is not None and not self.attack.omniscient:
+            for w in range(self.nb_real_byz):
+                generator = stream_generator(seed, step, w, ATTACK_TAG, self.device)
+                rows[w] = self.attack.apply_local(rows[w], generator)
+        link = self.lossy_link
+        if link is not None:
+            d = rows.shape[1]
+            for w in range(min(link.nb_lossy, self.nb_workers)):
+                previous = carry[w] if carry is not None else None
+                rows[w] = link.apply(rows[w], w, link.draw_drops(d, seed, step, w), previous=previous)
+        if carry is not None:
+            carry.copy_(rows)
         return rows
 
     def _prepare_rows(self, rows):
@@ -122,7 +141,7 @@ class RobustEngine:
         return self.attack.apply_matrix(rows, byz_mask)
 
     def _aggregate_block(self, rows):
-        """Distances (one K1 launch) when the rule needs them, then the rule."""
+        """Distances (one K1 or K2 launch) when the rule needs them, then the rule."""
         dist2 = None
         if self.gar.needs_distances:
             dist2 = torch.clamp_min(kernels.pairwise_sq_distances(rows), 0.0)
@@ -132,12 +151,18 @@ class RobustEngine:
 
     def init_state(self, params, tx, seed=0):
         """A TrainState holding ``params`` moved to the engine's device
-        (leaf tensors that require grad) and a fresh optimizer state."""
+        (leaf tensors that require grad), a fresh optimizer state and, under
+        clever infill, a zero (n, d) carry: a packet lost before anything
+        arrived reads as 0."""
         params = {
             name: value.detach().to(self.device, torch.float32).clone().requires_grad_(True)
             for name, value in params.items()
         }
-        return TrainState(params=params, opt_state=tx.init(params), step=0, seed=int(seed))
+        carry = None
+        if self.carries_gradients:
+            d = sum(value.numel() for value in params.values())
+            carry = torch.zeros((self.nb_workers, d), dtype=torch.float32, device=self.device)
+        return TrainState(params=params, opt_state=tx.init(params), step=0, seed=int(seed), carry=carry)
 
     def put_batch(self, batch):
         """Move a worker-major numpy batch (leading axis n) to the device."""
@@ -169,7 +194,7 @@ class RobustEngine:
             flatmap = FlatMap(state.params)
             losses, rows = self._worker_gradients(state.params, batch, loss_fn, flatmap)
             with torch.no_grad():
-                rows = self._perturb_local(rows, state.seed, state.step)
+                rows = self._perturb_local(rows, state.seed, state.step, state.carry)
                 rows = self._prepare_rows(rows)
                 agg = self._aggregate_block(rows)
                 tx.apply(state.params, flatmap.inflate(agg), state.opt_state)

@@ -9,26 +9,36 @@ Phases, in order (any failure exits non-zero and prints no result):
    ``aggregathor_tpu_torch/ops/csrc`` with nvcc (one process per source).
 2. Hold every kernel against its plain PyTorch version on the card, on the
    main path's shapes -- (8, 1,756,682), the cnnet gradient matrix of n=8
-   workers; (5, 1,756,682) with beta=1, Bulyan's last phase at n=11, f=2;
-   (11, 1,756,682), Bulyan's distances -- and on poisoned inputs: NaN and
-   +-inf rows and columns, tied values, widths that are no multiple of the
-   kernels' chunks, and n=256 (and n=64 for the distances).  Tolerances:
-   K3 bit-exact (the kernel returns an original value); K4, K5: same
-   NaN/inf pattern, |a - b| <= 1e-6 (1 + |b|) (sums of unit-scale float32
-   values in another order); K1: same NaN pattern, relative 1e-5 (a sum of
-   d squares in another order; the diagonal must be 0 in both).  Each
-   kernel is timed with CUDA events at its main-path shape beside its plain
-   version, one PyTorch library call where one computes the same function,
-   and its bound: max(bytes moved / 3.35 TB/s, operations / 67 TFLOP/s).
+   workers (for K6 with NaN runs of 16,250 coordinates in 4 rows, what
+   --UDP 4 sends); (5, 1,756,682) with beta=1, Bulyan's last phase at n=11,
+   f=2; (11, 1,756,682), Bulyan's distances; (128, 1,756,682) centred by
+   its column median, Krum's distances at n=128 (K2) -- and on poisoned
+   inputs: NaN and +-inf rows and columns, tied values, a majority-NaN
+   column, widths that are no multiple of the kernels' chunks, n=256 (and
+   n=64 for K1, n=65..256 for K2).  Tolerances: K3 bit-exact (the kernel
+   returns an original value); K4, K5, K6: same NaN/inf pattern, |a - b| <=
+   1e-6 (1 + |b|) (sums of unit-scale float32 values in another order); K1:
+   same NaN pattern, relative 1e-5 (a sum of d squares in another order; the
+   diagonal must be 0 in both); K2: same non-finite pattern, diagonal 0, and
+   off it |a - b| <= 1e-5 (|x_i|^2 + |x_j|^2) on the centred rows (a Gram
+   form's terms are as large as the squared norms, so its error scales with
+   them, not with the distance).  Each kernel is timed with CUDA events at
+   its main-path shape beside its plain version, one PyTorch library call
+   where one computes the same function, and its bound: max(bytes moved /
+   3.35 TB/s, operations / 67 TFLOP/s); the median centring in front of K2
+   is timed on its own.  Distances of 64 rows must launch K1 and of 65 K2.
 3. Drive the port's runner on the card: cnnet + krum (n=8, f=2, r=2
    signflip) for 30 steps at d = 1,756,682, then a few steps each of
-   bulyan (n=11, f=2), median, trimmed-mean and averaged-median.  Every
-   launch count is set to 0 just before a leg and read just after: each leg
-   must have launched its kernels once a step, and its loss must be finite.
-   Then each rule's aggregate of a small poisoned matrix on the card is held
-   against the same rule on the CPU (Krum's and Bulyan's selections must be
-   identical), one MLP step on the card against the same step on the CPU,
-   and each rule's time on the (n, d) cnnet matrix is read (GAR ms a step).
+   bulyan (n=11, f=2), median, trimmed-mean, averaged-median, krum at n=128
+   (K2), and the lossy link: average-nan (K6) and krum under --UDP, and
+   average under --UDP with CLEVER infill.  Every launch count is set to 0
+   just before a leg and read just after: each leg must have launched its
+   kernels once a step, and its loss must be finite.  Then each rule's
+   aggregate of a small poisoned matrix on the card is held against the
+   same rule on the CPU (Krum's and Bulyan's selections must be identical,
+   at n=11 and at n=72), three MLP steps on the card against the same steps
+   on the CPU, without and with --UDP-style loss, and each rule's time on
+   the (n, d) cnnet matrix is read (GAR ms a step).
    Last, a cnnet + krum step is split into its phases (host batch, transfer,
    worker gradients, attack + aggregate, update) and the card's busy share
    over whole steps is traced with torch.profiler.
@@ -99,10 +109,23 @@ def poison(x, columns=True):
     return x
 
 
-def compare(name, a, b, torch):
-    """Max |a - b| over finite entries, after the exactness checks of ``name``."""
+def compare(name, a, b, torch, x=None):
+    """Max |a - b| over finite entries, after the exactness checks of ``name``
+    (``x``: the input rows, for K2's tolerance)."""
     check(a.shape == b.shape, "%s: shape %s != %s" % (name, tuple(a.shape), tuple(b.shape)))
     check(torch.equal(torch.isnan(a), torch.isnan(b)), "%s: NaN pattern differs" % name)
+    if name == "pairwise_sq_distances_gram":
+        check(torch.equal(torch.isfinite(a), torch.isfinite(b)), "K2: non-finite pattern differs")
+        diagonal = torch.diagonal(b)
+        check(bool(torch.all(torch.diagonal(a)[torch.isfinite(diagonal)] == 0)), "K2: diagonal not 0")
+        check(torch.equal(torch.nan_to_num(a), torch.nan_to_num(a.T)), "K2: not symmetric")
+        norms = torch.sum(torch.square(x.double()), dim=1)
+        scale = norms[:, None] + norms[None, :]
+        off = torch.isfinite(b) & ~torch.eye(b.shape[0], dtype=torch.bool, device=b.device)
+        err = torch.abs(a.double() - b.double())[off]
+        max_err = float(err.max()) if err.numel() else 0.0
+        check(bool(torch.all(err <= 1e-5 * scale[off])), "K2: outside tolerance (max err %g)" % max_err)
+        return max_err
     if name == "coordinate_median":
         same = torch.equal(a.view(torch.int32), b.view(torch.int32))
         check(same, "%s: not bit-identical to the plain version" % name)
@@ -128,9 +151,29 @@ def kernel_phase(torch, kernels):
     def randn(n, d):
         return torch.randn((n, d), device="cuda", generator=gen)
 
+    def centred(x):
+        return x - kernels.nanmedian_columns(x)[None, :]
+
+    def gram_poison(n, d):
+        x = poison(randn(n, d), columns=False)
+        x[: n // 2 + 1, 19] = float("nan")  # a majority-NaN column
+        return centred(x)
+
+    def lossy(n, d):
+        # what --UDP 4 sends: NaN runs of 16,250 coordinates in the first 4 rows
+        x = randn(n, d)
+        packets = -(-d // 16250)
+        for w, first in ((0, 3), (1, 40), (2, 41), (3, packets - 1)):
+            x[w, first * 16250:(first + 1) * 16250] = float("nan")
+        return x
+
     main = randn(8, CNNET_D)
     bulyan_rows = randn(11, CNNET_D)
     bulyan_sel = randn(5, CNNET_D)
+    krum128 = centred(randn(128, CNNET_D))
+    udp = lossy(8, CNNET_D)
+    all_nan = randn(7, 3001)
+    all_nan[:, 100] = float("nan")
     cases = {
         "pairwise_sq_distances": [(main, ()), (bulyan_rows, ()), (poison(randn(8, 100003), False), ()),
                                   (poison(randn(11, 5001), False), ()), (poison(randn(64, 20011), False), ()),
@@ -146,12 +189,18 @@ def kernel_phase(torch, kernels):
                                     (poison(randn(11, 5001)), (2, 7)),
                                     (poison(randn(256, 4099)), (60, 136)),
                                     (poison(randn(17, 1025)), (0, 17))],
+        "pairwise_sq_distances_gram": [(krum128, ()), (gram_poison(65, 20011), ()), (gram_poison(72, 129), ()),
+                                       (gram_poison(130, 5001), ()), (gram_poison(256, 4099), ())],
+        "average_nan_columns": [(udp, ()), (poison(randn(8, 100003)), ()), (poison(randn(11, 5001)), ()),
+                                (poison(randn(256, 4099)), ()), (all_nan, ())],
     }
     library = {
-        # one PyTorch call computing the same function on these (finite) inputs;
-        # the port never calls them
+        # one PyTorch call computing the same function on these main inputs
+        # (finite, or NaN-only for K6); the port never calls them
         "pairwise_sq_distances": lambda x: torch.cdist(x, x).square(),
+        "pairwise_sq_distances_gram": lambda x: torch.cdist(x, x).square(),
         "coordinate_median": lambda x: torch.kthvalue(x, x.shape[0] // 2 + 1, dim=0).values,
+        "average_nan_columns": lambda x: torch.nanmean(x, 0),
     }
     rows = []
     for name, inputs in cases.items():
@@ -160,7 +209,7 @@ def kernel_phase(torch, kernels):
         for x, args in inputs:
             got = kernel(x, *args)
             torch.cuda.synchronize()
-            errors.append(compare(name, got, plain(x, *args), torch))
+            errors.append(compare(name, got, plain(x, *args), torch, x))
         x, args = inputs[0]
         n, d = x.shape
         ms = time_ms(lambda: kernel(x, *args), torch, iters=50, warmup=10)
@@ -168,6 +217,10 @@ def kernel_phase(torch, kernels):
         library_ms = time_ms(lambda: library[name](x), torch, iters=5) if name in library else None
         if name == "pairwise_sq_distances":
             nbytes, ops = n * d * 4 + n * n * 4, n * (n + 1) // 2 * d * 3
+        elif name == "pairwise_sq_distances_gram":
+            nbytes, ops = n * d * 4 + n * n * 4, n * (n + 1) // 2 * d * 2
+        elif name == "average_nan_columns":
+            nbytes, ops = n * d * 4 + d * 4, 2 * n * d + d
         else:
             passes = 2 if name == "coordinate_averaged_median" else 1
             nbytes, ops = n * d * 4 + d * 4, passes * n * n * d + n * d
@@ -184,14 +237,19 @@ def kernel_phase(torch, kernels):
               % (name, info.label, n, d, ms, plain_ms,
                  "%.3f" % library_ms if library_ms is not None else "-",
                  rows[-1]["bound_ms"] * 1e3, rows[-1]["bound_by"], errors[0], max(errors), len(inputs)))
-    # K1 serves n <= 64 only: beyond it the port must refuse (K2 not yet ported)
-    try:
-        kernels.pairwise_sq_distances(randn(65, 256))
-    except NotImplementedError:
-        pass
-    else:
-        fail("K1 accepted n=65: the Gram-form kernel K2 is not ported")
-    del main, bulyan_rows, bulyan_sel, cases
+    raw128 = randn(128, CNNET_D)
+    centring_ms = time_ms(lambda: kernels.nanmedian_columns(raw128), torch, iters=10)
+    print("centring nanmedian_columns (128, %d) in front of K2: %.4f ms" % (CNNET_D, centring_ms))
+    # the distances switch form past 64 rows: K1 at n = 64, K2 at n = 65
+    for n, want in ((64, "pairwise_sq_distances"), (65, "pairwise_sq_distances_gram")):
+        before = kernels.launch_counts()
+        kernels.pairwise_sq_distances(randn(n, 4099))
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        check(launched == {k: int(k == want) for k in after},
+              "distances at n=%d launched %s (want %s once)" % (n, launched, want))
+    del main, bulyan_rows, bulyan_sel, krum128, raw128, udp, cases
     torch.cuda.empty_cache()
     return rows
 
@@ -214,6 +272,15 @@ LEGS = [
                                "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2",
                                "--attack", "signflip", "--max-step", "5"],
      ("coordinate_averaged_median",)),
+    ("cnnet+krum-n128", ["--aggregator", "krum", "--nb-workers", "128", "--nb-decl-byz-workers", "8",
+                         "--nb-real-byz-workers", "8", "--attack", "signflip", "--max-step", "5"],
+     ("pairwise_sq_distances_gram",)),
+    ("cnnet+average-nan+UDP", ["--aggregator", "average-nan", "--nb-workers", "8", "--UDP", "4",
+                               "--max-step", "5"], ("average_nan_columns",)),
+    ("cnnet+krum+UDP", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
+                        "--UDP", "2", "--max-step", "5"], ("pairwise_sq_distances",)),
+    ("cnnet+average+UDP-clever", ["--aggregator", "average", "--nb-workers", "8", "--UDP", "4",
+                                  "--UDP-args", "clever:true", "--max-step", "5"], ()),
 ]
 
 
@@ -242,37 +309,60 @@ def reference_phase(torch, gars, kernels, models):
     """Rules and one engine step on the card against the same on the CPU."""
     from aggregathor_tpu_torch.core import build_optimizer, build_schedule
     from aggregathor_tpu_torch.parallel import RobustEngine, attacks
+    from aggregathor_tpu_torch.parallel.lossy import LossyLink
 
-    gen = torch.Generator().manual_seed(7)
-    n, f, d = 11, 2, 3001
-    x = poison(torch.randn((n, d), generator=gen), columns=False)
-    x[4] = float("nan")  # a dead worker on top of the poison
-    for rule in ("average", "krum", "median", "averaged-median", "bulyan", "trimmed-mean"):
-        gar = gars.instantiate(rule, n, f)
+    def agree(rule, x, f):
+        gar = gars.instantiate(rule, x.shape[0], f)
         got, want = gar.aggregate(x.cuda()).cpu(), gar.aggregate(x)
         check(torch.equal(torch.isnan(got), torch.isnan(want)), "%s: NaN pattern differs from the CPU" % rule)
         finite = torch.isfinite(want)
         check(bool(torch.allclose(got[finite], want[finite], rtol=1e-5, atol=1e-5)),
               "%s: aggregate differs from the CPU" % rule)
         if gar.needs_distances:
-            w_gpu = gar.selection_weights(torch.clamp_min(kernels.pairwise_sq_distances(x.cuda()), 0.0)).cpu()
-            w_cpu = gar.selection_weights(torch.clamp_min(kernels.pairwise_sq_distances(x), 0.0))
-            check(torch.equal(w_gpu, w_cpu), "%s: selection differs from the CPU" % rule)
-    finals = []
-    for device in ("cuda", "cpu"):
+            w_gpu = gar.selection_weights(kernels.pairwise_sq_distances(x.cuda())).cpu()
+            w_cpu = gar.selection_weights(kernels.pairwise_sq_distances(x))
+            check(torch.equal(w_gpu, w_cpu), "%s: selection differs from the CPU at n=%d" % (rule, x.shape[0]))
+
+    gen = torch.Generator().manual_seed(7)
+    n, f, d = 11, 2, 3001
+    x = poison(torch.randn((n, d), generator=gen), columns=False)
+    x[4] = float("nan")  # a dead worker on top of the poison
+    rules = ("average", "average-nan", "krum", "median", "averaged-median", "bulyan", "trimmed-mean")
+    for rule in rules:
+        agree(rule, x, f)
+    # beyond 64 workers (K2): honest rows at distinct scales, 8 attackers far
+    # off, a dead worker and scattered NaN/inf in two more rows
+    x = torch.randn((72, 3001), generator=gen) * (1.0 + 0.02 * torch.arange(72.0))[:, None]
+    x[:8] += 25.0
+    x[40] = float("nan")
+    x[3, 5::97] = float("inf")
+    x[60, 7::89] = float("nan")
+    for rule in ("krum", "bulyan"):
+        agree(rule, x, 8)
+
+    def mlp_steps(device, lossy_link, rule):
         exp = models.instantiate("mnist", ["hidden:16", "batch-size:16"])
-        gar = gars.instantiate("krum", 8, 2)
         tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
-        engine = RobustEngine(gar, 8, nb_real_byz=2, attack=attacks.instantiate("signflip", 8, 2), device=device)
+        attack = None if lossy_link else attacks.instantiate("signflip", 8, 2)
+        engine = RobustEngine(gars.instantiate(rule, 8, 2), 8, nb_real_byz=0 if lossy_link else 2,
+                              attack=attack, lossy_link=lossy_link, device=device)
         state = engine.init_state(exp.init(3), tx, seed=3)
         step = engine.build_step(exp.loss, tx)
         it = exp.make_train_iterator(8, seed=4)
         for _ in range(3):
             state, _ = step(state, engine.put_batch(next(it)))
-        finals.append(torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()]))
-    check(bool(torch.allclose(finals[0], finals[1], rtol=1e-4, atol=1e-5)),
-          "3 MLP krum steps on the card differ from the CPU (max %g)" % float((finals[0] - finals[1]).abs().max()))
-    print("reference: 6 rules on a poisoned (11, 3001) matrix and 3 MLP krum steps agree with the CPU")
+        return torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()])
+
+    for label, rule, udp_args in (("krum", "krum", None),
+                                  ("average-nan under --UDP 4 at drop-rate 0.3", "average-nan",
+                                   ["drop-rate:0.3", "packet-coords:1024", "min-coords:0"])):
+        finals = [mlp_steps(device, LossyLink(4, udp_args) if udp_args else None, rule) for device in ("cuda", "cpu")]
+        check(bool(torch.all(torch.isfinite(finals[0]))), "3 MLP %s steps on the card: non-finite parameters" % label)
+        check(bool(torch.allclose(finals[0], finals[1], rtol=1e-4, atol=1e-5)),
+              "3 MLP %s steps on the card differ from the CPU (max %g)"
+              % (label, float((finals[0] - finals[1]).abs().max())))
+    print("reference: %d rules on a poisoned (11, 3001) matrix, krum and bulyan on a poisoned (72, 3001) "
+          "matrix, and 3 MLP steps of krum and of average-nan under --UDP agree with the CPU" % len(rules))
 
 
 def gar_phase(torch, gars):
@@ -280,10 +370,12 @@ def gar_phase(torch, gars):
     gen = torch.Generator(device="cuda").manual_seed(5)
     out = {}
     for rule, n, f in (("krum", 8, 2), ("bulyan", 11, 2), ("median", 8, 2), ("trimmed-mean", 8, 2),
-                       ("averaged-median", 8, 2), ("average", 8, 2)):
+                       ("averaged-median", 8, 2), ("average", 8, 2), ("average-nan", 8, 2),
+                       ("krum", 128, 8), ("bulyan", 128, 8)):
         x = torch.randn((n, CNNET_D), device="cuda", generator=gen)
         gar = gars.instantiate(rule, n, f)
-        out[rule] = time_ms(lambda: gar.aggregate(x), torch, iters=10)
+        out["%s n=%d" % (rule, n)] = time_ms(lambda: gar.aggregate(x), torch, iters=10)
+        del x
     print("GAR ms per step at d=%d: %s" % (CNNET_D, json.dumps(out, sort_keys=True)))
     return out
 

@@ -13,6 +13,12 @@
   same formulas in float32, rounded at other places).
 - The attacks against the JAX ones (the gaussian attack in distribution,
   since its torch generator cannot reproduce threefry draws).
+- The lossy link (``--UDP``): fed the JAX package's own drop draws,
+  ``LossyLink.apply`` is bit-identical to JAX's; the port's own draws hit
+  the drop rate; ``average-nan`` absorbs the NaN runs, plain ``average`` is
+  poisoned by them, and CLEVER's carry keeps ``average`` finite; two steps
+  at ``drop-rate:1.0 clever:true`` (every mask deterministic) match the JAX
+  engine within rtol 1e-4 / atol 1e-5, carry included.
 """
 
 import jax
@@ -29,12 +35,14 @@ from aggregathor_tpu.core import build_optimizer as jax_optimizer
 from aggregathor_tpu.core import build_schedule as jax_schedule
 from aggregathor_tpu.parallel import RobustEngine as JaxEngine
 from aggregathor_tpu.parallel import attacks as jattacks
+from aggregathor_tpu.parallel import lossy as jlossy
 from aggregathor_tpu.parallel import make_mesh
 from aggregathor_tpu_torch import gars as tgars
 from aggregathor_tpu_torch import models as tmodels
 from aggregathor_tpu_torch.core import build_optimizer, build_schedule
 from aggregathor_tpu_torch.models.common import params_from_jax
 from aggregathor_tpu_torch.parallel import RobustEngine, attacks
+from aggregathor_tpu_torch.parallel.lossy import LossyLink
 from aggregathor_tpu_torch.utils import UserException
 
 
@@ -196,7 +204,7 @@ def test_gaussian_streams_are_per_step_and_per_worker():
 
 
 @pytest.mark.parametrize("option", [
-    {"lossy_link": object()}, {"chaos": object()}, {"exchange": "int8"}, {"secure": True},
+    {"chaos": object()}, {"exchange": "int8"}, {"secure": True},
     {"reputation_decay": 0.9}, {"worker_momentum": 0.9}, {"sharding": "sharded"}, {"granularity": "leaf"},
 ])
 def test_unported_engine_features_refuse(option):
@@ -212,3 +220,121 @@ def test_engine_checks_like_jax():
         RobustEngine(gar, 8, attack=attacks.instantiate("signflip", 8, 0), device="cpu")
     with pytest.raises(TypeError):
         RobustEngine(gar, 8, device="cpu", no_such_option=1)
+
+
+# --------------------------------------------------------------------------- #
+# The lossy link (--UDP)
+
+LOSSY_CASES = [
+    # (nb_lossy, args, worker, d, with previous)
+    (4, ["drop-rate:0.3", "packet-coords:64", "min-coords:0"], 1, 1000, False),
+    (4, ["drop-rate:0.5", "packet-coords:100", "min-coords:0", "clever:true"], 3, 1001, True),
+    (2, ["drop-rate:0.9", "packet-coords:64", "min-coords:0"], 5, 700, False),  # worker >= nb_lossy
+    (4, ["drop-rate:0.9", "packet-coords:64", "min-coords:5000"], 0, 4999, False),  # under min-coords
+    (4, ["drop-rate:0.01"], 2, 300000, False),  # the defaults: 16,250-coordinate packets
+]
+
+
+@pytest.mark.parametrize("case", LOSSY_CASES, ids=["nan", "clever", "not-lossy", "short-row", "defaults"])
+def test_lossy_apply_is_bit_identical_given_the_jax_drops(case):
+    nb_lossy, args, worker, d, with_previous = case
+    rng = np.random.default_rng(d)
+    grad = rng.normal(size=d).astype(np.float32)
+    previous = rng.normal(size=d).astype(np.float32) if with_previous else None
+    jlink, tlink = jlossy.LossyLink(nb_lossy, args), LossyLink(nb_lossy, args)
+    key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(3), worker), 2)
+    want = np.asarray(jlink.apply(jnp.asarray(grad), key, worker,
+                                  previous=None if previous is None else jnp.asarray(previous)))
+    drops = np.array(jax.random.bernoulli(key, jlink.drop_rate, (tlink.nb_packets(d),)))
+    got = tlink.apply(torch.from_numpy(grad), worker, torch.from_numpy(drops),
+                      previous=None if previous is None else torch.from_numpy(previous)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    changed = np.flatnonzero(got.view(np.int32) != grad.view(np.int32))
+    if worker < nb_lossy and d >= tlink.min_coords and drops.any():
+        assert changed.size and set(changed // tlink.packet_coords) <= set(np.flatnonzero(drops))
+    else:
+        assert changed.size == 0
+
+
+def test_lossy_clever_without_previous_refuses_like_jax():
+    args = ["min-coords:0", "clever:true"]
+    with pytest.raises(UserException):
+        LossyLink(2, args).apply(torch.zeros(100), 0, torch.zeros(1, dtype=torch.bool))
+    with pytest.raises(Exception, match="previous"):
+        jlossy.LossyLink(2, args).apply(jnp.zeros(100), jax.random.PRNGKey(0), 0)
+
+
+def test_lossy_drop_share_is_the_rate():
+    link = LossyLink(8, ["drop-rate:0.07", "packet-coords:16", "min-coords:0"])
+    draws = torch.stack([link.draw_drops(16 * 50, seed, step, worker)
+                         for seed in range(4) for step in range(10) for worker in range(8)])
+    total = draws.numel()
+    share = float(draws.sum()) / total
+    assert abs(share - 0.07) <= 4 * (0.07 * 0.93 / total) ** 0.5
+    assert torch.equal(link.draw_drops(800, 1, 2, 3), link.draw_drops(800, 1, 2, 3))
+    assert not torch.equal(link.draw_drops(800, 1, 2, 3), link.draw_drops(800, 1, 3, 3))
+    assert link.draw_drops(800, 1, 2, 3).device.type == "cpu"
+
+
+def _lossy_run(rule, udp_args, steps, clever=False):
+    exp = tmodels.instantiate("mnist", ["batch-size:16"])
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+    link = LossyLink(4, list(udp_args) + (["clever:true"] if clever else []))
+    engine = RobustEngine(tgars.instantiate(rule, 8, 0), 8, lossy_link=link, device="cpu")
+    state = engine.init_state(exp.init(42), tx, seed=1)
+    step = engine.build_step(exp.loss, tx)
+    it = exp.make_train_iterator(8, seed=3)
+    losses = []
+    for _ in range(steps):
+        state, metrics = step(state, engine.put_batch(next(it)))
+        losses.append(float(metrics["total_loss"]))
+    flat = torch.cat([p.detach().reshape(-1) for p in state.params.values()])
+    return engine, state, losses, flat
+
+
+LOSSY_ARGS = ("drop-rate:0.3", "packet-coords:1024", "min-coords:0")
+
+
+def test_lossy_link_with_average_nan():
+    _, _, losses, flat = _lossy_run("average-nan", LOSSY_ARGS, 25)
+    assert losses[-1] < losses[0]
+    assert bool(torch.all(torch.isfinite(flat)))
+
+
+def test_lossy_link_breaks_plain_average():
+    _, _, _, flat = _lossy_run("average", LOSSY_ARGS, 3)
+    assert not bool(torch.all(torch.isfinite(flat)))
+
+
+def test_lossy_clever_stale_infill():
+    engine, state, losses, flat = _lossy_run("average", LOSSY_ARGS, 25, clever=True)
+    assert engine.carries_gradients
+    assert state.carry is not None and tuple(state.carry.shape) == (8, flat.numel())
+    assert bool(torch.all(torch.isfinite(flat))) and losses[-1] < losses[0]
+
+
+def test_lossy_clever_steps_match_the_jax_engine():
+    n, args = 8, ["drop-rate:1.0", "packet-coords:512", "min-coords:0", "clever:true"]
+    jexp, texp = jmodels.instantiate("mnist", ["hidden:16", "batch-size:16"]), tmodels.instantiate(
+        "mnist", ["hidden:16", "batch-size:16"])
+    jtx = jax_optimizer("sgd", jax_schedule("fixed", ["initial-rate:0.05"]))
+    ttx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+    jengine = JaxEngine(make_mesh(nb_workers=1), jgars.instantiate("average", n, 0), nb_workers=n,
+                        lossy_link=jlossy.LossyLink(3, args))
+    tengine = RobustEngine(tgars.instantiate("average", n, 0), n, lossy_link=LossyLink(3, args), device="cpu")
+    init = jexp.init(jax.random.PRNGKey(11))
+    jstep, tstep = jengine.build_step(jexp.loss, jtx), tengine.build_step(texp.loss, ttx)
+    jstate = jengine.init_state(init, jtx, seed=1)
+    tstate = tengine.init_state(params_from_jax(_host(init)), ttx, seed=1)
+    it = jexp.make_train_iterator(n, seed=2)
+    for _ in range(2):
+        batch = next(it)
+        jstate, _ = jstep(jstate, jengine.shard_batch(batch))
+        tstate, _ = tstep(tstate, tengine.put_batch(batch))
+        want = params_from_jax(_host(jstate.params))
+        for key in want:
+            np.testing.assert_allclose(tstate.params[key].detach().numpy(), want[key].numpy(),
+                                       rtol=1e-4, atol=1e-5, err_msg=key)
+        carry = tstate.carry.numpy()
+        np.testing.assert_allclose(carry, np.asarray(jstate.carry), rtol=1e-4, atol=1e-5)
+        assert not carry[:3].any()  # every packet of the 3 lossy rows lost: the zero carry stays

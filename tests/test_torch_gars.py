@@ -4,7 +4,8 @@ Each ported rule aggregates the same (n, d) matrix in both packages (the
 port on the CPU, i.e. through its kernels' plain versions; the JAX package
 through its default jnp tier).  Krum's and Bulyan's selection weights must
 be identical, both from one shared distance matrix and from each package's
-own; aggregates match within rtol 1e-5 / atol 1e-6 (float32 sums of up to n
+own, also beyond 64 workers where both take the median-centred Gram form;
+aggregates match within rtol 1e-5 / atol 1e-6 (float32 sums of up to n
 rows in another order, and distances summed in another order); NaN/inf
 patterns match exactly.  Infeasible (n, f) raise UserException in both.
 """
@@ -19,7 +20,7 @@ from aggregathor_tpu_torch import gars as tgars
 from aggregathor_tpu_torch.gars.common import smallest_k_mask
 from aggregathor_tpu_torch.utils import UserException
 
-RULES = ["average", "krum", "median", "averaged-median", "bulyan", "trimmed-mean"]
+RULES = ["average", "average-nan", "krum", "median", "averaged-median", "bulyan", "trimmed-mean"]
 
 
 def _rows(n, d, seed, kind):
@@ -77,6 +78,31 @@ def test_selection_weights_identical(rule, case):
     np.testing.assert_array_equal(tgar.selection_weights(tdist).numpy(), want)
 
 
+@pytest.mark.parametrize("rule", ["krum", "bulyan"])
+@pytest.mark.parametrize("n", [72, 96])
+def test_selections_beyond_64_workers_identical(rule, n):
+    """n > 64: the port's Gram form (K2's plain version) and the JAX rule's
+    centred Gram form pick the same rows; attackers are a separated set."""
+    from aggregathor_tpu.gars.common import pairwise_sq_distances as jnp_distances
+    from aggregathor_tpu_torch.ops import kernels
+
+    f, d = 8, 1000  # n^2 d > 2^22: the JAX rule takes its Gram form too
+    rng = np.random.default_rng(n)
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    g *= (1.0 + 0.02 * np.arange(n, dtype=np.float32))[:, None]  # honest rows at distinct scales
+    g[:f] += 25.0  # the attackers, far from everyone
+    g[n - 5] = np.nan  # a dead worker
+    jgar, tgar = jgars.instantiate(rule, n, f), tgars.instantiate(rule, n, f)
+    want = np.asarray(jgar.selection_weights(np.asarray(jnp_distances(g))))
+    jgar._drop_memos()
+    tdist = kernels.pairwise_sq_distances(torch.from_numpy(g))
+    got = tgar.selection_weights(tdist).numpy()
+    np.testing.assert_array_equal(got, want)
+    chosen = np.flatnonzero(got.reshape(-1, n).sum(axis=0))
+    assert chosen.min() >= f and n - 5 not in chosen
+    _close(tgar.aggregate(torch.from_numpy(g)).numpy(), np.asarray(jgar.aggregate(g)))
+
+
 def test_selection_weights_identical_on_tied_and_poisoned_distances():
     rng = np.random.default_rng(7)
     for trial, n in enumerate((7, 11, 15, 7, 11, 15)):
@@ -106,6 +132,7 @@ def test_smallest_k_mask_breaks_ties_to_the_lower_index():
 @pytest.mark.parametrize("rule, n, f", [
     ("krum", 4, 2), ("krum", 2, 0), ("bulyan", 10, 2), ("bulyan", 6, 1),
     ("trimmed-mean", 4, 2), ("median", 3, 3), ("average", 2, 2), ("averaged-median", 0, 0),
+    ("average-nan", 3, 3),
 ])
 def test_infeasible_configurations_raise_like_jax(rule, n, f):
     with pytest.raises(JaxUserException):
@@ -131,14 +158,16 @@ def test_registry_names_exist_in_the_jax_package():
     for name in ("krum-py", "krum-tf", "krum-co", "bulyan-py", "bulyan-co", "median-pallas",
                  "averaged-median-pallas", "trimmed-mean-pallas", "krum-pallas", "bulyan-pallas"):
         assert name in names
-    assert "average-nan-pallas" not in names  # waits for its kernel (K6)
+    assert "average-nan-pallas" in names  # K6 serves it, as it serves average-nan
+    assert type(tgars.instantiate("average-nan-pallas", 8, 2)) is type(tgars.instantiate("average-nan", 8, 2))
     with pytest.raises(UserException):
         tgars.instantiate("no-such-rule", 8, 2)
 
 
 @pytest.mark.parametrize("alias, rule", [("krum-pallas", "krum"), ("bulyan-pallas", "bulyan"),
                                           ("median-pallas", "median"), ("trimmed-mean-pallas", "trimmed-mean"),
-                                          ("averaged-median-pallas", "averaged-median")])
+                                          ("averaged-median-pallas", "averaged-median"),
+                                          ("average-nan-pallas", "average-nan")])
 def test_pallas_names_match_the_jax_kernel_tier(alias, rule):
     g = _rows(11, 160, 5, "nan-row")
     want = np.asarray(jgars.instantiate(alias, 11, 2).aggregate(g))

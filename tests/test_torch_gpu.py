@@ -7,9 +7,12 @@ it runs alone, skipping the suite's conftest (which configures JAX)::
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances, each from the order of summation: K3 bit-exact (it returns one
-of the original values); K4, K5 rtol 1e-6 plus atol 1e-6 on unit-scale
+of the original values); K4, K5, K6 rtol 1e-6 plus atol 1e-6 on unit-scale
 inputs (means of up to n float32 values summed in another order); K1 rtol
-1e-5 (d squares summed per column chunk, then across chunks).
+1e-5 (d squares summed per column chunk, then across chunks); K2, off the
+diagonal, |a - b| <= 1e-5 (|x_i|^2 + |x_j|^2), the error scale of a Gram
+form, whose terms are as large as the squared norms, with the same
+non-finite pattern.
 """
 
 import numpy as np
@@ -55,11 +58,23 @@ def _close(got, want, rtol, atol=0.0):
     np.testing.assert_allclose(got[finite], want[finite], rtol=rtol, atol=atol)
 
 
+def _gram_close(got, want, x):
+    """K2 against its plain version on the rows x (already centred)."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    norms = np.sum(np.square(x.astype(np.float64)), axis=1)
+    scale = norms[:, None] + norms[None, :]
+    finite = np.isfinite(want) & ~np.eye(len(x), dtype=bool)
+    assert np.all(np.abs(got - want)[finite] <= 1e-5 * scale[finite])
+    diagonal = np.isfinite(np.diag(want))
+    assert np.all(np.diag(got)[diagonal] == 0.0) and np.array_equal(got, got.T, equal_nan=True)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n, d", [(11, 5001), (8, 1023), (64, 2049), (3, 129)])
 @pytest.mark.parametrize("name", sorted(kernels.PLAIN))
 def test_cuda_kernels_match_plain(cuda_device, name, n, d):
-    x = torch.from_numpy(_poisoned(n, d, 13, name == "pairwise_sq_distances")).to(cuda_device)
+    x = torch.from_numpy(_poisoned(n, d, 13, name.startswith("pairwise"))).to(cuda_device)
     trim = (n - 1) // 4
     args = {"coordinate_averaged_median": (max(1, n - 4),),
             "coordinate_trimmed_mean": (trim, n - 2 * trim)}.get(name, ())
@@ -72,6 +87,8 @@ def test_cuda_kernels_match_plain(cuda_device, name, n, d):
         np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     elif name == "pairwise_sq_distances":
         _close(got, want, 1e-5)
+    elif name == "pairwise_sq_distances_gram":
+        _gram_close(got, want, x.cpu().numpy())
     else:
         _close(got, want, 1e-6, 1e-6)
 
@@ -87,8 +104,25 @@ def test_rank_kernels_beyond_64_rows(cuda_device, n):
            kernels.coordinate_averaged_median_plain(x, n - 10).cpu().numpy(), 1e-6, 1e-6)
     _close(kernels.coordinate_trimmed_mean(x, 10, n - 20).cpu().numpy(),
            kernels.coordinate_trimmed_mean_plain(x, 10, n - 20).cpu().numpy(), 1e-6, 1e-6)
-    with pytest.raises(NotImplementedError, match="K2"):
+    _close(kernels.average_nan_columns(x).cpu().numpy(),
+           kernels.average_nan_columns_plain(x).cpu().numpy(), 1e-6, 1e-6)
+    # beyond 64 rows the distances are K2's, on median-centred rows
+    rows = torch.from_numpy(_poisoned(n, 3001, 6, True)).to(cuda_device)
+    centred = rows - kernels.nanmedian_columns(rows)[None, :]
+    got = kernels.pairwise_sq_distances(rows).cpu().numpy()
+    _gram_close(got, kernels.pairwise_sq_distances_plain(rows).cpu().numpy(), centred.cpu().numpy())
+    _gram_close(kernels.pairwise_sq_distances_gram(centred).cpu().numpy(), got, centred.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_distances_switch_from_k1_to_k2_past_64_rows(cuda_device):
+    for n, launched in ((64, "pairwise_sq_distances"), (65, "pairwise_sq_distances_gram")):
+        x = torch.randn((n, 1000), device=cuda_device)
+        before = kernels.launch_counts()
         kernels.pairwise_sq_distances(x)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {k: int(k == launched) for k in after}
 
 
 @pytest.mark.gpu
@@ -110,6 +144,8 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     ("median", 8, 2, {"coordinate_median"}),
     ("trimmed-mean", 8, 2, {"coordinate_trimmed_mean"}),
     ("averaged-median", 8, 2, {"coordinate_averaged_median"}),
+    ("average-nan", 8, 2, {"average_nan_columns"}),
+    ("krum", 72, 8, {"pairwise_sq_distances_gram"}),
 ])
 def test_engine_steps_launch_the_kernels_and_match_the_cpu(cuda_device, rule, n, f, expected):
     finals = []
@@ -127,5 +163,30 @@ def test_engine_steps_launch_the_kernels_and_match_the_cpu(cuda_device, rule, n,
         launched = {k: v - before[k] for k, v in kernels.launch_counts().items()}
         want = {k: (3 if k in expected and device.type == "cuda" else 0) for k in launched}
         assert launched == want
+        finals.append(torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()]))
+    torch.testing.assert_close(finals[0], finals[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule, expected", [("average-nan", {"average_nan_columns"}),
+                                            ("krum", {"pairwise_sq_distances"}), ("average", set())])
+def test_lossy_steps_drop_the_same_packets_as_the_cpu(cuda_device, rule, expected):
+    from aggregathor_tpu_torch.parallel.lossy import LossyLink
+
+    finals = []
+    for device in (cuda_device, torch.device("cpu")):
+        exp = models.instantiate("mnist", ["hidden:16", "batch-size:16"])
+        tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+        args = ["drop-rate:0.3", "packet-coords:1024", "min-coords:0"] + (["clever:true"] if rule == "average" else [])
+        engine = RobustEngine(gars.instantiate(rule, 8, 2), 8, lossy_link=LossyLink(2, args), device=device)
+        state = engine.init_state(exp.init(3), tx, seed=3)
+        step = engine.build_step(exp.loss, tx)
+        it = exp.make_train_iterator(8, seed=4)
+        before = kernels.launch_counts()
+        for _ in range(3):
+            state, metrics = step(state, engine.put_batch(next(it)))
+        launched = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        assert launched == {k: (3 if k in expected and device.type == "cuda" else 0) for k in launched}
+        assert bool(torch.isfinite(metrics["total_loss"]))
         finals.append(torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()]))
     torch.testing.assert_close(finals[0], finals[1], rtol=1e-4, atol=1e-5)

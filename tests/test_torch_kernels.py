@@ -12,7 +12,13 @@ Tolerances, each from the order of summation:
   unit-scale inputs — means of up to n float32 values summed in another
   order (XLA may sum the padded rows as a tree), which costs a few ulps of
   the largest summand where terms cancel;
-- distances (K1): rtol 1e-5 — d squares summed per column block.
+- distances (K1): rtol 1e-5 — d squares summed per column block;
+- Gram-form distances (K2, n > 64): rtol and atol 1e-4, as
+  tests/test_pallas.py allows the Gram form — |a|^2 + |b|^2 - 2a.b cancels
+  to a few ulps of the squared norms;
+- finite-only mean (K6): rtol 1e-5, atol 1e-6 against the Pallas kernel and
+  the float64 oracle, as tests/test_pallas.py holds the Pallas kernel;
+- the centring median: within 1 ulp of ``np.nanmedian``.
 The CUDA kernels themselves run only on the GPU: ``chip_smoke.py`` and
 tests/test_torch_gpu.py hold them against these plain versions there.
 """
@@ -21,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from aggregathor_tpu.gars import oracle
 from aggregathor_tpu.gars.averaged_median import averaged_median_columns
 from aggregathor_tpu.gars.common import pairwise_sq_distances as jnp_pairwise_sq_distances
 from aggregathor_tpu.gars.median import median_columns
@@ -166,3 +173,114 @@ def test_distance_chunk_fits_shared_memory():
         chunk = kernels.distance_chunk(n)
         assert chunk & (chunk - 1) == 0 and 32 <= chunk <= 1024
         assert n * chunk * 4 <= 65536
+
+
+def test_gram_chunk_covers_the_card_with_whole_slabs():
+    for n in (65, 72, 128, 130, 256, 512):
+        tiles = -(-n // kernels.GRAM_TILE)
+        pairs = tiles * (tiles + 1) // 2
+        for d in (1, 31, 129, 4099, 1756682):
+            chunk = kernels.gram_chunk(n, d)
+            nb_chunks = -(-d // chunk)
+            assert chunk % kernels.GRAM_SLAB == 0 and chunk >= kernels.GRAM_SLAB
+            assert (nb_chunks - 1) * chunk < d <= nb_chunks * chunk
+            if d >= kernels.GRAM_TARGET_BLOCKS * kernels.GRAM_SLAB:
+                assert pairs * nb_chunks >= kernels.GRAM_TARGET_BLOCKS
+
+
+# --------------------------------------------------------------------------- #
+# K6: the finite-only column mean
+
+def _lossy_matrix(n, d, seed):
+    g = _matrix(n, d, seed, "poison")  # NaN row, NaN/+-inf columns and entries
+    g[:, 6] = np.nan
+    g[1::2, 6] = np.inf  # an all-non-finite column of both kinds
+    g[:, 7] = np.nan
+    g[n - 1, 7] = 3.5  # a single finite survivor
+    return g
+
+
+@pytest.mark.parametrize("n, d", [(8, 128), (11, 129), (5, 384)])
+def test_average_nan_matches_pallas_and_the_oracle(n, d):
+    g = _lossy_matrix(n, d, d)
+    got = kernels.average_nan_columns(torch.from_numpy(g)).numpy()
+    assert got.shape == (d,) and np.all(np.isfinite(got))
+    assert got[2] == 0.0 and got[6] == 0.0 and got[7] == 3.5
+    np.testing.assert_allclose(got, np.asarray(pk.average_nan_columns(g, block_d=128)), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, oracle.average_nan(g), rtol=1e-5, atol=1e-6)
+
+
+# --------------------------------------------------------------------------- #
+# The centring median (trap a: numpy averages an even count's middle pair)
+
+def test_nanmedian_columns_is_numpys_rule():
+    x = np.array([[1.0, 5.0, np.nan, np.nan, 2.0],
+                  [2.0, np.inf, np.nan, 7.0, -np.inf],
+                  [3.0, 1.0, np.inf, np.nan, 4.0],
+                  [4.0, 3.0, -np.inf, np.nan, np.nan]], np.float32)
+    got = kernels.nanmedian_columns(torch.from_numpy(x)).numpy()
+    # [1,2,3,4] -> 2.5 (torch.nanmedian would give 2); inf ignored; nothing finite -> 0
+    np.testing.assert_array_equal(got, np.array([2.5, 3.0, 0.0, 7.0, 3.0], np.float32))
+
+
+@pytest.mark.parametrize("n, d, seed", [(65, 257, 0), (72, 129, 1), (8, 1000, 2), (7, 300, 3)])
+def test_nanmedian_columns_matches_numpy_within_one_ulp(n, d, seed):
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    g[rng.random(size=g.shape) < 0.2] = np.nan
+    g[rng.random(size=g.shape) < 0.05] = np.inf
+    g[rng.random(size=g.shape) < 0.05] = -np.inf
+    g[:, 0] = np.nan  # nothing finite
+    g[:, 1] = np.round(g[:, 1], 1)  # ties
+    g[1:, 2] = np.nan  # one finite value
+    g[2:, 3] = np.inf  # two finite values: their mean
+    got = kernels.nanmedian_columns(torch.from_numpy(g)).numpy()
+    want = np.nan_to_num(np.nanmedian(np.where(np.isfinite(g), g, np.nan), axis=0)).astype(np.float32)
+    assert got[0] == 0.0
+    ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1, ulps.max()
+
+
+# --------------------------------------------------------------------------- #
+# K2: Gram-form distances beyond 64 rows
+
+def _gram_input(n, d, seed):
+    g = _matrix(n, d, seed, "clean")
+    g[n // 3] = np.nan  # a dead worker
+    g[1, 5:d:7] = np.nan  # scattered NaN in another row
+    g[0:(n // 2 + 1), 10] = np.nan  # a majority-NaN column
+    g[4:8] += 3.0  # a shifted group: distances of several scales
+    return g
+
+
+@pytest.mark.parametrize("d", [128, 129, 700])
+@pytest.mark.parametrize("n", [65, 72, 130])
+def test_gram_distances_match_pallas_and_the_oracle(n, d):
+    g = _gram_input(n, d, n + d)
+    got = kernels.pairwise_sq_distances(torch.from_numpy(g)).numpy()
+    want = np.array(pk.pairwise_sq_distances(g, block_d=128))  # n > 64: the Gram kernel
+    finite_rows = np.all(np.isfinite(g), axis=1)
+    rows = np.flatnonzero(finite_rows)
+    want[rows, rows] = 0.0  # as tests/test_pallas.py: the Pallas diagonal is only ~0
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    _close(got, want, 1e-4, 1e-4)
+    assert finite_rows.sum() >= n // 3  # the rows outside the majority-NaN column's NaN run
+    clean = np.ix_(finite_rows, finite_rows)
+    assert np.all(np.isfinite(got[clean]))  # the majority-NaN column poisons only its rows
+    assert np.all(np.isnan(got[~finite_rows])) and np.all(np.isnan(got[:, ~finite_rows]))
+    assert np.all(np.diag(got)[finite_rows] == 0.0) and np.all(got[clean] >= 0.0)
+    np.testing.assert_array_equal(got, got.T)
+    ref = oracle._pairwise_sq_distances(g[finite_rows].astype(np.float64))
+    np.testing.assert_allclose(got[clean], ref, rtol=1e-4, atol=1e-4)
+
+
+def test_gram_plain_is_the_centred_form_clamped():
+    g = _gram_input(70, 300, 4)
+    x = torch.from_numpy(g)
+    centred = x - kernels.nanmedian_columns(x)[None, :]
+    got = kernels.pairwise_sq_distances_gram(centred)
+    assert torch.equal(torch.isnan(got), torch.isnan(kernels.pairwise_sq_distances(x)))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(kernels.pairwise_sq_distances(x)))
+    # distances are translation-invariant: the raw rows give the same matrix within the Gram tolerance
+    raw = kernels.pairwise_sq_distances_gram(x).numpy()
+    _close(raw, got.numpy(), 1e-4, 1e-3)

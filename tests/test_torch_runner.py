@@ -2,6 +2,9 @@
 
 - ``--device cpu`` trains a few steps end to end and prints steps/s
   (excluding the first step), the final evaluation and the launch counts;
+- ``--UDP`` runs: ``average-nan`` ends with a finite loss, plain
+  ``average`` stops with the divergence error (NaN reaches the
+  parameters), CLEVER infill keeps ``average`` finite;
 - without ``--device cpu`` and without a GPU the runner fails loudly
   instead of falling back to the CPU;
 - the port imports nothing of JAX, flax, optax or the JAX package (AST
@@ -55,6 +58,28 @@ def test_divergence_is_loud():
         runner.main(MNIST + ["--aggregator", "average", "--nb-decl-byz-workers", "0",
                              "--nb-real-byz-workers", "1", "--attack", "inf",
                              "--max-step", "4", "--device", "cpu"])
+
+
+UDP = ["--UDP", "4", "--UDP-args", "drop-rate:0.3", "packet-coords:1024", "min-coords:0"]
+
+
+def test_udp_run_with_average_nan_stays_finite():
+    result = runner.main(MNIST + UDP + ["--aggregator", "average-nan", "--nb-decl-byz-workers", "0",
+                                        "--max-step", "8", "--device", "cpu"])
+    assert result["steps"] == 8 and result["final_loss"] == result["final_loss"]
+    assert abs(result["final_loss"]) != float("inf")
+
+
+def test_udp_run_with_plain_average_diverges():
+    with pytest.raises(UserException, match="diverged"):
+        runner.main(MNIST + UDP + ["--aggregator", "average", "--nb-decl-byz-workers", "0",
+                                   "--max-step", "8", "--device", "cpu"])
+
+
+def test_udp_clever_run_with_plain_average_stays_finite():
+    result = runner.main(MNIST + UDP + ["clever:true", "--aggregator", "average", "--nb-decl-byz-workers", "0",
+                                        "--max-step", "4", "--device", "cpu"])
+    assert result["final_loss"] == result["final_loss"] and abs(result["final_loss"]) != float("inf")
 
 
 def test_cuda_without_a_gpu_fails_instead_of_falling_back(monkeypatch):
