@@ -106,10 +106,12 @@ _SIGNATURES = {
         "agg_pairwise_sq_distances": (_P, _P, _P, _I, _LL, _I, _P),
     },
     "coordinate": {
-        "agg_coordinate_median": (_P, _P, _I, _LL, _P),
-        "agg_coordinate_averaged_median": (_P, _P, _I, _LL, _I, _P),
-        "agg_coordinate_trimmed_mean": (_P, _P, _I, _LL, _I, _I, _P),
+        # the rank entries end with the sort layout: rows, lanes, columns, stride
+        "agg_coordinate_median": (_P, _P, _I, _LL, _I, _I, _I, _I, _P),
+        "agg_coordinate_averaged_median": (_P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
+        "agg_coordinate_trimmed_mean": (_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P),
         "agg_average_nan_columns": (_P, _P, _I, _LL, _P),
+        "agg_nanmedian_columns": (_P, _P, _I, _LL, _I, _I, _I, _I, _P),
     },
     "gram": {
         "agg_gram_sq_distances": (_P, _P, _P, _I, _LL, _I, _P),

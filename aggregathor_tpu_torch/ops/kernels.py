@@ -22,7 +22,8 @@ and even-count rules differ.
 Distances switch form at ``DISTANCE_MAX_ROWS`` rows, as the JAX wrapper does
 (pallas_kernels.py:280-290): up to 64 rows the difference form (K1), beyond
 it the Gram form (K2) on rows centred by their NaN-ignoring column median
-(``nanmedian_columns``, numpy's even-count rule), clamped at 0.
+(``nanmedian_columns``, numpy's even-count rule, served by the rank-selection
+kernels' sort path), clamped at 0.
 """
 
 import math
@@ -61,6 +62,9 @@ KERNELS = {
     "average_nan_columns": Kernel(
         "K6", "aggregathor_tpu_torch/ops/csrc/coordinate.cu",
         "aggregathor_tpu/ops/pallas_kernels.py:218"),
+    "nanmedian_columns": Kernel(
+        "centring", "aggregathor_tpu_torch/ops/csrc/coordinate.cu",
+        "aggregathor_tpu/ops/pallas_kernels.py:289"),
 }
 
 #: largest worker count K1 serves; beyond it the Gram form K2 takes over, as
@@ -72,6 +76,12 @@ GRAM_TILE = 64
 GRAM_SLAB = 32
 #: K2 blocks to aim for: two waves on the H100's 132 SMs
 GRAM_TARGET_BLOCKS = 2 * 132
+
+#: rows the rank kernels serve with a sort (beyond: re-reading each column)
+SORT_MAX_ROWS = 1024
+#: threads of coordinate.cu's sort block, which refuses a layout whose lanes
+#: times columns differ
+SORT_BLOCK_THREADS = 256
 
 
 def launch_counts():
@@ -131,7 +141,7 @@ def pairwise_sq_distances_plain(x):
     form of K2 (``pairwise_sq_distances_gram_plain``)."""
     n = x.shape[0]
     if n > DISTANCE_MAX_ROWS:
-        return pairwise_sq_distances_gram_plain(x - nanmedian_columns(x)[None, :])
+        return pairwise_sq_distances_gram_plain(x - nanmedian_columns_plain(x)[None, :])
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     for i in range(n):
         diff = x - x[i]
@@ -159,15 +169,13 @@ def pairwise_sq_distances(x):
 # --------------------------------------------------------------------------- #
 # K2: Gram-form distances of median-centred rows
 
-def nanmedian_columns(x):
+def nanmedian_columns_plain(x):
     """(d,) per-column median of the finite entries, numpy's rule: an even
     count averages its two middle values; a column with nothing finite gives
     0 (``jnp.nan_to_num(jnp.nanmedian(...))``, pallas_kernels.py:289).
 
     A stable sort of the inf-mapped keys puts each column's k finite values
-    first, in ascending order; the median is read at ranks (k-1)//2 and k//2.
-    Plain torch ops on every device: the JAX package computes it outside the
-    kernel too."""
+    first, in ascending order; the median is read at ranks (k-1)//2 and k//2."""
     n = x.shape[0]
     ordered = torch.sort(_inf_key(x), dim=0, stable=True).values
     count = torch.sum(torch.isfinite(x), dim=0, keepdim=True)
@@ -176,6 +184,18 @@ def nanmedian_columns(x):
     count = count[0]
     median = torch.where(count % 2 == 1, low, (low + high) / 2)
     return torch.nan_to_num(torch.where(count > 0, median, 0.0))
+
+
+def nanmedian_columns(x):
+    """(d,) per-column median of the finite entries (numpy's even-count rule,
+    0 where nothing is finite): the centring in front of K2, at any n."""
+    if not _check(x):
+        return nanmedian_columns_plain(x)
+    n, d = x.shape
+    out = torch.empty(d, dtype=torch.float32, device=x.device)
+    _launch("nanmedian_columns", "coordinate", "agg_nanmedian_columns",
+            x, x.data_ptr(), out.data_ptr(), n, d, *sort_shape(n))
+    return out
 
 
 def gram_chunk(n, d):
@@ -221,6 +241,24 @@ def pairwise_sq_distances_gram(x):
 # --------------------------------------------------------------------------- #
 # K3-K5: coordinate-wise rank selection
 
+def sort_shape(n):
+    """The rank kernels' sort layout for n rows, which the wrappers pass to
+    coordinate.cu: (padded rows P, lanes a column, columns a block, row
+    stride of the staged (n, columns) tile in floats), or zeros beyond
+    ``SORT_MAX_ROWS`` rows (the re-reading path).  The kernel refuses a
+    layout that is not exactly that of its instance for P.  P is the next power of two >= n, at least 128; 8, 16
+    or 32 lanes sort a column (more lanes for more rows, at most a warp); the
+    stride, columns + 32 / lanes, puts a warp's reads of the tile on 32
+    distinct banks, and the tile stays within the 48 KB of dynamic shared
+    memory a block may take without opting in."""
+    if n > SORT_MAX_ROWS:
+        return 0, 0, 0, 0
+    p = max(128, 1 << (n - 1).bit_length())
+    lanes = 8 if p <= 128 else (16 if p <= 256 else 32)
+    columns = SORT_BLOCK_THREADS // lanes
+    return p, lanes, columns, columns + 32 // lanes
+
+
 def _ranks(key):
     """rank[i, c] = #{j : key[j, c] < key[i, c], ties to the lower j}: the
     inverse of the stable ascending sort's permutation."""
@@ -241,7 +279,7 @@ def coordinate_median(x):
     n, d = x.shape
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     _launch("coordinate_median", "coordinate", "agg_coordinate_median",
-            x, x.data_ptr(), out.data_ptr(), n, d)
+            x, x.data_ptr(), out.data_ptr(), n, d, *sort_shape(n))
     return out
 
 
@@ -264,7 +302,7 @@ def coordinate_averaged_median(x, beta):
         return coordinate_averaged_median_plain(x, beta)
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     _launch("coordinate_averaged_median", "coordinate", "agg_coordinate_averaged_median",
-            x, x.data_ptr(), out.data_ptr(), n, d, beta)
+            x, x.data_ptr(), out.data_ptr(), n, d, beta, *sort_shape(n))
     return out
 
 
@@ -290,7 +328,7 @@ def coordinate_trimmed_mean(x, trim, keep):
         return coordinate_trimmed_mean_plain(x, trim, keep)
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     _launch("coordinate_trimmed_mean", "coordinate", "agg_coordinate_trimmed_mean",
-            x, x.data_ptr(), out.data_ptr(), n, d, trim, keep)
+            x, x.data_ptr(), out.data_ptr(), n, d, trim, keep, *sort_shape(n))
     return out
 
 
@@ -325,4 +363,5 @@ PLAIN = {
     "coordinate_averaged_median": coordinate_averaged_median_plain,
     "coordinate_trimmed_mean": coordinate_trimmed_mean_plain,
     "average_nan_columns": average_nan_columns_plain,
+    "nanmedian_columns": nanmedian_columns_plain,
 }

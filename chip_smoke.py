@@ -22,15 +22,24 @@ Phases, in order (any failure exits non-zero and prints no result):
    diagonal must be 0 in both); K2: same non-finite pattern, diagonal 0, and
    off it |a - b| <= 1e-5 (|x_i|^2 + |x_j|^2) on the centred rows (a Gram
    form's terms are as large as the squared norms, so its error scales with
-   them, not with the distance).  Each kernel is timed with CUDA events at
-   its main-path shape beside its plain version, one PyTorch library call
+   them, not with the distance).  Beyond 64 rows K3/K4/K5 and the median
+   centring in front of K2 (``nanmedian_columns``, bit-exact like K3) run
+   their sort path: held at the main path's shapes (K3 and K5 (8, 112) at
+   (128, 1,756,682), K4 beta=94 at (110, 1,756,682), the centring on the raw
+   (128, 1,756,682)) and on poisoned inputs at n = 65, 127, 128, 129, 256
+   and 1000, and at 1030 on the re-reading path (NaN/+-inf rows and columns, an all-NaN and a majority-NaN
+   column, signed zeros, ties, widths off the blocks' column counts).  Each
+   kernel is timed with CUDA events at its main-path shape (K3-K5 also at
+   their sort-path shape) beside its plain version, one PyTorch library call
    where one computes the same function, and its bound: max(bytes moved /
-   3.35 TB/s, operations / 67 TFLOP/s); the median centring in front of K2
-   is timed on its own.  Distances of 64 rows must launch K1 and of 65 K2.
+   3.35 TB/s, operations / 67 TFLOP/s), the operations of the sort path
+   being its compare-exchanges.  Distances of 64 rows must launch K1 and of
+   65 the centring and K2.
 3. Drive the port's runner on the card: cnnet + krum (n=8, f=2, r=2
    signflip) for 30 steps at d = 1,756,682, then a few steps each of
    bulyan (n=11, f=2), median, trimmed-mean, averaged-median, krum at n=128
-   (K2), and the lossy link: average-nan (K6) and krum under --UDP, and
+   (the centring and K2), bulyan at n=128 (the centring, K2, and K4 on the
+   sort path), and the lossy link: average-nan (K6) and krum under --UDP, and
    average under --UDP with CLEVER infill.  Every launch count is set to 0
    just before a leg and read just after: each leg must have launched its
    kernels once a step, and its loss must be finite.  Then each rule's
@@ -126,7 +135,7 @@ def compare(name, a, b, torch, x=None):
         max_err = float(err.max()) if err.numel() else 0.0
         check(bool(torch.all(err <= 1e-5 * scale[off])), "K2: outside tolerance (max err %g)" % max_err)
         return max_err
-    if name == "coordinate_median":
+    if name in ("coordinate_median", "nanmedian_columns"):
         same = torch.equal(a.view(torch.int32), b.view(torch.int32))
         check(same, "%s: not bit-identical to the plain version" % name)
         return 0.0
@@ -142,6 +151,40 @@ def compare(name, a, b, torch, x=None):
     max_err = float(err.max()) if err.numel() else 0.0
     check(bool(torch.all(err <= bound)), "%s: outside tolerance (max err %g)" % (name, max_err))
     return max_err
+
+
+def bounds(kernels, name, n, d):
+    """(bytes, operations, what the operations count) of one call at (n, d)."""
+    if name == "pairwise_sq_distances":
+        return n * d * 4 + n * n * 4, n * (n + 1) // 2 * d * 3, "3 per pair and column"
+    if name == "pairwise_sq_distances_gram":
+        return n * d * 4 + n * n * 4, n * (n + 1) // 2 * d * 2, "an FMA per pair and column"
+    if name == "average_nan_columns":
+        return n * d * 4 + d * 4, 2 * n * d + d, "a test and an add per value"
+    if n <= 64 and name != "nanmedian_columns":
+        passes = 2 if name == "coordinate_averaged_median" else 1
+        return n * d * 4 + d * 4, passes * n * n * d + n * d, "n^2 compares per rank pass"
+    # the sort path: P log2(P) (log2(P) + 1) / 4 compare-exchanges of a min
+    # and a max per column and sort (two sorts for K4), n steps of the row pass
+    p = kernels.sort_shape(n)[0]
+    log_p = p.bit_length() - 1
+    sorts = 2 if name == "coordinate_averaged_median" else 1
+    return n * d * 4 + d * 4, sorts * (p * log_p * (log_p + 1) // 2 + n) * d, "the sort's min/max"
+
+
+def timed_row(torch, kernels, name, x, args, library, max_abs_err):
+    """Time kernel, plain version and library call at x; the JSON row's numbers."""
+    kernel, plain = getattr(kernels, name), kernels.PLAIN[name]
+    n, d = x.shape
+    ms = time_ms(lambda: kernel(x, *args), torch, iters=20 if n > 64 else 50, warmup=5)
+    plain_ms = time_ms(lambda: plain(x, *args), torch, iters=5)
+    library_ms = time_ms(lambda: library(x), torch, iters=5) if library else None
+    nbytes, ops, counted = bounds(kernels, name, n, d)
+    bytes_ms, ops_ms = nbytes / MEMORY_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": library_ms,
+            "shape": [n, d], "max_abs_err": max_abs_err, "operations": ops, "operations_ms": ops_ms,
+            "operations_counted": counted}
 
 
 def kernel_phase(torch, kernels):
@@ -167,13 +210,27 @@ def kernel_phase(torch, kernels):
             x[w, first * 16250:(first + 1) * 16250] = float("nan")
         return x
 
+    def rank_poison(n, d):
+        # poison() with its NaN and +-inf columns, plus a majority-NaN column
+        # and signed zeros, which tie with +0 yet keep their sign
+        x = poison(randn(n, d))
+        x[: n // 2 + 1, 19] = float("nan")
+        x[::3, 21] = -0.0
+        x[1::3, 21] = 0.0
+        return x
+
     main = randn(8, CNNET_D)
     bulyan_rows = randn(11, CNNET_D)
     bulyan_sel = randn(5, CNNET_D)
-    krum128 = centred(randn(128, CNNET_D))
+    raw128 = randn(128, CNNET_D)
+    krum128 = centred(raw128)
+    bulyan128 = raw128[:110].contiguous()  # Bulyan's t = 110 selections at n = 128, f = 8
     udp = lossy(8, CNNET_D)
     all_nan = randn(7, 3001)
     all_nan[:, 100] = float("nan")
+    # beyond 64 rows (the sort path up to 1024, the re-reading path beyond):
+    # widths off the sort blocks' 32/16/8 columns
+    beyond = [(n, 4099 if n <= 256 else 1025) for n in (65, 127, 128, 129, 256, 1000, 1030)]
     cases = {
         "pairwise_sq_distances": [(main, ()), (bulyan_rows, ()), (poison(randn(8, 100003), False), ()),
                                   (poison(randn(11, 5001), False), ()), (poison(randn(64, 20011), False), ()),
@@ -193,7 +250,17 @@ def kernel_phase(torch, kernels):
                                        (gram_poison(130, 5001), ()), (gram_poison(256, 4099), ())],
         "average_nan_columns": [(udp, ()), (poison(randn(8, 100003)), ()), (poison(randn(11, 5001)), ()),
                                 (poison(randn(256, 4099)), ()), (all_nan, ())],
+        "nanmedian_columns": [(raw128, ()), (rank_poison(7, 3001), ())]
+                             + [(rank_poison(n, d), ()) for n, d in beyond],
     }
+    for n, d in beyond:
+        cases["coordinate_median"].append((rank_poison(n, d), ()))
+        cases["coordinate_averaged_median"] += [(rank_poison(n, d), (n - n // 8,)), (rank_poison(n, d), (1,))]
+        cases["coordinate_trimmed_mean"].append((rank_poison(n, d), (n // 16, n - 2 * (n // 16))))
+    # the sort path at the main path's shapes beyond 64 rows (Bulyan's, the
+    # median's and the trimmed mean's at n = 128, f = 8)
+    sort_main = {"coordinate_median": (raw128, ()), "coordinate_averaged_median": (bulyan128, (94,)),
+                 "coordinate_trimmed_mean": (raw128, (8, 112))}
     library = {
         # one PyTorch call computing the same function on these main inputs
         # (finite, or NaN-only for K6); the port never calls them
@@ -201,55 +268,49 @@ def kernel_phase(torch, kernels):
         "pairwise_sq_distances_gram": lambda x: torch.cdist(x, x).square(),
         "coordinate_median": lambda x: torch.kthvalue(x, x.shape[0] // 2 + 1, dim=0).values,
         "average_nan_columns": lambda x: torch.nanmean(x, 0),
+        # no one call for the centring: torch.nanmedian keeps the lower of an
+        # even count's middle pair, and torch.nanquantile refuses inputs of
+        # more than 2^24 values
     }
+
+    def report(name, label, row, held):
+        print("kernel %-27s %s (%d, %d): %.4f ms, plain %.3f ms, library %s ms, bound %.1f us (%s; "
+              "operations %.1f us), max |err| %g, %d inputs held"
+              % (name, label, row["shape"][0], row["shape"][1], row["ms"], row["plain_ms"],
+                 "%.3f" % row["library_ms"] if row["library_ms"] is not None else "-",
+                 row["bound_ms"] * 1e3, row["bound_by"], row["operations_ms"] * 1e3, row["max_abs_err"], held))
+
     rows = []
     for name, inputs in cases.items():
         kernel, plain = getattr(kernels, name), kernels.PLAIN[name]
         errors = []
-        for x, args in inputs:
+        for x, args in inputs + ([sort_main[name]] if name in sort_main else []):
             got = kernel(x, *args)
             torch.cuda.synchronize()
             errors.append(compare(name, got, plain(x, *args), torch, x))
         x, args = inputs[0]
-        n, d = x.shape
-        ms = time_ms(lambda: kernel(x, *args), torch, iters=50, warmup=10)
-        plain_ms = time_ms(lambda: plain(x, *args), torch, iters=5)
-        library_ms = time_ms(lambda: library[name](x), torch, iters=5) if name in library else None
-        if name == "pairwise_sq_distances":
-            nbytes, ops = n * d * 4 + n * n * 4, n * (n + 1) // 2 * d * 3
-        elif name == "pairwise_sq_distances_gram":
-            nbytes, ops = n * d * 4 + n * n * 4, n * (n + 1) // 2 * d * 2
-        elif name == "average_nan_columns":
-            nbytes, ops = n * d * 4 + d * 4, 2 * n * d + d
-        else:
-            passes = 2 if name == "coordinate_averaged_median" else 1
-            nbytes, ops = n * d * 4 + d * 4, passes * n * n * d + n * d
-        bytes_ms, ops_ms = nbytes / MEMORY_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
         info = kernels.KERNELS[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": info.source, "replaces": info.replaces,
-            "launches": 0, "max_abs_err": errors[0], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms, "shape": [n, d], "max_abs_err_all_inputs": max(errors),
-        })
-        print("kernel %-27s %s (%d, %d): %.4f ms, plain %.3f ms, library %s ms, bound %.1f us "
-              "(%s), max |err| %g (all inputs %g), %d inputs held"
-              % (name, info.label, n, d, ms, plain_ms,
-                 "%.3f" % library_ms if library_ms is not None else "-",
-                 rows[-1]["bound_ms"] * 1e3, rows[-1]["bound_by"], errors[0], max(errors), len(inputs)))
-    raw128 = randn(128, CNNET_D)
-    centring_ms = time_ms(lambda: kernels.nanmedian_columns(raw128), torch, iters=10)
-    print("centring nanmedian_columns (128, %d) in front of K2: %.4f ms" % (CNNET_D, centring_ms))
-    # the distances switch form past 64 rows: K1 at n = 64, K2 at n = 65
-    for n, want in ((64, "pairwise_sq_distances"), (65, "pairwise_sq_distances_gram")):
+        row = {"name": name, "route": "cuda", "source": info.source, "replaces": info.replaces, "launches": 0}
+        row.update(timed_row(torch, kernels, name, x, args, library.get(name), errors[0]))
+        row["max_abs_err_all_inputs"] = max(errors)
+        report(name, info.label, row, len(errors))
+        if name in sort_main:
+            # the sort path beyond 64 rows, at its main-path shape
+            x, args = sort_main[name]
+            row["sort_path"] = timed_row(torch, kernels, name, x, args,
+                                         library.get(name) if name == "coordinate_median" else None, errors[-1])
+            report(name, info.label + " sort path", row["sort_path"], 1)
+        rows.append(row)
+    # the distances switch form past 64 rows: K1 at n = 64, the centring and K2 at n = 65
+    for n, want in ((64, {"pairwise_sq_distances"}), (65, {"pairwise_sq_distances_gram", "nanmedian_columns"})):
         before = kernels.launch_counts()
         kernels.pairwise_sq_distances(randn(n, 4099))
         torch.cuda.synchronize()
         after = kernels.launch_counts()
         launched = {k: after[k] - before[k] for k in after}
-        check(launched == {k: int(k == want) for k in after},
-              "distances at n=%d launched %s (want %s once)" % (n, launched, want))
-    del main, bulyan_rows, bulyan_sel, krum128, raw128, udp, cases
+        check(launched == {k: int(k in want) for k in after},
+              "distances at n=%d launched %s (want %s once each)" % (n, launched, sorted(want)))
+    del main, bulyan_rows, bulyan_sel, krum128, raw128, bulyan128, udp, cases, sort_main
     torch.cuda.empty_cache()
     return rows
 
@@ -274,7 +335,10 @@ LEGS = [
      ("coordinate_averaged_median",)),
     ("cnnet+krum-n128", ["--aggregator", "krum", "--nb-workers", "128", "--nb-decl-byz-workers", "8",
                          "--nb-real-byz-workers", "8", "--attack", "signflip", "--max-step", "5"],
-     ("pairwise_sq_distances_gram",)),
+     ("pairwise_sq_distances_gram", "nanmedian_columns")),
+    ("cnnet+bulyan-n128", ["--aggregator", "bulyan", "--nb-workers", "128", "--nb-decl-byz-workers", "8",
+                           "--nb-real-byz-workers", "8", "--attack", "signflip", "--max-step", "3"],
+     ("pairwise_sq_distances_gram", "nanmedian_columns", "coordinate_averaged_median")),
     ("cnnet+average-nan+UDP", ["--aggregator", "average-nan", "--nb-workers", "8", "--UDP", "4",
                                "--max-step", "5"], ("average_nan_columns",)),
     ("cnnet+krum+UDP", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
@@ -371,7 +435,7 @@ def gar_phase(torch, gars):
     out = {}
     for rule, n, f in (("krum", 8, 2), ("bulyan", 11, 2), ("median", 8, 2), ("trimmed-mean", 8, 2),
                        ("averaged-median", 8, 2), ("average", 8, 2), ("average-nan", 8, 2),
-                       ("krum", 128, 8), ("bulyan", 128, 8)):
+                       ("krum", 128, 8), ("bulyan", 128, 8), ("median", 128, 8), ("trimmed-mean", 128, 8)):
         x = torch.randn((n, CNNET_D), device="cuda", generator=gen)
         gar = gars.instantiate(rule, n, f)
         out["%s n=%d" % (rule, n)] = time_ms(lambda: gar.aggregate(x), torch, iters=10)

@@ -6,8 +6,9 @@ it runs alone, skipping the suite's conftest (which configures JAX)::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances, each from the order of summation: K3 bit-exact (it returns one
-of the original values); K4, K5, K6 rtol 1e-6 plus atol 1e-6 on unit-scale
+Tolerances, each from the order of summation: K3 and the centring median
+bit-exact (each returns original values, or the mean of two, as its plain
+version computes it); K4, K5, K6 rtol 1e-6 plus atol 1e-6 on unit-scale
 inputs (means of up to n float32 values summed in another order); K1 rtol
 1e-5 (d squares summed per column chunk, then across chunks); K2, off the
 diagonal, |a - b| <= 1e-5 (|x_i|^2 + |x_j|^2), the error scale of a Gram
@@ -83,7 +84,7 @@ def test_cuda_kernels_match_plain(cuda_device, name, n, d):
     torch.cuda.synchronize()
     assert kernels.launch_counts()[name] == before + 1
     want = kernels.PLAIN[name](x, *args).cpu().numpy()
-    if name == "coordinate_median":
+    if name in ("coordinate_median", "nanmedian_columns"):
         np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     elif name == "pairwise_sq_distances":
         _close(got, want, 1e-5)
@@ -94,16 +95,25 @@ def test_cuda_kernels_match_plain(cuda_device, name, n, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [65, 256])
+@pytest.mark.parametrize("n", [65, 127, 128, 129, 256, 1000, 1030])
 def test_rank_kernels_beyond_64_rows(cuda_device, n):
-    x = torch.from_numpy(_poisoned(n, 3001, 5, False)).to(cuda_device)
-    median = kernels.coordinate_median(x).cpu().numpy()
-    np.testing.assert_array_equal(median.view(np.int32),
-                                  kernels.coordinate_median_plain(x).cpu().numpy().view(np.int32))
+    """The sort path (64 < n <= 1024) and the re-reading path beyond it."""
+    g = _poisoned(n, 3001, 5, False)
+    g[: n // 2 + 1, 7] = np.nan  # a majority-NaN column
+    g[::3, 8] = -0.0  # signed zeros tie with +0 and keep their sign
+    g[:, 9] = np.round(g[:, 9], 0)  # heavy ties
+    x = torch.from_numpy(g).to(cuda_device)
+    for name in ("coordinate_median", "nanmedian_columns"):
+        got = getattr(kernels, name)(x).cpu().numpy()
+        np.testing.assert_array_equal(got.view(np.int32), kernels.PLAIN[name](x).cpu().numpy().view(np.int32))
     _close(kernels.coordinate_averaged_median(x, n - 10).cpu().numpy(),
            kernels.coordinate_averaged_median_plain(x, n - 10).cpu().numpy(), 1e-6, 1e-6)
+    _close(kernels.coordinate_averaged_median(x, 1).cpu().numpy(),
+           kernels.coordinate_averaged_median_plain(x, 1).cpu().numpy(), 1e-6, 1e-6)
     _close(kernels.coordinate_trimmed_mean(x, 10, n - 20).cpu().numpy(),
            kernels.coordinate_trimmed_mean_plain(x, 10, n - 20).cpu().numpy(), 1e-6, 1e-6)
+    _close(kernels.coordinate_trimmed_mean(x, 0, n).cpu().numpy(),
+           kernels.coordinate_trimmed_mean_plain(x, 0, n).cpu().numpy(), 1e-6, 1e-6)
     _close(kernels.average_nan_columns(x).cpu().numpy(),
            kernels.average_nan_columns_plain(x).cpu().numpy(), 1e-6, 1e-6)
     # beyond 64 rows the distances are K2's, on median-centred rows
@@ -116,13 +126,13 @@ def test_rank_kernels_beyond_64_rows(cuda_device, n):
 
 @pytest.mark.gpu
 def test_distances_switch_from_k1_to_k2_past_64_rows(cuda_device):
-    for n, launched in ((64, "pairwise_sq_distances"), (65, "pairwise_sq_distances_gram")):
+    for n, launched in ((64, {"pairwise_sq_distances"}), (65, {"pairwise_sq_distances_gram", "nanmedian_columns"})):
         x = torch.randn((n, 1000), device=cuda_device)
         before = kernels.launch_counts()
         kernels.pairwise_sq_distances(x)
         torch.cuda.synchronize()
         after = kernels.launch_counts()
-        assert {k: after[k] - before[k] for k in after} == {k: int(k == launched) for k in after}
+        assert {k: after[k] - before[k] for k in after} == {k: int(k in launched) for k in after}
 
 
 @pytest.mark.gpu
@@ -145,7 +155,10 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     ("trimmed-mean", 8, 2, {"coordinate_trimmed_mean"}),
     ("averaged-median", 8, 2, {"coordinate_averaged_median"}),
     ("average-nan", 8, 2, {"average_nan_columns"}),
-    ("krum", 72, 8, {"pairwise_sq_distances_gram"}),
+    ("krum", 72, 8, {"pairwise_sq_distances_gram", "nanmedian_columns"}),
+    ("bulyan", 80, 2, {"pairwise_sq_distances_gram", "nanmedian_columns", "coordinate_averaged_median"}),
+    ("median", 72, 8, {"coordinate_median"}),
+    ("trimmed-mean", 72, 8, {"coordinate_trimmed_mean"}),
 ])
 def test_engine_steps_launch_the_kernels_and_match_the_cpu(cuda_device, rule, n, f, expected):
     finals = []

@@ -23,6 +23,9 @@ The CUDA kernels themselves run only on the GPU: ``chip_smoke.py`` and
 tests/test_torch_gpu.py hold them against these plain versions there.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -66,6 +69,18 @@ CASES = [
     (3, 128, 5, "clean"),
 ]
 CASE_IDS = ["n%d-d%d-%s" % (n, d, kind) for n, d, _, kind in CASES]
+# beyond 64 rows the Pallas kernels rank with their ``fori_loop`` tier, and
+# the CUDA kernels with a sort (chip_smoke.py holds those against these plain
+# versions on the card)
+RANK_CASES = CASES + [
+    (65, 129, 6, "poison"),
+    (110, 257, 7, "ties"),
+    (128, 129, 8, "poison"),
+    (128, 200, 9, "ties"),
+    (129, 257, 10, "poison"),
+    (129, 130, 11, "ties"),
+]
+RANK_CASE_IDS = ["n%d-d%d-%s" % (n, d, kind) for n, d, _, kind in RANK_CASES]
 
 
 def _close(got, want, rtol, atol=0.0):
@@ -76,7 +91,7 @@ def _close(got, want, rtol, atol=0.0):
     np.testing.assert_allclose(got[finite], want[finite], rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("case", RANK_CASES, ids=RANK_CASE_IDS)
 def test_median_matches_pallas_and_jnp_exactly(case):
     n, d, seed, kind = case
     g = _matrix(n, d, seed, kind)
@@ -85,7 +100,7 @@ def test_median_matches_pallas_and_jnp_exactly(case):
     np.testing.assert_array_equal(got, np.asarray(median_columns(g, n)))
 
 
-@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("case", RANK_CASES, ids=RANK_CASE_IDS)
 def test_averaged_median_matches_pallas_and_jnp(case):
     n, d, seed, kind = case
     g = _matrix(n, d, seed, kind)
@@ -95,7 +110,7 @@ def test_averaged_median_matches_pallas_and_jnp(case):
         _close(got, np.asarray(averaged_median_columns(g, n, beta)), RTOL_MEAN, ATOL_MEAN)
 
 
-@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("case", RANK_CASES, ids=RANK_CASE_IDS)
 def test_trimmed_mean_matches_pallas_and_jnp(case):
     n, d, seed, kind = case
     g = _matrix(n, d, seed, kind)
@@ -168,6 +183,26 @@ def test_selection_arguments_are_checked():
             kernels.coordinate_trimmed_mean(x, trim, keep)
 
 
+def test_sort_shape_pads_to_a_power_of_two_and_fits_shared_memory():
+    # the (P, lanes, stride) instances of coordinate.cu's sort, which refuses any other layout
+    with open(os.path.join(os.path.dirname(kernels.__file__), "csrc", "coordinate.cu")) as fd:
+        instances = {tuple(map(int, m)) for m in re.findall(r"launch_sort<(\d+), (\d+), (\d+)>", fd.read())}
+    assert {p for p, _, _ in instances} == {128, 256, 512, 1024}
+    for n in range(1, kernels.SORT_MAX_ROWS + 1):
+        p, lanes, columns, stride = kernels.sort_shape(n)
+        assert p & (p - 1) == 0 and p >= n and (p == 128 or p < 2 * n)  # the next power of two >= n
+        assert (p, lanes, stride) in instances
+        assert lanes * columns == kernels.SORT_BLOCK_THREADS and 32 % lanes == 0  # whole groups in every warp
+        assert stride >= columns
+        # the dynamic (n, stride) tile, within both the 48 KB that needs no
+        # opt-in attribute and the H100's 227 KB a block
+        assert n * stride * 4 <= 48 * 1024
+        # a warp's (row, column) reads of the staged tile land on 32 distinct banks
+        banks = {(row * stride + col) % 32 for row in range(lanes) for col in range(32 // lanes)}
+        assert len(banks) == 32
+    assert kernels.sort_shape(kernels.SORT_MAX_ROWS + 1) == (0, 0, 0, 0)  # the re-reading path
+
+
 def test_distance_chunk_fits_shared_memory():
     for n in range(1, kernels.DISTANCE_MAX_ROWS + 1):
         chunk = kernels.distance_chunk(n)
@@ -223,7 +258,8 @@ def test_nanmedian_columns_is_numpys_rule():
     np.testing.assert_array_equal(got, np.array([2.5, 3.0, 0.0, 7.0, 3.0], np.float32))
 
 
-@pytest.mark.parametrize("n, d, seed", [(65, 257, 0), (72, 129, 1), (8, 1000, 2), (7, 300, 3)])
+@pytest.mark.parametrize("n, d, seed", [(65, 257, 0), (72, 129, 1), (8, 1000, 2), (7, 300, 3),
+                                         (110, 129, 4), (128, 257, 5), (129, 200, 6)])
 def test_nanmedian_columns_matches_numpy_within_one_ulp(n, d, seed):
     rng = np.random.default_rng(seed)
     g = rng.normal(size=(n, d)).astype(np.float32)
