@@ -114,7 +114,8 @@ _SIGNATURES = {
         "agg_nanmedian_columns": (_P, _P, _I, _LL, _I, _I, _I, _I, _P),
     },
     "gram": {
-        "agg_gram_sq_distances": (_P, _P, _P, _I, _LL, _I, _P),
+        # x, centre (None: a zero centre), out, scratch, n, d, chunk, stream
+        "agg_gram_sq_distances": (_P, _P, _P, _P, _I, _LL, _I, _P),
     },
 }
 

@@ -23,7 +23,8 @@ Distances switch form at ``DISTANCE_MAX_ROWS`` rows, as the JAX wrapper does
 (pallas_kernels.py:280-290): up to 64 rows the difference form (K1), beyond
 it the Gram form (K2) on rows centred by their NaN-ignoring column median
 (``nanmedian_columns``, numpy's even-count rule, served by the rank-selection
-kernels' sort path), clamped at 0.
+kernels' sort path), clamped at 0.  K2 takes the raw rows and the centre and
+subtracts it as it loads, so no centred (n, d) copy is made.
 """
 
 import math
@@ -71,11 +72,13 @@ KERNELS = {
 #: the JAX wrapper switches at ``n > 64`` (pallas_kernels.py:280-281)
 DISTANCE_MAX_ROWS = 64
 
-#: K2's row tile (the kernel's compile-time tile edge) and column slab
-GRAM_TILE = 64
+#: K2's row tile and column slab (the kernel's compile-time tile edge and
+#: ring stage): at n <= 128 one block per column chunk covers every row pair
+GRAM_TILE = 128
 GRAM_SLAB = 32
-#: K2 blocks to aim for: two waves on the H100's 132 SMs
-GRAM_TARGET_BLOCKS = 2 * 132
+#: K2 blocks to aim for: one wave on the H100's 132 SMs, one block an SM (a
+#: block fills its ring once, so one long wave beats two short ones)
+GRAM_TARGET_BLOCKS = 132
 
 #: rows the rank kernels serve with a sort (beyond: re-reading each column)
 SORT_MAX_ROWS = 1024
@@ -141,7 +144,7 @@ def pairwise_sq_distances_plain(x):
     form of K2 (``pairwise_sq_distances_gram_plain``)."""
     n = x.shape[0]
     if n > DISTANCE_MAX_ROWS:
-        return pairwise_sq_distances_gram_plain(x - nanmedian_columns_plain(x)[None, :])
+        return pairwise_sq_distances_gram_plain(x, nanmedian_columns_plain(x))
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     for i in range(n):
         diff = x - x[i]
@@ -156,7 +159,7 @@ def pairwise_sq_distances(x):
         return pairwise_sq_distances_plain(x)
     n, d = x.shape
     if n > DISTANCE_MAX_ROWS:
-        return pairwise_sq_distances_gram(x - nanmedian_columns(x)[None, :])
+        return pairwise_sq_distances_gram(x, nanmedian_columns(x))
     chunk = distance_chunk(n)
     nb_chunks = -(-d // chunk)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
@@ -208,10 +211,13 @@ def gram_chunk(n, d):
     return -(-chunk // GRAM_SLAB) * GRAM_SLAB
 
 
-def pairwise_sq_distances_gram_plain(x):
-    """(n, n) |a|^2 + |b|^2 - 2 a.b of the rows of an already centred matrix,
-    clamped at 0: the Gram matrix first (one (n, d) pass per row), the norms
-    from its diagonal (so the diagonal is exactly 0), as K2 orders it."""
+def pairwise_sq_distances_gram_plain(x, centre=None):
+    """(n, n) |a|^2 + |b|^2 - 2 a.b of the rows of ``x - centre`` (``centre``
+    a (d,) vector, None for 0), clamped at 0: the Gram matrix first (one
+    (n, d) pass per row), the norms from its diagonal (so the diagonal is
+    exactly 0), as K2 orders it."""
+    if centre is not None:
+        x = x - centre[None, :]
     n = x.shape[0]
     gram = torch.empty((n, n), dtype=torch.float32, device=x.device)
     for i in range(n):
@@ -220,12 +226,31 @@ def pairwise_sq_distances_gram_plain(x):
     return torch.clamp_min(norms[:, None] + norms[None, :] - 2.0 * gram, 0.0)
 
 
-def pairwise_sq_distances_gram(x):
-    """(n, n) clamped Gram-form squared distances of the rows of an already
-    centred (n, d) matrix (K2).  A non-finite entry in row i makes row and
-    column i non-finite."""
-    if not _check(x):
-        return pairwise_sq_distances_gram_plain(x)
+def _check_centre(centre, x):
+    if centre is None:
+        return
+    if not isinstance(centre, torch.Tensor) or centre.dtype != torch.float32:
+        raise TypeError("expected a float32 torch.Tensor centre")
+    if centre.shape != (x.shape[1],) or not centre.is_contiguous() or centre.device != x.device:
+        raise ValueError("expected a contiguous (%d,) centre on %s, got %s on %s"
+                         % (x.shape[1], x.device, tuple(centre.shape), centre.device))
+
+
+def pairwise_sq_distances_gram(x, centre=None):
+    """(n, n) clamped Gram-form squared distances of the rows of ``x -
+    centre`` (K2; ``centre`` a (d,) vector, None for 0), centred as the
+    kernel loads x.
+
+    A non-finite value in row i makes row and column i non-finite.  The
+    kernel writes NaN for every one of them (diagonal included): its 3xTF32
+    split turns an inf into hi = inf and lo = inf - inf = NaN, so it cannot
+    keep float32's mix of +inf and NaN, which the plain version keeps.  The
+    two agree on which entries are non-finite; every caller maps a
+    non-finite distance to +inf before scoring, so no selection changes."""
+    on_cuda = _check(x)
+    _check_centre(centre, x)
+    if not on_cuda:
+        return pairwise_sq_distances_gram_plain(x, centre)
     n, d = x.shape
     tiles = -(-n // GRAM_TILE)
     chunk = gram_chunk(n, d)
@@ -234,7 +259,8 @@ def pairwise_sq_distances_gram(x):
     scratch = torch.empty((tiles * (tiles + 1) // 2, nb_chunks, GRAM_TILE, GRAM_TILE),
                           dtype=torch.float32, device=x.device)
     _launch("pairwise_sq_distances_gram", "gram", "agg_gram_sq_distances",
-            x, x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, d, chunk)
+            x, x.data_ptr(), None if centre is None else centre.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), n, d, chunk)
     return out
 
 

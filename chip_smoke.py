@@ -11,18 +11,22 @@ Phases, in order (any failure exits non-zero and prints no result):
    main path's shapes -- (8, 1,756,682), the cnnet gradient matrix of n=8
    workers (for K6 with NaN runs of 16,250 coordinates in 4 rows, what
    --UDP 4 sends); (5, 1,756,682) with beta=1, Bulyan's last phase at n=11,
-   f=2; (11, 1,756,682), Bulyan's distances; (128, 1,756,682) centred by
-   its column median, Krum's distances at n=128 (K2) -- and on poisoned
-   inputs: NaN and +-inf rows and columns, tied values, a majority-NaN
-   column, widths that are no multiple of the kernels' chunks, n=256 (and
-   n=64 for K1, n=65..256 for K2).  Tolerances: K3 bit-exact (the kernel
-   returns an original value); K4, K5, K6: same NaN/inf pattern, |a - b| <=
-   1e-6 (1 + |b|) (sums of unit-scale float32 values in another order); K1:
-   same NaN pattern, relative 1e-5 (a sum of d squares in another order; the
-   diagonal must be 0 in both); K2: same non-finite pattern, diagonal 0, and
-   off it |a - b| <= 1e-5 (|x_i|^2 + |x_j|^2) on the centred rows (a Gram
-   form's terms are as large as the squared norms, so its error scales with
-   them, not with the distance).  Beyond 64 rows K3/K4/K5 and the median
+   f=2; (11, 1,756,682), Bulyan's distances; the raw (128, 1,756,682) and
+   its column median, Krum's distances at n=128 (K2 centres as it loads) --
+   and on poisoned inputs: NaN and +-inf rows and columns, tied values, a
+   majority-NaN column, widths that are no multiple of the kernels' chunks,
+   n=256 (and n=64 for K1; for K2 n = 65, 127, 128, 129 and 256 at widths of
+   every residue mod 4, with and without a centre, and an even width on a
+   4-byte-aligned start).  Tolerances: K3 bit-exact (the kernel returns an
+   original value); K4, K5, K6: same NaN/inf pattern, |a - b| <= 1e-6 (1 +
+   |b|) (sums of unit-scale float32 values in another order); K1: same NaN
+   pattern, relative 1e-5 (a sum of d squares in another order; the
+   diagonal must be 0 in both); K2: the same non-finite pattern with every
+   non-finite entry NaN (its 3xTF32 split turns an inf into NaN parts, so it
+   cannot keep float32's mix of +inf and NaN), diagonal 0, symmetric bit
+   for bit, and off the diagonal |a - b| <= 1e-5 (|x_i|^2 + |x_j|^2) on the
+   centred rows (a Gram form's terms are as large as the squared norms, so
+   its error scales with them, not with the distance).  Beyond 64 rows K3/K4/K5 and the median
    centring in front of K2 (``nanmedian_columns``, bit-exact like K3) run
    their sort path: held at the main path's shapes (K3 and K5 (8, 112) at
    (128, 1,756,682), K4 beta=94 at (110, 1,756,682), the centring on the raw
@@ -32,8 +36,10 @@ Phases, in order (any failure exits non-zero and prints no result):
    kernel is timed with CUDA events at its main-path shape (K3-K5 also at
    their sort-path shape) beside its plain version, one PyTorch library call
    where one computes the same function, and its bound: max(bytes moved /
-   3.35 TB/s, operations / 67 TFLOP/s), the operations of the sort path
-   being its compare-exchanges.  Distances of 64 rows must launch K1 and of
+   3.35 TB/s, operations / 67 TFLOP/s FP32), the operations of the sort path
+   being its compare-exchanges, those of K2 its 3xTF32 tensor-core products
+   at 495 TFLOP/s.  K2's row also times the whole distance path on the raw
+   (128, d) (centring and K2).  Distances of 64 rows must launch K1 and of
    65 the centring and K2.
 3. Drive the port's runner on the card: cnnet + krum (n=8, f=2, r=2
    signflip) for 30 steps at d = 1,756,682, then a few steps each of
@@ -42,10 +48,11 @@ Phases, in order (any failure exits non-zero and prints no result):
    sort path), and the lossy link: average-nan (K6) and krum under --UDP, and
    average under --UDP with CLEVER infill.  Every launch count is set to 0
    just before a leg and read just after: each leg must have launched its
-   kernels once a step, and its loss must be finite.  Then each rule's
+   kernels once a step, and its loss must be finite; each leg's peak device
+   memory is printed.  Then each rule's
    aggregate of a small poisoned matrix on the card is held against the
    same rule on the CPU (Krum's and Bulyan's selections must be identical,
-   at n=11 and at n=72), three MLP steps on the card against the same steps
+   at n=11, n=72 and n=128), three MLP steps on the card against the same steps
    on the CPU, without and with --UDP-style loss, and each rule's time on
    the (n, d) cnnet matrix is read (GAR ms a step).
    Last, a cnnet + krum step is split into its phases (host batch, transfer,
@@ -63,6 +70,7 @@ import time
 
 MEMORY_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM, FP32 outside the tensor cores
+TF32_OPS_PER_S = 495e12       # H100 SXM, dense TF32 on the tensor cores
 CNNET_D = 1756682
 
 
@@ -118,23 +126,30 @@ def poison(x, columns=True):
     return x
 
 
-def compare(name, a, b, torch, x=None):
+def compare(name, a, b, torch, x=None, args=()):
     """Max |a - b| over finite entries, after the exactness checks of ``name``
-    (``x``: the input rows, for K2's tolerance)."""
+    (``x`` and ``args``: the inputs, for K2's tolerance on the centred rows)."""
     check(a.shape == b.shape, "%s: shape %s != %s" % (name, tuple(a.shape), tuple(b.shape)))
-    check(torch.equal(torch.isnan(a), torch.isnan(b)), "%s: NaN pattern differs" % name)
     if name == "pairwise_sq_distances_gram":
+        # the same entries non-finite, and each of them NaN in the kernel's
+        # output: a 3xTF32 split turns an inf into hi = inf and lo = NaN, so
+        # the kernel cannot keep float32's mix of +inf and NaN (every caller
+        # maps a non-finite distance to +inf before scoring)
         check(torch.equal(torch.isfinite(a), torch.isfinite(b)), "K2: non-finite pattern differs")
+        check(bool(torch.all(torch.isnan(a[~torch.isfinite(a)]))), "K2: a non-finite entry is not NaN")
         diagonal = torch.diagonal(b)
         check(bool(torch.all(torch.diagonal(a)[torch.isfinite(diagonal)] == 0)), "K2: diagonal not 0")
-        check(torch.equal(torch.nan_to_num(a), torch.nan_to_num(a.T)), "K2: not symmetric")
-        norms = torch.sum(torch.square(x.double()), dim=1)
+        check(torch.equal(a.view(torch.int32), a.T.contiguous().view(torch.int32)), "K2: not symmetric bit for bit")
+        rows = x - args[0][None, :] if args else x
+        norms = torch.sum(torch.square(rows.double()), dim=1)
+        del rows
         scale = norms[:, None] + norms[None, :]
         off = torch.isfinite(b) & ~torch.eye(b.shape[0], dtype=torch.bool, device=b.device)
         err = torch.abs(a.double() - b.double())[off]
         max_err = float(err.max()) if err.numel() else 0.0
         check(bool(torch.all(err <= 1e-5 * scale[off])), "K2: outside tolerance (max err %g)" % max_err)
         return max_err
+    check(torch.equal(torch.isnan(a), torch.isnan(b)), "%s: NaN pattern differs" % name)
     if name in ("coordinate_median", "nanmedian_columns"):
         same = torch.equal(a.view(torch.int32), b.view(torch.int32))
         check(same, "%s: not bit-identical to the plain version" % name)
@@ -154,22 +169,27 @@ def compare(name, a, b, torch, x=None):
 
 
 def bounds(kernels, name, n, d):
-    """(bytes, operations, what the operations count) of one call at (n, d)."""
+    """(bytes, operations, what the operations count, their peak rate) of one
+    call at (n, d)."""
     if name == "pairwise_sq_distances":
-        return n * d * 4 + n * n * 4, n * (n + 1) // 2 * d * 3, "3 per pair and column"
+        return n * d * 4 + n * n * 4, n * (n + 1) // 2 * d * 3, "3 per pair and column", FP32_OPS_PER_S
     if name == "pairwise_sq_distances_gram":
-        return n * d * 4 + n * n * 4, n * (n + 1) // 2 * d * 2, "an FMA per pair and column"
+        # x and the centre read once; FP32 accuracy on the tensor cores takes
+        # 3 TF32 products (lo.hi, hi.lo, hi.hi) of a multiply and an add
+        return (n * d * 4 + d * 4 + n * n * 4, 3 * 2 * n * (n + 1) // 2 * d,
+                "3xTF32: 3 products of 2 per pair and column", TF32_OPS_PER_S)
     if name == "average_nan_columns":
-        return n * d * 4 + d * 4, 2 * n * d + d, "a test and an add per value"
+        return n * d * 4 + d * 4, 2 * n * d + d, "a test and an add per value", FP32_OPS_PER_S
     if n <= 64 and name != "nanmedian_columns":
         passes = 2 if name == "coordinate_averaged_median" else 1
-        return n * d * 4 + d * 4, passes * n * n * d + n * d, "n^2 compares per rank pass"
+        return n * d * 4 + d * 4, passes * n * n * d + n * d, "n^2 compares per rank pass", FP32_OPS_PER_S
     # the sort path: P log2(P) (log2(P) + 1) / 4 compare-exchanges of a min
     # and a max per column and sort (two sorts for K4), n steps of the row pass
     p = kernels.sort_shape(n)[0]
     log_p = p.bit_length() - 1
     sorts = 2 if name == "coordinate_averaged_median" else 1
-    return n * d * 4 + d * 4, sorts * (p * log_p * (log_p + 1) // 2 + n) * d, "the sort's min/max"
+    return (n * d * 4 + d * 4, sorts * (p * log_p * (log_p + 1) // 2 + n) * d, "the sort's min/max",
+            FP32_OPS_PER_S)
 
 
 def timed_row(torch, kernels, name, x, args, library, max_abs_err):
@@ -179,12 +199,12 @@ def timed_row(torch, kernels, name, x, args, library, max_abs_err):
     ms = time_ms(lambda: kernel(x, *args), torch, iters=20 if n > 64 else 50, warmup=5)
     plain_ms = time_ms(lambda: plain(x, *args), torch, iters=5)
     library_ms = time_ms(lambda: library(x), torch, iters=5) if library else None
-    nbytes, ops, counted = bounds(kernels, name, n, d)
-    bytes_ms, ops_ms = nbytes / MEMORY_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    nbytes, ops, counted, peak = bounds(kernels, name, n, d)
+    bytes_ms, ops_ms = nbytes / MEMORY_BYTES_PER_S * 1e3, ops / peak * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": library_ms,
             "shape": [n, d], "max_abs_err": max_abs_err, "operations": ops, "operations_ms": ops_ms,
-            "operations_counted": counted}
+            "operations_counted": counted, "operations_per_s": peak}
 
 
 def kernel_phase(torch, kernels):
@@ -194,13 +214,11 @@ def kernel_phase(torch, kernels):
     def randn(n, d):
         return torch.randn((n, d), device="cuda", generator=gen)
 
-    def centred(x):
-        return x - kernels.nanmedian_columns(x)[None, :]
-
-    def gram_poison(n, d):
+    def gram_poison(n, d, centre=True):
+        """Raw poisoned rows and K2's arguments: their column median, or none."""
         x = poison(randn(n, d), columns=False)
         x[: n // 2 + 1, 19] = float("nan")  # a majority-NaN column
-        return centred(x)
+        return x, (kernels.nanmedian_columns(x),) if centre else ()
 
     def lossy(n, d):
         # what --UDP 4 sends: NaN runs of 16,250 coordinates in the first 4 rows
@@ -223,7 +241,6 @@ def kernel_phase(torch, kernels):
     bulyan_rows = randn(11, CNNET_D)
     bulyan_sel = randn(5, CNNET_D)
     raw128 = randn(128, CNNET_D)
-    krum128 = centred(raw128)
     bulyan128 = raw128[:110].contiguous()  # Bulyan's t = 110 selections at n = 128, f = 8
     udp = lossy(8, CNNET_D)
     all_nan = randn(7, 3001)
@@ -246,13 +263,20 @@ def kernel_phase(torch, kernels):
                                     (poison(randn(11, 5001)), (2, 7)),
                                     (poison(randn(256, 4099)), (60, 136)),
                                     (poison(randn(17, 1025)), (0, 17))],
-        "pairwise_sq_distances_gram": [(krum128, ()), (gram_poison(65, 20011), ()), (gram_poison(72, 129), ()),
-                                       (gram_poison(130, 5001), ()), (gram_poison(256, 4099), ())],
+        # the raw rows and their centre, which K2 subtracts as it loads
+        "pairwise_sq_distances_gram": [(raw128, (kernels.nanmedian_columns(raw128),)), gram_poison(65, 20011),
+                                       gram_poison(72, 129), gram_poison(130, 5001), gram_poison(300, 1000),
+                                       gram_poison(128, 4098, centre=False), gram_poison(129, 4099, centre=False)]
+                                      + [gram_poison(n, d) for n in (65, 127, 128, 129, 256)
+                                         for d in (4096, 4097, 4098, 4099)],
         "average_nan_columns": [(udp, ()), (poison(randn(8, 100003)), ()), (poison(randn(11, 5001)), ()),
                                 (poison(randn(256, 4099)), ()), (all_nan, ())],
         "nanmedian_columns": [(raw128, ()), (rank_poison(7, 3001), ())]
                              + [(rank_poison(n, d), ()) for n, d in beyond],
     }
+    # an even width on a start that is only 4-byte aligned: K2's 4-byte copies
+    unaligned = randn(1, 1 + 130 * 4098)[0, 1:].view(130, 4098)
+    cases["pairwise_sq_distances_gram"].append((unaligned, (kernels.nanmedian_columns(unaligned),)))
     for n, d in beyond:
         cases["coordinate_median"].append((rank_poison(n, d), ()))
         cases["coordinate_averaged_median"] += [(rank_poison(n, d), (n - n // 8,)), (rank_poison(n, d), (1,))]
@@ -287,13 +311,18 @@ def kernel_phase(torch, kernels):
         for x, args in inputs + ([sort_main[name]] if name in sort_main else []):
             got = kernel(x, *args)
             torch.cuda.synchronize()
-            errors.append(compare(name, got, plain(x, *args), torch, x))
+            errors.append(compare(name, got, plain(x, *args), torch, x, args))
         x, args = inputs[0]
         info = kernels.KERNELS[name]
         row = {"name": name, "route": "cuda", "source": info.source, "replaces": info.replaces, "launches": 0}
         row.update(timed_row(torch, kernels, name, x, args, library.get(name), errors[0]))
         row["max_abs_err_all_inputs"] = max(errors)
         report(name, info.label, row, len(errors))
+        if name == "pairwise_sq_distances_gram":
+            # the whole distance path on the raw rows: the centring, then K2
+            row["distance_path_ms"] = time_ms(lambda: kernels.pairwise_sq_distances(x), torch, iters=20, warmup=5)
+            print("distances pairwise_sq_distances raw (%d, %d): %.4f ms (centring + K2), torch.cdist %.3f ms"
+                  % (x.shape[0], x.shape[1], row["distance_path_ms"], row["library_ms"]))
         if name in sort_main:
             # the sort path beyond 64 rows, at its main-path shape
             x, args = sort_main[name]
@@ -310,7 +339,7 @@ def kernel_phase(torch, kernels):
         launched = {k: after[k] - before[k] for k in after}
         check(launched == {k: int(k in want) for k in after},
               "distances at n=%d launched %s (want %s once each)" % (n, launched, sorted(want)))
-    del main, bulyan_rows, bulyan_sel, krum128, raw128, bulyan128, udp, cases, sort_main
+    del main, bulyan_rows, bulyan_sel, raw128, bulyan128, udp, unaligned, cases, sort_main
     torch.cuda.empty_cache()
     return rows
 
@@ -353,8 +382,10 @@ def main_path_phase(torch, kernels, runner, card):
     totals = {name: 0 for name in kernels.KERNELS}
     for label, argv, expected in LEGS:
         kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         result = runner.main(["--experiment", "cnnet", "--seed", "1", *argv])
         counts = kernels.launch_counts()
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
         steps = result["steps"]
         check(result["final_loss"] is not None and result["final_loss"] == result["final_loss"]
               and abs(result["final_loss"]) != float("inf"), "%s: non-finite loss" % label)
@@ -363,9 +394,9 @@ def main_path_phase(torch, kernels, runner, card):
             check(counts[name] == want, "%s: %s launched %d times in %d steps (want %d)"
                   % (label, name, counts[name], steps, want))
             totals[name] += counts[name]
-        print("leg %-22s %d steps, %.3f steps/s excl. 1st on %s, final loss %.4f, accuracy %.4f, launches %s"
-              % (label, steps, result["steps_per_s"], card, result["final_loss"],
-                 result["evaluation"]["accuracy"], json.dumps(counts, sort_keys=True)))
+        print("leg %-22s %d steps, %.3f steps/s excl. 1st on %s, final loss %.4f, accuracy %.4f, peak %.0f MB, "
+              "launches %s" % (label, steps, result["steps_per_s"], card, result["final_loss"],
+                               result["evaluation"]["accuracy"], peak_mb, json.dumps(counts, sort_keys=True)))
     return totals
 
 
@@ -396,13 +427,14 @@ def reference_phase(torch, gars, kernels, models):
         agree(rule, x, f)
     # beyond 64 workers (K2): honest rows at distinct scales, 8 attackers far
     # off, a dead worker and scattered NaN/inf in two more rows
-    x = torch.randn((72, 3001), generator=gen) * (1.0 + 0.02 * torch.arange(72.0))[:, None]
-    x[:8] += 25.0
-    x[40] = float("nan")
-    x[3, 5::97] = float("inf")
-    x[60, 7::89] = float("nan")
-    for rule in ("krum", "bulyan"):
-        agree(rule, x, 8)
+    for n in (72, 128):
+        x = torch.randn((n, 3001), generator=gen) * (1.0 + 0.02 * torch.arange(float(n)))[:, None]
+        x[:8] += 25.0
+        x[40] = float("nan")
+        x[3, 5::97] = float("inf")
+        x[60, 7::89] = float("nan")
+        for rule in ("krum", "bulyan"):
+            agree(rule, x, 8)
 
     def mlp_steps(device, lossy_link, rule):
         exp = models.instantiate("mnist", ["hidden:16", "batch-size:16"])
@@ -425,8 +457,8 @@ def reference_phase(torch, gars, kernels, models):
         check(bool(torch.allclose(finals[0], finals[1], rtol=1e-4, atol=1e-5)),
               "3 MLP %s steps on the card differ from the CPU (max %g)"
               % (label, float((finals[0] - finals[1]).abs().max())))
-    print("reference: %d rules on a poisoned (11, 3001) matrix, krum and bulyan on a poisoned (72, 3001) "
-          "matrix, and 3 MLP steps of krum and of average-nan under --UDP agree with the CPU" % len(rules))
+    print("reference: %d rules on a poisoned (11, 3001) matrix, krum and bulyan on poisoned (72, 3001) and "
+          "(128, 3001) matrices, and 3 MLP steps of krum and of average-nan under --UDP agree with the CPU" % len(rules))
 
 
 def gar_phase(torch, gars):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's rank-selection kernels beyond 64 rows of any checkout on one GPU.
+"""Time the port's kernels beyond 64 rows of any checkout on one GPU.
 
     python3 scripts/torch_rank_timing.py [--root CHECKOUT]
 
@@ -13,6 +13,10 @@ calls), on random (seeded) cnnet-width inputs
   phase at n = 128, f = 8;
 - K5 ``coordinate_trimmed_mean`` at (128, d) with trim 8 and keep 112;
 - the median centring in front of K2, ``nanmedian_columns``, at (128, d);
+- the distance path ``pairwise_sq_distances`` on the raw (128, d) (the
+  centring and K2), with its peak device memory above the input's, and K2
+  ``pairwise_sq_distances_gram`` alone on the centred (128, d) (both calls
+  take the same arguments in every version of the port);
 - GAR ms per step of krum and bulyan at n = 128, f = 8 on (128, d).
 
 ``--root`` names the checkout whose ``aggregathor_tpu_torch`` is imported
@@ -63,13 +67,24 @@ def main():
         "K5 coordinate_trimmed_mean (128, d) trim=8 keep=112":
             time_ms(lambda: kernels.coordinate_trimmed_mean(x128, 8, 112), torch),
         "centring nanmedian_columns (128, d)": time_ms(lambda: kernels.nanmedian_columns(x128), torch),
+        "distances pairwise_sq_distances raw (128, d)": time_ms(lambda: kernels.pairwise_sq_distances(x128), torch),
     }
+    centred = x128 - kernels.nanmedian_columns(x128)[None, :]
+    out["K2 pairwise_sq_distances_gram centred (128, d)"] = time_ms(
+        lambda: kernels.pairwise_sq_distances_gram(centred), torch)
+    del centred
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.pairwise_sq_distances(x128)
+    torch.cuda.synchronize()
+    out["distances peak MB above the input (128, d)"] = (torch.cuda.max_memory_allocated() - base) / 2**20
     for rule in ("krum", "bulyan"):
         gar = gars.instantiate(rule, 128, 8)
         out["GAR %s n=128" % rule] = time_ms(lambda: gar.aggregate(x128), torch)
     for key, value in out.items():
         if isinstance(value, float):
-            print("%-55s %.4f ms" % (key, value))
+            print("%-55s %.4f %s" % (key, value, "MB" if "MB" in key else "ms"))
     print(json.dumps(out))
 
 

@@ -11,9 +11,11 @@ bit-exact (each returns original values, or the mean of two, as its plain
 version computes it); K4, K5, K6 rtol 1e-6 plus atol 1e-6 on unit-scale
 inputs (means of up to n float32 values summed in another order); K1 rtol
 1e-5 (d squares summed per column chunk, then across chunks); K2, off the
-diagonal, |a - b| <= 1e-5 (|x_i|^2 + |x_j|^2), the error scale of a Gram
-form, whose terms are as large as the squared norms, with the same
-non-finite pattern.
+diagonal, |a - b| <= 1e-5 (|x_i|^2 + |x_j|^2) on the centred rows, the
+error scale of a Gram form, whose terms are as large as the squared norms,
+with the same non-finite pattern, every non-finite entry NaN (a 3xTF32
+split cannot keep float32's mix of +inf and NaN), the diagonal 0 and the
+output symmetric bit for bit.
 """
 
 import numpy as np
@@ -60,15 +62,18 @@ def _close(got, want, rtol, atol=0.0):
 
 
 def _gram_close(got, want, x):
-    """K2 against its plain version on the rows x (already centred)."""
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    """K2's output against ``want`` on the centred rows x: the same entries
+    non-finite, each of them NaN in K2's output; the tolerance off the
+    diagonal; the diagonal 0; symmetric bit for bit."""
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    assert np.all(np.isnan(got[~np.isfinite(got)]))
     norms = np.sum(np.square(x.astype(np.float64)), axis=1)
     scale = norms[:, None] + norms[None, :]
     finite = np.isfinite(want) & ~np.eye(len(x), dtype=bool)
     assert np.all(np.abs(got - want)[finite] <= 1e-5 * scale[finite])
     diagonal = np.isfinite(np.diag(want))
-    assert np.all(np.diag(got)[diagonal] == 0.0) and np.array_equal(got, got.T, equal_nan=True)
+    assert np.all(np.diag(got)[diagonal] == 0.0)
+    np.testing.assert_array_equal(got.view(np.int32), got.T.view(np.int32))
 
 
 @pytest.mark.gpu
@@ -118,10 +123,29 @@ def test_rank_kernels_beyond_64_rows(cuda_device, n):
            kernels.average_nan_columns_plain(x).cpu().numpy(), 1e-6, 1e-6)
     # beyond 64 rows the distances are K2's, on median-centred rows
     rows = torch.from_numpy(_poisoned(n, 3001, 6, True)).to(cuda_device)
-    centred = rows - kernels.nanmedian_columns(rows)[None, :]
+    centre = kernels.nanmedian_columns(rows)
+    centred = (rows - centre[None, :]).cpu().numpy()
     got = kernels.pairwise_sq_distances(rows).cpu().numpy()
-    _gram_close(got, kernels.pairwise_sq_distances_plain(rows).cpu().numpy(), centred.cpu().numpy())
-    _gram_close(kernels.pairwise_sq_distances_gram(centred).cpu().numpy(), got, centred.cpu().numpy())
+    _gram_close(got, kernels.pairwise_sq_distances_plain(rows).cpu().numpy(), centred)
+    _gram_close(kernels.pairwise_sq_distances_gram(rows, centre).cpu().numpy(), got, centred)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_centre", [True, False])
+@pytest.mark.parametrize("d", [4096, 4097, 4098, 4099])
+@pytest.mark.parametrize("n", [65, 127, 128, 129, 256])
+def test_gram_kernel_matches_plain_on_poisoned_rows(cuda_device, n, d, with_centre):
+    """K2 on the raw rows, centred as it loads, at every width residue mod 4
+    (its 8-byte copies for even widths, 4-byte for odd)."""
+    g = _poisoned(n, d, n + d, True)
+    g[: n // 2 + 1, 7] = np.nan  # a majority-NaN column
+    x = torch.from_numpy(g).to(cuda_device)
+    centre = kernels.nanmedian_columns(x) if with_centre else None
+    before = kernels.launch_counts()["pairwise_sq_distances_gram"]
+    got = kernels.pairwise_sq_distances_gram(x, centre).cpu().numpy()
+    assert kernels.launch_counts()["pairwise_sq_distances_gram"] == before + 1
+    rows = x if centre is None else x - centre[None, :]
+    _gram_close(got, kernels.pairwise_sq_distances_gram_plain(x, centre).cpu().numpy(), rows.cpu().numpy())
 
 
 @pytest.mark.gpu

@@ -210,17 +210,18 @@ def test_distance_chunk_fits_shared_memory():
         assert n * chunk * 4 <= 65536
 
 
-def test_gram_chunk_covers_the_card_with_whole_slabs():
-    for n in (65, 72, 128, 130, 256, 512):
-        tiles = -(-n // kernels.GRAM_TILE)
-        pairs = tiles * (tiles + 1) // 2
-        for d in (1, 31, 129, 4099, 1756682):
-            chunk = kernels.gram_chunk(n, d)
-            nb_chunks = -(-d // chunk)
-            assert chunk % kernels.GRAM_SLAB == 0 and chunk >= kernels.GRAM_SLAB
-            assert (nb_chunks - 1) * chunk < d <= nb_chunks * chunk
-            if d >= kernels.GRAM_TARGET_BLOCKS * kernels.GRAM_SLAB:
-                assert pairs * nb_chunks >= kernels.GRAM_TARGET_BLOCKS
+@pytest.mark.parametrize("n", [65, 72, 127, 128, 129, 130, 256, 512])
+def test_gram_chunk_covers_the_card_with_whole_slabs(n):
+    tiles = -(-n // kernels.GRAM_TILE)
+    pairs = tiles * (tiles + 1) // 2
+    assert tiles == (1 if n <= 128 else -(-n // 128))  # n <= 128: one block a chunk covers every pair
+    for d in (1, 31, 129, 4099, 1756682):
+        chunk = kernels.gram_chunk(n, d)
+        nb_chunks = -(-d // chunk)
+        assert chunk % kernels.GRAM_SLAB == 0 and chunk >= kernels.GRAM_SLAB
+        assert (nb_chunks - 1) * chunk < d <= nb_chunks * chunk
+        if d >= kernels.GRAM_TARGET_BLOCKS * kernels.GRAM_SLAB:
+            assert pairs * nb_chunks >= kernels.GRAM_TARGET_BLOCKS
 
 
 # --------------------------------------------------------------------------- #
@@ -320,3 +321,85 @@ def test_gram_plain_is_the_centred_form_clamped():
     # distances are translation-invariant: the raw rows give the same matrix within the Gram tolerance
     raw = kernels.pairwise_sq_distances_gram(x).numpy()
     _close(raw, got.numpy(), 1e-4, 1e-3)
+
+
+@pytest.mark.parametrize("n, d, seed", [(65, 129, 0), (70, 300, 1), (128, 257, 2), (130, 128, 3)])
+def test_gram_plain_takes_the_centre_bit_for_bit(n, d, seed):
+    """K2's plain version with a centre is the old route on ``x - centre``,
+    and the CPU distances beyond 64 rows are unchanged bit for bit."""
+    x = torch.from_numpy(_gram_input(n, d, seed))
+    centre = kernels.nanmedian_columns_plain(x)
+    want = kernels.pairwise_sq_distances_gram_plain(x - centre[None, :])
+    for got in (kernels.pairwise_sq_distances_gram_plain(x, centre), kernels.pairwise_sq_distances_gram(x, centre),
+                kernels.pairwise_sq_distances(x), kernels.pairwise_sq_distances_plain(x)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("centre, error", [
+    (torch.zeros(299), ValueError),
+    (torch.zeros((1, 300)), ValueError),
+    (torch.zeros(300, dtype=torch.float64), TypeError),
+    (torch.zeros(600)[::2], ValueError),
+    (np.zeros(300, np.float32), TypeError),
+])
+def test_gram_refuses_a_centre_it_does_not_take(centre, error):
+    with pytest.raises(error):
+        kernels.pairwise_sq_distances_gram(torch.zeros((70, 300)), centre)
+
+
+def _tf32_rna(v):
+    """cvt.rna.tf32.f32 on float32 values: the 13 low mantissa bits rounded to
+    nearest, ties away from zero (on the magnitude), for finite values."""
+    rounded = ((v.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    return np.where(np.isfinite(v), rounded, v)
+
+
+def _k2_emulated(x, centre, chunk):
+    """K2's arithmetic in numpy: centre, split v = hi + lo in TF32, per slab
+    of 32 columns lo.hi + hi.lo + hi.hi from zero (TF32 products are exact in
+    float32), slabs folded in float32 per chunk, chunks summed in order, then
+    (G_ii + G_jj) - 2 G_ij clamped at 0.  The tensor cores' own accumulation
+    inside a slab is not emulated (float32 BLAS stands in for it), so the
+    card's check against the plain version stays the judge."""
+    v = (x - centre[None, :]).astype(np.float32)
+    hi = _tf32_rna(v)
+    lo = _tf32_rna((v - hi).astype(np.float32))
+    n, d = v.shape
+    gram = np.zeros((n, n), np.float32)
+    for c0 in range(0, d, chunk):
+        acc = np.zeros((n, n), np.float32)
+        for s0 in range(c0, min(c0 + chunk, d), kernels.GRAM_SLAB):
+            h, l = hi[:, s0:s0 + kernels.GRAM_SLAB], lo[:, s0:s0 + kernels.GRAM_SLAB]
+            acc += (l @ h.T + h @ l.T) + h @ h.T
+        gram += acc
+    norms = np.diag(gram)
+    dist = (norms[:, None] + norms[None, :]) - np.float32(2.0) * gram
+    return np.maximum(dist, np.float32(0.0))
+
+
+def test_k2_tf32_split_arithmetic_keeps_the_tolerance_and_krums_choice():
+    """The design's error on the CPU, before the card sees it: mixed row
+    scales and a separated attacker group at (128, 65,536)."""
+    from aggregathor_tpu_torch import gars
+
+    n, d, f = 128, 65536, 8
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x *= (1.0 + 0.01 * np.arange(n, dtype=np.float32))[:, None]  # row scales 1 to 2.27
+    x[:f] += np.float32(25.0)  # the attackers, off to one side
+    x *= np.exp(rng.normal(scale=1.0, size=d)).astype(np.float32)[None, :]  # column scales
+    x += np.float32(10.0)  # an offset the centring removes
+    xt = torch.from_numpy(x)
+    centre = kernels.nanmedian_columns_plain(xt).numpy()
+    got = _k2_emulated(x, centre, kernels.gram_chunk(n, d))
+    rows = x.astype(np.float64) - centre.astype(np.float64)[None, :]
+    norms = np.sum(rows * rows, axis=1)
+    exact = np.maximum(norms[:, None] + norms[None, :] - 2.0 * rows @ rows.T, 0.0)
+    scale = norms[:, None] + norms[None, :]
+    err = np.abs(got.astype(np.float64) - exact)
+    assert np.all(np.diag(got) == 0.0) and np.array_equal(got, got.T)
+    assert np.max(err / scale) <= 1e-5, np.max(err / scale)
+    gar = gars.instantiate("krum", n, f)
+    plain = gar.selection_weights(kernels.pairwise_sq_distances_plain(xt))
+    assert torch.equal(gar.selection_weights(torch.from_numpy(got)), plain)
+    assert torch.all(plain[:f] == 0)  # the attackers are not selected
