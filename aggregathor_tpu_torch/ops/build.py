@@ -3,9 +3,9 @@
 Each source compiles with ``nvcc`` into its own shared library with a plain C
 interface (no PyTorch headers: a build takes seconds, not minutes), loaded
 with ``ctypes``.  All sources build in parallel, one ``nvcc`` process each.
-The libraries land in ``ops/.build-<hash>/``, keyed by the sources' bytes and
-the compiler flags, so an edited source rebuilds and an unchanged one loads
-at once; ``.gitignore`` lists the directory.
+The libraries land in ``ops/.build-<hash>/``, keyed by the bytes of every
+file in ``ops/csrc`` (sources and headers) and the compiler flags, so an
+edited source rebuilds and an unchanged one loads at once; ``.gitignore`` lists the directory.
 
 A failed build raises with nvcc's stderr.  Nothing falls back to the plain
 PyTorch versions: on a CUDA tensor the kernel runs or the call raises.
@@ -42,10 +42,10 @@ def _nvcc():
 
 
 def build_dir():
-    """The directory the current sources and flags build into."""
+    """The directory the current sources, their headers and the flags build into."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name + ".cu"), "rb") as fd:
+    for name in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, name), "rb") as fd:
             digest.update(name.encode() + b"\0" + fd.read())
     return os.path.join(os.path.dirname(CSRC), ".build-" + digest.hexdigest()[:16])
 
@@ -103,7 +103,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: narrows a 64-bit address to a 32-bit int
 _SIGNATURES = {
     "distances": {
-        "agg_pairwise_sq_distances": (_P, _P, _P, _I, _LL, _I, _P),
+        # n, d, the card's SMs -> the grid's blocks (the scratch's rows)
+        "agg_pairwise_sq_distances_blocks": (_I, _LL, _I),
+        # x, out, scratch, counter, n, d, the card's SMs, stream
+        "agg_pairwise_sq_distances": (_P, _P, _P, _P, _I, _LL, _I, _P),
     },
     "coordinate": {
         # the rank entries end with the sort layout: rows, lanes, columns, stride

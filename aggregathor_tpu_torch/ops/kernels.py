@@ -27,6 +27,7 @@ kernels' sort path), clamped at 0.  K2 takes the raw rows and the centre and
 subtracts it as it loads, so no centred (n, d) copy is made.
 """
 
+import functools
 import math
 
 import torch
@@ -111,12 +112,14 @@ def _check(x):
     return x.device.type == "cuda"
 
 
-def _launch(name, source, symbol, x, *args):
-    """Run C entry ``symbol`` of ``source`` on x's device and current stream."""
+def _launch(name, source, symbol, x, *args, stream=None):
+    """Run C entry ``symbol`` of ``source`` on x's device and ``stream`` (by
+    default the device's current stream)."""
     fn = getattr(build.library(source), symbol)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = fn(*args, stream)
+        if stream is None:
+            stream = torch.cuda.current_stream(x.device)
+        status = fn(*args, stream.cuda_stream)
     if status != 0:
         raise RuntimeError("CUDA error %d launching %s (%s)" % (status, name, symbol))
     KERNELS[name].launches += 1
@@ -129,13 +132,26 @@ def _inf_key(x):
 # --------------------------------------------------------------------------- #
 # K1: pairwise squared distances
 
-def distance_chunk(n):
-    """Columns per K1 block: the largest power of two <= 1024 whose (n, chunk)
-    float32 slab fits in 64 KB of shared memory (256 at n = 64)."""
-    chunk = 1024
-    while chunk > 32 and n * chunk * 4 > 65536:
-        chunk //= 2
-    return chunk
+@functools.lru_cache(maxsize=None)
+def _distance_grid(n, d, device_index):
+    """(K1's blocks, the card's SMs) for an (n, d) matrix on card
+    ``device_index``: distances.cu lays the kernel out from n, d and the SM
+    count (distances_layout.h), and the blocks size the scratch."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return build.library("distances").agg_pairwise_sq_distances_blocks(n, d, sms), sms
+
+
+_counters = {}
+
+
+def _arrival_counter(device, stream):
+    """K1's arrival counter for ``stream`` of ``device``: one zeroed int32,
+    which the kernel's last block resets, shared by no two streams."""
+    key = (device.index, stream.cuda_stream)
+    counter = _counters.get(key)
+    if counter is None:
+        counter = _counters[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return counter
 
 
 def pairwise_sq_distances_plain(x):
@@ -160,12 +176,13 @@ def pairwise_sq_distances(x):
     n, d = x.shape
     if n > DISTANCE_MAX_ROWS:
         return pairwise_sq_distances_gram(x, nanmedian_columns(x))
-    chunk = distance_chunk(n)
-    nb_chunks = -(-d // chunk)
+    blocks, sms = _distance_grid(n, d, x.device.index)
+    stream = torch.cuda.current_stream(x.device)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((n * (n + 1) // 2, nb_chunks), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((blocks, n * (n + 1) // 2), dtype=torch.float32, device=x.device)
     _launch("pairwise_sq_distances", "distances", "agg_pairwise_sq_distances",
-            x, x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, d, chunk)
+            x, x.data_ptr(), out.data_ptr(), scratch.data_ptr(), _arrival_counter(x.device, stream).data_ptr(),
+            n, d, sms, stream=stream)
     return out
 
 

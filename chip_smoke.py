@@ -15,11 +15,14 @@ Phases, in order (any failure exits non-zero and prints no result):
    its column median, Krum's distances at n=128 (K2 centres as it loads) --
    and on poisoned inputs: NaN and +-inf rows and columns, tied values, a
    majority-NaN column, widths that are no multiple of the kernels' chunks,
-   n=256 (and n=64 for K1; for K2 n = 65, 127, 128, 129 and 256 at widths of
-   every residue mod 4, with and without a centre, and an even width on a
-   4-byte-aligned start).  Tolerances: K3 bit-exact (the kernel returns an
-   original value); K4, K5, K6: same NaN/inf pattern, |a - b| <= 1e-6 (1 +
-   |b|) (sums of unit-scale float32 values in another order); K1: same NaN
+   n=256 (for K1 n = 1, 3, 16, 17, and 20 and 21 on both sides of its
+   switch from registers to staged tiles, 33 and 64, the (64, 1,756,682)
+   matrix, and even widths on a 4-byte-aligned start at n = 8, 17 and 21;
+   for K2 n = 65, 127, 128, 129 and 256 at widths of every residue mod 4,
+   with and without a centre, and an even width on a 4-byte-aligned
+   start).  Tolerances: K3 bit-exact (the kernel returns an original
+   value); K4, K5, K6: same NaN/inf pattern, |a - b| <= 1e-6 (1 + |b|)
+   (sums of unit-scale float32 values in another order); K1: same NaN
    pattern, relative 1e-5 (a sum of d squares in another order; the
    diagonal must be 0 in both); K2: the same non-finite pattern with every
    non-finite entry NaN (its 3xTF32 split turns an inf into NaN parts, so it
@@ -33,12 +36,15 @@ Phases, in order (any failure exits non-zero and prints no result):
    (128, 1,756,682)) and on poisoned inputs at n = 65, 127, 128, 129, 256
    and 1000, and at 1030 on the re-reading path (NaN/+-inf rows and columns, an all-NaN and a majority-NaN
    column, signed zeros, ties, widths off the blocks' column counts).  Each
-   kernel is timed with CUDA events at its main-path shape (K3-K5 also at
-   their sort-path shape) beside its plain version, one PyTorch library call
+   kernel is timed with CUDA events at its main-path shape (K1 also at
+   (11, d) and (64, d), K3-K5 also at their sort-path shape), and by
+   torch.profiler for its time on the card alone (without the host's time
+   between calls), beside its plain version, one PyTorch library call
    where one computes the same function, and its bound: max(bytes moved /
-   3.35 TB/s, operations / 67 TFLOP/s FP32), the operations of the sort path
-   being its compare-exchanges, those of K2 its 3xTF32 tensor-core products
-   at 495 TFLOP/s.  K2's row also times the whole distance path on the raw
+   3.35 TB/s, operations / 67 TFLOP/s FP32), the operations of K1 being
+   its pairs i < j (the diagonal needs only a row's finiteness), those of
+   the sort path its compare-exchanges, those of K2 its 3xTF32 tensor-core
+   products at 495 TFLOP/s.  K2's row also times the whole distance path on the raw
    (128, d) (centring and K2).  Distances of 64 rows must launch K1 and of
    65 the centring and K2.
 3. Drive the port's runner on the card: cnnet + krum (n=8, f=2, r=2
@@ -52,7 +58,8 @@ Phases, in order (any failure exits non-zero and prints no result):
    memory is printed.  Then each rule's
    aggregate of a small poisoned matrix on the card is held against the
    same rule on the CPU (Krum's and Bulyan's selections must be identical,
-   at n=11, n=72 and n=128), three MLP steps on the card against the same steps
+   at n=11, n=72 and n=128, and Krum's near a tie, ``NEAR_TIES``), three MLP
+   steps on the card against the same steps
    on the CPU, without and with --UDP-style loss, and each rule's time on
    the (n, d) cnnet matrix is read (GAR ms a step).
    Last, a cnnet + krum step is split into its phases (host batch, transfer,
@@ -72,6 +79,11 @@ MEMORY_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM, FP32 outside the tensor cores
 TF32_OPS_PER_S = 495e12       # H100 SXM, dense TF32 on the tensor cores
 CNNET_D = 1756682
+#: Krum near a tie (n, f, d, margin): the two scores at the selection's
+#: boundary differ by ``margin`` relative, just above the distance kernel's
+#: measured error on these rows (K1 at n = 8: scores within 7.9e-8 of
+#: float64; the centring and K2 at n = 72 and 128: within 5.4e-7)
+NEAR_TIES = ((8, 2, CNNET_D, 2e-7), (72, 8, 100003, 1.5e-6), (128, 8, 100003, 1.5e-6))
 
 
 def fail(message):
@@ -106,6 +118,36 @@ def time_ms(fn, torch, iters=20, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, torch, iters=20, warmup=3, tries=3):
+    """Mean milliseconds of the port's own kernels in fn(): the summed
+    durations of their events in a torch.profiler trace of ``iters`` calls,
+    without the host's time between launches.  The port's kernels are those
+    of ops/csrc, which keep them in an anonymous namespace (PyTorch's live in
+    at::).  A trace of one call counts them; a trace of ``iters`` calls that
+    does not hold ``iters`` times as many has lost some (it happens): both
+    are taken again, and after ``tries`` such pairs the time is None, not
+    measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and ("(anonymous namespace)::" in e.name or "_GLOBAL__N_" in e.name)]
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        per_call = len(traced(1))
+        events = traced(iters)
+        if per_call and len(events) == per_call * iters:
+            return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+    return None
+
+
 def poison(x, columns=True):
     """A NaN row, scattered +-inf and NaN values, tied values and two equal
     rows; with ``columns``, also whole NaN and +-inf columns (which would
@@ -124,6 +166,55 @@ def poison(x, columns=True):
     if n > 3:
         x[n - 2] = x[n - 3]  # two identical rows: a zero distance
     return x
+
+
+def krum_near_tie(torch, n, f, d, margin, seed):
+    """(n, d) float32 rows on the CPU whose Multi-Krum scores straddle the
+    selection's boundary by ``margin``, and the (n,) bool selection.
+
+    With m = n - f - 2 rows selected, the smallest score outside the
+    selection exceeds the largest inside by ``margin`` times the latter, in
+    float64 on the float32 rows.  Rows are normals at distinct scales, so the
+    scores start well apart; the last selected row then moves along a fixed
+    random direction, the step set by bisection until the gap is the margin."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, d), generator=gen) * (1.0 + 0.05 * torch.arange(float(n)))[:, None]
+    direction = torch.randn(d, generator=gen, dtype=torch.float64)
+    x64 = x.double()
+    norms = torch.sum(x64 * x64, dim=1)
+    dist = torch.clamp_min(norms[:, None] + norms[None, :] - 2.0 * (x64 @ x64.T), 0.0)
+    m = n - f - 2
+
+    def scores(dist):
+        off = dist + torch.diag(torch.full((n,), torch.inf, dtype=torch.float64))
+        return torch.sum(torch.sort(off, dim=1).values[:, :m], dim=1)
+
+    order = torch.argsort(scores(dist), stable=True)
+    selected = torch.zeros(n, dtype=torch.bool)
+    selected[order[:m]] = True
+    moved = int(order[m - 1])
+
+    def gap(step):
+        row = (x64[moved] + step * direction).float()
+        row64 = row.double()
+        to_row = torch.clamp_min(norms + torch.sum(row64 * row64) - 2.0 * (x64 @ row64), 0.0)
+        to_row[moved] = 0.0
+        trial = dist.clone()
+        trial[moved], trial[:, moved] = to_row, to_row
+        s = scores(trial)
+        return float(s[~selected].min() - s[selected].max()) - margin * float(s[selected].max()), row
+
+    low, high = 0.0, 1e-3
+    while gap(high)[0] > 0:
+        low, high = high, 2 * high
+    for _ in range(60):
+        mid = (low + high) / 2
+        if gap(mid)[0] > 0:
+            low = mid
+        else:
+            high = mid
+    x[moved] = gap(low)[1]
+    return x, selected
 
 
 def compare(name, a, b, torch, x=None, args=()):
@@ -172,7 +263,9 @@ def bounds(kernels, name, n, d):
     """(bytes, operations, what the operations count, their peak rate) of one
     call at (n, d)."""
     if name == "pairwise_sq_distances":
-        return n * d * 4 + n * n * 4, n * (n + 1) // 2 * d * 3, "3 per pair and column", FP32_OPS_PER_S
+        # the diagonal is 0 or NaN, which a row's finiteness decides: a test a value
+        return (n * d * 4 + n * n * 4, n * (n - 1) // 2 * d * 3 + n * d,
+                "3 per pair i < j and column, a test per value", FP32_OPS_PER_S)
     if name == "pairwise_sq_distances_gram":
         # x and the centre read once; FP32 accuracy on the tensor cores takes
         # 3 TF32 products (lo.hi, hi.lo, hi.hi) of a multiply and an add
@@ -197,11 +290,12 @@ def timed_row(torch, kernels, name, x, args, library, max_abs_err):
     kernel, plain = getattr(kernels, name), kernels.PLAIN[name]
     n, d = x.shape
     ms = time_ms(lambda: kernel(x, *args), torch, iters=20 if n > 64 else 50, warmup=5)
+    kernel_ms = device_ms(lambda: kernel(x, *args), torch)
     plain_ms = time_ms(lambda: plain(x, *args), torch, iters=5)
     library_ms = time_ms(lambda: library(x), torch, iters=5) if library else None
     nbytes, ops, counted, peak = bounds(kernels, name, n, d)
     bytes_ms, ops_ms = nbytes / MEMORY_BYTES_PER_S * 1e3, ops / peak * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+    return {"ms": ms, "device_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": library_ms,
             "shape": [n, d], "max_abs_err": max_abs_err, "operations": ops, "operations_ms": ops_ms,
             "operations_counted": counted, "operations_per_s": peak}
@@ -239,6 +333,7 @@ def kernel_phase(torch, kernels):
 
     main = randn(8, CNNET_D)
     bulyan_rows = randn(11, CNNET_D)
+    k1_wide = randn(64, CNNET_D)  # K1 at the most rows it serves
     bulyan_sel = randn(5, CNNET_D)
     raw128 = randn(128, CNNET_D)
     bulyan128 = raw128[:110].contiguous()  # Bulyan's t = 110 selections at n = 128, f = 8
@@ -249,9 +344,14 @@ def kernel_phase(torch, kernels):
     # widths off the sort blocks' 32/16/8 columns
     beyond = [(n, 4099 if n <= 256 else 1025) for n in (65, 127, 128, 129, 256, 1000, 1030)]
     cases = {
-        "pairwise_sq_distances": [(main, ()), (bulyan_rows, ()), (poison(randn(8, 100003), False), ()),
+        # K1's register path up to 20 rows, its staged path beyond (N = 32, 64)
+        "pairwise_sq_distances": [(main, ()), (bulyan_rows, ()), (k1_wide, ()), (poison(randn(8, 100003), False), ()),
                                   (poison(randn(11, 5001), False), ()), (poison(randn(64, 20011), False), ()),
-                                  (poison(randn(3, 129), False), ())],
+                                  (poison(randn(3, 129), False), ()), (poison(randn(16, 20011), False), ()),
+                                  (poison(randn(16, 4098), False), ()), (poison(randn(17, 20011), False), ()),
+                                  (poison(randn(17, 4099), False), ()), (poison(randn(20, 4098), False), ()),
+                                  (poison(randn(21, 4099), False), ()), (poison(randn(33, 4098), False), ()),
+                                  (randn(1, 129), ())],
         "coordinate_median": [(main, ()), (poison(randn(8, 100003)), ()),
                               (poison(randn(11, 5001)), ()), (poison(randn(256, 4099)), ()),
                               (poison(randn(33, 1025)), ())],
@@ -274,9 +374,14 @@ def kernel_phase(torch, kernels):
         "nanmedian_columns": [(raw128, ()), (rank_poison(7, 3001), ())]
                              + [(rank_poison(n, d), ()) for n, d in beyond],
     }
-    # an even width on a start that is only 4-byte aligned: K2's 4-byte copies
-    unaligned = randn(1, 1 + 130 * 4098)[0, 1:].view(130, 4098)
+    # an even width on a start that is only 4-byte aligned: K2's 4-byte
+    # copies, K1's 4-byte loads (8 and 17 rows) and copies (21 rows)
+    def unaligned_rows(n, d):
+        return randn(1, 1 + n * d)[0, 1:].view(n, d)
+
+    unaligned = unaligned_rows(130, 4098)
     cases["pairwise_sq_distances_gram"].append((unaligned, (kernels.nanmedian_columns(unaligned),)))
+    cases["pairwise_sq_distances"] += [(poison(unaligned_rows(n, 4098), False), ()) for n in (8, 17, 21)]
     for n, d in beyond:
         cases["coordinate_median"].append((rank_poison(n, d), ()))
         cases["coordinate_averaged_median"] += [(rank_poison(n, d), (n - n // 8,)), (rank_poison(n, d), (1,))]
@@ -298,9 +403,10 @@ def kernel_phase(torch, kernels):
     }
 
     def report(name, label, row, held):
-        print("kernel %-27s %s (%d, %d): %.4f ms, plain %.3f ms, library %s ms, bound %.1f us (%s; "
-              "operations %.1f us), max |err| %g, %d inputs held"
-              % (name, label, row["shape"][0], row["shape"][1], row["ms"], row["plain_ms"],
+        print("kernel %-27s %s (%d, %d): %.4f ms (on the card %s ms), plain %.3f ms, library %s ms, "
+              "bound %.1f us (%s; operations %.1f us), max |err| %g, %d inputs held"
+              % (name, label, row["shape"][0], row["shape"][1], row["ms"],
+                 "not measured" if row["device_ms"] is None else "%.4f" % row["device_ms"], row["plain_ms"],
                  "%.3f" % row["library_ms"] if row["library_ms"] is not None else "-",
                  row["bound_ms"] * 1e3, row["bound_by"], row["operations_ms"] * 1e3, row["max_abs_err"], held))
 
@@ -323,6 +429,13 @@ def kernel_phase(torch, kernels):
             row["distance_path_ms"] = time_ms(lambda: kernels.pairwise_sq_distances(x), torch, iters=20, warmup=5)
             print("distances pairwise_sq_distances raw (%d, %d): %.4f ms (centring + K2), torch.cdist %.3f ms"
                   % (x.shape[0], x.shape[1], row["distance_path_ms"], row["library_ms"]))
+        if name == "pairwise_sq_distances":
+            # K1 at the other widths it serves: Bulyan's 11 rows (registers),
+            # and 64, the most rows (staged tiles)
+            row["other_shapes"] = [timed_row(torch, kernels, name, other, (), library[name], err)
+                                   for other, err in ((bulyan_rows, errors[1]), (k1_wide, errors[2]))]
+            for other in row["other_shapes"]:
+                report(name, info.label, other, 1)
         if name in sort_main:
             # the sort path beyond 64 rows, at its main-path shape
             x, args = sort_main[name]
@@ -339,7 +452,7 @@ def kernel_phase(torch, kernels):
         launched = {k: after[k] - before[k] for k in after}
         check(launched == {k: int(k in want) for k in after},
               "distances at n=%d launched %s (want %s once each)" % (n, launched, sorted(want)))
-    del main, bulyan_rows, bulyan_sel, raw128, bulyan128, udp, unaligned, cases, sort_main
+    del main, bulyan_rows, k1_wide, bulyan_sel, raw128, bulyan128, udp, unaligned, cases, sort_main
     torch.cuda.empty_cache()
     return rows
 
@@ -435,6 +548,24 @@ def reference_phase(torch, gars, kernels, models):
         x[60, 7::89] = float("nan")
         for rule in ("krum", "bulyan"):
             agree(rule, x, 8)
+    # Krum near a tie: the selection's boundary scores differ by a margin
+    # just above the distance kernels' measured error (K1 at n = 8, the
+    # centring and K2 at n = 72 and 128)
+    from aggregathor_tpu_torch.gars.krum import krum_scores
+
+    for n, f, d, margin in NEAR_TIES:
+        x, selected = krum_near_tie(torch, n, f, d, margin, n)
+        gar = gars.instantiate("krum", n, f)
+        on_card, on_cpu = kernels.pairwise_sq_distances(x.cuda()).cpu(), kernels.pairwise_sq_distances(x)
+        check(torch.equal(gar.selection_weights(on_card.cuda()).cpu() > 0, gar.selection_weights(on_cpu) > 0)
+              and torch.equal(gar.selection_weights(on_cpu) > 0, selected),
+              "krum near a tie (n=%d, margin %g): the card's selection differs from the CPU's" % (n, margin))
+        x64 = x.double()
+        norms = torch.sum(x64 * x64, dim=1)
+        exact = krum_scores(torch.clamp_min(norms[:, None] + norms[None, :] - 2.0 * (x64 @ x64.T), 0.0), n, f)
+        print("krum near a tie n=%d d=%d margin %g: scores within %.3g (card) and %.3g (CPU) of float64, relative"
+              % (n, d, margin, float(torch.max(torch.abs(krum_scores(on_card, n, f).double() - exact) / exact)),
+                 float(torch.max(torch.abs(krum_scores(on_cpu, n, f).double() - exact) / exact))))
 
     def mlp_steps(device, lossy_link, rule):
         exp = models.instantiate("mnist", ["hidden:16", "batch-size:16"])
@@ -458,7 +589,9 @@ def reference_phase(torch, gars, kernels, models):
               "3 MLP %s steps on the card differ from the CPU (max %g)"
               % (label, float((finals[0] - finals[1]).abs().max())))
     print("reference: %d rules on a poisoned (11, 3001) matrix, krum and bulyan on poisoned (72, 3001) and "
-          "(128, 3001) matrices, and 3 MLP steps of krum and of average-nan under --UDP agree with the CPU" % len(rules))
+          "(128, 3001) matrices, krum's selection near a tie (%s), and 3 MLP steps of krum and of average-nan "
+          "under --UDP agree with the CPU" % (len(rules), ", ".join("n=%d d=%d margin %g" % (n, d, m)
+                                                                  for n, _, d, m in NEAR_TIES)))
 
 
 def gar_phase(torch, gars):

@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""Time the port's kernels beyond 64 rows of any checkout on one GPU.
+"""Time the port's distance and rank kernels of any checkout on one GPU.
 
-    python3 scripts/torch_rank_timing.py [--root CHECKOUT]
+    python3 scripts/torch_rank_timing.py [--root CHECKOUT] [--parts k1,rank,end-to-end]
+                                         [--k1-rows 8,11,16,20,21,64]
 
 Times, with ``chip_smoke.time_ms`` (CUDA events, 20 calls after 3 warm-up
 calls), on random (seeded) cnnet-width inputs
 (d = 1,756,682, the cnnet gradient length):
 
-- K3 ``coordinate_median`` at (128, d), beside ``torch.kthvalue`` (the
-  library call computing the same upper median on finite input);
-- K4 ``coordinate_averaged_median`` at (110, d) with beta = 94: Bulyan's last
-  phase at n = 128, f = 8;
-- K5 ``coordinate_trimmed_mean`` at (128, d) with trim 8 and keep 112;
-- the median centring in front of K2, ``nanmedian_columns``, at (128, d);
-- the distance path ``pairwise_sq_distances`` on the raw (128, d) (the
-  centring and K2), with its peak device memory above the input's, and K2
+- ``k1``: K1 ``pairwise_sq_distances`` at (n, d) for each n of
+  ``--k1-rows`` (by default Krum's and Bulyan's main path, 8 and 11, both
+  sides of its switch from registers to staged tiles, 16, 20 and 21, and
+  64, the most rows it serves), each also by ``chip_smoke.device_ms``
+  (torch.profiler: the card's own time, without the host's between calls);
+- ``rank``: K3 ``coordinate_median`` at (128, d), beside ``torch.kthvalue``
+  (the library call computing the same upper median on finite input);
+  K4 ``coordinate_averaged_median`` at (110, d) with beta = 94: Bulyan's
+  last phase at n = 128, f = 8; K5 ``coordinate_trimmed_mean`` at (128, d)
+  with trim 8 and keep 112; the median centring in front of K2,
+  ``nanmedian_columns``, at (128, d); the distance path
+  ``pairwise_sq_distances`` on the raw (128, d) (the centring and K2),
+  with its peak device memory above the input's, and K2
   ``pairwise_sq_distances_gram`` alone on the centred (128, d) (both calls
-  take the same arguments in every version of the port);
-- GAR ms per step of krum and bulyan at n = 128, f = 8 on (128, d).
+  take the same arguments in every version of the port); GAR ms per step
+  of krum and bulyan at n = 128, f = 8 on (128, d);
+- ``end-to-end``: GAR ms per step of krum at n = 8, f = 2; steps/s
+  (excluding the first) of ``chip_smoke.LEGS``' legs of 8 workers, each run
+  for ``LEG_STEPS`` steps through the checkout's runner; and
+  ``chip_smoke.breakdown_phase``'s split of a cnnet + krum step at n = 8.
 
 ``--root`` names the checkout whose ``aggregathor_tpu_torch`` is imported
 (default: the one holding this script), so the same inputs and timer serve
@@ -33,33 +43,72 @@ import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: steps of each leg in the end-to-end part (chip_smoke's legs take 5 to 30)
+LEG_STEPS = 20
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=HERE)
+    parser.add_argument("--parts", default="k1,rank", help="what to time: k1, rank, end-to-end")
+    parser.add_argument("--k1-rows", default="8,11,16,20,21,64", help="the row counts K1 is timed at")
     args = parser.parse_args()
+    parts = set(args.parts.split(","))
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("torch_rank_timing: no CUDA device")
     sys.path.insert(0, HERE)
-    from chip_smoke import CNNET_D, card_line, time_ms  # this checkout's timer, for every root
+    # this checkout's timers, legs and step split, for every root
+    from chip_smoke import CNNET_D, LEGS, breakdown_phase, card_line, device_ms, time_ms
 
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    from aggregathor_tpu_torch import gars
+    from aggregathor_tpu_torch import gars, models
+    from aggregathor_tpu_torch.cli import runner
     from aggregathor_tpu_torch.ops import build, kernels
 
     card = card_line()
     print(card)
     build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(20261016)
-    x128 = torch.randn((128, CNNET_D), device="cuda", generator=gen)
+    out = {"root": root, "card": card}
+    if "k1" in parts:
+        for n in map(int, args.k1_rows.split(",")):
+            x = torch.randn((n, CNNET_D), device="cuda", generator=gen)
+            out["K1 pairwise_sq_distances (%d, d)" % n] = time_ms(lambda: kernels.pairwise_sq_distances(x), torch)
+            out["K1 pairwise_sq_distances (%d, d) on the card" % n] = device_ms(
+                lambda: kernels.pairwise_sq_distances(x), torch)
+            del x
+    if "end-to-end" in parts:
+        x = torch.randn((8, CNNET_D), device="cuda", generator=gen)
+        gar = gars.instantiate("krum", 8, 2)
+        out["GAR krum n=8"] = time_ms(lambda: gar.aggregate(x), torch)
+        del x
+        for label, argv, _ in LEGS:
+            if argv[argv.index("--nb-workers") + 1] != "8":
+                continue
+            argv = list(argv)
+            argv[argv.index("--max-step") + 1] = str(LEG_STEPS)
+            result = runner.main(["--experiment", "cnnet", "--seed", "1", *argv])
+            out["leg %s steps/s" % label] = result["steps_per_s"]
+        phases, busy = breakdown_phase(torch, gars, models)
+        for phase, ms in phases.items():
+            out["breakdown krum n=8 %s ms" % phase] = ms
+        out["breakdown krum n=8 busy share"] = busy
+    if "rank" in parts:
+        rank_timings(torch, kernels, gars, gen, out, CNNET_D, time_ms)
+    for key, value in out.items():
+        if isinstance(value, float):
+            print("%-55s %.4f %s" % (key, value, "MB" if "MB" in key else "ms" if "ms" in key else ""))
+    print(json.dumps(out))
+
+
+def rank_timings(torch, kernels, gars, gen, out, d, time_ms):
+    """The ``rank`` part, into ``out``."""
+    x128 = torch.randn((128, d), device="cuda", generator=gen)
     x110 = x128[:110].contiguous()
-    out = {
-        "root": root,
-        "card": card,
+    out.update({
         "K3 coordinate_median (128, d)": time_ms(lambda: kernels.coordinate_median(x128), torch),
         "torch.kthvalue (128, d)": time_ms(lambda: torch.kthvalue(x128, 65, dim=0).values, torch),
         "K4 coordinate_averaged_median (110, d) beta=94":
@@ -68,7 +117,7 @@ def main():
             time_ms(lambda: kernels.coordinate_trimmed_mean(x128, 8, 112), torch),
         "centring nanmedian_columns (128, d)": time_ms(lambda: kernels.nanmedian_columns(x128), torch),
         "distances pairwise_sq_distances raw (128, d)": time_ms(lambda: kernels.pairwise_sq_distances(x128), torch),
-    }
+    })
     centred = x128 - kernels.nanmedian_columns(x128)[None, :]
     out["K2 pairwise_sq_distances_gram centred (128, d)"] = time_ms(
         lambda: kernels.pairwise_sq_distances_gram(centred), torch)
@@ -82,10 +131,6 @@ def main():
     for rule in ("krum", "bulyan"):
         gar = gars.instantiate(rule, 128, 8)
         out["GAR %s n=128" % rule] = time_ms(lambda: gar.aggregate(x128), torch)
-    for key, value in out.items():
-        if isinstance(value, float):
-            print("%-55s %.4f %s" % (key, value, "MB" if "MB" in key else "ms"))
-    print(json.dumps(out))
 
 
 if __name__ == "__main__":

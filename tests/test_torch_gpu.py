@@ -10,7 +10,8 @@ Tolerances, each from the order of summation: K3 and the centring median
 bit-exact (each returns original values, or the mean of two, as its plain
 version computes it); K4, K5, K6 rtol 1e-6 plus atol 1e-6 on unit-scale
 inputs (means of up to n float32 values summed in another order); K1 rtol
-1e-5 (d squares summed per column chunk, then across chunks); K2, off the
+1e-5 (d squares summed per thread, then by warp, block and across blocks);
+K2, off the
 diagonal, |a - b| <= 1e-5 (|x_i|^2 + |x_j|^2) on the centred rows, the
 error scale of a Gram form, whose terms are as large as the squared norms,
 with the same non-finite pattern, every non-finite entry NaN (a 3xTF32
@@ -77,7 +78,9 @@ def _gram_close(got, want, x):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n, d", [(11, 5001), (8, 1023), (64, 2049), (3, 129)])
+@pytest.mark.parametrize("n, d", [(11, 5001), (8, 1023), (64, 2049), (3, 129), (1, 129), (2, 4098), (16, 4099),
+                                  (16, 2050), (17, 4098), (17, 1023), (20, 4099), (21, 4098), (33, 2049),
+                                  (33, 4098)])
 @pytest.mark.parametrize("name", sorted(kernels.PLAIN))
 def test_cuda_kernels_match_plain(cuda_device, name, n, d):
     x = torch.from_numpy(_poisoned(n, d, 13, name.startswith("pairwise"))).to(cuda_device)
@@ -146,6 +149,55 @@ def test_gram_kernel_matches_plain_on_poisoned_rows(cuda_device, n, d, with_cent
     assert kernels.launch_counts()["pairwise_sq_distances_gram"] == before + 1
     rows = x if centre is None else x - centre[None, :]
     _gram_close(got, kernels.pairwise_sq_distances_gram_plain(x, centre).cpu().numpy(), rows.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 8, 11, 16, 17, 20, 21, 33, 64])
+def test_distances_on_a_start_only_4_byte_aligned(cuda_device, n):
+    """An even width on a start that is only 4-byte aligned: K1 takes its
+    4-byte loads (register path) or copies (staged path)."""
+    g = _poisoned(n, 4098, 17 + n, True)
+    buffer = torch.empty(1 + n * 4098, device=cuda_device)
+    buffer[1:] = torch.from_numpy(g.reshape(-1)).to(cuda_device)
+    x = buffer[1:].view(n, 4098)
+    assert x.data_ptr() % 8 == 4
+    _close(kernels.pairwise_sq_distances(x).cpu().numpy(), kernels.pairwise_sq_distances_plain(x).cpu().numpy(), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8, 11, 64])
+def test_distances_repeat_bit_for_bit(cuda_device, n):
+    """Two calls on the cnnet-width matrix give the same bits: K1 adds no
+    float atomics, and its last block sums the blocks' partials in order."""
+    from chip_smoke import CNNET_D
+
+    x = torch.randn((n, CNNET_D), device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(n))
+    first, second = kernels.pairwise_sq_distances(x), kernels.pairwise_sq_distances(x)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(3))
+def test_krums_selection_near_a_tie_matches_the_cpu(cuda_device, case):
+    """Multi-Krum's selection on the card equals the CPU plain path's when the
+    two scores at the selection's boundary differ by a margin just above the
+    distance kernels' measured error (``chip_smoke.NEAR_TIES``):
+
+    - n = 8, f = 2 at d = 1,756,682 (K1): margin 2e-7 of the score; K1's
+      scores were within 7.9e-8 of float64 there (the CPU's 7.5e-8);
+    - n = 72 and 128, f = 8 at d = 100,003 (the centring and K2): margin
+      1.5e-6; K2's scores were within 5.4e-7 (the CPU's 1.8e-7; K2's
+      largest distance error 5.3 there, 2.5 at the (128, 1,756,682) main
+      shape).
+    Both selections must also equal the float64 one the rows were built for."""
+    from chip_smoke import NEAR_TIES, krum_near_tie
+
+    n, f, d, margin = NEAR_TIES[case]
+    x, selected = krum_near_tie(torch, n, f, d, margin, n)
+    gar = gars.instantiate("krum", n, f)
+    on_card = gar.selection_weights(kernels.pairwise_sq_distances(x.to(cuda_device))).cpu() > 0
+    on_cpu = gar.selection_weights(kernels.pairwise_sq_distances(x)) > 0
+    assert torch.equal(on_card, on_cpu) and torch.equal(on_cpu, selected)
 
 
 @pytest.mark.gpu

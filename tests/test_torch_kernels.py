@@ -23,8 +23,11 @@ The CUDA kernels themselves run only on the GPU: ``chip_smoke.py`` and
 tests/test_torch_gpu.py hold them against these plain versions there.
 """
 
+import ctypes
 import os
 import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -203,11 +206,66 @@ def test_sort_shape_pads_to_a_power_of_two_and_fits_shared_memory():
     assert kernels.sort_shape(kernels.SORT_MAX_ROWS + 1) == (0, 0, 0, 0)  # the re-reading path
 
 
-def test_distance_chunk_fits_shared_memory():
-    for n in range(1, kernels.DISTANCE_MAX_ROWS + 1):
-        chunk = kernels.distance_chunk(n)
-        assert chunk & (chunk - 1) == 0 and 32 <= chunk <= 1024
-        assert n * chunk * 4 <= 65536
+_LAYOUT_SHIM = r"""
+#include "distances_layout.h"
+extern "C" void layout(int n, long long d, int sms, long long* out) {
+  const k1::Layout l = k1::distance_layout(n, d, sms);
+  out[0] = l.rows; out[1] = l.threads; out[2] = l.blocks; out[3] = l.chunk; out[4] = l.smem;
+  out[5] = k1::first_cover(n, k1::RegisterRows{});
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def distance_layout(tmp_path_factory):
+    """K1's launch layout (ops/csrc/distances_layout.h, the one distances.cu
+    launches with), built by the host C++ compiler: (n, d, sms) -> (rows of
+    the instance, threads, blocks, chunk, shared bytes, the register
+    instance's rows or 0)."""
+    compiler = shutil.which("c++") or shutil.which("g++")
+    if compiler is None:
+        pytest.skip("no host C++ compiler to build distances_layout.h")
+    tmp = tmp_path_factory.mktemp("distances_layout")
+    (tmp / "shim.cpp").write_text(_LAYOUT_SHIM)
+    subprocess.run([compiler, "-std=c++17", "-shared", "-fPIC", "-I", os.path.join(os.path.dirname(kernels.__file__),
+                    "csrc"), "-o", str(tmp / "liblayout.so"), str(tmp / "shim.cpp")], check=True)
+    lib = ctypes.CDLL(str(tmp / "liblayout.so"))
+    lib.layout.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+
+    def layout(n, d, sms):
+        out = (ctypes.c_longlong * 6)()
+        lib.layout(n, d, sms, out)
+        return tuple(out)
+
+    return layout
+
+
+@pytest.mark.parametrize("d", [1, 129, 4098, 4099, 1756682])
+def test_distance_layout_fits_the_kernel_and_covers_d(distance_layout, d):
+    """For every n K1 serves, on the H100 SXM's 132 SMs and the PCIe card's
+    114: an instance whose rows cover n, whole warps, shared memory within
+    the block's attribute (and the SM's, for the blocks an SM the grid
+    assumes), a grid that covers d in whole units, one wave."""
+    for sms in (132, 114):
+        for n in range(1, kernels.DISTANCE_MAX_ROWS + 1):
+            rows, threads, blocks, chunk, smem, register_rows = distance_layout(n, d, sms)
+            assert rows >= n
+            if register_rows:  # one instance per n
+                assert rows == register_rows == n <= 20 and threads == 256
+                assert 4 * threads // 32 * rows * (rows + 1) // 2 <= smem <= 48 * 1024  # the warps' sums, no opt-in
+                unit, per_sm = 2, 2 if n <= 11 else 1  # registers for two blocks an SM up to 11 rows
+            else:
+                assert rows in (32, 64) and rows < 2 * n and n > 20
+                assert smem <= 232448  # the H100's most a block may opt in to
+                # the two blocks an SM the grid assumes, each ring and its 1 KB
+                # of reserve within the SM's 228 KB of shared memory
+                assert 2 * (smem + 1024) <= 233472
+                unit, per_sm = 128, 2
+            assert threads % 32 == 0 and threads <= 256
+            assert smem >= 4 * threads  # the last block's slices of the final sum
+            assert chunk % unit == 0
+            assert (blocks - 1) * chunk < d <= blocks * chunk
+            assert blocks <= sms * per_sm
 
 
 @pytest.mark.parametrize("n", [65, 72, 127, 128, 129, 130, 256, 512])
