@@ -8,4 +8,4 @@ optax formulas, not ``torch.optim``'s.
 from .flatten import FlatMap  # noqa: F401
 from .schedules import schedules, build_schedule  # noqa: F401
 from .optimizers import optimizers, build_optimizer  # noqa: F401
-from .train_state import TrainState  # noqa: F401
+from .train_state import TrainState, host_snapshot, load_snapshot  # noqa: F401

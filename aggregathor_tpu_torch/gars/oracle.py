@@ -1,0 +1,230 @@
+"""Reference-faithful numpy oracle implementations of every GAR.
+
+These mirror the algorithms of the reference's CPU kernels step by step
+(aggregators/deprecated_native/native.cpp, native/op_krum/cpu.cpp,
+native/op_bulyan/cpu.cpp) using plain numpy/python — slow, obvious, and used
+as the ground truth by the cross-tier equivalence tests (SURVEY.md §4 point 3:
+redundant implementations are the de-facto correctness oracle).
+
+Not registered in the GAR registry: this tier exists for tests and debugging.
+
+A copy of ``aggregathor_tpu/gars/oracle.py`` (numpy only), so that the
+port's GPU tests can hold the rules on the card against it on a machine
+without JAX.
+"""
+
+import math
+
+import numpy as np
+
+
+def _nonfinite_last_sorted(values):
+    """Ascending order with non-finite values last (native.cpp:691-697)."""
+    values = np.asarray(values, dtype=np.float64)
+    key = np.where(np.isfinite(values), values, np.inf)
+    return values[np.argsort(key, kind="stable")]
+
+
+def average(grads, f=0):
+    return np.mean(np.asarray(grads, dtype=np.float64), axis=0)
+
+
+def average_nan(grads, f=0):
+    """Finite-only coordinate mean; all-non-finite column -> 0 (framework choice, see gars/average_nan.py)."""
+    grads = np.asarray(grads, dtype=np.float64)
+    finite = np.isfinite(grads)
+    count = finite.sum(axis=0)
+    total = np.where(finite, grads, 0.0).sum(axis=0)
+    return np.where(count > 0, total / np.maximum(count, 1), 0.0)
+
+
+def median(grads, f=0):
+    """Upper median with non-finite last (native.cpp:678-704)."""
+    grads = np.asarray(grads, dtype=np.float64)
+    n, d = grads.shape
+    out = np.empty(d)
+    for x in range(d):
+        out[x] = _nonfinite_last_sorted(grads[:, x])[n // 2]
+    return out
+
+
+def averaged_median(grads, f):
+    """Median then mean of the beta = n - f closest-to-median (native.cpp:714-747)."""
+    grads = np.asarray(grads, dtype=np.float64)
+    n, d = grads.shape
+    beta = n - f
+    out = np.empty(d)
+    for x in range(d):
+        col = grads[:, x]
+        med = _nonfinite_last_sorted(col)[n // 2]
+        dev = np.abs(col - med)
+        dev = np.where(np.isfinite(dev), dev, np.inf)
+        closest = col[np.argsort(dev, kind="stable")[:beta]]
+        out[x] = np.mean(closest)
+    return out
+
+
+def _pairwise_sq_distances(grads):
+    n = grads.shape[0]
+    dist = np.zeros((n, n))
+    for i in range(n):
+        for j in range(i + 1, n):
+            delta = grads[i] - grads[j]
+            d2 = float(np.sum(delta * delta))
+            if math.isnan(d2):
+                d2 = math.inf
+            dist[i, j] = dist[j, i] = d2
+    return dist
+
+
+def krum_scores(grads, f):
+    """Score(i) = sum of i's n-f-2 smallest pairwise squared distances (krum.py:56-87)."""
+    grads = np.asarray(grads, dtype=np.float64)
+    n = grads.shape[0]
+    dist = _pairwise_sq_distances(grads)
+    scores = np.empty(n)
+    for i in range(n):
+        others = np.sort(np.delete(dist[i], i))
+        scores[i] = np.sum(others[: n - f - 2])
+    return scores
+
+
+def krum(grads, f):
+    """Average of the m = n - f - 2 smallest-scoring gradients (krum.py:93)."""
+    grads = np.asarray(grads, dtype=np.float64)
+    n = grads.shape[0]
+    m = n - f - 2
+    scores = krum_scores(grads, f)
+    selected = np.argsort(scores, kind="stable")[:m]
+    return np.mean(grads[selected], axis=0)
+
+
+def bulyan(grads, f):
+    """Iterative Multi-Krum selection with pruned incremental rescoring, then
+    coordinate-wise averaged-median (op_bulyan/cpu.cpp:52-188)."""
+    grads = np.asarray(grads, dtype=np.float64)
+    n, d = grads.shape
+    m = n - f - 2
+    t = n - 2 * f - 2
+    b = t - 2 * f
+    in_score = n - f - 2
+    dist = _pairwise_sq_distances(grads)
+    np.fill_diagonal(dist, np.inf)
+    # Row-wise pruning: keep each row's in_score smallest distances, zero the rest
+    pruned = np.zeros_like(dist)
+    scores = np.empty(n)
+    for i in range(n):
+        order = np.argsort(np.where(np.isfinite(dist[i]), dist[i], np.inf), kind="stable")
+        kept = order[:in_score]
+        pruned[i, kept] = np.where(np.isfinite(dist[i, kept]), dist[i, kept], np.inf)
+        scores[i] = np.sum(pruned[i, kept])
+    # Selection loop
+    selections = np.empty((t, d))
+    live_scores = scores.copy()
+    for k in range(t):
+        key = np.where(np.isfinite(live_scores), live_scores, np.inf)
+        order = np.argsort(key, kind="stable")
+        selections[k] = np.mean(grads[order[: m - k]], axis=0)
+        if k + 1 < t:
+            best = order[0]
+            with np.errstate(invalid="ignore"):  # inf - inf on dead rows; masked via isfinite above
+                live_scores = live_scores - pruned[:, best]
+            live_scores[best] = np.inf
+    # Coordinate-wise averaged-median over the t selections (cpu.cpp:163-187)
+    out = np.empty(d)
+    for x in range(d):
+        col = selections[:, x]
+        med = _nonfinite_last_sorted(col)[t // 2]
+        dev = np.abs(col - med)
+        dev = np.where(np.isfinite(dev), dev, np.inf)
+        closest = col[np.argsort(dev, kind="stable")[:b]]
+        out[x] = np.mean(closest)
+    return out
+
+
+def trimmed_mean(grads, f, trim=None):
+    """Coordinate-wise b-trimmed mean (extension; see gars/trimmed_mean.py)."""
+    grads = np.asarray(grads, dtype=np.float64)
+    n, _ = grads.shape
+    b = f if trim is None else trim
+    clean = np.where(np.isfinite(grads), grads, np.inf)
+    ordered = np.sort(clean, axis=0)[b:n - b]
+    out = ordered.mean(axis=0)
+    return np.where(np.isfinite(out), out, np.nan)
+
+
+def centered_clip(grads, f, tau=10.0, iters=3):
+    """Iterative clipped-deviation center (extension; see gars/centered_clip.py)."""
+    grads = np.asarray(grads, dtype=np.float64)
+    finite_row = np.all(np.isfinite(grads), axis=-1, keepdims=True)
+    safe = np.where(finite_row, grads, 0.0)
+    nb_alive = max(float(finite_row.sum()), 1.0)
+    masked = np.where(finite_row, grads, np.nan)
+    with np.errstate(all="ignore"):
+        center = np.nan_to_num(np.nanmedian(masked, axis=0))
+    for _ in range(iters):
+        deviation = safe - center[None, :]
+        norms = np.sqrt((deviation * deviation).sum(axis=-1, keepdims=True))
+        scale = np.minimum(1.0, tau / np.maximum(norms, 1e-12))
+        center = center + (deviation * scale * finite_row).sum(axis=0) / nb_alive
+    return center
+
+
+def geometric_median(grads, f, iters=8, eps=1e-6):
+    """Weiszfeld geometric median (extension; see gars/geometric_median.py)."""
+    grads = np.asarray(grads, dtype=np.float64)
+    alive = np.all(np.isfinite(grads), axis=-1).astype(np.float64)
+    safe = np.where(alive[:, None] > 0, grads, 0.0)
+    with np.errstate(all="ignore"):
+        z = np.nan_to_num(
+            np.nanmedian(np.where(alive[:, None] > 0, grads, np.nan), axis=0)
+        )
+    for _ in range(iters):
+        norms = np.sqrt(((safe - z[None, :]) ** 2).sum(axis=-1))
+        weights = alive / np.maximum(norms, eps)
+        z = (weights[:, None] * safe).sum(axis=0) / max(float(weights.sum()), 1e-30)
+    return z
+
+
+def bucketing(grads, f, perm, s, inner, **inner_kwargs):
+    """Permute, average buckets of s, apply the inner oracle (extension; see
+    gars/bucketing.py).  ``perm`` is supplied so tests can mirror the jit
+    tier's key-derived permutation."""
+    grads = np.asarray(grads, dtype=np.float64)
+    n, d = grads.shape
+    buckets = grads[np.asarray(perm)].reshape(n // s, s, d).mean(axis=1)
+    return inner(buckets, f, **inner_kwargs)
+
+
+def dnc(grads, f, remove=None, iters=8):
+    """Spectral outlier removal (extension; see gars/dnc.py).
+
+    Mirrors the jit tier's ALGORITHM — the same fixed-iteration power method
+    on the Gram, not an exact SVD: on a flat spectrum (no attack) the top
+    direction is ill-defined and only the matching method gives matching
+    selections.  ``remove`` counts LIVE outliers (dead rows are excluded
+    outside the budget)."""
+    grads = np.asarray(grads, dtype=np.float64)
+    n, _ = grads.shape
+    remove = f if remove is None else remove
+    alive = np.all(np.isfinite(grads), axis=-1)
+    safe = np.where(alive[:, None], grads, 0.0)
+    nb_alive = max(float(alive.sum()), 1.0)
+    mean = safe.sum(axis=0) / nb_alive  # safe is already zero-filled
+    centered = (safe - mean[None, :]) * alive[:, None]
+    gram = centered @ centered.T
+    # diag init, mirroring the jit tier (ones is exactly in K's null space)
+    u = np.diagonal(gram).copy()
+    u = u / max(np.linalg.norm(u), 1e-30)
+    for _ in range(iters):
+        u = gram @ u
+        u = u / max(np.linalg.norm(u), 1e-30)
+    lam = u @ (gram @ u)
+    scores = np.where(alive, lam * u * u, np.inf)
+    kept_idx = np.argsort(scores, kind="stable")[: max(int(alive.sum()) - remove, 0)]
+    kept = np.zeros(n, dtype=bool)
+    kept[kept_idx] = True
+    kept &= alive
+    if not kept.any():
+        return np.zeros(grads.shape[1])
+    return safe[kept].mean(axis=0)

@@ -11,7 +11,8 @@ so the engine can treat both packages alike:
 - ``make_eval_iterator(...)``    -> finite epoch over the held-out split
 
 Images enter the models in the JAX package's NHWC layout.  The registry
-imports the experiments this package ports (``cnnet``, ``mnist``) by name.
+imports the experiments this package ports (``cnnet``, ``mnist``,
+``digits``, ``digits-conv``, ``mnistAttack``, ``digitsAttack``) by name.
 """
 
 import torch
@@ -77,4 +78,4 @@ class Experiment:
         raise NotImplementedError
 
 
-from . import cnnet, mnist  # noqa: E402,F401  (self-registering experiments)
+from . import cnnet, digits, mnist, mnist_attack  # noqa: E402,F401  (self-registering experiments)

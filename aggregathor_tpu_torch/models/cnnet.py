@@ -29,9 +29,12 @@ def max_pool_same(x):
 
 
 class CNNet(nn.Module):
-    def __init__(self, classes=10):
+    """``channels``: the input's channels, which flax infers from the first
+    input (3 for CIFAR-10, 1 for ``digits-conv``)."""
+
+    def __init__(self, classes=10, channels=3):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 5, padding=2)
+        self.conv1 = nn.Conv2d(channels, 64, 5, padding=2)
         self.norm1 = nn.GroupNorm(8, 64, eps=1e-6)
         self.conv2 = nn.Conv2d(64, 64, 5, padding=2)
         self.norm2 = nn.GroupNorm(8, 64, eps=1e-6)

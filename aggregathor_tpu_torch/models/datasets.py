@@ -1,15 +1,19 @@
 """Input pipelines: real data when present, deterministic synthetic otherwise.
 
 Copies of the numpy loaders of ``aggregathor_tpu/models/datasets.py`` (the
-npz and synthetic branches; the CIFAR-10 TFRecord reader is not ported yet),
-so both packages see the same batches, bit for bit.  Each loader first looks
-for a local ``.npz`` file (search order: the ``AGGREGATHOR_DATA`` env dir,
-``~/.aggregathor/data``, ``./data``) and otherwise derives a deterministic
-synthetic stand-in: class-conditional Gaussians around fixed random
-templates, flagged by ``.synthetic``.
+npz, sklearn-digits and synthetic branches; the CIFAR-10 TFRecord reader is
+not ported yet), so both packages see the same batches, bit for bit.  Each
+loader first looks for a local ``.npz`` file (search order: the
+``AGGREGATHOR_DATA`` env dir, ``~/.aggregathor/data``, ``./data``) and
+otherwise derives a deterministic synthetic stand-in: class-conditional
+Gaussians around fixed random templates, flagged by ``.synthetic``.  The
+digits loader tries scikit-learn's bundled corpus between the two.
 
-File formats accepted: ``mnist.npz`` / ``cifar10.npz`` with x_train/y_train/
-x_test/y_test (the keras layout).
+File formats accepted: ``mnist.npz`` / ``cifar10.npz`` / ``digits.npz`` with
+x_train/y_train/x_test/y_test (the keras layout).  The port ships the real
+digits corpus as ``DIGITS_DIR/digits.npz`` (already shuffled and split as
+``load_digits8x8`` does, pixels as uint8 0..16); point ``AGGREGATHOR_DATA``
+at ``DIGITS_DIR`` to read it where scikit-learn is not installed.
 """
 
 import os
@@ -17,6 +21,16 @@ import os
 import numpy as np
 
 from ..utils import UserException, info, warning
+
+#: the directory of the port's own copy of the digits corpus (``digits.npz``)
+DIGITS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+
+
+def transform_is_stateless(transform):
+    """True when ``transform`` declared itself stateless (``.stateless``,
+    see ``preprocessing.stateless``): its output depends only on its
+    inputs, so skipping batches never needs to call it."""
+    return transform is None or bool(getattr(transform, "stateless", False))
 
 
 def _data_dirs():
@@ -130,6 +144,51 @@ def load_cifar10():
     return _synthetic_classification("cifar10", (32, 32, 3), 10, nb_train=8192, nb_test=2048, seed=11)
 
 
+def load_digits8x8(train_fraction=0.8, seed=11):
+    """The real UCI hand-written digits (1797 8x8 grayscale images, 10
+    classes) in [0, 1], after a seeded shuffle and an 80/20 split.
+    Resolution order: a ``digits.npz`` on the data path, then the corpus
+    bundled in scikit-learn (imported here, lazily), then a synthetic
+    stand-in of the same size flagged ``.synthetic``."""
+    path = _find_npz("digits.npz")
+    if path:
+        return _load_npz(path, (8, 8, 1), 16.0, nb_classes=10)
+    nb_train = int(1797 * train_fraction)
+    try:
+        from sklearn.datasets import load_digits as _sk_load_digits
+    except ImportError:
+        return _synthetic_classification(
+            "digits", (8, 8, 1), 10, nb_train=nb_train, nb_test=1797 - nb_train, seed=seed)
+    bunch = _sk_load_digits()
+    images = (bunch.images.astype(np.float32) / 16.0).reshape(-1, 8, 8, 1)
+    labels = bunch.target.astype(np.int32)
+    order = np.random.default_rng(seed).permutation(len(labels))
+    images, labels = images[order], labels[order]
+    split = int(len(labels) * train_fraction)
+    info("Loaded REAL sklearn digits: %d train / %d test" % (split, len(labels) - split))
+    return ArrayDataset(
+        images[:split], labels[:split], images[split:], labels[split:],
+        nb_classes=10, synthetic=False,
+    )
+
+
+def load_digits_upscaled(size=32, train_fraction=0.8, seed=11):
+    """The digits corpus upscaled to ``size`` x ``size`` by repeating each
+    pixel (an integer factor): the conv stack's input on real data."""
+    base = load_digits8x8(train_fraction=train_fraction, seed=seed)
+    if size % 8:
+        raise ValueError("size must be a multiple of 8 (got %d)" % size)
+    k = size // 8
+
+    def up(x):
+        return np.repeat(np.repeat(x, k, axis=1), k, axis=2)
+
+    return ArrayDataset(
+        up(base.x_train), base.y_train, up(base.x_test), base.y_test,
+        nb_classes=base.nb_classes, synthetic=base.synthetic,
+    )
+
+
 class WorkerBatchIterator:
     """Infinite iterator of worker-major numpy batches [n_workers, batch, ...].
 
@@ -146,16 +205,34 @@ class WorkerBatchIterator:
     def __iter__(self):
         return self
 
-    def __next__(self):
+    def _draw_indices(self):
+        """The (nb_workers, batch) indices of the next batch; ``skip``
+        draws through here too, so both advance the streams alike."""
         idx = np.empty((self.nb_workers, self.batch_size), dtype=np.int64)
         for w, rng in enumerate(self.rngs):
             idx[w] = rng.integers(0, self.x.shape[0], size=self.batch_size)
-        flat = idx.reshape(-1)
+        return idx
+
+    def __next__(self):
+        flat = self._draw_indices().reshape(-1)
         bx = self.x[flat].reshape((self.nb_workers, self.batch_size) + self.x.shape[1:])
         by = self.y[flat].reshape(self.nb_workers, self.batch_size)
         if self.transform is not None:
             bx, by = self.transform(bx, by)
         return {"image": bx, "label": by}
+
+    def skip(self, k):
+        """Advance every stream by ``k`` batches: the resume fast-forward,
+        after which the next batch is the one an uninterrupted run would
+        draw.  A stateful transform (per-worker augmentation streams) must
+        advance in step, so it takes the full path; under a stateless one
+        only the index streams advance."""
+        if not transform_is_stateless(self.transform):
+            for _ in range(int(k)):
+                next(self)
+            return
+        for _ in range(int(k)):
+            self._draw_indices()
 
 
 def eval_batches(x, y, nb_workers, batch_size):

@@ -2,8 +2,12 @@
 
 Counterpart of ``aggregathor_tpu/models/mnist.py``: one hidden layer of 100
 ReLU units (``hidden:<k>`` narrows it), mean softmax CE loss, top-1 accuracy
-and cross-entropy on the test split, default batch 32.
+and cross-entropy on the test split, default batch 32.  Subclasses swap the
+corpus through the same hooks as the JAX experiment: ``sample_shape`` (one
+image, NHWC, which also sets the MLP's input width) and ``load_dataset``.
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -26,13 +30,16 @@ class MLP(nn.Module):
 
 
 class MNISTExperiment(Experiment):
+    sample_shape = (28, 28, 1)
+    load_dataset = staticmethod(load_mnist)
+
     def __init__(self, args):
         super().__init__(args)
         kv = parse_keyval(args, {"batch-size": 32, "eval-batch-size": 256, "hidden": 100})
         self.batch_size = kv["batch-size"]
         self.eval_batch_size = kv["eval-batch-size"]
-        self.model = MLP(hidden=kv["hidden"])
-        self.dataset = load_mnist()
+        self.model = MLP(inputs=math.prod(self.sample_shape), hidden=kv["hidden"])
+        self.dataset = self.load_dataset()
 
     def metrics(self, params, batch):
         out = super().metrics(params, batch)

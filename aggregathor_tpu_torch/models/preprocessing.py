@@ -32,8 +32,18 @@ class _PerWorkerRng:
         return self._rngs[worker]
 
 
+def stateless(transform):
+    """Declare ``transform`` stateless: its output depends only on its
+    inputs (no generator draws, no call-count state), so
+    ``WorkerBatchIterator.skip`` advances only the index streams and never
+    calls it.  Stateful transforms (the per-worker augmentation streams
+    below) must not be marked."""
+    transform.stateless = True
+    return transform
+
+
 def none_preprocessing(seed=0):
-    return lambda bx, by: (bx, by)
+    return stateless(lambda bx, by: (bx, by))
 
 
 def cifarnet_preprocessing(seed=0, pad=4):

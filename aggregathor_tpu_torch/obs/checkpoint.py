@@ -1,0 +1,179 @@
+"""Step-indexed train-state checkpoints.
+
+Counterpart of ``aggregathor_tpu/obs/checkpoint.py``: files
+``<base>-<step>.ckpt`` in a directory, found by scanning it and sorted by
+step; ``can_restore`` / ``restore`` (the latest step or a given one) /
+``save``, pruning to ``max_to_keep`` snapshots, a last-known-good ``pin``
+that pruning spares, ``discard_after`` for an abandoned timeline, and
+``wait`` for background writes.
+
+A snapshot is ``torch.save`` of ``core.train_state.host_snapshot(state)``:
+``{"step", "seed", "params", "opt_state"}`` with CPU tensors, read back with
+``weights_only=True``.  The CLEVER carry is never saved (a transport
+buffer, not model state).  ``restore`` checks every name, shape and dtype
+against the live state before it loads anything, and loads in place on the
+state's device.  Writes are atomic (a temporary file, then a rename), so a
+killed run never leaves a torn snapshot.
+
+``background=True`` hands serialisation, the write and the pruning to one
+worker thread.  ``save`` still takes its CPU copy before it returns: the
+optimizer updates the parameters in place at the next step.  ``wait()``
+joins the pending writes and raises the first failure.
+
+Snapshot authentication, encryption and the chain of custody of the JAX
+package (``authenticator``, ``cipher``, ``custody``) are not ported yet;
+passing one raises.
+"""
+
+import os
+import pickle
+import re
+
+import torch
+
+from ..core.train_state import host_snapshot, load_snapshot
+from ..utils import UserException, info
+
+
+def _describe(tree, prefix=""):
+    """{dotted name: (shape, dtype) of a tensor, or the type name of another leaf}."""
+    out = {}
+    for key, value in tree.items():
+        name = prefix + str(key)
+        if isinstance(value, dict):
+            out.update(_describe(value, name + "/"))
+        elif isinstance(value, torch.Tensor):
+            out[name] = (tuple(value.shape), value.dtype)
+        else:
+            out[name] = type(value).__name__
+    return out
+
+
+class Checkpoints:
+    def __init__(self, directory, base_name="model", max_to_keep=5, authenticator=None,
+                 background=False, cipher=None, custody=None):
+        for name, value in (("authenticator", authenticator), ("cipher", cipher), ("custody", custody)):
+            if value is not None:
+                raise UserException("Checkpoints(%s=...) is not available in the PyTorch port yet" % name)
+        self.directory = directory
+        self.base_name = base_name
+        self.max_to_keep = int(max_to_keep)
+        self._pattern = re.compile(re.escape(base_name) + r"-(\d+)\.ckpt$")
+        self._pinned = None
+        self._pool = None
+        self._pending = []
+        if background:
+            import concurrent.futures
+
+            # one worker: writes (and their prunes) stay in order
+            self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
+        if directory:
+            os.makedirs(directory, exist_ok=True)
+
+    def _path(self, step):
+        return os.path.join(self.directory, "%s-%d.ckpt" % (self.base_name, step))
+
+    def steps(self):
+        """Sorted steps with a snapshot on disk."""
+        if not self.directory or not os.path.isdir(self.directory):
+            return []
+        found = []
+        for name in os.listdir(self.directory):
+            match = self._pattern.match(name)
+            if match:
+                found.append(int(match.group(1)))
+        return sorted(found)
+
+    def can_restore(self, step=None):
+        steps = self.steps()
+        return bool(steps) if step is None else step in steps
+
+    def pin(self, step):
+        """Pin ``step`` as last-known-good: pruning spares its snapshot until
+        a newer pin replaces it (``None`` releases the pin)."""
+        self._pinned = None if step is None else int(step)
+
+    def pinned_step(self):
+        """The pinned step if its snapshot is on disk, else None."""
+        pinned = self._pinned
+        return pinned if pinned is not None and self.can_restore(pinned) else None
+
+    def discard_after(self, step):
+        """Remove every snapshot past ``step``; returns their steps.  Call
+        ``wait()`` first when background writes may be pending."""
+        dropped = [s for s in self.steps() if s > step]
+        for old in dropped:
+            try:
+                os.remove(self._path(old))
+            except OSError:
+                pass
+        return dropped
+
+    def restore(self, state, step=None):
+        """Load the snapshot of ``step`` (the latest if None) into ``state``
+        in place; returns ``(state, step)``."""
+        steps = self.steps()
+        if not steps:
+            raise UserException("No checkpoint to restore in %r" % (self.directory,))
+        if step is None:
+            step = steps[-1]
+        elif step not in steps:
+            raise UserException("No checkpoint for step %d in %r" % (step, self.directory))
+        path = self._path(step)
+        try:
+            snapshot = torch.load(path, map_location="cpu", weights_only=True)
+        except (pickle.UnpicklingError, RuntimeError, EOFError) as exc:  # a foreign or torn file
+            raise UserException("Cannot read checkpoint %r: %s" % (path, exc))
+        template = {"step": state.step, "seed": state.seed, "params": state.params, "opt_state": state.opt_state}
+        if not isinstance(snapshot, dict) or set(snapshot) != set(template):
+            raise UserException("Checkpoint %r does not hold a train state" % path)
+        for part in ("params", "opt_state"):
+            want, got = _describe(template[part]), _describe(snapshot[part])
+            if want != got:
+                diff = sorted(set(want.items()) ^ set(got.items()), key=str)[:4]
+                raise UserException(
+                    "Checkpoint %r does not fit this run's %s (names, shapes or dtypes differ: %s)"
+                    % (path, part, ", ".join("%s %s" % item for item in diff)))
+        load_snapshot(state, snapshot)
+        info("Restored checkpoint at step %d from %r" % (step, self.directory))
+        return state, step
+
+    def save(self, state, step=None):
+        """Snapshot ``state`` (at ``step``, default ``state.step``); prunes
+        beyond ``max_to_keep`` oldest first.  With ``background=True`` only
+        the CPU copy happens here."""
+        step = int(state.step if step is None else step)
+        snapshot = host_snapshot(state)
+        if self._pool is not None:
+            self._pending.append(self._pool.submit(self._write, snapshot, step))
+            return self._path(step)
+        return self._write(snapshot, step)
+
+    def wait(self, shutdown=False):
+        """Join every pending background write, then raise the first
+        failure; ``shutdown=True`` also retires the worker thread."""
+        pending, self._pending = self._pending, []
+        first_error = None
+        for future in pending:
+            try:
+                future.result()
+            except Exception as exc:
+                if first_error is None:
+                    first_error = exc
+        if shutdown and self._pool is not None:
+            pool, self._pool = self._pool, None
+            pool.shutdown(wait=True)
+        if first_error is not None:
+            raise first_error
+
+    def _write(self, snapshot, step):
+        path = self._path(step)
+        tmp = path + ".tmp"
+        torch.save(snapshot, tmp)
+        os.replace(tmp, path)
+        if self.max_to_keep > 0:
+            for old in self.steps()[: -self.max_to_keep]:
+                if old != self._pinned:  # the last-known-good survives pruning
+                    os.remove(self._path(old))
+        return path
+

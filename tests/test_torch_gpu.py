@@ -16,7 +16,10 @@ diagonal, |a - b| <= 1e-5 (|x_i|^2 + |x_j|^2) on the centred rows, the
 error scale of a Gram form, whose terms are as large as the squared norms,
 with the same non-finite pattern, every non-finite entry NaN (a 3xTF32
 split cannot keep float32's mix of +inf and NaN), the diagonal 0 and the
-output symmetric bit for bit.
+output symmetric bit for bit.  The rules on the card are also held against
+the port's own copy of the numpy oracle (rtol 1e-4, atol 1e-5, as the JAX
+package's tests hold its rules), K1 at the digits widths, three digits
+steps against the CPU, and a checkpoint of a card state round trip.
 """
 
 import numpy as np
@@ -279,3 +282,91 @@ def test_lossy_steps_drop_the_same_packets_as_the_cpu(cuda_device, rule, expecte
         assert bool(torch.isfinite(metrics["total_loss"]))
         finals.append(torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()]))
     torch.testing.assert_close(finals[0], finals[1], rtol=1e-4, atol=1e-5)
+
+
+#: the rules against the port's numpy oracle, (rule, n, f): the main path's
+#: sizes up to 64 workers, and beyond (K2, the sort path)
+ORACLE_CASES = [("average", 11, 3), ("average-nan", 11, 3), ("krum", 11, 3), ("median", 11, 3),
+                ("averaged-median", 11, 3), ("bulyan", 11, 2), ("trimmed-mean", 11, 3),
+                ("krum", 72, 8), ("bulyan", 72, 8), ("median", 72, 8), ("trimmed-mean", 72, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule, n, f", ORACLE_CASES)
+def test_rules_on_the_card_match_the_numpy_oracle(cuda_device, rule, n, f):
+    """Each rule on a CUDA matrix against ``gars/oracle.py`` in float64:
+    rtol 1e-4, atol 1e-5 (the JAX package's own tolerance against it,
+    tests/test_gars.py), on unit normals with f rows 50 times louder."""
+    from aggregathor_tpu_torch.gars import oracle
+
+    rng = np.random.default_rng(n * 31 + f)
+    g = rng.normal(size=(n, 4099 if n < 64 else 1025)).astype(np.float32)
+    g[:f] *= 50.0
+    oracles = {"average": oracle.average, "average-nan": oracle.average_nan, "krum": oracle.krum,
+               "median": oracle.median, "averaged-median": oracle.averaged_median, "bulyan": oracle.bulyan,
+               "trimmed-mean": oracle.trimmed_mean}
+    got = gars.instantiate(rule, n, f).aggregate(torch.from_numpy(g).to(cuda_device)).cpu().numpy()
+    np.testing.assert_allclose(got, oracles[rule](g, f), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [7510, 7511, 7509, 1753482])
+def test_distances_at_the_digits_widths(cuda_device, d):
+    """K1 at the digits MLP's width (8, 7,510) and odd widths beside it,
+    where its grid is a few blocks and the last block sums few partials, and
+    at digits-conv's (8, 1,753,482); rtol 1e-5, the same bits twice."""
+    x = torch.from_numpy(_poisoned(8, d, d, True)).to(cuda_device)
+    before = kernels.launch_counts()["pairwise_sq_distances"]
+    got = kernels.pairwise_sq_distances(x)
+    assert kernels.launch_counts()["pairwise_sq_distances"] == before + 1
+    _close(got.cpu().numpy(), kernels.pairwise_sq_distances_plain(x).cpu().numpy(), 1e-5)
+    assert torch.equal(got.view(torch.int32), kernels.pairwise_sq_distances(x).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("experiment, args", [("digits", []), ("digits-conv", ["batch-size:4"])])
+def test_digits_steps_on_the_card_match_the_cpu(cuda_device, monkeypatch, experiment, args):
+    """Three krum steps (n = 8, f = 2, r = 2 signflip) launch K1 once each
+    and end where the same steps on the CPU end: rtol 1e-4, atol 1e-5, with
+    TF32 off as the runner has it."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    finals = []
+    for device in (cuda_device, torch.device("cpu")):
+        exp = models.instantiate(experiment, args)
+        tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+        engine = RobustEngine(gars.instantiate("krum", 8, 2), 8, nb_real_byz=2,
+                              attack=attacks.instantiate("signflip", 8, 2), device=device)
+        state = engine.init_state(exp.init(3), tx, seed=3)
+        step = engine.build_step(exp.loss, tx)
+        it = exp.make_train_iterator(8, seed=4)
+        before = kernels.launch_counts()["pairwise_sq_distances"]
+        for _ in range(3):
+            state, _ = step(state, engine.put_batch(next(it)))
+        assert kernels.launch_counts()["pairwise_sq_distances"] - before == (3 if device.type == "cuda" else 0)
+        finals.append(torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()]))
+    torch.testing.assert_close(finals[0], finals[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_checkpoints_of_a_card_state_round_trip(cuda_device, tmp_path):
+    from aggregathor_tpu_torch.obs.checkpoint import Checkpoints
+
+    exp = models.instantiate("digits", [])
+    tx = build_optimizer("adam", build_schedule("fixed", []))
+    engine = RobustEngine(gars.instantiate("krum", 8, 2), 8, device=cuda_device)
+    state = engine.init_state(exp.init(1), tx, seed=1)
+    step = engine.build_step(exp.loss, tx)
+    it = exp.make_train_iterator(8, seed=2)
+    for _ in range(2):
+        state, _ = step(state, engine.put_batch(next(it)))
+    ckpts = Checkpoints(str(tmp_path), background=True)
+    ckpts.save(state, 2)
+    saved = {k: v.detach().clone() for k, v in state.params.items()}
+    state, _ = step(state, engine.put_batch(next(it)))  # updates the parameters in place after the save
+    ckpts.wait(shutdown=True)
+    fresh = engine.init_state(exp.init(9), tx, seed=9)
+    restored, at = Checkpoints(str(tmp_path)).restore(fresh)
+    assert at == 2 and restored.step == 2 and restored.opt_state["count"] == 2
+    for name, value in restored.params.items():
+        assert value.device.type == "cuda" and torch.equal(value, saved[name])

@@ -2,11 +2,13 @@
 
 - ``params_from_jax`` carries flax parameters into the port and
   ``params_to_jax`` back, bit for bit;
-- from the same weights, cnnet (full published width) and the MLP give the
-  same logits (cnnet: atol 1e-4 — float32 convolutions and GroupNorm
-  statistics summed in another order; MLP: atol 1e-5), and each worker's
-  flat gradient row equals the JAX engine's ``_worker_gradients`` row in
-  the JAX coordinate order (cnnet atol 1e-4, MLP atol 1e-5, same reason);
+- from the same weights, cnnet (full published width), the MLP, and the
+  ``digits`` and ``digits-conv`` experiments (the MLP at 64 inputs, cnnet at
+  32x32x1: its padding and norms on one channel) give the same logits
+  (the conv stacks: atol 1e-4 — float32 convolutions and GroupNorm
+  statistics summed in another order; the MLPs: atol 1e-5), and each
+  worker's flat gradient row equals the JAX engine's ``_worker_gradients``
+  row in the JAX coordinate order (same tolerances, same reason);
 - the synthetic datasets, the ``WorkerBatchIterator`` streams with the
   ``cifarnet`` augmentation, and the eval batches are bit-identical.
 """
@@ -30,7 +32,11 @@ from aggregathor_tpu_torch.models import datasets as tdatasets
 from aggregathor_tpu_torch.models.common import params_from_jax, params_to_jax
 from aggregathor_tpu_torch.parallel import RobustEngine
 
-MODELS = [("mnist", ["hidden:16", "batch-size:4"], 1e-5), ("cnnet", ["batch-size:2"], 1e-4)]
+MODELS = [("mnist", ["hidden:16", "batch-size:4"], 1e-5), ("cnnet", ["batch-size:2"], 1e-4),
+          ("digits", ["batch-size:4"], 1e-5), ("digits-conv", ["batch-size:2"], 1e-4)]
+#: the flat gradient's width at the published sizes: cnnet, and the digits
+#: MLP (64-100-10) and cnnet at 32x32x1 (its first kernel 3,200 narrower)
+WIDTHS = {"cnnet": 1756682, "digits": 7510, "digits-conv": 1753482}
 
 
 def _host(tree):
@@ -75,8 +81,8 @@ def test_flat_layout_is_the_jax_coordinate_order(pairs, name):
     inflated = tmap.inflate(torch.from_numpy(want))
     for key, value in tparams.items():
         assert torch.equal(inflated[key], value)
-    if name == "cnnet":
-        assert tmap.size == 1756682
+    if name in WIDTHS:
+        assert tmap.size == WIDTHS[name]
 
 
 @pytest.mark.parametrize("name, tol", [(m[0], m[2]) for m in MODELS])

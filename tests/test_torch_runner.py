@@ -7,12 +7,20 @@
   parameters), CLEVER infill keeps ``average`` finite;
 - without ``--device cpu`` and without a GPU the runner fails loudly
   instead of falling back to the CPU;
+- the cadence, checkpoint and summary flags take the JAX runner's
+  defaults; a run resumed from its checkpoint (10 steps, then an
+  auto-restore and 10 more; or a restore to an older snapshot after a
+  simulated kill) ends with the same parameters, optimizer state and
+  evaluations, bit for bit, as an uninterrupted run, and its evaluation
+  TSV has no duplicate step rows; the summary JSONL carries the run id and
+  the four scalars; a diverging run writes no final checkpoint;
 - the port imports nothing of JAX, flax, optax or the JAX package (AST
   scan of every module, of ``chip_smoke.py`` and of the GPU tests, which
   run on a machine without JAX).
 """
 
 import ast
+import json
 import os
 
 import pytest
@@ -43,7 +51,10 @@ def test_cpu_run_prints_steps_per_second(capsys, tmp_path):
     # the CPU path runs the plain versions: no kernel launch
     assert set(result["launches"].values()) == {0}
     rows = tsv.read_text().splitlines()
-    assert [row.split("\t")[1] for row in rows] == ["3", "6"]
+    # the JAX runner's cadence: a first fire at the first check, then every
+    # 3 steps, then the last step
+    assert [row.split("\t")[1] for row in rows] == ["1", "4", "6"]
+    assert "in-graph time" in out and "off-graph time" in out and "step latency p50/p95/p99" in out
 
 
 @pytest.mark.parametrize("rule", ["median", "bulyan", "trimmed-mean", "averaged-median", "average"])
@@ -51,6 +62,17 @@ def test_cpu_run_every_rule(rule):
     f = ["--nb-decl-byz-workers", "1"] if rule == "bulyan" else []  # bulyan: n >= 4f + 3
     result = runner.main(MNIST + f + ["--aggregator", rule, "--max-step", "2", "--device", "cpu"])
     assert result["steps"] == 2 and result["evaluation"] is not None
+
+
+@pytest.mark.parametrize("experiment, args", [
+    ("digits", ["hidden:16"]), ("digits-conv", ["batch-size:2"]),
+    ("mnistAttack", ["hidden:16", "severity:1"]), ("digitsAttack", ["hidden:16", "severity:1"]),
+])
+def test_cpu_run_every_experiment(experiment, args):
+    result = runner.main(["--experiment", experiment, "--experiment-args", *args, "--aggregator", "krum",
+                          "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--max-step", "2", "--device", "cpu"])
+    assert result["steps"] == 2 and result["final_loss"] == result["final_loss"]
+    assert 0.0 <= result["evaluation"]["accuracy"] <= 1.0
 
 
 def test_divergence_is_loud():
@@ -80,6 +102,108 @@ def test_udp_clever_run_with_plain_average_stays_finite():
     result = runner.main(MNIST + UDP + ["clever:true", "--aggregator", "average", "--nb-decl-byz-workers", "0",
                                         "--max-step", "4", "--device", "cpu"])
     assert result["final_loss"] == result["final_loss"] and abs(result["final_loss"]) != float("inf")
+
+
+def test_cadence_flags_take_the_jax_defaults():
+    from aggregathor_tpu import config as jconfig
+    from aggregathor_tpu.cli.runner import build_parser as jax_parser
+    from aggregathor_tpu_torch import config
+
+    argv = ["--experiment", "digits", "--aggregator", "krum", "--nb-workers", "8"]
+    ours, theirs = runner.build_parser().parse_args(argv), jax_parser().parse_args(argv)
+    for flag in CADENCE_FLAGS:
+        assert getattr(ours, flag) == getattr(theirs, flag), flag
+    for name in ("evaluation_delta", "evaluation_period", "checkpoint_base_name", "checkpoint_delta",
+                 "checkpoint_period", "summary_delta", "summary_period"):
+        assert getattr(config, "default_" + name) == getattr(jconfig, "default_" + name), name
+
+
+CADENCE_FLAGS = ("evaluation_file", "evaluation_delta", "evaluation_period", "checkpoint_dir",
+                 "checkpoint_base_name", "checkpoint_delta", "checkpoint_period", "checkpoint_keep",
+                 "summary_dir", "summary_delta", "summary_period")
+DIGITS = ["--experiment", "digits", "--experiment-args", "hidden:16", "batch-size:8", "--aggregator", "krum",
+          "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "gaussian",
+          "--optimizer", "adam", "--learning-rate-args", "initial-rate:0.01", "--evaluation-period", "-1",
+          "--summary-period", "-1", "--checkpoint-period", "-1", "--device", "cpu"]
+
+
+def _snapshot(directory, step):
+    return torch.load(os.path.join(str(directory), "model-%d.ckpt" % step), weights_only=True)
+
+
+def _assert_same_bits(a, b):
+    assert a.keys() == b.keys()
+    for key in a:
+        if isinstance(a[key], dict):
+            _assert_same_bits(a[key], b[key])
+        elif isinstance(a[key], torch.Tensor):
+            assert torch.equal(a[key].view(torch.int32), b[key].view(torch.int32)), key
+        else:
+            assert a[key] == b[key], key
+
+
+def _rows(path):
+    """{step: the row's metric fields}, after checking no step repeats."""
+    rows = [line.split("\t") for line in open(path).read().splitlines()]
+    steps = [int(row[1]) for row in rows]
+    assert len(steps) == len(set(steps)) and steps == sorted(steps), steps
+    return {int(row[1]): row[2:] for row in rows}
+
+
+def test_resume_is_bit_identical_to_an_uninterrupted_run(tmp_path):
+    whole, split = tmp_path / "whole", tmp_path / "split"
+    common = DIGITS + ["--evaluation-delta", "5"]
+    full = runner.main(common + ["--max-step", "20", "--checkpoint-dir", str(whole),
+                                 "--evaluation-file", str(whole / "eval.tsv"), "--summary-dir", str(whole),
+                                 "--summary-delta", "10"])
+    first = runner.main(common + ["--max-step", "10", "--checkpoint-dir", str(split), "--checkpoint-delta", "10",
+                                  "--evaluation-file", str(split / "eval.tsv")])
+    second = runner.main(common + ["--max-step", "20", "--checkpoint-dir", str(split), "--checkpoint-delta", "10",
+                                   "--evaluation-file", str(split / "eval.tsv")])
+    assert (first["steps"], first["restored_step"], second["steps"], second["restored_step"]) == (10, 0, 10, 10)
+    saved = _snapshot(split, 10)
+    assert saved["step"] == 10 and saved["opt_state"]["count"] == 10
+    _assert_same_bits(_snapshot(whole, 20), _snapshot(split, 20))
+    assert second["final_loss"] == full["final_loss"]
+    rows, full_rows = _rows(split / "eval.tsv"), _rows(whole / "eval.tsv")
+    assert sorted(rows) == [1, 6, 10, 11, 16, 20] and sorted(full_rows) == [1, 6, 11, 16, 20]
+    for step in (1, 6, 11, 16, 20):
+        assert rows[step] == full_rows[step]  # the same evaluations, to the printed digit
+    # the summary stream: the run id and the four scalars on every line
+    (path,) = [p for p in os.listdir(str(whole)) if p.endswith(".jsonl")]
+    events = [json.loads(line) for line in open(os.path.join(str(whole), path))]
+    assert [e["step"] for e in events] == [1, 11, 20]
+    for event in events:
+        assert {"run_id", "step", "total_loss", "grad_norm", "learning_rate", "steps_per_s"} <= set(event)
+        assert event["run_id"] == events[0]["run_id"] and event["learning_rate"] == 0.01
+
+
+def test_resume_after_a_kill_trims_the_tsv_and_realigns_the_streams(tmp_path):
+    whole, killed = tmp_path / "whole", tmp_path / "killed"
+    common = DIGITS + ["--evaluation-delta", "1", "--checkpoint-delta", "4"]
+    runner.main(common + ["--max-step", "12", "--checkpoint-dir", str(whole)])
+    runner.main(common + ["--max-step", "10", "--checkpoint-dir", str(killed),
+                          "--evaluation-file", str(killed / "eval.tsv")])
+    for step in (9, 10):  # the run was killed after step 8, before these reached the disk
+        os.remove(os.path.join(str(killed), "model-%d.ckpt" % step))
+    resumed = runner.main(common + ["--max-step", "12", "--checkpoint-dir", str(killed),
+                                    "--evaluation-file", str(killed / "eval.tsv")])
+    assert resumed["restored_step"] == 5 and resumed["steps"] == 7
+    assert sorted(_rows(killed / "eval.tsv")) == list(range(1, 13))
+    _assert_same_bits(_snapshot(whole, 12), _snapshot(killed, 12))
+
+
+def test_a_diverging_run_writes_no_final_checkpoint(tmp_path):
+    from aggregathor_tpu_torch.obs.checkpoint import Checkpoints
+
+    with pytest.raises(UserException, match="diverged"):
+        runner.main(MNIST + ["--aggregator", "average", "--nb-decl-byz-workers", "0", "--nb-real-byz-workers", "1",
+                             "--attack", "inf", "--max-step", "4", "--checkpoint-dir", str(tmp_path),
+                             "--checkpoint-delta", "100", "--checkpoint-period", "-1",
+                             "--evaluation-file", str(tmp_path / "eval.tsv"), "--device", "cpu"])
+    # the first check's snapshot only: no fire after the divergence, and no final one
+    assert Checkpoints(str(tmp_path)).steps() == [1]
+    assert [row.split("\t")[1] for row in open(tmp_path / "eval.tsv").read().splitlines()] == ["1"]
 
 
 def test_cuda_without_a_gpu_fails_instead_of_falling_back(monkeypatch):
@@ -117,6 +241,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for root, _, files in os.walk(os.path.join(REPO, "aggregathor_tpu_torch")):
         paths += [os.path.join(root, name) for name in files if name.endswith(".py")]
     assert len(paths) > 20
+    for module in ("models/datasets.py", "models/digits.py", "models/mnist_attack.py", "gars/oracle.py",
+                   "obs/cadence.py", "obs/checkpoint.py", "obs/summaries.py", "obs/perf.py",
+                   "core/train_state.py", "cli/runner.py"):
+        assert os.path.join(REPO, "aggregathor_tpu_torch", module) in paths, module
     offenders = [
         (os.path.relpath(path, REPO), module)
         for path in paths for module in _imports(path)
