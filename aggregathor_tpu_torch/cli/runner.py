@@ -6,14 +6,29 @@ the same flags and defaults: experiment / aggregator selection with
 attack, the lossy link (``--UDP``), the optimizer and learning-rate
 registries, the step count, the seed, and the evaluation, checkpoint and
 summary cadences (each fires on a step delta or a wall period, at its first
-check, and once more at the end unless the run diverged), plus
-``--device``.  It runs on CUDA unless ``--device cpu`` is given; with no GPU
-and no ``--device cpu`` it fails instead of falling back.
+check, and once more at the end unless the run diverged), the input path
+(``--unroll``, ``--prefetch``, ``--input-source``), plus ``--device``.  It
+runs on CUDA unless ``--device cpu`` is given; with no GPU and no
+``--device cpu`` it fails instead of falling back.
+
+The input path follows the JAX runner's.  ``--unroll K`` runs K steps per
+call (``RobustEngine.build_multi_step`` on a (K, n, ...) chunk), the
+cadences firing at chunk granularity and the divergence check reading the
+chunk's per-step losses; the final (max_step - start) % K steps run one at
+a time.  ``--prefetch D`` (default 2) keeps D device batches (or chunks)
+ready from a background thread (``datasets.DevicePrefetcher``).
+``--input-source device`` puts the train split on the device once and draws
+each worker's batch there every step (``build_sampled_multi_step``; the
+final steps through a tail-sized trainer); it refuses an experiment whose
+``train_arrays()`` is None and moves a host augmentation to the in-step
+tier.
 
 With ``--checkpoint-dir`` it restores the latest snapshot there at start:
 the evaluation TSV loses its rows past the restored step and the batch
-streams are fast-forwarded to it, so a resumed run consumes exactly the
-batches of an uninterrupted one (on the CPU it ends with the same bits).
+streams are fast-forwarded to it (before any prefetch thread starts), so a
+resumed run consumes exactly the batches of an uninterrupted one (on the CPU
+it ends with the same bits); a device-sampled run needs no fast-forward, its
+draws being a function of the step.
 
 At the end it prints the performance report (in-graph and off-graph time,
 step latency percentiles, steps/s with and without the first step), the
@@ -28,7 +43,6 @@ Example::
 """
 
 import argparse
-import math
 import sys
 
 
@@ -53,6 +67,21 @@ def build_parser():
     parser.add_argument("--learning-rate", default="fixed", help="learning-rate schedule name")
     parser.add_argument("--learning-rate-args", nargs="*", default=[], help="key:value schedule arguments")
     parser.add_argument("--max-step", type=int, default=None, help="train step count (default config.py)")
+    parser.add_argument(
+        "--unroll", type=int, default=1,
+        help="run this many steps per call (cadences then fire at chunk granularity)",
+    )
+    parser.add_argument(
+        "--prefetch", type=int, default=2, metavar="DEPTH",
+        help="device-ready input batches (--unroll: chunks) prepared ahead of the step "
+             "by a background thread (0 disables)",
+    )
+    parser.add_argument(
+        "--input-source", default="stream", choices=["stream", "device"],
+        help="stream: per-step host batches. device: hold the training split on the "
+             "device (transferred once) and draw each worker's fresh i.i.d. batch there; "
+             "needs an experiment exposing train_arrays() (no host-side transform)",
+    )
     parser.add_argument("--seed", type=int, default=0, help="base seed")
     # Cadences (negative disables; defaults from config.py, as in the JAX runner)
     parser.add_argument("--evaluation-file", default=None, help="TSV evaluation log path")
@@ -88,6 +117,7 @@ def main(argv=None):
     from ..obs.checkpoint import Checkpoints
     from ..obs.evalfile import EvalFile
     from ..obs.perf import PerfReport
+    from ..models.datasets import DevicePrefetcher
     from ..obs.summaries import SummaryWriter
     from ..ops import kernels
     from ..parallel import RobustEngine, attacks
@@ -111,17 +141,38 @@ def main(argv=None):
         warning("More real Byzantine workers (%d) than declared (%d): the GAR bound is void" % (r, f))
     if n <= 2 * f:
         warning("n = %d <= 2f = %d: most GARs offer no guarantee at this ratio" % (n, 2 * f))
+    unroll = max(1, args.unroll)
 
     with Context("setup"):
         experiment = models.instantiate(args.experiment, args.experiment_args)
+        if args.input_source == "device":
+            if experiment.train_arrays() is None and experiment.route_augmentation_to_device():
+                # the host tier's in-step twin takes over (its draws change:
+                # the engine's keyed streams, as the sample stream's do)
+                info("--input-source device: routing %r augmentation through the in-step device tier"
+                     % getattr(experiment, "preprocessing", "host"))
+            if experiment.train_arrays() is None:
+                raise UserException(
+                    "--input-source device: experiment %r keeps a host-side batch transform "
+                    "(train_arrays() is None), so a device-side gather cannot reproduce its input "
+                    "stream; use --input-source stream" % args.experiment
+                )
         gar = gars.instantiate(args.aggregator, n, f, args.aggregator_args)
         attack = attacks.instantiate(args.attack, n, r, args.attack_args) if args.attack else None
         lossy = LossyLink(args.udp, args.udp_args) if args.udp > 0 else None
         tx = build_optimizer(args.optimizer, build_schedule(args.learning_rate, args.learning_rate_args),
                              args.optimizer_args)
-        engine = RobustEngine(gar, n, nb_real_byz=r, attack=attack, lossy_link=lossy, device=device)
+        engine = RobustEngine(gar, n, nb_real_byz=r, attack=attack, lossy_link=lossy,
+                              batch_transform=experiment.device_transform(), device=device)
         state = engine.init_state(experiment.init(args.seed), tx, seed=args.seed)
         step_fn = engine.build_step(experiment.loss, tx)
+        device_dataset = None
+        if args.input_source == "device":
+            # the train split lives on the device; every step is sampled there
+            device_dataset = engine.replicate(experiment.train_arrays())
+            multi_fn = engine.build_sampled_multi_step(experiment.loss, tx, unroll, experiment.batch_size)
+        else:
+            multi_fn = engine.build_multi_step(experiment.loss, tx) if unroll > 1 else None
         eval_fn = engine.build_eval_sums(experiment.metrics)
         info("Training %s on %s: %d workers, f=%d, r=%d, aggregator %s, d=%d"
              % (args.experiment, torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
@@ -170,13 +221,14 @@ def main(argv=None):
             torch.cuda.synchronize(device)
 
     def check_divergence():
-        # the loss of the last step dispatched, read one step late in the
-        # loop (on the card, the read waits for the step queued before it)
-        if pending is not None and not math.isfinite(float(pending)):
+        # the loss of the last step (the losses of the last chunk) dispatched,
+        # read one call late in the loop (on the card, the read waits for the
+        # call queued before it)
+        if pending is not None and not bool(torch.all(torch.isfinite(pending))):
             raise UserException("Training diverged (non-finite loss around step %d)" % step)
 
     launches_before = kernels.launch_counts()
-    metrics, evaluation, perf, report = {}, None, None, None
+    metrics, evaluation, perf, report, prefetcher = {}, None, None, None, None
     try:
         # Auto-restore the latest snapshot, then realign the batch streams:
         # the per-step attack and lossy streams derive from (seed, step,
@@ -188,21 +240,59 @@ def main(argv=None):
             dropped = eval_file.truncate_after(offstep)
             if dropped:
                 info("Trimmed %d stale eval row(s) beyond restored step %d" % (dropped, offstep))
-        train_iter = experiment.make_train_iterator(n, seed=args.seed + 1)
-        train_iter.skip(offstep)
+        train_iter = None
+        if device_dataset is None:
+            train_iter = experiment.make_train_iterator(n, seed=args.seed + 1)
+            train_iter.skip(offstep)  # before a prefetch thread draws from it
+            if args.prefetch > 0 and multi_fn is None:
+                prefetcher = DevicePrefetcher(train_iter, engine.put_batch, depth=args.prefetch, device=device)
+            elif args.prefetch > 0 and (max_step - offstep) // unroll > 0:
+                # a finite producer: exactly the chunks the loop consumes, so
+                # it has left train_iter when the per-step tail reads it
+                chunks = (max_step - offstep) // unroll
+
+                def chunk_source():
+                    for _ in range(chunks):
+                        yield train_iter.next_many(unroll)
+
+                prefetcher = DevicePrefetcher(chunk_source(), engine.put_batches, depth=args.prefetch,
+                                              device=device)
         step, pending, loop_steps_per_s = offstep, None, 0.0
         perf = PerfReport()
         with Context("train"):
             while step < max_step:
-                batch = engine.put_batch(next(train_iter))
-                perf.step_begin()
-                state, metrics = step_fn(state, batch)
+                if multi_fn is not None and max_step - step >= unroll:
+                    if device_dataset is not None:
+                        chunk_input = device_dataset
+                    elif prefetcher is not None:
+                        chunk_input = next(prefetcher)
+                    else:
+                        chunk_input = engine.put_batches(train_iter.next_many(unroll))
+                    perf.step_begin()
+                    state, many = multi_fn(state, chunk_input)
+                    chunk = unroll
+                elif device_dataset is not None:
+                    # the final (max_step - start) % unroll steps, sampled too
+                    chunk = max_step - step
+                    tail = engine.build_sampled_multi_step(experiment.loss, tx, chunk, experiment.batch_size)
+                    perf.step_begin()
+                    state, many = tail(state, device_dataset)
+                else:
+                    if multi_fn is not None and prefetcher is not None:
+                        prefetcher.close()  # the chunk producer is done: the tail reads train_iter
+                        prefetcher = None
+                    batch = next(prefetcher) if prefetcher is not None else engine.put_batch(next(train_iter))
+                    perf.step_begin()
+                    state, step_metrics = step_fn(state, batch)
+                    many = {name: value[None] for name, value in step_metrics.items()}
+                    chunk = 1
                 check_divergence()
                 if step == offstep:
-                    synchronize()  # the first step, whole (its time is left out of steps/s)
-                perf.step_end()
-                step += 1
-                pending = metrics["total_loss"]
+                    synchronize()  # the first call, whole (its time is left out of steps/s)
+                perf.step_end(chunk)
+                step += chunk
+                pending = many["total_loss"]
+                metrics = {name: value[-1] for name, value in many.items()}
                 if eval_trigger.should_fire(step):
                     check_divergence()
                     evaluation = run_eval(step)
@@ -229,6 +319,8 @@ def main(argv=None):
                 if summary_trigger.last_step != step:
                     summaries.scalars(step, summary_scalars(step, metrics))
     finally:
+        if prefetcher is not None:
+            prefetcher.close()
         eval_file.close()
         summaries.close()
         if perf is not None:

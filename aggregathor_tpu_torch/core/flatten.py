@@ -74,6 +74,22 @@ class FlatMap:
             row[offset:offset + size].view(shape).copy_(value.permute(perm) if perm else value)
         return row
 
+    def flatten_rows(self, tensors, rows=None):
+        """The n workers' torch-layout ``tensors`` (name -> (n, *shape)) as
+        one float32 (n, d) matrix in JAX order and layout, one copy per leaf;
+        row w equals ``flatten_into`` of worker w's leaves bit for bit.
+        Writes into ``rows`` when given; returns the matrix."""
+        first = next(iter(tensors.values()))
+        n = first.shape[0]
+        if rows is None:
+            rows = torch.empty((n, self.size), dtype=torch.float32, device=first.device)
+        for name, _, offset, size, shape, perm in self.slices:
+            value = tensors[name]
+            if perm:
+                value = value.permute((0,) + tuple(axis + 1 for axis in perm))
+            rows[:, offset:offset + size].unflatten(1, shape).copy_(value)
+        return rows
+
     def flatten(self, tensors):
         """A fresh float32 (d,) vector of ``tensors`` in JAX order and layout."""
         first = next(iter(tensors.values()))

@@ -77,5 +77,57 @@ class Experiment:
     def make_eval_iterator(self, nb_workers):
         raise NotImplementedError
 
+    def device_transform(self):
+        """The in-step augmentation (``preprocessing.device_transform``) when
+        the experiment augments on the device (``self.augment == "device"``,
+        the cnnet convention), else None; its host iterator is then
+        transform-free and the engine applies this per worker."""
+        if getattr(self, "augment", "host") != "device":
+            return None
+        from .preprocessing import device_transform
+
+        return device_transform(self.preprocessing)
+
+    def train_arrays(self):
+        """The train split as ``{"image", "label"}`` arrays for device-side
+        sampling (``RobustEngine.build_sampled_multi_step``, the runner's
+        ``--input-source device``), when a uniform row gather reproduces the
+        host stream: augmentation moved in-step (``augment:device``) or a
+        host tier that is the identity.  None otherwise: a stateful host
+        transform (augmentation streams, poisoning) must see every batch."""
+        augment = getattr(self, "augment", None)
+        if augment == "device":
+            eligible = True
+        elif augment == "host":
+            from .preprocessing import PREPROCESSING, none_preprocessing
+
+            eligible = PREPROCESSING.get(getattr(self, "preprocessing", None)) is none_preprocessing
+        else:
+            eligible = False
+        dataset = getattr(self, "dataset", None)
+        if not eligible or dataset is None:
+            return None
+        return {"image": dataset.x_train, "label": dataset.y_train}
+
+    def route_augmentation_to_device(self):
+        """Move a host-tier augmentation to its in-step twin
+        (``preprocessing.DEVICE_PREPROCESSING``), so device-side sampling can
+        serve augmented training too.  True when the experiment now augments
+        in-step (or already did); False when it has no augmentation to move
+        (a poisoning transform stays on the host).  The augmentation's
+        draws change (per-worker numpy streams -> the engine's (seed, step,
+        worker) streams): the same distribution, other draws."""
+        if getattr(self, "augment", None) == "device":
+            return True
+        name = getattr(self, "preprocessing", None)
+        if getattr(self, "augment", None) != "host" or name is None:
+            return False
+        from .preprocessing import DEVICE_PREPROCESSING
+
+        if name not in DEVICE_PREPROCESSING:
+            return False
+        self.augment = "device"
+        return True
+
 
 from . import cnnet, digits, mnist, mnist_attack  # noqa: E402,F401  (self-registering experiments)

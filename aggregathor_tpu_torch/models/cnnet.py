@@ -11,9 +11,14 @@ top-1 accuracy on the eval split.  The layer-by-layer match with flax:
   symmetric padding;
 - flax ``GroupNorm`` has eps 1e-6 (torch's default is 1e-5);
 - the features are flattened in NHWC order before ``dense1``, so its rows
-  line up with the flax kernel's.
+  line up with the flax kernel's;
+- on CUDA the convolutions take their weight gradient in float64
+  (``conv_weight_grad``): cuDNN's float32 weight gradient at the 64 -> 64
+  5x5 layer errs by up to ~2e-2 of its largest entry on the H100 with TF32
+  off (``chip_smoke.py``'s vmap phase prints it).
 """
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -26,6 +31,56 @@ def max_pool_same(x):
     """flax ``max_pool(x, (3, 3), strides=(2, 2), padding="SAME")`` on NCHW
     input with even height and width: pad 0 before, 1 after, with -inf."""
     return F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=float("-inf")), kernel_size=3, stride=2)
+
+
+def conv_weight_grad(x, grad_out, weight):
+    """The weight gradient of a stride-1 convolution with ``weight``'s
+    square kernel and "same" padding, computed in float64 from the float32
+    operands and rounded to float32."""
+    padding = weight.shape[-1] // 2
+    return torch.ops.aten.convolution_backward(
+        grad_out.double(), x.double(), weight.double(), None, [1, 1], [padding] * 2, [1, 1], False, [0, 0], 1,
+        [False, True, False])[1].to(weight.dtype)
+
+
+class _Conv2d(torch.autograd.Function):
+    """A stride-1 ``conv2d`` whose weight gradient is ``conv_weight_grad``;
+    the forward and the input gradient are cuDNN's float32 ones.  vmap
+    batches it by running these bodies under vmap (``generate_vmap_rule``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, weight, bias, padding):
+        return F.conv2d(x, weight, bias, padding=padding)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, weight, _, padding = inputs
+        ctx.save_for_backward(x, weight)
+        ctx.padding = padding
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, weight = ctx.saved_tensors
+        grad_x = grad_w = grad_b = None
+        if ctx.needs_input_grad[0]:
+            grad_x = torch.ops.aten.convolution_backward(
+                grad_out, x, weight, None, [1, 1], [ctx.padding] * 2, [1, 1], False, [0, 0], 1,
+                [True, False, False])[0]
+        if ctx.needs_input_grad[1]:
+            grad_w = conv_weight_grad(x, grad_out, weight)
+        if ctx.needs_input_grad[2]:
+            grad_b = grad_out.sum((0, 2, 3))
+        return grad_x, grad_w, grad_b, None
+
+
+def conv2d(x, conv):
+    """``conv`` (a stride-1 ``nn.Conv2d`` whose parameters ``functional_call``
+    may have swapped) on ``x``: on CUDA through ``_Conv2d``."""
+    if x.device.type == "cuda":
+        return _Conv2d.apply(x, conv.weight, conv.bias, conv.padding[0])
+    return conv(x)
 
 
 class CNNet(nn.Module):
@@ -44,9 +99,9 @@ class CNNet(nn.Module):
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
-        x = max_pool_same(F.relu(self.conv1(x)))
+        x = max_pool_same(F.relu(conv2d(x, self.conv1)))
         x = self.norm1(x)
-        x = self.norm2(F.relu(self.conv2(x)))
+        x = self.norm2(F.relu(conv2d(x, self.conv2)))
         x = max_pool_same(x)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten in NHWC order
         x = F.relu(self.dense1(x))
@@ -61,8 +116,8 @@ class CNNetExperiment(Experiment):
             "batch-size": 128,
             "eval-batch-size": 256,
             "preprocessing": "cifarnet",
-            # the same arg surface as the JAX experiment; the in-step
-            # augmentation tier and bfloat16 compute are not ported yet
+            # the same arg surface as the JAX experiment; bfloat16 compute
+            # is not ported yet
             "augment": "host",
             "dtype": "float32",
             "nb-fetcher-threads": 0,
@@ -70,13 +125,14 @@ class CNNetExperiment(Experiment):
         })
         from .preprocessing import check as check_preprocessing
 
-        if kv["augment"] != "host":
-            raise UserException("augment:%s is not available in the PyTorch port (host only)" % kv["augment"])
+        if kv["augment"] not in ("host", "device"):
+            raise UserException("augment must be host|device, got %r" % kv["augment"])
         if kv["dtype"] != "float32":
             raise UserException("dtype:%s is not available in the PyTorch port (float32 only)" % kv["dtype"])
         self.batch_size = kv["batch-size"]
         self.eval_batch_size = kv["eval-batch-size"]
         self.preprocessing = check_preprocessing(kv["preprocessing"])
+        self.augment = kv["augment"]
         self.dataset = load_cifar10()
         self.model = CNNet(classes=self.dataset.nb_classes)
 
@@ -85,8 +141,12 @@ class CNNetExperiment(Experiment):
 
         return WorkerBatchIterator(
             self.dataset.x_train, self.dataset.y_train, nb_workers, self.batch_size, seed=seed,
-            transform=make_preprocessing(self.preprocessing, seed=seed),
+            transform=(None if self.augment == "device"
+                       else make_preprocessing(self.preprocessing, seed=seed)),
         )
+
+    # device_transform / train_arrays: the Experiment defaults, keyed off
+    # self.augment, self.preprocessing and self.dataset
 
     def make_eval_iterator(self, nb_workers):
         return eval_batches(self.dataset.x_test, self.dataset.y_test, nb_workers, self.eval_batch_size)

@@ -2,7 +2,10 @@
 
 Copies of the numpy loaders of ``aggregathor_tpu/models/datasets.py`` (the
 npz, sklearn-digits and synthetic branches; the CIFAR-10 TFRecord reader is
-not ported yet), so both packages see the same batches, bit for bit.  Each
+not ported yet), so both packages see the same batches, bit for bit, with
+``WorkerBatchIterator.next_many`` (k batches as one chunk) and the
+``DevicePrefetcher`` thread.  The JAX package's chunk pipeline (sharded
+gather into ping-pong buffers, sliced transfers) is not ported yet.  Each
 loader first looks for a local ``.npz`` file (search order: the
 ``AGGREGATHOR_DATA`` env dir, ``~/.aggregathor/data``, ``./data``) and
 otherwise derives a deterministic synthetic stand-in: class-conditional
@@ -221,6 +224,23 @@ class WorkerBatchIterator:
             bx, by = self.transform(bx, by)
         return {"image": bx, "label": by}
 
+    def next_many(self, k):
+        """``k`` successive batches as one (k, nb_workers, batch, ...) chunk,
+        bit-identical to ``k`` calls of ``next`` (and advancing the streams
+        alike).  A stateful transform sees every batch in order; otherwise the
+        chunk is one gather and a stateless transform runs on each step."""
+        k = int(k)
+        if not transform_is_stateless(self.transform):
+            batches = [next(self) for _ in range(k)]
+            return {name: np.stack([batch[name] for batch in batches]) for name in batches[0]}
+        flat = np.stack([self._draw_indices() for _ in range(k)]).reshape(-1)
+        bx = self.x[flat].reshape((k, self.nb_workers, self.batch_size) + self.x.shape[1:])
+        by = self.y[flat].reshape(k, self.nb_workers, self.batch_size)
+        if self.transform is not None:
+            steps = [self.transform(bx[step], by[step]) for step in range(k)]
+            bx, by = np.stack([x for x, _ in steps]), np.stack([y for _, y in steps])
+        return {"image": bx, "label": by}
+
     def skip(self, k):
         """Advance every stream by ``k`` batches: the resume fast-forward,
         after which the next batch is the one an uninterrupted run would
@@ -246,3 +266,112 @@ def eval_batches(x, y, nb_workers, batch_size):
         bx = x[idx].reshape((nb_workers, batch_size) + x.shape[1:])
         by = y[idx].reshape(nb_workers, batch_size)
         yield {"image": bx, "label": by, "valid": valid.reshape(nb_workers, batch_size)}
+
+
+class _PrefetchError:
+    def __init__(self, exc):
+        self.exc = exc
+
+
+class DevicePrefetcher:
+    """A daemon thread that keeps up to ``depth`` device batches ready:
+    it pulls host batches from ``iterator`` and applies ``put`` (for example
+    ``RobustEngine.put_batch``), overlapping batch production and the
+    transfer with the step.  JAX ``datasets.py:541-622``.
+
+    On a CUDA ``device`` the thread runs ``put`` on a side stream of its own
+    (the engine copies from pinned memory there) and records an event after
+    it; the consumer's stream waits on that event before the step reads the
+    batch, and each tensor is recorded on the consumer's stream, so the
+    caching allocator does not hand its memory to the side stream while the
+    step still reads it.  A producer error surfaces on the consumer side;
+    ``close()`` stops the thread and joins it.
+    """
+
+    def __init__(self, iterator, put, depth=2, device=None):
+        import queue
+        import threading
+
+        import torch
+
+        self._queue = queue.Queue(maxsize=max(1, int(depth)))
+        self._iterator = iterator
+        self._put = put
+        self._device = torch.device(device) if device is not None else None
+        self._stream = None
+        if self._device is not None and self._device.type == "cuda":
+            if self._device.index is None:
+                self._device = torch.device("cuda", torch.cuda.current_device())
+            self._stream = torch.cuda.Stream(self._device)
+        self._stop = threading.Event()
+        self._terminal = None  # remembered end of stream / producer error
+        self._thread = threading.Thread(target=self._run, daemon=True, name="prefetch")
+        self._thread.start()
+
+    def _run(self):
+        import torch
+
+        try:
+            if self._stream is not None:
+                torch.cuda.set_device(self._device)
+            for batch in self._iterator:
+                if self._stop.is_set():
+                    return
+                event = None
+                if self._stream is None:
+                    device_batch = self._put(batch)
+                else:
+                    with torch.cuda.stream(self._stream):
+                        device_batch = self._put(batch)
+                        event = torch.cuda.Event()
+                        event.record(self._stream)
+                if self._stop.is_set():
+                    return
+                self._queue.put((device_batch, event))
+            self._queue.put(_PrefetchError(StopIteration()))
+        except BaseException as exc:  # surfaced on the consumer side
+            self._queue.put(_PrefetchError(exc))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import torch
+
+        if self._terminal is not None:  # iterator protocol: stay terminal
+            raise self._terminal
+        item = self._queue.get()
+        if isinstance(item, _PrefetchError):
+            self._terminal = item.exc
+            raise item.exc
+        device_batch, event = item
+        if event is not None:
+            consumer = torch.cuda.current_stream(self._device)
+            consumer.wait_event(event)
+            for tensor in device_batch.values():
+                tensor.record_stream(consumer)
+        return device_batch
+
+    def close(self):
+        """Stop the thread and join it; no batch stays queued afterwards.
+        The queue is drained while the producer winds down (it may finish
+        one last ``put``); a producer stuck inside the wrapped iterator is a
+        daemon and dies with the process."""
+        import queue
+        import time
+
+        self._stop.set()
+        self._terminal = StopIteration()
+        deadline = time.monotonic() + 5.0
+        while self._thread.is_alive() and time.monotonic() < deadline:
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.1)
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass

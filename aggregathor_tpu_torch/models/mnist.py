@@ -59,5 +59,9 @@ class MNISTExperiment(Experiment):
     def make_eval_iterator(self, nb_workers):
         return eval_batches(self.dataset.x_test, self.dataset.y_test, nb_workers, self.eval_batch_size)
 
+    def train_arrays(self):
+        # a transform-free iterator: a uniform row gather is the same stream
+        return {"image": self.dataset.x_train, "label": self.dataset.y_train}
+
 
 register("mnist", MNISTExperiment)

@@ -42,6 +42,11 @@ class MNISTAttackExperiment(MNISTExperiment):
             seed=seed, transform=stateless(lambda bx, by: self._poison(bx, by)),
         )
 
+    def train_arrays(self):
+        # the poisoning is a host batch transform: a plain device-side row
+        # gather would train on clean data
+        return None
+
 
 register("mnistAttack", MNISTAttackExperiment)
 

@@ -1,11 +1,20 @@
-"""Train-time input preprocessing (augmentation) registry, host tier.
+"""Train-time input preprocessing (augmentation) registry: host and device tiers.
 
-Copy of the numpy host tier of ``aggregathor_tpu/models/preprocessing.py``
-(the in-step device tier is not ported yet): experiments accept
-``preprocessing:<name>`` and apply the named augmentation to training
-batches only.  Each worker's augmentation stream draws from its own
-generator keyed by ``(seed, tag, worker)``, so both packages augment the
-same batches identically.
+Counterpart of ``aggregathor_tpu/models/preprocessing.py``: experiments
+accept ``preprocessing:<name>`` and apply the named augmentation to
+training batches only.
+
+The host tier is a copy of the JAX package's numpy tier: each worker's
+augmentation stream draws from its own generator keyed by ``(seed, tag,
+worker)``, so both packages augment the same batches identically.
+
+The device tier (``device_transform``) is the same augmentation on tensors,
+run inside the engine's step (``RobustEngine(batch_transform=...)``), so the
+host input path is a plain gather.  Each transform is split in two: a
+``draw`` of its random choices for one worker's batch from an explicit
+``torch.Generator`` (the engine's (seed, step, worker, 3) stream), and an
+``apply`` of drawn choices, which is pure data movement and equals the JAX
+transform bit for bit given the same offsets and flips.
 
 - ``none`` / ``lenet``: identity.
 - ``cifarnet``: 4-pixel reflect pad, random crop back to size, random
@@ -14,6 +23,7 @@ same batches identically.
 """
 
 import numpy as np
+import torch
 
 from ..utils import UserException
 
@@ -89,6 +99,85 @@ PREPROCESSING = {
     "vgg": flip_preprocessing,
     "lenet": none_preprocessing,
 }
+
+
+# --------------------------------------------------------------------- #
+# Device tier
+
+
+def _reflect(index, size):
+    """``jnp.pad(mode="reflect")``'s source index of padded position
+    ``index`` (already shifted by the pad): the edge is not repeated."""
+    index = torch.where(index < 0, -index, index)
+    return torch.where(index > size - 1, 2 * (size - 1) - index, index)
+
+
+class DeviceCifarnet:
+    """cifarnet on tensors: ``pad``-pixel reflect pad, a random crop back to
+    size, a random width flip (JAX ``_device_cifarnet``).  The draw per image:
+    the crop's (row, column) offset in [0, 2 pad] and a flip at p = 0.5."""
+
+    def __init__(self, pad=4):
+        self.pad = int(pad)
+
+    def draw(self, batch_size, generator):
+        offsets = torch.randint(0, 2 * self.pad + 1, (batch_size, 2), generator=generator)
+        flips = torch.rand(batch_size, generator=generator) < 0.5
+        return {"offsets": offsets, "flips": flips}
+
+    def apply(self, images, offsets, flips):
+        """``images`` (..., H, W, C) NHWC, ``offsets`` (..., 2), ``flips`` (...,):
+        each image cropped from its reflect-padded self, then flipped along
+        its width where drawn, as one gather (no padded copy is made)."""
+        height, width = images.shape[-3], images.shape[-2]
+        flat = images.reshape((-1,) + tuple(images.shape[-3:]))
+        offsets = offsets.reshape(-1, 2).to(images.device)
+        flips = flips.reshape(-1).to(images.device)
+        rows = torch.arange(height, device=images.device)
+        cols = torch.arange(width, device=images.device)
+        # output column j reads crop column W-1-j where flipped
+        cols = torch.where(flips[:, None], width - 1 - cols[None, :], cols[None, :])
+        src_rows = _reflect(offsets[:, :1] - self.pad + rows[None, :], height)
+        src_cols = _reflect(offsets[:, 1:] - self.pad + cols, width)
+        picked = flat[torch.arange(flat.shape[0], device=images.device)[:, None, None],
+                      src_rows[:, :, None], src_cols[:, None, :]]
+        return picked.reshape(images.shape)
+
+    def __call__(self, batch, draws):
+        return dict(batch, image=self.apply(batch["image"], **draws))
+
+
+class DeviceFlip:
+    """A random width flip at p = 0.5 on tensors (JAX ``_device_flip``)."""
+
+    def draw(self, batch_size, generator):
+        return {"flips": torch.rand(batch_size, generator=generator) < 0.5}
+
+    def apply(self, images, flips):
+        """``images`` (..., H, W, C), ``flips`` (...,)."""
+        flips = flips.to(images.device).reshape(flips.shape + (1, 1, 1))
+        return torch.where(flips, images.flip(-2), images)
+
+    def __call__(self, batch, draws):
+        return dict(batch, image=self.apply(batch["image"], **draws))
+
+
+DEVICE_PREPROCESSING = {
+    "none": lambda: None,
+    "lenet": lambda: None,
+    "cifarnet": DeviceCifarnet,
+    "inception": DeviceFlip,
+    "vgg": DeviceFlip,
+}
+
+
+def device_transform(name):
+    """The in-step transform for ``name`` (None when it is the identity)."""
+    if name not in DEVICE_PREPROCESSING:
+        raise UserException(
+            "Unknown preprocessing %r (accepted: %s)" % (name, ", ".join(sorted(DEVICE_PREPROCESSING)))
+        )
+    return DEVICE_PREPROCESSING[name]()
 
 
 def check(name):

@@ -8,10 +8,10 @@ step.
 
 What "in-graph" covers on the card: the step is dispatched asynchronously,
 so the runner's window around it (the step and the divergence check, at the
-JAX runner's points) holds the host's launch loop over the n workers, the
-aggregation and the update, and the wait for the card that the divergence
-check's read of the previous loss makes -- a read queued behind the current
-step's kernels, so the window ends when they do.  No synchronisation is
+JAX runner's points) holds the host's launches for the n workers' batched
+pass, the aggregation and the update, and the wait for the card that the
+divergence check's read of the previous losses makes -- a read queued
+behind the current call's kernels, so the window ends when they do.  No synchronisation is
 added for the report.
 
 The JAX report can also export to a metrics registry; that waits for the
@@ -86,15 +86,16 @@ class PerfReport:
     def step_begin(self):
         self._step_start = time.monotonic()
 
-    def step_end(self):
-        """Account one training step."""
+    def step_end(self, nb_steps=1):
+        """Account a call covering ``nb_steps`` training steps (``--unroll``);
+        the latency reservoir takes its time a step."""
         elapsed = time.monotonic() - self._step_start
         if self.nb_steps == 0:
             self.first_step_s = elapsed
         else:
-            self.latency.record(elapsed)
+            self.latency.record(elapsed / max(int(nb_steps), 1))
         self.in_graph_s += elapsed
-        self.nb_steps += 1
+        self.nb_steps += int(nb_steps)
 
     def steps_per_s_excl_first(self):
         total = time.monotonic() - self.start

@@ -47,15 +47,23 @@ Phases, in order (any failure exits non-zero and prints no result):
    products at 495 TFLOP/s.  K2's row also times the whole distance path on the raw
    (128, d) (centring and K2).  Distances of 64 rows must launch K1 and of
    65 the centring and K2.
-3. Drive the port's runner on the card: cnnet + krum (n=8, f=2, r=2
-   signflip) for 30 steps at d = 1,756,682, then a few steps each of
+3. The worker gradients of cnnet at n=8, batch 128: the engine's one
+   vmapped forward and backward (``torch.func``) against a per-worker loop
+   on the same weights and batches, each row within ``VMAP_RTOL`` of its
+   largest magnitude, no batching-rule fallback (warnings are errors); both
+   timed, with the vmap's peak memory.
+   Drive the port's runner on the card: cnnet + krum (n=8, f=2, r=2
+   signflip) for 30 steps at d = 1,756,682, the same with the cifarnet
+   augmentation in the step and the batches drawn on the card
+   (``augment:device --input-source device``), then a few steps each of
    bulyan (n=11, f=2), median, trimmed-mean, averaged-median, krum at n=128
    (the centring and K2), bulyan at n=128 (the centring, K2, and K4 on the
    sort path), and the lossy link: average-nan (K6) and krum under --UDP, and
    average under --UDP with CLEVER infill.  Every launch count is set to 0
    just before a leg and read just after: each leg must have launched its
    kernels once a step, and its loss must be finite; each leg's peak device
-   memory is printed.  Then each rule's
+   memory is printed (the n=128 legs hold all 128 workers' activations at
+   once).  The runner prefetches two batches ahead by default.  Then each rule's
    aggregate of a small poisoned matrix on the card is held against the
    same rule on the CPU (Krum's and Bulyan's selections must be identical,
    at n=11, n=72 and n=128, and Krum's near a tie, ``NEAR_TIES``), three MLP
@@ -71,8 +79,10 @@ Phases, in order (any failure exits non-zero and prints no result):
    steps at lr 0.1 must reach 0.95 real test accuracy (the JAX package:
    0.961), ``digits-conv`` (cnnet at 32x32x1, d = 1,753,482, batch 16) for
    400 steps at lr 0.05 must reach 0.96 (JAX: 0.975), both with cuDNN's
-   deterministic algorithms; each must launch K1 once a step and nothing
-   else.  K1 is held at their widths (and at odd
+   deterministic algorithms; then ``digits`` again with its batches drawn on
+   the card, 10 steps a call (``--input-source device --unroll 10``), which
+   must reach ``DIGITS_DEVICE_FLOOR``; each must launch K1 once a step and
+   nothing else.  K1 is held at their widths (and at odd
    widths beside 7,510) in phase 2, and timed at both.  ``digitsAttack``:
    severity 2 must train, evaluate, and stop with the loud divergence error
    or a finite loss; severity 1 trains 100 steps (``mnistAttack``, 20).
@@ -83,11 +93,13 @@ Phases, in order (any failure exits non-zero and prints no result):
    11-20 must match the uninterrupted run's within ``RESUME_RTOL`` (bit for
    bit, with cuDNN pinned to its deterministic algorithms), the TSV
    must hold no step twice, and the summary JSONL must carry the run id and
-   the four scalars.
+   the four scalars; both again with the batches drawn on the card, 4 steps
+   a call (``--input-source device --unroll 4``).
    Last, a cnnet + krum step and a digits-conv + krum step are split into
-   their phases (host batch, transfer, worker gradients, attack + aggregate,
-   update) and the card's busy share over whole steps is traced with
-   torch.profiler.
+   their phases (host batch, transfer, augmentation, worker gradients,
+   attack + aggregate, update), with the batches streamed and drawn on the
+   card (cnnet then augments in the step), and the card's busy share over
+   whole steps is traced with torch.profiler.
 5. Print the kernels held against their plain versions, the JSON kernel
    table, and last the JSON result line.
 """
@@ -111,6 +123,16 @@ DIGITS_CONV_D = 1753482  # cnnet at 32x32x1
 #: measured error on these rows (K1 at n = 8: scores within 7.9e-8 of
 #: float64; the centring and K2 at n = 72 and 128: within 5.4e-7)
 NEAR_TIES = ((8, 2, CNNET_D, 2e-7), (72, 8, 100003, 1.5e-6), (128, 8, 100003, 1.5e-6))
+#: the digits anchor drawn on the card (``--input-source device``): the least
+#: real test accuracy at 4000 steps, below the port's CPU runs of that path
+#: over seeds 0-3 (PERF.md)
+DIGITS_DEVICE_FLOOR = 0.95
+#: the vmapped worker gradients on the card: at batch 8 against a per-worker
+#: loop, each row within this share of the row's largest magnitude (float32
+#: sums in other orders)...
+VMAP_RTOL = 1e-5
+#: ...and in float64 at batch 128 (``vmap_phase`` says why not in float32)
+VMAP_F64_RTOL = 1e-10
 
 
 def fail(message):
@@ -498,6 +520,12 @@ LEGS = [
     ("cnnet+krum", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
                     "--nb-real-byz-workers", "2", "--attack", "signflip", "--max-step", "30",
                     "--evaluation-delta", "30"], ("pairwise_sq_distances",)),
+    # augmentation in the step and the batches drawn on the card (the train
+    # split held there); the same rule, attack and size as cnnet+krum
+    ("cnnet-device+krum", ["--experiment-args", "augment:device", "--input-source", "device",
+                           "--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
+                           "--nb-real-byz-workers", "2", "--attack", "signflip", "--max-step", "30",
+                           "--evaluation-delta", "30"], ("pairwise_sq_distances",)),
     ("cnnet+bulyan", ["--aggregator", "bulyan", "--nb-workers", "11", "--nb-decl-byz-workers", "2",
                       "--nb-real-byz-workers", "2", "--attack", "signflip", "--max-step", "5"],
      ("pairwise_sq_distances", "coordinate_averaged_median")),
@@ -585,6 +613,11 @@ DIGITS_LEGS = [
                           "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--max-step", "400",
                           "--learning-rate-args", "initial-rate:0.05", "--evaluation-delta", "100",
                           "--evaluation-period", "-1"], 0.96),
+    # the same digits anchor with its batches drawn on the card, 10 steps a
+    # call; the floor from the port's CPU runs of this path over seeds 0-3
+    ("digits+krum device", ["--experiment", "digits", "--aggregator", "krum", "--nb-workers", "8",
+                            "--nb-decl-byz-workers", "2", "--max-step", "4000", "--learning-rate-args",
+                            "initial-rate:0.1", "--input-source", "device", "--unroll", "10"], DIGITS_DEVICE_FLOOR),
 ]
 
 
@@ -660,13 +693,15 @@ def attack_phase(runner, workdir):
 RESUME_RTOL = 0.0
 
 
-def resume_phase(torch, runner, workdir, experiment, exp_args, argv):
+def resume_phase(torch, runner, workdir, experiment, exp_args, argv, input_args=()):
     """20 steps uninterrupted, then 10 with checkpoints, a restore and 10
     more, under deterministic cuDNN: the restored state equals the saved
-    one bit for bit; the losses of steps 11-20 match (``RESUME_RTOL``); the
-    TSV holds no step twice; the summary JSONL carries the run id and the
-    four scalars.  Returns the largest relative loss difference, and the
-    same between the uninterrupted run and a twin under cuDNN's defaults."""
+    one bit for bit, and the final state the uninterrupted run's; the losses
+    of the steps past 10 that both runs summarize match (``RESUME_RTOL``;
+    every step, or under ``--unroll`` each call's last); the TSV holds no
+    step twice; the summary JSONL carries the run id and the four scalars.
+    Returns the largest relative loss difference, and the same between the
+    uninterrupted run and a twin under cuDNN's defaults."""
     from aggregathor_tpu_torch import gars, models
     from aggregathor_tpu_torch.core import build_optimizer, build_schedule, host_snapshot
     from aggregathor_tpu_torch.obs.checkpoint import Checkpoints
@@ -674,7 +709,8 @@ def resume_phase(torch, runner, workdir, experiment, exp_args, argv):
 
     def run(name, max_step, extra=()):
         directory = os.path.join(workdir, name)
-        runner.main(["--experiment", experiment, "--experiment-args", *exp_args, *argv, "--max-step", str(max_step),
+        runner.main(["--experiment", experiment, "--experiment-args", *exp_args, *argv, *input_args,
+                     "--max-step", str(max_step),
                      "--checkpoint-dir", directory,
                      "--summary-dir", directory, "--summary-delta", "1", "--evaluation-file",
                      os.path.join(directory, "eval.tsv"), "--evaluation-delta", "5", "--evaluation-period", "-1",
@@ -713,12 +749,21 @@ def resume_phase(torch, runner, workdir, experiment, exp_args, argv):
     steps = [int(line.split("\t")[1]) for line in open(os.path.join(split, "eval.tsv")).read().splitlines()]
     check(len(steps) == len(set(steps)) and steps == sorted(steps), "%s: TSV steps %s" % (experiment, steps))
     want, twin, got = losses(whole), losses(again), losses(split)
-    check(sorted(got) == list(range(1, 21)), "%s: resumed summary steps %s" % (experiment, sorted(got)))
-    resumed = max(abs(got[k] - want[k]) / abs(want[k]) for k in range(11, 21))
-    spread = max(abs(twin[k] - want[k]) / abs(want[k]) for k in range(1, 21))
-    print("resume %s: restored state bit-identical to the saved one; losses of steps 11-20 within %.3g of the "
-          "uninterrupted run's, relative (tolerance %g; deterministic cuDNN), the default cuDNN's twin within "
-          "%.3g; TSV steps %s" % (experiment, resumed, RESUME_RTOL, spread, steps))
+    if "--unroll" not in input_args:
+        check(sorted(got) == list(range(1, 21)), "%s: resumed summary steps %s" % (experiment, sorted(got)))
+    common = sorted(k for k in set(got) & set(want) if k > 10)
+    check(20 in common, "%s: resumed summary steps %s, uninterrupted %s" % (experiment, sorted(got), sorted(want)))
+    resumed = max(abs(got[k] - want[k]) / abs(want[k]) for k in common)
+    spread = max(abs(twin[k] - want[k]) / abs(want[k]) for k in want)
+    finals = [torch.load(os.path.join(d, "model-20.ckpt"), weights_only=True) for d in (whole, split)]
+    for name, value in finals[0]["params"].items():
+        check(torch.equal(value.view(torch.int32), finals[1]["params"][name].view(torch.int32)),
+              "%s: the resumed run's final %s differs from the uninterrupted run's" % (experiment, name))
+    print("resume %s%s: restored state bit-identical to the saved one, final state to the uninterrupted run's; "
+          "losses of steps %s within %.3g of the uninterrupted run's, relative (tolerance %g; deterministic cuDNN), "
+          "the default cuDNN's twin within %.3g; TSV steps %s"
+          % (experiment, " " + " ".join(input_args) if input_args else "", common, resumed, RESUME_RTOL, spread,
+             steps))
     check(resumed <= RESUME_RTOL, "%s: resumed losses off by %.3g" % (experiment, resumed))
     return resumed, spread
 
@@ -804,6 +849,147 @@ def reference_phase(torch, gars, kernels, models):
                                                                   for n, _, d, m in NEAR_TIES)))
 
 
+def vmap_phase(torch, gars, models, n=8):
+    """The worker gradients of cnnet at n = 8: the engine's one vmapped pass
+    against a per-worker loop of forward and backward passes on the same
+    weights and batches.
+
+    In float32 at the main path's batch 128 the gradients are fixed by the
+    inputs only to ~1e-3: a ReLU input of dense1 within rounding of 0 flips
+    its mask for one image, and the whole gradient upstream of it moves by
+    ~1e-3 (seen against float64, for the loop and the vmap alike).  So the
+    vmap is held to the loop in float64 at batch 128 (no input lies within
+    float64's rounding of a kink; within ``VMAP_F64_RTOL`` of each row's
+    largest entry) and in float32 at batch 8, where a flip is unlikely
+    (within ``VMAP_RTOL``); and the float32 operations of the vmapped step
+    are held, one by one, against float64 at the main path's shapes (1024
+    images): cnnet's two convolutions forward, conv2's input gradient and
+    both weight gradients (``models.cnnet.conv_weight_grad``), within
+    ``VMAP_RTOL`` of the largest entry; cuDNN's float32 weight gradient at
+    conv2, which the step does not use, is printed beside it.  The float32 vmap and loop at batch 128 are printed
+    against float64.  The vmap takes no batching-rule fallback (warnings are
+    errors); both are timed by CUDA events at batch 128, with the vmap's
+    peak memory."""
+    import warnings
+
+    from torch.func import grad_and_value, vmap
+
+    from aggregathor_tpu_torch.core import FlatMap
+    from aggregathor_tpu_torch.models.cnnet import conv_weight_grad, max_pool_same
+    from aggregathor_tpu_torch.parallel import RobustEngine
+
+    engine = RobustEngine(gars.instantiate("average", n, 0), n, device="cuda")
+
+    def setup(batch_size):
+        exp = models.instantiate("cnnet", ["batch-size:%d" % batch_size])
+        params = {name: value.to("cuda") for name, value in exp.init(1).items()}
+        return exp, params, FlatMap(params), engine.put_batch(next(exp.make_train_iterator(n, seed=2)))
+
+    def cast(exp, params, batch, dtype):
+        exp.model.to(dtype)
+        return ({name: value.to(dtype) for name, value in params.items()},
+                {"image": batch["image"].to(dtype), "label": batch["label"]})
+
+    def loop(exp, params, flatmap, batch, dtype=torch.float32):
+        leaves, batch = cast(exp, params, batch, dtype)
+        leaves = {name: value.requires_grad_(True) for name, value in leaves.items()}
+        rows = torch.empty((n, flatmap.size), device="cuda", dtype=dtype)
+        for w in range(n):
+            loss = exp.loss(leaves, {key: value[w] for key, value in batch.items()})
+            flatmap.flatten_into(rows[w], dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values())))))
+        exp.model.float()
+        return rows
+
+    def vmapped64(exp, params, flatmap, batch):
+        leaves, batch = cast(exp, params, batch, torch.float64)
+        grads, _ = vmap(grad_and_value(exp.loss), in_dims=(None, 0))(leaves, batch)
+        exp.model.float()
+        return flatmap.flatten_rows(grads, torch.empty((n, flatmap.size), device="cuda", dtype=torch.float64))
+
+    def max_rel(rows, want):
+        return float(torch.max(torch.abs(rows.double() - want.double())
+                               / torch.amax(torch.abs(want.double()), dim=1, keepdim=True)))
+
+    def l2_rel(rows, want):
+        return float(torch.max(torch.linalg.vector_norm(rows.double() - want, dim=1)
+                               / torch.linalg.vector_norm(want, dim=1)))
+
+    exp, params, flatmap, batch = setup(8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        _, rows = engine._worker_gradients(params, batch, exp.loss, flatmap)
+    small = max_rel(rows, loop(exp, params, flatmap, batch))
+    check(small <= VMAP_RTOL, "vmap: float32 batch 8 gradients off the per-worker loop by %.3g of a row's largest "
+          "entry" % small)
+
+    exp, params, flatmap, batch = setup(128)
+    exact = loop(exp, params, flatmap, batch, torch.float64)
+    double = max_rel(vmapped64(exp, params, flatmap, batch), exact)
+    check(double <= VMAP_F64_RTOL, "vmap: float64 batch 128 gradients off the per-worker loop by %.3g" % double)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        _, rows = engine._worker_gradients(params, batch, exp.loss, flatmap)
+    torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    check(bool(torch.all(torch.isfinite(rows))), "vmap: non-finite gradient rows")
+    looped = loop(exp, params, flatmap, batch)
+    floor = {"vmap": (l2_rel(rows, exact), max_rel(rows, exact)), "loop": (l2_rel(looped, exact),
+                                                                          max_rel(looped, exact))}
+    vmap_ms = time_ms(lambda: engine._worker_gradients(params, batch, exp.loss, flatmap), torch, iters=10)
+    loop_ms = time_ms(lambda: loop(exp, params, flatmap, batch), torch, iters=10)
+    del rows, looped, exact
+
+    # the float32 operations one by one at the vmapped step's shapes
+    x = batch["image"].reshape((-1,) + tuple(batch["image"].shape[2:])).permute(0, 3, 1, 2).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m = exp.model.to("cuda")
+    hidden = m.norm1(max_pool_same(torch.relu(torch.nn.functional.conv2d(x, m.conv1.weight, m.conv1.bias,
+                                                                         padding=2)))).detach()
+    grad1 = torch.randn((x.shape[0], 64, 32, 32), device="cuda", generator=gen)
+    grad2 = torch.randn((x.shape[0], 64, 16, 16), device="cuda", generator=gen)
+
+    def cudnn_wgrad(inp, grad_out, weight):
+        return torch.ops.aten.convolution_backward(grad_out, inp, weight, None, [1, 1], [2, 2], [1, 1], False,
+                                                   [0, 0], 1, [False, True, False])[1]
+
+    def dgrad(inp, grad_out, weight):
+        return torch.ops.aten.convolution_backward(grad_out, inp, weight, None, [1, 1], [2, 2], [1, 1], False,
+                                                   [0, 0], 1, [True, False, False])[0]
+
+    ops = {
+        "conv1 forward": lambda t: torch.nn.functional.conv2d(x.to(t), m.conv1.weight.to(t), padding=2),
+        "conv2 forward": lambda t: torch.nn.functional.conv2d(hidden.to(t), m.conv2.weight.to(t), padding=2),
+        "conv2 input gradient": lambda t: dgrad(hidden.to(t), grad2.to(t), m.conv2.weight.to(t)),
+        "conv1 weight gradient": lambda t: conv_weight_grad(x.to(t), grad1.to(t), m.conv1.weight.to(t)),
+        "conv2 weight gradient": lambda t: conv_weight_grad(hidden.to(t), grad2.to(t), m.conv2.weight.to(t)),
+    }
+    op_errs = {}
+    for name, op in ops.items():
+        want = op(torch.float64)
+        op_errs[name] = float(torch.max(torch.abs(op(torch.float32).double() - want)) / torch.max(torch.abs(want)))
+        del want
+    cudnn_conv2 = cudnn_wgrad(hidden, grad2, m.conv2.weight).double()
+    want = cudnn_wgrad(hidden.double(), grad2.double(), m.conv2.weight.double())
+    cudnn_err = float(torch.max(torch.abs(cudnn_conv2 - want)) / torch.max(torch.abs(want)))
+    wgrad_ms = (time_ms(lambda: cudnn_wgrad(hidden, grad2, m.conv2.weight), torch),
+                time_ms(lambda: conv_weight_grad(hidden, grad2, m.conv2.weight), torch))
+    del cudnn_conv2, want, hidden, grad1, grad2, x, batch
+    torch.cuda.empty_cache()
+    print("vmap cnnet n=%d: float32 batch 8, vmapped rows within %.3g of the per-worker loop's (of each row's largest "
+          "entry; tolerance %g); float64 batch 128 within %.3g (tolerance %g); float32 batch 128 against float64: "
+          "vmapped %.3g in a row's 2-norm, %.3g of its largest entry, looped %.3g, %.3g; %.2f ms vmapped against "
+          "%.2f ms looped (float32, batch 128, CUDA events, 10 calls); peak %.0f MB"
+          % (n, small, VMAP_RTOL, double, VMAP_F64_RTOL, *floor["vmap"], *floor["loop"], vmap_ms, loop_ms, peak_mb))
+    print("float32 operations of the vmapped step at %d images against float64 (of the largest entry; tolerance %g): "
+          "%s; cuDNN's float32 conv2 weight gradient %.3g (%.3f ms against conv_weight_grad's %.3f ms)"
+          % (n * exp.batch_size, VMAP_RTOL, ", ".join("%s %.3g" % kv for kv in op_errs.items()), cudnn_err,
+             *wgrad_ms))
+    for name, err in op_errs.items():
+        check(err <= VMAP_RTOL, "%s: float32 off float64 by %.3g of the largest entry" % (name, err))
+
+
 def gar_phase(torch, gars):
     """Each rule's ms on the cnnet-width matrix (the per-layer metric: GAR ms a step)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -819,15 +1005,21 @@ def gar_phase(torch, gars):
     return out
 
 
-def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=()):
+def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), input_source="stream"):
     """Where a krum step's time goes (n = 8, f = 2, r = 2 signflip; cnnet
     unless told otherwise), and how busy the card is.
 
     The phases are the engine's own step pieces, timed on the host clock with
     the card synchronized after each (so each phase's device work lands in
-    it); the first step warms up and is not counted.  The busy share is the
-    union of the card's kernel intervals over whole runner-like steps (batch
-    production included), traced by torch.profiler, over their wall time."""
+    it); the first step warms up and is not counted.  With the batches
+    streamed, "host batch" is the iterator's numpy batch (cnnet: with the
+    host augmentation) and "to device" its copy; with ``input_source``
+    "device" (the train split on the card), "host batch" is the index draw
+    on the CPU generators and its copy, and "to device" the gather on the
+    card.  "augment" is the in-step augmentation (0 without one, and in a
+    checkout that has none).  The busy share is the union of the card's
+    kernel intervals over whole runner-like steps (batch production
+    included), traced by torch.profiler, over their wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from aggregathor_tpu_torch.core import FlatMap, build_optimizer, build_schedule
@@ -835,18 +1027,36 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=()):
 
     exp = models.instantiate(experiment, list(args))
     tx = build_optimizer("sgd", build_schedule("fixed", []))
+    transform = getattr(exp, "device_transform", lambda: None)()
     engine = RobustEngine(gars.instantiate("krum", 8, 2), 8, nb_real_byz=2,
-                          attack=attacks.instantiate("signflip", 8, 2), device="cuda")
+                          attack=attacks.instantiate("signflip", 8, 2), device="cuda",
+                          **({"batch_transform": transform} if transform is not None else {}))
     state = engine.init_state(exp.init(1), tx, seed=1)
     flatmap = FlatMap(state.params)
-    it = exp.make_train_iterator(8, seed=2)
-    names = ("host batch", "to device", "worker gradients", "attack + aggregate", "update")
+    device_input = input_source == "device"
+    if device_input:
+        data = engine.replicate(exp.train_arrays())
+        nb_examples = next(iter(data.values())).shape[0]
+    else:
+        it = exp.make_train_iterator(8, seed=2)
+    augment = getattr(engine, "_augment", None)
+    names = ("host batch", "to device", "augment", "worker gradients", "attack + aggregate", "update")
     totals = dict.fromkeys(names, 0.0)
     for s in range(steps + 1):
         marks = [time.perf_counter()]
-        batch = next(it)
+        if device_input:
+            index = engine._sample_indices(state.seed, state.step, nb_examples, exp.batch_size)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            on_card = {key: value[index] for key, value in data.items()}
+        else:
+            batch = next(it)
+            marks.append(time.perf_counter())
+            on_card = engine.put_batch(batch)
+        torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        on_card = engine.put_batch(batch)
+        if augment is not None:
+            on_card = augment(on_card, state.seed, state.step)
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         _, rows = engine._worker_gradients(state.params, on_card, exp.loss, flatmap)
@@ -866,13 +1076,23 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=()):
                 totals[name] += end - start
     per_step = {name: 1e3 * value / steps for name, value in totals.items()}
 
-    step = engine.build_step(exp.loss, tx)
+    if device_input:
+        sampled = engine.build_sampled_multi_step(exp.loss, tx, 1, exp.batch_size)
+
+        def one_step(state):
+            state, metrics = sampled(state, data)
+            return state, {name: value[-1] for name, value in metrics.items()}
+    else:
+        step = engine.build_step(exp.loss, tx)
+
+        def one_step(state):
+            return step(state, engine.put_batch(next(it)))
 
     def run(count):
         nonlocal state
         start = time.perf_counter()
         for _ in range(count):
-            state, metrics = step(state, engine.put_batch(next(it)))
+            state, metrics = one_step(state)
             float(metrics["total_loss"])
         torch.cuda.synchronize()
         return (time.perf_counter() - start) * 1e6
@@ -891,12 +1111,17 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=()):
             busy_us += hi - reach
             reach = hi
     busy = busy_us / 5 / step_us if intervals else None
-    print("breakdown %s+krum n=8 ms/step over %d steps: %s; phases sum %.2f ms; whole step %.2f ms untraced; "
-          "card busy %s ms/step over 5 traced steps (%.1f ms traced wall, torch.profiler, %d device events): "
-          "busy share %s of the untraced step"
-          % (experiment, steps, json.dumps(per_step), sum(per_step.values()), step_us / 1e3,
+    per_step["whole step"] = step_us / 1e3
+    print("breakdown %s%s+krum n=8 %s input, ms/step over %d steps: %s; phases sum %.2f ms; whole step %.2f ms "
+          "untraced; card busy %s ms/step over 5 traced steps (%.1f ms traced wall, torch.profiler, %d device "
+          "events): busy share %s of the untraced step"
+          % (experiment, "(%s)" % " ".join(args) if args else "", input_source, steps,
+             json.dumps({k: v for k, v in per_step.items() if k != "whole step"}),
+             sum(v for k, v in per_step.items() if k != "whole step"), step_us / 1e3,
              "%.2f" % (busy_us / 5e3) if intervals else "not measured", wall_us / 1e3, len(intervals),
              "%.3f" % busy if busy is not None else "not measured"))
+    del state, engine
+    torch.cuda.empty_cache()
     return per_step, busy
 
 
@@ -923,6 +1148,7 @@ def main():
                                           build.build_dir()))
 
     rows = kernel_phase(torch, kernels)
+    vmap_phase(torch, gars, models)
     totals = main_path_phase(torch, kernels, runner, card)
     reference_phase(torch, gars, kernels, models)
     gar_phase(torch, gars)
@@ -939,8 +1165,17 @@ def main():
             "--learning-rate-args", "initial-rate:0.1"])
         resume_phase(torch, runner, os.path.join(workdir, "conv"), "digits-conv", ["batch-size:16"], krum + [
             "--learning-rate-args", "initial-rate:0.05"])
-    breakdown_phase(torch, gars, models)
-    breakdown_phase(torch, gars, models, experiment="digits-conv", args=["batch-size:16"])
+        # the batches drawn on the card, 4 steps a call: 10 = 2 calls and a
+        # tail of 2, the resumed 10 the same, the uninterrupted 20 five calls
+        device_input = ("--input-source", "device", "--unroll", "4")
+        resume_phase(torch, runner, os.path.join(workdir, "mlp-device"), "digits", [], krum + [
+            "--learning-rate-args", "initial-rate:0.1"], device_input)
+        resume_phase(torch, runner, os.path.join(workdir, "conv-device"), "digits-conv", ["batch-size:16"], krum + [
+            "--learning-rate-args", "initial-rate:0.05"], device_input)
+    for source in ("stream", "device"):
+        breakdown_phase(torch, gars, models, input_source=source,
+                        args=["augment:device"] if source == "device" else [])
+        breakdown_phase(torch, gars, models, experiment="digits-conv", args=["batch-size:16"], input_source=source)
 
     print("held against their plain versions: %s" % ", ".join(
         "%s (%s)" % (row["name"], kernels.KERNELS[row["name"]].label) for row in rows))

@@ -26,8 +26,15 @@ calls), on random (seeded) cnnet-width inputs
   of krum and bulyan at n = 128, f = 8 on (128, d);
 - ``end-to-end``: GAR ms per step of krum at n = 8, f = 2; steps/s
   (excluding the first) of ``chip_smoke.LEGS``' legs of 8 workers, each run
-  for ``LEG_STEPS`` steps through the checkout's runner; and
-  ``chip_smoke.breakdown_phase``'s split of a cnnet + krum step at n = 8.
+  for ``LEG_STEPS`` steps through the checkout's runner (a leg drawing its
+  batches on the card only where the checkout's runner has
+  ``--input-source``); and ``chip_smoke.breakdown_phase``'s split of a
+  cnnet + krum step at n = 8;
+- ``breakdown``: ``chip_smoke.breakdown_phase`` for cnnet + krum and
+  ``digits-conv`` (batch 16) + krum at n = 8 with the batches streamed and,
+  where the checkout's engine has ``build_sampled_multi_step``, drawn on the
+  card (cnnet then augments in the step): each phase's ms, the whole
+  step's and the card's busy share.
 
 ``--root`` names the checkout whose ``aggregathor_tpu_torch`` is imported
 (default: the one holding this script), so the same inputs and timer serve
@@ -50,7 +57,7 @@ LEG_STEPS = 20
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=HERE)
-    parser.add_argument("--parts", default="k1,rank", help="what to time: k1, rank, end-to-end")
+    parser.add_argument("--parts", default="k1,rank", help="what to time: k1, rank, end-to-end, breakdown")
     parser.add_argument("--k1-rows", default="8,11,16,20,21,64", help="the row counts K1 is timed at")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
@@ -67,6 +74,9 @@ def main():
     from aggregathor_tpu_torch import gars, models
     from aggregathor_tpu_torch.cli import runner
     from aggregathor_tpu_torch.ops import build, kernels
+    from aggregathor_tpu_torch.parallel import RobustEngine
+
+    device_input = hasattr(RobustEngine, "build_sampled_multi_step")
 
     card = card_line()
     print(card)
@@ -86,7 +96,7 @@ def main():
         out["GAR krum n=8"] = time_ms(lambda: gar.aggregate(x), torch)
         del x
         for label, argv, _ in LEGS:
-            if argv[argv.index("--nb-workers") + 1] != "8":
+            if argv[argv.index("--nb-workers") + 1] != "8" or ("--input-source" in argv and not device_input):
                 continue
             argv = list(argv)
             argv[argv.index("--max-step") + 1] = str(LEG_STEPS)
@@ -96,6 +106,16 @@ def main():
         for phase, ms in phases.items():
             out["breakdown krum n=8 %s ms" % phase] = ms
         out["breakdown krum n=8 busy share"] = busy
+    if "breakdown" in parts:
+        cases = [("cnnet", [], "stream"), ("digits-conv", ["batch-size:16"], "stream")]
+        if device_input:
+            cases += [("cnnet", ["augment:device"], "device"), ("digits-conv", ["batch-size:16"], "device")]
+        for experiment, exp_args, source in cases:
+            phases, busy = breakdown_phase(torch, gars, models, experiment=experiment, args=exp_args,
+                                           input_source=source)
+            for phase, ms in phases.items():
+                out["breakdown %s %s %s ms" % (experiment, source, phase)] = ms
+            out["breakdown %s %s busy share" % (experiment, source)] = busy
     if "rank" in parts:
         rank_timings(torch, kernels, gars, gen, out, CNNET_D, time_ms)
     for key, value in out.items():

@@ -19,7 +19,11 @@ split cannot keep float32's mix of +inf and NaN), the diagonal 0 and the
 output symmetric bit for bit.  The rules on the card are also held against
 the port's own copy of the numpy oracle (rtol 1e-4, atol 1e-5, as the JAX
 package's tests hold its rules), K1 at the digits widths, three digits
-steps against the CPU, and a checkpoint of a card state round trip.
+steps against the CPU, and a checkpoint of a card state round trip.  The
+input path: the vmapped worker gradients against a per-worker loop on the
+card (each row within 1e-4 of its largest magnitude: batched and
+per-worker convolutions sum in other orders), the prefetcher's hand-over
+from its copy stream, and device-sampled, augmented steps against the CPU.
 """
 
 import numpy as np
@@ -370,3 +374,113 @@ def test_checkpoints_of_a_card_state_round_trip(cuda_device, tmp_path):
     assert at == 2 and restored.step == 2 and restored.opt_state["count"] == 2
     for name, value in restored.params.items():
         assert value.device.type == "cuda" and torch.equal(value, saved[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("experiment, args, n", [("cnnet", ["batch-size:8"], 4), ("digits", [], 8)])
+def test_vmapped_gradients_match_the_loop_on_the_card(cuda_device, monkeypatch, experiment, args, n):
+    """The engine's one vmapped forward and backward against a per-worker
+    loop on the card: each row within 1e-4 of its largest magnitude (the
+    batched and the per-worker convolutions sum in other orders), TF32 off."""
+    import warnings
+
+    from aggregathor_tpu_torch.core import FlatMap
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    exp = models.instantiate(experiment, args)
+    engine = RobustEngine(gars.instantiate("average", n, 0), n, device=cuda_device)
+    params = {name: value.to(cuda_device) for name, value in exp.init(1).items()}
+    flatmap = FlatMap(params)
+    batch = engine.put_batch(next(exp.make_train_iterator(n, seed=2)))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        losses, rows = engine._worker_gradients(params, batch, exp.loss, flatmap)
+    leaves = {name: value.clone().requires_grad_(True) for name, value in params.items()}
+    for w in range(n):
+        loss = exp.loss(leaves, {key: value[w] for key, value in batch.items()})
+        want = flatmap.flatten(dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values())))))
+        assert float(torch.max(torch.abs(rows[w] - want))) <= 1e-4 * float(torch.max(torch.abs(want)))
+        assert abs(float(losses[w]) - float(loss)) <= 1e-4 * abs(float(loss))
+
+
+@pytest.mark.gpu
+def test_prefetcher_hands_batches_over_from_its_stream(cuda_device):
+    """The prefetch thread copies on a side stream; each batch the consumer
+    reads, after a long computation queued on its own stream, holds exactly
+    the host batch, and the tensors arrive recorded on the consumer's stream."""
+    from aggregathor_tpu_torch.models.datasets import DevicePrefetcher
+
+    exp = models.instantiate("digits", [])
+    engine = RobustEngine(gars.instantiate("average", 8, 0), 8, device=cuda_device)
+    want = exp.make_train_iterator(8, seed=5)
+    prefetcher = DevicePrefetcher(exp.make_train_iterator(8, seed=5), engine.put_batch, depth=2, device=cuda_device)
+    big = torch.randn((2048, 2048), device=cuda_device)
+    try:
+        for _ in range(20):
+            for _ in range(5):
+                big = torch.tanh(big @ big)  # keep the consumer's stream busy
+            batch = next(prefetcher)
+            host = next(want)
+            assert batch["image"].device.type == "cuda"
+            assert torch.equal(batch["image"].cpu(), torch.as_tensor(host["image"]))
+            assert torch.equal(batch["label"].cpu(), torch.as_tensor(host["label"]))
+    finally:
+        prefetcher.close()
+    assert not prefetcher._thread.is_alive()
+
+
+@pytest.mark.gpu
+def test_sampled_and_augmented_steps_on_the_card_match_the_cpu(cuda_device, monkeypatch):
+    """Three device-sampled krum steps of digits-conv with the cifarnet
+    augmentation in the step (pad 4 on 32x32x1): the index and augmentation
+    draws come from CPU generators, so the card trains on the CPU's batches;
+    the parameters end within rtol 1e-4, atol 1e-5 of the CPU's, and the
+    augmentation itself is the same bits on both."""
+    from aggregathor_tpu_torch.models.preprocessing import DeviceCifarnet
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    finals, augmented = [], []
+    for device in (cuda_device, torch.device("cpu")):
+        exp = models.instantiate("digits-conv", ["batch-size:4"])
+        tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+        engine = RobustEngine(gars.instantiate("krum", 8, 2), 8, device=device, batch_transform=DeviceCifarnet(4))
+        state = engine.init_state(exp.init(3), tx, seed=3)
+        data = engine.replicate(exp.train_arrays())
+        augmented.append(engine._augment({"image": data["image"][:32].reshape(8, 4, 32, 32, 1)}, 3, 7)["image"].cpu())
+        state, metrics = engine.build_sampled_multi_step(exp.loss, tx, 3, exp.batch_size)(state, data)
+        assert metrics["total_loss"].shape == (3,)
+        finals.append(torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()]))
+    assert torch.equal(augmented[0], augmented[1])
+    torch.testing.assert_close(finals[0], finals[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels, size", [(64, 16), (3, 32)], ids=["conv2", "conv1"])
+def test_conv_weight_gradient_on_the_card_is_float32_exact(cuda_device, monkeypatch, channels, size):
+    """cnnet's convolutions (stride 1, 5x5, 64 outputs) on the card, 8
+    workers of 32 images vmapped: the weight gradient within 1e-5 of its
+    largest entry of the float64 one (cuDNN's float32 one errs by ~5e-3
+    there at the 64-channel layer; ``models.cnnet.conv_weight_grad`` computes
+    it in float64), the input gradient within 1e-5 too."""
+    from torch.func import grad, vmap
+
+    from aggregathor_tpu_torch.models.cnnet import _Conv2d
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((8, 32, channels, size, size), generator=gen).to(cuda_device)
+    probe = torch.randn((8, 32, 64, size, size), generator=gen).to(cuda_device)
+    weight = torch.randn((64, channels, 5, 5), generator=gen).to(cuda_device)
+    bias = torch.randn(64, generator=gen).to(cuda_device)
+
+    def loss(w, b, xi, pi):
+        return torch.sum(_Conv2d.apply(xi, w, b, 2) * pi)
+
+    got = vmap(grad(loss, argnums=(0, 1, 2)), in_dims=(None, None, 0, 0))(weight, bias, x, probe)
+    want = vmap(grad(loss, argnums=(0, 1, 2)), in_dims=(None, None, 0, 0))(
+        weight.double(), bias.double(), x.double(), probe.double())
+    for g, w in zip(got, want):
+        assert float(torch.max(torch.abs(g.double() - w))) <= 1e-5 * float(torch.max(torch.abs(w)))

@@ -14,6 +14,14 @@
   evaluations, bit for bit, as an uninterrupted run, and its evaluation
   TSV has no duplicate step rows; the summary JSONL carries the run id and
   the four scalars; a diverging run writes no final checkpoint;
+- the input path: ``--unroll``, ``--prefetch`` and ``--input-source`` take
+  the JAX runner's defaults and choices; the final parameters are the same
+  bits with ``--prefetch 0`` and ``--prefetch 2``, per step and under
+  ``--unroll 10``; ``--input-source device`` refuses the poisoning
+  experiments, moves cnnet's host augmentation in-step, and resumes bit
+  for bit (10 + 10 steps against 20); the evaluation rows fall where the JAX
+  runner's cadence puts them, at every step with ``--unroll 1`` and at chunk
+  boundaries with ``--unroll 10``, and the evaluations they share agree;
 - the port imports nothing of JAX, flax, optax or the JAX package (AST
   scan of every module, of ``chip_smoke.py`` and of the GPU tests, which
   run on a machine without JAX).
@@ -226,6 +234,94 @@ def test_argument_errors_are_user_errors():
         runner.main(MNIST + ["--aggregator", "krum", "--device", "tpu"])
 
 
+INPUT_FLAGS = ("unroll", "prefetch", "input_source")
+
+
+def test_input_flags_take_the_jax_defaults_and_choices():
+    from aggregathor_tpu.cli.runner import build_parser as jax_parser
+
+    argv = ["--experiment", "digits", "--aggregator", "krum", "--nb-workers", "8"]
+    ours, theirs = runner.build_parser().parse_args(argv), jax_parser().parse_args(argv)
+    assert ours.prefetch == 2
+    actions = {a.dest: a for a in runner.build_parser()._actions}
+    jax_actions = {a.dest: a for a in jax_parser()._actions}
+    for flag in INPUT_FLAGS:
+        assert getattr(ours, flag) == getattr(theirs, flag), flag
+        assert (actions[flag].type, actions[flag].choices) == (jax_actions[flag].type, jax_actions[flag].choices)
+    with pytest.raises(SystemExit):
+        runner.build_parser().parse_args(argv + ["--input-source", "disk"])
+
+
+def _final_params(directory, argv):
+    result = runner.main(argv + ["--checkpoint-dir", str(directory), "--checkpoint-delta", "1000",
+                                 "--checkpoint-period", "-1"])
+    return result, _snapshot(directory, result["restored_step"] + result["steps"])
+
+
+@pytest.mark.parametrize("unroll", ["1", "10"])
+def test_prefetch_does_not_change_training(tmp_path, unroll):
+    argv = DIGITS + ["--max-step", "23", "--unroll", unroll, "--evaluation-delta", "10"]
+    got = [_final_params(tmp_path / depth, argv + ["--prefetch", depth]) for depth in ("0", "2")]
+    assert got[0][0]["steps"] == got[1][0]["steps"] == 23
+    _assert_same_bits(got[0][1], got[1][1])
+    assert got[0][0]["evaluation"] == got[1][0]["evaluation"]
+
+
+def test_unroll_chunks_are_the_steps_and_cadences_fire_at_chunk_boundaries(tmp_path):
+    from aggregathor_tpu.obs.cadence import CadenceTrigger as JaxTrigger
+
+    def jax_rows(boundaries, delta):
+        trigger, rows = JaxTrigger(delta, -1.0), []
+        for step in boundaries:
+            if trigger.should_fire(step):
+                rows.append(step)
+                trigger.fired(step)
+        return rows if rows[-1] == boundaries[-1] else rows + [boundaries[-1]]
+
+    rows, finals = {}, {}
+    for unroll in (1, 10):
+        tsv = tmp_path / ("eval-%d.tsv" % unroll)
+        result, finals[unroll] = _final_params(tmp_path / str(unroll), DIGITS + [
+            "--max-step", "30", "--unroll", str(unroll), "--evaluation-delta", "10", "--evaluation-file", str(tsv)])
+        rows[unroll] = _rows(tsv)
+        assert sorted(rows[unroll]) == jax_rows(list(range(unroll, 31, unroll)), 10)
+    assert sorted(rows[1]) == [1, 11, 21, 30] and sorted(rows[10]) == [10, 20, 30]
+    # the K-step trainer is K steps: the same final bits and evaluation
+    _assert_same_bits(finals[1], finals[10])
+    assert rows[1][30] == rows[10][30]
+
+
+def test_device_input_refuses_the_poisoning_experiments():
+    for experiment in ("mnistAttack", "digitsAttack"):
+        with pytest.raises(UserException, match="train_arrays"):
+            runner.main(["--experiment", experiment, "--experiment-args", "hidden:16", "--aggregator", "average",
+                         "--nb-workers", "2", "--max-step", "1", "--input-source", "device", "--device", "cpu"])
+
+
+def test_device_input_routes_cnnet_augmentation_in_step(capsys):
+    result = runner.main(["--experiment", "cnnet", "--experiment-args", "batch-size:2", "--aggregator", "average",
+                          "--nb-workers", "2", "--max-step", "2", "--input-source", "device", "--device", "cpu",
+                          "--evaluation-delta", "-1", "--evaluation-period", "-1"])
+    assert "routing 'cifarnet' augmentation through the in-step device tier" in capsys.readouterr().out
+    assert result["steps"] == 2 and result["final_loss"] == result["final_loss"]
+
+
+def test_device_input_resume_is_bit_identical(tmp_path):
+    whole, split = tmp_path / "whole", tmp_path / "split"
+    common = DIGITS + ["--input-source", "device", "--unroll", "4", "--evaluation-delta", "5",
+                       "--checkpoint-delta", "10"]
+    full = runner.main(common + ["--max-step", "20", "--checkpoint-dir", str(whole),
+                                 "--evaluation-file", str(whole / "eval.tsv")])
+    first = runner.main(common + ["--max-step", "10", "--checkpoint-dir", str(split),
+                                  "--evaluation-file", str(split / "eval.tsv")])
+    second = runner.main(common + ["--max-step", "20", "--checkpoint-dir", str(split),
+                                   "--evaluation-file", str(split / "eval.tsv")])
+    assert (first["steps"], second["restored_step"], second["steps"]) == (10, 10, 10)
+    _assert_same_bits(_snapshot(whole, 20), _snapshot(split, 20))
+    assert second["final_loss"] == full["final_loss"]
+    assert _rows(split / "eval.tsv")[20] == _rows(whole / "eval.tsv")[20]
+
+
 def _imports(path):
     tree = ast.parse(open(path).read(), filename=path)
     for node in ast.walk(tree):
@@ -243,7 +339,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(paths) > 20
     for module in ("models/datasets.py", "models/digits.py", "models/mnist_attack.py", "gars/oracle.py",
                    "obs/cadence.py", "obs/checkpoint.py", "obs/summaries.py", "obs/perf.py",
-                   "core/train_state.py", "cli/runner.py"):
+                   "core/train_state.py", "cli/runner.py", "core/flatten.py", "models/preprocessing.py",
+                   "models/__init__.py", "models/cnnet.py", "parallel/engine.py"):
         assert os.path.join(REPO, "aggregathor_tpu_torch", module) in paths, module
     offenders = [
         (os.path.relpath(path, REPO), module)
