@@ -7,9 +7,20 @@ attack, the lossy link (``--UDP``), the optimizer and learning-rate
 registries, the step count, the seed, and the evaluation, checkpoint and
 summary cadences (each fires on a step delta or a wall period, at its first
 check, and once more at the end unless the run diverged), the input path
-(``--unroll``, ``--prefetch``, ``--input-source``), plus ``--device``.  It
-runs on CUDA unless ``--device cpu`` is given; with no GPU and no
-``--device cpu`` it fails instead of falling back.
+(``--unroll``, ``--prefetch``, ``--input-source``), the engine's robustness
+options (``--worker-momentum``, ``--reputation-decay``,
+``--quarantine-threshold``, ``--worker-metrics``, ``--exchange-dtype``,
+``--granularity``, ``--leaf-bucketing``, ``--trace-ops``) and the flight
+recorder (``--flight``, ``--flight-dump``), plus ``--device``.  It runs on
+CUDA unless ``--device cpu`` is given; with no GPU and no ``--device cpu``
+it fails instead of falling back.
+
+A summary event carries, beside the four scalars, the worker diagnostics
+the engine computes (``worker_sq_dist`` and ``suspect_worker``, the most
+distant worker with a finite distance; ``worker_participation``,
+``worker_reputation``, ``nb_quarantined``) and, under ``--flight``, the
+ring's row count from one fetch.  When the run crashes or diverges, the
+ring is dumped to ``--flight-dump`` before the state is dropped.
 
 The input path follows the JAX runner's.  ``--unroll K`` runs K steps per
 call (``RobustEngine.build_multi_step`` on a (K, n, ...) chunk), the
@@ -44,6 +55,8 @@ Example::
 
 import argparse
 import sys
+
+import numpy as np
 
 
 def build_parser():
@@ -82,6 +95,58 @@ def build_parser():
              "device (transferred once) and draw each worker's fresh i.i.d. batch there; "
              "needs an experiment exposing train_arrays() (no host-side transform)",
     )
+    parser.add_argument(
+        "--exchange-dtype", default=None, choices=["float32", "bfloat16"],
+        help="wire precision of the gradient exchange (bfloat16 halves the bytes; the GAR computes in float32)",
+    )
+    parser.add_argument(
+        "--worker-momentum", type=float, default=None, metavar="BETA",
+        help="workers send momenta (beta in (0,1)) instead of raw gradients: history-aware robustness "
+             "(Karimireddy et al. 2021)",
+    )
+    parser.add_argument(
+        "--granularity", default="vector", choices=["vector", "leaf", "layer", "global"],
+        help="apply the rule to the whole flattened gradient (vector, the reference's semantics) or per "
+             "parameter leaf (leaf: per-layer selection; each layer picks its own honest set); layer and "
+             "global need the sharded engine",
+    )
+    parser.add_argument(
+        "--leaf-bucketing", default="auto", choices=["auto", "on", "off"],
+        help="granularity:leaf implementation: on batches same-sized leaves into one rule call (not "
+             "available in this port: it needs batched kernels); auto and off loop over the leaves",
+    )
+    parser.add_argument(
+        "--reputation-decay", type=float, default=None, metavar="BETA",
+        help="track a per-worker reputation EMA (1 = trusted) of a rank signal: was the worker's raw "
+             "gradient among the n-f closest to the applied aggregate this step",
+    )
+    parser.add_argument(
+        "--quarantine-threshold", type=float, default=0.0, metavar="T",
+        help="workers whose reputation falls below T are excluded from aggregation (row masked NaN; needs "
+             "a NaN-tolerant rule); they are re-admitted when their raw gradients re-approach the "
+             "aggregate (requires --reputation-decay)",
+    )
+    parser.add_argument(
+        "--worker-metrics", action="store_true",
+        help="record per-worker suspicion diagnostics each summary: squared distance to the aggregate "
+             "and, for selection rules, the worker's participation weight",
+    )
+    parser.add_argument(
+        "--flight", type=int, default=0, metavar="CAPACITY",
+        help="flight recorder: a CAPACITY-row ring of per-step telemetry (loss, update norm, probe "
+             "flags, per-worker distances) on the device, written in the step, fetched once per summary "
+             "fire and dumped post-mortem on a crash or divergence; 0 disables",
+    )
+    parser.add_argument(
+        "--flight-dump", default=None, metavar="JSON",
+        help="write the flight-recorder window here when the run crashes or diverges (schema "
+             "aggregathor.obs.flight.v1; requires --flight)",
+    )
+    parser.add_argument(
+        "--trace-ops", action="store_true",
+        help="per-op terminal narrative: print a marker after each phase of the step body (gradients, "
+             "aggregate, apply); debug cadence only",
+    )
     parser.add_argument("--seed", type=int, default=0, help="base seed")
     # Cadences (negative disables; defaults from config.py, as in the JAX runner)
     parser.add_argument("--evaluation-file", default=None, help="TSV evaluation log path")
@@ -118,9 +183,11 @@ def main(argv=None):
     from ..obs.evalfile import EvalFile
     from ..obs.perf import PerfReport
     from ..models.datasets import DevicePrefetcher
+    from ..obs import flight as obs_flight
     from ..obs.summaries import SummaryWriter
     from ..ops import kernels
     from ..parallel import RobustEngine, attacks
+    from ..parallel.engine import index_metrics, stack_metrics
     from ..parallel.lossy import LossyLink
     from ..utils import Context, UserException, info, resolve_device, warning
 
@@ -142,6 +209,21 @@ def main(argv=None):
     if n <= 2 * f:
         warning("n = %d <= 2f = %d: most GARs offer no guarantee at this ratio" % (n, 2 * f))
     unroll = max(1, args.unroll)
+    if args.flight < 0:
+        raise UserException("--flight wants a nonnegative ring capacity")
+    if args.flight_dump and not args.flight:
+        raise UserException("--flight-dump needs --flight CAPACITY")
+    if args.granularity in ("layer", "global"):
+        raise UserException("--granularity %s needs the sharded engine (--mesh), which this port does not carry yet"
+                            % args.granularity)
+    if args.leaf_bucketing != "auto" and args.granularity != "leaf":
+        warning("--leaf-bucketing only affects --granularity leaf; ignored for granularity %r" % args.granularity)
+    flight_rec = None
+    if args.flight:
+        flight_rec = obs_flight.FlightRecorder(args.flight, n, probe=True, worker_metrics=args.worker_metrics)
+        if args.flight < unroll:
+            warning("--flight capacity %d < --unroll %d: a summary fetch cannot cover the whole last chunk; "
+                    "size the ring to at least the unroll (ideally the summary delta)" % (args.flight, unroll))
 
     with Context("setup"):
         experiment = models.instantiate(args.experiment, args.experiment_args)
@@ -162,8 +244,13 @@ def main(argv=None):
         lossy = LossyLink(args.udp, args.udp_args) if args.udp > 0 else None
         tx = build_optimizer(args.optimizer, build_schedule(args.learning_rate, args.learning_rate_args),
                              args.optimizer_args)
-        engine = RobustEngine(gar, n, nb_real_byz=r, attack=attack, lossy_link=lossy,
-                              batch_transform=experiment.device_transform(), device=device)
+        engine = RobustEngine(
+            gar, n, nb_real_byz=r, attack=attack, lossy_link=lossy, exchange_dtype=args.exchange_dtype,
+            worker_momentum=args.worker_momentum, batch_transform=experiment.device_transform(),
+            worker_metrics=args.worker_metrics, reputation_decay=args.reputation_decay,
+            quarantine_threshold=args.quarantine_threshold, granularity=args.granularity,
+            leaf_bucketing={"auto": "auto", "on": True, "off": False}[args.leaf_bucketing],
+            trace_ops=args.trace_ops, flight=flight_rec, device=device)
         state = engine.init_state(experiment.init(args.seed), tx, seed=args.seed)
         step_fn = engine.build_step(experiment.loss, tx)
         device_dataset = None
@@ -209,12 +296,40 @@ def main(argv=None):
         return metrics
 
     def summary_scalars(step, metrics):
-        return {
+        """The summary event: the four scalars, the worker diagnostics the
+        engine computes, and the flight ring's row count (one ring fetch)."""
+        scalars = {
             "total_loss": float(metrics["total_loss"]),
             "grad_norm": float(metrics["grad_norm"]),
             "learning_rate": float(tx.schedule(step)),
             "steps_per_s": perf.steps_per_s_excl_first(),
         }
+        if "worker_sq_dist" in metrics:
+            wdist = metrics["worker_sq_dist"].cpu().numpy()
+            scalars["worker_sq_dist"] = wdist
+            # the most distant live worker: a masked row (lossy NaN infill,
+            # quarantine) has a non-finite distance and shows in
+            # nb_quarantined/participation instead; no finite entry, no suspect
+            if np.any(np.isfinite(wdist)):
+                scalars["suspect_worker"] = int(np.argmax(np.where(np.isfinite(wdist), wdist, -np.inf)))
+        for name in ("worker_participation", "worker_reputation"):
+            if name in metrics:
+                scalars[name] = metrics[name].cpu().numpy()
+        if "nb_quarantined" in metrics:
+            scalars["nb_quarantined"] = int(metrics["nb_quarantined"])
+        if flight_rec is not None:
+            scalars["flight_rows"] = int(flight_rec.fetch(state.flight)["step"].size)
+        return scalars
+
+    def flight_postmortem(reason):
+        """Fetch the ring and dump it (``--flight-dump``) before the state
+        is dropped: the per-step evidence of the window that ended the run."""
+        if flight_rec is None or not args.flight_dump:
+            return
+        window = flight_rec.fetch(state.flight)
+        obs_flight.dump_window(args.flight_dump, window, run_id=summaries.run_id, reason=reason,
+                               capacity=flight_rec.capacity, extra={"at_step": int(step)})
+        info("Flight post-mortem (%s) -> %r (%d row(s))" % (reason, args.flight_dump, int(window["step"].size)))
 
     def synchronize():
         if device.type == "cuda":
@@ -224,11 +339,14 @@ def main(argv=None):
         # the loss of the last step (the losses of the last chunk) dispatched,
         # read one call late in the loop (on the card, the read waits for the
         # call queued before it)
+        nonlocal diverged
         if pending is not None and not bool(torch.all(torch.isfinite(pending))):
+            diverged = True
             raise UserException("Training diverged (non-finite loss around step %d)" % step)
 
     launches_before = kernels.launch_counts()
     metrics, evaluation, perf, report, prefetcher = {}, None, None, None, None
+    step, diverged = 0, False
     try:
         # Auto-restore the latest snapshot, then realign the batch streams:
         # the per-step attack and lossy streams derive from (seed, step,
@@ -284,7 +402,7 @@ def main(argv=None):
                     batch = next(prefetcher) if prefetcher is not None else engine.put_batch(next(train_iter))
                     perf.step_begin()
                     state, step_metrics = step_fn(state, batch)
-                    many = {name: value[None] for name, value in step_metrics.items()}
+                    many = stack_metrics([step_metrics])
                     chunk = 1
                 check_divergence()
                 if step == offstep:
@@ -292,7 +410,7 @@ def main(argv=None):
                 perf.step_end(chunk)
                 step += chunk
                 pending = many["total_loss"]
-                metrics = {name: value[-1] for name, value in many.items()}
+                metrics = index_metrics(many, -1)
                 if eval_trigger.should_fire(step):
                     check_divergence()
                     evaluation = run_eval(step)
@@ -319,6 +437,11 @@ def main(argv=None):
                 if summary_trigger.last_step != step:
                     summaries.scalars(step, summary_scalars(step, metrics))
     finally:
+        if diverged or sys.exc_info()[0] is not None:
+            try:
+                flight_postmortem("divergence" if diverged else "crash")
+            except Exception as exc:  # the run's own error stays the one raised
+                warning("flight: post-mortem dump failed: %s" % exc)
         if prefetcher is not None:
             prefetcher.close()
         eval_file.close()

@@ -154,6 +154,19 @@ class GAR:
         squared-distance matrix when ``needs_distances`` is set."""
         raise NotImplementedError
 
+    def worker_participation(self, dist2):
+        """The (n,) weight each worker's row carried in the aggregate (sums
+        to 1), for the rules that select whole workers; None for the rest
+        (the coordinate-wise rules select per coordinate, not per worker).
+        A non-finite distance counts as +inf, so K2's all-NaN convention and
+        the plain version's +inf/NaN mix give the same weights."""
+        return None
+
+    def aggregate_block_and_participation(self, block, dist2=None):
+        """``(aggregate, worker_participation(dist2))`` in one call; the
+        selection rules compute their weights once for both."""
+        return self._call_aggregate(block, dist2), self.worker_participation(dist2)
+
 
 # The ported rules register themselves on import, in the slice's order.
 from . import average, average_nan, krum, median, averaged_median, bulyan, trimmed_mean, pallas_tier  # noqa: E402,F401

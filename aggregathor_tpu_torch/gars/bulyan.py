@@ -13,6 +13,9 @@ t = n - 2f - 2, b = t - 2f:
    rounds on (n,) vectors here.
 3. Averaged-median over the t selections (the K4 kernel on CUDA): median,
    then the mean of the ``b`` values closest to it.
+
+A worker's participation (``--worker-metrics``) is its weight averaged over
+the t rounds.
 """
 
 import torch
@@ -57,10 +60,20 @@ class BulyanGAR(GAR):
         return torch.stack(rows)
 
     def aggregate_block(self, block, dist2=None):
+        return self.aggregate_block_and_participation(block, dist2)[0]
+
+    def worker_participation(self, dist2):
+        # the mean over the t rounds of each worker's weight: a worker every
+        # round excludes ends at exactly 0
+        return torch.mean(self.selection_weights(dist2), dim=0)
+
+    def aggregate_block_and_participation(self, block, dist2=None):
         if dist2 is None:
             raise ValueError("bulyan requires the pairwise distance matrix")
-        selections = select_combine(self.selection_weights(dist2), block)
-        return kernels.coordinate_averaged_median(selections.contiguous(), self.nb_closest)
+        weights = self.selection_weights(dist2)
+        selections = select_combine(weights, block)
+        aggregate = kernels.coordinate_averaged_median(selections.contiguous(), self.nb_closest)
+        return aggregate, torch.mean(weights, dim=0)
 
 
 register("bulyan", BulyanGAR)

@@ -5,7 +5,8 @@ sum of its ``n - f - 2`` smallest pairwise squared distances (a non-finite
 distance counts as +inf); the output is the average of the ``m = n - f - 2``
 smallest-scoring gradients (ties to the lower index).  The (n, n) distances
 come from the K1 kernel; the scoring is O(n^2) tensor work and the final
-average a (1, n) x (n, d) product (``select_combine``).
+average a (1, n) x (n, d) product (``select_combine``).  A worker's
+participation (``--worker-metrics``) is its selection weight.
 """
 
 import torch
@@ -39,9 +40,16 @@ class KrumGAR(GAR):
         return selection_mean_weights(scores, self.nb_selected)
 
     def aggregate_block(self, block, dist2=None):
+        return self.aggregate_block_and_participation(block, dist2)[0]
+
+    def worker_participation(self, dist2):
+        return self.selection_weights(dist2)
+
+    def aggregate_block_and_participation(self, block, dist2=None):
         if dist2 is None:
             raise ValueError("krum requires the pairwise distance matrix")
-        return select_combine(self.selection_weights(dist2), block)
+        weights = self.selection_weights(dist2)
+        return select_combine(weights, block), weights
 
 
 register("krum", KrumGAR)

@@ -16,6 +16,13 @@ top-1 accuracy on the eval split.  The layer-by-layer match with flax:
   (``conv_weight_grad``): cuDNN's float32 weight gradient at the 64 -> 64
   5x5 layer errs by up to ~2e-2 of its largest entry on the H100 with TF32
   off (``chip_smoke.py``'s vmap phase prints it).
+
+``dtype:bfloat16`` computes the conv and dense stack in bfloat16 as flax
+does with ``dtype=bfloat16``: inputs, kernels and biases cast to bfloat16,
+each GroupNorm's statistics and normalization in float32 with a bfloat16
+result; the parameters stay float32 and the logits layer runs in float32.
+On CUDA that path takes cuDNN's bfloat16 convolutions (the float64 weight
+gradient is the float32 path's).
 """
 
 import torch
@@ -24,6 +31,7 @@ from torch import nn
 
 from ..utils import UserException, parse_keyval
 from . import Experiment, register
+from .common import check_dtype
 from .datasets import WorkerBatchIterator, eval_batches, load_cifar10
 
 
@@ -85,10 +93,12 @@ def conv2d(x, conv):
 
 class CNNet(nn.Module):
     """``channels``: the input's channels, which flax infers from the first
-    input (3 for CIFAR-10, 1 for ``digits-conv``)."""
+    input (3 for CIFAR-10, 1 for ``digits-conv``); ``dtype``: the compute
+    dtype of the conv and dense stack."""
 
-    def __init__(self, classes=10, channels=3):
+    def __init__(self, classes=10, channels=3, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(channels, 64, 5, padding=2)
         self.norm1 = nn.GroupNorm(8, 64, eps=1e-6)
         self.conv2 = nn.Conv2d(64, 64, 5, padding=2)
@@ -97,15 +107,34 @@ class CNNet(nn.Module):
         self.dense2 = nn.Linear(384, 192)
         self.logits = nn.Linear(192, classes)
 
+    def _conv(self, x, conv):
+        if self.dtype == torch.float32:
+            return conv2d(x, conv)
+        return F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype), padding=conv.padding)
+
+    def _norm(self, x, norm):
+        if self.dtype == torch.float32:
+            return norm(x)
+        return F.group_norm(x.to(torch.float32), norm.num_groups, norm.weight, norm.bias, norm.eps).to(self.dtype)
+
+    def _dense(self, x, dense):
+        if self.dtype == torch.float32:
+            return dense(x)
+        return F.linear(x, dense.weight.to(self.dtype), dense.bias.to(self.dtype))
+
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
-        x = max_pool_same(F.relu(conv2d(x, self.conv1)))
-        x = self.norm1(x)
-        x = self.norm2(F.relu(conv2d(x, self.conv2)))
+        if self.dtype != torch.float32:
+            x = x.to(self.dtype)
+        x = max_pool_same(F.relu(self._conv(x, self.conv1)))
+        x = self._norm(x, self.norm1)
+        x = self._norm(F.relu(self._conv(x, self.conv2)), self.norm2)
         x = max_pool_same(x)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten in NHWC order
-        x = F.relu(self.dense1(x))
-        x = F.relu(self.dense2(x))
+        x = F.relu(self._dense(x, self.dense1))
+        x = F.relu(self._dense(x, self.dense2))
+        if self.dtype != torch.float32:
+            x = x.to(torch.float32)  # logits in float32: the softmax cross-entropy is touchy in bfloat16
         return self.logits(x)
 
 
@@ -116,8 +145,7 @@ class CNNetExperiment(Experiment):
             "batch-size": 128,
             "eval-batch-size": 256,
             "preprocessing": "cifarnet",
-            # the same arg surface as the JAX experiment; bfloat16 compute
-            # is not ported yet
+            # the same arg surface as the JAX experiment
             "augment": "host",
             "dtype": "float32",
             "nb-fetcher-threads": 0,
@@ -127,14 +155,13 @@ class CNNetExperiment(Experiment):
 
         if kv["augment"] not in ("host", "device"):
             raise UserException("augment must be host|device, got %r" % kv["augment"])
-        if kv["dtype"] != "float32":
-            raise UserException("dtype:%s is not available in the PyTorch port (float32 only)" % kv["dtype"])
+        dtype = check_dtype(kv["dtype"])
         self.batch_size = kv["batch-size"]
         self.eval_batch_size = kv["eval-batch-size"]
         self.preprocessing = check_preprocessing(kv["preprocessing"])
         self.augment = kv["augment"]
         self.dataset = load_cifar10()
-        self.model = CNNet(classes=self.dataset.nb_classes)
+        self.model = CNNet(classes=self.dataset.nb_classes, dtype=dtype)
 
     def make_train_iterator(self, nb_workers, seed=0):
         from .preprocessing import instantiate as make_preprocessing

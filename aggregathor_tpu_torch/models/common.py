@@ -15,6 +15,20 @@ import torch
 
 from ..core.flatten import jax_leaf
 
+#: the compute dtypes experiments accept (parameters always stay float32)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_dtype(name):
+    """The torch dtype of a ``dtype:`` experiment arg, or a UserException
+    (never a silent float32)."""
+    from ..utils import UserException
+
+    if name not in COMPUTE_DTYPES:
+        raise UserException("Unknown dtype %r (accepted: %s)" % (name, ", ".join(sorted(COMPUTE_DTYPES))))
+    return COMPUTE_DTYPES[name]
+
+
 #: flax's default kernel init is lecun_normal: a normal truncated at two
 #: standard deviations, rescaled so the variance is 1/fan_in
 _TRUNCATED_STDDEV = 0.87962566103423978

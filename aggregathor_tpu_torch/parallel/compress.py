@@ -1,0 +1,45 @@
+"""The wire's precision: what a row looks like after it crossed the exchange.
+
+Counterpart of the dtype part of ``aggregathor_tpu/parallel/compress.py``
+(``wire_roundtrip``, ``bytes_per_row``).  ``--exchange-dtype bfloat16``
+sends each worker's row as bfloat16 and the GAR computes in float32 on the
+values that arrived; float32 is the identity.  The codecs (``int8``,
+``topk``, error feedback) are not ported.
+
+The round trip is torch's float32 -> bfloat16 cast (round to nearest, ties
+to even) and back: bit for bit the JAX package's ``astype`` on every value,
+subnormals included, except NaN, which comes back as a NaN of another sign
+and payload (every consumer tests ``isfinite``/``isnan``, never a NaN's
+bits).
+"""
+
+import torch
+
+from ..utils import UserException
+
+_F32_BYTES = 4
+
+
+def wire_dtype(dtype):
+    """The engine's exchange dtype from a name or a ``torch.dtype``: None
+    for the float32 wire (no round trip), else a floating dtype."""
+    if dtype is None:
+        return None
+    resolved = getattr(torch, dtype, None) if isinstance(dtype, str) else dtype
+    if not isinstance(resolved, torch.dtype) or not resolved.is_floating_point:
+        raise UserException("exchange_dtype wants a floating dtype such as bfloat16, got %r" % (dtype,))
+    return None if resolved == torch.float32 else resolved
+
+
+def wire_roundtrip(rows, dtype=None):
+    """``rows`` as they arrive over a ``dtype`` wire, in float32 (``rows``
+    itself on the float32 wire)."""
+    if dtype is None:
+        return rows
+    return rows.to(dtype).to(torch.float32)
+
+
+def bytes_per_row(d, dtype=None):
+    """Wire bytes of one (d,) row under the exchange dtype."""
+    itemsize = _F32_BYTES if dtype is None else torch.empty((), dtype=dtype).element_size()
+    return int(d) * itemsize

@@ -15,31 +15,57 @@ Counterpart of the flat mode of ``aggregathor_tpu/parallel/engine.py``
    activations live at once.  The (n, *shape) gradient leaves are written
    into the (n, d) float32 matrix in the JAX package's coordinate order,
    one copy per leaf (``FlatMap.flatten_rows``).
-2. **Local attack and transport** (``_perturb_local``): rows w < r pass
+2. **Worker momentum** (``_send``, ``worker_momentum=beta``): each worker
+   sends m <- beta m + (1 - beta) g, divided by 1 - beta^k for its k-th
+   update (Adam's bias correction, k counted from the buffer's last zeroing,
+   in float32), instead of its gradient.  It runs before the attack: an
+   attacker forges what it sends, not what honest peers remember.
+3. **Local attack and transport** (``_perturb_local``): rows w < r pass
    through the attack's ``apply_local`` with a generator seeded from
    (seed, step, w, 1); then the lossy link (``--UDP``) masks the lost
    packets of rows w < k from the (seed, step, w, 2) stream, with NaN or,
    under ``clever:true``, the carry's row.  The carry then takes every
-   row as it arrived (post-transport, before the omniscient attack).
-3. **Omniscient attack** (``_prepare_rows``): coalition attacks rewrite rows
-   w < r from the honest statistics.
-4. **Aggregation** (``_aggregate_block``): when the rule needs distances,
+   row as it arrived (post-transport, before the omniscient attack), and
+   the health probe flags the rows holding a non-finite value.
+4. **The wire** (``exchange_dtype``): under bfloat16 every row crosses it
+   rounded (``compress.wire_roundtrip``); the rule computes in float32.
+5. **Omniscient attack and quarantine** (``_prepare_rows``): coalition
+   attacks rewrite rows w < r from the honest statistics (and cross the
+   wire again); then the rows of at most f workers whose reputation fell
+   below ``quarantine_threshold`` are masked NaN, which only a
+   ``nan_row_tolerant`` rule accepts.
+6. **Aggregation** (``_aggregate_block``): when the rule needs distances,
    one launch gives the (n, n) matrix (K1 up to 64 workers, median centring
    and K2 beyond), clamped at 0; then the rule (K3-K5 for the rank-based
-   rules and Bulyan's last phase, K6 for average-nan).
-5. **Update**: the (d,) aggregate is inflated to torch-layout views and the
+   rules and Bulyan's last phase, K6 for average-nan), and under
+   ``worker_metrics`` the rule's per-worker participation.  Under
+   ``granularity="leaf"`` steps 4-6 run once per parameter leaf (each
+   layer picks its own honest set: distance kernels once a leaf), the
+   participation is the mean over the leaves, and the aggregate does not
+   cross the wire again; under ``"vector"`` the (d,) aggregate crosses it
+   back.
+7. **Update**: the (d,) aggregate is inflated to torch-layout views and the
    optimizer applies it in place to the one copy of the parameters.
+8. **Finalize** (``_finalize_step``): the reputation EMA of a rank signal
+   (1 if the worker's raw row, before quarantine, is among the n - f
+   closest to the aggregate and finite), the health probe
+   (``metrics["probe"]``, on by default), the suspicion metrics and the
+   flight recorder's row.
 
 ``build_multi_step`` runs K such steps in one call, on K distinct batches
 or one resident batch K times; ``build_sampled_multi_step`` draws each
 step's batches from a dataset held on the device (``replicate``), worker
 w's indices from the (seed, step, w, 4) stream, and gathers them there.
-Both return per-step metrics with a leading K.
+Both return per-step metrics with a leading K (the probe's fields too).
 
-Left out of this port so far, each refused with a UserException when asked
-for: chaos schedules, the wire codec and exchange dtype, secure submission,
-reputation/quarantine, worker momentum, worker metrics, the flight recorder,
-bounded-wait, the sharded mode and leaf granularity.
+``trace_ops`` prints one ``TRACE step s dev 0 ...`` line after the
+gradients, the aggregate and the update, in the JAX package's words.
+
+Refused with a UserException: the chaos schedules, the wire codec
+(``exchange``), secure submission, bounded-wait, the sharded mode,
+``leaf_bucketing=True`` (the bucketed per-leaf path needs kernels with a
+batch dimension), and ``l1_regularize``/``l2_regularize`` (the JAX flat
+engine refuses them too: its loss carries them).
 """
 
 import numpy as np
@@ -48,21 +74,24 @@ from torch.func import grad_and_value, vmap
 
 from ..core.flatten import FlatMap
 from ..core.train_state import TrainState
+from ..gars.common import nonfinite_to_inf, smallest_k_mask
+from ..guardian import probe as health
 from ..ops import kernels
 from ..utils import UserException, resolve_device
+from .compress import wire_dtype, wire_roundtrip
 
 #: stream tags, as the JAX engine folds them: the local attacks (1), the
 #: in-step augmentation (3) and the device-side sampling (4); the lossy
-#: link's (2) lives in ``lossy.py``
+#: link's (2) lives in ``lossy.py``.  Under granularity:leaf the JAX engine
+#: also folds leaf i's omniscient-attack key with 20_000 + i and its rule's
+#: key with i; no ported attack or rule draws from a key (empire and little
+#: are deterministic), so the port derives neither stream
 ATTACK_TAG = 1
 AUGMENT_TAG = 3
 SAMPLE_TAG = 4
 
 #: engine options of the JAX package this port does not carry yet
-UNPORTED_OPTIONS = (
-    "exchange_dtype", "exchange", "worker_momentum", "worker_metrics", "reputation_decay",
-    "quarantine_threshold", "chaos", "secure", "flight", "step_deadline", "l1_regularize", "l2_regularize",
-)
+UNPORTED_OPTIONS = ("exchange", "chaos", "secure", "step_deadline")
 
 
 def stream_generator(seed, step, worker, tag, device):
@@ -71,6 +100,64 @@ def stream_generator(seed, step, worker, tag, device):
     words = np.random.SeedSequence([seed, step, worker, tag]).generate_state(2, np.uint32)
     value = (int(words[0]) << 31) ^ int(words[1])
     return torch.Generator(device=device).manual_seed(value)
+
+
+def validate_reputation_args(gar, reputation_decay, quarantine_threshold):
+    """The normalized ``(decay, threshold)`` pair, or a UserException.
+    Quarantine masks at most f workers a step (``quarantine_mask``), so it
+    needs f >= 1 and a rule that excludes an all-NaN row cleanly."""
+    decay = None if reputation_decay is None else float(reputation_decay)
+    threshold = float(quarantine_threshold)
+    if decay is not None and not 0.0 < decay < 1.0:
+        raise UserException("reputation_decay must lie in (0, 1), got %r" % reputation_decay)
+    if threshold:
+        if decay is None:
+            raise UserException("quarantine_threshold needs reputation_decay set")
+        if not 0.0 < threshold < 1.0:
+            raise UserException("quarantine_threshold must lie in (0, 1), got %r" % quarantine_threshold)
+        if gar.nb_byz_workers < 1:
+            raise UserException(
+                "Quarantine masks up to f workers per step; declare --nb-decl-byz-workers >= 1 to use it"
+            )
+        if not gar.nan_row_tolerant:
+            from ..gars import gars as registry
+
+            tolerant = sorted(name for name in registry.itemize()
+                              if getattr(registry.get(name), "nan_row_tolerant", False))
+            raise UserException(
+                "Quarantine masks rows to NaN, which %s does not cleanly exclude (pick a NaN-excluding "
+                "rule: %s)" % (type(gar).__name__, ", ".join(tolerant))
+            )
+    return decay, threshold
+
+
+def quarantine_mask(reputation, threshold, nb_byz):
+    """(n,) bool: below ``threshold`` and among the ``nb_byz`` lowest
+    reputations (ties to the lower index), so at most f rows are masked."""
+    return (reputation < threshold) & smallest_k_mask(reputation, nb_byz)
+
+
+def fused_ema(beta, old, new):
+    """``beta * old + (1 - beta) * new`` in float32, rounded once, as the JAX
+    engine's compiled step rounds it (XLA fuses the first product into the
+    sum): the product and the sum are taken in float64, where the product of
+    two float32 values is exact."""
+    scaled = ((1.0 - beta) * new).to(torch.float64)
+    return (float(np.float32(beta)) * old.to(torch.float64) + scaled).to(torch.float32)
+
+
+def stack_metrics(per_step):
+    """One dict of per-step metrics (nested dicts too, as the probe's) with
+    a leading axis over the steps."""
+    first = per_step[0]
+    return {name: stack_metrics([m[name] for m in per_step]) if isinstance(value, dict)
+            else torch.stack([m[name] for m in per_step]) for name, value in first.items()}
+
+
+def index_metrics(metrics, index):
+    """Entry ``index`` of stacked metrics, nested dicts included."""
+    return {name: index_metrics(value, index) if isinstance(value, dict) else value[index]
+            for name, value in metrics.items()}
 
 
 class RobustEngine:
@@ -82,14 +169,30 @@ class RobustEngine:
       nb_real_byz: r, the workers that actually attack (the first r rows).
       attack: an ``attacks.Attack`` or None.
       lossy_link: a ``lossy.LossyLink`` (``--UDP``) or None.
+      exchange_dtype: the wire's dtype (None or float32: exact; bfloat16).
+      worker_momentum: beta in (0, 1): workers send bias-corrected momenta.
       batch_transform: an in-step augmentation (``preprocessing.device_transform``)
         applied to each worker's training batch, or None.
+      worker_metrics: add ``worker_sq_dist`` (each worker's squared
+        distance to the aggregate), the rule's ``worker_participation``
+        and, with reputation, ``worker_reputation`` and ``nb_quarantined``.
+      reputation_decay: beta in (0, 1) of the reputation EMA, or None.
+      quarantine_threshold: mask (NaN) the rows of at most f workers whose
+        reputation is below it; 0 disables.
+      granularity: "vector" (the whole row) or "leaf" (per parameter leaf).
+      leaf_bucketing: "auto" or False, both the per-leaf loop.
+      trace_ops: print a TRACE line after each phase of the step.
+      health_probe: add ``metrics["probe"]`` (default on).
+      flight: an ``obs.flight.FlightRecorder`` or None.
       device: "cuda" (default) or "cpu"; CUDA without a GPU raises.
-      sharding / granularity: only "flat" / "vector" are ported.
+      sharding: only "flat" is ported.
     """
 
     def __init__(self, gar, nb_workers=None, nb_real_byz=0, attack=None, lossy_link=None,
-                 batch_transform=None, device="cuda", sharding="flat", granularity="vector", **options):
+                 exchange_dtype=None, worker_momentum=None, batch_transform=None, worker_metrics=False,
+                 reputation_decay=None, quarantine_threshold=0.0, granularity="vector", leaf_bucketing="auto",
+                 trace_ops=False, health_probe=True, flight=None, l1_regularize=None, l2_regularize=None,
+                 device="cuda", sharding="flat", **options):
         for name, value in options.items():
             if name not in UNPORTED_OPTIONS:
                 raise TypeError("RobustEngine got an unexpected keyword argument %r" % name)
@@ -97,9 +200,23 @@ class RobustEngine:
                 raise UserException("%s is not available in the PyTorch port yet" % name)
         if sharding != "flat":
             raise UserException("sharding=%r is not available in the PyTorch port yet (flat only)" % sharding)
-        if granularity != "vector":
+        if granularity not in ("vector", "leaf"):
             raise UserException(
-                "granularity=%r is not available in the PyTorch port yet (vector only)" % granularity
+                "granularity must be vector or leaf (got %r); layer/global need the sharded mode "
+                "(sharding='sharded')" % (granularity,)
+            )
+        if leaf_bucketing != "auto" and not isinstance(leaf_bucketing, bool):
+            raise UserException("leaf_bucketing must be 'auto' or a bool (got %r)" % (leaf_bucketing,))
+        if leaf_bucketing is True:
+            raise UserException(
+                "leaf_bucketing=True (one batched rule call per leaf size) is not available in the PyTorch "
+                "port yet: it needs the distance and rank kernels with a batch dimension; 'auto' and False "
+                "run the per-leaf loop"
+            )
+        if l1_regularize or l2_regularize:
+            raise UserException(
+                "the flat engine takes l1/l2 inside loss_fn (the per-worker loss is global there); "
+                "l1_regularize/l2_regularize are the sharded engine's analytic equivalent"
             )
         self.gar = gar
         self.nb_workers = int(nb_workers if nb_workers is not None else gar.nb_workers)
@@ -107,6 +224,20 @@ class RobustEngine:
         self.attack = attack
         self.lossy_link = lossy_link
         self.batch_transform = batch_transform
+        self.exchange_dtype = wire_dtype(exchange_dtype)
+        self.worker_momentum = None if worker_momentum is None else float(worker_momentum)
+        if self.worker_momentum is not None and not 0.0 < self.worker_momentum < 1.0:
+            raise UserException("worker_momentum must lie in (0, 1), got %r" % worker_momentum)
+        self.worker_metrics = bool(worker_metrics)
+        self.reputation_decay, self.quarantine_threshold = validate_reputation_args(
+            gar, reputation_decay, quarantine_threshold)
+        self.granularity = granularity
+        self.trace_ops = bool(trace_ops)
+        self.health_probe = bool(health_probe)
+        self.flight = flight
+        if flight is not None:
+            flight.validate_for(nb_workers=self.nb_workers, probe=self.health_probe,
+                                worker_metrics=self.worker_metrics)
         # CLEVER infill reads the rows received last step (TrainState.carry)
         self.carries_gradients = lossy_link is not None and lossy_link.clever
         self.device = resolve_device(device)
@@ -160,36 +291,159 @@ class RobustEngine:
             carry.copy_(rows)
         return rows
 
-    def _prepare_rows(self, rows):
-        """Omniscient attack: the coalition rewrites rows w < r."""
-        if self.attack is None or not self.attack.omniscient:
+    def _send(self, state, rows):
+        """What the workers send: their gradients, or under worker momentum
+        their bias-corrected momenta (``state.momentum`` and its update count
+        advance)."""
+        if self.worker_momentum is None:
             return rows
-        byz_mask = torch.arange(self.nb_workers, device=self.device) < self.nb_real_byz
-        return self.attack.apply_matrix(rows, byz_mask)
+        beta = self.worker_momentum
+        state.momentum = beta * state.momentum + (1.0 - beta) * rows
+        state.momentum_steps += 1
+        # 1 - beta^k in float32, as the JAX engine computes it; divided by a
+        # 0-d tensor on the rows' device (CUDA divides by a host scalar as a
+        # product with its reciprocal, a bit off the quotient)
+        correction = np.float32(1.0) - np.float32(beta) ** np.float32(state.momentum_steps)
+        return state.momentum / torch.full((), float(correction), dtype=torch.float32, device=rows.device)
+
+    def _prepare_rows(self, rows, reputation=None):
+        """Omniscient attack (the coalition rewrites rows w < r; forged rows
+        cross the wire like honest ones), then the quarantine mask.  Returns
+        ``(rows, raw_rows)``: what the rule consumes, and the rows before the
+        quarantine, which the reputation signal measures (masking first would
+        measure the attacker's honest gradient and never suspect it)."""
+        if self.attack is not None and self.attack.omniscient:
+            byz_mask = torch.arange(self.nb_workers, device=rows.device) < self.nb_real_byz
+            rows = wire_roundtrip(self.attack.apply_matrix(rows, byz_mask), self.exchange_dtype)
+        raw_rows = rows
+        if self.quarantine_threshold:
+            masked = quarantine_mask(reputation, self.quarantine_threshold, self.gar.nb_byz_workers)
+            rows = torch.where(masked[:, None], torch.nan, rows)
+        return rows, raw_rows
 
     def _aggregate_block(self, rows):
-        """Distances (one K1 or K2 launch) when the rule needs them, then the rule."""
+        """Distances (one K1 or K2 launch) when the rule needs them, then the
+        rule: ``(aggregate, participation)``, the participation None unless
+        ``worker_metrics`` and the rule selects whole workers."""
         dist2 = None
         if self.gar.needs_distances:
             dist2 = torch.clamp_min(kernels.pairwise_sq_distances(rows), 0.0)
-        return self.gar._call_aggregate(rows, dist2)
+        if self.worker_metrics:
+            return self.gar.aggregate_block_and_participation(rows, dist2)
+        return self.gar._call_aggregate(rows, dist2), None
+
+    def _sq_dists(self, rows, raw_rows, agg):
+        """(worker_sq_dist, rep_dist): each worker's squared distance to the
+        aggregate over the rows the rule saw, and over the raw rows (each
+        None unless its feature is on)."""
+        def sq_dist(x):
+            diff = x - agg[None, :]
+            return torch.sum(diff * diff, dim=1)
+
+        return (sq_dist(rows) if self.worker_metrics else None,
+                sq_dist(raw_rows) if self.reputation_decay is not None else None)
+
+    def _aggregate_vector(self, rows, reputation):
+        """granularity:vector: the whole rows through the wire, the attack,
+        the quarantine and the rule; the aggregate crosses the wire back.
+        Returns ``(agg, participation, wdist, rep_dist)``."""
+        rows, raw_rows = self._prepare_rows(wire_roundtrip(rows, self.exchange_dtype), reputation)
+        agg, participation = self._aggregate_block(rows)
+        agg = wire_roundtrip(agg, self.exchange_dtype)
+        return (agg, participation) + self._sq_dists(rows, raw_rows, agg)
+
+    def _aggregate_per_leaf(self, rows, flatmap, reputation):
+        """granularity:leaf: each parameter leaf's (n, d_leaf) columns
+        through the wire, the attack, the quarantine and the rule on their
+        own (per-layer selection; the distance kernels launch once a leaf),
+        the aggregates concatenated in flattening order.  The participation
+        is the mean over the leaves, the distances summed over them.
+        Returns ``(agg, participation, wdist, rep_dist)``."""
+        parts = []
+        participation, nb_parts = None, 0
+        wdist = rep_dist = None
+        for _, _, offset, size, _, _ in flatmap.slices:
+            leaf = wire_roundtrip(rows[:, offset:offset + size], self.exchange_dtype).contiguous()
+            leaf, raw_leaf = self._prepare_rows(leaf, reputation)
+            agg_leaf, part = self._aggregate_block(leaf)
+            if part is not None:
+                participation = part if participation is None else participation + part
+                nb_parts += 1
+            leaf_wdist, leaf_rep = self._sq_dists(leaf, raw_leaf, agg_leaf)
+            if leaf_wdist is not None:
+                wdist = leaf_wdist if wdist is None else wdist + leaf_wdist
+            if leaf_rep is not None:
+                rep_dist = leaf_rep if rep_dist is None else rep_dist + leaf_rep
+            parts.append(agg_leaf)
+        if participation is not None:
+            participation = participation / nb_parts
+        return torch.cat(parts), participation, wdist, rep_dist
+
+    def _finalize_step(self, state, losses, agg, worker_nan, participation, wdist, rep_dist):
+        """After the update: the reputation EMA, the probe, the metrics dict
+        and the flight recorder's row; advances ``state.step``.  Returns
+        ``(state, metrics)``."""
+        total_loss = torch.sum(losses)
+        update_norm = torch.linalg.vector_norm(agg)
+        metrics = {"total_loss": total_loss, "grad_norm": update_norm}
+        reputation = state.reputation  # before this step's update: the mask used it
+        if self.reputation_decay is not None:
+            # the rank signal: among the n - f closest raw rows, and finite (a
+            # NaN row reads +inf; the gate stops +inf index ties from
+            # rewarding low-index dead workers)
+            signal = (smallest_k_mask(nonfinite_to_inf(rep_dist), self.nb_workers - self.gar.nb_byz_workers)
+                      .to(torch.float32) * torch.isfinite(rep_dist).to(torch.float32))
+            state.reputation = fused_ema(self.reputation_decay, reputation, signal)
+        if self.health_probe:
+            metrics[health.PROBE_KEY] = health.probe_metrics(
+                total_loss, update_norm, health.spike_score(total_loss, state.loss_ema), worker_nan)
+            state.loss_ema = health.update_loss_ema(state.loss_ema, total_loss)
+        if self.worker_metrics:
+            metrics["worker_sq_dist"] = wdist
+            if participation is not None:
+                metrics["worker_participation"] = participation
+            if self.reputation_decay is not None:
+                metrics["worker_reputation"] = state.reputation
+                if self.quarantine_threshold:
+                    metrics["nb_quarantined"] = torch.sum(
+                        quarantine_mask(reputation, self.quarantine_threshold, self.gar.nb_byz_workers),
+                        dtype=torch.int32)
+        if self.flight is not None:
+            self.flight.record(state.flight, state.step, metrics)
+        state.step += 1
+        return state, metrics
+
+    def _mark(self, state, phase, value):
+        """Under ``trace_ops``, the JAX engine's narrative line for a phase."""
+        if self.trace_ops:
+            print("TRACE step %d dev 0 %s %s" % (state.step, phase, np.asarray(value.detach().cpu())), flush=True)
 
     # ------------------------------------------------------------------ #
 
     def init_state(self, params, tx, seed=0):
         """A TrainState holding ``params`` moved to the engine's device
-        (leaf tensors that require grad), a fresh optimizer state and, under
-        clever infill, a zero (n, d) carry: a packet lost before anything
-        arrived reads as 0."""
+        (leaf tensors that require grad), a fresh optimizer state and the
+        side buffers of the features that are on: under clever infill a
+        zero (n, d) carry (a packet lost before anything arrived reads as
+        0), zero momenta, reputations of 1.0, an unset loss EMA, an empty
+        flight ring."""
         params = {
             name: value.detach().to(self.device, torch.float32).clone().requires_grad_(True)
             for name, value in params.items()
         }
-        carry = None
+        state = TrainState(params=params, opt_state=tx.init(params), step=0, seed=int(seed))
+        d = sum(value.numel() for value in params.values())
         if self.carries_gradients:
-            d = sum(value.numel() for value in params.values())
-            carry = torch.zeros((self.nb_workers, d), dtype=torch.float32, device=self.device)
-        return TrainState(params=params, opt_state=tx.init(params), step=0, seed=int(seed), carry=carry)
+            state.carry = torch.zeros((self.nb_workers, d), dtype=torch.float32, device=self.device)
+        if self.worker_momentum is not None:
+            state.momentum = torch.zeros((self.nb_workers, d), dtype=torch.float32, device=self.device)
+        if self.reputation_decay is not None:
+            state.reputation = torch.ones(self.nb_workers, dtype=torch.float32, device=self.device)
+        if self.health_probe:
+            state.loss_ema = torch.full((), health.EMA_UNSET, dtype=torch.float32, device=self.device)
+        if self.flight is not None:
+            state.flight = self.flight.init_buffers(self.device)
+        return state
 
     def _to_device(self, tensor):
         """``tensor`` on the engine's device; on CUDA through pinned memory,
@@ -234,20 +488,28 @@ class RobustEngine:
           step(state, batch) -> (state, metrics): ``batch`` is worker-major
           (``put_batch``); the state is updated in place and returned;
           ``metrics`` holds the device scalars ``total_loss`` (sum of the n
-          worker losses) and ``grad_norm`` (norm of the aggregate).
+          worker losses) and ``grad_norm`` (norm of the aggregate), the
+          probe's fields under ``"probe"`` and the worker metrics of the
+          features that are on, as the JAX engine's step returns them.
         """
 
         def step(state, batch):
             flatmap = FlatMap(state.params)
             batch = self._augment(batch, state.seed, state.step)
             losses, rows = self._worker_gradients(state.params, batch, loss_fn, flatmap)
+            self._mark(state, "losses+gradients done: local loss sum", torch.sum(losses))
             with torch.no_grad():
-                rows = self._perturb_local(rows, state.seed, state.step, state.carry)
-                rows = self._prepare_rows(rows)
-                agg = self._aggregate_block(rows)
+                rows = self._perturb_local(self._send(state, rows), state.seed, state.step, state.carry)
+                # the rows as they arrived, before the omniscient attack
+                worker_nan = torch.any(~torch.isfinite(rows), dim=1) if self.health_probe else None
+                if self.granularity == "leaf":
+                    agg, participation, wdist, rep_dist = self._aggregate_per_leaf(rows, flatmap, state.reputation)
+                else:
+                    agg, participation, wdist, rep_dist = self._aggregate_vector(rows, state.reputation)
+                self._mark(state, "aggregate done: |agg|", torch.linalg.vector_norm(agg))
                 tx.apply(state.params, flatmap.inflate(agg), state.opt_state)
-            state.step += 1
-            return state, {"total_loss": torch.sum(losses), "grad_norm": torch.linalg.vector_norm(agg)}
+                self._mark(state, "apply done: |p0|", torch.linalg.vector_norm(state.params[flatmap.slices[0][0]]))
+                return self._finalize_step(state, losses, agg, worker_nan, participation, wdist, rep_dist)
 
         return step
 
@@ -334,4 +596,4 @@ def _run_steps(body, state, count, batch_of):
     for k in range(count):
         state, step_metrics = body(state, batch_of(state, k))
         metrics.append(step_metrics)
-    return state, {name: torch.stack([m[name] for m in metrics]) for name in metrics[0]}
+    return state, stack_metrics(metrics)

@@ -59,17 +59,41 @@ Phases, in order (any failure exits non-zero and prints no result):
    bulyan (n=11, f=2), median, trimmed-mean, averaged-median, krum at n=128
    (the centring and K2), bulyan at n=128 (the centring, K2, and K4 on the
    sort path), and the lossy link: average-nan (K6) and krum under --UDP, and
-   average under --UDP with CLEVER infill.  Every launch count is set to 0
-   just before a leg and read just after: each leg must have launched its
-   kernels once a step, and its loss must be finite; each leg's peak device
+   average under --UDP with CLEVER infill; then the engine's options: krum
+   per parameter leaf (``--granularity leaf``) at n=8 (K1 once for each of
+   the 14 leaves a step, ``PER_LEAF``, counted from ``FlatMap.slices``) and
+   at n=128 (the centring and K2 once a leaf, the 10-wide logits bias
+   included), the suspicion flags of JAX ``test_engine.py``'s quarantine
+   test (``SUSPICION``: worker metrics, reputation 0.5, quarantine 0.4)
+   under a deviation-100 gaussian attack with krum and a 64-row flight
+   recorder for 30 steps and with average-nan (K6 on the quarantined NaN
+   rows) for 10, whose last summary must show the two attackers quarantined
+   (reputation < 0.1, the others > 0.9, krum's participation 0, one flight
+   row a step), worker momentum over the bf16 wire, cnnet in bf16
+   (``dtype:bfloat16``), two steps of ``--trace-ops`` (three TRACE lines a
+   step), and momentum at n=128 (its 0.9 GB buffer beside the activations);
+   each options leg's steps/s is printed beside cnnet+krum's.  Every launch
+   count is set to 0 just before a leg and read just after: each leg must
+   have launched its kernels once a step (or once a leaf a step), and its
+   loss must be finite; each leg's peak device
    memory is printed (the n=128 legs hold all 128 workers' activations at
-   once).  The runner prefetches two batches ahead by default.  Then each rule's
+   once).  The runner prefetches two batches ahead by default.  The kernels
+   of the leaf path are held against their plain versions at each of
+   cnnet's leaf widths (10 to 1,572,864 columns, a NaN row in each: K1 and
+   K6 at n = 8, the centring and K2 at n = 128), and the MLP with momentum,
+   reputation, quarantine, worker metrics and granularity:leaf runs 5 steps
+   on the card and on the CPU from one init at n = 8 (K1) and n = 72 (K2,
+   the quarantined rows' all-NaN distances): identical participation,
+   reputations, quarantine counts and masked rows, parameters within rtol
+   1e-4, atol 1e-5.  Then each rule's
    aggregate of a small poisoned matrix on the card is held against the
    same rule on the CPU (Krum's and Bulyan's selections must be identical,
    at n=11, n=72 and n=128, and Krum's near a tie, ``NEAR_TIES``), three MLP
    steps on the card against the same steps
    on the CPU, without and with --UDP-style loss, and each rule's time on
-   the (n, d) cnnet matrix is read (GAR ms a step).
+   the (n, d) cnnet matrix is read (GAR ms a step), with the engine's krum
+   aggregation at n = 8 and 128 on the whole rows and per leaf, and the
+   worker-metric and reputation passes alone.
    The cnnet legs evaluate on their step delta only (``--evaluation-period
    -1``), so no wall-period evaluation lands in their timed window.
 4. The real data: the loaders are pointed at the port's copy of the UCI
@@ -98,8 +122,9 @@ Phases, in order (any failure exits non-zero and prints no result):
    Last, a cnnet + krum step and a digits-conv + krum step are split into
    their phases (host batch, transfer, augmentation, worker gradients,
    attack + aggregate, update), with the batches streamed and drawn on the
-   card (cnnet then augments in the step), and the card's busy share over
-   whole steps is traced with torch.profiler.
+   card (cnnet then augments in the step), and cnnet in bf16 drawn on the
+   card, and the card's busy share over whole steps is traced with
+   torch.profiler.
 5. Print the kernels held against their plain versions, the JSON kernel
    table, and last the JSON result line.
 """
@@ -515,6 +540,11 @@ def kernel_phase(torch, kernels):
     return rows
 
 
+#: a leg's launches a step: once for each parameter leaf (``--granularity leaf``)
+PER_LEAF = "per leaf"
+#: the suspicion flags of JAX ``test_engine.py``'s quarantine test
+SUSPICION = ["--worker-metrics", "--reputation-decay", "0.5", "--quarantine-threshold", "0.4", "--summary-delta", "10"]
+
 LEGS = [
     # (label, runner arguments, the kernels each step must launch once)
     ("cnnet+krum", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
@@ -551,32 +581,118 @@ LEGS = [
                         "--UDP", "2", "--max-step", "5"], ("pairwise_sq_distances",)),
     ("cnnet+average+UDP-clever", ["--aggregator", "average", "--nb-workers", "8", "--UDP", "4",
                                   "--UDP-args", "clever:true", "--max-step", "5"], ()),
+    # the engine's robustness options (a dict: launches a step, PER_LEAF
+    # once for each parameter leaf of the FlatMap, 14 for cnnet)
+    ("cnnet+krum-leaf", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
+                         "--nb-real-byz-workers", "2", "--attack", "signflip", "--granularity", "leaf",
+                         "--max-step", "5"], {"pairwise_sq_distances": PER_LEAF}),
+    ("cnnet+krum-leaf-n128", ["--aggregator", "krum", "--nb-workers", "128", "--nb-decl-byz-workers", "8",
+                              "--nb-real-byz-workers", "8", "--attack", "signflip", "--granularity", "leaf",
+                              "--max-step", "3"],
+     {"pairwise_sq_distances_gram": PER_LEAF, "nanmedian_columns": PER_LEAF}),
+    ("cnnet+krum+suspicion", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
+                              "--nb-real-byz-workers", "2", "--attack", "gaussian", "--attack-args", "deviation:100",
+                              *SUSPICION, "--flight", "64", "--max-step", "30"], ("pairwise_sq_distances",)),
+    ("cnnet+average-nan+quarantine", ["--aggregator", "average-nan", "--nb-workers", "8", "--nb-decl-byz-workers",
+                                      "2", "--nb-real-byz-workers", "2", "--attack", "gaussian", "--attack-args",
+                                      "deviation:100", *SUSPICION, "--max-step", "10"], ("average_nan_columns",)),
+    ("cnnet+krum+momentum-bf16", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
+                                  "--nb-real-byz-workers", "2", "--attack", "signflip", "--worker-momentum", "0.9",
+                                  "--exchange-dtype", "bfloat16", "--max-step", "30"], ("pairwise_sq_distances",)),
+    ("cnnet-bf16+krum", ["--experiment-args", "dtype:bfloat16", "--aggregator", "krum", "--nb-workers", "8",
+                         "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "signflip",
+                         "--max-step", "30"], ("pairwise_sq_distances",)),
+    ("cnnet+krum+trace-ops", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
+                              "--trace-ops", "--max-step", "2"], ("pairwise_sq_distances",)),
+    # the momentum buffer at n = 128 (0.9 GB) beside the 128 workers' activations
+    ("cnnet+krum-n128+momentum", ["--aggregator", "krum", "--nb-workers", "128", "--nb-decl-byz-workers", "8",
+                                  "--nb-real-byz-workers", "8", "--attack", "signflip", "--worker-momentum", "0.9",
+                                  "--max-step", "3"], ("pairwise_sq_distances_gram", "nanmedian_columns")),
 ]
 
 
-def main_path_phase(torch, kernels, runner, card):
-    """Drive each leg through the runner; returns {kernel: launches} summed over the legs."""
+def check_suspicion(label, result, summary):
+    """The last summary of a quarantine leg: the two gaussian attackers
+    never selected (krum), trusted no more and quarantined, the others
+    trusted (JAX ``test_engine.py`` ``test_reputation_quarantine_excludes_attacker``)."""
+    reputation = summary["worker_reputation"]
+    check(summary.get("nb_quarantined") == 2, "%s: nb_quarantined %s, want 2" % (label, summary.get("nb_quarantined")))
+    check(max(reputation[:2]) < 0.1 and min(reputation[2:]) > 0.9, "%s: reputation %s" % (label, reputation))
+    if "worker_participation" in summary:
+        check(summary["worker_participation"][:2] == [0.0, 0.0],
+              "%s: participation %s" % (label, summary["worker_participation"]))
+    if "flight_rows" in summary:
+        check(summary["flight_rows"] == result["steps"], "%s: %s flight rows" % (label, summary["flight_rows"]))
+    return "reputation %s, participation %s, %d quarantined, %s flight rows" % (
+        json.dumps([round(v, 4) for v in reputation]), json.dumps(summary.get("worker_participation")),
+        summary["nb_quarantined"], summary.get("flight_rows", "-"))
+
+
+def check_trace(label, result, output):
+    lines = [line for line in output.splitlines() if line.startswith("TRACE step ")]
+    check(len(lines) == 3 * result["steps"], "%s: %d TRACE lines in %d steps" % (label, len(lines), result["steps"]))
+    return "%d TRACE lines, e.g. %r" % (len(lines), lines[-1])
+
+
+#: per-leg checks beyond the launches and a finite loss
+LEG_CHECKS = {
+    "cnnet+krum+suspicion": check_suspicion,
+    "cnnet+average-nan+quarantine": check_suspicion,
+    "cnnet+krum+trace-ops": check_trace,
+}
+
+
+def main_path_phase(torch, kernels, runner, card, workdir, models):
+    """Drive each leg through the runner; returns {kernel: launches} summed over the legs.
+
+    Each leg writes its summaries under ``workdir``; a leg of ``LEG_CHECKS``
+    is held to its check on its last summary (or, for --trace-ops, on what
+    it printed)."""
+    import contextlib
+    import io
+
+    from aggregathor_tpu_torch.core import FlatMap
+
+    slices = FlatMap(models.instantiate("cnnet", []).init(0)).slices
+    print("cnnet's %d parameter leaves (granularity:leaf launches a step), widths: %s"
+          % (len(slices), ", ".join("%s %d" % (name, size) for name, _, _, size, _, _ in slices)))
     totals = {name: 0 for name in kernels.KERNELS}
+    steps_per_s = {}
     for label, argv, expected in LEGS:
+        per_step = expected if isinstance(expected, dict) else dict.fromkeys(expected, 1)
+        summary_dir = os.path.join(workdir, "summaries", label)
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
+        output = io.StringIO()
         # no wall-period evaluation inside the timed window (steps/s stays
         # comparable with earlier runs); the krum leg's step delta still fires
-        result = runner.main(["--experiment", "cnnet", "--seed", "1", "--evaluation-period", "-1", *argv])
+        with contextlib.redirect_stdout(output):
+            result = runner.main(["--experiment", "cnnet", "--seed", "1", "--evaluation-period", "-1",
+                                  "--summary-dir", summary_dir, *argv])
+        sys.stdout.write(output.getvalue())
         counts = kernels.launch_counts()
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         steps = result["steps"]
-        check(result["final_loss"] is not None and result["final_loss"] == result["final_loss"]
-              and abs(result["final_loss"]) != float("inf"), "%s: non-finite loss" % label)
+        check(result["final_loss"] is not None and math.isfinite(result["final_loss"]), "%s: non-finite loss" % label)
         for name in kernels.KERNELS:
-            want = steps if name in expected else 0
+            launches = per_step.get(name, 0)
+            want = steps * (len(slices) if launches == PER_LEAF else launches)
             check(counts[name] == want, "%s: %s launched %d times in %d steps (want %d)"
                   % (label, name, counts[name], steps, want))
             totals[name] += counts[name]
+        extra = ""
+        if label in LEG_CHECKS:
+            [name] = os.listdir(summary_dir)
+            summary = json.loads(open(os.path.join(summary_dir, name)).read().splitlines()[-1])
+            extra = "; " + LEG_CHECKS[label](label, result, output.getvalue() if "trace" in label else summary)
+        steps_per_s[label] = result["steps_per_s"]
         print("leg %-22s %d steps, %.3f steps/s excl. 1st on %s, final loss %.4f, accuracy %s, peak %.0f MB, "
-              "launches %s" % (label, steps, result["steps_per_s"], card, result["final_loss"],
-                               "%.4f" % result["evaluation"]["accuracy"] if result["evaluation"] else "-",
-                               peak_mb, json.dumps(counts, sort_keys=True)))
+              "launches %s%s" % (label, steps, result["steps_per_s"], card, result["final_loss"],
+                                 "%.4f" % result["evaluation"]["accuracy"] if result["evaluation"] else "-",
+                                 peak_mb, json.dumps(counts, sort_keys=True), extra))
+    print("steps/s excl. 1st against cnnet+krum (%.3f) on %s: %s" % (
+        steps_per_s["cnnet+krum"], card, ", ".join("%s %.3f (x%.2f)" % (label, value, value / steps_per_s["cnnet+krum"])
+                                                    for label, value in steps_per_s.items() if label != "cnnet+krum")))
     return totals
 
 
@@ -849,6 +965,90 @@ def reference_phase(torch, gars, kernels, models):
                                                                   for n, _, d, m in NEAR_TIES)))
 
 
+def leaf_width_phase(torch, kernels, models):
+    """The kernels of granularity:leaf at the narrow widths of cnnet's
+    leaves (10 to 1,572,864 columns) against their plain versions, each
+    matrix with a NaN row (a quarantined worker): K1 and K6 at n = 8, the
+    centring and K2 at n = 128, at the tolerances of the kernel phase."""
+    from aggregathor_tpu_torch.core import FlatMap
+
+    widths = sorted({size for _, _, _, size, _, _ in FlatMap(models.instantiate("cnnet", []).init(0)).slices})
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = dict.fromkeys(("pairwise_sq_distances", "average_nan_columns", "nanmedian_columns",
+                           "pairwise_sq_distances_gram"), 0.0)
+    for d in widths:
+        for n in (8, 128):
+            x = torch.randn((n, d), device="cuda", generator=gen) * (1.0 + 0.05 * torch.arange(
+                float(n), device="cuda"))[:, None]
+            x[n // 2] = float("nan")
+            if n == 8:
+                cases = (("pairwise_sq_distances", ()), ("average_nan_columns", ()))
+            else:
+                cases = (("nanmedian_columns", ()), ("pairwise_sq_distances_gram", (kernels.nanmedian_columns(x),)))
+            for name, args in cases:
+                got, want = getattr(kernels, name)(x, *args), kernels.PLAIN[name](x, *args)
+                worst[name] = max(worst[name], compare(name, got, want, torch, x, args))
+            del x
+    print("granularity:leaf widths %s: K1 and K6 at n=8, the centring and K2 at n=128 agree with their plain "
+          "versions (max abs err %s)" % (widths, json.dumps(worst, sort_keys=True)))
+
+
+def options_reference_phase(torch, gars, kernels, models, steps=5):
+    """The engine's robustness options on the card against the same on the
+    CPU from one init: the MLP with worker momentum, reputation, quarantine,
+    worker metrics and granularity:leaf, krum under signflip x10 at n = 8
+    (K1 on every leaf) and n = 72 (the centring and K2 on every leaf, down to
+    the 10-wide logits bias), the quarantined rows NaN.  Each step's
+    participation, reputations, quarantine count and masked rows must be
+    identical, the parameters within the MLP phase's tolerance."""
+    from aggregathor_tpu_torch.core import FlatMap, build_optimizer, build_schedule
+    from aggregathor_tpu_torch.parallel import RobustEngine, attacks
+
+    exp = models.instantiate("mnist", ["hidden:16", "batch-size:16"])
+    nb_leaves = len(FlatMap(exp.init(3)).slices)
+
+    def run(device, n, f):
+        tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+        engine = RobustEngine(gars.instantiate("krum", n, f), n, nb_real_byz=f,
+                              attack=attacks.instantiate("signflip", n, f, ["scale:10.0"]), worker_momentum=0.9,
+                              worker_metrics=True, reputation_decay=0.5, quarantine_threshold=0.4,
+                              granularity="leaf", device=device)
+        state = engine.init_state(exp.init(3), tx, seed=3)
+        step = engine.build_step(exp.loss, tx)
+        it = exp.make_train_iterator(n, seed=4)
+        trail = []
+        for _ in range(steps):
+            state, metrics = step(state, engine.put_batch(next(it)))
+            trail.append({name: metrics[name].cpu() for name in
+                          ("worker_participation", "worker_reputation", "nb_quarantined", "worker_sq_dist")})
+        return trail, torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()])
+
+    for n, f, launched in ((8, 2, ("pairwise_sq_distances",)),
+                           (72, 8, ("pairwise_sq_distances_gram", "nanmedian_columns"))):
+        kernels.reset_launch_counts()
+        card, card_params = run("cuda", n, f)
+        counts = kernels.launch_counts()
+        cpu, cpu_params = run("cpu", n, f)
+        check(counts == {name: steps * nb_leaves * (name in launched) for name in counts},
+              "options n=%d: launches %s (want %s once a leaf a step)" % (n, counts, launched))
+        for k, (a, b) in enumerate(zip(card, cpu)):
+            for name in ("worker_participation", "worker_reputation", "nb_quarantined"):
+                check(torch.equal(a[name], b[name]), "options n=%d step %d: %s %s on the card, %s on the CPU"
+                      % (n, k, name, a[name].tolist(), b[name].tolist()))
+            check(torch.equal(torch.isnan(a["worker_sq_dist"]), torch.isnan(b["worker_sq_dist"])),
+                  "options n=%d step %d: the masked rows differ" % (n, k))
+        check(int(card[-1]["nb_quarantined"]) == f and bool(torch.all(card[-1]["worker_participation"][:f] == 0)),
+              "options n=%d: the attackers are not quarantined (%s)" % (n, card[-1]["nb_quarantined"]))
+        check(bool(torch.allclose(card_params, cpu_params, rtol=1e-4, atol=1e-5)),
+              "options n=%d: parameters differ from the CPU (max %g)"
+              % (n, float((card_params - cpu_params).abs().max())))
+        print("options on the card against the CPU, n=%d f=%d, %d steps of the MLP (momentum 0.9, reputation 0.5, "
+              "quarantine 0.4, worker metrics, granularity:leaf over %d leaves): participation, reputations and %d "
+              "quarantined identical, parameters within %.3g; launches %s"
+              % (n, f, steps, nb_leaves, int(card[-1]["nb_quarantined"]),
+                 float((card_params - cpu_params).abs().max()), json.dumps(counts, sort_keys=True)))
+
+
 def vmap_phase(torch, gars, models, n=8):
     """The worker gradients of cnnet at n = 8: the engine's one vmapped pass
     against a per-worker loop of forward and backward passes on the same
@@ -990,8 +1190,16 @@ def vmap_phase(torch, gars, models, n=8):
         check(err <= VMAP_RTOL, "%s: float32 off float64 by %.3g of the largest entry" % (name, err))
 
 
-def gar_phase(torch, gars):
-    """Each rule's ms on the cnnet-width matrix (the per-layer metric: GAR ms a step)."""
+def gar_phase(torch, gars, models):
+    """Each rule's ms on the cnnet-width matrix (the per-layer metric: GAR ms
+    a step); then the engine's aggregation of krum at n = 8 and 128 on the
+    whole rows (vector) and per parameter leaf (leaf, 14 leaves), and the
+    O(n d) passes of the worker metrics (each worker's squared distance to
+    the aggregate) and of the reputation (the same on the raw rows), each
+    alone."""
+    from aggregathor_tpu_torch.core import FlatMap
+    from aggregathor_tpu_torch.parallel import RobustEngine
+
     gen = torch.Generator(device="cuda").manual_seed(5)
     out = {}
     for rule, n, f in (("krum", 8, 2), ("bulyan", 11, 2), ("median", 8, 2), ("trimmed-mean", 8, 2),
@@ -1002,6 +1210,25 @@ def gar_phase(torch, gars):
         out["%s n=%d" % (rule, n)] = time_ms(lambda: gar.aggregate(x), torch, iters=10)
         del x
     print("GAR ms per step at d=%d: %s" % (CNNET_D, json.dumps(out, sort_keys=True)))
+    flatmap = FlatMap(models.instantiate("cnnet", []).init(0))
+    passes = {}
+    with torch.no_grad():
+        for n, f in ((8, 2), (128, 8)):
+            x = torch.randn((n, CNNET_D), device="cuda", generator=gen)
+            vector = RobustEngine(gars.instantiate("krum", n, f), n, device="cuda")
+            leaf = RobustEngine(gars.instantiate("krum", n, f), n, granularity="leaf", device="cuda")
+            passes["krum n=%d vector" % n] = time_ms(lambda: vector._aggregate_vector(x, None), torch, iters=10)
+            passes["krum n=%d leaf" % n] = time_ms(lambda: leaf._aggregate_per_leaf(x, flatmap, None), torch, iters=10)
+            agg = x[0].clone()
+            metrics = RobustEngine(gars.instantiate("krum", n, f), n, worker_metrics=True, device="cuda")
+            reputation = RobustEngine(gars.instantiate("krum", n, f), n, reputation_decay=0.5, device="cuda")
+            passes["worker_metrics pass n=%d" % n] = time_ms(lambda: metrics._sq_dists(x, x, agg), torch, iters=10)
+            passes["reputation pass n=%d" % n] = time_ms(lambda: reputation._sq_dists(x, x, agg), torch, iters=10)
+            del x, agg
+    print("engine aggregation ms per step at d=%d (vector: the whole rows, leaf: %d leaves), and the worker-metric "
+          "and reputation passes: %s" % (CNNET_D, len(flatmap.slices), json.dumps(passes, sort_keys=True)))
+    out.update(passes)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1064,7 +1291,9 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), 
         marks.append(time.perf_counter())
         with torch.no_grad():
             rows = engine._prepare_rows(engine._perturb_local(rows, state.seed, state.step))
+            rows = rows[0] if isinstance(rows, tuple) else rows  # (rows, raw rows) since the reputation
             agg = engine._aggregate_block(rows)
+            agg = agg[0] if isinstance(agg, tuple) else agg  # (aggregate, participation) likewise
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
             tx.apply(state.params, flatmap.inflate(agg), state.opt_state)
@@ -1081,7 +1310,7 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), 
 
         def one_step(state):
             state, metrics = sampled(state, data)
-            return state, {name: value[-1] for name, value in metrics.items()}
+            return state, {"total_loss": metrics["total_loss"][-1]}
     else:
         step = engine.build_step(exp.loss, tx)
 
@@ -1149,16 +1378,18 @@ def main():
 
     rows = kernel_phase(torch, kernels)
     vmap_phase(torch, gars, models)
-    totals = main_path_phase(torch, kernels, runner, card)
-    reference_phase(torch, gars, kernels, models)
-    gar_phase(torch, gars)
-    corpus_phase()
-    for kernel, count in digits_phase(torch, kernels, runner, card).items():
-        totals[kernel] += count
-    for row in rows:
-        check(totals[row["name"]] > 0, "%s was never launched on the main path" % row["name"])
-        row["launches"] = totals[row["name"]]
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+        totals = main_path_phase(torch, kernels, runner, card, workdir, models)
+        reference_phase(torch, gars, kernels, models)
+        leaf_width_phase(torch, kernels, models)
+        options_reference_phase(torch, gars, kernels, models)
+        gar_phase(torch, gars, models)
+        corpus_phase()
+        for kernel, count in digits_phase(torch, kernels, runner, card).items():
+            totals[kernel] += count
+        for row in rows:
+            check(totals[row["name"]] > 0, "%s was never launched on the main path" % row["name"])
+            row["launches"] = totals[row["name"]]
         attack_phase(runner, workdir)
         krum = ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2"]
         resume_phase(torch, runner, os.path.join(workdir, "mlp"), "digits", [], krum + [
@@ -1176,6 +1407,8 @@ def main():
         breakdown_phase(torch, gars, models, input_source=source,
                         args=["augment:device"] if source == "device" else [])
         breakdown_phase(torch, gars, models, experiment="digits-conv", args=["batch-size:16"], input_source=source)
+    # cnnet in bf16 drawn on the card: the gradient phase without the host batch
+    breakdown_phase(torch, gars, models, input_source="device", args=["augment:device", "dtype:bfloat16"])
 
     print("held against their plain versions: %s" % ", ".join(
         "%s (%s)" % (row["name"], kernels.KERNELS[row["name"]].label) for row in rows))

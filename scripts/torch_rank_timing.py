@@ -26,9 +26,9 @@ calls), on random (seeded) cnnet-width inputs
   of krum and bulyan at n = 128, f = 8 on (128, d);
 - ``end-to-end``: GAR ms per step of krum at n = 8, f = 2; steps/s
   (excluding the first) of ``chip_smoke.LEGS``' legs of 8 workers, each run
-  for ``LEG_STEPS`` steps through the checkout's runner (a leg drawing its
-  batches on the card only where the checkout's runner has
-  ``--input-source``); and ``chip_smoke.breakdown_phase``'s split of a
+  for ``LEG_STEPS`` steps through the checkout's runner (a leg only where
+  the checkout's runner has all of its flags, such as ``--input-source``
+  or ``--granularity``); and ``chip_smoke.breakdown_phase``'s split of a
   cnnet + krum step at n = 8;
 - ``breakdown``: ``chip_smoke.breakdown_phase`` for cnnet + krum and
   ``digits-conv`` (batch 16) + krum at n = 8 with the batches streamed and,
@@ -95,8 +95,10 @@ def main():
         gar = gars.instantiate("krum", 8, 2)
         out["GAR krum n=8"] = time_ms(lambda: gar.aggregate(x), torch)
         del x
+        known = runner.build_parser()._option_string_actions  # the checkout's runner flags
         for label, argv, _ in LEGS:
-            if argv[argv.index("--nb-workers") + 1] != "8" or ("--input-source" in argv and not device_input):
+            if argv[argv.index("--nb-workers") + 1] != "8" or any(
+                    arg.startswith("--") and arg not in known for arg in argv):
                 continue
             argv = list(argv)
             argv[argv.index("--max-step") + 1] = str(LEG_STEPS)

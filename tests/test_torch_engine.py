@@ -41,6 +41,7 @@ from aggregathor_tpu_torch import gars as tgars
 from aggregathor_tpu_torch import models as tmodels
 from aggregathor_tpu_torch.core import build_optimizer, build_schedule
 from aggregathor_tpu_torch.models.common import params_from_jax
+from aggregathor_tpu_torch.obs.flight import FlightRecorder
 from aggregathor_tpu_torch.parallel import RobustEngine, attacks
 from aggregathor_tpu_torch.parallel.lossy import LossyLink
 from aggregathor_tpu_torch.utils import UserException
@@ -205,7 +206,8 @@ def test_gaussian_streams_are_per_step_and_per_worker():
 
 @pytest.mark.parametrize("option", [
     {"chaos": object()}, {"exchange": "int8"}, {"secure": True},
-    {"reputation_decay": 0.9}, {"worker_momentum": 0.9}, {"sharding": "sharded"}, {"granularity": "leaf"},
+    {"leaf_bucketing": True}, {"l1_regularize": 0.1}, {"sharding": "sharded"},
+    {"flight": FlightRecorder(4, 8, chaos=True)},
 ])
 def test_unported_engine_features_refuse(option):
     with pytest.raises(UserException):

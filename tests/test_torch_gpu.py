@@ -484,3 +484,81 @@ def test_conv_weight_gradient_on_the_card_is_float32_exact(cuda_device, monkeypa
         weight.double(), bias.double(), x.double(), probe.double())
     for g, w in zip(got, want):
         assert float(torch.max(torch.abs(g.double() - w))) <= 1e-5 * float(torch.max(torch.abs(w)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, f, launched", [(8, 2, ("pairwise_sq_distances",)),
+                                            (72, 8, ("pairwise_sq_distances_gram", "nanmedian_columns"))])
+def test_engine_options_on_the_card_match_the_cpu(cuda_device, monkeypatch, n, f, launched):
+    """Three MLP steps with worker momentum, reputation, quarantine (the
+    signflip x10 coalition is masked from step 3), worker metrics, the bf16
+    wire and granularity:leaf: the distance kernels launch once a leaf a
+    step, the participation, reputations and quarantine count are identical
+    to the CPU's (K2's all-NaN distances of a quarantined row included), the
+    parameters within rtol 1e-4, atol 1e-5."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        exp = models.instantiate("mnist", ["hidden:16", "batch-size:16"])
+        tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+        engine = RobustEngine(gars.instantiate("krum", n, f), n, nb_real_byz=f,
+                              attack=attacks.instantiate("signflip", n, f, ["scale:10.0"]), worker_momentum=0.9,
+                              worker_metrics=True, reputation_decay=0.5, quarantine_threshold=0.4,
+                              exchange_dtype="bfloat16", granularity="leaf", device=device)
+        state = engine.init_state(exp.init(3), tx, seed=3)
+        step = engine.build_step(exp.loss, tx)
+        it = exp.make_train_iterator(n, seed=4)
+        before = kernels.launch_counts()
+        trail = []
+        for _ in range(3):
+            state, metrics = step(state, engine.put_batch(next(it)))
+            trail.append([metrics[name].cpu() for name in ("worker_participation", "worker_reputation",
+                                                           "nb_quarantined")])
+        launches = {name: count - before[name] for name, count in kernels.launch_counts().items()}
+        if device.type == "cuda":
+            assert launches == {name: 3 * 4 * (name in launched) for name in launches}
+        runs.append((trail, torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()])))
+    for card, cpu in zip(runs[0][0], runs[1][0]):
+        for a, b in zip(card, cpu):
+            assert torch.equal(a, b)
+    assert int(runs[0][0][-1][2]) == f
+    torch.testing.assert_close(runs[0][1], runs[1][1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_wire_roundtrip_on_the_card_is_the_cpus(cuda_device):
+    """The bf16 round trip on the card keeps the CPU's bits on every value
+    but NaN (a NaN of its own payload on each device)."""
+    from aggregathor_tpu_torch.parallel.compress import wire_roundtrip
+
+    gen = torch.Generator().manual_seed(2)
+    x = torch.cat([torch.randn(4096, generator=gen), torch.randn(256, generator=gen) * 1e-39,
+                   torch.tensor([float("inf"), -float("inf"), float("nan"), 1.0 + 2.0 ** -8, -0.0, 3.4e38])])
+    got, want = wire_roundtrip(x.to(cuda_device), torch.bfloat16).cpu(), wire_roundtrip(x, torch.bfloat16)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_probe_and_flight_ring_on_the_card(cuda_device):
+    """Under --UDP 1 at drop rate 1 (a NaN row each step) with average-nan,
+    the probe flags row 0 every step and the ring on the card holds the
+    step metrics bit for bit."""
+    from aggregathor_tpu_torch.obs.flight import FlightRecorder
+    from aggregathor_tpu_torch.parallel.lossy import LossyLink
+
+    exp = models.instantiate("mnist", ["hidden:16", "batch-size:16"])
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+    engine = RobustEngine(gars.instantiate("average-nan", 8, 0), 8, device=cuda_device,
+                          lossy_link=LossyLink(1, ["drop-rate:1.0", "packet-coords:64", "min-coords:0"]),
+                          flight=FlightRecorder(4, 8))
+    state = engine.init_state(exp.init(3), tx, seed=3)
+    state, metrics = engine.build_multi_step(exp.loss, tx, repeat_steps=6)(
+        state, engine.put_batch(next(exp.make_train_iterator(8, seed=4))))
+    probe = metrics["probe"]
+    assert bool(torch.all(probe["worker_nan_rows"][:, 0] == 1)) and int(probe["worker_nan_rows"][:, 1:].sum()) == 0
+    window = engine.flight.fetch(state.flight)
+    assert window["step"].tolist() == [2, 3, 4, 5]
+    assert np.array_equal(window["loss"].view(np.int32), metrics["total_loss"][2:].cpu().numpy().view(np.int32))
+    assert np.array_equal(window["worker_nan"], probe["worker_nan_rows"][2:].cpu().numpy())

@@ -163,7 +163,8 @@ def test_eval_batches_and_mnist_match():
 def test_unported_experiment_options_refuse():
     from aggregathor_tpu_torch.utils import UserException
 
-    # augment:device is ported; an unknown augment value refuses as in JAX
-    for args in (["augment:nope"], ["dtype:bfloat16"], ["preprocessing:nope"]):
+    # augment:device and dtype:bfloat16 are ported; an unknown augment or
+    # dtype value refuses as in JAX
+    for args in (["augment:nope"], ["dtype:bf16"], ["preprocessing:nope"]):
         with pytest.raises(UserException):
             tmodels.instantiate("cnnet", args)
