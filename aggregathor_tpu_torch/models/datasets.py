@@ -3,12 +3,14 @@
 Copies of the numpy loaders of ``aggregathor_tpu/models/datasets.py`` (the
 npz, sklearn-digits and synthetic branches; the CIFAR-10 TFRecord reader is
 not ported yet), so both packages see the same batches, bit for bit, with
-``WorkerBatchIterator.next_many`` (k batches as one chunk) and the
-``DevicePrefetcher`` thread.  The JAX package's chunk pipeline (sharded
-gather into ping-pong buffers, sliced transfers) is not ported yet.  Each
-loader first looks for a local ``.npz`` file (search order: the
-``AGGREGATHOR_DATA`` env dir, ``~/.aggregathor/data``, ``./data``) and
-otherwise derives a deterministic synthetic stand-in: class-conditional
+``WorkerBatchIterator.next_many`` (k batches as one chunk, gathered into a
+caller's buffer with ``out=``), the ``DevicePrefetcher`` thread and the
+``ChunkPipeline`` of the ``--unroll`` path (a gather sharded over a small
+thread pool into two ping-pong buffers, pinned on CUDA, and sliced
+transfers assembled on the card).  Each loader first looks for a local
+``.npz`` file (search order: the ``AGGREGATHOR_DATA`` env dir,
+``~/.aggregathor/data``, ``./data``) and otherwise derives a deterministic
+synthetic stand-in: class-conditional
 Gaussians around fixed random templates, flagged by ``.synthetic``.  The
 digits loader tries scikit-learn's bundled corpus between the two.
 
@@ -20,6 +22,7 @@ at ``DIGITS_DIR`` to read it where scikit-learn is not installed.
 """
 
 import os
+import threading
 
 import numpy as np
 
@@ -27,6 +30,59 @@ from ..utils import UserException, info, warning
 
 #: the directory of the port's own copy of the digits corpus (``digits.npz``)
 DIGITS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+
+# Sharded host gather (JAX ``datasets.py:29-106``): the fancy-index gather of
+# ``WorkerBatchIterator.next_many`` split into contiguous row ranges written
+# concurrently by ``np.take(..., out=...)``, into the caller's buffer.
+
+#: rows below this skip the pool (thread dispatch costs more than the copy)
+_GATHER_POOL_MIN_ROWS = 4096
+
+_gather_pool = None
+_gather_pool_lock = threading.Lock()
+
+
+def gather_threads():
+    """Worker count of the sharded gather pool: ``AGGREGATHOR_GATHER_THREADS``
+    or min(4, cpu_count).  0/1 disables the pool (one single-shot gather)."""
+    env = os.environ.get("AGGREGATHOR_GATHER_THREADS")
+    if env is not None:
+        try:
+            return max(0, int(env))
+        except ValueError:
+            raise UserException("AGGREGATHOR_GATHER_THREADS must be an integer (got %r)" % env)
+    return min(4, os.cpu_count() or 1)
+
+
+def _pool():
+    global _gather_pool
+    if _gather_pool is None:
+        with _gather_pool_lock:
+            if _gather_pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                _gather_pool = ThreadPoolExecutor(max_workers=gather_threads(), thread_name_prefix="gather")
+    return _gather_pool
+
+
+def sharded_take(src, indices, out):
+    """``out[:] = src[indices]`` with the row copies sharded over the gather
+    pool: bit-identical to the fancy index (``np.take`` writes the same rows;
+    the shards are disjoint contiguous ranges of ``out``).  One single-shot
+    ``np.take`` for small gathers or when the pool is disabled."""
+    nb = gather_threads()
+    rows = indices.shape[0]
+    if nb <= 1 or rows < _GATHER_POOL_MIN_ROWS:
+        np.take(src, indices, axis=0, out=out)
+        return out
+    bounds = np.linspace(0, rows, nb + 1).astype(np.int64)
+    futures = [
+        _pool().submit(np.take, src, indices[lo:hi], 0, out[lo:hi])
+        for lo, hi in zip(bounds[:-1], bounds[1:]) if hi > lo
+    ]
+    for future in futures:
+        future.result()  # re-raises a shard's failure
+    return out
 
 
 def transform_is_stateless(transform):
@@ -224,22 +280,55 @@ class WorkerBatchIterator:
             bx, by = self.transform(bx, by)
         return {"image": bx, "label": by}
 
-    def next_many(self, k):
+    def alloc_chunk(self, k, pin_memory=False):
+        """A preallocated (k, nb_workers, batch, ...) chunk for
+        ``next_many(k, out=...)``: the ping-pong buffers of the input
+        pipeline are two of these.  With ``pin_memory`` (the pipeline on
+        CUDA) the arrays are numpy views of page-locked tensors (each view's
+        ``base`` keeps its tensor alive), so the gather writes straight into
+        memory the card's copy engine reads, with no second host copy."""
+        k = int(k)
+        shapes = {"image": ((k, self.nb_workers, self.batch_size) + self.x.shape[1:], self.x.dtype),
+                  "label": ((k, self.nb_workers, self.batch_size), self.y.dtype)}
+        if not pin_memory:
+            return {name: np.empty(shape, dtype) for name, (shape, dtype) in shapes.items()}
+        import torch
+
+        return {name: torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype, pin_memory=True).numpy()
+                for name, (shape, dtype) in shapes.items()}
+
+    def next_many(self, k, out=None):
         """``k`` successive batches as one (k, nb_workers, batch, ...) chunk,
         bit-identical to ``k`` calls of ``next`` (and advancing the streams
-        alike).  A stateful transform sees every batch in order; otherwise the
-        chunk is one gather and a stateless transform runs on each step."""
+        alike).  A stateful transform sees every batch in order (the
+        sequential path); otherwise the chunk is one gather sharded over the
+        gather pool (``sharded_take``) and a stateless transform runs on each
+        step.  With ``out`` (an ``alloc_chunk(k)`` buffer) the chunk refills
+        that buffer, which is returned; without, a fresh chunk."""
         k = int(k)
         if not transform_is_stateless(self.transform):
             batches = [next(self) for _ in range(k)]
-            return {name: np.stack([batch[name] for batch in batches]) for name in batches[0]}
+            stack = {name: np.stack([batch[name] for batch in batches]) for name in batches[0]}
+            if out is None:
+                return stack
+            for name, value in stack.items():
+                out[name][...] = value
+            return out
         flat = np.stack([self._draw_indices() for _ in range(k)]).reshape(-1)
-        bx = self.x[flat].reshape((k, self.nb_workers, self.batch_size) + self.x.shape[1:])
-        by = self.y[flat].reshape(k, self.nb_workers, self.batch_size)
+        if out is None:
+            out = self.alloc_chunk(k)
+        sharded_take(self.x, flat, out["image"].reshape((-1,) + self.x.shape[1:]))
+        sharded_take(self.y, flat, out["label"].reshape(-1))
         if self.transform is not None:
-            steps = [self.transform(bx[step], by[step]) for step in range(k)]
-            bx, by = np.stack([x for x, _ in steps]), np.stack([y for _, y in steps])
-        return {"image": bx, "label": by}
+            # stateless: one step at a time equals the sequential path
+            for step in range(k):
+                image, label = out["image"][step], out["label"][step]
+                bx, by = self.transform(image, label)
+                if bx is not image:
+                    image[...] = bx
+                if by is not label:
+                    label[...] = by
+        return out
 
     def skip(self, k):
         """Advance every stream by ``k`` batches: the resume fast-forward,
@@ -375,3 +464,233 @@ class DevicePrefetcher:
                 self._queue.get_nowait()
         except queue.Empty:
             pass
+
+
+def split_chunk(chunk, nb_slices):
+    """Split a (K, ...) host chunk into ``nb_slices`` contiguous step-axis
+    slices (views, no copy), on ``np.array_split``'s boundaries, so the
+    slices' shapes are a function of (K, nb_slices) alone."""
+    leaves = list(chunk.values())
+    k = leaves[0].shape[0]
+    nb_slices = max(1, min(int(nb_slices), k))
+    bounds = [k * i // nb_slices for i in range(nb_slices + 1)]
+    return [
+        {name: value[lo:hi] for name, value in chunk.items()}
+        for lo, hi in zip(bounds[:-1], bounds[1:]) if hi > lo
+    ]
+
+
+class _NullCounter:
+    value = 0.0
+
+    def inc(self, amount=1.0):
+        pass
+
+
+class ChunkPipeline:
+    """Three-stage pipelined host-to-device input of the unrolled trainer
+    (JAX ``datasets.py:640-836``), in place of the whole-chunk
+    ``DevicePrefetcher``:
+
+    1. **sharded gather**: ``iterator.next_many(unroll, out=...)`` refills
+       one of two preallocated ping-pong host buffers, the row copies
+       sharded over the gather pool (``sharded_take``); on CUDA the buffers
+       are pinned (``alloc_chunk(pin_memory=True)``), so no second host copy
+       is made before the transfer;
+    2. **sliced transfer**: the chunk is split into ``slices`` step-axis
+       slices (``split_chunk``), each transferred as soon as it is issued
+       (``put`` = ``RobustEngine.put_batches``);
+    3. **assembly**: ``assemble`` (``RobustEngine.assemble_batches``) joins
+       the slices into the one (K, n, ...) chunk ``build_multi_step``
+       consumes, a fresh buffer on the device.
+
+    On a CUDA ``device`` the transfers and the assembly run on a side stream
+    of the pipeline's own, and an event is recorded after the assembly.
+    Aliasing: buffer ``i % 2`` is gathered again for chunk ``i + 2`` only
+    after chunk ``i``'s event has completed (its copies have read the
+    buffer); the consumer's stream waits on the event before the step reads
+    the chunk, and each tensor is recorded on the consumer's stream, as
+    ``DevicePrefetcher`` does.
+
+    The producer is finite (``nb_chunks``): it shares ``iterator`` with the
+    caller's per-step tail, so it draws exactly the chunks the loop consumes
+    and exits; after exhaustion or ``close()`` the iterator is the caller's
+    again.  A producer error surfaces on the consumer side.  With a
+    ``registry`` (``obs/metrics.py``) it exports ``input_gather_seconds_total``
+    and ``input_put_seconds_total`` (the producer's busy time; on CUDA the put
+    is the host's time issuing the copies and the assembly),
+    ``input_wait_seconds_total`` (the consumer blocked in ``__next__``),
+    ``input_chunks_total``, a live ``input_queue_depth`` and the derived
+    ``input_overlap_fraction`` (1 - wait/busy); the producer's stages emit
+    ``input.gather`` / ``input.put`` trace spans.
+    """
+
+    def __init__(self, iterator, unroll, nb_chunks, put, assemble, depth=2, slices=4, registry=None,
+                 device=None):
+        import queue
+
+        import torch
+
+        self._iterator = iterator
+        self._unroll = int(unroll)
+        self._nb_chunks = int(nb_chunks)
+        self._put = put
+        self._assemble = assemble
+        self._slices = max(1, int(slices))
+        self._queue = queue.Queue(maxsize=max(1, int(depth)))
+        self._stop = threading.Event()
+        self._terminal = None
+        self._device = torch.device(device) if device is not None else None
+        self._stream = None
+        if self._device is not None and self._device.type == "cuda":
+            if self._device.index is None:
+                self._device = torch.device("cuda", torch.cuda.current_device())
+            self._stream = torch.cuda.Stream(self._device)
+        self._buffers = [None, None]  # ping-pong host chunks
+        self._retire = [None, None]   # per buffer: the event after its chunk's assembly (CUDA)
+        self._wait_s = 0.0
+        self._gauge_depth = None
+        if registry is not None:
+            self._c_gather = registry.counter("input_gather_seconds_total", "Producer time in the sharded host gather")
+            self._c_put = registry.counter("input_put_seconds_total",
+                                           "Producer time issuing slice transfers + assemble")
+            self._c_wait = registry.counter("input_wait_seconds_total",
+                                            "Consumer time blocked waiting for an input chunk")
+            self._c_chunks = registry.counter("input_chunks_total", "Chunks produced by the input pipeline")
+            self._gauge_depth = registry.gauge("input_queue_depth", "Device-ready input chunks queued")
+            self._gauge_depth.set_function(self._queue.qsize)
+            gather, put_c, wait = self._c_gather, self._c_put, self._c_wait
+
+            def overlap_fraction():
+                busy = gather.value + put_c.value
+                if busy <= 0.0:
+                    return 0.0
+                return max(0.0, min(1.0, 1.0 - wait.value / busy))
+
+            registry.gauge(
+                "input_overlap_fraction",
+                "Fraction of input-pipeline work hidden under device compute (1 - wait/busy)",
+            ).set_function(overlap_fraction)
+        else:
+            self._c_gather = self._c_put = self._c_wait = self._c_chunks = _NullCounter()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="input-pipeline")
+        self._thread.start()
+
+    # producer ---------------------------------------------------------- #
+
+    def _transfer(self, host):
+        """The slices' transfers and their assembly; on CUDA on the side
+        stream, returning the event recorded after them (else None)."""
+        import torch
+
+        if self._stream is None:
+            return self._assemble([self._put(part) for part in split_chunk(host, self._slices)]), None
+        with torch.cuda.stream(self._stream):
+            device_chunk = self._assemble([self._put(part) for part in split_chunk(host, self._slices)])
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return device_chunk, event
+
+    def _run(self):
+        import time
+
+        import torch
+
+        from ..obs import trace
+
+        try:
+            if self._stream is not None:
+                torch.cuda.set_device(self._device)
+            for index in range(self._nb_chunks):
+                if self._stop.is_set():
+                    return
+                slot = index % 2
+                if self._retire[slot] is not None:
+                    # aliasing: chunk index - 2's copies must have read this
+                    # buffer before it is gathered again
+                    self._retire[slot].synchronize()
+                if self._buffers[slot] is None and self._stream is not None and hasattr(self._iterator, "alloc_chunk"):
+                    self._buffers[slot] = self._iterator.alloc_chunk(self._unroll, pin_memory=True)
+                t0 = time.perf_counter()
+                with trace.span("input.gather", cat="input"):
+                    host = self._iterator.next_many(self._unroll, out=self._buffers[slot])
+                self._buffers[slot] = host
+                self._c_gather.inc(time.perf_counter() - t0)
+                if self._stop.is_set():
+                    return
+                t0 = time.perf_counter()
+                with trace.span("input.put", cat="input"):
+                    device_chunk, event = self._transfer(host)
+                self._c_put.inc(time.perf_counter() - t0)
+                self._retire[slot] = event
+                self._c_chunks.inc()
+                self._queue.put((device_chunk, event))
+            self._queue.put(_PrefetchError(StopIteration()))
+        except BaseException as exc:  # surfaced on the consumer side
+            self._queue.put(_PrefetchError(exc))
+
+    # consumer ---------------------------------------------------------- #
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import time
+
+        import torch
+
+        if self._terminal is not None:  # iterator protocol: stay terminal
+            raise self._terminal
+        t0 = time.perf_counter()
+        item = self._queue.get()
+        waited = time.perf_counter() - t0
+        self._c_wait.inc(waited)
+        self._wait_s += waited
+        if isinstance(item, _PrefetchError):
+            self._terminal = item.exc
+            raise item.exc
+        device_chunk, event = item
+        if event is not None:
+            consumer = torch.cuda.current_stream(self._device)
+            consumer.wait_event(event)
+            for tensor in device_chunk.values():
+                tensor.record_stream(consumer)
+        return device_chunk
+
+    @property
+    def wait_seconds(self):
+        """Time this consumer spent blocked in ``__next__`` (the registry
+        counter is cumulative over the process's pipelines)."""
+        return self._wait_s
+
+    def close(self):
+        """Stop and join the producer; afterwards the shared ``iterator`` is
+        the caller's alone.  The drain-and-join of ``DevicePrefetcher.close``
+        (bounded at 5 s); the copies still reading a buffer are waited for
+        before the buffers are dropped.  Idempotent."""
+        import queue
+        import time
+
+        self._stop.set()
+        self._terminal = StopIteration()
+        deadline = time.monotonic() + 5.0
+        while self._thread.is_alive() and time.monotonic() < deadline:
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.1)
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        if self._gauge_depth is not None:
+            self._gauge_depth.set(0.0)  # drop the qsize closure pinning us
+            self._gauge_depth = None
+        for event in self._retire:
+            if event is not None:
+                event.synchronize()
+        self._buffers = [None, None]
+        self._retire = [None, None]

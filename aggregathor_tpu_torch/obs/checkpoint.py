@@ -18,7 +18,9 @@ killed run never leaves a torn snapshot.
 ``background=True`` hands serialisation, the write and the pruning to one
 worker thread.  ``save`` still takes its CPU copy before it returns: the
 optimizer updates the parameters in place at the next step.  ``wait()``
-joins the pending writes and raises the first failure.
+joins the pending writes and raises the first failure.  The restore, the
+CPU copy and the write are spans of ``obs/trace.py`` (``checkpoint.restore``,
+``checkpoint.fetch``, ``checkpoint.write``, the last on the writer thread).
 
 Snapshot authentication, encryption and the chain of custody of the JAX
 package (``authenticator``, ``cipher``, ``custody``) are not ported yet;
@@ -31,6 +33,7 @@ import re
 
 import torch
 
+from . import trace
 from ..core.train_state import host_snapshot, load_snapshot
 from ..utils import UserException, info
 
@@ -112,6 +115,10 @@ class Checkpoints:
     def restore(self, state, step=None):
         """Load the snapshot of ``step`` (the latest if None) into ``state``
         in place; returns ``(state, step)``."""
+        with trace.span("checkpoint.restore", cat="checkpoint"):
+            return self._restore(state, step)
+
+    def _restore(self, state, step):
         steps = self.steps()
         if not steps:
             raise UserException("No checkpoint to restore in %r" % (self.directory,))
@@ -143,7 +150,8 @@ class Checkpoints:
         beyond ``max_to_keep`` oldest first.  With ``background=True`` only
         the CPU copy happens here."""
         step = int(state.step if step is None else step)
-        snapshot = host_snapshot(state)
+        with trace.span("checkpoint.fetch", cat="checkpoint", step=step):
+            snapshot = host_snapshot(state)
         if self._pool is not None:
             self._pending.append(self._pool.submit(self._write, snapshot, step))
             return self._path(step)
@@ -166,6 +174,7 @@ class Checkpoints:
         if first_error is not None:
             raise first_error
 
+    @trace.span("checkpoint.write", cat="checkpoint")
     def _write(self, snapshot, step):
         path = self._path(step)
         tmp = path + ".tmp"

@@ -14,15 +14,17 @@ divergence check's read of the previous losses makes -- a read queued
 behind the current call's kernels, so the window ends when they do.  No synchronisation is
 added for the report.
 
-The JAX report can also export to a metrics registry; that waits for the
-port of ``obs/metrics.py``, and passing one raises.
+With a ``registry`` (``obs/metrics.py``) the report also exports, as the
+JAX report does, ``train_steps_total``, ``train_in_graph_seconds_total`` and
+the ``train_step_latency_seconds`` histogram; the printed percentiles stay
+this run's own.
 """
 
 import random
 import threading
 import time
 
-from ..utils import UserException, info
+from ..utils import info
 
 
 class LatencyHistogram:
@@ -71,17 +73,24 @@ class LatencyHistogram:
 
 class PerfReport:
     """The run's step accounting; the latency reservoir is this run's own
-    and leaves out the first step."""
+    and leaves out the first step.  With ``registry`` the accumulators are
+    also exported there (get-or-create, so cumulative over the process: a
+    second run in one process does not change the first's printed report)."""
 
     def __init__(self, registry=None):
-        if registry is not None:
-            raise UserException("PerfReport(registry=...) is not available in the PyTorch port yet")
         self.nb_steps = 0
         self.first_step_s = 0.0
         self.in_graph_s = 0.0
         self.start = time.monotonic()
         self._step_start = None
         self.latency = LatencyHistogram()
+        self._registry_latency = self._steps_counter = self._in_graph_counter = None
+        if registry is not None:
+            self._registry_latency = registry.histogram(
+                "train_step_latency_seconds", "Per-step train latency (first/compile dispatch excluded)")
+            self._steps_counter = registry.counter("train_steps_total", "Completed training steps")
+            self._in_graph_counter = registry.counter(
+                "train_in_graph_seconds_total", "Wall time spent blocked on dispatched step programs")
 
     def step_begin(self):
         self._step_start = time.monotonic()
@@ -94,8 +103,13 @@ class PerfReport:
             self.first_step_s = elapsed
         else:
             self.latency.record(elapsed / max(int(nb_steps), 1))
+            if self._registry_latency is not None:
+                self._registry_latency.observe(elapsed / max(int(nb_steps), 1))
         self.in_graph_s += elapsed
         self.nb_steps += int(nb_steps)
+        if self._steps_counter is not None:
+            self._steps_counter.inc(int(nb_steps))
+            self._in_graph_counter.inc(elapsed)
 
     def steps_per_s_excl_first(self):
         total = time.monotonic() - self.start

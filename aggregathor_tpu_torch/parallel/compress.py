@@ -1,7 +1,7 @@
 """The wire's precision: what a row looks like after it crossed the exchange.
 
 Counterpart of the dtype part of ``aggregathor_tpu/parallel/compress.py``
-(``wire_roundtrip``, ``bytes_per_row``).  ``--exchange-dtype bfloat16``
+(``wire_roundtrip``, ``bytes_per_row``, ``compression_ratio``).  ``--exchange-dtype bfloat16``
 sends each worker's row as bfloat16 and the GAR computes in float32 on the
 values that arrived; float32 is the identity.  The codecs (``int8``,
 ``topk``, error feedback) are not ported.
@@ -43,3 +43,9 @@ def bytes_per_row(d, dtype=None):
     """Wire bytes of one (d,) row under the exchange dtype."""
     itemsize = _F32_BYTES if dtype is None else torch.empty((), dtype=dtype).element_size()
     return int(d) * itemsize
+
+
+def compression_ratio(d, dtype=None):
+    """float32-wire bytes of a (d,) row over its bytes under the exchange
+    dtype (>= 1): the runner's ``exchange_compression_ratio`` gauge."""
+    return bytes_per_row(d) / bytes_per_row(d, dtype)

@@ -61,6 +61,10 @@ Both return per-step metrics with a leading K (the probe's fields too).
 ``trace_ops`` prints one ``TRACE step s dev 0 ...`` line after the
 gradients, the aggregate and the update, in the JAX package's words.
 
+``put_batches`` also places a step-axis slice of a chunk and
+``assemble_batches`` joins the slices (the input pipeline's transfer);
+``build_gar_probe`` times the rule alone (``--gar-probe``).
+
 Refused with a UserException: the chaos schedules, the wire codec
 (``exchange``), secure submission, bounded-wait, the sharded mode,
 ``leaf_bucketing=True`` (the bucketed per-leaf path needs kernels with a
@@ -321,13 +325,18 @@ class RobustEngine:
             rows = torch.where(masked[:, None], torch.nan, rows)
         return rows, raw_rows
 
+    def _distances(self, rows):
+        """The rule's pairwise squared distances (one K1 or K2 launch),
+        clamped at 0, or None when the rule needs none."""
+        if not self.gar.needs_distances:
+            return None
+        return torch.clamp_min(kernels.pairwise_sq_distances(rows), 0.0)
+
     def _aggregate_block(self, rows):
         """Distances (one K1 or K2 launch) when the rule needs them, then the
         rule: ``(aggregate, participation)``, the participation None unless
         ``worker_metrics`` and the rule selects whole workers."""
-        dist2 = None
-        if self.gar.needs_distances:
-            dist2 = torch.clamp_min(kernels.pairwise_sq_distances(rows), 0.0)
+        dist2 = self._distances(rows)
         if self.worker_metrics:
             return self.gar.aggregate_block_and_participation(rows, dist2)
         return self.gar._call_aggregate(rows, dist2), None
@@ -447,11 +456,16 @@ class RobustEngine:
 
     def _to_device(self, tensor):
         """``tensor`` on the engine's device; on CUDA through pinned memory,
-        copied asynchronously on the current stream (the caching host
-        allocator keeps the pinned block until the copy is done)."""
+        copied asynchronously on the current stream.  A tensor pinned already
+        (a slice of the input pipeline's ping-pong buffer, whose owner keeps
+        it until the copy is done) is copied as it is; any other is pinned
+        first (the caching host allocator keeps that block until the copy is
+        done)."""
         if self.device.type != "cuda":
             return tensor.to(self.device)
-        return tensor.pin_memory().to(self.device, non_blocking=True)
+        if not tensor.is_pinned():
+            tensor = tensor.pin_memory()
+        return tensor.to(self.device, non_blocking=True)
 
     def _put(self, batch, lead):
         out = {}
@@ -469,9 +483,19 @@ class RobustEngine:
         return self._put(batch, (self.nb_workers,))
 
     def put_batches(self, chunk):
-        """Move a (K, n, ...) numpy chunk of K batches to the device."""
+        """Move a (K, n, ...) numpy chunk of K batches to the device; also a
+        step-axis slice (k_i, n, ...) of one, as the input pipeline sends
+        them (JAX ``shard_batches``)."""
         first = next(iter(chunk.values()))
         return self._put(chunk, (int(np.shape(first)[0]), self.nb_workers))
+
+    def assemble_batches(self, parts):
+        """Join step-axis slices (each ``put_batches``-placed) into the one
+        (K, n, ...) chunk ``build_multi_step`` consumes: one ``torch.cat``
+        along the step axis a leaf, into a fresh buffer on the device, so the
+        slices' host buffers may be refilled once it has run (JAX
+        ``assemble_batches``)."""
+        return {key: torch.cat([part[key] for part in parts]) for key in parts[0]}
 
     def replicate(self, tree):
         """Put a dataset (name -> array, leading axis the examples) on the
@@ -565,6 +589,29 @@ class RobustEngine:
             return _run_steps(body, state, nb_steps, sampled)
 
         return multi
+
+    def build_gar_probe(self, d, seed=0):
+        """The rule alone at the run's (n, d) (JAX ``_flat_build_gar_probe``):
+        the instrument behind the runner's ``--gar-probe``.
+
+        Synthetic (n, d) float32 rows are drawn once on the engine's device
+        from a ``torch.Generator`` seeded with ``seed`` (``probe.rows``).
+        ``probe(step)`` runs one aggregation on them: the distances (K1, or
+        the centring and K2) when the rule needs them, clamped at 0, then
+        the rule (K3-K6 for the coordinate rules, Bulyan's last phase) --
+        the step's own path, without attack, lossy link or quarantine.  No
+        ported rule draws from a key, so there is no per-step stream to fold
+        ``step`` into and the result is a function of the rows alone.  The
+        caller synchronises before reading the clock."""
+        generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        rows = torch.randn((self.nb_workers, int(d)), generator=generator, dtype=torch.float32, device=self.device)
+
+        @torch.no_grad()
+        def probe(_step=0):  # the step: JAX's signature (no stream to fold it into)
+            return self.gar._call_aggregate(probe.rows, self._distances(probe.rows))
+
+        probe.rows = rows
+        return probe
 
     def build_eval_sums(self, metric_fn):
         """eval_step(state, batch) -> dict name -> (sum, count) over the batch:

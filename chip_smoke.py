@@ -119,6 +119,21 @@ Phases, in order (any failure exits non-zero and prints no result):
    must hold no step twice, and the summary JSONL must carry the run id and
    the four scalars; both again with the batches drawn on the card, 4 steps
    a call (``--input-source device --unroll 4``).
+   The input pipeline (``pipeline_phase``): cnnet ``augment:device``
+   + krum n=8 at ``--unroll 10`` for ``PIPELINE_STEPS`` steps, synchronous,
+   and through the chunk pipeline at 4 and 1 slices and at 1 gather thread;
+   every leg's per-step losses must be the synchronous leg's bits, K1 once
+   a step; each prints its steps/s
+   without the first call and its ``input_*`` deltas.  Then cnnet with its
+   host augmentation (the sequential gather) and ``digits`` at ``--unroll
+   16`` (the gather pool) through the pipeline, bit for bit against their
+   synchronous twins.  The metrics plane (``plane_phase``): cnnet + median
+   through the pipeline with ``--gar-probe``, ``--metrics-file``,
+   ``--trace-file``, ``--run-id`` and the live exporter, scraped while it
+   trains; the metrics file, the span trace, the endpoints and K3's
+   launches (a step and a probe call) are checked.  ``--trace``
+   (``profiler_phase``): torch.profiler's Chrome trace of a krum leg must
+   name K1's kernel.
    Last, a cnnet + krum step and a digits-conv + krum step are split into
    their phases (host batch, transfer, augmentation, worker gradients,
    attack + aggregate, update), with the batches streamed and drawn on the
@@ -799,6 +814,268 @@ def attack_phase(runner, workdir):
               % (experiment, severity, outcome, ", ".join("%s: %.4f" % (row[1], a) for row, a in zip(rows, accuracy))))
 
 
+#: the pipeline phase's legs (cnnet + krum n=8, f=2, 10 steps a call): the
+#: flags after the shared ones and the gather threads; the first is the
+#: synchronous reference whose losses every other leg must repeat bit for bit
+PIPELINE_STEPS = 40
+PIPELINE_LEGS = [
+    ("sync", ["--prefetch", "0"], "4"),
+    ("pipeline S=4", ["--prefetch", "2", "--input-slices", "4"], "4"),
+    ("pipeline S=1", ["--prefetch", "2", "--input-slices", "1"], "4"),
+    ("pipeline S=4, 1 gather thread", ["--prefetch", "2", "--input-slices", "4"], "1"),
+]
+INPUT_FAMILIES = ("input_gather_seconds_total", "input_put_seconds_total", "input_wait_seconds_total",
+                  "input_chunks_total")
+
+
+def _recorded_run(runner, argv):
+    """runner.main(argv) with every call's per-step losses kept on the card
+    (read after the run, so recording adds no synchronisation)."""
+    from aggregathor_tpu_torch.parallel import RobustEngine
+
+    losses = []
+    build = RobustEngine.build_multi_step
+
+    def recording(self, *args, **kwargs):
+        multi = build(self, *args, **kwargs)
+
+        def call(state, batches):
+            state, many = multi(state, batches)
+            losses.append(many["total_loss"])
+            return state, many
+
+        return call
+
+    RobustEngine.build_multi_step = recording
+    try:
+        result = runner.main(argv)
+    finally:
+        RobustEngine.build_multi_step = build
+    return result, [float(v) for chunk in losses for v in chunk.cpu()]
+
+
+def _input_deltas(before, after):
+    """The input_* counters' growth over one leg (the registry is
+    process-wide and cumulative) and the leg's overlap, 1 - wait/busy."""
+    delta = {name: after.get(name, 0.0) - before.get(name, 0.0) for name in INPUT_FAMILIES}
+    busy = delta["input_gather_seconds_total"] + delta["input_put_seconds_total"]
+    delta["overlap"] = max(0.0, min(1.0, 1.0 - delta["input_wait_seconds_total"] / busy)) if busy > 0 else None
+    return delta
+
+
+def pipeline_phase(torch, kernels, runner, card):
+    """The chunk input pipeline on the card; returns {kernel: launches}.
+
+    cnnet with its augmentation in the step (``augment:device``, so the host
+    tier is the gather alone: 10 x 8 x 128 = 10,240 rows a chunk, over the
+    pool's 4,096) + krum, n=8, f=2, r=2 signflip, ``--unroll 10``,
+    ``PIPELINE_STEPS`` steps streamed, cuDNN deterministic: synchronous, and
+    the pipeline at 4 and 1 slices and at 1 gather thread.  Every leg's losses must be the synchronous leg's bits (a
+    ping-pong buffer refilled under a transfer would change them), K1 must
+    launch once a step, and each leg prints its steps/s without the first
+    chunk, its ``input_*`` deltas, overlap and the registry's
+    ``input_overlap_fraction``.  Then cnnet with its host augmentation
+    (stateful: the sequential gather, only the producer thread overlaps)
+    and ``digits`` at ``--unroll 16`` (16 x 8 x 32 = 4,096 rows: the pool)
+    through the pipeline, each against its synchronous twin bit for bit."""
+    from aggregathor_tpu_torch.models import datasets
+    from aggregathor_tpu_torch.obs import metrics as obs_metrics
+
+    totals = {name: 0 for name in kernels.KERNELS}
+    torch.backends.cudnn.deterministic = True
+    gather_env = os.environ.get("AGGREGATHOR_GATHER_THREADS")
+    base = ["--experiment", "cnnet", "--experiment-args", "augment:device", "--aggregator", "krum",
+            "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "signflip",
+            "--unroll", "10", "--max-step", str(PIPELINE_STEPS), "--seed", "1", "--evaluation-delta", "-1",
+            "--evaluation-period", "-1", "--summary-period", "-1"]
+    out = {}
+
+    def leg(label, argv, threads, want=None):
+        os.environ["AGGREGATHOR_GATHER_THREADS"] = threads
+        datasets._gather_pool = None  # the pool takes its size at creation
+        kernels.reset_launch_counts()
+        before = obs_metrics.REGISTRY.snapshot()
+        result, losses = _recorded_run(runner, argv)
+        after = obs_metrics.REGISTRY.snapshot()
+        counts = kernels.launch_counts()
+        steps, p, unroll = result["steps"], result["perf"], int(argv[argv.index("--unroll") + 1])
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses), "%s: losses %s" % (label, losses))
+        for name in kernels.KERNELS:
+            want_launches = steps if name == "pairwise_sq_distances" else 0
+            check(counts[name] == want_launches, "%s: %s launched %d times in %d steps (want %d)"
+                  % (label, name, counts[name], steps, want_launches))
+            totals[name] += counts[name]
+        if want is not None:
+            check(losses == want, "%s: per-step losses differ from the synchronous run's: %s vs %s"
+                  % (label, losses, want))
+        pipelined = "--prefetch" in argv and argv[argv.index("--prefetch") + 1] != "0"
+        expected = "ChunkPipeline" if pipelined else None
+        check(result["input_pipeline"] == expected, "%s: fed by %s, want %s" % (label, result["input_pipeline"],
+                                                                                 expected))
+        delta = _input_deltas(before, after)
+        rate = (steps - unroll) / (p["total_s"] - p["first_step_s"])
+        print("pipeline leg %-30s %d steps, %.3f steps/s without the first call (%.3f excl. 1st step) on %s, fed "
+              "by %s (%s gather thread(s)); input deltas %s; wait %s s; registry input_overlap_fraction %s; "
+              "losses %s"
+              % (label, steps, rate, result["steps_per_s"], card, result["input_pipeline"], threads,
+                 json.dumps({k: v for k, v in delta.items()}), result["input_wait_s"],
+                 after.get("input_overlap_fraction"), "bit-identical to sync" if want is not None else
+                 "(the reference)"))
+        out[label] = {"steps_per_s": rate, "input": delta}
+        return losses
+
+    try:
+        (label, extra, threads), others = PIPELINE_LEGS[0], PIPELINE_LEGS[1:]
+        reference = leg(label, base + extra, threads)
+        for label, extra, threads in others:
+            leg(label, base + extra, threads, want=reference)
+        host = ["--experiment", "cnnet", "--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
+                "--unroll", "10", "--max-step", "20", "--seed", "1", "--evaluation-delta", "-1",
+                "--evaluation-period", "-1", "--summary-period", "-1"]
+        want = leg("cnnet host augmentation sync", host + ["--prefetch", "0"], "4")
+        leg("cnnet host augmentation pipeline", host + ["--prefetch", "2"], "4", want=want)
+        digits = ["--experiment", "digits", "--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers",
+                  "2", "--unroll", "16", "--max-step", "160", "--learning-rate-args", "initial-rate:0.1",
+                  "--evaluation-delta", "-1", "--evaluation-period", "-1", "--summary-period", "-1"]
+        want = leg("digits sync", digits + ["--prefetch", "0"], "4")
+        leg("digits pipeline (pool)", digits + ["--prefetch", "2", "--input-slices", "4"], "4", want=want)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if gather_env is None:
+            os.environ.pop("AGGREGATHOR_GATHER_THREADS", None)
+        else:
+            os.environ["AGGREGATHOR_GATHER_THREADS"] = gather_env
+        datasets._gather_pool = None
+    gather = {label: out[label]["input"]["input_gather_seconds_total"]
+              for label in ("pipeline S=4", "pipeline S=4, 1 gather thread")}
+    print("pipeline on %s: steps/s without the first call %s; gather seconds at 4 and 1 gather threads %s; "
+          "against synchronous x%.3f (S=4) and x%.3f (S=1)"
+          % (card, json.dumps({k: v["steps_per_s"] for k, v in out.items()}), json.dumps(gather),
+             out["pipeline S=4"]["steps_per_s"] / out["sync"]["steps_per_s"],
+             out["pipeline S=1"]["steps_per_s"] / out["sync"]["steps_per_s"]))
+    return totals
+
+
+def plane_phase(torch, kernels, runner, card, workdir, gar_ms):
+    """The metrics plane on the card; returns {kernel: launches}.
+
+    cnnet ``augment:device`` + median, n=8, f=2, through the chunk pipeline
+    (``--unroll 10``), with ``--gar-probe``, ``--metrics-file``,
+    ``--trace-file``, ``--run-id`` and the live exporter on an ephemeral port.
+    The runner trains on a thread while this one reads the ready file and
+    GETs ``/healthz``, ``/status`` and ``/metrics``.  Then: the metrics file
+    parses with the port's parser and holds ``train_loss``,
+    ``gar_probe_seconds`` > 0 and the ``input_*`` family; the span trace
+    validates and holds ``host_gap``, ``input``, ``gar.aggregate``,
+    ``input.gather`` and ``input.put``; the runner's probe calls are the
+    warm-up and one a summary fire (the summary lines, each with its
+    ``gar_seconds``), and K3 launched once a step and once a probe call.  ``gar_probe_seconds`` is printed beside the GAR phase's median
+    n=8 time."""
+    import threading
+    import urllib.request
+
+    from aggregathor_tpu_torch.obs import metrics as obs_metrics, trace
+
+    paths = {name: os.path.join(workdir, "plane", name) for name in ("metrics.prom", "trace.json", "ready", "s")}
+    os.makedirs(os.path.join(workdir, "plane"), exist_ok=True)
+    argv = ["--experiment", "cnnet", "--experiment-args", "augment:device", "--aggregator", "median",
+            "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "signflip",
+            "--unroll", "10", "--max-step", "60", "--seed", "1", "--summary-delta", "20", "--summary-period", "-1",
+            "--evaluation-delta", "-1", "--evaluation-period", "-1", "--gar-probe", "--metrics-file",
+            paths["metrics.prom"], "--trace-file", paths["trace.json"], "--run-id", "chip-plane", "--live-port", "0",
+            "--live-ready-file", paths["ready"], "--summary-dir", paths["s"]]
+    kernels.reset_launch_counts()
+    outcome = {}
+
+    def train():
+        try:
+            outcome["result"] = runner.main(argv)
+        except BaseException as exc:  # surfaced below
+            outcome["error"] = exc
+
+    thread = threading.Thread(target=train, name="plane-runner")
+    thread.start()
+    scraped = {}
+    deadline = time.monotonic() + 300
+    while not os.path.exists(paths["ready"]) and thread.is_alive() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if os.path.exists(paths["ready"]):
+        host, port = open(paths["ready"]).read().split()
+        base = "http://%s:%s" % (host, port)
+        scraped["/healthz"] = urllib.request.urlopen(base + "/healthz", timeout=30).read().decode()
+        while True:  # /status once the first call has returned, while the rest trains
+            scraped["/status"] = urllib.request.urlopen(base + "/status", timeout=30).read().decode()
+            if json.loads(scraped["/status"])["step"] > 0 or not thread.is_alive() or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        scraped["/metrics"] = urllib.request.urlopen(base + "/metrics", timeout=30).read().decode()
+    thread.join(600)
+    check(not thread.is_alive(), "plane: the runner did not finish")
+    if "error" in outcome:
+        raise outcome["error"]
+    result = outcome["result"]
+    counts = kernels.launch_counts()
+    check(set(scraped) == {"/healthz", "/status", "/metrics"}, "plane: scraped %s" % sorted(scraped))
+    check(json.loads(scraped["/healthz"]) == {"status": "ok", "run_id": "chip-plane"}, "plane: /healthz %s"
+          % scraped["/healthz"])
+    status = json.loads(scraped["/status"])
+    check(status["run_id"] == "chip-plane" and status["max_step"] == 60, "plane: /status %s" % status)
+    obs_metrics.parse_prometheus(scraped["/metrics"])
+    families = obs_metrics.parse_prometheus(open(paths["metrics.prom"]).read())
+    value = {name: family["samples"][0][2] for name, family in families.items() if family["samples"]}
+    check("train_loss" in value and math.isfinite(value["train_loss"]), "plane: no finite train_loss")
+    check(value.get("gar_probe_seconds", 0.0) > 0.0, "plane: gar_probe_seconds %s" % value.get("gar_probe_seconds"))
+    missing = [name for name in INPUT_FAMILIES + ("input_queue_depth", "input_overlap_fraction")
+               if name not in families]
+    check(not missing, "plane: metrics file lacks %s" % missing)
+    payload = json.load(open(paths["trace.json"]))
+    names = {event["name"] for event in trace.validate_chrome_trace(payload)}
+    missing = {"host_gap", "input", "gar.aggregate", "input.gather", "input.put"} - names
+    check(not missing, "plane: the span trace lacks %s" % sorted(missing))
+    check(payload["otherData"]["run_id"] == "chip-plane", "plane: trace run id %s" % payload["otherData"])
+    steps, calls = result["steps"], result["gar_probe_calls"]
+    [name] = os.listdir(paths["s"])
+    fires = [json.loads(line) for line in open(os.path.join(paths["s"], name))]
+    check(calls == 1 + len(fires) and all(f["gar_seconds"] > 0 and f["run_id"] == "chip-plane" for f in fires),
+          "plane: %d probe calls, %d summary fires (want the warm-up and one a fire)" % (calls, len(fires)))
+    for name in kernels.KERNELS:
+        want = steps + calls if name == "coordinate_median" else 0
+        check(counts[name] == want, "plane: %s launched %d times in %d steps and %d probe calls (want %d)"
+              % (name, counts[name], steps, calls, want))
+    print("plane on %s: %d steps through %s, /status %s, %d families in the metrics file, %d span events; "
+          "gar_probe_seconds %.6f s (%.4f ms) beside the GAR phase's median n=8 %.4f ms; launches %s"
+          % (card, steps, result["input_pipeline"], json.dumps(status), len(families), len(payload["traceEvents"]),
+             value["gar_probe_seconds"], 1e3 * value["gar_probe_seconds"], gar_ms["median n=8"],
+             json.dumps(counts, sort_keys=True)))
+    return counts
+
+
+def profiler_phase(kernels, runner, card, workdir):
+    """``--trace`` on a krum leg (n=8, one step a call): the runner's
+    torch.profiler window over steps 3-5 must export a Chrome trace that names
+    K1's kernel (``rows_kernel``) among its device events; returns
+    {kernel: launches}."""
+    trace_dir = os.path.join(workdir, "profile")
+    kernels.reset_launch_counts()
+    result = runner.main(["--experiment", "cnnet", "--aggregator", "krum", "--nb-workers", "8",
+                          "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "signflip",
+                          "--max-step", "8", "--seed", "1", "--evaluation-delta", "-1", "--evaluation-period", "-1",
+                          "--trace", "--trace-dir", trace_dir, "--run-id", "chip-profile"])
+    counts = kernels.launch_counts()
+    path = os.path.join(trace_dir, "chip-profile.pt.trace.json")
+    check(os.path.exists(path), "profiler: no trace at %s" % path)
+    events = json.load(open(path))["traceEvents"]
+    device = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in device if "rows_kernel" in e.get("name", "")]
+    check(k1, "profiler: K1 (rows_kernel) is not among the %d kernel events" % len(device))
+    for name in kernels.KERNELS:
+        want = result["steps"] if name == "pairwise_sq_distances" else 0
+        check(counts[name] == want, "profiler: %s launched %d times (want %d)" % (name, counts[name], want))
+    print("profiler on %s: %s, %d events, %d kernel events, %d of K1 (%s)"
+          % (card, path, len(events), len(device), len(k1), k1[0]["name"][:80]))
+    return counts
+
+
 #: the resumed run's losses against the uninterrupted run's, relative.  The
 #: resume phase pins cuDNN to its deterministic algorithms: with the
 #: default ones, two uninterrupted digits-conv runs on the card differ by up
@@ -1383,10 +1660,15 @@ def main():
         reference_phase(torch, gars, kernels, models)
         leaf_width_phase(torch, kernels, models)
         options_reference_phase(torch, gars, kernels, models)
-        gar_phase(torch, gars, models)
+        gar_ms = gar_phase(torch, gars, models)
         corpus_phase()
         for kernel, count in digits_phase(torch, kernels, runner, card).items():
             totals[kernel] += count
+        for counts in (pipeline_phase(torch, kernels, runner, card),
+                       plane_phase(torch, kernels, runner, card, workdir, gar_ms),
+                       profiler_phase(kernels, runner, card, workdir)):
+            for kernel, count in counts.items():
+                totals[kernel] += count
         for row in rows:
             check(totals[row["name"]] > 0, "%s was never launched on the main path" % row["name"])
             row["launches"] = totals[row["name"]]

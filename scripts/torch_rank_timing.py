@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's distance and rank kernels of any checkout on one GPU.
 
-    python3 scripts/torch_rank_timing.py [--root CHECKOUT] [--parts k1,rank,end-to-end]
+    python3 scripts/torch_rank_timing.py [--root CHECKOUT] [--parts k1,rank,end-to-end,breakdown,input]
                                          [--k1-rows 8,11,16,20,21,64]
 
 Times, with ``chip_smoke.time_ms`` (CUDA events, 20 calls after 3 warm-up
@@ -34,7 +34,19 @@ calls), on random (seeded) cnnet-width inputs
   ``digits-conv`` (batch 16) + krum at n = 8 with the batches streamed and,
   where the checkout's engine has ``build_sampled_multi_step``, drawn on the
   card (cnnet then augments in the step): each phase's ms, the whole
-  step's and the card's busy share.
+  step's and the card's busy share;
+- ``input``: the runner's input paths (cuDNN deterministic) on cnnet
+  ``augment:device`` + krum (n = 8, f = 2, r = 2 signflip, ``INPUT_STEPS``
+  steps): streamed one step a call with the prefetch thread, streamed 10
+  steps a call synchronously (``--prefetch 0``) and prefetched
+  (``--prefetch 2``: the checkout's chunk path, the ``ChunkPipeline`` where
+  it has one, else the whole-chunk prefetcher), and drawn on the card one
+  and 10 steps a call; then the streamed chunk path synchronous and
+  prefetched on cnnet with its host augmentation (the sequential gather)
+  and on ``digits`` + krum n = 8 at ``--unroll 16`` for
+  ``DIGITS_INPUT_STEPS`` steps on the real corpus (the gather pool); for
+  each, steps/s without the first call, the step latency p50 and the
+  in-graph share of the runner's report.
 
 ``--root`` names the checkout whose ``aggregathor_tpu_torch`` is imported
 (default: the one holding this script), so the same inputs and timer serve
@@ -52,12 +64,35 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: steps of each leg in the end-to-end part (chip_smoke's legs take 5 to 30)
 LEG_STEPS = 20
+#: steps of each run in the input part (10-step calls: the first call and 4 more)
+INPUT_STEPS = 50
+#: steps of the digits runs (16-step calls: the first call and 9 more)
+DIGITS_INPUT_STEPS = 160
+_KRUM = ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2"]
+_CNNET_DEVICE = ["--experiment", "cnnet", "--experiment-args", "augment:device", *_KRUM,
+                 "--nb-real-byz-workers", "2", "--attack", "signflip", "--max-step", str(INPUT_STEPS)]
+_CNNET_HOST = ["--experiment", "cnnet", *_KRUM, "--nb-real-byz-workers", "2", "--attack", "signflip",
+               "--max-step", str(INPUT_STEPS)]
+_DIGITS = ["--experiment", "digits", *_KRUM, "--learning-rate-args", "initial-rate:0.1",
+           "--max-step", str(DIGITS_INPUT_STEPS)]
+INPUT_CASES = [
+    # (label, runner arguments before the shared ones, then --unroll K and the input flags)
+    ("stream unroll 1 prefetch 2", _CNNET_DEVICE, ["--unroll", "1", "--prefetch", "2"]),
+    ("stream unroll 10 prefetch 0", _CNNET_DEVICE, ["--unroll", "10", "--prefetch", "0"]),
+    ("stream unroll 10 prefetch 2", _CNNET_DEVICE, ["--unroll", "10", "--prefetch", "2"]),
+    ("device unroll 1", _CNNET_DEVICE, ["--unroll", "1", "--input-source", "device"]),
+    ("device unroll 10", _CNNET_DEVICE, ["--unroll", "10", "--input-source", "device"]),
+    ("cnnet host augmentation stream unroll 10 prefetch 0", _CNNET_HOST, ["--unroll", "10", "--prefetch", "0"]),
+    ("cnnet host augmentation stream unroll 10 prefetch 2", _CNNET_HOST, ["--unroll", "10", "--prefetch", "2"]),
+    ("digits stream unroll 16 prefetch 0", _DIGITS, ["--unroll", "16", "--prefetch", "0"]),
+    ("digits stream unroll 16 prefetch 2", _DIGITS, ["--unroll", "16", "--prefetch", "2"]),
+]
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=HERE)
-    parser.add_argument("--parts", default="k1,rank", help="what to time: k1, rank, end-to-end, breakdown")
+    parser.add_argument("--parts", default="k1,rank", help="what to time: k1, rank, end-to-end, breakdown, input")
     parser.add_argument("--k1-rows", default="8,11,16,20,21,64", help="the row counts K1 is timed at")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
@@ -118,6 +153,22 @@ def main():
             for phase, ms in phases.items():
                 out["breakdown %s %s %s ms" % (experiment, source, phase)] = ms
             out["breakdown %s %s busy share" % (experiment, source)] = busy
+    if "input" in parts:
+        from aggregathor_tpu_torch.models import datasets
+
+        # the port's copy of the real digits corpus, as chip_smoke's corpus_phase
+        # points the loaders at it (cnnet keeps its CIFAR-10 stand-in)
+        os.environ["AGGREGATHOR_DATA"] = datasets.DIGITS_DIR
+        torch.backends.cudnn.deterministic = True
+        for label, case, extra in INPUT_CASES:
+            result = runner.main([*case, "--seed", "1", "--evaluation-delta", "-1", "--evaluation-period", "-1",
+                                  "--summary-period", "-1", *extra])
+            p, first = result["perf"], int(extra[1])
+            out["input %s steps/s" % label] = (result["steps"] - first) / (p["total_s"] - p["first_step_s"])
+            out["input %s step latency p50 ms" % label] = 1e3 * p["latency"]["p50"]
+            out["input %s in-graph share" % label] = p["in_graph_s"] / p["total_s"]
+            out["input %s fed by" % label] = result.get("input_pipeline", "-")
+        torch.backends.cudnn.deterministic = False
     if "rank" in parts:
         rank_timings(torch, kernels, gars, gen, out, CNNET_D, time_ms)
     for key, value in out.items():

@@ -23,7 +23,10 @@ steps against the CPU, and a checkpoint of a card state round trip.  The
 input path: the vmapped worker gradients against a per-worker loop on the
 card (each row within 1e-4 of its largest magnitude: batched and
 per-worker convolutions sum in other orders), the prefetcher's hand-over
-from its copy stream, and device-sampled, augmented steps against the CPU.
+from its copy stream, and device-sampled, augmented steps against the CPU;
+the chunk pipeline on the card (pinned ping-pong buffers, no second pin,
+the sequential stream with every chunk held) and the GAR probe against the
+CPU's on the same rows.
 """
 
 import numpy as np
@@ -562,3 +565,47 @@ def test_probe_and_flight_ring_on_the_card(cuda_device):
     assert window["step"].tolist() == [2, 3, 4, 5]
     assert np.array_equal(window["loss"].view(np.int32), metrics["total_loss"][2:].cpu().numpy().view(np.int32))
     assert np.array_equal(window["worker_nan"], probe["worker_nan_rows"][2:].cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_chunk_pipeline_on_the_card_is_the_sequential_stream_without_a_second_pin(cuda_device, monkeypatch):
+    """The pipeline's ping-pong buffers are pinned, so the transfer pins
+    nothing again; every chunk, all held while the buffers are refilled
+    under them, is the sequential stream's; its slices are pinned."""
+    from aggregathor_tpu_torch.models.datasets import ChunkPipeline, WorkerBatchIterator
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2048, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, size=2048).astype(np.int32)
+    buffer = WorkerBatchIterator(x, y, 8, 128).alloc_chunk(10, pin_memory=True)
+    assert torch.as_tensor(buffer["image"][3:6]).is_pinned() and torch.as_tensor(buffer["label"][9:]).is_pinned()
+    pins = []
+    pin = torch.Tensor.pin_memory
+    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self, *a: pins.append(self.shape) or pin(self, *a))
+    engine = RobustEngine(gars.instantiate("krum", 8, 2), 8, device="cuda")
+    pipe = ChunkPipeline(WorkerBatchIterator(x, y, 8, 128, seed=4), 10, 5, put=engine.put_batches,
+                         assemble=engine.assemble_batches, depth=2, slices=3, device=cuda_device)
+    try:
+        held = [next(pipe) for _ in range(5)]
+    finally:
+        pipe.close()
+    assert pins == []
+    reference = WorkerBatchIterator(x, y, 8, 128, seed=4)
+    for chunk in held:
+        want = reference.next_many(10)
+        for name in want:
+            assert chunk[name].device.type == "cuda"
+            np.testing.assert_array_equal(chunk[name].cpu().numpy(), want[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule, n, f, kernel", [("krum", 8, 2, "pairwise_sq_distances"),
+                                                 ("median", 8, 2, "coordinate_median")])
+def test_gar_probe_on_the_card_matches_the_cpu(cuda_device, rule, n, f, kernel):
+    card = RobustEngine(gars.instantiate(rule, n, f), n, device="cuda").build_gar_probe(100_003, seed=2)
+    cpu = RobustEngine(gars.instantiate(rule, n, f), n, device="cpu").build_gar_probe(100_003)
+    cpu.rows = card.rows.cpu()
+    kernels.reset_launch_counts()
+    got = card(7)
+    assert kernels.launch_counts()[kernel] == 1
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(7).numpy(), rtol=1e-6, atol=1e-6)

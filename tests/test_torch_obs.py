@@ -14,7 +14,8 @@ their decisions are compared one by one:
   ``UserException``;
 - ``EvalFile`` rows and ``truncate_after``; ``SummaryWriter`` lines
   (non-finite values as ``null``, the ``run_id`` stamped on every line);
-- ``LatencyHistogram`` percentiles and ``PerfReport``'s accounting, per run.
+- ``LatencyHistogram`` percentiles and ``PerfReport``'s accounting, per run,
+  and its registry export (the JAX report's histogram and counters).
 """
 
 import json
@@ -340,5 +341,20 @@ def test_perf_percentiles_are_per_run(clock):
         first.step_end()
     assert first.latency.count == 2  # the first step is left out
     assert perf.PerfReport().latency.count == 0  # a fresh reservoir a run
-    with pytest.raises(UserException):
-        perf.PerfReport(registry=object())
+    # registry-backed: the JAX report's histogram and counters, cumulative
+    # over the process while each report keeps its own reservoir
+    from aggregathor_tpu.obs.metrics import MetricsRegistry as JaxRegistry
+    from aggregathor_tpu_torch.obs.metrics import MetricsRegistry
+
+    ours, theirs = MetricsRegistry(), JaxRegistry()
+    for module, registry in ((perf, ours), (jperf, theirs)):
+        for _ in range(2):
+            report = module.PerfReport(registry=registry)
+            for _ in range(3):
+                report.step_begin()
+                clock.now += 0.1
+                report.step_end()
+            assert report.latency.count == 2
+    assert ours.render_prometheus() == theirs.render_prometheus()
+    assert ours.histogram("train_step_latency_seconds").count == 4
+    assert ours.counter("train_steps_total").value == 6.0
