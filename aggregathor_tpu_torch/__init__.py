@@ -12,7 +12,10 @@ its mirror so each module finds its twin under the same name:
 - ``models``   experiments (cnnet, mnist), numpy input pipelines, host
                preprocessing and the flax -> torch weight bridge
 - ``parallel`` the flat robust engine on one device, and the attacks
-- ``obs``      the evaluation TSV
+- ``obs``      the evaluation TSV, checkpoints, summaries, the flight
+               recorder, the metrics plane and the run journal
+- ``guardian`` the in-step health probe, the divergence watchdog and the
+               escalation ladder
 - ``cli``      the training runner
 
 Every entry point runs on CUDA unless the caller asks for the CPU

@@ -14,9 +14,11 @@ options (``--worker-momentum``, ``--reputation-decay``,
 recorder (``--flight``, ``--flight-dump``), the metrics plane
 (``--gar-probe``, ``--metrics-file``, ``--trace-file``, ``--trace``,
 ``--trace-dir``, ``--live-port``, ``--live-host``, ``--live-ready-file``,
-``--run-id``) and ``--input-slices``, plus ``--device``.  It runs on
-CUDA unless ``--device cpu`` is given; with no GPU and no ``--device cpu``
-it fails instead of falling back.
+``--run-id``), ``--input-slices``, the guardian (``--guardian``,
+``--guardian-args``), the run journal (``--journal``, ``--cause``,
+``--journal-max-bytes``), the reference's drop-in compatibility flags and
+``--device``.  It runs on CUDA unless ``--device cpu`` is given; with no
+GPU and no ``--device cpu`` it fails instead of falling back.
 
 A summary event carries, beside the four scalars, the worker diagnostics
 the engine computes (``worker_sq_dist`` and ``suspect_worker``, the most
@@ -62,6 +64,30 @@ with ``torch.profiler`` (CPU and CUDA activities) into ``--trace-dir`` as a
 Chrome trace, and fails the run when the card's activity is missing from
 it.  ``--run-id`` stamps the summaries, the span trace and ``/status``.
 
+The guardian follows the JAX runner's rollback-and-escalate
+(``aggregathor_tpu/cli/runner.py:2183-2350``).  The watchdog
+(``guardian/watchdog.py``) reads each completed step's probe one call late,
+as the divergence check does; on a non-finite loss or a sustained spike the
+runner restores the last-known-good snapshot (pinned at a checkpoint save
+whose call read clean, or the auto-restored one), or starts from a fresh
+state with a strided seed when none is pinned, perturbs the random streams
+(the restored ``seed`` is replaced by one drawn from ``SeedSequence([seed,
+RNG_PERTURB_TAG + attempt])``, the port's counterpart of JAX's
+``fold_in``), climbs one rung of the escalation ladder (``f+K``, ``gar=``,
+``quarantine``, ``lr*X``) by rebuilding its engine and step functions,
+drops the abandoned timeline's snapshots and evaluation rows, and rebuilds
+the input stream from a reseeded iterator.  Only the watchdog's verdicts
+roll back: a CUDA error, a kernel that fails to build or launch, or an
+exception other than a refused rung ends the run.  ``--journal`` writes
+every decision (``obs/events.py``) with the run's start and end.
+
+The compatibility flags of the reference: ``--stdout-to``/``--stderr-to``
+tee the streams, ``--use-gpu``/``--reuse-gpu`` and ``--platform cpu|gpu|
+cuda`` choose ``--device`` (a TPU request refuses: the port has no TPU
+backend), ``--backend-timeout`` bounds the first CUDA initialisation, and
+the cluster flags (``--client``, ``--server``, the job names, ``--MPI``,
+``--no-wait``) are accepted and warned about once.
+
 At the end it prints the performance report (in-graph and off-graph time,
 step latency percentiles, steps/s with and without the first step), the
 final evaluation and each kernel's launch count.  Seeds follow the JAX
@@ -78,8 +104,11 @@ import argparse
 import os
 import sys
 import time
+import types
 
 import numpy as np
+
+from . import add_causal_flags
 
 
 def build_parser():
@@ -223,10 +252,114 @@ def build_parser():
     parser.add_argument("--summary-delta", type=int, default=None)
     parser.add_argument("--summary-period", type=float, default=None)
     parser.add_argument(
+        "--guardian", action="store_true",
+        help="in-loop divergence watchdog + rollback-and-escalate recovery (guardian/): on sustained "
+             "divergence, restore the last-known-good snapshot, perturb the random streams and climb the "
+             "escalation ladder (raise f -> stronger GAR -> quarantine -> damp lr) with bounded retries; "
+             "needs --checkpoint-dir",
+    )
+    parser.add_argument(
+        "--guardian-args", nargs="*", default=[],
+        help="key:value watchdog options (patience:N, spike:X, retries:N, backoff:B, recover:N, "
+             "ladder:RUNG,RUNG,... -- see guardian/escalate.py for the ladder grammar)",
+    )
+    parser.add_argument(
+        "--journal", default=None, metavar="JSONL",
+        help="causal run journal (obs/events.py): append every decision event -- guardian rollback "
+             "decisions, rollbacks, escalations and recoveries, flight post-mortems -- as typed JSONL "
+             "(schema aggregathor.obs.events.v2) with run_id, step, wall and monotonic time; host-side only",
+    )
+    add_causal_flags(parser)
+    parser.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
         help="where to train (default cuda; without a GPU, cuda fails instead of falling back)",
     )
+    parser.add_argument(
+        "--backend-timeout", type=float, default=300.0, metavar="SECONDS",
+        help="fail loudly if CUDA does not initialize in this many seconds (a wedged card otherwise hangs "
+             "forever); <= 0 waits indefinitely",
+    )
+    # Drop-in compatibility with the reference's driver scripts (JAX
+    # runner.py:491-516): the device flags choose --device, the cluster
+    # flags are accepted and warned about once
+    parser.add_argument("--platform", default=None,
+                        help="compat: cpu, or gpu/cuda, sets --device (there is no TPU backend)")
+    parser.add_argument("--stdout-to", default=None, help="replicate stdout to this file")
+    parser.add_argument("--stderr-to", default=None, help="replicate stderr to this file")
+    parser.add_argument("--use-tpu", action="store_true",
+                        help="compat: refused unless --use-gpu is given too (there is no TPU backend)")
+    parser.add_argument("--use-gpu", action="store_true", help="compat: --device cuda")
+    parser.add_argument("--reuse-tpu", action="store_true", help="compat: implies --use-tpu")
+    parser.add_argument("--reuse-gpu", action="store_true", help="compat: implies --use-gpu")
+    for flag, meta in (
+        ("--client", "TARGET"), ("--server", "SPEC"), ("--ps-job-name", "NAME"),
+        ("--ev-job-name", "NAME"), ("--wk-job-name", "NAME"),
+    ):
+        parser.add_argument(flag, default=None, metavar=meta,
+                            help="compat no-op: cluster/session topology dissolved")
+    parser.add_argument("--MPI", action="store_true", dest="mpi", help="compat no-op: there is no MPI transport")
+    parser.add_argument("--no-wait", action="store_true", help="compat no-op: there is no server process to linger")
     return parser
+
+
+def resolve_device_flags(args):
+    """Map the reference's device flags onto ``args.device`` (JAX
+    ``runner.py:529-541``).  ``--platform`` wins over the preference flags,
+    as in JAX; a TPU request refuses instead of running on the CPU (the
+    port has no TPU backend, and a quiet fallback would hide the device)."""
+    from ..utils import UserException
+
+    wanted = None
+    if args.platform:
+        platform = args.platform.strip().lower()
+        if platform == "cpu":
+            wanted = "cpu"
+        elif platform in ("gpu", "cuda"):
+            wanted = "cuda"
+        else:
+            raise UserException("--platform %r: this port runs on cuda (gpu) or cpu; it has no TPU or other "
+                                "backend" % args.platform)
+    elif args.use_gpu or args.reuse_gpu:
+        wanted = "cuda"
+    elif args.use_tpu or args.reuse_tpu:
+        raise UserException("--use-tpu/--reuse-tpu: this port has no TPU backend; pass --use-gpu or --device cuda "
+                            "(or --device cpu)")
+    if wanted == "cuda" and args.device == "cpu":
+        raise UserException("--device cpu contradicts %s, which asks for the GPU"
+                            % ("--platform %s" % args.platform if args.platform else "--use-gpu/--reuse-gpu"))
+    if wanted is not None:
+        args.device = wanted
+    return args.device
+
+
+def wait_for_cuda(timeout):
+    """Initialise CUDA on a daemon thread and fail loudly if it does not
+    finish within ``timeout`` seconds (JAX ``runner.py:739-764``, which
+    probes ``jax.devices()`` the same way): a wedged card can hang the
+    initialisation indefinitely and uninterruptibly."""
+    import threading
+
+    import torch
+
+    from ..utils import UserException
+
+    done = threading.Event()
+    errors = []
+
+    def probe():
+        try:
+            torch.cuda.init()
+        except BaseException as exc:  # surfaced below
+            errors.append(exc)
+        finally:
+            done.set()
+
+    threading.Thread(target=probe, daemon=True, name="backend-probe").start()
+    if not done.wait(timeout):
+        raise UserException("CUDA did not initialize within %.0fs -- the card looks wedged or unreachable; retry "
+                            "with --device cpu or raise --backend-timeout" % timeout)
+    if errors:
+        raise errors[0]
 
 
 def main(argv=None):
@@ -235,27 +368,48 @@ def main(argv=None):
     step (over the training loop), the final loss and evaluation, kernel
     launches, the device, the performance report (``perf``), the run id, the
     input pipeline that fed the loop (``input_pipeline``: its class name, or
-    None) with its consumer's wait (``input_wait_s``), and the GAR probe's
-    calls (``gar_probe_calls``, its warm-up included)."""
+    None) with its consumer's wait (``input_wait_s``, summed over the
+    pipelines a rollback rebuilt), the GAR probe's calls
+    (``gar_probe_calls``, its warm-up included), and the guardian's
+    timeline: ``rollbacks`` (one dict a rollback: ``from_step``,
+    ``to_step``, ``attempt``, ``restored_snapshot``), ``escalations`` (the
+    rung specs applied), ``recovered`` (the steps at which recovery was
+    declared) and ``steps_by_overrides`` (steps dispatched under each
+    ``Overrides.describe()``, abandoned calls included)."""
     args = build_parser().parse_args(argv)
 
     import torch
 
     from .. import config, gars, models
     from ..core import build_optimizer, build_schedule
+    from ..guardian import RESEED_STRIDE, RNG_PERTURB_TAG, GuardianConfig, Overrides, Watchdog, note_escalation
+    from ..guardian import probe as health
     from ..obs.cadence import CadenceTrigger
     from ..obs.checkpoint import Checkpoints
     from ..obs.evalfile import EvalFile
     from ..obs.perf import PerfReport
     from ..models.datasets import ChunkPipeline, DevicePrefetcher
-    from ..obs import flight as obs_flight, live as obs_live, metrics as obs_metrics, trace
+    from ..obs import events as obs_events, flight as obs_flight, live as obs_live, metrics as obs_metrics, trace
     from ..obs.summaries import SummaryWriter, make_run_id
     from ..ops import kernels
     from ..parallel import RobustEngine, attacks, compress
-    from ..parallel.engine import index_metrics, stack_metrics
+    from ..parallel.engine import fold_in_seed, index_metrics, stack_metrics
     from ..parallel.lossy import LossyLink
-    from ..utils import Context, UserException, info, resolve_device, warning
+    from ..utils import Context, UserException, info, replicate_streams, resolve_device, warning
+    from . import parse_cause_flag
 
+    replicate_streams(args.stdout_to, args.stderr_to)
+    ignored = [flag for flag, value in (
+        ("--client", args.client), ("--server", args.server),
+        ("--ps-job-name", args.ps_job_name), ("--ev-job-name", args.ev_job_name),
+        ("--wk-job-name", args.wk_job_name), ("--MPI", args.mpi), ("--no-wait", args.no_wait),
+    ) if value]
+    if ignored:
+        warning("Compat no-op flags ignored (cluster topology and transport dissolved under single-controller "
+                "SPMD, see docs/transport.md): %s" % " ".join(ignored))
+    resolve_device_flags(args)
+    if args.device == "cuda" and args.backend_timeout and args.backend_timeout > 0 and torch.cuda.is_available():
+        wait_for_cuda(args.backend_timeout)
     device = resolve_device(args.device)
     # The JAX package computes in float32.  On CUDA, cuDNN convolutions run in
     # TF32 unless told otherwise (about three decimal digits), and matmuls may
@@ -285,6 +439,21 @@ def main(argv=None):
                             % args.granularity)
     if args.leaf_bucketing != "auto" and args.granularity != "leaf":
         warning("--leaf-bucketing only affects --granularity leaf; ignored for granularity %r" % args.granularity)
+    cause = parse_cause_flag(args.cause)
+    # the guardian's configuration is parsed before anything is built, so a
+    # bad ladder or threshold fails before the first launch
+    guardian = None
+    if args.guardian:
+        guardian = GuardianConfig(args.guardian_args)
+        if not args.checkpoint_dir:
+            raise UserException("--guardian rolls back to on-disk snapshots; pass --checkpoint-dir")
+    watchdog = Watchdog(guardian) if guardian is not None else None
+    # the knobs the escalation ladder may change; the training stack is built
+    # from this record so a rollback can rebuild it mid-run
+    overrides = Overrides(f, args.aggregator, tuple(args.aggregator_args),
+                          reputation_decay=args.reputation_decay, quarantine_threshold=args.quarantine_threshold)
+    # the flight recorder's layout is fixed for the run: built once and
+    # shared by every rebuilt stack (its ring is per-state)
     flight_rec = None
     if args.flight:
         flight_rec = obs_flight.FlightRecorder(args.flight, n, probe=True, worker_metrics=args.worker_metrics)
@@ -308,29 +477,54 @@ def main(argv=None):
                     "(train_arrays() is None), so a device-side gather cannot reproduce its input "
                     "stream; use --input-source stream" % args.experiment
                 )
-        gar = gars.instantiate(args.aggregator, n, f, args.aggregator_args)
         attack = attacks.instantiate(args.attack, n, r, args.attack_args) if args.attack else None
         lossy = LossyLink(args.udp, args.udp_args) if args.udp > 0 else None
-        tx = build_optimizer(args.optimizer, build_schedule(args.learning_rate, args.learning_rate_args),
-                             args.optimizer_args)
-        engine = RobustEngine(
-            gar, n, nb_real_byz=r, attack=attack, lossy_link=lossy, exchange_dtype=args.exchange_dtype,
-            worker_momentum=args.worker_momentum, batch_transform=experiment.device_transform(),
-            worker_metrics=args.worker_metrics, reputation_decay=args.reputation_decay,
-            quarantine_threshold=args.quarantine_threshold, granularity=args.granularity,
-            leaf_bucketing={"auto": "auto", "on": True, "off": False}[args.leaf_bucketing],
-            trace_ops=args.trace_ops, flight=flight_rec, device=device)
-        state = engine.init_state(experiment.init(args.seed), tx, seed=args.seed)
+        base_schedule = build_schedule(args.learning_rate, args.learning_rate_args)
+
+        def build_training(ov):
+            """The rebuildable half of the run, built from an ``Overrides``
+            record (JAX ``TrainingStack``, runner.py:1203-1240): the rule,
+            the optimizer, the engine and its step, multi-step and
+            evaluation functions.  A rollback that climbs a rung builds a
+            new one; the experiment, the attack, the link, the cadences,
+            the flight recorder and the registry instruments stay."""
+            stack = types.SimpleNamespace(overrides=ov, gar_probe_fn=None)
+            stack.gar = gars.instantiate(ov.gar_name, n, ov.f, list(ov.gar_args))
+            if ov.lr_scale != 1.0:
+                # the ladder's lr damping composes with the named schedule
+                def schedule(count, _base=base_schedule, _scale=ov.lr_scale):
+                    return _base(count) * _scale
+            else:
+                schedule = base_schedule
+            stack.tx = build_optimizer(args.optimizer, schedule, args.optimizer_args)
+            stack.engine = RobustEngine(
+                stack.gar, n, nb_real_byz=r, attack=attack, lossy_link=lossy, exchange_dtype=args.exchange_dtype,
+                worker_momentum=args.worker_momentum, batch_transform=experiment.device_transform(),
+                worker_metrics=args.worker_metrics, reputation_decay=ov.reputation_decay,
+                quarantine_threshold=ov.quarantine_threshold, granularity=args.granularity,
+                leaf_bucketing={"auto": "auto", "on": True, "off": False}[args.leaf_bucketing],
+                trace_ops=args.trace_ops, flight=flight_rec, device=device)
+            stack.step_fn = stack.engine.build_step(experiment.loss, stack.tx)
+            if args.input_source == "device":
+                stack.multi_fn = stack.engine.build_sampled_multi_step(experiment.loss, stack.tx, unroll,
+                                                                       experiment.batch_size)
+            else:
+                stack.multi_fn = stack.engine.build_multi_step(experiment.loss, stack.tx) if unroll > 1 else None
+            stack.eval_fn = stack.engine.build_eval_sums(experiment.metrics)
+            return stack
+
+        def make_fresh_state(seed):
+            # the parameters always from the run's seed; ``seed`` moves only
+            # the random streams (a rollback with no snapshot, JAX :1327-1332)
+            return ts.engine.init_state(experiment.init(args.seed), ts.tx, seed=seed)
+
+        ts = build_training(overrides)
+        state = make_fresh_state(args.seed)
         model_dim = sum(p.numel() for p in state.params.values())
-        step_fn = engine.build_step(experiment.loss, tx)
-        device_dataset = None
-        if args.input_source == "device":
-            # the train split lives on the device; every step is sampled there
-            device_dataset = engine.replicate(experiment.train_arrays())
-            multi_fn = engine.build_sampled_multi_step(experiment.loss, tx, unroll, experiment.batch_size)
-        else:
-            multi_fn = engine.build_multi_step(experiment.loss, tx) if unroll > 1 else None
-        eval_fn = engine.build_eval_sums(experiment.metrics)
+        # the train split lives on the device, uploaded once for the run (JAX
+        # uploads it again with every rebuilt stack, :1354-1358; the ladder
+        # never changes the data)
+        device_dataset = ts.engine.replicate(experiment.train_arrays()) if args.input_source == "device" else None
         info("Training %s on %s: %d workers, f=%d, r=%d, aggregator %s, d=%d"
              % (args.experiment, torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
                 n, f, r, args.aggregator, model_dim))
@@ -368,15 +562,20 @@ def main(argv=None):
                                   labelnames=("worker",))
     c_gar_seconds = registry.counter("gar_seconds_total", "Cumulative measured GAR aggregation wall time")
     g_gar_probe = registry.gauge("gar_probe_seconds", "Last measured single-aggregation GAR wall time")
+    # the ladder never changes d or the wire: computed once
     c_wire_bytes = registry.counter("bytes_on_wire_total", "Gradient-exchange submission bytes shipped over the wire")
     registry.gauge("exchange_compression_ratio", "f32-wire bytes over configured-exchange bytes (>= 1)").set(
-        compress.compression_ratio(model_dim, engine.exchange_dtype))
-    wire_step_bytes = n * compress.bytes_per_row(model_dim, engine.exchange_dtype)
+        compress.compression_ratio(model_dim, ts.engine.exchange_dtype))
+    wire_step_bytes = n * compress.bytes_per_row(model_dim, ts.engine.exchange_dtype)
+    c_rollbacks = registry.counter("guardian_rollbacks_total", "Guardian rollbacks to last-known-good")
+    c_escalations = registry.counter("guardian_escalations_total", "Guardian escalation-ladder rungs applied")
+    c_recoveries = registry.counter("guardian_recoveries_total", "Guardian diverged-then-recovered verdicts")
     c_flight_fetches = registry.counter("flight_fetches_total", "Flight-recorder ring fetches")
     g_flight_rows = registry.gauge("flight_window_steps", "Rows in the last fetched flight window")
     g_flight_last = registry.gauge("flight_last_step", "Completed step of the newest fetched flight row")
     live_state = {"step": 0, "flight": None}
-    probe = {"fn": None, "calls": 0}
+    probe = {"calls": 0}
+    timeline = {"rollbacks": [], "escalations": [], "recovered": [], "steps_by_overrides": {}}
 
     def synchronize():
         if device.type == "cuda":
@@ -386,7 +585,7 @@ def main(argv=None):
     def run_eval(step):
         sums = {}
         for batch in experiment.make_eval_iterator(n):
-            for name, (total, count) in eval_fn(state, engine.put_batch(batch)).items():
+            for name, (total, count) in ts.eval_fn(state, ts.engine.put_batch(batch)).items():
                 prev = sums.get(name, (0.0, 0.0))
                 sums[name] = (prev[0] + float(total), prev[1] + float(count))
         metrics = {name: total / max(count, 1.0) for name, (total, count) in sums.items()}
@@ -396,18 +595,19 @@ def main(argv=None):
 
     def time_gar_probe(step):
         """One timed rule-only aggregation (``--gar-probe``): the probe is
-        built and run once at the first fire (outside the timing), then each
-        fire times one aggregation, the card drained before and after."""
-        if probe["fn"] is None:
+        built and run once at the first fire of a stack (outside the
+        timing), then each fire times one aggregation, the card drained
+        before and after."""
+        if ts.gar_probe_fn is None:
             with trace.span("gar.probe_build", cat="train"):
-                probe["fn"] = engine.build_gar_probe(model_dim)
-                probe["fn"](0)
+                ts.gar_probe_fn = ts.engine.build_gar_probe(model_dim)
+                ts.gar_probe_fn(0)
                 probe["calls"] += 1
                 synchronize()
         with trace.span("gar.aggregate", cat="train"):
             synchronize()  # the step's queued work is not the rule's
             begin = time.perf_counter()
-            probe["fn"](step)
+            ts.gar_probe_fn(step)
             synchronize()
             elapsed = time.perf_counter() - begin
         probe["calls"] += 1
@@ -422,7 +622,7 @@ def main(argv=None):
         scalars = {
             "total_loss": float(metrics["total_loss"]),
             "grad_norm": float(metrics["grad_norm"]),
-            "learning_rate": float(tx.schedule(step)),
+            "learning_rate": float(ts.tx.schedule(step)),
             "steps_per_s": perf.steps_per_s_excl_first(),
         }
         if "worker_sq_dist" in metrics:
@@ -477,28 +677,178 @@ def main(argv=None):
             fd.write(registry.render_prometheus())
         os.replace(tmp, args.metrics_file)
 
-    def flight_postmortem(reason):
+    def flight_postmortem(reason, at_step):
         """Fetch the ring and dump it (``--flight-dump``) before the state
-        is dropped: the per-step evidence of the window that ended the run."""
-        if flight_rec is None or not args.flight_dump:
-            return
-        window = flight_rec.fetch(state.flight)
-        obs_flight.dump_window(args.flight_dump, window, run_id=run_id, reason=reason,
-                               capacity=flight_rec.capacity, extra={"at_step": int(step)})
-        info("Flight post-mortem (%s) -> %r (%d row(s))" % (reason, args.flight_dump, int(window["step"].size)))
+        is dropped: the per-step evidence of the window that ended the run
+        or forced a rollback (each rollback keeps its own dump,
+        ``<root>.rollback-<step><ext>``; the final dump owns the bare
+        path).  The journal's event points at the dump (JAX :2026-2063)."""
+        if flight_rec is None:
+            return None
+        try:
+            window = flight_rec.fetch(state.flight)
+        except Exception as exc:
+            warning("flight: post-mortem fetch failed: %s" % exc)
+            return None
+        summary = obs_flight.summarize_window(window)
+        path = None
+        if args.flight_dump:
+            path = args.flight_dump
+            if reason == "guardian_rollback":
+                root, ext = os.path.splitext(path)
+                path = "%s.rollback-%d%s" % (root, int(at_step), ext or ".json")
+            obs_flight.dump_window(path, window, run_id=run_id, reason=reason, capacity=flight_rec.capacity,
+                                   extra={"at_step": int(at_step)})
+            info("Flight post-mortem (%s) -> %r (%d row(s))" % (reason, path, summary.get("rows", 0)))
+        obs_events.emit("flight_postmortem", step=at_step, reason=reason, path=path, rows=summary.get("rows", 0))
+        return path
 
     def check_divergence():
-        # the loss of the last step (the losses of the last chunk) dispatched,
-        # read one call late in the loop (on the card, the read waits for the
-        # call queued before it)
+        # the losses of the last call dispatched, read one call late in the
+        # loop (on the card, the read waits for the call queued before it)
         nonlocal diverged
-        if pending is None:
+        if pending_loss is None:
             return
         with trace.span("block.loss_fetch", cat="train"):
-            finite = bool(torch.all(torch.isfinite(pending)))
+            finite = bool(torch.all(torch.isfinite(pending_loss)))
         if not finite:
+            if watchdog is not None:
+                return  # the guardian owns divergence: rollback, not abort (JAX :2022-2023)
             diverged = True
             raise UserException("Training diverged (non-finite loss around step %d)" % step)
+
+    def probe_clean(call_metrics):
+        """Did every step of this call read healthy by the probe?  Gates the
+        last-known-good pin at a checkpoint save (JAX :2171-2180)."""
+        view = health.host_view(call_metrics)
+        if view is None:
+            return True
+        return bool(np.all(view["loss_finite"]) and np.all(np.isfinite(view["update_norm"]))
+                    and np.all(np.asarray(view["spike"]) <= guardian.spike_factor))
+
+    def reset_input(start_step, reseed=0):
+        """(Re)build the input stream positioned at ``start_step`` (JAX
+        :1645-1700): at start (the auto-restored step) and after a
+        rollback.  At start the stream is fast-forwarded to ``start_step``;
+        a rollback passes ``reseed`` > 0 and draws the replay window's
+        batches from a fresh stream instead.  The running prefetcher or
+        chunk pipeline is closed first (the pipeline waits for its
+        in-flight copies: a pinned ``non_blocking`` copy reads its source
+        after it returns).  Under ``--input-source device`` nothing is
+        built: the state's seed keys the sample stream."""
+        nonlocal train_iter, prefetcher
+        if prefetcher is not None:
+            prefetcher.close()
+            prefetcher = None
+        if device_dataset is not None:
+            return
+        train_iter = experiment.make_train_iterator(n, seed=args.seed + 1 + RESEED_STRIDE * reseed)
+        if start_step and not reseed:
+            train_iter.skip(start_step)  # before a prefetch thread draws from it
+        chunks = (max_step - start_step) // unroll
+        if args.prefetch > 0 and ts.multi_fn is None:
+            prefetcher = DevicePrefetcher(train_iter, ts.engine.put_batch, depth=args.prefetch, device=device)
+        elif args.prefetch > 0 and not args.trace and chunks > 0:
+            # a finite producer: exactly the chunks the loop consumes, so it
+            # has left train_iter when the per-step tail reads it (--trace
+            # runs some steps one at a time: no chunk producer)
+            prefetcher = ChunkPipeline(train_iter, unroll, chunks, put=ts.engine.put_batches,
+                                       assemble=ts.engine.assemble_batches, depth=args.prefetch,
+                                       slices=args.input_slices, registry=registry, device=device)
+        if prefetcher is not None:
+            feeders.append(prefetcher)
+
+    def do_rollback(at_step):
+        """Rollback-and-escalate (JAX :2183-2290): restore the last-known-good
+        snapshot (or a fresh state when none is pinned), perturb the random
+        streams, climb one rung, drop the abandoned timeline."""
+        nonlocal state, step, ts, overrides, pending_loss, pending_metrics, diverged
+        reason = watchdog.last_reason or "divergence"
+        if watchdog.exhausted:
+            diverged = True
+            raise UserException("guardian: run failed — %s after %d recovery attempt(s) (ladder %s)"
+                                % (reason, watchdog.attempts, guardian.ladder.describe()))
+        with trace.span("guardian.rollback", cat="guardian", from_step=int(at_step)):
+            checkpoints.wait()  # the writer's queue flushed before reading the targets
+            target = checkpoints.pinned_step()
+            rstep = target if target is not None else 0
+            attempt = watchdog.note_rollback(rstep)
+            warning("guardian: %s — rolling back from step %d to %s (attempt %d/%d)"
+                    % (reason, at_step, "step %d" % rstep if target is not None else "a fresh state",
+                       attempt + 1, guardian.retries))
+            record = {"reason": reason, "from_step": int(at_step), "to_step": int(rstep), "attempt": attempt,
+                      "restored_snapshot": target is not None}
+            summaries.event(at_step, "guardian_rollback", record)
+            timeline["rollbacks"].append(record)
+            c_rollbacks.inc()
+            # the ring still holds the diverged timeline's rows: dumped
+            # before the state is dropped
+            flight_postmortem("guardian_rollback", at_step)
+            state = pending_loss = pending_metrics = None  # the old state's memory goes with it
+            rung = guardian.ladder.rung(attempt)
+            if rung is not None:
+                try:
+                    new_overrides = rung.apply(overrides)
+                    with Context("escalate"):
+                        new_ts = build_training(new_overrides)
+                    overrides, ts = new_overrides, new_ts
+                    info("guardian: escalated — %s (now %s)" % (rung.describe(), overrides.describe()))
+                    summaries.event(rstep, "guardian_escalation", {
+                        "rung": rung.describe(), "attempt": attempt, "overrides": overrides.describe()})
+                    timeline["escalations"].append(rung.describe())
+                    c_escalations.inc()
+                    note_escalation(rstep, rung, overrides)
+                except UserException as exc:
+                    warning("guardian: escalation rung %r rejected (%s); retrying with the current configuration"
+                            % (rung.describe(), exc))
+            if target is not None:
+                # restored into a fresh state, whose side buffers (momentum,
+                # reputation, loss EMA, flight ring, carry) start over (JAX
+                # :2266-2276); the port's streams derive from (seed, step,
+                # worker, tag), so the perturbation replaces the seed (trap c)
+                state, rstep = checkpoints.restore(make_fresh_state(args.seed), step=target)
+                state.seed = fold_in_seed(state.seed, RNG_PERTURB_TAG + attempt)
+            else:
+                state = make_fresh_state(args.seed + RESEED_STRIDE * (attempt + 1))
+            step = rstep
+            live_state["step"] = step
+            # the abandoned timeline: its snapshots and eval rows would poison
+            # a later auto-restore or interleave with the retry's rows
+            checkpoints.discard_after(rstep)
+            eval_file.truncate_after(rstep)
+            for trigger in (eval_trigger, ckpt_trigger, summary_trigger):
+                if trigger.last_step is not None and trigger.last_step > rstep:
+                    trigger.last_step = rstep
+            reset_input(rstep, reseed=attempt + 1)
+
+    def observe_pending():
+        """Feed the watchdog the previous call's probe, one observation a
+        completed step (JAX :2293-2350).  Returns True when a rollback
+        happened: the caller drops the call it has in flight."""
+        nonlocal pending_loss, pending_metrics
+        if watchdog is None or pending_metrics is None:
+            return False
+        with trace.span("block.probe_fetch", cat="guardian"):
+            view = health.host_view(pending_metrics)
+            losses = np.atleast_1d(pending_loss.detach().cpu().numpy())
+        start = pending_start
+        pending_loss = pending_metrics = None
+        if view is None:  # an engine built without the probe
+            return False
+        finite = np.atleast_1d(view["loss_finite"]).astype(bool)
+        spikes = np.atleast_1d(view["spike"]).astype(np.float64)
+        for i in range(losses.shape[0]):
+            action = watchdog.observe(start + i + 1, float(losses[i]), bool(finite[i]), float(spikes[i]))
+            if action == "recovered":
+                info("guardian: recovered — %d healthy step(s) since the last rollback" % guardian.recover_after)
+                summaries.event(start + i + 1, "guardian_recovered", {
+                    "attempt": watchdog.attempts - 1, "overrides": overrides.describe()})
+                timeline["recovered"].append(start + i + 1)
+                c_recoveries.inc()
+            elif action == "rollback":
+                do_rollback(start + i + 1)
+                return True
+        return False
 
     # --trace: torch.profiler over three steps, one step a call, from the
     # first call boundary at or past the third step (after the first call
@@ -540,11 +890,22 @@ def main(argv=None):
             gap["span"] = None
 
     launches_before = kernels.launch_counts()
-    metrics, evaluation, perf, report, prefetcher, live = {}, None, None, None, None, None
+    metrics, evaluation, perf, report, prefetcher, live, train_iter = {}, None, None, None, None, None, None
+    feeders = []
     step, diverged, offstep = 0, False, 0
+    # the divergence check and the watchdog read the previous call's losses
+    # and probe (one call late): the call's metrics and its first step
+    pending_loss, pending_metrics, pending_start = None, None, 0
     if args.trace_file:
         trace.install(args.trace_file, run_id=run_id)
         info("Span tracing to %r (run_id %s)" % (args.trace_file, run_id))
+    if args.journal:
+        # before the first step, so every decision lands in one timeline
+        # (JAX :818-828, which installs it before its graph phase)
+        obs_events.install(args.journal, run_id=run_id, max_bytes=args.journal_max_bytes)
+        obs_events.emit("run_start", role="train", experiment=args.experiment, aggregator=args.aggregator,
+                        nb_workers=n, declared_f=f, pid=os.getpid(), cause=cause)
+        info("Run journal to %r (run_id %s)" % (args.journal, run_id))
     try:
         # Auto-restore the latest snapshot, then realign the batch streams:
         # the per-step attack and lossy streams derive from (seed, step,
@@ -555,28 +916,19 @@ def main(argv=None):
             dropped = eval_file.truncate_after(offstep)
             if dropped:
                 info("Trimmed %d stale eval row(s) beyond restored step %d" % (dropped, offstep))
-        train_iter = None
-        if device_dataset is None:
-            train_iter = experiment.make_train_iterator(n, seed=args.seed + 1)
-            train_iter.skip(offstep)  # before a prefetch thread draws from it
-            chunks = (max_step - offstep) // unroll
-            if args.prefetch > 0 and multi_fn is None:
-                prefetcher = DevicePrefetcher(train_iter, engine.put_batch, depth=args.prefetch, device=device)
-            elif args.prefetch > 0 and not args.trace and chunks > 0:
-                # a finite producer: exactly the chunks the loop consumes, so
-                # it has left train_iter when the per-step tail reads it
-                # (--trace runs some steps one at a time: no chunk producer)
-                prefetcher = ChunkPipeline(train_iter, unroll, chunks, put=engine.put_batches,
-                                           assemble=engine.assemble_batches, depth=args.prefetch,
-                                           slices=args.input_slices, registry=registry, device=device)
-        feeder = prefetcher  # the tail may close it: kept for the result
-        step, pending, loop_steps_per_s = offstep, None, 0.0
+            if watchdog is not None and offstep > 0:
+                # the snapshot this run resumed from is the guardian's first
+                # last-known-good (JAX :1604-1609)
+                checkpoints.pin(offstep)
+        reset_input(offstep)
+        step, loop_steps_per_s = offstep, 0.0
         live_state["step"] = step
         perf = PerfReport(registry=registry)
         if args.live_port is not None:
             def live_status():
                 return {"step": live_state["step"], "max_step": max_step,
-                        "steps_per_s": perf.steps_per_s_excl_first(), "flight": live_state["flight"], "slo": None}
+                        "steps_per_s": perf.steps_per_s_excl_first(), "overrides": overrides.describe(),
+                        "flight": live_state["flight"], "slo": None}
 
             live = obs_live.LiveExporter(registry=registry, status_provider=live_status, run_id=run_id,
                                          host=args.live_host, port=args.live_port)
@@ -590,50 +942,61 @@ def main(argv=None):
                     fd.write("%s %d\n" % live_addr)
                 os.replace(tmp, args.live_ready_file)
         with Context("train"):
-            while step < max_step:
+            while True:
+                if step >= max_step:
+                    # the lagged observation first: a rollback here re-enters
+                    # training from the restored step (JAX :2357-2363)
+                    if observe_pending() and step < max_step:
+                        continue
+                    check_divergence()
+                    break
                 if not profiler["done"] and profiler["prof"] is None and step >= offstep + 2:
                     profiler_start()
                 one_at_a_time = profiler["prof"] is not None
-                if multi_fn is not None and max_step - step >= unroll and not one_at_a_time:
+                if ts.multi_fn is not None and max_step - step >= unroll and not one_at_a_time:
                     with trace.span("input", cat="train"):
                         if device_dataset is not None:
                             chunk_input = device_dataset
                         elif prefetcher is not None:
                             chunk_input = next(prefetcher)
                         else:
-                            chunk_input = engine.put_batches(train_iter.next_many(unroll))
+                            chunk_input = ts.engine.put_batches(train_iter.next_many(unroll))
                     gap_close()
                     perf.step_begin()
-                    state, many = multi_fn(state, chunk_input)
+                    state, many = ts.multi_fn(state, chunk_input)
                     chunk = unroll
                 elif device_dataset is not None:
                     # the final (max_step - start) % unroll steps, sampled too
                     # (under --trace's window, one step a call)
                     chunk = 1 if one_at_a_time else max_step - step
-                    tail = engine.build_sampled_multi_step(experiment.loss, tx, chunk, experiment.batch_size)
+                    tail = ts.engine.build_sampled_multi_step(experiment.loss, ts.tx, chunk, experiment.batch_size)
                     gap_close()
                     perf.step_begin()
                     state, many = tail(state, device_dataset)
                 else:
-                    if multi_fn is not None and prefetcher is not None:
+                    if ts.multi_fn is not None and prefetcher is not None:
                         prefetcher.close()  # the chunk producer is done: the tail reads train_iter
                         prefetcher = None
                     with trace.span("input", cat="train"):
-                        batch = next(prefetcher) if prefetcher is not None else engine.put_batch(next(train_iter))
+                        batch = next(prefetcher) if prefetcher is not None else ts.engine.put_batch(next(train_iter))
                     gap_close()
                     perf.step_begin()
-                    state, step_metrics = step_fn(state, batch)
+                    state, step_metrics = ts.step_fn(state, batch)
                     many = stack_metrics([step_metrics])
                     chunk = 1
+                described = overrides.describe()
+                timeline["steps_by_overrides"][described] = timeline["steps_by_overrides"].get(described, 0) + chunk
+                if observe_pending():
+                    continue  # the previous call diverged: this one is abandoned
                 check_divergence()
-                if step == offstep:
+                if perf.nb_steps == 0:
                     synchronize()  # the first call, whole (its time is left out of steps/s)
                 perf.step_end(chunk)
                 gap_open()
+                pending_loss, pending_metrics, pending_start = many["total_loss"], many, step
                 step += chunk
                 c_wire_bytes.inc(chunk * wire_step_bytes)
                 live_state["step"] = step
-                pending = many["total_loss"]
                 metrics = index_metrics(many, -1)
                 if profiler["prof"] is not None and step >= profiler["start"] + 3:
                     profiler_stop()
@@ -645,12 +1008,16 @@ def main(argv=None):
                     check_divergence()
                     checkpoints.wait()  # surface a previous write's failure
                     checkpoints.save(state, step)
+                    if watchdog is not None and watchdog.healthy and probe_clean(many):
+                        # last-known-good: spared by pruning, the rollback
+                        # target; every step of the call must read clean
+                        # (JAX :2493-2501)
+                        checkpoints.pin(step)
                     ckpt_trigger.fired(step)
                 if summary_trigger.should_fire(step):
                     check_divergence()
                     fire_summary(step, metrics)
                     summary_trigger.fired(step)
-            check_divergence()
             synchronize()
             loop_steps_per_s = perf.steps_per_s_excl_first()
             if profiler["prof"] is not None:
@@ -680,14 +1047,18 @@ def main(argv=None):
                 if not aborting:
                     flush_errors.append(exc)
 
-        if diverged or aborting:
-            flush("flight-postmortem", lambda: flight_postmortem("divergence" if diverged else "crash"))
+        if (diverged or aborting) and state is not None:
+            flush("flight-postmortem", lambda: flight_postmortem("divergence" if diverged else "crash", step))
         if profiler["prof"] is not None:
             flush("profiler", profiler_stop)
         if prefetcher is not None:
             prefetcher.close()
         eval_file.close()
         summaries.close()
+        if args.journal and obs_events.installed() is not None:
+            # run_end closes the causal timeline (JAX :2596-2613)
+            flush("journal-end", lambda: obs_events.emit("run_end", step=step, diverged=diverged,
+                                                         aborting=aborting, forensics=None))
         flush("metrics-file", dump_metrics_file)
         if args.trace_file:
             def save_span_trace():
@@ -696,6 +1067,13 @@ def main(argv=None):
                     info("Span trace -> %r (run_id %s)" % (written, run_id))
 
             flush("trace", save_span_trace)
+        if args.journal and obs_events.installed() is not None:
+            def close_journal():
+                written = obs_events.uninstall()
+                if written:
+                    info("Run journal -> %r (run_id %s)" % (written, run_id))
+
+            flush("journal-close", close_journal)
         if live is not None:
             flush("live-exporter", live.shutdown_all)
         if perf is not None:
@@ -715,6 +1093,7 @@ def main(argv=None):
     if evaluation is not None:
         info("  final evaluation      %s" % "  ".join("%s=%.4f" % kv for kv in sorted(evaluation.items())))
     info("  kernel launches       %s" % "  ".join("%s=%d" % kv for kv in sorted(launches.items())))
+    waits = [feeder.wait_seconds for feeder in feeders if getattr(feeder, "wait_seconds", None) is not None]
     return {
         "steps": step - offstep,
         "restored_step": offstep,
@@ -725,9 +1104,13 @@ def main(argv=None):
         "device": str(device),
         "perf": report,
         "run_id": run_id,
-        "input_pipeline": type(feeder).__name__ if feeder is not None else None,
-        "input_wait_s": getattr(feeder, "wait_seconds", None),
+        "input_pipeline": type(feeders[0]).__name__ if feeders else None,
+        "input_wait_s": sum(waits) if waits else None,
         "gar_probe_calls": probe["calls"],
+        "rollbacks": timeline["rollbacks"],
+        "escalations": timeline["escalations"],
+        "recovered": timeline["recovered"],
+        "steps_by_overrides": timeline["steps_by_overrides"],
     }
 
 

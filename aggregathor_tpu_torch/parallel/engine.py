@@ -106,6 +106,14 @@ def stream_generator(seed, step, worker, tag, device):
     return torch.Generator(device=device).manual_seed(value)
 
 
+def fold_in_seed(seed, data):
+    """A new seed drawn from ``SeedSequence([seed, data])``: the port's
+    ``jax.random.fold_in``.  The guardian replaces a restored state's seed
+    with ``fold_in_seed(seed, RNG_PERTURB_TAG + attempt)``, which moves every
+    (seed, step, worker, tag) stream of the retry."""
+    return int(np.random.SeedSequence([int(seed), int(data)]).generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
 def validate_reputation_args(gar, reputation_decay, quarantine_threshold):
     """The normalized ``(decay, threshold)`` pair, or a UserException.
     Quarantine masks at most f workers a step (``quarantine_mask``), so it

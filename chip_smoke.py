@@ -1076,6 +1076,183 @@ def profiler_phase(kernels, runner, card, workdir):
     return counts
 
 
+#: the guardian legs on cnnet at full width: average under an inf coalition
+#: (r = 2) breaks at step 2; the guardian rolls back and climbs its ladder.
+#: (label, n, --guardian-args, the rungs it must apply, the overrides it
+#: ends under, the kernels once a step there, the healthy run's rule)
+GUARDIAN_LEGS = [
+    ("A", 8, ["recover:5"], ["f+1", "gar=median"], "f=3 gar=median", ("coordinate_median",), "median"),
+    ("B", 11, ["recover:5", "ladder:gar=bulyan"], ["gar=bulyan"], "f=2 gar=bulyan",
+     ("pairwise_sq_distances", "coordinate_averaged_median"), "bulyan"),
+]
+GUARDIAN_BASE = ["--experiment", "cnnet", "--seed", "1", "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2",
+                 "--attack", "inf", "--max-step", "30", "--evaluation-delta", "-1", "--evaluation-period", "-1",
+                 "--checkpoint-period", "-1", "--summary-delta", "5", "--summary-period", "-1"]
+#: the healthy cost: cnnet + krum n=8, f=2, r=2 signflip, --guardian on
+#: and off in turns
+GUARDIAN_COST = ["--experiment", "cnnet", "--seed", "1", "--aggregator", "krum", "--nb-workers", "8",
+                 "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "signflip",
+                 "--max-step", "30", "--evaluation-delta", "-1", "--evaluation-period", "-1",
+                 "--checkpoint-delta", "100", "--checkpoint-period", "-1"]
+
+
+def _guardian_counters(snapshot):
+    return {name: snapshot.get(name, 0.0) for name in
+            ("guardian_rollbacks_total", "guardian_escalations_total", "guardian_recoveries_total")}
+
+
+def _held_launches(label, counts, per_step):
+    """Each kernel launched exactly ``per_step[name]`` times (0 if absent)."""
+    for name in counts:
+        check(counts[name] == per_step.get(name, 0), "%s: %s launched %d times (want %d)"
+              % (label, name, counts[name], per_step.get(name, 0)))
+
+
+def guardian_phase(torch, kernels, runner, card, workdir):
+    """Rollback-and-escalate on the card; returns {kernel: launches}.
+
+    Legs A and B (``GUARDIAN_LEGS``): cnnet (d = 1,756,682) under average and
+    an inf coalition, with ``--guardian``, ``--flight 16 --flight-dump``,
+    ``--journal``, ``--metrics-file`` and ``--trace-file``: each must roll
+    back from step 2 once a rung it applies (to a fresh state: no snapshot
+    read clean), recover once, and end with a finite loss; the rung's
+    kernels launched once a step dispatched under it (``steps_by_overrides``,
+    the abandoned calls included) and no other kernel; the journal holds
+    one decision, rollback, escalation and flight post-mortem a rollback,
+    one recovery, one start and one end; every rollback's dump lies at
+    ``<root>.rollback-<step>.json`` and the registry's ``guardian_*``
+    counters moved by the result's counts.  Each ``guardian.rollback``
+    span's wall time is printed, with the steps to recovery, and the final
+    loss beside a healthy run of the rule it escalated to (same argv, no
+    guardian, that rule from step 0).  Leg C: ``digits`` trained healthy
+    with median to a snapshot at step 6, then resumed under average and inf
+    with ``--guardian``: it must roll back to step 6 with
+    ``restored_snapshot``.  Last the healthy cost pair (``GUARDIAN_COST``,
+    on, off, off, on): steps/s without the first step, K1 once a step."""
+    from aggregathor_tpu_torch.obs import events as obs_events, metrics as obs_metrics, trace
+
+    totals = {name: 0 for name in kernels.KERNELS}
+
+    def run(label, argv):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        result = runner.main(argv)
+        counts = kernels.launch_counts()
+        for name, count in counts.items():
+            totals[name] += count
+        return result, counts
+
+    for label, n, guardian_args, rungs, escalated, there, healthy_rule in GUARDIAN_LEGS:
+        where = os.path.join(workdir, "guardian", label)
+        os.makedirs(where)
+        paths = {name: os.path.join(where, name) for name in ("ckpt", "journal.jsonl", "m.prom", "trace.json",
+                                                              "flight.json", "s")}
+        before = _guardian_counters(obs_metrics.REGISTRY.snapshot())
+        result, counts = run("guardian " + label, GUARDIAN_BASE + [
+            "--aggregator", "average", "--nb-workers", str(n), "--guardian", "--guardian-args", *guardian_args,
+            "--checkpoint-dir", paths["ckpt"], "--checkpoint-delta", "4", "--flight", "16", "--flight-dump",
+            paths["flight.json"], "--journal", paths["journal.jsonl"], "--metrics-file", paths["m.prom"],
+            "--trace-file", paths["trace.json"], "--summary-dir", paths["s"]])
+        after = _guardian_counters(obs_metrics.REGISTRY.snapshot())
+        rollbacks = result["rollbacks"]
+        check(result["escalations"] == rungs, "guardian %s: rungs %s (want %s)" % (label, result["escalations"], rungs))
+        check([(r["from_step"], r["to_step"], r["restored_snapshot"]) for r in rollbacks] == [(2, 0, False)] * len(rungs),
+              "guardian %s: rollbacks %s" % (label, rollbacks))
+        check(len(result["recovered"]) == 1, "guardian %s: recovered at %s" % (label, result["recovered"]))
+        check(result["final_loss"] is not None and math.isfinite(result["final_loss"]),
+              "guardian %s: final loss %s" % (label, result["final_loss"]))
+        under = result["steps_by_overrides"]
+        _held_launches("guardian " + label, counts, {name: under.get(escalated, 0) for name in there})
+        check(under.get(escalated, 0) == result["steps"], "guardian %s: %s steps under %s, %d in the run"
+              % (label, under.get(escalated), escalated, result["steps"]))
+        journal = obs_events.load_journal(paths["journal.jsonl"])
+        kinds = obs_events.counts_by_type(journal)
+        want = {"run_start": 1, "guardian_rollback_decision": len(rungs), "guardian_rollback": len(rungs),
+                "guardian_escalation": len(rungs), "flight_postmortem": len(rungs), "guardian_recovered": 1,
+                "run_end": 1}
+        check(kinds == want, "guardian %s: journal %s (want %s)" % (label, kinds, want))
+        dumps = sorted({r["path"] for r in journal if r["type"] == "flight_postmortem"})
+        wanted = sorted({os.path.join(where, "flight.rollback-%d.json" % r["from_step"]) for r in rollbacks})
+        check(dumps == wanted and all(os.path.exists(p) for p in wanted) and not os.path.exists(paths["flight.json"]),
+              "guardian %s: flight dumps %s (want %s, and no final one)" % (label, dumps, wanted))
+        for dump in wanted:
+            document = json.load(open(dump))
+            check(document["reason"] == "guardian_rollback" and document["extra"]["at_step"] == 2,
+                  "guardian %s: dump %s" % (label, {k: document.get(k) for k in ("reason", "extra")}))
+        moved = {name: after[name] - before[name] for name in after}
+        check(moved == {"guardian_rollbacks_total": len(rungs), "guardian_escalations_total": len(rungs),
+                        "guardian_recoveries_total": 1}, "guardian %s: registry moved %s" % (label, moved))
+        spans = [e for e in trace.validate_chrome_trace(json.load(open(paths["trace.json"])))
+                 if e["name"] == "guardian.rollback" and e["ph"] == "X"]  # the watchdog's instant shares the name
+        check(len(spans) == len(rungs), "guardian %s: %d guardian.rollback spans" % (label, len(spans)))
+        healthy, healthy_counts = run("healthy " + healthy_rule, GUARDIAN_BASE + [
+            "--aggregator", healthy_rule, "--nb-workers", str(n)])
+        _held_launches("healthy " + healthy_rule, healthy_counts, {name: healthy["steps"] for name in there})
+        print("guardian %s on %s: cnnet n=%d, rungs %s, rollbacks from step 2 at %s, recovered at step %s (%d steps "
+              "after the last rollback; %d steps dispatched in all, by overrides %s); guardian.rollback wall %s ms; "
+              "final loss %.4f against a healthy %s run's %.4f (x%.3f); %.3f steps/s excl. 1st; peak %.0f MB; "
+              "launches %s" % (
+                  label, card, n, rungs, [r["to_step"] for r in rollbacks], result["recovered"][0],
+                  result["recovered"][0] - rollbacks[-1]["to_step"], sum(under.values()), json.dumps(under),
+                  ", ".join("%.1f" % (s["dur"] / 1e3) for s in spans), result["final_loss"], healthy_rule,
+                  healthy["final_loss"], result["final_loss"] / healthy["final_loss"], result["steps_per_s"],
+                  torch.cuda.max_memory_allocated() / 2**20, json.dumps(counts, sort_keys=True)))
+
+    # leg C: a resume into the hostile regime rolls back to the snapshot it
+    # resumed from (the auto-restored step is the first last-known-good);
+    # on digits and on cnnet, whose rollback then loads a full-width snapshot
+    for experiment, extra in (("digits", ["--learning-rate-args", "initial-rate:0.1"]), ("cnnet", ["--seed", "1"])):
+        where = os.path.join(workdir, "guardian", "C-" + experiment)
+        base = ["--experiment", experiment, "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--evaluation-delta",
+                "-1", "--evaluation-period", "-1", "--checkpoint-period", "-1", "--checkpoint-dir",
+                os.path.join(where, "ckpt"), *extra]
+        _, counts = run("guardian C healthy", base + ["--aggregator", "median", "--max-step", "6"])
+        _held_launches("guardian C healthy " + experiment, counts, {"coordinate_median": 6})
+        result, counts = run("guardian C", base + [
+            "--aggregator", "average", "--nb-real-byz-workers", "2", "--attack", "inf", "--max-step", "20",
+            "--guardian", "--guardian-args", "ladder:gar=median", "recover:4", "--checkpoint-delta", "100",
+            "--journal", os.path.join(where, "journal.jsonl"), "--trace-file", os.path.join(where, "trace.json")])
+        rollbacks = result["rollbacks"]
+        check(result["restored_step"] == 6 and [(r["to_step"], r["restored_snapshot"]) for r in rollbacks]
+              == [(6, True)], "guardian C %s: restored %s, rollbacks %s" % (experiment, result["restored_step"],
+                                                                           rollbacks))
+        check(result["escalations"] == ["gar=median"] and len(result["recovered"]) == 1
+              and math.isfinite(result["final_loss"]), "guardian C %s: %s" % (experiment, {k: result[k] for k in (
+                  "escalations", "recovered", "final_loss")}))
+        _held_launches("guardian C " + experiment, counts,
+                       {"coordinate_median": result["steps_by_overrides"].get("f=2 gar=median", 0)})
+        spans = {name: [e["dur"] / 1e3 for e in trace.validate_chrome_trace(json.load(open(os.path.join(
+            where, "trace.json")))) if e["name"] == name and e["ph"] == "X"]
+            for name in ("guardian.rollback", "checkpoint.restore")}
+        check(len(spans["guardian.rollback"]) == 1 and len(spans["checkpoint.restore"]) == 2,
+              "guardian C %s: spans %s" % (experiment, spans))
+        print("guardian C on %s: %s resumed at step %d under average + inf, rolled back from step %d to the "
+              "snapshot at step %d (restored_snapshot %s), recovered at step %s, final loss %.4f; guardian.rollback "
+              "wall %.1f ms, of which the snapshot's restore %.1f ms (the auto-restore at start %.1f ms); "
+              "launches %s" % (card, experiment, result["restored_step"], rollbacks[0]["from_step"],
+                               rollbacks[0]["to_step"], rollbacks[0]["restored_snapshot"], result["recovered"][0],
+                               result["final_loss"], spans["guardian.rollback"][0], spans["checkpoint.restore"][1],
+                               spans["checkpoint.restore"][0], json.dumps(counts, sort_keys=True)))
+
+    # the healthy cost: --guardian on and off in turns, four pairs
+    rates = {"on": [], "off": []}
+    for i, mode in enumerate(("on", "off", "off", "on") * 2):
+        argv = GUARDIAN_COST + ["--checkpoint-dir", os.path.join(workdir, "guardian", "cost-%d" % i)]
+        result, counts = run("guardian cost " + mode, argv + (["--guardian"] if mode == "on" else []))
+        _held_launches("guardian cost " + mode, counts, {"pairwise_sq_distances": result["steps"]})
+        check(result["rollbacks"] == [], "guardian cost: a healthy run rolled back: %s" % result["rollbacks"])
+        rates[mode].append(result["steps_per_s"])
+    median = {mode: sorted(values)[len(values) // 2 - 1:len(values) // 2 + 1] for mode, values in rates.items()}
+    median = {mode: sum(pair) / 2 for mode, pair in median.items()}
+    print("guardian healthy cost on %s: cnnet + krum n=8 streamed, 30 steps, steps/s excl. 1st --guardian on %s, "
+          "off %s (on, off, off, on, twice): medians on %.3f, off %.3f, on/off x%.4f; spread on %.3f-%.3f, "
+          "off %.3f-%.3f" % (card, ", ".join("%.3f" % v for v in rates["on"]), ", ".join("%.3f" % v for v in
+                                                                                         rates["off"]),
+                             median["on"], median["off"], median["on"] / median["off"], min(rates["on"]),
+                             max(rates["on"]), min(rates["off"]), max(rates["off"])))
+    return totals
+
+
 #: the resumed run's losses against the uninterrupted run's, relative.  The
 #: resume phase pins cuDNN to its deterministic algorithms: with the
 #: default ones, two uninterrupted digits-conv runs on the card differ by up
@@ -1666,7 +1843,8 @@ def main():
             totals[kernel] += count
         for counts in (pipeline_phase(torch, kernels, runner, card),
                        plane_phase(torch, kernels, runner, card, workdir, gar_ms),
-                       profiler_phase(kernels, runner, card, workdir)):
+                       profiler_phase(kernels, runner, card, workdir),
+                       guardian_phase(torch, kernels, runner, card, workdir)):
             for kernel, count in counts.items():
                 totals[kernel] += count
         for row in rows:

@@ -26,7 +26,10 @@ per-worker convolutions sum in other orders), the prefetcher's hand-over
 from its copy stream, and device-sampled, augmented steps against the CPU;
 the chunk pipeline on the card (pinned ping-pong buffers, no second pin,
 the sequential stream with every chunk held) and the GAR probe against the
-CPU's on the same rows.
+CPU's on the same rows.  The guardian: a rollback restores its pinned
+snapshot's parameters on the card bit for bit, and after each rebuild of
+the engine the card holds, at the same point of the loop, what it held
+before the first, within one cnnet state.
 """
 
 import numpy as np
@@ -609,3 +612,63 @@ def test_gar_probe_on_the_card_matches_the_cpu(cuda_device, rule, n, f, kernel):
     got = card(7)
     assert kernels.launch_counts()[kernel] == 1
     np.testing.assert_allclose(got.cpu().numpy(), cpu(7).numpy(), rtol=1e-6, atol=1e-6)
+
+
+def _guardian_argv(tmp_path, experiment_args):
+    return ["--experiment", "mnist" if experiment_args else "cnnet", *(
+        ["--experiment-args", *experiment_args] if experiment_args else []),
+        "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--prefetch", "0", "--evaluation-delta", "-1",
+        "--evaluation-period", "-1", "--checkpoint-period", "-1", "--checkpoint-dir", str(tmp_path / "ckpt")]
+
+
+@pytest.mark.gpu
+def test_rollback_restores_the_pinned_snapshot_bit_for_bit(cuda_device, tmp_path, monkeypatch):
+    """A healthy median run's snapshot at step 6, then a resume into average
+    under an inf coalition with --guardian: the rollback's restore puts the
+    snapshot's parameters on the card bit for bit."""
+    from aggregathor_tpu_torch.cli import runner
+    from aggregathor_tpu_torch.obs.checkpoint import Checkpoints
+
+    argv = _guardian_argv(tmp_path, ["batch-size:16", "hidden:16"])
+    runner.main(argv + ["--aggregator", "median", "--max-step", "6"])
+    restored, restore = [], Checkpoints.restore
+
+    def recording(self, state, step=None):
+        state, at = restore(self, state, step=step)
+        restored.append((at, {name: value.detach().clone() for name, value in state.params.items()}))
+        return state, at
+
+    monkeypatch.setattr(Checkpoints, "restore", recording)
+    result = runner.main(argv + ["--aggregator", "average", "--nb-real-byz-workers", "2", "--attack", "inf",
+                                 "--max-step", "12", "--guardian", "--guardian-args", "ladder:gar=median",
+                                 "recover:4", "--checkpoint-delta", "100"])
+    assert [r["to_step"] for r in result["rollbacks"]] == [6] and result["rollbacks"][0]["restored_snapshot"]
+    assert [at for at, _ in restored] == [6, 6]  # the auto-restore, then the rollback's
+    saved = torch.load(str(tmp_path / "ckpt" / "model-6.ckpt"), map_location="cpu", weights_only=True)["params"]
+    for name, value in restored[1][1].items():
+        assert value.device.type == "cuda" and torch.equal(value.cpu(), saved[name]), name
+
+
+@pytest.mark.gpu
+def test_a_rebuild_releases_the_old_engines_memory(cuda_device, tmp_path, monkeypatch):
+    """cnnet under average and an inf coalition climbs two rungs (f+1, then
+    median): at the same point of the loop (the watchdog's first
+    observation, step 1) the card holds as much after each rebuild as
+    before the first, within one cnnet state (its parameters' bytes)."""
+    from aggregathor_tpu_torch.cli import runner
+    from aggregathor_tpu_torch.guardian import Watchdog
+
+    seen, observe = {}, Watchdog.observe
+
+    def recording(self, step, *args):
+        seen.setdefault((self.attempts, step), torch.cuda.memory_allocated())
+        return observe(self, step, *args)
+
+    monkeypatch.setattr(Watchdog, "observe", recording)
+    result = runner.main(_guardian_argv(tmp_path, None) + [
+        "--aggregator", "average", "--nb-real-byz-workers", "2", "--attack", "inf", "--max-step", "8",
+        "--guardian", "--guardian-args", "recover:5", "--checkpoint-delta", "100"])
+    assert result["escalations"] == ["f+1", "gar=median"]
+    state_bytes = 4 * 1_756_682
+    for attempt in (1, 2):
+        assert abs(seen[(attempt, 1)] - seen[(0, 1)]) <= state_bytes, seen

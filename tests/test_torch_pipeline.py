@@ -280,9 +280,6 @@ WAITING = {
     "compile_cache_misses_total": "obs/profiler (CompileWatch)",
     "device_memory_live_bytes": "obs/profiler (the memory gauges)",
     "device_memory_peak_bytes": "obs/profiler (the memory gauges)",
-    "guardian_rollbacks_total": "guardian/watchdog",
-    "guardian_escalations_total": "guardian/escalate",
-    "guardian_recoveries_total": "guardian/watchdog",
 }
 
 
@@ -351,6 +348,8 @@ def test_metrics_file_families_are_the_jax_runners(runs):
               if family["samples"] and family["type"] != "histogram"}
     assert values["gar_probe_seconds"] > 0 and values["input_chunks_total"] == 3.0
     assert values["train_steps_total"] == 12.0 and values["bytes_on_wire_total"] == 12 * 8 * 4 * 1210
+    for name in ("guardian_rollbacks_total", "guardian_escalations_total", "guardian_recoveries_total"):
+        assert values[name] == theirs[name]["samples"][0][2] == 0.0, name  # registered unconditionally
 
 
 NEW_FLAGS = ("input_slices", "gar_probe", "metrics_file", "trace", "trace_dir", "trace_file", "live_port",

@@ -341,7 +341,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "obs/cadence.py", "obs/checkpoint.py", "obs/summaries.py", "obs/perf.py",
                    "core/train_state.py", "cli/runner.py", "core/flatten.py", "models/preprocessing.py",
                    "models/__init__.py", "models/cnnet.py", "parallel/engine.py", "obs/metrics.py",
-                   "obs/trace.py", "obs/live.py"):
+                   "obs/trace.py", "obs/live.py", "obs/events.py", "guardian/escalate.py", "guardian/watchdog.py",
+                   "utils/access.py", "utils/plugins.py", "cli/__init__.py"):
         assert os.path.join(REPO, "aggregathor_tpu_torch", module) in paths, module
     offenders = [
         (os.path.relpath(path, REPO), module)
