@@ -88,6 +88,15 @@ backend), ``--backend-timeout`` bounds the first CUDA initialisation, and
 the cluster flags (``--client``, ``--server``, the job names, ``--MPI``,
 ``--no-wait``) are accepted and warned about once.
 
+SIGINT and SIGTERM stop the run as the JAX runner's handlers do
+(``aggregathor_tpu/cli/runner.py:680-708``): they are installed before the
+device is initialised; the first signal lets the step in flight finish, and
+the loop then ends as at ``--max-step`` (the final evaluation, checkpoint
+and summary fires, the metrics file, the span trace and the journal's
+``run_end``); a second raises ``KeyboardInterrupt``.  The original handlers
+come back when ``main`` returns or raises.  Outside the main thread no
+handler is installed.
+
 At the end it prints the performance report (in-graph and off-graph time,
 step latency percentiles, steps/s with and without the first step), the
 final evaluation and each kernel's launch count.  Seeds follow the JAX
@@ -102,6 +111,7 @@ Example::
 
 import argparse
 import os
+import signal
 import sys
 import time
 import types
@@ -377,7 +387,36 @@ def main(argv=None):
     declared) and ``steps_by_overrides`` (steps dispatched under each
     ``Overrides.describe()``, abandoned calls included)."""
     args = build_parser().parse_args(argv)
+    from ..utils import warning
 
+    # the stop handlers come first, so a signal during the device's
+    # initialisation or the first step is a stop, not a kill
+    stop = {"requested": False}
+
+    def on_signal(signum, frame):
+        if stop["requested"]:
+            # a second signal aborts: the step in flight may hang
+            warning("Interrupted twice: aborting now")
+            raise KeyboardInterrupt
+        stop["requested"] = True
+        warning("Interrupted: finishing current step then shutting down (interrupt again to abort immediately)")
+
+    try:
+        previous_handlers = {signum: signal.signal(signum, on_signal) for signum in (signal.SIGINT, signal.SIGTERM)}
+    except ValueError:
+        # not the main thread (an embedded runner): the host application
+        # keeps its signal handling
+        previous_handlers = {}
+    try:
+        return _run(args, stop)
+    finally:
+        for signum, handler in previous_handlers.items():
+            signal.signal(signum, handler)
+
+
+def _run(args, stop):
+    """``main``'s body; ``stop["requested"]`` ends the loop at the next step
+    boundary."""
     import torch
 
     from .. import config, gars, models
@@ -943,10 +982,10 @@ def main(argv=None):
                 os.replace(tmp, args.live_ready_file)
         with Context("train"):
             while True:
-                if step >= max_step:
+                if step >= max_step or stop["requested"]:
                     # the lagged observation first: a rollback here re-enters
                     # training from the restored step (JAX :2357-2363)
-                    if observe_pending() and step < max_step:
+                    if observe_pending() and step < max_step and not stop["requested"]:
                         continue
                     check_divergence()
                     break

@@ -13,6 +13,14 @@ K3-K5, and average-nan the finite-mean kernel K6.  Dispatch is by device
 alone: a CUDA matrix always goes through the kernel, a CPU matrix through
 its plain PyTorch version; there is no column threshold.
 
+The meta-rules (``bucketing``, ``hier``, ``tree``) compose registered
+rules through ``instantiate``; the randomized ones take a ``key``, an int
+seed (the engine's per-step ``fold_in_seed(fold_in_seed(seed, step),
+GAR_KEY_TAG)``), where the JAX package takes a PRNG key, and derive their
+children's keys with ``utils.fold_in_seed`` where JAX folds.  The
+``*-native`` names run the host C++ library (``ops/native``) on their dense
+``aggregate``.
+
 Unlike the JAX package the registry does not walk its directory: it imports
 the rules this package ports, by name, at the bottom of this module.
 """
@@ -20,6 +28,12 @@ the rules this package ports, by name, at the bottom of this module.
 from ..utils import ClassRegister
 
 gars = ClassRegister("GAR")
+
+#: the tag the engine folds into the step's seed to derive the per-step GAR
+#: key (JAX ``gars/__init__.py``): far above any worker index, so the
+#: randomized meta-rules' permutations never collide with the (seed, step,
+#: worker, tag) streams of the attacks, the lossy link and the input tier
+GAR_KEY_TAG = 0x6AC0BEA7
 
 
 def register(name, cls):
@@ -54,8 +68,13 @@ def parse_spec(spec):
     Three forms (all equivalent)::
 
         krum
-        trimmed-mean:trim=1
-        trimmed-mean(trim=1)
+        hier:g=16,inner=median,outer=krum
+        hier(g=16,inner=median,outer=krum)
+
+    Nested composite rules spell their sub-arguments in the parenthesized
+    form so the commas stay attached to the inner spec::
+
+        bucketing:s=2,inner=hier(g=8,outer=krum)
 
     The returned args use the ``key:value`` convention ``parse_keyval``
     expects.  A plain registered name passes through untouched.
@@ -103,11 +122,20 @@ class GAR:
         pairwise squared-distance matrix (Krum/Bulyan family).
       nan_row_tolerant: True if an all-NaN row is cleanly excluded from the
         aggregate rather than poisoning it.
+      uses_key: True if ``aggregate_block`` takes ``key=`` (an int seed, the
+        same for the whole step): the randomized meta-rules re-draw their
+        permutation each step.
+      uses_axis: declared as in the JAX package by the rules whose row norms
+        would be completed across dimension blocks; one device holds whole
+        rows, so nothing reads it yet (a multi-GPU engine would turn it into
+        an ``all_reduce`` of the row norms).
     """
 
     coordinate_wise = False
     needs_distances = False
     nan_row_tolerant = False
+    uses_key = False
+    uses_axis = False
     #: typed key:value argument defaults accepted by this rule (strict: an
     #: unknown key raises instead of being silently ignored)
     ARG_DEFAULTS = {}
@@ -137,16 +165,20 @@ class GAR:
                 % (type(self).__name__, self.nb_byz_workers, self.nb_workers)
             )
 
-    def aggregate(self, grads):
+    def aggregate(self, grads, key=None):
         """Dense entry: reduce the full (n, d) float32 matrix to (d,)."""
         from .common import pairwise_sq_distances
 
         dist2 = pairwise_sq_distances(grads) if self.needs_distances else None
-        return self._call_aggregate(grads, dist2)
+        return self._call_aggregate(grads, dist2, key=key)
 
-    def _call_aggregate(self, block, dist2):
+    def _call_aggregate(self, block, dist2, key=None):
         """The single dispatch point the engine uses (``dist2`` already
-        clamped at 0 when the rule needs distances, None otherwise)."""
+        clamped at 0 when the rule needs distances, None otherwise); the
+        ``key`` reaches only a rule that declares ``uses_key``, so plain
+        rules keep their two-argument ``aggregate_block``."""
+        if self.uses_key:
+            return self.aggregate_block(block, dist2, key=key)
         return self.aggregate_block(block, dist2)
 
     def aggregate_block(self, block, dist2=None):
@@ -162,11 +194,13 @@ class GAR:
         the plain version's +inf/NaN mix give the same weights."""
         return None
 
-    def aggregate_block_and_participation(self, block, dist2=None):
+    def aggregate_block_and_participation(self, block, dist2=None, key=None):
         """``(aggregate, worker_participation(dist2))`` in one call; the
-        selection rules compute their weights once for both."""
-        return self._call_aggregate(block, dist2), self.worker_participation(dist2)
+        selection rules compute their weights once for both, the iterative
+        and meta rules return the weights their own pass computes."""
+        return self._call_aggregate(block, dist2, key=key), self.worker_participation(dist2)
 
 
-# The ported rules register themselves on import, in the slice's order.
+# The ported rules register themselves on import, in the slices' order.
 from . import average, average_nan, krum, median, averaged_median, bulyan, trimmed_mean, pallas_tier  # noqa: E402,F401
+from . import centered_clip, geometric_median, dnc, bucketing, hierarchical, tree, native_host  # noqa: E402,F401

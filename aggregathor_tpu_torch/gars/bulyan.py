@@ -67,7 +67,7 @@ class BulyanGAR(GAR):
         # round excludes ends at exactly 0
         return torch.mean(self.selection_weights(dist2), dim=0)
 
-    def aggregate_block_and_participation(self, block, dist2=None):
+    def aggregate_block_and_participation(self, block, dist2=None, key=None):
         if dist2 is None:
             raise ValueError("bulyan requires the pairwise distance matrix")
         weights = self.selection_weights(dist2)

@@ -28,6 +28,48 @@ def pairwise_sq_distances(grads):
     return kernels.pairwise_sq_distances(grads)
 
 
+def centered_gram_sq_distances(rows):
+    """(n, n) Gram-form squared distances of the rows centred by their
+    NaN-ignoring column median, clamped at 0: the centring
+    (``kernels.nanmedian_columns``) then K2 on a CUDA matrix, their plain
+    versions on the CPU (JAX ``common.py:106-145``, which leaves the clamp
+    to its callers).  The meta-rules' distances over bucket means, group
+    summaries and tree levels at any n, 2 rows included.  K2 splits d over
+    its blocks itself, so the JAX ``GRAM_CHUNK_BUDGET`` scan over
+    coordinate chunks has no counterpart.  A row holding a non-finite value
+    gives non-finite distances (all NaN from K2), which scoring maps to
+    +inf."""
+    return kernels.pairwise_sq_distances_gram(rows, kernels.nanmedian_columns(rows))
+
+
+def sub_rule_distances(rule, rows):
+    """A meta-rule's sub-rule distances over ``rows`` (bucket means, a
+    group, summaries): ``centered_gram_sq_distances``, or None when the
+    sub-rule needs none."""
+    return centered_gram_sq_distances(rows.contiguous()) if rule.needs_distances else None
+
+
+def alive_rows(rows):
+    """``(alive, safe)``: the (n,) float mask of rows with no non-finite
+    coordinate, and the rows with the dead ones zero-filled (the
+    average-nan convention of the iterative rules: dead rows weigh 0)."""
+    alive = torch.all(torch.isfinite(rows), dim=-1).to(torch.float32)
+    return alive, torch.where((alive > 0.0)[:, None], rows, 0.0)
+
+
+def masked_coordinate_median(rows, alive):
+    """(d,) coordinate-wise median of the alive rows, numpy's rule for an
+    even count (trap a), 0 where every row is dead: the centring kernel on
+    the rows with the dead ones set to NaN (its plain version on the CPU)."""
+    return kernels.nanmedian_columns(torch.where((alive > 0.0)[:, None], rows, torch.nan).contiguous())
+
+
+def global_row_sq_norms(deviation):
+    """(n,) squared row norms (one device holds whole rows: no cross-block
+    reduction, unlike the JAX package's ``axis_name`` psum)."""
+    return torch.sum(deviation * deviation, dim=-1)
+
+
 def smallest_k_sum(values, k):
     """Sum of the k smallest entries along the last axis (non-finite = +inf)."""
     return torch.sum(torch.sort(nonfinite_to_inf(values), dim=-1).values[..., :k], dim=-1)
@@ -37,7 +79,8 @@ def smallest_k_mask(scores, k):
     """Boolean (n,) mask of the k smallest scores, ties to the lowest index.
 
     Non-finite scores count as +inf.  rank(i) = #{j : s_j < s_i, or s_j ==
-    s_i and j < i}, the rank rule of the JAX package."""
+    s_i and j < i}, the rank rule of the JAX package.  ``k`` may be an int
+    or a 0-d tensor (DnC's data-dependent count)."""
     clean = nonfinite_to_inf(scores)
     idx = torch.arange(clean.shape[0], device=clean.device)
     smaller = (clean[None, :] < clean[:, None]) | (

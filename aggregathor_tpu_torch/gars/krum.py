@@ -45,7 +45,7 @@ class KrumGAR(GAR):
     def worker_participation(self, dist2):
         return self.selection_weights(dist2)
 
-    def aggregate_block_and_participation(self, block, dist2=None):
+    def aggregate_block_and_participation(self, block, dist2=None, key=None):
         if dist2 is None:
             raise ValueError("krum requires the pairwise distance matrix")
         weights = self.selection_weights(dist2)

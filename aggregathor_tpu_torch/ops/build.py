@@ -7,6 +7,9 @@ The libraries land in ``ops/.build-<hash>/``, keyed by the bytes of every
 file in ``ops/csrc`` (sources and headers) and the compiler flags, so an
 edited source rebuilds and an unchanged one loads at once; ``.gitignore`` lists the directory.
 
+The host C++ tier (``ops/native``) builds with the same two helpers,
+``hashed_dir`` and ``start_build``.
+
 A failed build raises with nvcc's stderr.  Nothing falls back to the plain
 PyTorch versions: on a CUDA tensor the kernel runs or the call raises.
 """
@@ -41,13 +44,39 @@ def _nvcc():
     return path
 
 
+def hashed_dir(parent, flags, paths):
+    """``parent/.build-<hash>``, the hash covering the flags and each file's
+    name and bytes: an edited file or flag builds into a new directory."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in paths:
+        with open(path, "rb") as fd:
+            digest.update(os.path.basename(path).encode() + b"\0" + fd.read())
+    return os.path.join(parent, ".build-" + digest.hexdigest()[:16])
+
+
+def start_build(compiler, flags, source, target):
+    """Start ``compiler flags -o <tmp> source`` for the shared library
+    ``target``; returns ``wait()``, which waits for the compiler and, when
+    it succeeded, moves the library into place (atomic: a reader never sees
+    half a library).  ``wait()`` returns (exit code, stdout, stderr)."""
+    os.makedirs(os.path.dirname(target), exist_ok=True)
+    tmp = "%s.%d.tmp" % (target, os.getpid())
+    proc = subprocess.Popen([compiler, *flags, "-o", tmp, source], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+    def wait():
+        out, err = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, target)
+        return proc.returncode, out, err
+
+    return wait
+
+
 def build_dir():
     """The directory the current sources, their headers and the flags build into."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(os.listdir(CSRC)):
-        with open(os.path.join(CSRC, name), "rb") as fd:
-            digest.update(name.encode() + b"\0" + fd.read())
-    return os.path.join(os.path.dirname(CSRC), ".build-" + digest.hexdigest()[:16])
+    return hashed_dir(os.path.dirname(CSRC), NVCC_FLAGS,
+                      [os.path.join(CSRC, name) for name in sorted(os.listdir(CSRC))])
 
 
 def _library_path(name):
@@ -60,22 +89,14 @@ def build_all():
     Returns {name: ptxas report (stderr of the build)} for the sources built
     now.  Raises RuntimeError carrying nvcc's stderr when a build fails."""
     target = build_dir()
-    os.makedirs(target, exist_ok=True)
-    pending = {}
-    for name in SOURCES:
-        if os.path.exists(_library_path(name)):
-            continue
-        tmp = _library_path(name) + ".%d.tmp" % os.getpid()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        pending[name] = (proc, tmp)
+    pending = {name: start_build(_nvcc(), NVCC_FLAGS, os.path.join(CSRC, name + ".cu"), _library_path(name))
+               for name in SOURCES if not os.path.exists(_library_path(name))}
     reports, failures = {}, []
-    for name, (proc, tmp) in pending.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failures.append("nvcc failed on %s.cu (exit %d):\n%s%s" % (name, proc.returncode, out, err))
+    for name, wait in pending.items():
+        code, out, err = wait()
+        if code != 0:
+            failures.append("nvcc failed on %s.cu (exit %d):\n%s%s" % (name, code, out, err))
             continue
-        os.replace(tmp, _library_path(name))  # atomic: a reader never sees half a library
         reports[name] = err
         with open(os.path.join(target, name + ".ptxas.txt"), "w") as fd:
             fd.write(err)

@@ -37,8 +37,12 @@ Counterpart of the flat mode of ``aggregathor_tpu/parallel/engine.py``
 6. **Aggregation** (``_aggregate_block``): when the rule needs distances,
    one launch gives the (n, n) matrix (K1 up to 64 workers, median centring
    and K2 beyond), clamped at 0; then the rule (K3-K5 for the rank-based
-   rules and Bulyan's last phase, K6 for average-nan), and under
-   ``worker_metrics`` the rule's per-worker participation.  Under
+   rules and Bulyan's last phase, K6 for average-nan; the meta-rules' own
+   passes), and under ``worker_metrics`` the rule's per-worker
+   participation.  A rule that declares ``uses_key`` gets the step's GAR
+   key, ``gar_key(seed, step)`` (JAX folds ``GAR_KEY_TAG`` into the step's
+   key, ``engine.py:671-679``); under granularity:leaf leaf i's is
+   ``fold_in_seed(gar_key, i)``, i the leaf's index in flattening order.  Under
    ``granularity="leaf"`` steps 4-6 run once per parameter leaf (each
    layer picks its own honest set: distance kernels once a leaf), the
    participation is the mean over the leaves, and the aggregate does not
@@ -78,21 +82,33 @@ from torch.func import grad_and_value, vmap
 
 from ..core.flatten import FlatMap
 from ..core.train_state import TrainState
+from ..gars import GAR_KEY_TAG
 from ..gars.common import nonfinite_to_inf, smallest_k_mask
 from ..guardian import probe as health
 from ..ops import kernels
-from ..utils import UserException, resolve_device
+from ..utils import UserException, fold_in_seed, resolve_device
 from .compress import wire_dtype, wire_roundtrip
 
 #: stream tags, as the JAX engine folds them: the local attacks (1), the
 #: in-step augmentation (3) and the device-side sampling (4); the lossy
-#: link's (2) lives in ``lossy.py``.  Under granularity:leaf the JAX engine
-#: also folds leaf i's omniscient-attack key with 20_000 + i and its rule's
-#: key with i; no ported attack or rule draws from a key (empire and little
-#: are deterministic), so the port derives neither stream
+#: link's (2) lives in ``lossy.py``; the rule's key folds ``GAR_KEY_TAG``
+#: (``gar_key``).  Under granularity:leaf the JAX engine also folds leaf i's
+#: omniscient-attack key with 20_000 + i; no ported omniscient attack draws
+#: from a key (empire and little are deterministic), so the port derives no
+#: such stream
 ATTACK_TAG = 1
 AUGMENT_TAG = 3
 SAMPLE_TAG = 4
+
+def gar_key(seed, step):
+    """The step's GAR key, an int seed: ``fold_in_seed(fold_in_seed(seed,
+    step), GAR_KEY_TAG)``, as JAX folds the step into the run's key and the
+    tag into that.  A function of (seed, step) alone, so the same on the CPU
+    and the card, in every ``--unroll`` chunk and after a resume, and moved
+    with the seed by the guardian's perturbation; the tag keeps it apart
+    from the (seed, step, worker, tag) streams."""
+    return fold_in_seed(fold_in_seed(seed, step), GAR_KEY_TAG)
+
 
 #: engine options of the JAX package this port does not carry yet
 UNPORTED_OPTIONS = ("exchange", "chaos", "secure", "step_deadline")
@@ -104,14 +120,6 @@ def stream_generator(seed, step, worker, tag, device):
     words = np.random.SeedSequence([seed, step, worker, tag]).generate_state(2, np.uint32)
     value = (int(words[0]) << 31) ^ int(words[1])
     return torch.Generator(device=device).manual_seed(value)
-
-
-def fold_in_seed(seed, data):
-    """A new seed drawn from ``SeedSequence([seed, data])``: the port's
-    ``jax.random.fold_in``.  The guardian replaces a restored state's seed
-    with ``fold_in_seed(seed, RNG_PERTURB_TAG + attempt)``, which moves every
-    (seed, step, worker, tag) stream of the retry."""
-    return int(np.random.SeedSequence([int(seed), int(data)]).generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
 def validate_reputation_args(gar, reputation_decay, quarantine_threshold):
@@ -340,14 +348,18 @@ class RobustEngine:
             return None
         return torch.clamp_min(kernels.pairwise_sq_distances(rows), 0.0)
 
-    def _aggregate_block(self, rows):
+    def _aggregate_block(self, rows, key=None):
         """Distances (one K1 or K2 launch) when the rule needs them, then the
-        rule: ``(aggregate, participation)``, the participation None unless
-        ``worker_metrics`` and the rule selects whole workers."""
+        rule, given ``key`` if it ``uses_key``: ``(aggregate,
+        participation)``, the participation None unless ``worker_metrics``
+        and the rule weighs whole workers."""
         dist2 = self._distances(rows)
         if self.worker_metrics:
-            return self.gar.aggregate_block_and_participation(rows, dist2)
-        return self.gar._call_aggregate(rows, dist2), None
+            # as in _call_aggregate, only a uses_key rule is handed the key:
+            # a rule's two-argument override stays callable
+            keyed = {"key": key} if self.gar.uses_key else {}
+            return self.gar.aggregate_block_and_participation(rows, dist2, **keyed)
+        return self.gar._call_aggregate(rows, dist2, key=key), None
 
     def _sq_dists(self, rows, raw_rows, agg):
         """(worker_sq_dist, rep_dist): each worker's squared distance to the
@@ -360,29 +372,31 @@ class RobustEngine:
         return (sq_dist(rows) if self.worker_metrics else None,
                 sq_dist(raw_rows) if self.reputation_decay is not None else None)
 
-    def _aggregate_vector(self, rows, reputation):
+    def _aggregate_vector(self, rows, reputation, key=None):
         """granularity:vector: the whole rows through the wire, the attack,
-        the quarantine and the rule; the aggregate crosses the wire back.
-        Returns ``(agg, participation, wdist, rep_dist)``."""
+        the quarantine and the rule (given the step's GAR ``key``); the
+        aggregate crosses the wire back.  Returns ``(agg, participation,
+        wdist, rep_dist)``."""
         rows, raw_rows = self._prepare_rows(wire_roundtrip(rows, self.exchange_dtype), reputation)
-        agg, participation = self._aggregate_block(rows)
+        agg, participation = self._aggregate_block(rows, key)
         agg = wire_roundtrip(agg, self.exchange_dtype)
         return (agg, participation) + self._sq_dists(rows, raw_rows, agg)
 
-    def _aggregate_per_leaf(self, rows, flatmap, reputation):
+    def _aggregate_per_leaf(self, rows, flatmap, reputation, key=None):
         """granularity:leaf: each parameter leaf's (n, d_leaf) columns
         through the wire, the attack, the quarantine and the rule on their
-        own (per-layer selection; the distance kernels launch once a leaf),
-        the aggregates concatenated in flattening order.  The participation
-        is the mean over the leaves, the distances summed over them.
-        Returns ``(agg, participation, wdist, rep_dist)``."""
+        own (per-layer selection; the distance kernels launch once a leaf;
+        leaf i's rule key is ``fold_in_seed(key, i)``), the aggregates
+        concatenated in flattening order.  The participation is the mean
+        over the leaves, the distances summed over them.  Returns ``(agg,
+        participation, wdist, rep_dist)``."""
         parts = []
         participation, nb_parts = None, 0
         wdist = rep_dist = None
-        for _, _, offset, size, _, _ in flatmap.slices:
+        for i, (_, _, offset, size, _, _) in enumerate(flatmap.slices):
             leaf = wire_roundtrip(rows[:, offset:offset + size], self.exchange_dtype).contiguous()
             leaf, raw_leaf = self._prepare_rows(leaf, reputation)
-            agg_leaf, part = self._aggregate_block(leaf)
+            agg_leaf, part = self._aggregate_block(leaf, None if key is None else fold_in_seed(key, i))
             if part is not None:
                 participation = part if participation is None else participation + part
                 nb_parts += 1
@@ -534,10 +548,12 @@ class RobustEngine:
                 rows = self._perturb_local(self._send(state, rows), state.seed, state.step, state.carry)
                 # the rows as they arrived, before the omniscient attack
                 worker_nan = torch.any(~torch.isfinite(rows), dim=1) if self.health_probe else None
+                key = gar_key(state.seed, state.step)
                 if self.granularity == "leaf":
-                    agg, participation, wdist, rep_dist = self._aggregate_per_leaf(rows, flatmap, state.reputation)
+                    agg, participation, wdist, rep_dist = self._aggregate_per_leaf(
+                        rows, flatmap, state.reputation, key)
                 else:
-                    agg, participation, wdist, rep_dist = self._aggregate_vector(rows, state.reputation)
+                    agg, participation, wdist, rep_dist = self._aggregate_vector(rows, state.reputation, key)
                 self._mark(state, "aggregate done: |agg|", torch.linalg.vector_norm(agg))
                 tx.apply(state.params, flatmap.inflate(agg), state.opt_state)
                 self._mark(state, "apply done: |p0|", torch.linalg.vector_norm(state.params[flatmap.slices[0][0]]))
@@ -606,17 +622,17 @@ class RobustEngine:
         from a ``torch.Generator`` seeded with ``seed`` (``probe.rows``).
         ``probe(step)`` runs one aggregation on them: the distances (K1, or
         the centring and K2) when the rule needs them, clamped at 0, then
-        the rule (K3-K6 for the coordinate rules, Bulyan's last phase) --
-        the step's own path, without attack, lossy link or quarantine.  No
-        ported rule draws from a key, so there is no per-step stream to fold
-        ``step`` into and the result is a function of the rows alone.  The
-        caller synchronises before reading the clock."""
+        the rule (K3-K6 for the coordinate rules, Bulyan's last phase, the
+        meta-rules' passes) -- the step's own path, without attack, lossy
+        link or quarantine.  ``step`` folds into the rule's key,
+        ``gar_key(seed, step)``, so a randomized meta-rule re-draws as in
+        training.  The caller synchronises before reading the clock."""
         generator = torch.Generator(device=self.device).manual_seed(int(seed))
         rows = torch.randn((self.nb_workers, int(d)), generator=generator, dtype=torch.float32, device=self.device)
 
         @torch.no_grad()
-        def probe(_step=0):  # the step: JAX's signature (no stream to fold it into)
-            return self.gar._call_aggregate(probe.rows, self._distances(probe.rows))
+        def probe(step=0):
+            return self.gar._call_aggregate(probe.rows, self._distances(probe.rows), key=gar_key(seed, step))
 
         probe.rows = rows
         return probe

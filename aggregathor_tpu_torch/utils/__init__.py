@@ -1,5 +1,5 @@
 """Shared utilities: context logging, class registry, key:value parsing,
-plugin import, filesystem access checks, devices.
+plugin import, filesystem access checks, devices, derived seeds.
 
 Copies of the framework-free helpers of ``aggregathor_tpu.utils`` (the port
 keeps its own copies and imports nothing of the JAX package), plus
@@ -23,3 +23,4 @@ from .keyval import parse_keyval  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .plugins import import_directory  # noqa: F401
 from .access import can_access  # noqa: F401
+from .seeds import fold_in_seed  # noqa: F401

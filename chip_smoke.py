@@ -147,6 +147,7 @@ Phases, in order (any failure exits non-zero and prints no result):
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -366,8 +367,10 @@ def bounds(kernels, name, n, d):
         passes = 2 if name == "coordinate_averaged_median" else 1
         return n * d * 4 + d * 4, passes * n * n * d + n * d, "n^2 compares per rank pass", FP32_OPS_PER_S
     # the sort path: P log2(P) (log2(P) + 1) / 4 compare-exchanges of a min
-    # and a max per column and sort (two sorts for K4), n steps of the row pass
-    p = kernels.sort_shape(n)[0]
+    # and a max per column and sort (two sorts for K4), n steps of the row
+    # pass, P the power of two the rows need (the kernel pads to at least
+    # 128 lanes, which the function does not need: not counted)
+    p = 1 << max(0, (n - 1).bit_length())
     log_p = p.bit_length() - 1
     sorts = 2 if name == "coordinate_averaged_median" else 1
     return (n * d * 4 + d * 4, sorts * (p * log_p * (log_p + 1) // 2 + n) * d, "the sort's min/max",
@@ -540,6 +543,7 @@ def kernel_phase(torch, kernels):
                                          library.get(name) if name == "coordinate_median" else None, errors[-1])
             report(name, info.label + " sort path", row["sort_path"], 1)
         rows.append(row)
+    extension_kernel_shapes(torch, kernels, randn, rank_poison, report, rows, library)
     # the distances switch form past 64 rows: K1 at n = 64, the centring and K2 at n = 65
     for n, want in ((64, {"pairwise_sq_distances"}), (65, {"pairwise_sq_distances_gram", "nanmedian_columns"})):
         before = kernels.launch_counts()
@@ -553,6 +557,66 @@ def kernel_phase(torch, kernels):
     del digits_rows, digits_conv_rows
     torch.cuda.empty_cache()
     return rows
+
+
+#: K2's row counts on the GAR extensions' path (bucket means, group summaries,
+#: a tree's root), the centring's (an iterative rule's start at n = 8, the
+#: smallest groups), and the transposed layouts (g, (n/g) d) K3 runs: the
+#: hier leg (n = 32, g = 4), the tree leg's second level (8 summaries in
+#: groups of 2) and first level (n = 64, g = 4), and hier at n = 64, g = 8
+#: (no leg's; 8 rows of the widest layout, 28,106,912 values a column pass)
+EXTENSION_GRAM_ROWS = (2, 4, 8, 16, 32)
+EXTENSION_CENTRING_ROWS = (2, 3, 4, 8)
+EXTENSION_TRANSPOSED = ((4, 8 * CNNET_D), (2, 8 * CNNET_D), (4, 16 * CNNET_D), (8, 8 * CNNET_D))
+
+
+def extension_kernel_shapes(torch, kernels, randn, rank_poison, report, rows, library):
+    """Hold K2, the centring and K3 against their plain versions at the GAR
+    extensions' shapes, and time them there (each kernel row's
+    ``other_shapes``).  K2 at 2-32 rows of cnnet's width (a NaN row and
+    +inf values from 4 rows on), with Krum's selection identical on the two
+    results (f = 1 from 4 rows); the centring at 2-8 rows (poisoned, and
+    clean for the time), bit for bit; K3 on the transposed layouts (a NaN
+    row, +-inf values), bit for bit."""
+    from aggregathor_tpu_torch import gars
+
+    by_name = {row["name"]: row for row in rows}
+
+    def held(name, x, args, label):
+        got = getattr(kernels, name)(x, *args)
+        torch.cuda.synchronize()
+        want = kernels.PLAIN[name](x, *args)
+        err = compare(name, got, want, torch, x, args)
+        row = timed_row(torch, kernels, name, x, args, library.get(name), err)
+        report(name, label, row, 1)
+        by_name[name].setdefault("other_shapes", []).append(row)
+        return got, want
+
+    for n in EXTENSION_GRAM_ROWS:
+        x = randn(n, CNNET_D)
+        if n >= 4:
+            x[1] = float("nan")
+            x[n - 1, 3::1000] = float("inf")
+        got, want = held("pairwise_sq_distances_gram", x, (kernels.nanmedian_columns(x),), "K2 extension")
+        if n >= 4:
+            krum = gars.instantiate("krum", n, 1)
+            check(torch.equal(krum.selection_weights(got), krum.selection_weights(want)),
+                  "K2 at n=%d: Krum's selection differs from the plain version's" % n)
+        del x, got, want
+    for n in EXTENSION_CENTRING_ROWS:
+        poisoned = rank_poison(n, CNNET_D)
+        compare("nanmedian_columns", kernels.nanmedian_columns(poisoned), kernels.nanmedian_columns_plain(poisoned),
+                torch)
+        held("nanmedian_columns", randn(n, CNNET_D), (), "centring extension")
+        del poisoned
+    for n, d in EXTENSION_TRANSPOSED:
+        x = randn(n, d)
+        x[n // 2, ::7] = float("nan")
+        x[0, 5::11] = float("inf")
+        x[n - 1, 3::13] = -float("inf")
+        held("coordinate_median", x, (), "K3 transposed")
+        del x
+    torch.cuda.empty_cache()
 
 
 #: a leg's launches a step: once for each parameter leaf (``--granularity leaf``)
@@ -1686,6 +1750,227 @@ def gar_phase(torch, gars, models):
     return out
 
 
+#: aggregates of the card against the CPU: the one-pass and selecting rules
+#: (bucketing, hier and tree over median, averaged-median, trimmed-mean,
+#: average-nan and krum; dnc) within 1e-5 at unit scale, and the iterative
+#: rules (centered-clip, geometric-median/rfa: sums of n rows in another
+#: order, each iteration from the last) too: measured at most 2.4e-7 for
+#: either kind on an NVIDIA H100 80GB HBM3 at 700 W (centered-clip 1.2e-7,
+#: geometric-median and rfa 2.4e-7)
+EXTENSION_TOL = 1e-5
+ITERATIVE_TOL = 1e-5
+ITERATIVE = ("centered-clip", "geometric-median", "rfa")
+#: rounds of the GAR timings, each over every spec
+GAR_TIME_ROUNDS = 3
+
+#: (spec, n, f) held on the card against the CPU with NaN rows, each with
+#: the kernels it reaches there
+EXTENSION_SPECS = [
+    ("bucketing:s=2,inner=krum", 16, 2),
+    ("bucketing:s=3,inner=krum", 16, 2),
+    ("hier:g=4,inner=median,outer=krum", 32, 2),
+    ("hier:g=8,inner=median,outer=krum", 128, 8),
+    ("tree:g=4x2,rules=median>median>krum,link=bf16", 128, 4),
+    ("tree:g=4x2,rules=median>average-nan>krum", 128, 2),
+    ("hier:g=4,inner=averaged-median,outer=krum", 32, 2),     # K4
+    ("tree:g=4x2,rules=trimmed-mean>average-nan>krum", 128, 1),  # K5 and K6
+]
+
+_CNNET_LEG = ["--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "signflip", "--max-step", "5",
+              "--evaluation-delta", "-1"]
+#: (label, runner arguments, {kernel: launches a step}) at cnnet's width
+EXTENSION_LEGS = [
+    ("cnnet+centered-clip", ["--aggregator", "centered-clip", "--nb-workers", "8", *_CNNET_LEG],
+     {"nanmedian_columns": 1}),
+    ("cnnet+rfa+worker-metrics", ["--aggregator", "rfa", "--nb-workers", "8", "--worker-metrics", *_CNNET_LEG],
+     {"nanmedian_columns": 1}),
+    ("cnnet+dnc", ["--aggregator", "dnc", "--nb-workers", "8", *_CNNET_LEG], {}),
+    ("cnnet+bucketing", ["--aggregator", "bucketing:s=2,inner=krum", "--nb-workers", "16", "--unroll", "5",
+                         *_CNNET_LEG], {"nanmedian_columns": 1, "pairwise_sq_distances_gram": 1}),
+    ("cnnet+hier", ["--aggregator", "hier:g=4,inner=median,outer=krum", "--nb-workers", "32", *_CNNET_LEG],
+     {"coordinate_median": 1, "nanmedian_columns": 1, "pairwise_sq_distances_gram": 1}),
+    ("cnnet+tree", ["--aggregator", "tree:g=4x2,rules=median>median>krum", "--nb-workers", "64", *_CNNET_LEG],
+     {"coordinate_median": 2, "nanmedian_columns": 1, "pairwise_sq_distances_gram": 1}),
+    ("cnnet+centered-clip+UDP", ["--aggregator", "centered-clip", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
+                                 "--UDP", "2", "--max-step", "5", "--evaluation-delta", "-1"],
+     {"nanmedian_columns": 1}),
+    ("cnnet+krum-native", ["--aggregator", "krum-native", "--nb-workers", "8", *_CNNET_LEG],
+     {"pairwise_sq_distances": 1}),
+]
+
+
+def gar_extensions_phase(torch, gars, kernels, runner, card, workdir, gar_ms):
+    """The GAR extensions on the card.
+
+    1. Each new rule and meta-rule spec on the card against the same rule on
+       the CPU with the same key: ``reference_phase``'s poisoned (11, 3001)
+       matrix with a dead row (dnc with a colluding signal, where its
+       selection is decisive), and ``EXTENSION_SPECS`` with NaN rows at
+       d = 3001: the same NaN pattern, the participation's support
+       identical, the aggregates within ``EXTENSION_TOL`` (``ITERATIVE_TOL``
+       for the iterative rules).  A ``*-native`` name's dense aggregate
+       runs on the host, so there the card tier the engine runs for it
+       (K1 and the rule, or a coordinate kernel) is held against the host
+       library, on the poisoned matrix and on clean rows.
+    2. ``EXTENSION_LEGS`` through the runner at cnnet's width, 5 steps:
+       finite losses and exactly the launches a step each spec implies;
+       the bucketing leg twice and resumed (2 + 3 steps), under cuDNN's
+       deterministic algorithms: the same bits at step 5.
+    3. GAR ms a step at cnnet's width (CUDA events; the median of
+       ``GAR_TIME_ROUNDS`` rounds, each read printed) for every new rule and
+       spec, beside ``gar_phase``'s krum and bulyan; krum-native's dense
+       aggregate at n = 8 on the host; the n-sweep (``gars.scaling``) at
+       n = 16, 32, 64, 128, its doc and verdict (reported, not gated).
+    Returns {kernel: launches} of the legs."""
+    import contextlib
+    import io
+
+    from aggregathor_tpu_torch.gars import scaling
+
+    gen = torch.Generator().manual_seed(12)
+
+    def agree(spec, x, f, key=7):
+        gar = gars.instantiate(spec, x.shape[0], f)
+        if spec.endswith("-native"):
+            # the card tier the engine runs for the name (the inherited
+            # _call_aggregate on K1's distances or a coordinate kernel)
+            # against the host library the dense aggregate runs
+            card = x.cuda()
+            dist2 = torch.clamp_min(kernels.pairwise_sq_distances(card), 0.0) if gar.needs_distances else None
+            got, want, parts = gar._call_aggregate(card, dist2).cpu(), gar.aggregate(x), (None, None)
+        else:
+            got, part_card = gar.aggregate_block_and_participation(x.cuda(), None, key=key)
+            want, part_cpu = gar.aggregate_block_and_participation(x, None, key=key)
+            got, parts = got.cpu(), (None if part_card is None else part_card.cpu(), part_cpu)
+            check(torch.equal(gar.aggregate(x.cuda(), key=key).cpu().view(torch.int32), got.view(torch.int32)),
+                  "%s: aggregate and its pair differ" % spec)
+        check(torch.equal(torch.isnan(got), torch.isnan(want)), "%s: NaN pattern differs from the CPU" % spec)
+        finite = torch.isfinite(want)
+        err = float(torch.max(torch.abs(got[finite] - want[finite]))) if bool(finite.any()) else 0.0
+        tol = ITERATIVE_TOL if spec.split(":")[0] in ITERATIVE else EXTENSION_TOL
+        check(bool(torch.allclose(got[finite], want[finite], rtol=tol, atol=tol)),
+              "%s: aggregate differs from the CPU (max %g)" % (spec, err))
+        if parts[1] is not None:
+            check(parts[0] is not None and torch.equal(parts[0] > 0, parts[1] > 0),
+                  "%s: participation's support differs from the CPU" % spec)
+            check(bool(torch.allclose(parts[0], parts[1], rtol=tol, atol=1e-7)),
+                  "%s: participation differs from the CPU" % spec)
+        return err
+
+    n, f, d = 11, 2, 3001
+    x = poison(torch.randn((n, d), generator=gen), columns=False)
+    x[4] = float("nan")
+    clean = torch.randn((n, d), generator=gen)
+    errors = {}
+    for spec in ("centered-clip", "geometric-median", "rfa", "bucketing:s=2,inner=krum"):
+        errors["%s n=%d" % (spec, n)] = agree(spec, x, f)
+    # the poisoned rows leave average, krum and bulyan no finite value to
+    # compare, so the native names are also held on clean rows
+    for spec in ("average-native", "average-nan-native", "median-native", "averaged-median-native", "krum-native",
+                 "bulyan-native"):
+        errors["%s n=%d" % (spec, n)] = max(agree(spec, x, f), agree(spec, clean, f))
+    collude = torch.randn((12, d), generator=gen)
+    collude[:3] += 50.0 * torch.randn((1, d), generator=gen)
+    collude[5, 7] = float("nan")
+    errors["dnc n=12"] = agree("dnc", collude, 3)
+    for spec, n, f in EXTENSION_SPECS:
+        x = torch.randn((n, d), generator=gen) * (1.0 + 0.02 * torch.arange(float(n)))[:, None]
+        x[: f] += 25.0
+        x[n // 2] = float("nan")
+        x[n - 3, 5::97] = float("inf")
+        errors["%s n=%d" % (spec, n)] = agree(spec, x, f)
+    print("extensions: card against CPU, max |err| of the aggregates: %s" % json.dumps(errors, sort_keys=True))
+
+    totals = {name: 0 for name in kernels.KERNELS}
+
+    def leg(label, argv, per_step, extra=()):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        output = io.StringIO()
+        with contextlib.redirect_stdout(output):
+            result = runner.main(["--experiment", "cnnet", "--seed", "1", "--evaluation-period", "-1",
+                                  "--summary-dir", os.path.join(workdir, "extensions", label), *argv, *extra])
+        counts = kernels.launch_counts()
+        steps = result["steps"]
+        check(result["final_loss"] is not None and math.isfinite(result["final_loss"]), "%s: non-finite loss" % label)
+        for name in kernels.KERNELS:
+            want = steps * per_step.get(name, 0)
+            check(counts[name] == want, "%s: %s launched %d times in %d steps (want %d)"
+                  % (label, name, counts[name], steps, want))
+            totals[name] += counts[name]
+        print("leg %-26s %d steps, %.3f steps/s excl. 1st on %s, final loss %.4f, peak %.0f MB, launches %s"
+              % (label, steps, result["steps_per_s"], card, result["final_loss"],
+                 torch.cuda.max_memory_allocated() / 2**20, json.dumps(counts, sort_keys=True)))
+        return result
+
+    for label, argv, per_step in EXTENSION_LEGS:
+        if label != "cnnet+bucketing":
+            leg(label, argv, per_step)
+            continue
+        # the key moves with the step inside a chunk; two runs repeat and a
+        # resumed run ends with the uninterrupted run's bits
+        torch.backends.cudnn.deterministic = True
+
+        def final(name, max_step, extra_args=()):
+            directory = os.path.join(workdir, "bucketing", name)
+            leg("%s %s" % (label, name), argv, per_step, ["--checkpoint-dir", directory, "--checkpoint-period", "-1",
+                                                          "--max-step", str(max_step), *extra_args])
+            return torch.load(os.path.join(directory, "model-%d.ckpt" % max_step), weights_only=True)
+
+        first, again = final("first", 5), final("again", 5)
+        final("split", 2, ("--unroll", "1"))
+        resumed = final("split", 5, ("--unroll", "1"))
+        torch.backends.cudnn.deterministic = False
+        for other, what in ((again, "a second run"), (resumed, "a run resumed at step 2")):
+            for name, value in first["params"].items():
+                check(torch.equal(value.view(torch.int32), other["params"][name].view(torch.int32)),
+                      "cnnet+bucketing: %s differs from the first in %s" % (what, name))
+        print("leg cnnet+bucketing: two runs and a run resumed at step 2 end with the same bits at step 5 "
+              "(deterministic cuDNN)")
+
+    reads = {}
+    gen_card = torch.Generator(device="cuda").manual_seed(13)
+    timed = [("centered-clip", 8, 2), ("rfa", 8, 2), ("dnc", 8, 2), ("bucketing:s=2,inner=krum", 16, 2),
+             ("hier:g=4,inner=median,outer=krum", 32, 2), ("tree:g=4x2,rules=median>median>krum", 64, 2)]
+    timed += [spec for spec in EXTENSION_SPECS if spec[:2] != ("bucketing:s=2,inner=krum", 16)
+              and spec[:2] != ("hier:g=4,inner=median,outer=krum", 32)]
+    with torch.no_grad():
+        # GAR_TIME_ROUNDS rounds over every spec, each a mean of 10 calls:
+        # the median is the spec's time and the spread says how far one
+        # read can be trusted
+        for _ in range(GAR_TIME_ROUNDS):
+            for spec, n, f in timed:
+                x = torch.randn((n, CNNET_D), device="cuda", generator=gen_card)
+                gar = gars.instantiate(spec, n, f)
+                reads.setdefault("%s n=%d" % (spec, n), []).append(time_ms(lambda: gar.aggregate(x, key=0), torch,
+                                                                          iters=10))
+                del x
+        x = torch.randn((8, CNNET_D), device="cuda", generator=gen_card)
+        host = gars.instantiate("krum-native", 8, 2)
+        host.aggregate(x)
+        begin = time.perf_counter()
+        for _ in range(3):
+            host.aggregate(x)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - begin) / 3 * 1e3
+        del x
+    ms = {label: statistics.median(values) for label, values in reads.items()}
+    print("GAR ms per step at d=%d on %s: %s; beside gar_phase's krum n=8 %.4f, bulyan n=11 %.4f, krum n=128 %.4f, "
+          "bulyan n=128 %.4f" % (CNNET_D, card, json.dumps(ms, sort_keys=True), gar_ms["krum n=8"],
+                                 gar_ms["bulyan n=11"], gar_ms["krum n=128"], gar_ms["bulyan n=128"]))
+    print("GAR ms per step, each of the %d rounds: %s" % (GAR_TIME_ROUNDS, json.dumps(reads, sort_keys=True)))
+    print("host: krum-native's dense aggregate at (8, %d), the card's rows copied to the host and back: %.3f ms"
+          % (CNNET_D, host_ms))
+    torch.cuda.empty_cache()
+    doc = scaling.run_sweep((16, 32, 64, 128), CNNET_D, reps=5, device="cuda")
+    scaling.validate_scaling_doc(doc)
+    print("n-sweep at d=%d on %s (schema %s):" % (CNNET_D, card, doc["schema"]))
+    print(scaling.render_table(doc))
+    print("n-sweep doc: %s" % json.dumps(doc, sort_keys=True))
+    torch.cuda.empty_cache()
+    return totals
+
+
 def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), input_source="stream"):
     """Where a krum step's time goes (n = 8, f = 2, r = 2 signflip; cnnet
     unless told otherwise), and how busy the card is.
@@ -1838,6 +2123,8 @@ def main():
         leaf_width_phase(torch, kernels, models)
         options_reference_phase(torch, gars, kernels, models)
         gar_ms = gar_phase(torch, gars, models)
+        for kernel, count in gar_extensions_phase(torch, gars, kernels, runner, card, workdir, gar_ms).items():
+            totals[kernel] += count
         corpus_phase()
         for kernel, count in digits_phase(torch, kernels, runner, card).items():
             totals[kernel] += count

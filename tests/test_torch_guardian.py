@@ -8,8 +8,8 @@ Policy (no runner):
   timeout and ceiling inputs -- gives the same decisions, attempts,
   cooldown horizons and reasons, and byte-identical journals;
 - every rung string of JAX ``tests/test_guardian.py:146-181``, the bad ones
-  included, parses or refuses alike (a rung naming a rule the port does
-  not register refuses with the unknown-rule text), and the rungs applied
+  included, parses or refuses alike (an unknown rule's text names each
+  package's own registry), and the rungs applied
   in turn give the same ``Overrides.describe()``; ``GuardianConfig``
   refuses the same arguments.
 
@@ -139,7 +139,7 @@ def test_watchdog_decisions_and_journal_match_jax(tmp_path, script):
 
 
 #: every rung string of JAX tests/test_guardian.py:146-181 (the last two
-#: ladders name bucketing, which the port does not register yet)
+#: ladders name bucketing)
 LADDERS = ["f+1,gar=median,gar=bulyan,quarantine,lr*0.5", "f+0", "f+x", "gar=definitely-not-a-gar",
            "gar=median/no-colon-arg", "lr*0", "lr*1.5", "quarantine=2/0.5", "banana", "",
            "gar=median/inner:x,quarantine=0.8/0.4,lr*0.25", "f+2,gar=krum/m:3,quarantine,lr*1",
@@ -161,18 +161,12 @@ def test_ladders_parse_and_apply_like_jax(spec):
             return len(ladder), ladder.describe(), described
 
         outcomes[label] = _outcome(parse_and_apply)
-    if "bucketing" in spec:
-        # the same refusal as an unknown rule, naming the port's registry
-        rung = next(part for part in spec.split(",") if "bucketing" in part)
-        assert outcomes["port"] == ("raised", "Ladder rung %r: unknown GAR 'bucketing' (registered: %s)"
-                                    % (rung, ", ".join(sorted(tgars.itemize()))))
-        assert outcomes["jax"][0] == "ok"
-    else:
-        # an unknown rule's text lists the registry of its own package
-        registered = " (registered: %s)" % ", ".join(sorted(tgars.itemize()))
-        assert outcomes["port"] == tuple(part.replace(JAX_REGISTERED, registered) if isinstance(part, str) else part
-                                         for part in outcomes["jax"])
-    assert outcomes["port"][0] == ("ok" if spec.startswith(("f+1,", "gar=median/inner", "f+2")) else "raised")
+    # an unknown rule's text lists the registry of its own package
+    registered = " (registered: %s)" % ", ".join(sorted(tgars.itemize()))
+    assert outcomes["port"] == tuple(part.replace(JAX_REGISTERED, registered) if isinstance(part, str) else part
+                                     for part in outcomes["jax"])
+    assert outcomes["port"][0] == ("ok" if spec.startswith(("f+1,", "gar=median/inner", "f+2", "gar=bucketing"))
+                                   else "raised")
 
 
 def test_default_ladder_cumulative_overrides_match_jax():
