@@ -1,4 +1,4 @@
-"""Training runner: robust SGD of one experiment on one device.
+"""Training runner: robust SGD of one experiment on one device or a worker axis.
 
 Counterpart of ``aggregathor_tpu/cli/runner.py`` for the main path, with
 the same flags and defaults: experiment / aggregator selection with
@@ -16,8 +16,9 @@ recorder (``--flight``, ``--flight-dump``), the metrics plane
 ``--trace-dir``, ``--live-port``, ``--live-host``, ``--live-ready-file``,
 ``--run-id``), ``--input-slices``, the guardian (``--guardian``,
 ``--guardian-args``), the run journal (``--journal``, ``--cause``,
-``--journal-max-bytes``), the reference's drop-in compatibility flags and
-``--device``.  It runs on CUDA unless ``--device cpu`` is given; with no
+``--journal-max-bytes``), the forensics ledger (``--forensics``), the
+profiler window (``--xprof``), the worker axis (``--nb-devices``), the
+reference's drop-in compatibility flags and ``--device``.  It runs on CUDA unless ``--device cpu`` is given; with no
 GPU and no ``--device cpu`` it fails instead of falling back.
 
 A summary event carries, beside the four scalars, the worker diagnostics
@@ -97,6 +98,36 @@ and summary fires, the metrics file, the span trace and the journal's
 come back when ``main`` returns or raises.  Outside the main thread no
 handler is installed.
 
+The worker axis (``--nb-devices W``, JAX ``runner.py:775-792``): the n
+workers lie over W ranks, one process a device (``parallel/mesh.py``), k =
+n/W workers a rank.  The default is JAX's: the largest divisor of n that is
+at most the number of cards on CUDA; on ``--device cpu`` it is 1 (the port
+has one CPU device where JAX's test platform has eight: the one deliberate
+difference).  At W > 1 the calling process becomes rank 0, the lead: it
+spawns W - 1 ranks (start method ``spawn``) that run the same arguments,
+rendezvouses with them on 127.0.0.1 at a free port, and joins them at exit;
+a rank that fails fails the run.  With ``RANK``, ``WORLD_SIZE`` and
+``MASTER_ADDR`` in the environment (``cli/deploy``) it joins that group
+instead.  Every rank reads the same global batch stream and keeps its k
+workers' slice.  The lead alone writes the evaluation TSV, the checkpoints,
+the summaries, ``--metrics-file``, ``--trace-file``, the journal, the flight
+dump and the forensics report.  JAX has one controller, the port W: every
+host decision that starts a collective or changes the step is the lead's
+and reaches every rank at the same step, in one small ``all_reduce_sum``
+after each call (the wall-clock cadences, the guardian's rollback, a
+SIGTERM/SIGINT on any rank): no rank reads its own clock.  The lead
+restores a snapshot (at start or in a rollback) and broadcasts the state.
+
+``--forensics JSON`` (implies ``--worker-metrics``) keeps the lead's
+``obs/forensics.ForensicsLedger``, fed one call behind (one row a step,
+under ``--unroll`` one a scanned step), told of the guardian's rollbacks,
+escalations and recoveries, the flight dumps and the journal's counts, and
+saved with its ``.md`` at exit (the stop handlers' path included).
+``--xprof A:B`` records one ``torch.profiler`` window over steps [A, B)
+with each dispatch inside it annotated ``train step <s>``
+(``obs/profiler.py``); the ``compile_*`` and ``device_memory_*`` families
+are on the registry.
+
 At the end it prints the performance report (in-graph and off-graph time,
 step latency percentiles, steps/s with and without the first step), the
 final evaluation and each kernel's launch count.  Seeds follow the JAX
@@ -110,6 +141,7 @@ Example::
 """
 
 import argparse
+import contextlib
 import os
 import signal
 import sys
@@ -222,6 +254,19 @@ def build_parser():
     )
     parser.add_argument("--trace", action="store_true",
                         help="record a torch.profiler trace (CPU and CUDA) of a few steps into --trace-dir")
+    parser.add_argument(
+        "--xprof", default=None, metavar="A:B",
+        help="programmatic torch.profiler capture (CPU and CUDA) over steps [A, B) into --trace-dir "
+             "(obs/profiler.py): dispatches inside the window run under a 'train step <s>' record_function so "
+             "the host span trace joins the card's timeline per step; under --unroll the window lands on chunk "
+             "boundaries (mutually exclusive with --trace)",
+    )
+    parser.add_argument(
+        "--forensics", default=None, metavar="JSON",
+        help="write a Byzantine forensics attribution report here at exit (schema "
+             "aggregathor.obs.forensics.v1, plus a .md rendering): a per-worker suspicion timeline built from "
+             "the engine's per-step diagnostics and the guardian's verdicts; implies --worker-metrics",
+    )
     parser.add_argument("--trace-dir", default="trace", help="profiler trace output directory")
     parser.add_argument(
         "--trace-file", default=None, metavar="PATH",
@@ -280,6 +325,9 @@ def build_parser():
              "(schema aggregathor.obs.events.v2) with run_id, step, wall and monotonic time; host-side only",
     )
     add_causal_flags(parser)
+    parser.add_argument("--nb-devices", type=int, default=None,
+                        help="devices on the worker axis (ranks, one process a device; default: the largest divisor "
+                             "of --nb-workers at most the number of cards, 1 on --device cpu)")
     parser.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
         help="where to train (default cuda; without a GPU, cuda fails instead of falling back)",
@@ -372,7 +420,7 @@ def wait_for_cuda(timeout):
         raise errors[0]
 
 
-def main(argv=None):
+def main(argv=None, rank=None):
     """Run the training; returns a summary dict: the steps run in this call,
     the step restored from (``restored_step``), steps/s excluding the first
     step (over the training loop), the final loss and evaluation, kernel
@@ -385,7 +433,11 @@ def main(argv=None):
     ``to_step``, ``attempt``, ``restored_snapshot``), ``escalations`` (the
     rung specs applied), ``recovered`` (the steps at which recovery was
     declared) and ``steps_by_overrides`` (steps dispatched under each
-    ``Overrides.describe()``, abandoned calls included)."""
+    ``Overrides.describe()``, abandoned calls included), the worker axis's
+    size (``nb_devices``), this process's ``rank`` and the ``--xprof``
+    trace written (``xprof_trace``, or None).  ``rank`` is ``(rank, size,
+    init_method)`` in a rank the lead spawned."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     from ..utils import warning
 
@@ -408,15 +460,92 @@ def main(argv=None):
         # keeps its signal handling
         previous_handlers = {}
     try:
-        return _run(args, stop)
+        return _run(args, stop, argv, rank)
     finally:
         for signum, handler in previous_handlers.items():
             signal.signal(signum, handler)
 
 
-def _run(args, stop):
-    """``main``'s body; ``stop["requested"]`` ends the loop at the next step
-    boundary."""
+def _spawned_rank(argv, rank, size, init_method):
+    """A rank the lead spawned: ``main`` on the lead's arguments as rank
+    ``rank`` of ``size`` (an exception exits the process non-zero)."""
+    main(argv, rank=(rank, size, init_method))
+
+
+def default_nb_devices(n, device):
+    """JAX's default (``runner.py:786-788``): the largest divisor of n at
+    most the number of cards; 1 on the CPU, the port's one CPU device."""
+    import torch
+
+    if device.type != "cuda":
+        return 1
+    return max(d for d in range(1, torch.cuda.device_count() + 1) if n % d == 0)
+
+
+def _run(args, stop, argv, rank):
+    """Resolve the device, join (or, as the lead, spawn and join) the
+    worker axis, train (``_train``), then leave the group and, as the lead,
+    join the ranks it spawned: a rank that failed fails the run."""
+    import multiprocessing
+
+    import torch
+
+    from ..parallel import mesh
+    from ..utils import UserException, replicate_streams, resolve_device
+
+    plan = rank if rank is not None else mesh.environment_rank()
+    if plan is None or plan[0] == 0:
+        replicate_streams(args.stdout_to, args.stderr_to)
+    resolve_device_flags(args)
+    if args.device == "cuda" and args.backend_timeout and args.backend_timeout > 0 and torch.cuda.is_available():
+        wait_for_cuda(args.backend_timeout)
+    device = resolve_device(args.device)
+    n = args.nb_workers
+    if plan is not None and args.nb_devices is not None and args.nb_devices != plan[1]:
+        raise UserException("--nb-devices %d contradicts the group's world size %d" % (args.nb_devices, plan[1]))
+    if plan is None:
+        size = args.nb_devices if args.nb_devices is not None else default_nb_devices(n, device)
+        if size < 1 or n < 1 or n % size:
+            raise UserException("--nb-devices %d must divide --nb-workers %d (k = n/W workers a device)" % (size, n))
+        plan = (0, size, None)
+    rank_index, size, init_method = plan
+    children = []
+    if size > 1 and init_method is None:
+        # the lead: W - 1 ranks on the same arguments, spawned before the
+        # rendezvous (which waits for every rank)
+        mesh.choose_backend(device, size)  # W cards for W ranks, before anything starts
+        init_method = "tcp://127.0.0.1:%d" % mesh.free_port()
+        context = multiprocessing.get_context("spawn")
+        children = [context.Process(target=_spawned_rank, args=(argv, r, size, init_method), daemon=True,
+                                    name="rank-%d" % r) for r in range(1, size)]
+        for child in children:
+            child.start()
+    # a collective whose peer died raises (gloo) or times out (NCCL, after
+    # mesh.DEFAULT_TIMEOUT): the lead never returns past a dead rank
+    axis_device = torch.device(device.type) if size > 1 else device
+    try:
+        axis = mesh.join(n, size, rank_index, init_method, device=axis_device)
+        try:
+            result = _train(args, stop, axis)
+        finally:
+            axis.close()
+    finally:
+        aborting = sys.exc_info()[0] is not None
+        for child in children:
+            child.join(timeout=5.0 if aborting else 120.0)
+            if child.is_alive():
+                child.terminate()
+                child.join()
+    dead = [child for child in children if child.exitcode != 0]
+    if dead:
+        raise UserException("rank %s of the worker axis failed (exit code %s): the run failed"
+                            % (dead[0].name.split("-")[-1], dead[0].exitcode))
+    return result
+
+
+def _train(args, stop, axis):
+    """The training loop on ``axis``; ``stop["requested"]`` ends the loop at
+    the next step boundary (at W > 1 the ranks agree on it)."""
     import torch
 
     from .. import config, gars, models
@@ -434,10 +563,12 @@ def _run(args, stop):
     from ..parallel import RobustEngine, attacks, compress
     from ..parallel.engine import fold_in_seed, index_metrics, stack_metrics
     from ..parallel.lossy import LossyLink
-    from ..utils import Context, UserException, info, replicate_streams, resolve_device, warning
+    from ..obs import profiler as obs_profiler
+    from ..obs.forensics import ForensicsLedger
+    from ..core.train_state import broadcast_state
+    from ..utils import Context, UserException, info, warning
     from . import parse_cause_flag
 
-    replicate_streams(args.stdout_to, args.stderr_to)
     ignored = [flag for flag, value in (
         ("--client", args.client), ("--server", args.server),
         ("--ps-job-name", args.ps_job_name), ("--ev-job-name", args.ev_job_name),
@@ -446,10 +577,13 @@ def _run(args, stop):
     if ignored:
         warning("Compat no-op flags ignored (cluster topology and transport dissolved under single-controller "
                 "SPMD, see docs/transport.md): %s" % " ".join(ignored))
-    resolve_device_flags(args)
-    if args.device == "cuda" and args.backend_timeout and args.backend_timeout > 0 and torch.cuda.is_available():
-        wait_for_cuda(args.backend_timeout)
-    device = resolve_device(args.device)
+    device, lead, W = axis.device, axis.lead, axis.size
+    if args.xprof and args.trace:
+        raise UserException("--xprof and --trace both drive the torch.profiler; pick one")
+    if args.forensics and not args.worker_metrics:
+        # the ledger's distance evidence rides worker_sq_dist
+        info("--forensics implies --worker-metrics: enabling the per-worker suspicion diagnostics")
+        args.worker_metrics = True
     # The JAX package computes in float32.  On CUDA, cuDNN convolutions run in
     # TF32 unless told otherwise (about three decimal digits), and matmuls may
     # be allowed to: pin both to full float32 so the port computes what the
@@ -542,7 +676,7 @@ def _run(args, stop):
                 worker_metrics=args.worker_metrics, reputation_decay=ov.reputation_decay,
                 quarantine_threshold=ov.quarantine_threshold, granularity=args.granularity,
                 leaf_bucketing={"auto": "auto", "on": True, "off": False}[args.leaf_bucketing],
-                trace_ops=args.trace_ops, flight=flight_rec, device=device)
+                trace_ops=args.trace_ops, flight=flight_rec, device=device, axis=axis)
             stack.step_fn = stack.engine.build_step(experiment.loss, stack.tx)
             if args.input_source == "device":
                 stack.multi_fn = stack.engine.build_sampled_multi_step(experiment.loss, stack.tx, unroll,
@@ -564,9 +698,10 @@ def _run(args, stop):
         # uploads it again with every rebuilt stack, :1354-1358; the ladder
         # never changes the data)
         device_dataset = ts.engine.replicate(experiment.train_arrays()) if args.input_source == "device" else None
-        info("Training %s on %s: %d workers, f=%d, r=%d, aggregator %s, d=%d"
+        info("Training %s on %s: %d workers, f=%d, r=%d, aggregator %s, d=%d%s"
              % (args.experiment, torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-                n, f, r, args.aggregator, model_dim))
+                n, f, r, args.aggregator, model_dim,
+                ", rank %d of %d (%d workers a rank)" % (axis.rank, W, axis.workers_per_device) if W > 1 else ""))
 
     def pick(value, default):
         return default if value is None else value
@@ -580,12 +715,17 @@ def _run(args, stop):
                                      pick(args.summary_period, config.default_summary_period))
     # serialisation and the disk write run on a writer thread; the CPU copy
     # is taken in save(), before the next step updates the parameters
+    # the lead alone writes (and restores) snapshots, evaluation rows and
+    # summaries (JAX keeps them lead-only)
     checkpoints = Checkpoints(
         args.checkpoint_dir, pick(args.checkpoint_base_name, config.default_checkpoint_base_name),
         args.checkpoint_keep, background=True,
-    ) if args.checkpoint_dir else None
-    eval_file = EvalFile(args.evaluation_file)
-    summaries = SummaryWriter(args.summary_dir, run_id=run_id)
+    ) if args.checkpoint_dir and lead else None
+    eval_file = EvalFile(args.evaluation_file if lead else None)
+    summaries = SummaryWriter(args.summary_dir if lead else None, run_id=run_id)
+    # Byzantine forensics ledger (obs/forensics.py): fed one call behind,
+    # written at exit; lead-only, the diagnostics being the same on every rank
+    ledger = ForensicsLedger(n, run_id=run_id) if args.forensics and lead else None
 
     # Training gauges and counters on the process-wide registry, as the JAX
     # runner registers them: the summary's values, updated at every fire
@@ -612,6 +752,14 @@ def _run(args, stop):
     c_flight_fetches = registry.counter("flight_fetches_total", "Flight-recorder ring fetches")
     g_flight_rows = registry.gauge("flight_window_steps", "Rows in the last fetched flight window")
     g_flight_last = registry.gauge("flight_last_step", "Completed step of the newest fetched flight row")
+    # the build-cache and memory families (obs/profiler.py); --xprof's
+    # window, lead-only like --trace-file
+    compile_watch = obs_profiler.CompileWatch(registry, summaries=summaries, step_provider=lambda: step)
+    obs_profiler.install_compile_listener(registry)
+    if obs_profiler.install_memory_gauges(registry, device):
+        info("Device memory gauges live on %s" % device)
+    xprof = obs_profiler.ProfilerWindow(args.xprof, args.trace_dir, registry=registry, device=device,
+                                        run_id=run_id) if args.xprof and lead else None
     live_state = {"step": 0, "flight": None}
     probe = {"calls": 0}
     timeline = {"rollbacks": [], "escalations": [], "recovered": [], "steps_by_overrides": {}}
@@ -708,8 +856,19 @@ def _run(args, stop):
             summaries.scalars(step, summary_scalars(step, metrics))
         dump_metrics_file()
 
+    def agree(values, lead_only):
+        """One small ``all_reduce_sum`` that makes a host decision the same
+        on every rank: entry i is the lead's value where ``lead_only[i]``
+        (the other ranks send 0), else the sum over the ranks (a signal on
+        any rank counts).  The values themselves at W = 1."""
+        values = [int(value) for value in values]
+        if W == 1:
+            return values
+        mine = [value if lead or not only else 0 for value, only in zip(values, lead_only)]
+        return [int(v) for v in axis.all_reduce_sum(torch.tensor(mine, dtype=torch.int64, device=device)).tolist()]
+
     def dump_metrics_file():
-        if not args.metrics_file:
+        if not args.metrics_file or not lead:
             return
         tmp = args.metrics_file + ".tmp"
         with open(tmp, "w") as fd:
@@ -731,7 +890,7 @@ def _run(args, stop):
             return None
         summary = obs_flight.summarize_window(window)
         path = None
-        if args.flight_dump:
+        if args.flight_dump and lead:
             path = args.flight_dump
             if reason == "guardian_rollback":
                 root, ext = os.path.splitext(path)
@@ -739,6 +898,8 @@ def _run(args, stop):
             obs_flight.dump_window(path, window, run_id=run_id, reason=reason, capacity=flight_rec.capacity,
                                    extra={"at_step": int(at_step)})
             info("Flight post-mortem (%s) -> %r (%d row(s))" % (reason, path, summary.get("rows", 0)))
+        if ledger is not None:
+            ledger.attach_flight(at_step, reason, path=path, window_summary=summary)
         obs_events.emit("flight_postmortem", step=at_step, reason=reason, path=path, rows=summary.get("rows", 0))
         return path
 
@@ -808,8 +969,13 @@ def _run(args, stop):
             raise UserException("guardian: run failed — %s after %d recovery attempt(s) (ladder %s)"
                                 % (reason, watchdog.attempts, guardian.ladder.describe()))
         with trace.span("guardian.rollback", cat="guardian", from_step=int(at_step)):
-            checkpoints.wait()  # the writer's queue flushed before reading the targets
-            target = checkpoints.pinned_step()
+            target = None
+            if checkpoints is not None:
+                checkpoints.wait()  # the writer's queue flushed before reading the targets
+                target = checkpoints.pinned_step()
+            # the lead's snapshot is every rank's target
+            target = agree([-1 if target is None else target], (True,))[0]
+            target = None if target < 0 else target
             rstep = target if target is not None else 0
             attempt = watchdog.note_rollback(rstep)
             warning("guardian: %s — rolling back from step %d to %s (attempt %d/%d)"
@@ -823,6 +989,14 @@ def _run(args, stop):
             # the ring still holds the diverged timeline's rows: dumped
             # before the state is dropped
             flight_postmortem("guardian_rollback", at_step)
+            if ledger is not None:
+                # the replay window re-observes the truncated steps; the
+                # rollback note (at the restore step, so it survives the
+                # truncation) keeps why
+                ledger.truncate_after(rstep)
+                forensics_fed["start"] = None
+                ledger.note_guardian(rstep, "rollback", {"reason": reason, "from_step": int(at_step),
+                                                         "attempt": attempt})
             state = pending_loss = pending_metrics = None  # the old state's memory goes with it
             rung = guardian.ladder.rung(attempt)
             if rung is not None:
@@ -837,6 +1011,9 @@ def _run(args, stop):
                     timeline["escalations"].append(rung.describe())
                     c_escalations.inc()
                     note_escalation(rstep, rung, overrides)
+                    if ledger is not None:
+                        ledger.note_guardian(rstep, "escalation", {"rung": rung.describe(),
+                                                                   "overrides": overrides.describe()})
                 except UserException as exc:
                     warning("guardian: escalation rung %r rejected (%s); retrying with the current configuration"
                             % (rung.describe(), exc))
@@ -844,27 +1021,60 @@ def _run(args, stop):
                 # restored into a fresh state, whose side buffers (momentum,
                 # reputation, loss EMA, flight ring, carry) start over (JAX
                 # :2266-2276); the port's streams derive from (seed, step,
-                # worker, tag), so the perturbation replaces the seed (trap c)
-                state, rstep = checkpoints.restore(make_fresh_state(args.seed), step=target)
-                state.seed = fold_in_seed(state.seed, RNG_PERTURB_TAG + attempt)
+                # worker, tag), so the perturbation replaces the seed (trap
+                # c); the lead restores, every rank receives its state
+                state = make_fresh_state(args.seed)
+                if checkpoints is not None:
+                    state, rstep = checkpoints.restore(state, step=target)
+                    state.seed = fold_in_seed(state.seed, RNG_PERTURB_TAG + attempt)
+                broadcast_state(state, axis)
             else:
                 state = make_fresh_state(args.seed + RESEED_STRIDE * (attempt + 1))
             step = rstep
             live_state["step"] = step
             # the abandoned timeline: its snapshots and eval rows would poison
             # a later auto-restore or interleave with the retry's rows
-            checkpoints.discard_after(rstep)
+            if checkpoints is not None:
+                checkpoints.discard_after(rstep)
             eval_file.truncate_after(rstep)
             for trigger in (eval_trigger, ckpt_trigger, summary_trigger):
                 if trigger.last_step is not None and trigger.last_step > rstep:
                     trigger.last_step = rstep
             reset_input(rstep, reseed=attempt + 1)
 
+    # the forensics feed: one ledger observation a completed step, from the
+    # previous call (JAX :2105-2165); ``forensics_fed`` keeps the same call
+    # from being fed twice
+    forensics_fed = {"start": None}
+
+    def feed_pending_forensics():
+        if ledger is None or pending_metrics is None or forensics_fed["start"] == pending_start:
+            return
+        forensics_fed["start"] = pending_start
+        with trace.span("forensics.feed", cat="obs"):
+            def rows(name, tree=None):
+                # (K, n): one row a step of the call
+                value = (pending_metrics if tree is None else tree).get(name)
+                return None if value is None else np.atleast_2d(value.detach().cpu().numpy())
+
+            probe_tree = pending_metrics.get(health.PROBE_KEY)
+            dist, rep = rows("worker_sq_dist"), rows("worker_reputation")
+            nan_rows = rows("worker_nan_rows", probe_tree) if probe_tree is not None else None
+            present = [v for v in (dist, rep, nan_rows) if v is not None]
+            for i in range(max(v.shape[0] for v in present) if present else 0):
+                ledger.observe(pending_start + i + 1,
+                               worker_sq_dist=None if dist is None else dist[i],
+                               worker_nan=None if nan_rows is None else nan_rows[i],
+                               reputation=None if rep is None else rep[i])
+
     def observe_pending():
-        """Feed the watchdog the previous call's probe, one observation a
-        completed step (JAX :2293-2350).  Returns True when a rollback
-        happened: the caller drops the call it has in flight."""
+        """Feed the forensics ledger and the watchdog the previous call's
+        diagnostics, one observation a completed step (JAX :2293-2350).  The
+        lead's watchdog decides; at W > 1 its verdict reaches every rank.
+        Returns True when a rollback happened: the caller drops the call it
+        has in flight."""
         nonlocal pending_loss, pending_metrics
+        feed_pending_forensics()
         if watchdog is None or pending_metrics is None:
             return False
         with trace.span("block.probe_fetch", cat="guardian"):
@@ -872,21 +1082,28 @@ def _run(args, stop):
             losses = np.atleast_1d(pending_loss.detach().cpu().numpy())
         start = pending_start
         pending_loss = pending_metrics = None
-        if view is None:  # an engine built without the probe
-            return False
-        finite = np.atleast_1d(view["loss_finite"]).astype(bool)
-        spikes = np.atleast_1d(view["spike"]).astype(np.float64)
-        for i in range(losses.shape[0]):
-            action = watchdog.observe(start + i + 1, float(losses[i]), bool(finite[i]), float(spikes[i]))
-            if action == "recovered":
-                info("guardian: recovered — %d healthy step(s) since the last rollback" % guardian.recover_after)
-                summaries.event(start + i + 1, "guardian_recovered", {
-                    "attempt": watchdog.attempts - 1, "overrides": overrides.describe()})
-                timeline["recovered"].append(start + i + 1)
-                c_recoveries.inc()
-            elif action == "rollback":
-                do_rollback(start + i + 1)
-                return True
+        rollback_at = 0
+        if view is not None and lead:  # None: an engine built without the probe
+            finite = np.atleast_1d(view["loss_finite"]).astype(bool)
+            spikes = np.atleast_1d(view["spike"]).astype(np.float64)
+            for i in range(losses.shape[0]):
+                action = watchdog.observe(start + i + 1, float(losses[i]), bool(finite[i]), float(spikes[i]))
+                if action == "recovered":
+                    info("guardian: recovered — %d healthy step(s) since the last rollback" % guardian.recover_after)
+                    summaries.event(start + i + 1, "guardian_recovered", {
+                        "attempt": watchdog.attempts - 1, "overrides": overrides.describe()})
+                    timeline["recovered"].append(start + i + 1)
+                    c_recoveries.inc()
+                    if ledger is not None:
+                        ledger.note_guardian(start + i + 1, "recovered", {"attempt": watchdog.attempts - 1})
+                elif action == "rollback":
+                    rollback_at = start + i + 1
+                    break
+        if view is not None:
+            rollback_at = agree([rollback_at], (True,))[0]
+        if rollback_at:
+            do_rollback(rollback_at)
+            return True
         return False
 
     # --trace: torch.profiler over three steps, one step a call, from the
@@ -906,6 +1123,8 @@ def _run(args, stop):
         prof, profiler["prof"], profiler["done"] = profiler["prof"], None, True
         synchronize()
         prof.stop()
+        if not lead:
+            return  # every rank keeps the window's one-step calls; the lead writes the trace
         os.makedirs(args.trace_dir, exist_ok=True)
         path = os.path.join(args.trace_dir, "%s.pt.trace.json" % run_id)
         prof.export_chrome_trace(path)
@@ -928,6 +1147,12 @@ def _run(args, stop):
             gap["span"].stop()
             gap["span"] = None
 
+    # at W > 1 the ranks stop together, at the agreed signal of any of them
+    agreed = {"stop": False}
+
+    def stopping():
+        return stop["requested"] if W == 1 else agreed["stop"]
+
     launches_before = kernels.launch_counts()
     metrics, evaluation, perf, report, prefetcher, live, train_iter = {}, None, None, None, None, None, None
     feeders = []
@@ -935,10 +1160,10 @@ def _run(args, stop):
     # the divergence check and the watchdog read the previous call's losses
     # and probe (one call late): the call's metrics and its first step
     pending_loss, pending_metrics, pending_start = None, None, 0
-    if args.trace_file:
+    if args.trace_file and lead:
         trace.install(args.trace_file, run_id=run_id)
         info("Span tracing to %r (run_id %s)" % (args.trace_file, run_id))
-    if args.journal:
+    if args.journal and lead:
         # before the first step, so every decision lands in one timeline
         # (JAX :818-828, which installs it before its graph phase)
         obs_events.install(args.journal, run_id=run_id, max_bytes=args.journal_max_bytes)
@@ -949,9 +1174,11 @@ def _run(args, stop):
         # Auto-restore the latest snapshot, then realign the batch streams:
         # the per-step attack and lossy streams derive from (seed, step,
         # worker, tag), so the restored step is all they need
+        restored = 0
         if checkpoints is not None and checkpoints.can_restore():
             with Context("restore"):
                 state, offstep = checkpoints.restore(state)
+            restored = 1
             dropped = eval_file.truncate_after(offstep)
             if dropped:
                 info("Trimmed %d stale eval row(s) beyond restored step %d" % (dropped, offstep))
@@ -959,11 +1186,15 @@ def _run(args, stop):
                 # the snapshot this run resumed from is the guardian's first
                 # last-known-good (JAX :1604-1609)
                 checkpoints.pin(offstep)
+        # the lead restores; every rank starts from its state
+        restored, offstep = agree([restored, offstep], (True, True))
+        if restored:
+            broadcast_state(state, axis)
         reset_input(offstep)
         step, loop_steps_per_s = offstep, 0.0
         live_state["step"] = step
         perf = PerfReport(registry=registry)
-        if args.live_port is not None:
+        if args.live_port is not None and lead:
             def live_status():
                 return {"step": live_state["step"], "max_step": max_step,
                         "steps_per_s": perf.steps_per_s_excl_first(), "overrides": overrides.describe(),
@@ -982,15 +1213,18 @@ def _run(args, stop):
                 os.replace(tmp, args.live_ready_file)
         with Context("train"):
             while True:
-                if step >= max_step or stop["requested"]:
+                if step >= max_step or stopping():
                     # the lagged observation first: a rollback here re-enters
                     # training from the restored step (JAX :2357-2363)
-                    if observe_pending() and step < max_step and not stop["requested"]:
+                    if observe_pending() and step < max_step and not stopping():
                         continue
                     check_divergence()
                     break
                 if not profiler["done"] and profiler["prof"] is None and step >= offstep + 2:
                     profiler_start()
+                if xprof is not None:
+                    # under --unroll the window's edges land on chunk boundaries
+                    xprof.maybe_start(step)
                 one_at_a_time = profiler["prof"] is not None
                 if ts.multi_fn is not None and max_step - step >= unroll and not one_at_a_time:
                     with trace.span("input", cat="train"):
@@ -1002,7 +1236,8 @@ def _run(args, stop):
                             chunk_input = ts.engine.put_batches(train_iter.next_many(unroll))
                     gap_close()
                     perf.step_begin()
-                    state, many = ts.multi_fn(state, chunk_input)
+                    with xprof.annotate(step) if xprof is not None else contextlib.nullcontext():
+                        state, many = ts.multi_fn(state, chunk_input)
                     chunk = unroll
                 elif device_dataset is not None:
                     # the final (max_step - start) % unroll steps, sampled too
@@ -1011,7 +1246,8 @@ def _run(args, stop):
                     tail = ts.engine.build_sampled_multi_step(experiment.loss, ts.tx, chunk, experiment.batch_size)
                     gap_close()
                     perf.step_begin()
-                    state, many = tail(state, device_dataset)
+                    with xprof.annotate(step) if xprof is not None else contextlib.nullcontext():
+                        state, many = tail(state, device_dataset)
                 else:
                     if ts.multi_fn is not None and prefetcher is not None:
                         prefetcher.close()  # the chunk producer is done: the tail reads train_iter
@@ -1020,7 +1256,8 @@ def _run(args, stop):
                         batch = next(prefetcher) if prefetcher is not None else ts.engine.put_batch(next(train_iter))
                     gap_close()
                     perf.step_begin()
-                    state, step_metrics = ts.step_fn(state, batch)
+                    with xprof.annotate(step) if xprof is not None else contextlib.nullcontext():
+                        state, step_metrics = ts.step_fn(state, batch)
                     many = stack_metrics([step_metrics])
                     chunk = 1
                 described = overrides.describe()
@@ -1037,28 +1274,40 @@ def _run(args, stop):
                 c_wire_bytes.inc(chunk * wire_step_bytes)
                 live_state["step"] = step
                 metrics = index_metrics(many, -1)
+                if xprof is not None:
+                    xprof.maybe_stop(step)
                 if profiler["prof"] is not None and step >= profiler["start"] + 3:
                     profiler_stop()
-                if eval_trigger.should_fire(step):
+                # the cadences are the lead's clock's, and a signal on any
+                # rank stops every rank after this call
+                halted, eval_fire, ckpt_fire, summary_fire = agree(
+                    [stop["requested"], eval_trigger.should_fire(step),
+                     checkpoints is not None and ckpt_trigger.should_fire(step), summary_trigger.should_fire(step)],
+                    (False, True, True, True))
+                agreed["stop"] = agreed["stop"] or halted > 0
+                if eval_fire:
                     check_divergence()
                     evaluation = run_eval(step)
                     eval_trigger.fired(step)
-                if checkpoints is not None and ckpt_trigger.should_fire(step):
+                if ckpt_fire:
                     check_divergence()
-                    checkpoints.wait()  # surface a previous write's failure
-                    checkpoints.save(state, step)
-                    if watchdog is not None and watchdog.healthy and probe_clean(many):
-                        # last-known-good: spared by pruning, the rollback
-                        # target; every step of the call must read clean
-                        # (JAX :2493-2501)
-                        checkpoints.pin(step)
+                    if checkpoints is not None:
+                        checkpoints.wait()  # surface a previous write's failure
+                        checkpoints.save(state, step)
+                        if watchdog is not None and watchdog.healthy and probe_clean(many):
+                            # last-known-good: spared by pruning, the rollback
+                            # target; every step of the call must read clean
+                            # (JAX :2493-2501)
+                            checkpoints.pin(step)
                     ckpt_trigger.fired(step)
-                if summary_trigger.should_fire(step):
+                if summary_fire:
                     check_divergence()
                     fire_summary(step, metrics)
                     summary_trigger.fired(step)
             synchronize()
             loop_steps_per_s = perf.steps_per_s_excl_first()
+            if W > 1:
+                info("Rank %d of %d stopped at step %d" % (axis.rank, W, step))
             if profiler["prof"] is not None:
                 profiler_stop()  # a run shorter than the window
             # the final fire of each cadence, unless it fired at this step
@@ -1090,14 +1339,39 @@ def _run(args, stop):
             flush("flight-postmortem", lambda: flight_postmortem("divergence" if diverged else "crash", step))
         if profiler["prof"] is not None:
             flush("profiler", profiler_stop)
+        if xprof is not None:
+            flush("xprof", lambda: xprof.close(step))
+        compile_watch.close()
         if prefetcher is not None:
             prefetcher.close()
         eval_file.close()
         summaries.close()
+        # the lagged feed drained before the report is written: the last
+        # call's evidence sits one call behind by design
+        flush("forensics-drain", feed_pending_forensics)
         if args.journal and obs_events.installed() is not None:
-            # run_end closes the causal timeline (JAX :2596-2613)
-            flush("journal-end", lambda: obs_events.emit("run_end", step=step, diverged=diverged,
-                                                         aborting=aborting, forensics=None))
+            # run_end closes the causal timeline before the forensics report
+            # is written, so its journal section counts every event (JAX
+            # :2596-2613)
+            def journal_run_end():
+                journal = obs_events.installed()
+                obs_events.emit("run_end", step=step, diverged=diverged, aborting=aborting,
+                                forensics=args.forensics if ledger is not None else None)
+                if ledger is not None:
+                    ledger.note_journal(journal.path, journal.counts_by_type())
+
+            flush("journal-end", journal_run_end)
+        if ledger is not None:
+            def save_forensics():
+                md_path = (args.forensics[:-5] + ".md" if args.forensics.endswith(".json")
+                           else args.forensics + ".md")
+                report = ledger.save(args.forensics, markdown_path=md_path)
+                suspects = report["suspects"]
+                info("Forensics report -> %r (%s)" % (
+                    args.forensics, "Byzantine worker(s): %s" % ", ".join(map(str, suspects))
+                    if suspects else "no worker attributed Byzantine"))
+
+            flush("forensics-report", save_forensics)
         flush("metrics-file", dump_metrics_file)
         if args.trace_file:
             def save_span_trace():
@@ -1150,6 +1424,9 @@ def _run(args, stop):
         "escalations": timeline["escalations"],
         "recovered": timeline["recovered"],
         "steps_by_overrides": timeline["steps_by_overrides"],
+        "nb_devices": W,
+        "rank": axis.rank,
+        "xprof_trace": xprof.path if xprof is not None else None,
     }
 
 

@@ -9,7 +9,8 @@ the step, the seed, the parameters and the optimizer state to the host,
 and ``load_snapshot`` loads those back and resets the momentum, the
 reputation, the loss EMA and the ring in place, as a restore from the JAX
 package's fresh template does (the error-feedback buffer of the wire codec
-is not ported).
+is not ported).  ``broadcast_state`` hands the lead's parameters, optimizer
+state, step and seed to every rank of a worker axis the same way.
 """
 
 import dataclasses
@@ -103,4 +104,45 @@ def load_snapshot(state, snapshot):
         _reset_side_buffers(state)
     state.step = int(snapshot["step"])
     state.seed = int(snapshot["seed"])
+    return state
+
+
+def _leaves(tree, prefix=""):
+    """(dotted name, leaf) pairs of a nested dict, in sorted key order."""
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            yield from _leaves(value, "%s%s/" % (prefix, key))
+        else:
+            yield prefix + str(key), value
+
+
+def broadcast_state(state, axis):
+    """The lead's parameters, optimizer state, step and seed on every rank
+    of ``axis``, loaded in place (a rank's side buffers reset, as
+    ``load_snapshot`` resets them): what a restore on the lead gives the
+    other ranks.  Integer leaves (the optimizer's count) ride with the step
+    and the seed.  A no-op at W = 1."""
+    if axis.size == 1:
+        return state
+    with torch.no_grad():
+        numbers = [int(state.step), int(state.seed)]
+        slots = []
+        for tree in (state.params, state.opt_state):
+            for name, value in _leaves(tree):
+                if isinstance(value, torch.Tensor):
+                    value.copy_(axis.broadcast(value))
+                else:
+                    numbers.append(int(value))
+                    slots.append((tree, name))
+        received = axis.broadcast(torch.tensor(numbers, dtype=torch.int64, device=axis.device)).tolist()
+        if axis.lead:
+            return state
+        state.step, state.seed = int(received[0]), int(received[1])
+        for (tree, name), value in zip(slots, received[2:]):
+            *path, leaf = name.split("/")
+            for key in path:
+                tree = tree[key]
+            tree[leaf] = int(value)
+        _reset_side_buffers(state)
     return state

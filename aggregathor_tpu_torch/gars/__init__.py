@@ -125,10 +125,11 @@ class GAR:
       uses_key: True if ``aggregate_block`` takes ``key=`` (an int seed, the
         same for the whole step): the randomized meta-rules re-draw their
         permutation each step.
-      uses_axis: declared as in the JAX package by the rules whose row norms
-        would be completed across dimension blocks; one device holds whole
-        rows, so nothing reads it yet (a multi-GPU engine would turn it into
-        an ``all_reduce`` of the row norms).
+      uses_axis: True if ``aggregate_block`` takes ``axis=`` (a
+        ``parallel.mesh.WorkerAxis``, or None on one device): the rules
+        whose row norms, row liveness or Gram span the column blocks of a
+        W-rank engine complete them with one ``axis.all_reduce_sum`` (JAX's
+        ``axis_name`` psum), so a block's result is the whole matrix's.
     """
 
     coordinate_wise = False
@@ -172,14 +173,13 @@ class GAR:
         dist2 = pairwise_sq_distances(grads) if self.needs_distances else None
         return self._call_aggregate(grads, dist2, key=key)
 
-    def _call_aggregate(self, block, dist2, key=None):
+    def _call_aggregate(self, block, dist2, key=None, axis=None):
         """The single dispatch point the engine uses (``dist2`` already
         clamped at 0 when the rule needs distances, None otherwise); the
-        ``key`` reaches only a rule that declares ``uses_key``, so plain
-        rules keep their two-argument ``aggregate_block``."""
-        if self.uses_key:
-            return self.aggregate_block(block, dist2, key=key)
-        return self.aggregate_block(block, dist2)
+        ``key`` reaches only a rule that declares ``uses_key`` and the
+        ``axis`` only one that declares ``uses_axis``, so plain rules keep
+        their two-argument ``aggregate_block``."""
+        return self.aggregate_block(block, dist2, **rule_kwargs(self, key=key, axis=axis))
 
     def aggregate_block(self, block, dist2=None):
         """Reduce an (n, d) block to (d,); ``dist2`` is the (n, n)
@@ -194,11 +194,24 @@ class GAR:
         the plain version's +inf/NaN mix give the same weights."""
         return None
 
-    def aggregate_block_and_participation(self, block, dist2=None, key=None):
+    def aggregate_block_and_participation(self, block, dist2=None, key=None, axis=None):
         """``(aggregate, worker_participation(dist2))`` in one call; the
         selection rules compute their weights once for both, the iterative
-        and meta rules return the weights their own pass computes."""
-        return self._call_aggregate(block, dist2, key=key), self.worker_participation(dist2)
+        and meta rules return the weights their own pass computes.  Callers
+        hand ``key`` and ``axis`` through ``rule_kwargs``, as
+        ``_call_aggregate`` does."""
+        return self._call_aggregate(block, dist2, key=key, axis=axis), self.worker_participation(dist2)
+
+
+def rule_kwargs(rule, key=None, axis=None):
+    """The keywords ``rule`` declares: ``key`` for a ``uses_key`` rule,
+    ``axis`` for a ``uses_axis`` one."""
+    kwargs = {}
+    if rule.uses_key:
+        kwargs["key"] = key
+    if rule.uses_axis:
+        kwargs["axis"] = axis
+    return kwargs
 
 
 # The ported rules register themselves on import, in the slices' order.

@@ -14,7 +14,10 @@ cannot reproduce (trap c: the tests inject JAX's permutation through
 identity, as in JAX.  The inner
 rule's key is ``fold_in_seed(key, 1)``.  The inner distances, when the
 inner rule needs them, come from ``centered_gram_sq_distances`` on the
-bucket means: the centring and K2 on the card.
+bucket means: the centring and K2 on the card.  On a W-rank engine
+(``axis``) every rank draws the same permutation and averages its column
+block of the buckets; the inner distances are completed across the ranks
+and the inner rule gets the axis.
 
 A ragged n (s not dividing n) is padded with NaN rows to a multiple of s,
 so the last bucket is NaN: the inner rule then sees f + 1 bad rows and must
@@ -27,7 +30,7 @@ integer domain of ``secure/``) is not ported.
 import torch
 
 from ..utils import fold_in_seed
-from . import GAR, instantiate, register
+from . import GAR, instantiate, register, rule_kwargs
 from .common import sub_rule_distances
 
 
@@ -81,15 +84,16 @@ class BucketingGAR(GAR):
         # a nested randomized inner rule re-draws too, from a derived key
         return None if key is None else fold_in_seed(key, 1)
 
-    def aggregate_block(self, block, dist2=None, key=None):
+    def aggregate_block(self, block, dist2=None, key=None, axis=None):
         buckets, _ = self._buckets(block, key)
-        return self.inner._call_aggregate(buckets, sub_rule_distances(self.inner, buckets),
-                                          key=self._inner_key(key))
+        return self.inner._call_aggregate(buckets, sub_rule_distances(self.inner, buckets, axis),
+                                          key=self._inner_key(key), axis=axis)
 
-    def aggregate_block_and_participation(self, block, dist2=None, key=None):
+    def aggregate_block_and_participation(self, block, dist2=None, key=None, axis=None):
         buckets, perm = self._buckets(block, key)
         agg, bucket_part = self.inner.aggregate_block_and_participation(
-            buckets, sub_rule_distances(self.inner, buckets), key=self._inner_key(key))
+            buckets, sub_rule_distances(self.inner, buckets, axis),
+            **rule_kwargs(self.inner, key=self._inner_key(key), axis=axis))
         if bucket_part is None:
             return agg, None
         # worker i inherits 1/s of its bucket's weight; under a ragged n the

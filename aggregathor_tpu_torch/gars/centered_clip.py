@@ -21,14 +21,15 @@ from . import GAR, register
 from .common import alive_rows, global_row_sq_norms, masked_coordinate_median
 
 
-def centered_clip(rows, tau, iters):
-    """Iterative clipped-deviation centre of the (n, d) rows."""
-    alive, safe = alive_rows(rows)
+def centered_clip(rows, tau, iters, axis=None):
+    """Iterative clipped-deviation centre of the (n, d) rows; with ``axis``
+    the row liveness and norms are completed across the column blocks."""
+    alive, safe = alive_rows(rows, axis)
     nb_alive = torch.clamp_min(torch.sum(alive), 1.0)
     center = masked_coordinate_median(rows, alive)
     for _ in range(iters):
         deviation = safe - center[None, :]
-        norms = torch.sqrt(global_row_sq_norms(deviation))[:, None]
+        norms = torch.sqrt(global_row_sq_norms(deviation, axis))[:, None]
         scale = torch.clamp_max(tau / torch.clamp_min(norms, 1e-12), 1.0)
         clipped = deviation * scale * alive[:, None]
         center = center + torch.sum(clipped, dim=0) / nb_alive
@@ -54,8 +55,8 @@ class CenteredClipGAR(GAR):
             warning("centered-clip tolerates f < n/2; n=%d f=%d is out of bound"
                     % (self.nb_workers, self.nb_byz_workers))
 
-    def aggregate_block(self, block, dist2=None):
-        return centered_clip(block, self.tau, self.iters)
+    def aggregate_block(self, block, dist2=None, axis=None):
+        return centered_clip(block, self.tau, self.iters, axis)
 
 
 register("centered-clip", CenteredClipGAR)

@@ -42,18 +42,34 @@ def centered_gram_sq_distances(rows):
     return kernels.pairwise_sq_distances_gram(rows, kernels.nanmedian_columns(rows))
 
 
-def sub_rule_distances(rule, rows):
+def completed_distances(partial, axis=None):
+    """A column block's partial (n, n) distances completed across the
+    worker axis (one ``all_reduce_sum``; JAX's psum), clamped at 0; the
+    block's own on one device (``axis`` None)."""
+    if axis is not None:
+        partial = axis.all_reduce_sum(partial)
+    return torch.clamp_min(partial, 0.0)
+
+
+def sub_rule_distances(rule, rows, axis=None):
     """A meta-rule's sub-rule distances over ``rows`` (bucket means, a
-    group, summaries): ``centered_gram_sq_distances``, or None when the
-    sub-rule needs none."""
-    return centered_gram_sq_distances(rows.contiguous()) if rule.needs_distances else None
+    group, summaries): ``centered_gram_sq_distances``, completed across the
+    worker axis, or None when the sub-rule needs none."""
+    if not rule.needs_distances:
+        return None
+    return completed_distances(centered_gram_sq_distances(rows.contiguous()), axis)
 
 
-def alive_rows(rows):
+def alive_rows(rows, axis=None):
     """``(alive, safe)``: the (n,) float mask of rows with no non-finite
-    coordinate, and the rows with the dead ones zero-filled (the
-    average-nan convention of the iterative rules: dead rows weigh 0)."""
-    alive = torch.all(torch.isfinite(rows), dim=-1).to(torch.float32)
+    coordinate (counted across the column blocks by one ``all_reduce_sum``
+    when ``axis`` is given, so every rank agrees), and the rows with the
+    dead ones zero-filled (the average-nan convention of the iterative
+    rules: dead rows weigh 0)."""
+    nb_bad = torch.sum(~torch.isfinite(rows), dim=-1).to(torch.float32)
+    if axis is not None:
+        nb_bad = axis.all_reduce_sum(nb_bad)
+    alive = (nb_bad == 0.0).to(torch.float32)
     return alive, torch.where((alive > 0.0)[:, None], rows, 0.0)
 
 
@@ -64,10 +80,14 @@ def masked_coordinate_median(rows, alive):
     return kernels.nanmedian_columns(torch.where((alive > 0.0)[:, None], rows, torch.nan).contiguous())
 
 
-def global_row_sq_norms(deviation):
-    """(n,) squared row norms (one device holds whole rows: no cross-block
-    reduction, unlike the JAX package's ``axis_name`` psum)."""
-    return torch.sum(deviation * deviation, dim=-1)
+def global_row_sq_norms(deviation, axis=None):
+    """(n,) squared row norms, completed across the column blocks of a
+    W-rank engine by one ``all_reduce_sum`` when ``axis`` is given (JAX's
+    ``axis_name`` psum); on one device the rows are whole."""
+    sqn = torch.sum(deviation * deviation, dim=-1)
+    if axis is not None:
+        sqn = axis.all_reduce_sum(sqn)
+    return sqn
 
 
 def smallest_k_sum(values, k):

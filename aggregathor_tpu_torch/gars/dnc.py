@@ -12,7 +12,9 @@ rounded to float32 (trap f: the JAX rule takes ``dot_general(HIGHEST)``
 outside any Pallas kernel, full float32 products).  A float32 matmul on the
 card would follow the process-wide TF32 flag, which any caller may have
 set; a float64 one never uses TF32, so the rule's precision is its own.
-The power iteration runs on (n, n).  Rows holding a non-finite value score +inf and
+On a W-rank engine each column block's float64 Gram is summed across the
+ranks (one ``all_reduce_sum``, JAX ``dnc.py:52-53``) before the one rounding
+to float32.  The power iteration runs on (n, n).  Rows holding a non-finite value score +inf and
 sit outside the removal budget (``remove`` counts live outliers, so the
 kept count nb_alive - remove is a tensor).  The final averaging weights are
 the per-worker participation.
@@ -28,14 +30,18 @@ from . import GAR, register
 from .common import alive_rows, smallest_k_mask
 
 
-def dnc(rows, nb_remove, iters):
-    """DnC over the (n, d) rows; returns ``(mean, participation)``."""
-    alive, safe = alive_rows(rows)
+def dnc(rows, nb_remove, iters, axis=None):
+    """DnC over the (n, d) rows; returns ``(mean, participation)``.  With
+    ``axis`` the liveness and the Gram are completed across the blocks."""
+    alive, safe = alive_rows(rows, axis)
     nb_alive = torch.clamp_min(torch.sum(alive), 1.0)
     mean = torch.sum(safe, dim=0) / nb_alive  # safe is already zero-filled
     centered = (safe - mean[None, :]) * alive[:, None]
     wide = centered.to(torch.float64)
-    gram = (wide @ wide.T).to(torch.float32)
+    gram = wide @ wide.T
+    if axis is not None:
+        gram = axis.all_reduce_sum(gram)
+    gram = gram.to(torch.float32)
     u = torch.diagonal(gram).clone()
     u = u / torch.clamp_min(torch.linalg.vector_norm(u), 1e-30)
     for _ in range(iters):
@@ -71,11 +77,11 @@ class DnCGAR(GAR):
 
             warning("dnc tolerates f < n/2; n=%d f=%d is out of bound" % (self.nb_workers, self.nb_byz_workers))
 
-    def aggregate_block(self, block, dist2=None):
-        return dnc(block, self.nb_remove, self.iters)[0]
+    def aggregate_block(self, block, dist2=None, axis=None):
+        return dnc(block, self.nb_remove, self.iters, axis)[0]
 
-    def aggregate_block_and_participation(self, block, dist2=None, key=None):
-        return dnc(block, self.nb_remove, self.iters)
+    def aggregate_block_and_participation(self, block, dist2=None, key=None, axis=None):
+        return dnc(block, self.nb_remove, self.iters, axis)
 
 
 register("dnc", DnCGAR)

@@ -20,16 +20,17 @@ from . import GAR, register
 from .common import alive_rows, global_row_sq_norms, masked_coordinate_median
 
 
-def geometric_median(rows, iters, eps):
+def geometric_median(rows, iters, eps, axis=None):
     """``(z, participation)``: the Weiszfeld estimate of the (n, d) rows and
-    the (n,) final normalised weights."""
-    alive, safe = alive_rows(rows)
+    the (n,) final normalised weights; with ``axis`` the row liveness and
+    norms are completed across the column blocks."""
+    alive, safe = alive_rows(rows, axis)
     # the coordinate-wise median starts inside the honest cloud; a mean
     # would start |forgery| away from it
     z = masked_coordinate_median(rows, alive)
     weights = alive
     for _ in range(iters):
-        sqn = global_row_sq_norms(safe - z[None, :])
+        sqn = global_row_sq_norms(safe - z[None, :], axis)
         weights = alive / torch.clamp_min(torch.sqrt(sqn), eps)
         total = torch.clamp_min(torch.sum(weights), 1e-30)
         z = torch.sum(weights[:, None] * safe, dim=0) / total
@@ -56,11 +57,11 @@ class GeometricMedianGAR(GAR):
             warning("geometric-median tolerates f < n/2; n=%d f=%d is out of bound"
                     % (self.nb_workers, self.nb_byz_workers))
 
-    def aggregate_block(self, block, dist2=None):
-        return geometric_median(block, self.iters, self.eps)[0]
+    def aggregate_block(self, block, dist2=None, axis=None):
+        return geometric_median(block, self.iters, self.eps, axis)[0]
 
-    def aggregate_block_and_participation(self, block, dist2=None, key=None):
-        return geometric_median(block, self.iters, self.eps)
+    def aggregate_block_and_participation(self, block, dist2=None, key=None, axis=None):
+        return geometric_median(block, self.iters, self.eps, axis)
 
 
 register("geometric-median", GeometricMedianGAR)

@@ -30,7 +30,11 @@ no batched kernels, so :func:`group_pass` takes one of two routes:
   gives each group its own median) and its own key.
 
 The outer distances are one ``centered_gram_sq_distances`` on the
-summaries.  Keys (int seeds): group i's is ``fold(fold(key, 1), i)``, the
+summaries.  On a W-rank engine (``axis``) each rank runs the levels on its
+column block: the per-group distances of a level are stacked and completed
+across the ranks by one ``all_reduce_sum`` (JAX psums the vmapped (n/g, g,
+g) partials once), the outer ones by another, and every sub-rule gets the
+axis.  Keys (int seeds): group i's is ``fold(fold(key, 1), i)``, the
 outer rule's ``fold(key, 2)``.  The participation factorises through the
 tree: the outer weight of a worker's group times its weight within the
 group (1/g for a coordinate-wise inner rule).  The JAX rule's ``masking``
@@ -41,15 +45,16 @@ ported.
 import torch
 
 from ..utils import fold_in_seed
-from . import GAR, instantiate, register
-from .common import sub_rule_distances
+from . import GAR, instantiate, register, rule_kwargs
+from .common import centered_gram_sq_distances, completed_distances, sub_rule_distances
 
 
-def group_pass(rule, rows, g, key, with_participation):
+def group_pass(rule, rows, g, key, with_participation, axis=None):
     """One level over groups: the (m g, d) ``rows`` in m contiguous groups
     of g through ``rule`` (built for g rows) -> ``(summaries (m, d),
     participation (m, g) or None)``.  ``key`` is the level's base key
-    (group i gets ``fold_in_seed(key, i)``) or None."""
+    (group i gets ``fold_in_seed(key, i)``) or None; ``axis`` the worker
+    axis of a column block (None: whole rows)."""
     nb_groups, d = rows.shape[0] // g, rows.shape[-1]
     if rule.coordinate_wise:
         # the transposed layout: column j * d + c holds group j's coordinate c
@@ -60,15 +65,21 @@ def group_pass(rule, rows, g, key, with_participation):
             parts = torch.full((nb_groups, g), 1.0 / g, dtype=torch.float32, device=rows.device)
         return summaries, parts
     summaries, parts = [], []
+    dist2s = [None] * nb_groups
+    if rule.needs_distances:
+        # every group's partial distances, completed in one collective
+        dist2s = completed_distances(torch.stack([
+            centered_gram_sq_distances(rows[i * g:(i + 1) * g].contiguous()) for i in range(nb_groups)]), axis)
     for i in range(nb_groups):
         block = rows[i * g:(i + 1) * g]
         group_key = None if key is None else fold_in_seed(key, i)
-        dist2 = sub_rule_distances(rule, block)
+        dist2 = dist2s[i]
         if with_participation:
-            agg, part = rule.aggregate_block_and_participation(block, dist2, key=group_key)
+            agg, part = rule.aggregate_block_and_participation(
+                block, dist2, **rule_kwargs(rule, key=group_key, axis=axis))
             parts.append(part)
         else:
-            agg = rule._call_aggregate(block, dist2, key=group_key)
+            agg = rule._call_aggregate(block, dist2, key=group_key, axis=axis)
         summaries.append(agg)
     summaries = torch.stack(summaries)
     if not with_participation:
@@ -110,15 +121,16 @@ class HierarchicalGAR(GAR):
         # disjoint from the per-group inner streams (fold(key, 1) then i)
         return None if key is None else fold_in_seed(key, 2)
 
-    def aggregate_block(self, block, dist2=None, key=None):
-        summaries, _ = group_pass(self.inner, block, self.g, self._inner_key(key), False)
-        return self.outer._call_aggregate(summaries, sub_rule_distances(self.outer, summaries),
-                                          key=self._outer_key(key))
+    def aggregate_block(self, block, dist2=None, key=None, axis=None):
+        summaries, _ = group_pass(self.inner, block, self.g, self._inner_key(key), False, axis)
+        return self.outer._call_aggregate(summaries, sub_rule_distances(self.outer, summaries, axis),
+                                          key=self._outer_key(key), axis=axis)
 
-    def aggregate_block_and_participation(self, block, dist2=None, key=None):
-        summaries, inner_part = group_pass(self.inner, block, self.g, self._inner_key(key), True)
+    def aggregate_block_and_participation(self, block, dist2=None, key=None, axis=None):
+        summaries, inner_part = group_pass(self.inner, block, self.g, self._inner_key(key), True, axis)
         agg, outer_part = self.outer.aggregate_block_and_participation(
-            summaries, sub_rule_distances(self.outer, summaries), key=self._outer_key(key))
+            summaries, sub_rule_distances(self.outer, summaries, axis),
+            **rule_kwargs(self.outer, key=self._outer_key(key), axis=axis))
         if outer_part is None:
             return agg, None
         return agg, (outer_part[:, None] * inner_part).reshape(self.nb_workers)

@@ -19,11 +19,13 @@ Keys (int seeds): level l's group i is ``fold(fold(key, l + 1), i)``, the
 root ``fold(key, L + 2)``, as in JAX.  ``nan_row_tolerant`` holds when any
 level's rule or the root's is.  The participation composes level by level:
 the root weights scattered down through each level's within-group weights
-(1/g_l for a coordinate-wise rule), so the (n,) vector sums to 1.
+(1/g_l for a coordinate-wise rule), so the (n,) vector sums to 1.  On a
+W-rank engine (``axis``) the levels run on each rank's column block, their
+distances completed across the ranks as ``hier``'s are.
 """
 
 from ..utils import fold_in_seed
-from . import GAR, register
+from . import GAR, register, rule_kwargs
 from .common import sub_rule_distances
 from .hierarchical import group_pass
 
@@ -54,11 +56,11 @@ class TreeGAR(GAR):
 
         return wire_roundtrip(summaries, self.spec.link_dtype)
 
-    def _levels(self, block, key, with_participation):
+    def _levels(self, block, key, with_participation, axis=None):
         rows, parts = block, []
         for level, (rule, g) in enumerate(zip(self.spec.rules, self.spec.group_sizes)):
             base = None if key is None else fold_in_seed(key, level + 1)
-            rows, part = group_pass(rule, rows, g, base, with_participation)
+            rows, part = group_pass(rule, rows, g, base, with_participation, axis)
             rows = self._link_roundtrip(rows)
             parts.append(part)
         return rows, parts
@@ -66,16 +68,16 @@ class TreeGAR(GAR):
     def _root_key(self, key):
         return None if key is None else fold_in_seed(key, self.spec.nb_levels + 2)
 
-    def aggregate_block(self, block, dist2=None, key=None):
-        rows, _ = self._levels(block, key, False)
+    def aggregate_block(self, block, dist2=None, key=None, axis=None):
+        rows, _ = self._levels(block, key, False, axis)
         root = self.spec.root_rule
-        return root._call_aggregate(rows, sub_rule_distances(root, rows), key=self._root_key(key))
+        return root._call_aggregate(rows, sub_rule_distances(root, rows, axis), key=self._root_key(key), axis=axis)
 
-    def aggregate_block_and_participation(self, block, dist2=None, key=None):
-        rows, parts = self._levels(block, key, True)
+    def aggregate_block_and_participation(self, block, dist2=None, key=None, axis=None):
+        rows, parts = self._levels(block, key, True, axis)
         root = self.spec.root_rule
-        agg, weights = root.aggregate_block_and_participation(rows, sub_rule_distances(root, rows),
-                                                              key=self._root_key(key))
+        agg, weights = root.aggregate_block_and_participation(
+            rows, sub_rule_distances(root, rows, axis), **rule_kwargs(root, key=self._root_key(key), axis=axis))
         if weights is None:
             return agg, None
         # a group's weight spreads over its members' within-group weights

@@ -12,6 +12,12 @@ The host C++ tier (``ops/native``) builds with the same two helpers,
 
 A failed build raises with nvcc's stderr.  Nothing falls back to the plain
 PyTorch versions: on a CUDA tensor the kernel runs or the call raises.
+
+Every compiler run that ``start_build`` starts is a miss of this build
+cache: ``BUILD_STATS`` counts the finished builds and their wall time, and
+each one is handed to the functions of ``add_build_listener`` (the
+``compile_*`` families of ``obs/profiler.py``) with its source, its build
+directory's hash, its seconds and its exit code.
 """
 
 import ctypes
@@ -20,6 +26,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
@@ -33,6 +40,26 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libraries = {}
+
+#: compiler runs of this process: the finished ones and their wall seconds
+BUILD_STATS = {"builds": 0, "seconds": 0.0}
+_listeners = []
+_stats_lock = threading.Lock()
+
+
+def add_build_listener(fn):
+    """Call ``fn(source, digest, seconds, code)`` after every compiler run
+    (``source`` the path relative to the package, ``digest`` the hash of
+    its build directory); a function added twice is called once."""
+    with _stats_lock:
+        if fn not in _listeners:
+            _listeners.append(fn)
+
+
+def remove_build_listener(fn):
+    with _stats_lock:
+        if fn in _listeners:
+            _listeners.remove(fn)
 
 
 def _nvcc():
@@ -61,6 +88,7 @@ def start_build(compiler, flags, source, target):
     half a library).  ``wait()`` returns (exit code, stdout, stderr)."""
     os.makedirs(os.path.dirname(target), exist_ok=True)
     tmp = "%s.%d.tmp" % (target, os.getpid())
+    begin = time.perf_counter()
     proc = subprocess.Popen([compiler, *flags, "-o", tmp, source], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
@@ -68,6 +96,17 @@ def start_build(compiler, flags, source, target):
         out, err = proc.communicate()
         if proc.returncode == 0:
             os.replace(tmp, target)
+        seconds = time.perf_counter() - begin
+        package = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        name = os.path.relpath(os.path.abspath(source), os.path.dirname(package))
+        digest = os.path.basename(os.path.dirname(target)).replace(".build-", "")
+        with _stats_lock:
+            if proc.returncode == 0:
+                BUILD_STATS["builds"] += 1
+                BUILD_STATS["seconds"] += seconds
+            listeners = list(_listeners)
+        for listener in listeners:
+            listener(name, digest, seconds, proc.returncode)
         return proc.returncode, out, err
 
     return wait

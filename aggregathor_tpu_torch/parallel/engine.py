@@ -1,20 +1,24 @@
-"""The robust training engine, flat dataflow on one device.
+"""The robust training engine, flat dataflow over a worker axis.
 
 Counterpart of the flat mode of ``aggregathor_tpu/parallel/engine.py``
-(its dataflow, ``engine.py:1-31``) with the worker -> dimension
-``all_to_all`` collapsed: one device holds the whole (n, d) matrix.  Per step:
+(its dataflow, ``engine.py:1-31``).  The n logical workers lie over a
+``parallel.mesh.WorkerAxis`` of W ranks, one process a device, k = n/W
+workers a rank (worker w = rank k + j); at W = 1 (the default) one device
+holds the whole (n, d) matrix and no collective runs.  Per step, on each
+rank:
 
 0. **In-step augmentation** (``batch_transform``, optional): worker w's
    training batch goes through the transform with draws made on a CPU
    generator seeded from (seed, step, w, 3) and copied to the device, so
    worker w's augmentation depends on neither n nor the device.
 1. **Isolated worker gradients** (``_worker_gradients``): one
-   ``torch.func.vmap`` of ``grad_and_value(loss)`` over the n workers'
+   ``torch.func.vmap`` of ``grad_and_value(loss)`` over the k local workers'
    batches on the detached parameters (JAX ``engine.py:463-471``): every
    worker's forward and backward in one batched pass, all n workers'
    activations live at once.  The (n, *shape) gradient leaves are written
-   into the (n, d) float32 matrix in the JAX package's coordinate order,
-   one copy per leaf (``FlatMap.flatten_rows``).
+   into the (k, d) float32 matrix in the JAX package's coordinate order,
+   one copy per leaf (``FlatMap.flatten_rows``).  Every stream below is
+   keyed by the global worker index w, so W does not change the draws.
 2. **Worker momentum** (``_send``, ``worker_momentum=beta``): each worker
    sends m <- beta m + (1 - beta) g, divided by 1 - beta^k for its k-th
    update (Adam's bias correction, k counted from the buffer's last zeroing,
@@ -28,15 +32,22 @@ Counterpart of the flat mode of ``aggregathor_tpu/parallel/engine.py``
    row as it arrived (post-transport, before the omniscient attack), and
    the health probe flags the rows holding a non-finite value.
 4. **The wire** (``exchange_dtype``): under bfloat16 every row crosses it
-   rounded (``compress.wire_roundtrip``); the rule computes in float32.
+   rounded (``compress.wire_roundtrip``); the rule computes in float32.  At
+   W > 1 the wire is the reshard (``_reshard_to_blocks``, JAX
+   ``engine.py:604-617``): the (k, d) rows, in the wire's dtype, padded to
+   W blk columns (blk = ceil(d/W)), go through one ``all_to_all``, and each
+   rank holds the (n, blk) column block of its coordinates.
 5. **Omniscient attack and quarantine** (``_prepare_rows``): coalition
    attacks rewrite rows w < r from the honest statistics (and cross the
    wire again); then the rows of at most f workers whose reputation fell
    below ``quarantine_threshold`` are masked NaN, which only a
    ``nan_row_tolerant`` rule accepts.
 6. **Aggregation** (``_aggregate_block``): when the rule needs distances,
-   one launch gives the (n, n) matrix (K1 up to 64 workers, median centring
-   and K2 beyond), clamped at 0; then the rule (K3-K5 for the rank-based
+   one launch gives the block's (n, n) matrix (K1 up to 64 workers, the
+   block's own median centring and K2 beyond), completed across the ranks
+   by one ``all_reduce_sum`` at W > 1 and clamped at 0; then the rule on
+   its block, handed the axis if it ``uses_axis`` (its row norms, liveness
+   or Gram completed across the ranks) (K3-K5 for the rank-based
    rules and Bulyan's last phase, K6 for average-nan; the meta-rules' own
    passes), and under ``worker_metrics`` the rule's per-worker
    participation.  A rule that declares ``uses_key`` gets the step's GAR
@@ -44,12 +55,19 @@ Counterpart of the flat mode of ``aggregathor_tpu/parallel/engine.py``
    key, ``engine.py:671-679``); under granularity:leaf leaf i's is
    ``fold_in_seed(gar_key, i)``, i the leaf's index in flattening order.  Under
    ``granularity="leaf"`` steps 4-6 run once per parameter leaf (each
-   layer picks its own honest set: distance kernels once a leaf), the
-   participation is the mean over the leaves, and the aggregate does not
-   cross the wire again; under ``"vector"`` the (d,) aggregate crosses it
-   back.
+   layer picks its own honest set: distance kernels once a leaf; at W > 1
+   each leaf's (k, d_leaf) rows are ``all_gather``ed and every rank runs
+   the rule on whole leaf rows, JAX's unrolled path ``engine.py:799-858``),
+   the participation is the mean over the leaves, and the aggregate does
+   not cross the wire again; under ``"vector"`` the (d,) aggregate crosses
+   it back: at W > 1 the blocks' aggregates, in the wire's dtype, are
+   ``all_gather``ed and cut to d, and the workers' distances to it are
+   summed across the ranks.
 7. **Update**: the (d,) aggregate is inflated to torch-layout views and the
    optimizer applies it in place to the one copy of the parameters.
+   The loss sum is summed across the ranks and the probe's NaN rows are
+   gathered worker-major, so every metric below is the same on every rank,
+   and so are the parameters after the update.
 8. **Finalize** (``_finalize_step``): the reputation EMA of a rank signal
    (1 if the worker's raw row, before quarantine, is among the n - f
    closest to the aggregate and finite), the health probe
@@ -62,10 +80,15 @@ step's batches from a dataset held on the device (``replicate``), worker
 w's indices from the (seed, step, w, 4) stream, and gathers them there.
 Both return per-step metrics with a leading K (the probe's fields too).
 
-``trace_ops`` prints one ``TRACE step s dev 0 ...`` line after the
+``trace_ops`` prints one ``TRACE step s dev <rank> ...`` line after the
 gradients, the aggregate and the update, in the JAX package's words.
 
-``put_batches`` also places a step-axis slice of a chunk and
+The momentum and the CLEVER carry are (k, d) buffers of the rank's own
+workers (JAX keeps them worker-sharded); no checkpoint holds them, so a
+snapshot written at W restores at any W' dividing n.
+
+``put_batch``/``put_batches`` keep this rank's k workers of an (n, ...)
+batch; ``put_batches`` also places a step-axis slice of a chunk and
 ``assemble_batches`` joins the slices (the input pipeline's transfer);
 ``build_gar_probe`` times the rule alone (``--gar-probe``).
 
@@ -87,7 +110,10 @@ from ..gars.common import nonfinite_to_inf, smallest_k_mask
 from ..guardian import probe as health
 from ..ops import kernels
 from ..utils import UserException, fold_in_seed, resolve_device
+from ..gars import rule_kwargs
+from ..gars.common import completed_distances
 from .compress import wire_dtype, wire_roundtrip
+from .mesh import WorkerAxis
 
 #: stream tags, as the JAX engine folds them: the local attacks (1), the
 #: in-step augmentation (3) and the device-side sampling (4); the lossy
@@ -206,13 +232,15 @@ class RobustEngine:
       flight: an ``obs.flight.FlightRecorder`` or None.
       device: "cuda" (default) or "cpu"; CUDA without a GPU raises.
       sharding: only "flat" is ported.
+      axis: the ``parallel.mesh.WorkerAxis`` of a W-rank run (its device
+        wins over ``device``); None: one rank.
     """
 
     def __init__(self, gar, nb_workers=None, nb_real_byz=0, attack=None, lossy_link=None,
                  exchange_dtype=None, worker_momentum=None, batch_transform=None, worker_metrics=False,
                  reputation_decay=None, quarantine_threshold=0.0, granularity="vector", leaf_bucketing="auto",
                  trace_ops=False, health_probe=True, flight=None, l1_regularize=None, l2_regularize=None,
-                 device="cuda", sharding="flat", **options):
+                 device="cuda", sharding="flat", axis=None, **options):
         for name, value in options.items():
             if name not in UNPORTED_OPTIONS:
                 raise TypeError("RobustEngine got an unexpected keyword argument %r" % name)
@@ -260,7 +288,14 @@ class RobustEngine:
                                 worker_metrics=self.worker_metrics)
         # CLEVER infill reads the rows received last step (TrainState.carry)
         self.carries_gradients = lossy_link is not None and lossy_link.clever
-        self.device = resolve_device(device)
+        if axis is None:
+            axis = WorkerAxis(self.nb_workers, 1, 0, resolve_device(device))
+        elif axis.nb_workers != self.nb_workers:
+            raise UserException("the worker axis holds %d workers, the engine %d" % (axis.nb_workers, self.nb_workers))
+        self.axis = axis
+        self.device = axis.device
+        self.nb_devices = axis.size
+        self.workers_per_device = axis.workers_per_device
         if self.nb_real_byz > self.nb_workers:
             raise UserException("More real Byzantine workers than workers")
         if attack is not None and self.nb_real_byz == 0:
@@ -276,10 +311,12 @@ class RobustEngine:
         return losses.detach(), flatmap.flatten_rows(grads)
 
     def _worker_draws(self, draw, seed, step, tag):
-        """``draw(generator)`` -> dict of CPU tensors, made for each worker w
-        from its (seed, step, w, tag) stream on a CPU generator (so a CPU and
-        a card run draw alike), stacked to (n, ...) and copied to the device."""
-        per_worker = [draw(stream_generator(seed, step, w, tag, "cpu")) for w in range(self.nb_workers)]
+        """``draw(generator)`` -> dict of CPU tensors, made for each local
+        worker from its global (seed, step, w, tag) stream on a CPU
+        generator (so a CPU and a card run, and every W, draw alike),
+        stacked to (k, ...) and copied to the device."""
+        per_worker = [draw(stream_generator(seed, step, self.axis.worker_index(j), tag, "cpu"))
+                      for j in range(self.workers_per_device)]
         return {key: self._to_device(torch.stack([draws[key] for draws in per_worker]))
                 for key in per_worker[0]}
 
@@ -293,20 +330,23 @@ class RobustEngine:
         return transform(batch, draws)
 
     def _perturb_local(self, rows, seed, step, carry=None):
-        """Local attack on the first r rows, then the lossy link on the first
-        k, each row with its own streams; ``carry`` (the rows received last
-        step, under clever infill) is then overwritten with the rows as they
-        arrived, in place."""
+        """Local attack on the workers w < r, then the lossy link on the
+        lossy ones, each row of the local (k, d) with its own streams;
+        ``carry`` (the rows received last step, under clever infill) is then
+        overwritten with the rows as they arrived, in place."""
+        local = [(j, self.axis.worker_index(j)) for j in range(self.workers_per_device)]
         if self.attack is not None and not self.attack.omniscient:
-            for w in range(self.nb_real_byz):
-                generator = stream_generator(seed, step, w, ATTACK_TAG, self.device)
-                rows[w] = self.attack.apply_local(rows[w], generator)
+            for j, w in local:
+                if w < self.nb_real_byz:
+                    generator = stream_generator(seed, step, w, ATTACK_TAG, self.device)
+                    rows[j] = self.attack.apply_local(rows[j], generator)
         link = self.lossy_link
         if link is not None:
             d = rows.shape[1]
-            for w in range(min(link.nb_lossy, self.nb_workers)):
-                previous = carry[w] if carry is not None else None
-                rows[w] = link.apply(rows[w], w, link.draw_drops(d, seed, step, w), previous=previous)
+            for j, w in local:
+                if w < link.nb_lossy:
+                    previous = carry[j] if carry is not None else None
+                    rows[j] = link.apply(rows[j], w, link.draw_drops(d, seed, step, w), previous=previous)
         if carry is not None:
             carry.copy_(rows)
         return rows
@@ -341,25 +381,27 @@ class RobustEngine:
             rows = torch.where(masked[:, None], torch.nan, rows)
         return rows, raw_rows
 
-    def _distances(self, rows):
-        """The rule's pairwise squared distances (one K1 or K2 launch),
-        clamped at 0, or None when the rule needs none."""
+    def _distances(self, rows, axis=None):
+        """The rule's pairwise squared distances of ``rows`` (one K1 or K2
+        launch), completed over ``axis`` and clamped at 0, or None when the
+        rule needs none."""
         if not self.gar.needs_distances:
             return None
-        return torch.clamp_min(kernels.pairwise_sq_distances(rows), 0.0)
+        return completed_distances(kernels.pairwise_sq_distances(rows), axis)
 
-    def _aggregate_block(self, rows, key=None):
-        """Distances (one K1 or K2 launch) when the rule needs them, then the
-        rule, given ``key`` if it ``uses_key``: ``(aggregate,
-        participation)``, the participation None unless ``worker_metrics``
-        and the rule weighs whole workers."""
-        dist2 = self._distances(rows)
+    def _aggregate_block(self, rows, key=None, axis=None):
+        """Distances (one K1 or K2 launch, completed over ``axis``) when the
+        rule needs them, then the rule, given ``key`` if it ``uses_key`` and
+        ``axis`` if it ``uses_axis``: ``(aggregate, participation)``, the
+        participation None unless ``worker_metrics`` and the rule weighs
+        whole workers."""
+        dist2 = self._distances(rows, axis)
         if self.worker_metrics:
-            # as in _call_aggregate, only a uses_key rule is handed the key:
-            # a rule's two-argument override stays callable
-            keyed = {"key": key} if self.gar.uses_key else {}
-            return self.gar.aggregate_block_and_participation(rows, dist2, **keyed)
-        return self.gar._call_aggregate(rows, dist2, key=key), None
+            # as in _call_aggregate, only a uses_key (uses_axis) rule is
+            # handed the key (axis): a rule's two-argument override stays
+            # callable
+            return self.gar.aggregate_block_and_participation(rows, dist2, **rule_kwargs(self.gar, key, axis))
+        return self.gar._call_aggregate(rows, dist2, key=key, axis=axis), None
 
     def _sq_dists(self, rows, raw_rows, agg):
         """(worker_sq_dist, rep_dist): each worker's squared distance to the
@@ -372,15 +414,44 @@ class RobustEngine:
         return (sq_dist(rows) if self.worker_metrics else None,
                 sq_dist(raw_rows) if self.reputation_decay is not None else None)
 
+    def _reshard_to_blocks(self, rows):
+        """(k, d) rows of this rank's workers -> the (n, blk) float32 column
+        block of its coordinates, blk = ceil(d/W): the rows in the wire's
+        dtype, zero-padded to W blk columns, through one ``all_to_all``
+        (JAX ``_reshard_to_blocks``, ``engine.py:604-617``)."""
+        W, k = self.nb_devices, self.workers_per_device
+        d = rows.shape[1]
+        if self.exchange_dtype is not None:
+            rows = rows.to(self.exchange_dtype)
+        blk = -(-d // W)
+        padded = torch.nn.functional.pad(rows, (0, W * blk - d))
+        pieces = padded.view(k, W, blk).transpose(0, 1)  # (W, k, blk): piece i goes to rank i
+        return self.axis.all_to_all(pieces).reshape(self.nb_workers, blk).to(torch.float32)
+
     def _aggregate_vector(self, rows, reputation, key=None):
-        """granularity:vector: the whole rows through the wire, the attack,
-        the quarantine and the rule (given the step's GAR ``key``); the
-        aggregate crosses the wire back.  Returns ``(agg, participation,
-        wdist, rep_dist)``."""
-        rows, raw_rows = self._prepare_rows(wire_roundtrip(rows, self.exchange_dtype), reputation)
-        agg, participation = self._aggregate_block(rows, key)
-        agg = wire_roundtrip(agg, self.exchange_dtype)
-        return (agg, participation) + self._sq_dists(rows, raw_rows, agg)
+        """granularity:vector: the rows through the wire (at W > 1 the
+        reshard to column blocks), the attack, the quarantine and the rule
+        (given the step's GAR ``key``); the aggregate crosses the wire back
+        (at W > 1 the blocks' aggregates are gathered and cut to d).
+        Returns ``(agg, participation, wdist, rep_dist)``."""
+        if self.nb_devices == 1:
+            rows, raw_rows = self._prepare_rows(wire_roundtrip(rows, self.exchange_dtype), reputation)
+            agg, participation = self._aggregate_block(rows, key)
+            agg = wire_roundtrip(agg, self.exchange_dtype)
+            return (agg, participation) + self._sq_dists(rows, raw_rows, agg)
+        d = rows.shape[1]
+        block, raw_block = self._prepare_rows(self._reshard_to_blocks(rows), reputation)
+        agg_block, participation = self._aggregate_block(block, key, self.axis)
+        wire = agg_block if self.exchange_dtype is None else agg_block.to(self.exchange_dtype)
+        agg = self.axis.all_gather(wire).reshape(-1)[:d].to(torch.float32)
+        wdist, rep_dist = self._sq_dists(block, raw_block, wire_roundtrip(agg_block, self.exchange_dtype))
+        present = [value for value in (wdist, rep_dist) if value is not None]
+        if present:
+            # the blocks' squared distances summed across the ranks, in one collective
+            summed = iter(self.axis.all_reduce_sum(torch.stack(present)).unbind(0))
+            wdist = None if wdist is None else next(summed)
+            rep_dist = None if rep_dist is None else next(summed)
+        return agg, participation, wdist, rep_dist
 
     def _aggregate_per_leaf(self, rows, flatmap, reputation, key=None):
         """granularity:leaf: each parameter leaf's (n, d_leaf) columns
@@ -394,7 +465,15 @@ class RobustEngine:
         participation, nb_parts = None, 0
         wdist = rep_dist = None
         for i, (_, _, offset, size, _, _) in enumerate(flatmap.slices):
-            leaf = wire_roundtrip(rows[:, offset:offset + size], self.exchange_dtype).contiguous()
+            if self.nb_devices == 1:
+                leaf = wire_roundtrip(rows[:, offset:offset + size], self.exchange_dtype).contiguous()
+            else:
+                # one all_gather a leaf, in the wire's dtype: every rank
+                # holds the whole (n, d_leaf) rows (JAX :799-858)
+                local = rows[:, offset:offset + size]
+                if self.exchange_dtype is not None:
+                    local = local.to(self.exchange_dtype)
+                leaf = self.axis.all_gather(local).reshape(self.nb_workers, size).to(torch.float32)
             leaf, raw_leaf = self._prepare_rows(leaf, reputation)
             agg_leaf, part = self._aggregate_block(leaf, None if key is None else fold_in_seed(key, i))
             if part is not None:
@@ -411,10 +490,13 @@ class RobustEngine:
         return torch.cat(parts), participation, wdist, rep_dist
 
     def _finalize_step(self, state, losses, agg, worker_nan, participation, wdist, rep_dist):
-        """After the update: the reputation EMA, the probe, the metrics dict
-        and the flight recorder's row; advances ``state.step``.  Returns
-        ``(state, metrics)``."""
+        """After the update: the loss sum (summed across the ranks), the
+        reputation EMA, the probe, the metrics dict and the flight
+        recorder's row; advances ``state.step``.  Returns ``(state,
+        metrics)``."""
         total_loss = torch.sum(losses)
+        if self.nb_devices > 1:
+            total_loss = self.axis.all_reduce_sum(total_loss)
         update_norm = torch.linalg.vector_norm(agg)
         metrics = {"total_loss": total_loss, "grad_norm": update_norm}
         reputation = state.reputation  # before this step's update: the mask used it
@@ -447,7 +529,8 @@ class RobustEngine:
     def _mark(self, state, phase, value):
         """Under ``trace_ops``, the JAX engine's narrative line for a phase."""
         if self.trace_ops:
-            print("TRACE step %d dev 0 %s %s" % (state.step, phase, np.asarray(value.detach().cpu())), flush=True)
+            print("TRACE step %d dev %d %s %s" % (state.step, self.axis.rank, phase, np.asarray(value.detach().cpu())),
+                  flush=True)
 
     # ------------------------------------------------------------------ #
 
@@ -455,9 +538,9 @@ class RobustEngine:
         """A TrainState holding ``params`` moved to the engine's device
         (leaf tensors that require grad), a fresh optimizer state and the
         side buffers of the features that are on: under clever infill a
-        zero (n, d) carry (a packet lost before anything arrived reads as
-        0), zero momenta, reputations of 1.0, an unset loss EMA, an empty
-        flight ring."""
+        zero (k, d) carry of the rank's workers (a packet lost before
+        anything arrived reads as 0), their zero momenta, reputations of
+        1.0, an unset loss EMA, an empty flight ring."""
         params = {
             name: value.detach().to(self.device, torch.float32).clone().requires_grad_(True)
             for name, value in params.items()
@@ -465,9 +548,9 @@ class RobustEngine:
         state = TrainState(params=params, opt_state=tx.init(params), step=0, seed=int(seed))
         d = sum(value.numel() for value in params.values())
         if self.carries_gradients:
-            state.carry = torch.zeros((self.nb_workers, d), dtype=torch.float32, device=self.device)
+            state.carry = torch.zeros((self.workers_per_device, d), dtype=torch.float32, device=self.device)
         if self.worker_momentum is not None:
-            state.momentum = torch.zeros((self.nb_workers, d), dtype=torch.float32, device=self.device)
+            state.momentum = torch.zeros((self.workers_per_device, d), dtype=torch.float32, device=self.device)
         if self.reputation_decay is not None:
             state.reputation = torch.ones(self.nb_workers, dtype=torch.float32, device=self.device)
         if self.health_probe:
@@ -491,17 +574,22 @@ class RobustEngine:
 
     def _put(self, batch, lead):
         out = {}
+        k = self.workers_per_device
         for key, value in batch.items():
             tensor = torch.as_tensor(np.ascontiguousarray(value))
             if tuple(tensor.shape[:len(lead)]) != lead:
                 raise UserException(
                     "batch %r leads with %s, expected %s" % (key, tuple(tensor.shape[:len(lead)]), lead)
                 )
+            if self.nb_devices > 1:
+                # this rank's k workers of the global batch
+                tensor = tensor.narrow(len(lead) - 1, self.axis.rank * k, k).contiguous()
             out[key] = self._to_device(tensor)
         return out
 
     def put_batch(self, batch):
-        """Move a worker-major numpy batch (leading axis n) to the device."""
+        """Move this rank's k workers of a worker-major numpy batch (leading
+        axis n) to the device."""
         return self._put(batch, (self.nb_workers,))
 
     def put_batches(self, chunk):
@@ -548,6 +636,8 @@ class RobustEngine:
                 rows = self._perturb_local(self._send(state, rows), state.seed, state.step, state.carry)
                 # the rows as they arrived, before the omniscient attack
                 worker_nan = torch.any(~torch.isfinite(rows), dim=1) if self.health_probe else None
+                if worker_nan is not None and self.nb_devices > 1:
+                    worker_nan = self.axis.all_gather(worker_nan).reshape(self.nb_workers)  # worker-major
                 key = gar_key(state.seed, state.step)
                 if self.granularity == "leaf":
                     agg, participation, wdist, rep_dist = self._aggregate_per_leaf(
@@ -620,6 +710,9 @@ class RobustEngine:
 
         Synthetic (n, d) float32 rows are drawn once on the engine's device
         from a ``torch.Generator`` seeded with ``seed`` (``probe.rows``).
+        At W > 1 every rank draws the same rows and keeps its column block
+        (JAX shards the draw over the axis), so the probe runs the step's
+        collectives too and returns the rank's aggregate block.
         ``probe(step)`` runs one aggregation on them: the distances (K1, or
         the centring and K2) when the rule needs them, clamped at 0, then
         the rule (K3-K6 for the coordinate rules, Bulyan's last phase, the
@@ -629,23 +722,38 @@ class RobustEngine:
         training.  The caller synchronises before reading the clock."""
         generator = torch.Generator(device=self.device).manual_seed(int(seed))
         rows = torch.randn((self.nb_workers, int(d)), generator=generator, dtype=torch.float32, device=self.device)
+        axis = self.axis if self.nb_devices > 1 else None  # JAX's axis_name=None at W = 1
+        if axis is not None:
+            # every rank draws the same rows and keeps its column block
+            blk = -(-int(d) // self.nb_devices)
+            rows = torch.nn.functional.pad(rows, (0, self.nb_devices * blk - int(d)))
+            rows = rows[:, axis.rank * blk:(axis.rank + 1) * blk].contiguous()
 
         @torch.no_grad()
         def probe(step=0):
-            return self.gar._call_aggregate(probe.rows, self._distances(probe.rows), key=gar_key(seed, step))
+            return self.gar._call_aggregate(probe.rows, self._distances(probe.rows, axis), key=gar_key(seed, step),
+                                            axis=axis)
 
         probe.rows = rows
         return probe
 
     def build_eval_sums(self, metric_fn):
         """eval_step(state, batch) -> dict name -> (sum, count) over the batch:
-        ``metric_fn`` vmapped over the n workers, then summed over them."""
+        ``metric_fn`` vmapped over the k local workers, summed over them and
+        (W > 1) across the ranks."""
 
         @torch.no_grad()
         def eval_step(state, batch):
             params = {name: value.detach() for name, value in state.params.items()}
             sums = vmap(metric_fn, in_dims=(None, 0))(params, batch)
-            return {name: (torch.sum(total, dim=0), torch.sum(count, dim=0)) for name, (total, count) in sums.items()}
+            folded = {name: (torch.sum(total, dim=0), torch.sum(count, dim=0)) for name, (total, count) in sums.items()}
+            if self.nb_devices > 1:
+                names = sorted(folded)
+                summed = self.axis.all_reduce_sum(torch.stack([
+                    value.to(torch.float64) for name in names for value in folded[name]])).unbind(0)
+                folded = {name: (summed[2 * i].to(folded[name][0].dtype), summed[2 * i + 1].to(folded[name][1].dtype))
+                          for i, name in enumerate(names)}
+            return folded
 
         return eval_step
 

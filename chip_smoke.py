@@ -46,7 +46,10 @@ Phases, in order (any failure exits non-zero and prints no result):
    the sort path its compare-exchanges, those of K2 its 3xTF32 tensor-core
    products at 495 TFLOP/s.  K2's row also times the whole distance path on the raw
    (128, d) (centring and K2).  Distances of 64 rows must launch K1 and of
-   65 the centring and K2.
+   65 the centring and K2.  The worker axis's column blocks at W = 2
+   (``BLOCK_SHAPES``: K1 at (8, 878,341), the centring and K2 at (128,
+   878,341), K3 at (8, 878,341)) are held and timed too, clean and
+   poisoned.
 3. The worker gradients of cnnet at n=8, batch 128: the engine's one
    vmapped forward and backward (``torch.func``) against a per-worker loop
    on the same weights and batches, each row within ``VMAP_RTOL`` of its
@@ -133,7 +136,18 @@ Phases, in order (any failure exits non-zero and prints no result):
    trains; the metrics file, the span trace, the endpoints and K3's
    launches (a step and a probe call) are checked.  ``--trace``
    (``profiler_phase``): torch.profiler's Chrome trace of a krum leg must
-   name K1's kernel.
+   name K1's kernel.  ``--xprof 2:4`` and ``--forensics``
+   (``observability_phase``): one trace with the ``train step``
+   annotations of steps 2 and 3 and the card's kernels, the memory gauges
+   above 0, and a report that names the gaussian coalition.  The worker
+   axis (``multirank_phase``): two gloo ranks spawned on ``cuda:0``
+   (NCCL refuses two ranks on one card, so the collectives are staged
+   through pinned host memory and NCCL across ranks stays unmeasured) run
+   cnnet + krum and median for ``MULTIRANK_STEPS`` steps and the GAR
+   probes of krum at n = 128 and centered-clip, against one rank on the
+   same weights and batches (losses within 1e-5 relative, selections
+   identical, launches exact on each rank at the block shapes); it prints
+   each step's ms and the staged collectives' ms and MB.
    Last, a cnnet + krum step and a digits-conv + krum step are split into
    their phases (host batch, transfer, augmentation, worker gradients,
    attack + aggregate, update), with the batches streamed and drawn on the
@@ -544,6 +558,7 @@ def kernel_phase(torch, kernels):
             report(name, info.label + " sort path", row["sort_path"], 1)
         rows.append(row)
     extension_kernel_shapes(torch, kernels, randn, rank_poison, report, rows, library)
+    block_kernel_shapes(torch, kernels, randn, report, rows, library)
     # the distances switch form past 64 rows: K1 at n = 64, the centring and K2 at n = 65
     for n, want in ((64, {"pairwise_sq_distances"}), (65, {"pairwise_sq_distances_gram", "nanmedian_columns"})):
         before = kernels.launch_counts()
@@ -570,6 +585,47 @@ EXTENSION_CENTRING_ROWS = (2, 3, 4, 8)
 EXTENSION_TRANSPOSED = ((4, 8 * CNNET_D), (2, 8 * CNNET_D), (4, 16 * CNNET_D), (8, 8 * CNNET_D))
 
 
+def held_shape(torch, kernels, report, by_name, library, name, x, args, label):
+    """Hold kernel ``name`` against its plain version on ``x`` and time it
+    there: a row of its kernel row's ``other_shapes``.  Returns (kernel's,
+    plain version's)."""
+    got = getattr(kernels, name)(x, *args)
+    torch.cuda.synchronize()
+    want = kernels.PLAIN[name](x, *args)
+    err = compare(name, got, want, torch, x, args)
+    row = timed_row(torch, kernels, name, x, args, library.get(name), err)
+    row["label"] = label
+    report(name, label, row, 1)
+    by_name[name].setdefault("other_shapes", []).append(row)
+    return got, want
+
+
+#: the worker axis's column blocks at W = 2 (``parallel/mesh.py``): each rank
+#: holds ceil(d/2) of cnnet's coordinates; K1 on the 8 workers' block, the
+#: centring and K2 on 128 workers', K3 on the median's
+BLOCK_D = -(-CNNET_D // 2)
+BLOCK_SHAPES = (("pairwise_sq_distances", 8), ("nanmedian_columns", 128), ("pairwise_sq_distances_gram", 128),
+                ("coordinate_median", 8))
+
+
+def block_kernel_shapes(torch, kernels, randn, report, rows, library):
+    """Hold K1, the centring, K2 and K3 against their plain versions at the
+    worker axis's block shapes (n, 878,341), clean (timed) and with a NaN
+    row and +-inf values, and time them there."""
+    by_name = {row["name"]: row for row in rows}
+    for name, n in BLOCK_SHAPES:
+        x = randn(n, BLOCK_D)
+        args = (kernels.nanmedian_columns(x),) if name == "pairwise_sq_distances_gram" else ()
+        held_shape(torch, kernels, report, by_name, library, name, x, args, "block W=2")
+        x[1] = float("nan")
+        x[0, 5::11] = float("inf")
+        x[n - 1, 3::13] = -float("inf")
+        args = (kernels.nanmedian_columns(x),) if name == "pairwise_sq_distances_gram" else ()
+        compare(name, getattr(kernels, name)(x, *args), kernels.PLAIN[name](x, *args), torch, x, args)
+        del x, args
+    torch.cuda.empty_cache()
+
+
 def extension_kernel_shapes(torch, kernels, randn, rank_poison, report, rows, library):
     """Hold K2, the centring and K3 against their plain versions at the GAR
     extensions' shapes, and time them there (each kernel row's
@@ -583,14 +639,7 @@ def extension_kernel_shapes(torch, kernels, randn, rank_poison, report, rows, li
     by_name = {row["name"]: row for row in rows}
 
     def held(name, x, args, label):
-        got = getattr(kernels, name)(x, *args)
-        torch.cuda.synchronize()
-        want = kernels.PLAIN[name](x, *args)
-        err = compare(name, got, want, torch, x, args)
-        row = timed_row(torch, kernels, name, x, args, library.get(name), err)
-        report(name, label, row, 1)
-        by_name[name].setdefault("other_shapes", []).append(row)
-        return got, want
+        return held_shape(torch, kernels, report, by_name, library, name, x, args, label)
 
     for n in EXTENSION_GRAM_ROWS:
         x = randn(n, CNNET_D)
@@ -1138,6 +1187,212 @@ def profiler_phase(kernels, runner, card, workdir):
     print("profiler on %s: %s, %d events, %d kernel events, %d of K1 (%s)"
           % (card, path, len(events), len(device), len(k1), k1[0]["name"][:80]))
     return counts
+
+
+def observability_phase(kernels, runner, card, workdir):
+    """``--xprof 2:4`` and ``--forensics`` on cnnet + krum (n=8, f=2): the
+    profiler window writes one trace whose events hold the ``train step``
+    annotations of steps 2 and 3 and the card's kernels, with the memory
+    gauges above 0 in ``--metrics-file``; the forensics report of a
+    deviation-100 gaussian coalition (r = 2) names workers 0 and 1 and
+    observes every step.  K1 launches once a step; returns {kernel:
+    launches}."""
+    from aggregathor_tpu_torch.obs import metrics
+
+    base = ["--experiment", "cnnet", "--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
+            "--nb-real-byz-workers", "2", "--seed", "1", "--evaluation-delta", "-1", "--evaluation-period", "-1"]
+    totals = {name: 0 for name in kernels.KERNELS}
+
+    def leg(label, argv):
+        kernels.reset_launch_counts()
+        result = runner.main(base + argv)
+        counts = kernels.launch_counts()
+        for name in kernels.KERNELS:
+            want = result["steps"] if name == "pairwise_sq_distances" else 0
+            check(counts[name] == want, "%s: %s launched %d times (want %d)" % (label, name, counts[name], want))
+            totals[name] += counts[name]
+        return result
+
+    prom = os.path.join(workdir, "xprof.prom")
+    result = leg("xprof", ["--attack", "signflip", "--max-step", "6", "--xprof", "2:4", "--trace-dir",
+                           os.path.join(workdir, "xprof"), "--metrics-file", prom, "--run-id", "chip-xprof"])
+    path = result["xprof_trace"]
+    check(path is not None and os.path.exists(path), "xprof: no trace written")
+    events = json.load(open(path))["traceEvents"]
+    names = {e.get("name") for e in events}
+    device = [e for e in events if e.get("cat") == "kernel"]
+    check({"train step 2", "train step 3"} <= names, "xprof: the step annotations are missing")
+    check("train step 4" not in names and device, "xprof: the window is not steps 2-3 with the card's kernels")
+    families = metrics.parse_prometheus(open(prom).read())
+    memory = {name: families[name]["samples"][0][2] for name in ("device_memory_live_bytes", "device_memory_peak_bytes")}
+    check(all(value > 0 for value in memory.values()), "xprof: memory gauges %s" % memory)
+    print("xprof on %s: %s, %d events, %d kernel events; device memory live %.0f MB, peak %.0f MB"
+          % (card, path, len(events), len(device), memory["device_memory_live_bytes"] / 2**20,
+             memory["device_memory_peak_bytes"] / 2**20))
+    report_path = os.path.join(workdir, "forensics.json")
+    result = leg("forensics", ["--attack", "gaussian", "--attack-args", "deviation:100", "--max-step", "10",
+                               "--forensics", report_path])
+    report = json.load(open(report_path))
+    check(report["suspects"] == [0, 1] and report["steps_observed"] == result["steps"] == 10,
+          "forensics: suspects %s over %d steps (want [0, 1] over 10)" % (report["suspects"], report["steps_observed"]))
+    check(os.path.exists(report_path[:-5] + ".md"), "forensics: no markdown report")
+    print("forensics on %s: suspects %s, evidence %s" % (card, report["suspects"], [
+        report["workers"][w]["evidence"] for w in (0, 1)]))
+    return totals
+
+
+#: the worker axis on one card: two gloo ranks share cuda:0 (NCCL refuses
+#: two ranks on one card), their collectives staged through pinned host
+#: memory, their compute on the card.  (label, rule, attack) of cnnet at
+#: n = 8 (batch 16) and the GAR probes (rule, n, f) at cnnet's width
+MULTIRANK_STEPS = 5
+MULTIRANK_LEGS = (("krum", "krum", "signflip"), ("median", "median", "signflip"))
+MULTIRANK_PROBES = (("krum", 128, 8), ("centered-clip", 8, 2))
+#: the kernels a step (a probe call) launches on each rank
+MULTIRANK_LAUNCHES = {"krum": {"pairwise_sq_distances": 1}, "median": {"coordinate_median": 1},
+                      "probe krum": {"nanmedian_columns": 1, "pairwise_sq_distances_gram": 1},
+                      "probe centered-clip": {"nanmedian_columns": 1}}
+
+
+def multirank_leg(axis, rule, attack, steps=MULTIRANK_STEPS):
+    """cnnet (batch 16) + ``rule`` at n = 8, f = r = 2 on ``axis``, at the
+    runner's default learning rate (the main path's legs'): a warm-up step,
+    then ``steps`` timed steps with the launch counts and the axis's
+    collective time read over them."""
+    import torch
+
+    from aggregathor_tpu_torch import gars, models
+    from aggregathor_tpu_torch.core import build_optimizer, build_schedule
+    from aggregathor_tpu_torch.ops import kernels
+    from aggregathor_tpu_torch.parallel import RobustEngine, attacks
+
+    n, f, r = 8, 2, 2
+    exp = models.instantiate("cnnet", ["batch-size:16"])
+    tx = build_optimizer("sgd", build_schedule("fixed", []))
+    engine = RobustEngine(gars.instantiate(rule, n, f), n, nb_real_byz=r, attack=attacks.instantiate(attack, n, r),
+                          worker_metrics=True, axis=axis)
+    step = engine.build_step(exp.loss, tx)
+    state = engine.init_state(exp.init(1), tx, seed=1)
+    it = exp.make_train_iterator(n, seed=2)
+    batches = [next(it) for _ in range(steps + 1)]
+    state, _ = step(state, engine.put_batch(batches[0]))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    before = dict(axis.stats)
+    out = {"loss": [], "support": [], "step_ms": []}
+    for batch in batches[1:]:
+        begin = time.perf_counter()
+        state, metrics = step(state, engine.put_batch(batch))
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - begin) * 1e3)
+        out["loss"].append(float(metrics["total_loss"]))
+        part = metrics.get("worker_participation")
+        out["support"].append(None if part is None else (part > 0).tolist())
+    out["counts"] = kernels.launch_counts()
+    out["collective_ms"] = (axis.stats["seconds"] - before["seconds"]) * 1e3 / steps
+    out["collective_mb"] = (axis.stats["bytes"] - before["bytes"]) / 2**20 / steps
+    out["params"] = torch.cat([state.params[k].detach().reshape(-1) for k in sorted(state.params)]).cpu().numpy()
+    return out
+
+
+def multirank_probe(axis, rule, n, f):
+    """The GAR probe of ``rule`` at (n, cnnet's d) on ``axis``: a warm-up
+    call, then one call with the launch counts read over it; returns this
+    rank's aggregate block."""
+    import torch
+
+    from aggregathor_tpu_torch import gars
+    from aggregathor_tpu_torch.ops import kernels
+    from aggregathor_tpu_torch.parallel import RobustEngine
+
+    probe = RobustEngine(gars.instantiate(rule, n, f), n, axis=axis.with_workers(n)).build_gar_probe(CNNET_D, seed=3)
+    probe(0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    begin = time.perf_counter()
+    agg = probe(1)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - begin) * 1e3, "counts": kernels.launch_counts(),
+           "shape": list(probe.rows.shape), "agg": agg.cpu().numpy()}
+    del probe
+    torch.cuda.empty_cache()
+    return out
+
+
+def multirank_rank(axis):
+    """One rank of ``multirank_phase`` (a spawned process re-imports this
+    module, whose top level imports nothing of the port)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {label: multirank_leg(axis, rule, attack) for label, rule, attack in MULTIRANK_LEGS}
+    out.update({"probe " + rule: multirank_probe(axis, rule, n, f) for rule, n, f in MULTIRANK_PROBES})
+    return out
+
+
+def multirank_phase(torch, kernels, card):
+    """Two gloo ranks on ``cuda:0`` in two spawned processes
+    (``parallel.mesh.spawn``, shared card): cnnet + krum (signflip) and
+    median for ``MULTIRANK_STEPS`` steps at d = 1,756,682 and the GAR probes
+    of krum at n = 128 and centered-clip at n = 8, held against one rank
+    with the same weights and batches: losses within 1e-5 relative,
+    selections identical, the parameters replicated bit for bit across the
+    ranks (their distance to the one rank's printed), the probes' joined
+    aggregate blocks within 1e-5 (1 + |x|) of the one-rank
+    aggregate, and the launches exact on each rank (K1 once a step at (8,
+    878,341), K3 once at (8, 878,341), the centring and K2 once a call at
+    (128, 878,341)).  Prints the step ms of each and the staged collective
+    ms and MB a step.  Returns {kernel: launches} summed over the ranks."""
+    import numpy as np
+
+    from aggregathor_tpu_torch.parallel import mesh
+    from aggregathor_tpu_torch.parallel.mesh import WorkerAxis
+
+    ranks = mesh.spawn(multirank_rank, 2, 8, device="cuda", shared_card=True, timeout=900)
+    one_axis = WorkerAxis(8, 1, 0, "cuda")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    one = {label: multirank_leg(one_axis, rule, attack) for label, rule, attack in MULTIRANK_LEGS}
+    torch.backends.cudnn.deterministic = False
+    totals = {name: 0 for name in kernels.KERNELS}
+    for label, _, _ in MULTIRANK_LEGS:
+        lead, other, want = ranks[0][label], ranks[1][label], one[label]
+        check(lead["loss"] == other["loss"] and bool((lead["params"] == other["params"]).all()),
+              "multirank %s: the ranks' losses or parameters differ" % label)
+        check(lead["support"] == want["support"], "multirank %s: selections differ from one rank's" % label)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lead["loss"], want["loss"]))
+        check(rel <= 1e-5, "multirank %s: losses %s vs one rank's %s" % (label, lead["loss"], want["loss"]))
+        # not held: a coordinate rule picks another worker's value where two
+        # nearly tie, and the gradients of 4 and 8 vmapped workers differ in
+        # their last bits (cuDNN on another batch), so the parameters drift
+        params_err = float(abs(lead["params"] - want["params"]).max() / abs(want["params"]).max())
+        print("multirank %s on %s: 2 ranks sharing the card, %d steps: step %.2f ms (one rank %.2f ms), staged "
+              "collectives %.2f ms and %.1f MB a step and rank; loss rel err %.2g, parameters off one rank's by "
+              "%.2g of the largest"
+              % (label, card, MULTIRANK_STEPS, statistics.median(lead["step_ms"]), statistics.median(want["step_ms"]),
+                 lead["collective_ms"], lead["collective_mb"], rel, params_err))
+    for rule, n, f in MULTIRANK_PROBES:
+        label = "probe " + rule
+        single = multirank_probe(one_axis, rule, n, f)
+        joined = np.concatenate([ranks[0][label]["agg"], ranks[1][label]["agg"]])[:CNNET_D]
+        err = np.abs(joined - single["agg"])
+        check(bool(np.all(err <= 1e-5 * (1 + np.abs(single["agg"])))),
+              "multirank %s: the joined blocks differ from one rank's aggregate (max %g)" % (label, err.max()))
+        print("multirank %s at (%d, %d) on %s: blocks %s, %.2f ms a call (one rank %.2f ms), max |err| %g"
+              % (label, n, CNNET_D, card, ranks[0][label]["shape"], ranks[0][label]["ms"], single["ms"], err.max()))
+    for label, per_step in MULTIRANK_LAUNCHES.items():
+        calls = 1 if label.startswith("probe") else MULTIRANK_STEPS
+        for rank, result in enumerate(ranks):
+            counts = result[label]["counts"]
+            for name in kernels.KERNELS:
+                want = per_step.get(name, 0) * calls
+                check(counts[name] == want, "multirank %s rank %d: %s launched %d times (want %d)"
+                      % (label, rank, name, counts[name], want))
+                totals[name] += counts[name]
+    del one
+    torch.cuda.empty_cache()
+    return totals
 
 
 #: the guardian legs on cnnet at full width: average under an inf coalition
@@ -2131,7 +2386,9 @@ def main():
         for counts in (pipeline_phase(torch, kernels, runner, card),
                        plane_phase(torch, kernels, runner, card, workdir, gar_ms),
                        profiler_phase(kernels, runner, card, workdir),
-                       guardian_phase(torch, kernels, runner, card, workdir)):
+                       observability_phase(kernels, runner, card, workdir),
+                       guardian_phase(torch, kernels, runner, card, workdir),
+                       multirank_phase(torch, kernels, card)):
             for kernel, count in counts.items():
                 totals[kernel] += count
         for row in rows:

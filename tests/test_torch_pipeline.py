@@ -19,9 +19,11 @@ Mirrors JAX ``tests/test_input_pipeline.py:67-264`` on the same inputs
   goes through the pipeline and gives the per-step losses of ``--prefetch
   0`` bit for bit, and the JAX runner's from the same weights within the
   runner parity tolerance (rtol 1e-4, ``test_torch_digits.py``); its
-  ``--metrics-file`` holds the JAX runner's families but those of
-  ``WAITING``; the span trace, the live exporter and ``--trace`` (three
-  steps after the first chunk) work there.
+  ``--metrics-file`` holds every family the JAX runner writes, with the same
+  types (on the CPU the ``device_memory_*`` families hold no sample, as
+  JAX's hold none on XLA:CPU); the span trace, the live exporter and
+  ``--trace`` (three steps after the first chunk) work there, and
+  ``--xprof`` takes the JAX runner's form and refuses ``--trace``.
 """
 
 import json
@@ -272,14 +274,13 @@ BASE = ["--experiment", "digits", "--experiment-args", *EXP_ARGS, "--aggregator"
         "--evaluation-period", "-1", "--summary-period", "-1", "--checkpoint-period", "-1"]
 ARGV = BASE + ["--max-step", "12"]
 
-#: the JAX runner's families the port's --metrics-file lacks, each with the
-#: module it waits for
-WAITING = {
-    "compile_backend_total": "obs/profiler (--xprof, the compile listener)",
-    "compile_backend_seconds_total": "obs/profiler (the compile listener)",
-    "compile_cache_misses_total": "obs/profiler (CompileWatch)",
-    "device_memory_live_bytes": "obs/profiler (the memory gauges)",
-    "device_memory_peak_bytes": "obs/profiler (the memory gauges)",
+#: the families of obs/profiler, each with what it counts in the port
+PROFILER_FAMILIES = {
+    "compile_backend_total": "kernel builds ops/build.py finished in the process (0 when built already)",
+    "compile_backend_seconds_total": "their wall time",
+    "compile_cache_misses_total": "build-cache misses, labelled by source",
+    "device_memory_live_bytes": "torch.cuda.memory_stats: allocated bytes now (no sample on the CPU)",
+    "device_memory_peak_bytes": "torch.cuda.memory_stats: peak allocated bytes (no sample on the CPU)",
 }
 
 
@@ -340,8 +341,10 @@ def test_metrics_file_families_are_the_jax_runners(runs):
     _, _, out = runs
     theirs = jmetrics.parse_prometheus(open(out / "jax.prom").read())
     ours = metrics.parse_prometheus(open(out / "pipelined.prom").read())
-    assert set(ours) == set(theirs) - set(WAITING)
-    assert set(WAITING) <= set(theirs)
+    assert set(ours) == set(theirs)
+    assert set(PROFILER_FAMILIES) <= set(ours)
+    for name in ("device_memory_live_bytes", "device_memory_peak_bytes"):  # no sample on the CPU, as in JAX
+        assert ours[name]["samples"] == theirs[name]["samples"] == [], name
     for name in ours:
         assert ours[name]["type"] == theirs[name]["type"], name
     values = {name: family["samples"][0][2] for name, family in ours.items()
@@ -367,8 +370,10 @@ def test_plane_flags_take_the_jax_defaults():
             jax_actions[flag].type, jax_actions[flag].choices, jax_actions[flag].nargs), flag
     with pytest.raises(UserException):
         runner.main(argv + ["--live-ready-file", "x", "--device", "cpu"])
-    with pytest.raises(SystemExit):  # the profiler window of obs/profiler is not ported
-        runner.build_parser().parse_args(argv + ["--xprof", "2:4"])
+    xprof = argv + ["--xprof", "2:4"]
+    assert runner.build_parser().parse_args(xprof).xprof == jrunner.build_parser().parse_args(xprof).xprof == "2:4"
+    with pytest.raises(UserException, match="--xprof and --trace"):
+        runner.main(xprof + ["--trace", "--device", "cpu"])
 
 
 def test_runner_plane_end_to_end(tmp_path, monkeypatch, capsys):

@@ -333,7 +333,8 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "test_torch_gpu.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "test_torch_gpu.py"),
+             os.path.join(REPO, "tests", "torch_rank_cases.py")]  # what spawned ranks import
     for root, _, files in os.walk(os.path.join(REPO, "aggregathor_tpu_torch")):
         paths += [os.path.join(root, name) for name in files if name.endswith(".py")]
     assert len(paths) > 20
@@ -342,7 +343,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "core/train_state.py", "cli/runner.py", "core/flatten.py", "models/preprocessing.py",
                    "models/__init__.py", "models/cnnet.py", "parallel/engine.py", "obs/metrics.py",
                    "obs/trace.py", "obs/live.py", "obs/events.py", "guardian/escalate.py", "guardian/watchdog.py",
-                   "utils/access.py", "utils/plugins.py", "cli/__init__.py"):
+                   "utils/access.py", "utils/plugins.py", "cli/__init__.py", "parallel/mesh.py", "obs/profiler.py",
+                   "obs/forensics.py", "utils/cluster.py", "cli/deploy.py"):
         assert os.path.join(REPO, "aggregathor_tpu_torch", module) in paths, module
     offenders = [
         (os.path.relpath(path, REPO), module)
