@@ -10,7 +10,8 @@ check, and once more at the end unless the run diverged), the input path
 (``--unroll``, ``--prefetch``, ``--input-source``), the engine's robustness
 options (``--worker-momentum``, ``--reputation-decay``,
 ``--quarantine-threshold``, ``--worker-metrics``, ``--exchange-dtype``,
-``--granularity``, ``--leaf-bucketing``, ``--trace-ops``), the flight
+``--exchange``, ``--granularity``, ``--leaf-bucketing``, ``--trace-ops``),
+the chaos schedule (``--chaos``, ``--chaos-args``), the flight
 recorder (``--flight``, ``--flight-dump``), the metrics plane
 (``--gar-probe``, ``--metrics-file``, ``--trace-file``, ``--trace``,
 ``--trace-dir``, ``--live-port``, ``--live-host``, ``--live-ready-file``,
@@ -20,6 +21,21 @@ recorder (``--flight``, ``--flight-dump``), the metrics plane
 profiler window (``--xprof``), the worker axis (``--nb-devices``), the
 reference's drop-in compatibility flags and ``--device``.  It runs on CUDA unless ``--device cpu`` is given; with no
 GPU and no ``--device cpu`` it fails instead of falling back.
+
+``--chaos SCHEDULE`` (``chaos/schedule.py``) replaces ``--attack`` and
+``--UDP`` with regimes that switch at their steps: the log names the
+schedule, the regime at the start and each switch, seen at a call
+boundary (under ``--unroll`` a switch inside a chunk shows at its end),
+where a ``chaos_regime_switch`` summary event is written; the summaries
+and the ``train_chaos_regime`` gauge carry the last step's regime, the
+evaluation TSV's ``chaos_regime`` column the regime of the last completed
+step (``step - 1``), and the forensics ledger each step's regime.  The
+schedule's process and topology keys are refused (this runner has no
+``--topology``).  ``--exchange SPEC`` (``parallel/compress.py``) sets the
+wire: ``bf16`` is ``--exchange-dtype bfloat16``, ``int8[:ef]`` and
+``topk:k=K|frac=F[,ef]`` engage the codec; ``bytes_on_wire_total`` counts
+n rows of the codec's bytes a step, and the error-feedback residual is
+saved in the checkpoints (gathered from every rank).
 
 A summary event carries, beside the four scalars, the worker diagnostics
 the engine computes (``worker_sq_dist`` and ``suspect_worker``, the most
@@ -169,6 +185,15 @@ def build_parser():
     parser.add_argument("--attack-args", nargs="*", default=[], help="key:value attack arguments")
     parser.add_argument("--UDP", type=int, default=0, dest="udp", help="first k workers use the lossy link")
     parser.add_argument("--UDP-args", nargs="*", default=[], dest="udp_args", help="key:value lossy-link arguments")
+    parser.add_argument(
+        "--chaos", default=None, metavar="SCHEDULE",
+        help="time-varying fault-regime schedule (chaos/ DSL, e.g. '0:calm 500:drop=0.3 1000:attack=empire'): "
+             "regimes switch at their steps; subsumes the static --attack/--UDP knobs",
+    )
+    parser.add_argument(
+        "--chaos-args", nargs="*", default=[],
+        help="key:value schedule-wide chaos options (packet-coords:N, min-coords:N, straggle-workers:K)",
+    )
     parser.add_argument("--optimizer", default="sgd", help="optimizer name")
     parser.add_argument("--optimizer-args", nargs="*", default=[], help="key:value optimizer arguments")
     parser.add_argument("--learning-rate", default="fixed", help="learning-rate schedule name")
@@ -196,7 +221,17 @@ def build_parser():
     )
     parser.add_argument(
         "--exchange-dtype", default=None, choices=["float32", "bfloat16"],
-        help="wire precision of the gradient exchange (bfloat16 halves the bytes; the GAR computes in float32)",
+        help="wire precision of the gradient exchange (bfloat16 halves the bytes; the GAR computes in float32).  "
+             "Subsumed by --exchange, which also reaches int8/top-k",
+    )
+    parser.add_argument(
+        "--exchange", default=None, metavar="SPEC",
+        help="wire codec of the gradient exchange (parallel/compress.py): f32 | bf16 | int8[:ef] | topk:k=K[,ef] | "
+             "topk:frac=F[,ef].  int8 quantizes each row symmetrically with a per-row scale (~4x fewer bytes); "
+             "topk ships only the k largest-|value| coordinates; ef adds per-worker error feedback (the residual "
+             "rides TrainState.ef, checkpointed).  Rows are encoded after the worker-local attacks and decoded at "
+             "the aggregation boundary, so every GAR sees float32; bytes_on_wire_total / "
+             "exchange_compression_ratio land on the metrics registry",
     )
     parser.add_argument(
         "--worker-momentum", type=float, default=None, metavar="BETA",
@@ -560,6 +595,7 @@ def _train(args, stop, axis):
     from ..obs import events as obs_events, flight as obs_flight, live as obs_live, metrics as obs_metrics, trace
     from ..obs.summaries import SummaryWriter, make_run_id
     from ..ops import kernels
+    from ..chaos import ChaosSchedule
     from ..parallel import RobustEngine, attacks, compress
     from ..parallel.engine import fold_in_seed, index_metrics, stack_metrics
     from ..parallel.lossy import LossyLink
@@ -612,6 +648,17 @@ def _train(args, stop, axis):
                             % args.granularity)
     if args.leaf_bucketing != "auto" and args.granularity != "leaf":
         warning("--leaf-bucketing only affects --granularity leaf; ignored for granularity %r" % args.granularity)
+    # the wire codec, parsed before anything is built (JAX :634-663)
+    exchange_codec = None
+    if args.exchange:
+        if args.exchange_dtype:
+            raise UserException("--exchange generalizes --exchange-dtype (bf16 is spelled --exchange bf16); pass "
+                                "only one")
+        spec_dtype, exchange_codec = compress.parse_exchange_spec(args.exchange)
+        if spec_dtype is not None:
+            # bf16 lands on the dtype twin, bit-compatible with --exchange-dtype
+            args.exchange_dtype = "bfloat16"
+            args.exchange = None
     cause = parse_cause_flag(args.cause)
     # the guardian's configuration is parsed before anything is built, so a
     # bad ladder or threshold fails before the first launch
@@ -629,7 +676,8 @@ def _train(args, stop, axis):
     # shared by every rebuilt stack (its ring is per-state)
     flight_rec = None
     if args.flight:
-        flight_rec = obs_flight.FlightRecorder(args.flight, n, probe=True, worker_metrics=args.worker_metrics)
+        flight_rec = obs_flight.FlightRecorder(args.flight, n, probe=True, worker_metrics=args.worker_metrics,
+                                               chaos=bool(args.chaos))
         if args.flight < unroll:
             warning("--flight capacity %d < --unroll %d: a summary fetch cannot cover the whole last chunk; "
                     "size the ring to at least the unroll (ideally the summary delta)" % (args.flight, unroll))
@@ -652,6 +700,13 @@ def _train(args, stop, axis):
                 )
         attack = attacks.instantiate(args.attack, n, r, args.attack_args) if args.attack else None
         lossy = LossyLink(args.udp, args.udp_args) if args.udp > 0 else None
+        chaos = None
+        if args.chaos:
+            # no --topology in this runner: the sub-aggregator keys refuse,
+            # as the JAX runner's do without --topology
+            chaos = ChaosSchedule(args.chaos, n, nb_real_byz=r, args=args.chaos_args, allow_topology_faults=False)
+            info("Chaos schedule: %d regime(s): %s"
+                 % (len(chaos), "  ".join("%d:%s" % t for t in chaos.transitions())))
         base_schedule = build_schedule(args.learning_rate, args.learning_rate_args)
 
         def build_training(ov):
@@ -676,7 +731,8 @@ def _train(args, stop, axis):
                 worker_metrics=args.worker_metrics, reputation_decay=ov.reputation_decay,
                 quarantine_threshold=ov.quarantine_threshold, granularity=args.granularity,
                 leaf_bucketing={"auto": "auto", "on": True, "off": False}[args.leaf_bucketing],
-                trace_ops=args.trace_ops, flight=flight_rec, device=device, axis=axis)
+                trace_ops=args.trace_ops, flight=flight_rec, device=device, axis=axis, chaos=chaos,
+                exchange=exchange_codec)
             stack.step_fn = stack.engine.build_step(experiment.loss, stack.tx)
             if args.input_source == "device":
                 stack.multi_fn = stack.engine.build_sampled_multi_step(experiment.loss, stack.tx, unroll,
@@ -719,7 +775,7 @@ def _train(args, stop, axis):
     # summaries (JAX keeps them lead-only)
     checkpoints = Checkpoints(
         args.checkpoint_dir, pick(args.checkpoint_base_name, config.default_checkpoint_base_name),
-        args.checkpoint_keep, background=True,
+        args.checkpoint_keep, background=True, nb_workers=n,
     ) if args.checkpoint_dir and lead else None
     eval_file = EvalFile(args.evaluation_file if lead else None)
     summaries = SummaryWriter(args.summary_dir if lead else None, run_id=run_id)
@@ -733,7 +789,7 @@ def _train(args, stop, axis):
     g_grad_norm = registry.gauge("train_grad_norm", "Last summarized aggregate norm")
     g_lr = registry.gauge("train_learning_rate", "Learning rate at the last summary")
     g_steps_per_s = registry.gauge("train_steps_per_second", "Throughput excluding the first (compile) step")
-    registry.gauge("train_chaos_regime", "Active chaos regime index")  # 0: chaos is not ported
+    g_regime = registry.gauge("train_chaos_regime", "Active chaos regime index")
     g_quarantined = registry.gauge("train_quarantined_workers", "Workers under quarantine")
     g_worker_dist = registry.gauge("train_worker_sq_dist", "Per-worker squared distance to the aggregate",
                                    labelnames=("worker",))
@@ -744,8 +800,8 @@ def _train(args, stop, axis):
     # the ladder never changes d or the wire: computed once
     c_wire_bytes = registry.counter("bytes_on_wire_total", "Gradient-exchange submission bytes shipped over the wire")
     registry.gauge("exchange_compression_ratio", "f32-wire bytes over configured-exchange bytes (>= 1)").set(
-        compress.compression_ratio(model_dim, ts.engine.exchange_dtype))
-    wire_step_bytes = n * compress.bytes_per_row(model_dim, ts.engine.exchange_dtype)
+        compress.compression_ratio(model_dim, ts.engine.exchange_dtype, codec=ts.engine.codec))
+    wire_step_bytes = n * compress.bytes_per_row(model_dim, ts.engine.exchange_dtype, codec=ts.engine.codec)
     c_rollbacks = registry.counter("guardian_rollbacks_total", "Guardian rollbacks to last-known-good")
     c_escalations = registry.counter("guardian_escalations_total", "Guardian escalation-ladder rungs applied")
     c_recoveries = registry.counter("guardian_recoveries_total", "Guardian diverged-then-recovered verdicts")
@@ -776,6 +832,9 @@ def _train(args, stop, axis):
                 prev = sums.get(name, (0.0, 0.0))
                 sums[name] = (prev[0] + float(total), prev[1] + float(count))
         metrics = {name: total / max(count, 1.0) for name, (total, count) in sums.items()}
+        if chaos is not None:
+            # the regime of the last completed step (JAX :1782-1788)
+            metrics["chaos_regime"] = chaos.regime_at(max(step - 1, 0))
         info("Evaluation at step %d: %s" % (step, "  ".join("%s=%.4f" % kv for kv in sorted(metrics.items()))))
         eval_file.append(step, metrics)
         return metrics
@@ -825,6 +884,8 @@ def _train(args, stop, axis):
                 scalars[name] = metrics[name].cpu().numpy()
         if "nb_quarantined" in metrics:
             scalars["nb_quarantined"] = int(metrics["nb_quarantined"])
+        if "chaos_regime" in metrics:
+            scalars["chaos_regime"] = int(metrics["chaos_regime"])
         if args.gar_probe:
             scalars["gar_seconds"] = time_gar_probe(step)
         if flight_rec is not None:
@@ -843,6 +904,8 @@ def _train(args, stop, axis):
         g_steps_per_s.set(scalars["steps_per_s"])
         if "nb_quarantined" in scalars:
             g_quarantined.set(scalars["nb_quarantined"])
+        if "chaos_regime" in scalars:
+            g_regime.set(scalars["chaos_regime"])
         if "worker_sq_dist" in scalars:
             for w, value in enumerate(scalars["worker_sq_dist"]):
                 g_worker_dist.labels(worker=str(w)).set(float(value) if np.isfinite(value) else float("inf"))
@@ -962,7 +1025,7 @@ def _train(args, stop, axis):
         """Rollback-and-escalate (JAX :2183-2290): restore the last-known-good
         snapshot (or a fresh state when none is pinned), perturb the random
         streams, climb one rung, drop the abandoned timeline."""
-        nonlocal state, step, ts, overrides, pending_loss, pending_metrics, diverged
+        nonlocal state, step, ts, overrides, pending_loss, pending_metrics, diverged, chaos_regime_seen
         reason = watchdog.last_reason or "divergence"
         if watchdog.exhausted:
             diverged = True
@@ -1041,6 +1104,8 @@ def _train(args, stop, axis):
                 if trigger.last_step is not None and trigger.last_step > rstep:
                     trigger.last_step = rstep
             reset_input(rstep, reseed=attempt + 1)
+            if chaos is not None:
+                chaos_regime_seen = chaos.regime_at(step)
 
     # the forensics feed: one ledger observation a completed step, from the
     # previous call (JAX :2105-2165); ``forensics_fed`` keeps the same call
@@ -1060,12 +1125,17 @@ def _train(args, stop, axis):
             probe_tree = pending_metrics.get(health.PROBE_KEY)
             dist, rep = rows("worker_sq_dist"), rows("worker_reputation")
             nan_rows = rows("worker_nan_rows", probe_tree) if probe_tree is not None else None
-            present = [v for v in (dist, rep, nan_rows) if v is not None]
+            regime = pending_metrics.get("chaos_regime")
+            regime = None if regime is None else np.atleast_1d(regime.detach().cpu().numpy())
+            present = [v for v in (dist, rep, nan_rows, regime) if v is not None]
             for i in range(max(v.shape[0] for v in present) if present else 0):
+                ridx = None if regime is None else int(regime[min(i, regime.shape[0] - 1)])
                 ledger.observe(pending_start + i + 1,
                                worker_sq_dist=None if dist is None else dist[i],
                                worker_nan=None if nan_rows is None else nan_rows[i],
-                               reputation=None if rep is None else rep[i])
+                               reputation=None if rep is None else rep[i],
+                               regime=ridx,
+                               regime_desc=chaos.describe(ridx) if ridx is not None else None)
 
     def observe_pending():
         """Feed the forensics ledger and the watchdog the previous call's
@@ -1153,6 +1223,9 @@ def _train(args, stop, axis):
     def stopping():
         return stop["requested"] if W == 1 else agreed["stop"]
 
+    # the regime of the next step to dispatch, tracked on the host: a switch
+    # shows at a call boundary (JAX :2365-2372, :2470-2480)
+    chaos_regime_seen = None
     launches_before = kernels.launch_counts()
     metrics, evaluation, perf, report, prefetcher, live, train_iter = {}, None, None, None, None, None, None
     feeders = []
@@ -1192,6 +1265,9 @@ def _train(args, stop, axis):
             broadcast_state(state, axis)
         reset_input(offstep)
         step, loop_steps_per_s = offstep, 0.0
+        if chaos is not None:
+            chaos_regime_seen = chaos.regime_at(step)
+            info("Chaos regime at step %d: %s" % (step, chaos.describe(chaos_regime_seen)))
         live_state["step"] = step
         perf = PerfReport(registry=registry)
         if args.live_port is not None and lead:
@@ -1276,6 +1352,13 @@ def _train(args, stop, axis):
                 metrics = index_metrics(many, -1)
                 if xprof is not None:
                     xprof.maybe_stop(step)
+                if chaos is not None:
+                    regime_now = chaos.regime_at(step)
+                    if regime_now != chaos_regime_seen:
+                        chaos_regime_seen = regime_now
+                        info("Chaos regime switch at step %d: now %s" % (step, chaos.describe(regime_now)))
+                        summaries.event(step, "chaos_regime_switch",
+                                        {"regime": regime_now, "spec": chaos.describe(regime_now)})
                 if profiler["prof"] is not None and step >= profiler["start"] + 3:
                     profiler_stop()
                 # the cadences are the lead's clock's, and a signal on any
@@ -1291,9 +1374,10 @@ def _train(args, stop, axis):
                     eval_trigger.fired(step)
                 if ckpt_fire:
                     check_divergence()
+                    ef_rows = ts.engine.gather_ef(state)  # every rank: a collective at W > 1
                     if checkpoints is not None:
                         checkpoints.wait()  # surface a previous write's failure
-                        checkpoints.save(state, step)
+                        checkpoints.save(state, step, ef=ef_rows)
                         if watchdog is not None and watchdog.healthy and probe_clean(many):
                             # last-known-good: spared by pruning, the rollback
                             # target; every step of the call must read clean
@@ -1315,8 +1399,10 @@ def _train(args, stop, axis):
             if step > offstep:
                 if eval_trigger.enabled and eval_trigger.last_step != step:
                     evaluation = run_eval(step)
-                if checkpoints is not None and ckpt_trigger.last_step != step:
-                    checkpoints.save(state, step)
+                if args.checkpoint_dir and ckpt_trigger.last_step != step:
+                    ef_rows = ts.engine.gather_ef(state)  # every rank: a collective at W > 1
+                    if checkpoints is not None:
+                        checkpoints.save(state, step, ef=ef_rows)
                 if summary_trigger.last_step != step:
                     fire_summary(step, metrics)
     finally:

@@ -3,14 +3,17 @@
 Counterpart of ``aggregathor_tpu/core/train_state.py``.  Beside the
 parameters ride the engine's side buffers, each present only when its
 feature is on: the lossy link's CLEVER carry, the worker momentum and its
-update count, the reputation EMA, the health probe's loss EMA and the
-flight recorder's ring.  None of them is saved: ``host_snapshot`` takes
-the step, the seed, the parameters and the optimizer state to the host,
-and ``load_snapshot`` loads those back and resets the momentum, the
-reputation, the loss EMA and the ring in place, as a restore from the JAX
-package's fresh template does (the error-feedback buffer of the wire codec
-is not ported).  ``broadcast_state`` hands the lead's parameters, optimizer
-state, step and seed to every rank of a worker axis the same way.
+update count, the reputation EMA, the health probe's loss EMA, the flight
+recorder's ring and the wire codec's error-feedback residual.
+``host_snapshot`` takes the step, the seed, the parameters, the optimizer
+state and, as in JAX (``engine.py:1417-1419``), the error-feedback residual
+of every worker to the host; ``load_snapshot`` loads those back and resets
+the momentum, the reputation, the loss EMA and the ring in place, as a
+restore from the JAX package's fresh template does (a snapshot without the
+residual zeroes it, as JAX's zeroed template stands in).
+``broadcast_state`` hands the lead's parameters, optimizer state, step,
+seed and each rank's residual rows to every rank of a worker axis the same
+way.
 """
 
 import dataclasses
@@ -33,7 +36,11 @@ class TrainState:
       these, not ``step``, so it restarts with the buffer);
     - ``reputation``: the (n,) reputation EMA, 1.0 = trusted;
     - ``loss_ema``: the probe's 0-d EMA of |loss| (``EMA_UNSET`` = none yet);
-    - ``flight``: the flight recorder's ring (lane name -> tensor).
+    - ``flight``: the flight recorder's ring (lane name -> tensor);
+    - ``ef``: the wire codec's (k, d) error-feedback residuals of the
+      rank's workers (worker w = rank k + j), saved with the parameters.
+      After ``load_snapshot`` on the lead of a W-rank axis it holds every
+      worker's (n, d) rows until ``broadcast_state`` narrows it.
 
     Each is None unless the engine's feature is on."""
 
@@ -47,6 +54,7 @@ class TrainState:
     reputation: object = None
     loss_ema: object = None
     flight: object = None
+    ef: object = None
 
 
 def _host_tree(tree):
@@ -59,11 +67,17 @@ def _host_tree(tree):
     return tree
 
 
-def host_snapshot(state):
+def host_snapshot(state, ef=None):
     """``{"step", "seed", "params", "opt_state"}`` with CPU copies of every
-    tensor; the side buffers are left out (none is model state)."""
-    return {"step": int(state.step), "seed": int(state.seed),
-            "params": _host_tree(state.params), "opt_state": _host_tree(state.opt_state)}
+    tensor, and ``"ef"``, the (n, d) error-feedback residuals of every
+    worker, when the state carries them (``ef``: those rows gathered from
+    the ranks of a W-rank axis; default ``state.ef``).  The other side
+    buffers are left out (none is model state)."""
+    snapshot = {"step": int(state.step), "seed": int(state.seed),
+                "params": _host_tree(state.params), "opt_state": _host_tree(state.opt_state)}
+    if state.ef is not None:
+        snapshot["ef"] = _host_tree(state.ef if ef is None else ef)
+    return snapshot
 
 
 def _load_tree(live, saved):
@@ -96,12 +110,22 @@ def _reset_side_buffers(state):
 
 def load_snapshot(state, snapshot):
     """Load a ``host_snapshot`` into the live ``state`` on its device, in
-    place, and reset its side buffers (``_reset_side_buffers``).  Returns
-    ``state``."""
+    place, and reset its side buffers (``_reset_side_buffers``).  The
+    residuals load bit for bit: in place when the rows match, else (the
+    lead of a W-rank axis) as every worker's rows for ``broadcast_state``;
+    a snapshot without them zeroes the state's.  Returns ``state``."""
     with torch.no_grad():
         _load_tree(state.params, snapshot["params"])
         _load_tree(state.opt_state, snapshot["opt_state"])
         _reset_side_buffers(state)
+        if state.ef is not None:
+            saved = snapshot.get("ef")
+            if saved is None:
+                state.ef.zero_()
+            elif tuple(saved.shape) == tuple(state.ef.shape):
+                state.ef.copy_(saved)
+            else:
+                state.ef = saved.to(state.ef.device, copy=True)
     state.step = int(snapshot["step"])
     state.seed = int(snapshot["seed"])
     return state
@@ -122,10 +146,20 @@ def broadcast_state(state, axis):
     of ``axis``, loaded in place (a rank's side buffers reset, as
     ``load_snapshot`` resets them): what a restore on the lead gives the
     other ranks.  Integer leaves (the optimizer's count) ride with the step
-    and the seed.  A no-op at W = 1."""
+    and the seed.  The error-feedback residuals the lead loaded, (n, d), are
+    broadcast too, and every rank (the lead included) keeps its k rows.  A
+    no-op at W = 1."""
     if axis.size == 1:
         return state
     with torch.no_grad():
+        if state.ef is not None:
+            k, shape = axis.workers_per_device, (axis.nb_workers,) + tuple(state.ef.shape[1:])
+            if axis.lead and tuple(state.ef.shape) == shape:
+                full = state.ef
+            else:  # a receiver, or a lead whose snapshot held no residuals (zeroed)
+                full = torch.zeros(shape, dtype=state.ef.dtype, device=state.ef.device)
+            full = axis.broadcast(full)
+            state.ef = full[axis.rank * k:(axis.rank + 1) * k].clone()
         numbers = [int(state.step), int(state.seed)]
         slots = []
         for tree in (state.params, state.opt_state):

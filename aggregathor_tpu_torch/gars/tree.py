@@ -10,8 +10,9 @@ Each level runs its rule over contiguous groups of its rows
 (``hierarchical.group_pass``: one launch on the transposed layout for a
 coordinate-wise rule, one call a group otherwise, each group with its own
 distances from the centring and K2), then its summaries cross the
-inter-level link: ``wire_roundtrip`` for ``link=bf16``, the identity for
-``f32`` (the ``int8``/``topk`` codecs are refused at construction).  The
+inter-level link: the codec's round trip of each summary row for
+``link=int8``/``topk(...)`` (JAX ``gars/tree.py:77-85``), the dtype round
+trip for ``link=bf16``, the identity for ``f32``.  The
 root rule runs over the last level's rows with distances from
 ``centered_gram_sq_distances``.
 
@@ -54,7 +55,7 @@ class TreeGAR(GAR):
         """What a sub-aggregator ships is what the next level aggregates."""
         from ..parallel.compress import wire_roundtrip
 
-        return wire_roundtrip(summaries, self.spec.link_dtype)
+        return wire_roundtrip(summaries, self.spec.link_dtype, codec=self.spec.link_codec)
 
     def _levels(self, block, key, with_participation, axis=None):
         rows, parts = block, []

@@ -8,11 +8,14 @@ that pruning spares, ``discard_after`` for an abandoned timeline, and
 ``wait`` for background writes.
 
 A snapshot is ``torch.save`` of ``core.train_state.host_snapshot(state)``:
-``{"step", "seed", "params", "opt_state"}`` with CPU tensors, read back with
-``weights_only=True``.  The CLEVER carry is never saved (a transport
-buffer, not model state).  ``restore`` checks every name, shape and dtype
-against the live state before it loads anything, and loads in place on the
-state's device.  Writes are atomic (a temporary file, then a rename), so a
+``{"step", "seed", "params", "opt_state"}`` with CPU tensors, and ``"ef"``
+(every worker's (n, d) error-feedback residuals) when the wire codec
+carries them, read back with ``weights_only=True``.  The CLEVER carry is
+never saved (a transport buffer, not model state).  ``restore`` checks
+every name, shape and dtype against the live state before it loads
+anything, and loads in place on the state's device; as in JAX, a snapshot
+without residuals restores into a run with them (zeroed) and one with them
+into a run without (ignored).  Writes are atomic (a temporary file, then a rename), so a
 killed run never leaves a torn snapshot.
 
 ``background=True`` hands serialisation, the write and the pruning to one
@@ -54,13 +57,16 @@ def _describe(tree, prefix=""):
 
 class Checkpoints:
     def __init__(self, directory, base_name="model", max_to_keep=5, authenticator=None,
-                 background=False, cipher=None, custody=None):
+                 background=False, cipher=None, custody=None, nb_workers=None):
+        """``nb_workers``: the run's n, the rows a snapshot's residuals must
+        hold (default: the live state's rows, those of a one-rank run)."""
         for name, value in (("authenticator", authenticator), ("cipher", cipher), ("custody", custody)):
             if value is not None:
                 raise UserException("Checkpoints(%s=...) is not available in the PyTorch port yet" % name)
         self.directory = directory
         self.base_name = base_name
         self.max_to_keep = int(max_to_keep)
+        self.nb_workers = None if nb_workers is None else int(nb_workers)
         self._pattern = re.compile(re.escape(base_name) + r"-(\d+)\.ckpt$")
         self._pinned = None
         self._pool = None
@@ -132,8 +138,17 @@ class Checkpoints:
         except (pickle.UnpicklingError, RuntimeError, EOFError) as exc:  # a foreign or torn file
             raise UserException("Cannot read checkpoint %r: %s" % (path, exc))
         template = {"step": state.step, "seed": state.seed, "params": state.params, "opt_state": state.opt_state}
-        if not isinstance(snapshot, dict) or set(snapshot) != set(template):
+        if not isinstance(snapshot, dict) or set(snapshot) - {"ef"} != set(template):
             raise UserException("Checkpoint %r does not hold a train state" % path)
+        saved_ef = snapshot.get("ef")
+        if saved_ef is not None and state.ef is not None:
+            # every worker's rows: a run with another n is refused here, as
+            # JAX's template check refuses it
+            want = (self.nb_workers if self.nb_workers is not None else state.ef.shape[0], state.ef.shape[1])
+            if not (isinstance(saved_ef, torch.Tensor) and saved_ef.dtype == state.ef.dtype
+                    and tuple(saved_ef.shape) == want):
+                raise UserException("Checkpoint %r holds error-feedback residuals %s that do not fit this run's %s"
+                                    % (path, tuple(getattr(saved_ef, "shape", ())), want))
         for part in ("params", "opt_state"):
             want, got = _describe(template[part]), _describe(snapshot[part])
             if want != got:
@@ -145,13 +160,14 @@ class Checkpoints:
         info("Restored checkpoint at step %d from %r" % (step, self.directory))
         return state, step
 
-    def save(self, state, step=None):
-        """Snapshot ``state`` (at ``step``, default ``state.step``); prunes
-        beyond ``max_to_keep`` oldest first.  With ``background=True`` only
-        the CPU copy happens here."""
+    def save(self, state, step=None, ef=None):
+        """Snapshot ``state`` (at ``step``, default ``state.step``; ``ef``:
+        every worker's residuals gathered from a W-rank axis, default
+        ``state.ef``); prunes beyond ``max_to_keep`` oldest first.  With
+        ``background=True`` only the CPU copy happens here."""
         step = int(state.step if step is None else step)
         with trace.span("checkpoint.fetch", cat="checkpoint", step=step):
-            snapshot = host_snapshot(state)
+            snapshot = host_snapshot(state, ef=ef)
         if self._pool is not None:
             self._pending.append(self._pool.submit(self._write, snapshot, step))
             return self._path(step)

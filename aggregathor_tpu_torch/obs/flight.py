@@ -19,12 +19,13 @@ lane                  shape     source
 ``loss_finite``       (C,)      the probe's finite-loss flag
 ``worker_nan``        (C, n)    the probe's NaN-row flags
 ``worker_sq_dist``    (C, n)    per-worker squared distance (worker metrics)
+``chaos_regime``      (C,)      the step's chaos regime index (``--chaos``)
 ====================  ========  =========================================
 
 Each lane stores the value the metrics dict carries, so a fetched row is
-bit-identical to that step's metrics.  The JAX package's chaos-regime and
-secure-verdict lanes wait for those features: ``validate_for`` refuses a
-recorder that asks for them.
+bit-identical to that step's metrics.  The JAX package's secure-verdict
+lane waits for secure submission: ``validate_for`` refuses a recorder
+that asks for it.
 
 The post-mortem document has schema ``aggregathor.obs.flight.v1``
 (``dump_window``); non-finite floats are the strings ``"nan"``, ``"inf"``
@@ -65,8 +66,9 @@ class FlightRecorder:
       nb_workers: n, the width of the per-worker lanes.
       probe: record the probe lanes (needs the engine's ``health_probe``).
       worker_metrics: record ``worker_sq_dist`` (needs ``worker_metrics``).
-      chaos, secure: the JAX package's chaos-regime and secure-verdict
-        lanes, whose sources this port does not compute yet.
+      chaos: record the regime-index lane; needs a chaos schedule.
+      secure: the JAX package's secure-verdict lane, whose source this
+        port does not compute yet.
     """
 
     def __init__(self, capacity, nb_workers, probe=True, worker_metrics=False, chaos=False, secure=False):
@@ -139,6 +141,8 @@ class FlightRecorder:
             put("worker_nan", probe["worker_nan_rows"])
         if self.worker_metrics:
             put("worker_sq_dist", metrics["worker_sq_dist"])
+        if self.chaos:
+            put("chaos_regime", metrics["chaos_regime"])
         return buffers
 
     # ------------------------------------------------------------------ #

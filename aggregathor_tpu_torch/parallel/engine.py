@@ -24,13 +24,21 @@ rank:
    update (Adam's bias correction, k counted from the buffer's last zeroing,
    in float32), instead of its gradient.  It runs before the attack: an
    attacker forges what it sends, not what honest peers remember.
-3. **Local attack and transport** (``_perturb_local``): rows w < r pass
-   through the attack's ``apply_local`` with a generator seeded from
-   (seed, step, w, 1); then the lossy link (``--UDP``) masks the lost
-   packets of rows w < k from the (seed, step, w, 2) stream, with NaN or,
-   under ``clever:true``, the carry's row.  The carry then takes every
-   row as it arrived (post-transport, before the omniscient attack), and
-   the health probe flags the rows holding a non-finite value.
+3. **The submission pipeline** (``_perturb_local``, JAX
+   ``engine.py:503-558``), each row w with its own streams: the local
+   attack on rows w < r (the static one, then the chaos regime's, both
+   with a generator seeded from (seed, step, w, 1)); the wire codec
+   (``exchange``: int8 or top-k, with error feedback the row sent is
+   ``C(g + e)`` and the rank's ``TrainState.ef`` keeps the residual); the
+   lossy link (``--UDP``), masking the lost packets of rows w < k from the
+   (seed, step, w, 2) stream with NaN or, under ``clever:true``, the
+   carry's row; the chaos regime's drop storm on every row (the same
+   stream, at the regime's rate); its stragglers (one (seed, step, w, 5)
+   draw: a late row becomes NaN, or under ``straggle-mode=stale`` the
+   carry's row).  The carry then takes every row as it arrived (before
+   the omniscient attack), and the health probe flags the rows holding a
+   non-finite value.  The chaos regime is the step's, ``regime_at(
+   step)``, and every step's metrics carry it (``chaos_regime``).
 4. **The wire** (``exchange_dtype``): under bfloat16 every row crosses it
    rounded (``compress.wire_roundtrip``); the rule computes in float32.  At
    W > 1 the wire is the reshard (``_reshard_to_blocks``, JAX
@@ -38,8 +46,9 @@ rank:
    W blk columns (blk = ceil(d/W)), go through one ``all_to_all``, and each
    rank holds the (n, blk) column block of its coordinates.
 5. **Omniscient attack and quarantine** (``_prepare_rows``): coalition
-   attacks rewrite rows w < r from the honest statistics (and cross the
-   wire again); then the rows of at most f workers whose reputation fell
+   attacks (the static one, then the chaos regime's) rewrite rows w < r
+   from the honest statistics, and the whole matrix crosses the wire (the
+   codec or the dtype) again; then the rows of at most f workers whose reputation fell
    below ``quarantine_threshold`` are masked NaN, which only a
    ``nan_row_tolerant`` rule accepts.
 6. **Aggregation** (``_aggregate_block``): when the rule needs distances,
@@ -83,17 +92,20 @@ Both return per-step metrics with a leading K (the probe's fields too).
 ``trace_ops`` prints one ``TRACE step s dev <rank> ...`` line after the
 gradients, the aggregate and the update, in the JAX package's words.
 
-The momentum and the CLEVER carry are (k, d) buffers of the rank's own
-workers (JAX keeps them worker-sharded); no checkpoint holds them, so a
-snapshot written at W restores at any W' dividing n.
+The momentum, the CLEVER carry and the codec's error-feedback residual are
+(k, d) buffers of the rank's own workers (JAX keeps them worker-sharded);
+no checkpoint holds the first two, and the residual is saved as every
+worker's (n, d) rows, so a snapshot written at W restores at any W'
+dividing n.
 
 ``put_batch``/``put_batches`` keep this rank's k workers of an (n, ...)
 batch; ``put_batches`` also places a step-axis slice of a chunk and
 ``assemble_batches`` joins the slices (the input pipeline's transfer);
 ``build_gar_probe`` times the rule alone (``--gar-probe``).
 
-Refused with a UserException: the chaos schedules, the wire codec
-(``exchange``), secure submission, bounded-wait, the sharded mode,
+Refused with a UserException: a chaos schedule's ``forge=``/``tamper=``
+regimes and secure submission (ROADMAP queue 1 item 7), bounded-wait
+(``step_deadline``, item 6b), the sharded mode,
 ``leaf_bucketing=True`` (the bucketed per-leaf path needs kernels with a
 batch dimension), and ``l1_regularize``/``l2_regularize`` (the JAX flat
 engine refuses them too: its loss carries them).
@@ -112,7 +124,7 @@ from ..ops import kernels
 from ..utils import UserException, fold_in_seed, resolve_device
 from ..gars import rule_kwargs
 from ..gars.common import completed_distances
-from .compress import wire_dtype, wire_roundtrip
+from .compress import parse_exchange_spec, wire_dtype, wire_roundtrip
 from .mesh import WorkerAxis
 
 #: stream tags, as the JAX engine folds them: the local attacks (1), the
@@ -137,7 +149,7 @@ def gar_key(seed, step):
 
 
 #: engine options of the JAX package this port does not carry yet
-UNPORTED_OPTIONS = ("exchange", "chaos", "secure", "step_deadline")
+UNPORTED_OPTIONS = ("secure", "step_deadline")
 
 
 def stream_generator(seed, step, worker, tag, device):
@@ -175,6 +187,33 @@ def validate_reputation_args(gar, reputation_decay, quarantine_threshold):
                 "rule: %s)" % (type(gar).__name__, ", ".join(tolerant))
             )
     return decay, threshold
+
+
+def validate_chaos_args(chaos, attack, lossy_link, nb_workers, nb_real_byz):
+    """A ChaosSchedule against the engine's own configuration (JAX
+    ``engine.py:120-148``); returns ``chaos``.  The schedule's forge and
+    tamper regimes need secure submission, which the port has not yet."""
+    if chaos is None:
+        return None
+    if attack is not None or lossy_link is not None:
+        raise UserException("--chaos subsumes the static --attack/--UDP knobs: encode them as schedule regimes "
+                            "instead (e.g. '0:attack=empire' / '0:drop=0.3')")
+    if chaos.nb_workers != nb_workers:
+        raise UserException("ChaosSchedule was built for n=%d workers but the engine has %d"
+                            % (chaos.nb_workers, nb_workers))
+    if chaos.has_attacks or chaos.has_forgery:
+        if nb_real_byz == 0:
+            raise UserException("The chaos schedule declares attack/forge/tamper regimes; they need "
+                                "--nb-real-byz-workers > 0 to have anyone to run them")
+        if chaos.nb_real_byz != nb_real_byz:
+            raise UserException("ChaosSchedule was built for %d real Byzantine workers but the engine declares %d"
+                                % (chaos.nb_real_byz, nb_real_byz))
+    if chaos.has_forgery:
+        raise UserException(
+            "chaos forge=/tamper= regimes forge and bit-flip signed submissions: they need secure submission "
+            "(secure/submit.py's FORGE_SCALE, tamper_row and digests), which the PyTorch port does not carry yet "
+            "(ROADMAP.md queue 1 item 7)")
+    return chaos
 
 
 def quarantine_mask(reputation, threshold, nb_byz):
@@ -216,6 +255,10 @@ class RobustEngine:
       attack: an ``attacks.Attack`` or None.
       lossy_link: a ``lossy.LossyLink`` (``--UDP``) or None.
       exchange_dtype: the wire's dtype (None or float32: exact; bfloat16).
+      exchange: a wire spec (``f32``, ``bf16``, ``int8[:ef]``,
+        ``topk:k=K|frac=F[,ef]``) or a ``compress.WireCodec``; not with
+        ``exchange_dtype``.
+      chaos: a ``chaos.ChaosSchedule`` (not with ``attack``/``lossy_link``).
       worker_momentum: beta in (0, 1): workers send bias-corrected momenta.
       batch_transform: an in-step augmentation (``preprocessing.device_transform``)
         applied to each worker's training batch, or None.
@@ -240,7 +283,7 @@ class RobustEngine:
                  exchange_dtype=None, worker_momentum=None, batch_transform=None, worker_metrics=False,
                  reputation_decay=None, quarantine_threshold=0.0, granularity="vector", leaf_bucketing="auto",
                  trace_ops=False, health_probe=True, flight=None, l1_regularize=None, l2_regularize=None,
-                 device="cuda", sharding="flat", axis=None, **options):
+                 device="cuda", sharding="flat", axis=None, chaos=None, exchange=None, **options):
         for name, value in options.items():
             if name not in UNPORTED_OPTIONS:
                 raise TypeError("RobustEngine got an unexpected keyword argument %r" % name)
@@ -271,8 +314,23 @@ class RobustEngine:
         self.nb_real_byz = int(nb_real_byz)
         self.attack = attack
         self.lossy_link = lossy_link
+        self.chaos = validate_chaos_args(chaos, attack, lossy_link, self.nb_workers, self.nb_real_byz)
         self.batch_transform = batch_transform
         self.exchange_dtype = wire_dtype(exchange_dtype)
+        # the wire codec (JAX engine.py:377-414): bf16/f32 specs land on the
+        # dtype twin, int8/topk engage the codec of the submission pipeline
+        self.codec = None
+        if exchange is not None:
+            if self.exchange_dtype is not None:
+                raise UserException("pass either exchange= (the wire codec spec) or exchange_dtype=, not both — "
+                                    "bf16 is spelled exchange='bf16' on the codec surface")
+            spec_dtype, self.codec = parse_exchange_spec(exchange)
+            if spec_dtype is not None:
+                self.exchange_dtype = spec_dtype
+        if self.codec is not None:
+            self.codec.validate_for(gar=gar)
+        #: the per-worker error-feedback residual rides TrainState.ef
+        self.carries_ef = self.codec is not None and self.codec.uses_ef
         self.worker_momentum = None if worker_momentum is None else float(worker_momentum)
         if self.worker_momentum is not None and not 0.0 < self.worker_momentum < 1.0:
             raise UserException("worker_momentum must lie in (0, 1), got %r" % worker_momentum)
@@ -285,9 +343,11 @@ class RobustEngine:
         self.flight = flight
         if flight is not None:
             flight.validate_for(nb_workers=self.nb_workers, probe=self.health_probe,
-                                worker_metrics=self.worker_metrics)
-        # CLEVER infill reads the rows received last step (TrainState.carry)
-        self.carries_gradients = lossy_link is not None and lossy_link.clever
+                                worker_metrics=self.worker_metrics, chaos=self.chaos is not None)
+        # CLEVER infill reads the rows received last step (TrainState.carry);
+        # stale-mode stragglers re-send the same carry
+        self.carries_gradients = (lossy_link is not None and lossy_link.clever) or (
+            self.chaos is not None and self.chaos.needs_carry)
         if axis is None:
             axis = WorkerAxis(self.nb_workers, 1, 0, resolve_device(device))
         elif axis.nb_workers != self.nb_workers:
@@ -329,24 +389,52 @@ class RobustEngine:
         draws = self._worker_draws(lambda generator: transform.draw(size, generator), seed, step, AUGMENT_TAG)
         return transform(batch, draws)
 
-    def _perturb_local(self, rows, seed, step, carry=None):
-        """Local attack on the workers w < r, then the lossy link on the
-        lossy ones, each row of the local (k, d) with its own streams;
-        ``carry`` (the rows received last step, under clever infill) is then
+    def _perturb_local(self, rows, seed, step, carry=None, ridx=None, ef=None):
+        """The submission pipeline on the local (k, d) rows, each row with
+        its own streams (JAX ``engine.py:503-558``): the local attacks on
+        the workers w < r (the static one, then regime ``ridx``'s), the wire
+        codec (with ``ef``, the rank's residuals, updated in place), the
+        lossy link on the lossy workers, the regime's drop storm and its
+        stragglers.  ``carry`` (the rows received last step) is then
         overwritten with the rows as they arrived, in place."""
         local = [(j, self.axis.worker_index(j)) for j in range(self.workers_per_device)]
-        if self.attack is not None and not self.attack.omniscient:
+        workers = [w for _, w in local]
+        chaos = self.chaos
+        attack = self.attack if self.attack is not None and not self.attack.omniscient else None
+        if attack is not None or (chaos is not None and chaos.has_local_attacks):
             for j, w in local:
                 if w < self.nb_real_byz:
-                    generator = stream_generator(seed, step, w, ATTACK_TAG, self.device)
-                    rows[j] = self.attack.apply_local(rows[j], generator)
+                    # both draw from the worker's (seed, step, w, 1) stream
+                    if attack is not None:
+                        rows[j] = attack.apply_local(rows[j], stream_generator(seed, step, w, ATTACK_TAG, self.device))
+                    if chaos is not None:
+                        rows[j] = chaos.apply_local_attacks(
+                            ridx, rows[j], stream_generator(seed, step, w, ATTACK_TAG, self.device))
+        if self.codec is not None:
+            # the wire: encoded after the attacks (an attacker forges what it
+            # sends), before the transport faults (a lost packet is a run of
+            # the decoded image); the rows' codec is row by row, so one call
+            # over the (k, d) rows is each worker's own
+            if ef is not None:
+                image, residual = self.codec.ef_roundtrip(rows, ef)
+                ef.copy_(residual)
+            else:
+                image = self.codec.roundtrip(rows)
+            rows.copy_(image)
+        d = rows.shape[1]
         link = self.lossy_link
         if link is not None:
-            d = rows.shape[1]
+            drops = torch.stack([link.draw_drops(d, seed, step, w) for w in workers])
+            rows = link.apply_rows(rows, workers, drops, previous=carry)
+        if chaos is not None and chaos.drop_rate(ridx) > 0:
+            # the storm hits every worker (a rate of 0 drops nothing)
+            drops = torch.stack([chaos.draw_drops(d, seed, step, w, ridx) for w in workers])
+            rows = chaos.link.apply_rows(rows, workers, drops)
+        if chaos is not None and chaos.straggler_rate(ridx) > 0:
+            rate, stale = chaos.straggler_rate(ridx), chaos.straggler_stale(ridx)
             for j, w in local:
-                if w < link.nb_lossy:
-                    previous = carry[j] if carry is not None else None
-                    rows[j] = link.apply(rows[j], w, link.draw_drops(d, seed, step, w), previous=previous)
+                late = chaos.stragglers.draw_late(seed, step, w, rate)
+                rows[j] = chaos.stragglers.apply(rows[j], late, stale, previous=carry[j] if carry is not None else None)
         if carry is not None:
             carry.copy_(rows)
         return rows
@@ -366,15 +454,24 @@ class RobustEngine:
         correction = np.float32(1.0) - np.float32(beta) ** np.float32(state.momentum_steps)
         return state.momentum / torch.full((), float(correction), dtype=torch.float32, device=rows.device)
 
-    def _prepare_rows(self, rows, reputation=None):
-        """Omniscient attack (the coalition rewrites rows w < r; forged rows
-        cross the wire like honest ones), then the quarantine mask.  Returns
-        ``(rows, raw_rows)``: what the rule consumes, and the rows before the
-        quarantine, which the reputation signal measures (masking first would
-        measure the attacker's honest gradient and never suspect it)."""
+    def _prepare_rows(self, rows, reputation=None, ridx=None):
+        """Omniscient attacks (the static one, then regime ``ridx``'s: the
+        coalition rewrites rows w < r; the whole matrix then crosses the
+        wire again, the codec's or the dtype's), then the quarantine mask.
+        Returns ``(rows, raw_rows)``: what the rule consumes, and the rows
+        before the quarantine, which the reputation signal measures (masking
+        first would measure the attacker's honest gradient and never suspect
+        it)."""
+        forged = False
+        byz_mask = torch.arange(self.nb_workers, device=rows.device) < self.nb_real_byz
         if self.attack is not None and self.attack.omniscient:
-            byz_mask = torch.arange(self.nb_workers, device=rows.device) < self.nb_real_byz
-            rows = wire_roundtrip(self.attack.apply_matrix(rows, byz_mask), self.exchange_dtype)
+            rows = self.attack.apply_matrix(rows, byz_mask)
+            forged = True
+        if self.chaos is not None and self.chaos.has_omniscient_attacks:
+            rows = self.chaos.apply_omniscient_attacks(ridx, rows, byz_mask)
+            forged = True
+        if forged:
+            rows = wire_roundtrip(rows, self.exchange_dtype, codec=self.codec)
         raw_rows = rows
         if self.quarantine_threshold:
             masked = quarantine_mask(reputation, self.quarantine_threshold, self.gar.nb_byz_workers)
@@ -428,19 +525,19 @@ class RobustEngine:
         pieces = padded.view(k, W, blk).transpose(0, 1)  # (W, k, blk): piece i goes to rank i
         return self.axis.all_to_all(pieces).reshape(self.nb_workers, blk).to(torch.float32)
 
-    def _aggregate_vector(self, rows, reputation, key=None):
+    def _aggregate_vector(self, rows, reputation, key=None, ridx=None):
         """granularity:vector: the rows through the wire (at W > 1 the
         reshard to column blocks), the attack, the quarantine and the rule
         (given the step's GAR ``key``); the aggregate crosses the wire back
         (at W > 1 the blocks' aggregates are gathered and cut to d).
         Returns ``(agg, participation, wdist, rep_dist)``."""
         if self.nb_devices == 1:
-            rows, raw_rows = self._prepare_rows(wire_roundtrip(rows, self.exchange_dtype), reputation)
+            rows, raw_rows = self._prepare_rows(wire_roundtrip(rows, self.exchange_dtype), reputation, ridx)
             agg, participation = self._aggregate_block(rows, key)
             agg = wire_roundtrip(agg, self.exchange_dtype)
             return (agg, participation) + self._sq_dists(rows, raw_rows, agg)
         d = rows.shape[1]
-        block, raw_block = self._prepare_rows(self._reshard_to_blocks(rows), reputation)
+        block, raw_block = self._prepare_rows(self._reshard_to_blocks(rows), reputation, ridx)
         agg_block, participation = self._aggregate_block(block, key, self.axis)
         wire = agg_block if self.exchange_dtype is None else agg_block.to(self.exchange_dtype)
         agg = self.axis.all_gather(wire).reshape(-1)[:d].to(torch.float32)
@@ -453,7 +550,7 @@ class RobustEngine:
             rep_dist = None if rep_dist is None else next(summed)
         return agg, participation, wdist, rep_dist
 
-    def _aggregate_per_leaf(self, rows, flatmap, reputation, key=None):
+    def _aggregate_per_leaf(self, rows, flatmap, reputation, key=None, ridx=None):
         """granularity:leaf: each parameter leaf's (n, d_leaf) columns
         through the wire, the attack, the quarantine and the rule on their
         own (per-layer selection; the distance kernels launch once a leaf;
@@ -474,7 +571,7 @@ class RobustEngine:
                 if self.exchange_dtype is not None:
                     local = local.to(self.exchange_dtype)
                 leaf = self.axis.all_gather(local).reshape(self.nb_workers, size).to(torch.float32)
-            leaf, raw_leaf = self._prepare_rows(leaf, reputation)
+            leaf, raw_leaf = self._prepare_rows(leaf, reputation, ridx)
             agg_leaf, part = self._aggregate_block(leaf, None if key is None else fold_in_seed(key, i))
             if part is not None:
                 participation = part if participation is None else participation + part
@@ -489,7 +586,7 @@ class RobustEngine:
             participation = participation / nb_parts
         return torch.cat(parts), participation, wdist, rep_dist
 
-    def _finalize_step(self, state, losses, agg, worker_nan, participation, wdist, rep_dist):
+    def _finalize_step(self, state, losses, agg, worker_nan, participation, wdist, rep_dist, ridx=None):
         """After the update: the loss sum (summed across the ranks), the
         reputation EMA, the probe, the metrics dict and the flight
         recorder's row; advances ``state.step``.  Returns ``(state,
@@ -511,6 +608,10 @@ class RobustEngine:
             metrics[health.PROBE_KEY] = health.probe_metrics(
                 total_loss, update_norm, health.spike_score(total_loss, state.loss_ema), worker_nan)
             state.loss_ema = health.update_loss_ema(state.loss_ema, total_loss)
+        if ridx is not None:
+            # the observability layer's regime column (JAX :911-914): filled
+            # on the device, as a copy from host memory would wait for the card
+            metrics["chaos_regime"] = torch.full((), ridx, dtype=torch.int32, device=agg.device)
         if self.worker_metrics:
             metrics["worker_sq_dist"] = wdist
             if participation is not None:
@@ -537,16 +638,22 @@ class RobustEngine:
     def init_state(self, params, tx, seed=0):
         """A TrainState holding ``params`` moved to the engine's device
         (leaf tensors that require grad), a fresh optimizer state and the
-        side buffers of the features that are on: under clever infill a
-        zero (k, d) carry of the rank's workers (a packet lost before
-        anything arrived reads as 0), their zero momenta, reputations of
-        1.0, an unset loss EMA, an empty flight ring."""
+        side buffers of the features that are on: under clever infill (or
+        stale stragglers) a zero (k, d) carry of the rank's workers (a
+        packet lost before anything arrived reads as 0), their zero momenta,
+        their zero error-feedback residuals, reputations of 1.0, an unset
+        loss EMA, an empty flight ring.  A codec's budget is checked
+        against d here (JAX ``engine.py:1413-1420``)."""
         params = {
             name: value.detach().to(self.device, torch.float32).clone().requires_grad_(True)
             for name, value in params.items()
         }
         state = TrainState(params=params, opt_state=tx.init(params), step=0, seed=int(seed))
         d = sum(value.numel() for value in params.values())
+        if self.codec is not None:
+            self.codec.validate_d(d)
+        if self.carries_ef:
+            state.ef = torch.zeros((self.workers_per_device, d), dtype=torch.float32, device=self.device)
         if self.carries_gradients:
             state.carry = torch.zeros((self.workers_per_device, d), dtype=torch.float32, device=self.device)
         if self.worker_momentum is not None:
@@ -558,6 +665,16 @@ class RobustEngine:
         if self.flight is not None:
             state.flight = self.flight.init_buffers(self.device)
         return state
+
+    def gather_ef(self, state):
+        """Every worker's (n, d) error-feedback residuals, what a checkpoint
+        saves: ``state.ef`` at W = 1, one ``all_gather`` of the ranks' rows
+        at W > 1 (a collective: every rank calls it); None without them."""
+        if state.ef is None:
+            return None
+        if self.nb_devices == 1:
+            return state.ef
+        return self.axis.all_gather(state.ef).reshape(self.nb_workers, -1)
 
     def _to_device(self, tensor):
         """``tensor`` on the engine's device; on CUDA through pinned memory,
@@ -633,7 +750,9 @@ class RobustEngine:
             losses, rows = self._worker_gradients(state.params, batch, loss_fn, flatmap)
             self._mark(state, "losses+gradients done: local loss sum", torch.sum(losses))
             with torch.no_grad():
-                rows = self._perturb_local(self._send(state, rows), state.seed, state.step, state.carry)
+                ridx = self.chaos.regime_at(state.step) if self.chaos is not None else None
+                rows = self._perturb_local(self._send(state, rows), state.seed, state.step, state.carry, ridx,
+                                           state.ef if self.carries_ef else None)
                 # the rows as they arrived, before the omniscient attack
                 worker_nan = torch.any(~torch.isfinite(rows), dim=1) if self.health_probe else None
                 if worker_nan is not None and self.nb_devices > 1:
@@ -641,13 +760,13 @@ class RobustEngine:
                 key = gar_key(state.seed, state.step)
                 if self.granularity == "leaf":
                     agg, participation, wdist, rep_dist = self._aggregate_per_leaf(
-                        rows, flatmap, state.reputation, key)
+                        rows, flatmap, state.reputation, key, ridx)
                 else:
-                    agg, participation, wdist, rep_dist = self._aggregate_vector(rows, state.reputation, key)
+                    agg, participation, wdist, rep_dist = self._aggregate_vector(rows, state.reputation, key, ridx)
                 self._mark(state, "aggregate done: |agg|", torch.linalg.vector_norm(agg))
                 tx.apply(state.params, flatmap.inflate(agg), state.opt_state)
                 self._mark(state, "apply done: |p0|", torch.linalg.vector_norm(state.params[flatmap.slices[0][0]]))
-                return self._finalize_step(state, losses, agg, worker_nan, participation, wdist, rep_dist)
+                return self._finalize_step(state, losses, agg, worker_nan, participation, wdist, rep_dist, ridx)
 
         return step
 

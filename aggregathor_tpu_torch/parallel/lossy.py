@@ -13,9 +13,10 @@ instead (the reference's ``CLEVER=1``); the engine carries it in
 
 The draw and the masking are two steps: ``draw_drops`` reads the (seed, step,
 worker, tag 2) stream on a CPU generator, so one run drops the same packets
-on the card and on the CPU, and ``apply`` masks a row with any given drops
-(the tests feed it the JAX package's own draws, whose threefry bits a torch
-generator cannot reproduce).
+on the card and on the CPU, and ``apply_rows`` masks a rank's rows with any
+given drops in one pass (the tests feed it the JAX package's own draws,
+whose threefry bits a torch generator cannot reproduce).  The engine's
+``--UDP`` link and a chaos regime's drop storm both go through it.
 """
 
 import torch
@@ -49,30 +50,41 @@ class LossyLink:
     def nb_packets(self, d):
         return -(-d // self.packet_coords)
 
-    def draw_drops(self, d, seed, step, worker):
+    def draw_drops(self, d, seed, step, worker, drop_rate=None):
         """(nb_packets,) bool CPU tensor: which packets of worker ``worker``'s
-        (d,) row are lost at ``step``, from the (seed, step, worker, 2) stream."""
+        (d,) row are lost at ``step``, from the (seed, step, worker, 2) stream;
+        ``drop_rate`` overrides the configured rate (a chaos regime's storm)."""
         from .engine import stream_generator
 
+        rate = self.drop_rate if drop_rate is None else float(drop_rate)
         generator = stream_generator(seed, step, worker, LOSSY_TAG, torch.device("cpu"))
-        return torch.rand(self.nb_packets(d), generator=generator) < self.drop_rate
+        return torch.rand(self.nb_packets(d), generator=generator) < rate
 
-    def apply(self, grad, worker_index, drops, previous=None):
-        """Mask the lost packets of one worker's (d,) row.
+    def apply_rows(self, rows, workers, drops, previous=None):
+        """Mask the lost packets of the (k, d) ``rows`` of workers
+        ``workers`` (k global indices), in one pass.
 
-        Applies only when ``worker_index < nb_lossy`` and the row is at least
-        ``min-coords`` long; ``drops`` is the (nb_packets,) loss draw and
-        ``previous`` the stale infill of clever mode."""
-        d = grad.shape[0]
+        Applies to the rows of workers ``w < nb_lossy`` when ``d`` is at least
+        ``min-coords``; ``drops`` is the (k, nb_packets) CPU loss draw, copied
+        to the rows' device once (through pinned memory on CUDA), and
+        ``previous`` the (k, d) stale infill of clever mode."""
+        d = rows.shape[-1]
         if self.nb_lossy <= 0 or d < self.min_coords:
-            return grad
+            return rows
         if self.clever and previous is None:
             raise UserException(
                 "LossyLink clever:true needs the previous gradient; run it through "
                 "RobustEngine (which carries it in TrainState.carry) or pass previous="
             )
-        if worker_index >= self.nb_lossy:
-            return grad
-        mask = torch.repeat_interleave(drops.to(grad.device), self.packet_coords)[:d]
-        infill = previous if self.clever else torch.full_like(grad, float("nan"))
-        return torch.where(mask, infill, grad)
+        lossy = torch.tensor([w < self.nb_lossy for w in workers])
+        if not bool(lossy.any()):
+            return rows
+        drops = drops & lossy[:, None]
+        if rows.device.type == "cuda":
+            # the caching host allocator keeps the pinned block until the copy is done
+            drops = drops.pin_memory().to(rows.device, non_blocking=True)
+        else:
+            drops = drops.to(rows.device)
+        mask = drops.repeat_interleave(self.packet_coords, dim=1)[:, :d]
+        infill = previous if self.clever else torch.full((), float("nan"), dtype=rows.dtype, device=rows.device)
+        return torch.where(mask, infill, rows)

@@ -240,13 +240,18 @@ def _spawned(target, nb_workers, size, rank, init_method, device, shared_card, a
             axis.close()
 
 
-def spawn(target, size, nb_workers, args=(), device="cpu", shared_card=False, timeout=DEFAULT_TIMEOUT):
+def spawn(target, size, nb_workers, args=(), device="cuda", shared_card=False, timeout=DEFAULT_TIMEOUT):
     """Run ``target(axis, *args)`` on W spawned ranks (start method
     ``spawn``; ``target`` must be importable without the caller's module)
     and return their results in rank order; raises when a rank fails.  The
-    calling process is none of the ranks."""
+    calling process is none of the ranks.  The ranks run on the card unless
+    ``device="cpu"``: a CUDA request without a GPU raises here, before any
+    rank starts (``utils.resolve_device``); rank i takes card i, or card 0
+    under ``shared_card``."""
     import multiprocessing
 
+    device = torch.device(device)
+    resolve_device(device)  # raises without a GPU; the ranks pick their cards in join()
     context = multiprocessing.get_context("spawn")
     queue = context.Queue()
     init_method = "tcp://127.0.0.1:%d" % free_port()

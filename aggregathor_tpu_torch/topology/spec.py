@@ -1,11 +1,11 @@
 """Declarative aggregation-tree specification (the ``tree:`` grammar).
 
 A copy of ``aggregathor_tpu/topology/spec.py``, cut to what the port's
-``gars/tree.py`` needs: the parse, the budgets, the link's dtype and its
-byte accounting.  Its lazy imports reach the
+``gars/tree.py`` needs: the parse, the budgets, the link's dtype or codec
+and its byte accounting.  Its lazy imports reach the
 port's ``gars`` registry and ``parallel/compress.py``, whose
-``parse_exchange_spec`` serves ``f32`` and ``bf16`` links and refuses
-``int8``/``topk`` (the port has no wire codec yet).  The host plane
+``parse_exchange_spec`` serves the ``f32``, ``bf16``, ``int8`` and ``topk``
+links (a link with error feedback is refused).  The host plane
 (``topology/tree.py``: per-level bounded wait, custody, shadows), its
 helpers (leaf spans, shadow units, fault targets) and ``--topology`` are
 not ported.
@@ -232,9 +232,14 @@ class TreeSpec:
 
         # ---- the inter-level wire ---------------------------------------
         self.link_spec = str(args["link"]).replace("(", ":").replace(")", "")
-        # the codecs (int8, topk, error feedback) refuse in
-        # parse_exchange_spec, so no link carries one
-        self.link_dtype, _ = parse_exchange_spec(self.link_spec)
+        self.link_dtype, self.link_codec = parse_exchange_spec(self.link_spec)
+        if self.link_codec is not None and self.link_codec.uses_ef:
+            raise UserException(
+                "tree: link=%s declares error feedback, but an inter-level "
+                "link carries no residual state (there is no per-sub-"
+                "aggregator TrainState row to persist it in) — drop ef"
+                % self.link_spec
+            )
 
     # ------------------------------------------------------------------ #
     # shape helpers
@@ -249,7 +254,7 @@ class TreeSpec:
     def link_bytes_per_row(self, d):
         from ..parallel.compress import bytes_per_row
 
-        return bytes_per_row(d, dtype=self.link_dtype)
+        return bytes_per_row(d, dtype=self.link_dtype, codec=self.link_codec)
 
     def link_bytes_per_round(self, d):
         """Bytes every inter-level link ships per round: each level's m_l

@@ -147,7 +147,27 @@ Phases, in order (any failure exits non-zero and prints no result):
    probes of krum at n = 128 and centered-clip, against one rank on the
    same weights and batches (losses within 1e-5 relative, selections
    identical, launches exact on each rank at the block shapes); it prints
-   each step's ms and the staged collectives' ms and MB.
+   each step's ms and the staged collectives' ms and MB.  Before it the
+   chaos phase (``chaos_phase``): cnnet drawn on the card with
+   its augmentation in the step under ``CHAOS_SCHEDULE`` (average-nan, a
+   drop storm, an empire coalition and stale stragglers: K6 once a step,
+   the regime log and ``chaos_regime_switch`` events at exactly
+   ``CHAOS_SWITCHES``) and ``CHAOS_LATE`` (median with
+   ``straggle-workers:2``: K3 once a step; build_step with average: the
+   parameters finite through step 2, not at step 3); the same on
+   ``digits`` on the card and on the CPU (the masks drawn on CPU
+   generators: losses within 1e-5 relative, regimes identical); a micro
+   campaign (digits, average and median x calm and empire) whose verdicts
+   on the card equal the CPU's; each regime's ms a step, and the
+   ``--UDP 4`` link's, against calm.
+   And the codec phase (``codec_phase``): int8 and top-k (k = 17,567)
+   payloads, images and error-feedback residuals at (8, 1,756,682) equal
+   the CPU's bit for bit (NaN at the same places: a NaN's payload is the
+   device's), the codecs timed beside their byte bounds, and cnnet + krum
+   under each of ``CODEC_WIRES``: K1 once a step, ``bytes_on_wire_total``
+   exact, ms a step against the f32 wire.  A resume of ``digits-conv``
+   under ``--exchange int8:ef`` ends with the uninterrupted run's bits,
+   the residuals included.
    Last, a cnnet + krum step and a digits-conv + krum step are split into
    their phases (host batch, transfer, augmentation, worker gradients,
    attack + aggregate, update), with the batches streamed and drawn on the
@@ -1624,7 +1644,9 @@ def resume_phase(torch, runner, workdir, experiment, exp_args, argv, input_args=
     saved = torch.load(os.path.join(split, "model-10.ckpt"), weights_only=True)
     exp = models.instantiate(experiment, exp_args)
     tx = build_optimizer("sgd", build_schedule("fixed", []))
-    state = RobustEngine(gars.instantiate("krum", 8, 2), 8, device="cuda").init_state(exp.init(99), tx, seed=99)
+    exchange = argv[argv.index("--exchange") + 1] if "--exchange" in argv else None
+    state = RobustEngine(gars.instantiate("krum", 8, 2), 8, device="cuda", exchange=exchange).init_state(
+        exp.init(99), tx, seed=99)
     Checkpoints(split).restore(state)
     check(state.params[next(iter(state.params))].device.type == "cuda", "%s: restored off the card" % experiment)
     again_saved = host_snapshot(state)
@@ -1633,6 +1655,11 @@ def resume_phase(torch, runner, workdir, experiment, exp_args, argv, input_args=
     for name, value in saved["params"].items():
         check(torch.equal(value.view(torch.int32), again_saved["params"][name].view(torch.int32)),
               "%s: restored %s differs from the saved one" % (experiment, name))
+    check(("ef" in saved) == (state.ef is not None), "%s: the snapshot's residuals" % experiment)
+    if state.ef is not None:  # the error-feedback residuals, on the card, bit for bit
+        check(state.ef.device.type == "cuda" and torch.equal(saved["ef"].view(torch.int32),
+                                                            state.ef.cpu().view(torch.int32)),
+              "%s: restored residuals differ from the saved ones" % experiment)
     run("split", 20, ("--checkpoint-delta", "10"))
     torch.backends.cudnn.deterministic = False
     steps = [int(line.split("\t")[1]) for line in open(os.path.join(split, "eval.tsv")).read().splitlines()]
@@ -1645,14 +1672,16 @@ def resume_phase(torch, runner, workdir, experiment, exp_args, argv, input_args=
     resumed = max(abs(got[k] - want[k]) / abs(want[k]) for k in common)
     spread = max(abs(twin[k] - want[k]) / abs(want[k]) for k in want)
     finals = [torch.load(os.path.join(d, "model-20.ckpt"), weights_only=True) for d in (whole, split)]
-    for name, value in finals[0]["params"].items():
-        check(torch.equal(value.view(torch.int32), finals[1]["params"][name].view(torch.int32)),
+    for name, value in list(finals[0]["params"].items()) + ([("ef", finals[0]["ef"])] if "ef" in finals[0] else []):
+        other = finals[1]["ef"] if name == "ef" else finals[1]["params"][name]
+        check(torch.equal(value.view(torch.int32), other.view(torch.int32)),
               "%s: the resumed run's final %s differs from the uninterrupted run's" % (experiment, name))
-    print("resume %s%s: restored state bit-identical to the saved one, final state to the uninterrupted run's; "
+    print("resume %s%s: restored state bit-identical to the saved one, final state to the uninterrupted run's%s; "
           "losses of steps %s within %.3g of the uninterrupted run's, relative (tolerance %g; deterministic cuDNN), "
           "the default cuDNN's twin within %.3g; TSV steps %s"
-          % (experiment, " " + " ".join(input_args) if input_args else "", common, resumed, RESUME_RTOL, spread,
-             steps))
+          % (experiment, " " + " ".join(input_args) if input_args else "",
+             " (--exchange %s: the residuals too)" % exchange if exchange else "", common, resumed, RESUME_RTOL,
+             spread, steps))
     check(resumed <= RESUME_RTOL, "%s: resumed losses off by %.3g" % (experiment, resumed))
     return resumed, spread
 
@@ -2348,6 +2377,305 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), 
     return per_step, busy
 
 
+#: chaos_phase's schedules (``--chaos``): average-nan through a drop storm,
+#: an empire coalition and stale stragglers, switching at CHAOS_SWITCHES;
+#: and the calm -> always-late switch of JAX ``tests/test_chaos.py:207-227``
+CHAOS_SCHEDULE = "0:calm 4:drop=0.3 8:attack=empire,epsilon=4.0 12:straggle=0.5,straggle-mode=stale"
+CHAOS_SWITCHES = [4, 8, 12]
+CHAOS_LATE = "0:calm 3:straggle=1.0,straggle-mode=drop"
+#: (label, runner arguments, steps, the kernel launched once a step)
+CHAOS_LEGS = [
+    ("chaos average-nan", ["--aggregator", "average-nan", "--nb-real-byz-workers", "2", "--chaos", CHAOS_SCHEDULE,
+                           "--chaos-args", "packet-coords:16250"], 16, "average_nan_columns"),
+    ("chaos median late", ["--aggregator", "median", "--chaos", CHAOS_LATE, "--chaos-args", "straggle-workers:2"],
+     10, "coordinate_median"),
+]
+#: the regimes timed alone at cnnet's width (average-nan, r = 2): ms a step against calm
+#: chaos_phase's timed steps: (label, chaos schedule, --UDP 4 arguments)
+CHAOS_TIMED = (("calm", None, None), ("drop=0.3", "0:drop=0.3", None),
+               ("empire", "0:attack=empire,epsilon=4.0", None), ("stale 0.5", "0:straggle=0.5,straggle-mode=stale", None),
+               ("UDP 4 at 0.3", None, ["drop-rate:0.3", "packet-coords:16250"]))
+
+
+def _chaos_runner_leg(runner, kernels, label, experiment, exp_args, argv, steps, device, workdir):
+    """One chaos leg through the runner on ``device`` (drawn on the device,
+    a summary a step); returns (per-step losses, per-step regimes, switch
+    events, stdout, launches)."""
+    import contextlib
+    import io
+
+    directory = os.path.join(workdir, "%s-%s-%s" % (label.replace(" ", "_"), experiment, device))
+    output = io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(output):
+        result = runner.main(["--experiment", experiment, "--experiment-args", *exp_args, "--seed", "1",
+                              "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--input-source", "device",
+                              "--max-step", str(steps), "--evaluation-delta", "-1", "--evaluation-period", "-1",
+                              "--summary-dir", directory, "--summary-delta", "1", "--device", device, *argv])
+    counts = kernels.launch_counts()
+    sys.stdout.write(output.getvalue())
+    [name] = os.listdir(directory)
+    events = [json.loads(line) for line in open(os.path.join(directory, name))]
+    scalars = [e for e in events if "total_loss" in e]
+    check([e["step"] for e in scalars] == list(range(1, steps + 1)), "%s: summary steps" % label)
+    switches = [(e["step"], e["regime"]) for e in events if e.get("event") == "chaos_regime_switch"]
+    check(result["steps"] == steps, "%s on %s: %d steps (want %d)" % (label, device, result["steps"], steps))
+    return [e["total_loss"] for e in scalars], [e["chaos_regime"] for e in scalars], switches, output.getvalue(), counts
+
+
+def _late_switch_losses(torch, gars, models, experiment, exp_args, device, steps=4):
+    """build_step with average under CHAOS_LATE: (finite parameters after
+    each step, the losses)."""
+    from aggregathor_tpu_torch.chaos import ChaosSchedule
+    from aggregathor_tpu_torch.core import build_optimizer, build_schedule
+    from aggregathor_tpu_torch.parallel import RobustEngine
+
+    exp = models.instantiate(experiment, exp_args)
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+    engine = RobustEngine(gars.instantiate("average", 8, 0), 8, chaos=ChaosSchedule(CHAOS_LATE, 8), device=device)
+    state = engine.init_state(exp.init(1), tx, seed=1)
+    step = engine.build_step(exp.loss, tx)
+    it = exp.make_train_iterator(8, seed=2)
+    finite, losses = [], []
+    for _ in range(steps):
+        state, metrics = step(state, engine.put_batch(next(it)))
+        losses.append(float(metrics["total_loss"]))
+        finite.append(all(bool(torch.all(torch.isfinite(p))) for p in state.params.values()))
+    return finite, losses
+
+
+def _same_losses(label, got, want, rtol=1e-5):
+    """Per-step losses of the card and the CPU: the same non-finite steps,
+    the finite ones within ``rtol`` relative; returns the largest difference."""
+    worst = 0.0
+    for step, (a, b) in enumerate(zip(got, want), 1):
+        check(math.isfinite(a) == math.isfinite(b),
+              "%s: step %d loss %r on the card, %r on the CPU" % (label, step, a, b))
+        if math.isfinite(b):
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+    check(len(got) == len(want) and worst <= rtol, "%s: card vs CPU losses off by %.3g (tolerance %g)"
+          % (label, worst, rtol))
+    return worst
+
+
+def chaos_phase(torch, gars, kernels, models, runner, card, workdir):
+    """The chaos schedule on the card (``--chaos``); returns {kernel: launches}.
+
+    At cnnet's width, drawn on the card with its augmentation in the step:
+    average-nan under CHAOS_SCHEDULE for 16 steps (finite, the regime log
+    and ``chaos_regime_switch`` events at exactly CHAOS_SWITCHES, the
+    summaries' regimes, K6 once a step), median under CHAOS_LATE with
+    ``straggle-workers:2`` (finite, K3 once a step), and build_step with
+    average under CHAOS_LATE (parameters finite through step 2, not at step
+    3).  The same three on ``digits`` on the card and on the CPU: the masks
+    come from CPU generators, so the losses agree within 1e-5 relative and
+    the regimes exactly.  A micro campaign (``chaos.campaign.main``, digits,
+    average and median x calm and empire, 25 steps) gives the same four
+    verdicts on the card and the CPU.  Last, ms a step of each regime alone
+    and of the ``--UDP 4`` link (the same masking as the storm) against calm
+    at cnnet's width (average-nan, r = 2, one resident batch)."""
+    from aggregathor_tpu_torch.chaos import ChaosSchedule, campaign
+    from aggregathor_tpu_torch.core import build_optimizer, build_schedule
+    from aggregathor_tpu_torch.parallel import RobustEngine
+    from aggregathor_tpu_torch.parallel.lossy import LossyLink
+
+    totals = {name: 0 for name in kernels.KERNELS}
+    for label, argv, steps, kernel in CHAOS_LEGS:
+        losses, regimes, switches, output, counts = _chaos_runner_leg(
+            runner, kernels, label, "cnnet", ["augment:device"], argv, steps, "cuda", workdir)
+        check(all(math.isfinite(v) for v in losses), "%s: non-finite loss %s" % (label, losses))
+        for name in kernels.KERNELS:
+            want = steps if name == kernel else 0
+            check(counts[name] == want, "%s: %s launched %d times in %d steps (want %d)"
+                  % (label, name, counts[name], steps, want))
+            totals[name] += counts[name]
+        r = int(argv[argv.index("--nb-real-byz-workers") + 1]) if "--nb-real-byz-workers" in argv else 0
+        schedule = ChaosSchedule(argv[argv.index("--chaos") + 1], 8, nb_real_byz=r)
+        check(regimes == [schedule.regime_at(s) for s in range(steps)], "%s: regimes %s" % (label, regimes))
+        starts = [start for start, _ in schedule.transitions()[1:]]
+        check([step for step, _ in switches] == starts, "%s: switch events at %s (want %s)" % (label, switches, starts))
+        for start in starts:
+            check("Chaos regime switch at step %d: now %s" % (start, schedule.describe(schedule.regime_at(start)))
+                  in output, "%s: no regime log line at step %d" % (label, start))
+        print("chaos leg %-18s cnnet on %s: %d steps, losses %s, regimes %s, switches %s, launches %s=%d"
+              % (label, card, steps, ", ".join("%.4f" % v for v in losses), regimes, switches, kernel,
+                 counts[kernel]))
+    finite, losses = _late_switch_losses(torch, gars, models, "cnnet", [], "cuda")
+    check(finite == [True, True, True, False], "build_step late switch on cnnet: finite after each step %s" % finite)
+    print("chaos build_step average under %r on cnnet: parameters finite after steps 0-3 %s" % (CHAOS_LATE, finite))
+    # digits on the card and on the CPU: the same masks, the same losses
+    for label, argv, steps, kernel in CHAOS_LEGS:
+        card_run = _chaos_runner_leg(runner, kernels, label, "digits", [], argv, steps, "cuda", workdir)
+        cpu_run = _chaos_runner_leg(runner, kernels, label, "digits", [], argv, steps, "cpu", workdir)
+        worst = _same_losses("digits " + label, card_run[0], cpu_run[0])
+        check(card_run[1] == cpu_run[1] and card_run[2] == cpu_run[2], "digits %s: regimes or switches differ" % label)
+        check(card_run[4][kernel] == steps and sum(card_run[4].values()) == steps,
+              "digits %s: launches %s (want %s once a step)" % (label, card_run[4], kernel))
+        totals[kernel] += card_run[4][kernel]
+        print("chaos leg %-18s digits: card vs CPU losses within %.3g relative, regimes identical %s"
+              % (label, worst, card_run[1]))
+    late = {device: _late_switch_losses(torch, gars, models, "digits", [], device) for device in ("cuda", "cpu")}
+    check(late["cuda"][0] == late["cpu"][0] == [True, True, True, False], "digits late switch: %s" % late)
+    _same_losses("digits build_step late", late["cuda"][1], late["cpu"][1])
+    # the micro campaign's verdicts, card and CPU
+    verdicts = {}
+    for device in ("cuda", "cpu"):
+        path = os.path.join(workdir, "campaign-%s.json" % device)
+        campaign.main(["--experiment", "digits", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
+                       "--nb-real-byz-workers", "2", "--gars", "average", "median", "--attacks", "empire,epsilon=4.0",
+                       "--nb-steps", "25", "--output", path, "--device", device])
+        matrix = json.load(open(path))
+        check(matrix["schema"] == campaign.SCHEMA and len(matrix["cells"]) == 4, "campaign on %s: matrix" % device)
+        verdicts[device] = {(c["gar"], c["scenario"]): (c["converged"], c["diverged"]) for c in matrix["cells"]}
+    check(verdicts["cuda"] == verdicts["cpu"],
+          "campaign verdicts card %s, CPU %s" % (verdicts["cuda"], verdicts["cpu"]))
+    check(verdicts["cuda"][("median", "empire")] == (True, False) and not verdicts["cuda"][("average", "empire")][0],
+          "campaign: median must converge and average fail under empire: %s" % verdicts["cuda"])
+    print("chaos campaign digits 25 steps: verdicts (converged, diverged) on the card = on the CPU: %s"
+          % sorted(verdicts["cuda"].items()))
+    # each regime alone against calm, ms a step at cnnet's width
+    exp = models.instantiate("cnnet", [])
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+    batch = next(exp.make_train_iterator(8, seed=2))
+    timed = {}
+    for label, spec, udp in CHAOS_TIMED:
+        chaos = ChaosSchedule(spec, 8, nb_real_byz=2, args=["packet-coords:16250"]) if spec else None
+        engine = RobustEngine(gars.instantiate("average-nan", 8, 2), 8, nb_real_byz=2 if chaos else 0, chaos=chaos,
+                              lossy_link=LossyLink(4, udp) if udp else None, device="cuda")
+        state = engine.init_state(exp.init(1), tx, seed=1)
+        step = engine.build_step(exp.loss, tx)
+        placed = engine.put_batch(batch)
+        holder = {"state": state}
+
+        def one():
+            holder["state"], _ = step(holder["state"], placed)
+
+        timed[label] = time_ms(one, torch, iters=8, warmup=2)
+        del engine, state, holder
+    print("chaos regimes alone, average-nan cnnet n=8 r=2, ms a step on %s: %s" % (card, ", ".join(
+        "%s %.2f (x%.3f)" % (label, ms, ms / timed["calm"]) for label, ms in timed.items())))
+    return totals
+
+
+#: codec_phase's runner legs: cnnet + krum n = 8, r = 2 signflip, drawn on
+#: the card, CODEC_STEPS steps each, under each wire
+CODEC_STEPS = 10
+CODEC_WIRES = ("f32", "int8:ef", "topk:frac=0.01,ef")
+
+
+def _codec_rows(torch):
+    """(8, d) float32 rows for the codec checks: unit normals poisoned (a
+    NaN row, scattered +-inf and NaN, tied values, two equal rows), a row of
+    half-way int8 quotients (scale 0.25 exactly) and a row whose largest
+    magnitude, +-10, ties 30,000 times (more than top-k's 17,567)."""
+    gen = torch.Generator().manual_seed(14)
+    rows = poison(torch.randn((8, CNNET_D), generator=gen), columns=False)
+    index = torch.arange(CNNET_D)
+    rows[5] = ((index % 254).to(torch.float32) - 126.5) * 0.25
+    rows[5, 0] = 127.0 * 0.25
+    rows[3, 1000:31000] = torch.where(index[1000:31000] % 2 == 0, 10.0, -10.0)
+    rows[3, 40000:50000] = 0.0
+    return rows
+
+
+def codec_phase(torch, kernels, runner, card, workdir):
+    """The wire codecs on the card (``--exchange``); returns {kernel: launches}.
+
+    On (8, 1,756,682) rows (``_codec_rows``): the int8 round trip and payload
+    on the card equal the CPU's bit for bit; top-k at frac 0.01 (k = 17,567)
+    keeps the CPU's indices, in its order, and values; the error-feedback
+    image and residual equal the CPU's (NaN payloads aside: CUDA's arithmetic
+    makes its own).  Each codec's encode and round trip
+    timed by CUDA events beside its byte bound (int8 encode: 4d read, d + 4
+    written a row; top-k: 4d read, 8k written; the round trip adds the
+    decode's 4d written, and int8's d + 4 read).  Then cnnet + krum under
+    each of CODEC_WIRES for CODEC_STEPS steps: finite losses, K1 once a
+    step, ``bytes_on_wire_total`` grown by steps x n x bytes_per_row, and
+    ms a step against the f32 wire."""
+    from aggregathor_tpu_torch.obs import metrics as obs_metrics
+    from aggregathor_tpu_torch.parallel import compress
+
+    rows = _codec_rows(torch)
+    residual = torch.randn((8, CNNET_D), generator=torch.Generator().manual_seed(15)) * 0.01
+    cuda_rows, cuda_residual = rows.cuda(), residual.cuda()
+    int8, topk = compress.Int8Codec(), compress.parse_exchange_spec("topk:frac=0.01,ef")[1]
+    k = topk._k_for(CNNET_D)
+    def same_bits(got, want):
+        # a NaN's payload is the device's own (CUDA's arithmetic makes
+        # 0x7fffffff where the CPU keeps its operand's): NaN at the same
+        # places, every other value bit for bit
+        got = got.cpu()
+        if not got.is_floating_point():
+            return torch.equal(got, want)
+        nan = torch.isnan(want)
+        return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan].view(torch.int32),
+                                                                   want[~nan].view(torch.int32))
+
+    for codec in (int8, topk):
+        name = codec.spec()
+        card_payload, cpu_payload = codec.encode(cuda_rows), codec.encode(rows)
+        for key in cpu_payload:
+            check(same_bits(card_payload[key], cpu_payload[key]),
+                  "%s: the card's payload %r differs from the CPU's" % (name, key))
+        image, new = codec.ef_roundtrip(cuda_rows, cuda_residual)
+        want_image, want_new = codec.ef_roundtrip(rows, residual)
+        check(same_bits(image, want_image), "%s: the card's error-feedback image differs from the CPU's" % name)
+        check(same_bits(new, want_new), "%s: the card's error-feedback residual differs from the CPU's" % name)
+    kept = topk.encode(cuda_rows)["i"].cpu()
+    check(kept[3].tolist() == list(range(1000, 1000 + k)), "topk: the tied +-10 run kept %s..." % kept[3, :4].tolist())
+    check(kept[4].tolist() == torch.nonzero(torch.isnan(rows[4]))[:k, 0].tolist(),
+          "topk: the NaN row kept other indices than its first k NaN")
+    check(torch.equal(int8.encode(cuda_rows)["q"][5, 1:254].cpu(),
+                      torch.round(torch.arange(1, 254, dtype=torch.float32) - 126.5).to(torch.int8)),
+          "int8: the half-way quotients did not round to even")
+    print("codecs on %s: int8 and topk (k=%d) payloads, images and error-feedback residuals at (8, %d) "
+          "bit-identical to the CPU's (NaN/+-inf rows, half-way quotients, a 30,000-long tie at the cut)"
+          % (card, k, CNNET_D))
+    n, d = 8, CNNET_D
+    bounds_bytes = {
+        "int8 encode": n * (4 * d + d + 4), "int8 roundtrip": n * (4 * d + 2 * (d + 4) + 4 * d),
+        "topk encode": n * (4 * d + 8 * k), "topk roundtrip": n * (4 * d + 8 * k + 8 * k + 4 * d),
+    }
+    times = {
+        "int8 encode": time_ms(lambda: int8.encode(cuda_rows), torch),
+        "int8 roundtrip": time_ms(lambda: int8.roundtrip(cuda_rows), torch),
+        "topk encode": time_ms(lambda: topk.encode(cuda_rows), torch),
+        "topk roundtrip": time_ms(lambda: topk.roundtrip(cuda_rows), torch),
+    }
+    del cuda_rows, cuda_residual, image, new, card_payload
+    base = ["--experiment", "cnnet", "--experiment-args", "augment:device", "--input-source", "device", "--seed", "1",
+            "--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2",
+            "--attack", "signflip", "--max-step", str(CODEC_STEPS), "--evaluation-delta", "-1",
+            "--evaluation-period", "-1"]
+    totals = {name: 0 for name in kernels.KERNELS}
+    step_ms = {}
+    for wire in CODEC_WIRES:
+        before = obs_metrics.REGISTRY.snapshot().get("bytes_on_wire_total", 0.0)
+        kernels.reset_launch_counts()
+        result = runner.main(base + ["--exchange", wire])
+        counts = kernels.launch_counts()
+        grown = obs_metrics.REGISTRY.snapshot()["bytes_on_wire_total"] - before
+        check(math.isfinite(result["final_loss"]), "codec %s: non-finite loss" % wire)
+        for name in kernels.KERNELS:
+            want = CODEC_STEPS if name == "pairwise_sq_distances" else 0
+            check(counts[name] == want, "codec %s: %s launched %d times (want %d)" % (wire, name, counts[name], want))
+            totals[name] += counts[name]
+        _, codec = compress.parse_exchange_spec(wire)
+        want_bytes = CODEC_STEPS * n * compress.bytes_per_row(d, codec=codec)
+        check(grown == want_bytes, "codec %s: bytes_on_wire_total grew %d (want %d)" % (wire, grown, want_bytes))
+        step_ms[wire] = 1e3 / result["steps_per_s"]
+        print("codec leg %-18s cnnet+krum on %s: %d steps, final loss %.4f, %.2f ms a step excl. 1st, wire %d bytes "
+              "(%.2fx), launches K1=%d" % (wire, card, CODEC_STEPS, result["final_loss"], step_ms[wire], grown,
+                                          compress.compression_ratio(d, codec=codec), counts["pairwise_sq_distances"]))
+    print("codec times at (8, %d) on %s (CUDA events; bound = bytes / %.2f TB/s): %s; step ms against the f32 wire "
+          "(%.2f): %s" % (d, card, MEMORY_BYTES_PER_S / 1e12, ", ".join(
+              "%s %.4f ms (bound %.4f)" % (label, ms, bounds_bytes[label] / MEMORY_BYTES_PER_S * 1e3)
+              for label, ms in times.items()), step_ms["f32"], ", ".join(
+              "%s %.2f (x%.3f)" % (wire, step_ms[wire], step_ms[wire] / step_ms["f32"]) for wire in CODEC_WIRES[1:])))
+    return totals
+
+
+
 def main():
     import torch
 
@@ -2388,6 +2716,8 @@ def main():
                        profiler_phase(kernels, runner, card, workdir),
                        observability_phase(kernels, runner, card, workdir),
                        guardian_phase(torch, kernels, runner, card, workdir),
+                       chaos_phase(torch, gars, kernels, models, runner, card, workdir),
+                       codec_phase(torch, kernels, runner, card, workdir),
                        multirank_phase(torch, kernels, card)):
             for kernel, count in counts.items():
                 totals[kernel] += count
@@ -2407,6 +2737,9 @@ def main():
             "--learning-rate-args", "initial-rate:0.1"], device_input)
         resume_phase(torch, runner, os.path.join(workdir, "conv-device"), "digits-conv", ["batch-size:16"], krum + [
             "--learning-rate-args", "initial-rate:0.05"], device_input)
+        # the int8 wire with error feedback: the residuals resume bit for bit too
+        resume_phase(torch, runner, os.path.join(workdir, "conv-int8"), "digits-conv", ["batch-size:16"], krum + [
+            "--learning-rate-args", "initial-rate:0.05", "--exchange", "int8:ef"])
     for source in ("stream", "device"):
         breakdown_phase(torch, gars, models, input_source=source,
                         args=["augment:device"] if source == "device" else [])

@@ -16,8 +16,9 @@ versions; the JAX package through its jnp tier).
   ``tree:g=2x2,rules=median>median>average-nan`` is the nested hier bit for
   bit (as JAX ``tests/test_topology.py:117-130`` requires);
 - ``TREE_ARG_DEFAULTS`` equals ``TreeGAR.ARG_DEFAULTS``; ``link=int8`` and
-  ``topk`` refuse, naming the roadmap item that brings the codecs; the spec
-  checks refuse what JAX's refuse;
+  ``topk(...)`` links aggregate as JAX's do (each level's summaries through
+  the codec's round trip) with JAX's link bytes; the spec checks refuse
+  what JAX's refuse (a link with error feedback among them);
 - dnc where a colluding signal makes its selection decisive (JAX
   ``tests/test_gars.py:377-420``): the JAX aggregate within rtol 1e-4 /
   atol 1e-5, the same rows dropped;
@@ -208,9 +209,13 @@ def test_tree_spec_matches_jax_and_refuses_the_codecs():
     from aggregathor_tpu_torch.topology import spec as tspec
 
     assert tspec.TREE_ARG_DEFAULTS == TreeGAR.ARG_DEFAULTS == jspec.TREE_ARG_DEFAULTS
+    x = np.random.default_rng(5).normal(size=(32, 40)).astype(np.float32)
     for link in ("int8", "topk(k=4)"):
-        with pytest.raises(UserException, match="queue 1 item 6"):
-            tgars.instantiate("tree:g=4x2,rules=median>median>krum,link=%s" % link, 32, 1)
+        spec = "tree:g=4x2,rules=median>median>krum,link=%s" % link
+        tree, jtree = tgars.instantiate(spec, 32, 1), jgars.instantiate(spec, 32, 1)
+        assert tree.spec.link_bytes_per_round(1000) == jtree.spec.link_bytes_per_round(1000)
+        assert tree.spec.link_ratio(1000) == jtree.spec.link_ratio(1000)
+        _close(tree.aggregate(torch.from_numpy(x), key=3).numpy(), jtree.aggregate(x))
     t, j = (module.parse_topology_spec("tree:g=4x2,rules=median>median>krum,agg-f=1", 64, 2)
             for module in (tspec, jspec))
     assert (t.group_sizes, t.nb_units, t.row_budgets, t.inner_fs, t.describe()) == (
@@ -236,9 +241,11 @@ def test_exchange_specs_match_jax():
         jdtype, jcodec = jcompress.parse_exchange_spec(spec)
         assert codec is None and jcodec is None and (dtype is None) == (jdtype is None)
         assert tcompress.bytes_per_row(1000, dtype) == jcompress.bytes_per_row(1000, jdtype)
-    for spec in ("int8", "int8:ef", "topk:k=4"):
-        with pytest.raises(UserException, match="not available in the PyTorch port"):
-            tcompress.parse_exchange_spec(spec)
+    for spec in ("int8", "int8:ef", "topk:k=4", "topk:frac=0.01,ef"):
+        (dtype, codec), (jdtype, jcodec) = tcompress.parse_exchange_spec(spec), jcompress.parse_exchange_spec(spec)
+        assert dtype is None and jdtype is None and codec.spec() == jcodec.spec() and codec.uses_ef == jcodec.uses_ef
+        assert tcompress.bytes_per_row(1000, codec=codec) == jcompress.bytes_per_row(1000, codec=jcodec)
+        assert tcompress.compression_ratio(1000, codec=codec) == jcompress.compression_ratio(1000, codec=jcodec)
     for spec in ("f32:ef", "banana"):
         with pytest.raises(UserException):
             tcompress.parse_exchange_spec(spec)

@@ -672,3 +672,91 @@ def test_a_rebuild_releases_the_old_engines_memory(cuda_device, tmp_path, monkey
     state_bytes = 4 * 1_756_682
     for attempt in (1, 2):
         assert abs(seen[(attempt, 1)] - seen[(0, 1)]) <= state_bytes, seen
+
+
+def _codec_rows(seed=4, n=8, d=200_003):
+    """Unit normals with a NaN row, +-inf values, half-way int8 quotients
+    (scale 0.25) in row 5 and a 30,000-long run of tied largest magnitudes
+    in row 3 (more than top-k's k)."""
+    rows = torch.from_numpy(_poisoned(n, d, seed, distances=True))
+    index = torch.arange(d)
+    rows[5] = ((index % 254).to(torch.float32) - 126.5) * 0.25
+    rows[5, 0] = 127.0 * 0.25
+    rows[3] = torch.randn(d, generator=torch.Generator().manual_seed(seed))
+    rows[3, 1000:31000] = torch.where(index[1000:31000] % 2 == 0, 10.0, -10.0)
+    return rows
+
+
+def _same_bits(got, want):
+    """The same values bit for bit, NaN at the same places (a NaN's payload
+    is the device's own: CUDA's arithmetic makes 0x7fffffff where the CPU
+    keeps its operand's, as for the bf16 wire)."""
+    got = got.cpu()
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan].view(torch.int32),
+                                                               want[~nan].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["int8:ef", "topk:k=20000,ef", "topk:frac=0.01"])
+def test_wire_codecs_on_the_card_are_the_cpus_bits(cuda_device, spec):
+    """int8's payload and image, top-k's kept indices (in their order) and
+    values on tied magnitudes and NaN, and the error-feedback residual: the
+    card's bits are the CPU's (a true division and a stable sort on both),
+    NaN payloads aside (``_same_bits``)."""
+    from aggregathor_tpu_torch.parallel.compress import parse_exchange_spec
+
+    codec = parse_exchange_spec(spec)[1]
+    rows = _codec_rows()
+    residual = torch.randn(rows.shape, generator=torch.Generator().manual_seed(5)) * 0.01
+    card, cpu = codec.encode(rows.to(cuda_device)), codec.encode(rows)
+    for key in cpu:
+        assert _same_bits(card[key], cpu[key]), key
+    image, new = codec.ef_roundtrip(rows.to(cuda_device), residual.to(cuda_device))
+    want_image, want_new = codec.ef_roundtrip(rows, residual)
+    assert _same_bits(image, want_image) and _same_bits(new, want_new)
+    if spec.startswith("topk"):
+        k = codec._k_for(rows.shape[1])
+        assert card["i"][3].cpu().tolist()[:k] == list(range(1000, 1000 + k))  # ties keep the lower index
+    else:
+        q = card["q"][5, 1:254].cpu()
+        assert torch.equal(q, torch.round(torch.arange(1, 254, dtype=torch.float32) - 126.5).to(torch.int8))
+
+
+@pytest.mark.gpu
+def test_chaos_steps_on_the_card_match_the_cpu(cuda_device, monkeypatch):
+    """Eight MLP steps of average-nan under drop storms, an empire coalition
+    and stale stragglers: the drops and lateness come from CPU generators,
+    so the card and the CPU lose the same packets and workers; the regimes
+    and NaN rows are identical, the losses within rtol 1e-5, the parameters
+    within rtol 1e-4, atol 1e-5.  (With a codec, a rounding difference of
+    the gradients may move an int8 quantum: the codecs' bits are held on
+    the same rows above.)"""
+    from aggregathor_tpu_torch.chaos import ChaosSchedule
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    spec = "0:drop=0.3 3:attack=empire,epsilon=4.0 5:straggle=0.5,straggle-mode=stale"
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        exp = models.instantiate("mnist", ["hidden:16", "batch-size:16"])
+        tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+        chaos = ChaosSchedule(spec, 8, nb_real_byz=2, args=["packet-coords:1024"])
+        engine = RobustEngine(gars.instantiate("average-nan", 8, 2), 8, nb_real_byz=2, chaos=chaos,
+                              device=device)
+        state = engine.init_state(exp.init(3), tx, seed=3)
+        step = engine.build_step(exp.loss, tx)
+        it = exp.make_train_iterator(8, seed=4)
+        out = {"loss": [], "regime": [], "nan": []}
+        for _ in range(8):
+            state, metrics = step(state, engine.put_batch(next(it)))
+            out["loss"].append(float(metrics["total_loss"]))
+            out["regime"].append(int(metrics["chaos_regime"]))
+            out["nan"].append(metrics["probe"]["worker_nan_rows"].cpu().tolist())
+        out["params"] = torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()])
+        runs.append(out)
+    card, cpu = runs
+    assert card["regime"] == cpu["regime"] == [0, 0, 0, 1, 1, 2, 2, 2] and card["nan"] == cpu["nan"]
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-5)
+    torch.testing.assert_close(card["params"], cpu["params"], rtol=1e-4, atol=1e-5)

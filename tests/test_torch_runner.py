@@ -344,7 +344,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "models/__init__.py", "models/cnnet.py", "parallel/engine.py", "obs/metrics.py",
                    "obs/trace.py", "obs/live.py", "obs/events.py", "guardian/escalate.py", "guardian/watchdog.py",
                    "utils/access.py", "utils/plugins.py", "cli/__init__.py", "parallel/mesh.py", "obs/profiler.py",
-                   "obs/forensics.py", "utils/cluster.py", "cli/deploy.py"):
+                   "obs/forensics.py", "utils/cluster.py", "cli/deploy.py", "chaos/__init__.py",
+                   "chaos/schedule.py", "chaos/stragglers.py", "chaos/campaign.py", "chaos/replica_faults.py",
+                   "parallel/compress.py"):
         assert os.path.join(REPO, "aggregathor_tpu_torch", module) in paths, module
     offenders = [
         (os.path.relpath(path, REPO), module)

@@ -4,21 +4,29 @@ Spawned ranks re-import the module of their target, so it lives here and
 imports only numpy, torch and the port, never jax or the JAX package (the
 test files do).  ``run_cases(axis, cases)`` builds the port's engine on the
 given worker axis for each case and steps it on the given global batches;
-each rank keeps its k workers of them.
+each rank keeps its k workers of them.  A case's ``chaos`` (a schedule
+spec, with ``chaos_args``) is built here, on each rank.
 """
 
 import numpy as np
 import torch
 
 from aggregathor_tpu_torch import gars, models
+from aggregathor_tpu_torch.chaos import ChaosSchedule
 from aggregathor_tpu_torch.core import build_optimizer, build_schedule
 from aggregathor_tpu_torch.parallel import RobustEngine, attacks
 from aggregathor_tpu_torch.parallel.lossy import LossyLink
 
 
+def _chaos(case):
+    if not case.get("chaos"):
+        return None
+    return ChaosSchedule(case["chaos"], case["n"], nb_real_byz=case["r"], args=case.get("chaos_args", []))
+
+
 def run_case(axis, case, weights, batches):
-    """One case on ``axis``: per-step losses, worker metrics and the final
-    parameters (numpy), and the axis's rank."""
+    """One case on ``axis``: per-step losses, worker metrics, chaos regimes
+    and the final parameters (numpy), and the axis's rank."""
     axis = axis.with_workers(case["n"])
     torch.manual_seed(0)
     exp = models.instantiate(case["experiment"], case["exp_args"])
@@ -27,19 +35,22 @@ def run_case(axis, case, weights, batches):
     lossy = LossyLink(case["udp"], case["udp_args"]) if case.get("udp") else None
     tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:%s" % case.get("lr", 0.05)]))
     engine = RobustEngine(gars.instantiate(case["rule"], n, f), n, nb_real_byz=r, attack=attack, lossy_link=lossy,
-                          worker_metrics=True, device="cpu", axis=axis, **case.get("options", {}))
+                          worker_metrics=True, device="cpu", axis=axis, chaos=_chaos(case),
+                          **case.get("options", {}))
     step = engine.build_step(exp.loss, tx)
     state = engine.init_state({name: torch.as_tensor(value) for name, value in weights.items()}, tx,
                               seed=case.get("seed", 1))
-    out = {"rank": axis.rank, "loss": [], "participation": [], "worker_sq_dist": [], "worker_nan": []}
+    out = {"rank": axis.rank, "loss": [], "participation": [], "worker_sq_dist": [], "worker_nan": [], "regime": []}
     for batch in batches:
         state, metrics = step(state, engine.put_batch(batch))
         out["loss"].append(float(metrics["total_loss"]))
+        out["regime"].append(int(metrics["chaos_regime"]) if "chaos_regime" in metrics else None)
         part = metrics.get("worker_participation")
         out["participation"].append(None if part is None else part.numpy().copy())
         out["worker_sq_dist"].append(metrics["worker_sq_dist"].numpy().copy())
         out["worker_nan"].append(metrics["probe"]["worker_nan_rows"].numpy().copy())
     out["params"] = {name: value.detach().numpy().copy() for name, value in state.params.items()}
+    out["ef"] = None if state.ef is None else engine.gather_ef(state).numpy().copy()
     return out
 
 
@@ -82,7 +93,7 @@ def _engine_and_state(axis, case, weights):
     attack = attacks.instantiate(case["attack"], n, r) if case.get("attack") else None
     tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:%s" % case.get("lr", 0.05)]))
     engine = RobustEngine(gars.instantiate(case["rule"], n, f), n, nb_real_byz=r, attack=attack, device="cpu",
-                          axis=axis)
+                          axis=axis, chaos=_chaos(case), **case.get("options", {}))
     state = engine.init_state({name: torch.as_tensor(value) for name, value in weights.items()}, tx,
                               seed=case.get("seed", 1))
     return engine, exp, tx, state
@@ -96,8 +107,9 @@ def save_after(axis, case, weights, batches, directory):
     step = engine.build_step(exp.loss, tx)
     for batch in batches:
         state, _ = step(state, engine.put_batch(batch))
+    ef_rows = engine.gather_ef(state)  # every rank: a collective at W > 1
     if axis.lead:
-        Checkpoints(directory, "snap").save(state)
+        Checkpoints(directory, case.get("snapshot", "snap")).save(state, ef=ef_rows)
     return int(state.step)
 
 
@@ -110,12 +122,16 @@ def resume_from(axis, case, weights, batches, directory):
     engine, exp, tx, state = _engine_and_state(axis, case, weights)
     step = engine.build_step(exp.loss, tx)
     if axis.lead:
-        state, _ = Checkpoints(directory, "snap").restore(state)
+        state, _ = Checkpoints(directory, case.get("snapshot", "snap"), nb_workers=case["n"]).restore(state)
     broadcast_state(state, axis)
+    restored_ef = engine.gather_ef(state)
+    restored_ef = None if restored_ef is None else restored_ef.numpy().copy()
     for batch in batches:
         state, _ = step(state, engine.put_batch(batch))
+    ef = engine.gather_ef(state)
     return {"step": int(state.step), "params": {name: value.detach().numpy().copy()
-                                                for name, value in state.params.items()}}
+                                                for name, value in state.params.items()},
+            "restored_ef": restored_ef, "ef": None if ef is None else ef.numpy().copy()}
 
 
 def run_sampled(axis, case, weights, steps):
