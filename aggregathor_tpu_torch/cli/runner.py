@@ -11,7 +11,8 @@ check, and once more at the end unless the run diverged), the input path
 options (``--worker-momentum``, ``--reputation-decay``,
 ``--quarantine-threshold``, ``--worker-metrics``, ``--exchange-dtype``,
 ``--exchange``, ``--granularity``, ``--leaf-bucketing``, ``--trace-ops``),
-the chaos schedule (``--chaos``, ``--chaos-args``), the flight
+the chaos schedule (``--chaos``, ``--chaos-args``), bounded-wait
+(``--step-deadline`` and its eleven options, below), the flight
 recorder (``--flight``, ``--flight-dump``), the metrics plane
 (``--gar-probe``, ``--metrics-file``, ``--trace-file``, ``--trace``,
 ``--trace-dir``, ``--live-port``, ``--live-host``, ``--live-ready-file``,
@@ -36,6 +37,26 @@ wire: ``bf16`` is ``--exchange-dtype bfloat16``, ``int8[:ef]`` and
 ``topk:k=K|frac=F[,ef]`` engage the codec; ``bytes_on_wire_total`` counts
 n rows of the codec's bytes a step, and the error-feedback residual is
 saved in the checkpoints (gathered from every rank).
+
+``--step-deadline SECONDS`` (``parallel/bounded.py``, JAX
+``runner.py:1013-1175``) runs each worker's submission on its own thread
+and CUDA stream and closes every round at the deadline: a worker that
+misses it sends a NaN row (or, under ``--stale-infill``, its last row for
+at most ``--stale-max-age`` rounds, damped by ``--stale-reweight``) inside
+the declared-f budget.  ``--straggler-stall``/``--straggler-rate``/
+``--straggler-jitter`` inject the delays (with ``--chaos`` its straggler
+regimes say who is late; without a deadline the stalls drive the
+synchronous baseline), ``--deadline-percentile``/``-floor``/``-ceiling``/
+``-ema`` adapt the window (``parallel/deadline.py``, built once for the
+run), ``--incremental-aggregation`` decodes each row as it lands.  It
+needs ``--unroll 1``, stream input, no ``--UDP``, one device, and a
+schedule of straggler regimes only; the flight recorder then has no chaos
+lane.  The summaries carry ``straggler_timeouts``, ``stale_infill_rows``
+and ``deadline_window_seconds``; the forensics ledger each step's timeouts
+and stale rows; the watchdog rolls back on timeouts beyond f
+(``observe_timeouts``) and on a window pinned at its ceiling
+(``observe_ceiling``).  A rollback that rebuilds the stack, and the exit
+(a stop signal's included), close the step's threads.
 
 A summary event carries, beside the four scalars, the worker diagnostics
 the engine computes (``worker_sq_dist`` and ``suspect_worker``, the most
@@ -218,6 +239,80 @@ def build_parser():
         help="stream: per-step host batches. device: hold the training split on the "
              "device (transferred once) and draw each worker's fresh i.i.d. batch there; "
              "needs an experiment exposing train_arrays() (no host-side transform)",
+    )
+    parser.add_argument(
+        "--step-deadline", type=float, default=None, metavar="SECONDS",
+        help="bounded-wait aggregation (parallel/bounded.py): dispatch each worker's gradient as its own async "
+             "submission (a CUDA stream a worker) and close every round at this host-side deadline -- workers that "
+             "miss it contribute NaN rows within the same declared-f budget as Byzantine rows (timeouts + attacks "
+             "<= f), land as straggler_timeout forensics evidence, and sustained over-budget timeouts are a guardian "
+             "escalation input.  Needs --unroll 1, one device (--nb-devices 1), stream input, a NaN-tolerant rule, "
+             "and no in-graph transport simulation (--UDP/non-straggler --chaos)",
+    )
+    parser.add_argument(
+        "--straggler-stall", type=float, default=0.0, metavar="SECONDS",
+        help="bounded-wait straggler injection: a worker drawn late holds its submission this long before "
+             "dispatching (the chaos straggler regimes' wall-clock twin; with --chaos the per-regime straggle rates "
+             "schedule WHO is late, otherwise --straggler-rate does)",
+    )
+    parser.add_argument(
+        "--straggler-rate", type=float, default=0.0, metavar="P",
+        help="bounded-wait: flat per-(step, worker) lateness probability when no --chaos schedule provides regime "
+             "rates",
+    )
+    parser.add_argument(
+        "--straggler-jitter", type=float, default=0.0, metavar="SIGMA",
+        help="bounded-wait straggler injection: heavy-tail the stall -- a late worker sleeps stall * exp(SIGMA * "
+             "N(0,1)) (lognormal, median = --straggler-stall) instead of exactly the stall; with --chaos the "
+             "per-regime jitter=SIGMA takes precedence",
+    )
+    parser.add_argument(
+        "--deadline-percentile", type=float, default=None, metavar="P",
+        help="adaptive bounded-wait window (parallel/deadline.py): track the per-worker arrival distribution and "
+             "set each round's window to its P-th percentile, EMA-smoothed and clamped into [--deadline-floor, "
+             "--deadline-ceiling].  Requires --step-deadline (the initial window and the default ceiling).  Choose "
+             "P at or below 100*(n-f-1)/(n-1) (e.g. 71.4 for n=8, f=2) so a persistent straggler coalition inside "
+             "the declared budget cannot pin the window at the ceiling",
+    )
+    parser.add_argument(
+        "--deadline-floor", type=float, default=0.01, metavar="SECONDS",
+        help="adaptive deadline: smallest window the controller may emit",
+    )
+    parser.add_argument(
+        "--deadline-ceiling", type=float, default=None, metavar="SECONDS",
+        help="adaptive deadline: largest window (default: --step-deadline -- the fixed protocol's declared "
+             "worst-case wait); a controller pinned here for ceiling-patience steps is a guardian escalation input",
+    )
+    parser.add_argument(
+        "--deadline-ema", type=float, default=0.3, metavar="ALPHA",
+        help="adaptive deadline: weight of each new round's percentile target in (0, 1] -- smoothing so a single "
+             "spiked round cannot whipsaw the window",
+    )
+    parser.add_argument(
+        "--stale-infill", action="store_true",
+        help="bounded-wait: a timed-out worker re-enters its CLEVER carry row (the last submission this aggregator "
+             "received from it) instead of a NaN drop.  Stale rows SPEND the declared-f budget exactly like "
+             "timeouts and attacks (stale + timeouts + attacks <= f -- a Byzantine straggler re-enters its carried "
+             "attack row), and land as stale_infill forensics evidence",
+    )
+    parser.add_argument(
+        "--stale-max-age", type=int, default=4, metavar="ROUNDS",
+        help="bounded-wait stale infill: a carry older than this many consecutive missed rounds degrades back to "
+             "a NaN drop",
+    )
+    parser.add_argument(
+        "--stale-reweight", action="store_true",
+        help="bounded-wait: damp each stale carry row by its age -- a carry of age a enters aggregation scaled by "
+             "1/(1+a) (the unbiased-estimator framing of arXiv:2505.23523) instead of at full weight.  Requires "
+             "--stale-infill; the damped row still SPENDS the declared-f budget, and every reweighted re-entry is a "
+             "stale_reweight journal event",
+    )
+    parser.add_argument(
+        "--incremental-aggregation", action="store_true",
+        help="bounded-wait: fold each submission's decoded row into the aggregate-side device buffer the instant "
+             "it lands instead of stacking at the round barrier -- decode/transfer overlaps the submissions still "
+             "outstanding (exchange_overlap_fraction on the registry measures it).  Needs --step-deadline; numerics "
+             "identical to the stacked path",
     )
     parser.add_argument(
         "--exchange-dtype", default=None, choices=["float32", "bfloat16"],
@@ -544,6 +639,10 @@ def _run(args, stop, argv, rank):
             raise UserException("--nb-devices %d must divide --nb-workers %d (k = n/W workers a device)" % (size, n))
         plan = (0, size, None)
     rank_index, size, init_method = plan
+    if size > 1 and (args.step_deadline is not None or args.straggler_stall > 0):
+        # before any rank is spawned (JAX refuses process_count() > 1)
+        raise UserException("--step-deadline is single-process (the submission threads wait on one process's "
+                            "streams); a worker axis of %d ranks is %d processes: pass --nb-devices 1" % (size, size))
     children = []
     if size > 1 and init_method is None:
         # the lead: W - 1 ranks on the same arguments, spawned before the
@@ -672,12 +771,16 @@ def _train(args, stop, axis):
     # from this record so a rollback can rebuild it mid-run
     overrides = Overrides(f, args.aggregator, tuple(args.aggregator_args),
                           reputation_decay=args.reputation_decay, quarantine_threshold=args.quarantine_threshold)
+    # bounded-wait (parallel/bounded.py): under a deadline, or stalls without
+    # one (the synchronous baseline), the schedule moves to the host's clock
+    # and the step has no chaos regime (JAX :893-897)
+    bounded_wait = args.step_deadline is not None or args.straggler_stall > 0
     # the flight recorder's layout is fixed for the run: built once and
     # shared by every rebuilt stack (its ring is per-state)
     flight_rec = None
     if args.flight:
         flight_rec = obs_flight.FlightRecorder(args.flight, n, probe=True, worker_metrics=args.worker_metrics,
-                                               chaos=bool(args.chaos))
+                                               chaos=bool(args.chaos) and not bounded_wait)
         if args.flight < unroll:
             warning("--flight capacity %d < --unroll %d: a summary fetch cannot cover the whole last chunk; "
                     "size the ring to at least the unroll (ideally the summary delta)" % (args.flight, unroll))
@@ -708,6 +811,53 @@ def _train(args, stop, axis):
             info("Chaos schedule: %d regime(s): %s"
                  % (len(chaos), "  ".join("%d:%s" % t for t in chaos.transitions())))
         base_schedule = build_schedule(args.learning_rate, args.learning_rate_args)
+        # bounded-wait's straggler model and deadline controller, checked
+        # before anything is built (JAX :1013-1175); the controller is built
+        # once, outside the rebuild, so its window survives an escalation
+        straggler_model = deadline_controller = params_template = None
+        if bounded_wait:
+            from ..parallel.bounded import BoundedWaitStep, HostStragglerModel
+
+            if args.incremental_aggregation and args.step_deadline is None:
+                raise UserException("--incremental-aggregation overlaps decode with the deadline window; pass "
+                                    "--step-deadline")
+            if unroll > 1:
+                raise UserException("--step-deadline closes every round on the host clock; a scanned --unroll chunk "
+                                    "cannot be interrupted -- use --unroll 1")
+            if args.input_source == "device":
+                raise UserException("--step-deadline dispatches per-worker host batches; use --input-source stream")
+            if args.udp > 0:
+                raise UserException("--step-deadline replaces the simulated lossy transport; drop --UDP (real "
+                                    "timeouts produce the NaN rows)")
+            # the straggler model takes the schedule only when it has worker
+            # content to consume or refuse
+            chaos_worker = chaos
+            if chaos is not None and not (chaos.has_stragglers or chaos.has_attacks or chaos.has_drop
+                                          or chaos.has_forgery):
+                chaos_worker = None
+            if args.straggler_stall > 0 or args.straggler_rate > 0 or chaos_worker is not None:
+                straggler_model = HostStragglerModel(n, args.straggler_stall, rate=args.straggler_rate,
+                                                     chaos=chaos_worker, seed=args.seed, jitter=args.straggler_jitter)
+            elif args.straggler_jitter > 0:
+                raise UserException("--straggler-jitter scales an injected stall; without --straggler-stall/"
+                                    "--straggler-rate or a --chaos straggler regime it injects nothing -- drop it or "
+                                    "add a stall source")
+            if args.deadline_percentile is not None:
+                from ..parallel.deadline import DeadlineController
+
+                if args.step_deadline is None:
+                    raise UserException("--deadline-percentile needs --step-deadline (the controller's initial "
+                                        "window and default ceiling)")
+                deadline_controller = DeadlineController(
+                    args.step_deadline, percentile=args.deadline_percentile, floor=args.deadline_floor,
+                    ceiling=args.deadline_ceiling, ema=args.deadline_ema, registry=registry)
+            # the rows' layout, for the aggregate's flatten and inflate
+            params_template = experiment.init(args.seed)
+        elif (args.deadline_percentile is not None or args.stale_infill or args.stale_reweight
+              or args.straggler_jitter > 0 or args.incremental_aggregation):
+            raise UserException("--deadline-percentile/--stale-infill/--stale-reweight/--straggler-jitter/"
+                                "--incremental-aggregation are bounded-wait options; pass --step-deadline (or "
+                                "--straggler-stall for the synchronous baseline)")
 
         def build_training(ov):
             """The rebuildable half of the run, built from an ``Overrides``
@@ -731,9 +881,20 @@ def _train(args, stop, axis):
                 worker_metrics=args.worker_metrics, reputation_decay=ov.reputation_decay,
                 quarantine_threshold=ov.quarantine_threshold, granularity=args.granularity,
                 leaf_bucketing={"auto": "auto", "on": True, "off": False}[args.leaf_bucketing],
-                trace_ops=args.trace_ops, flight=flight_rec, device=device, axis=axis, chaos=chaos,
-                exchange=exchange_codec)
-            stack.step_fn = stack.engine.build_step(experiment.loss, stack.tx)
+                trace_ops=args.trace_ops, flight=flight_rec, device=device, axis=axis,
+                chaos=None if bounded_wait else chaos, exchange=exchange_codec)
+            stack.bounded_step = None
+            if bounded_wait:
+                # one submission a worker and a deadline-closed round; the
+                # controller is shared by every rebuilt stack
+                stack.bounded_step = BoundedWaitStep(
+                    stack.engine, experiment.loss, stack.tx, params_template, deadline=args.step_deadline,
+                    straggler_model=straggler_model, registry=registry, controller=deadline_controller,
+                    stale_infill=args.stale_infill, stale_max_age=args.stale_max_age,
+                    stale_reweight=args.stale_reweight, incremental=args.incremental_aggregation)
+                stack.step_fn = stack.bounded_step
+            else:
+                stack.step_fn = stack.engine.build_step(experiment.loss, stack.tx)
             if args.input_source == "device":
                 stack.multi_fn = stack.engine.build_sampled_multi_step(experiment.loss, stack.tx, unroll,
                                                                        experiment.batch_size)
@@ -886,6 +1047,13 @@ def _train(args, stop, axis):
             scalars["nb_quarantined"] = int(metrics["nb_quarantined"])
         if "chaos_regime" in metrics:
             scalars["chaos_regime"] = int(metrics["chaos_regime"])
+        if "nb_timeouts" in metrics:
+            # bounded-wait's verdicts for this call's step (JAX :1968-1976)
+            scalars["straggler_timeouts"] = int(metrics["nb_timeouts"])
+        if "nb_stale" in metrics:
+            scalars["stale_infill_rows"] = int(metrics["nb_stale"])
+        if ts.bounded_step is not None and ts.bounded_step.controller is not None:
+            scalars["deadline_window_seconds"] = ts.bounded_step.controller.window
         if args.gar_probe:
             scalars["gar_seconds"] = time_gar_probe(step)
         if flight_rec is not None:
@@ -1067,6 +1235,8 @@ def _train(args, stop, axis):
                     new_overrides = rung.apply(overrides)
                     with Context("escalate"):
                         new_ts = build_training(new_overrides)
+                    if ts.bounded_step is not None:
+                        ts.bounded_step.close()  # the old stack's submission threads
                     overrides, ts = new_overrides, new_ts
                     info("guardian: escalated — %s (now %s)" % (rung.describe(), overrides.describe()))
                     summaries.event(rstep, "guardian_escalation", {
@@ -1125,9 +1295,12 @@ def _train(args, stop, axis):
             probe_tree = pending_metrics.get(health.PROBE_KEY)
             dist, rep = rows("worker_sq_dist"), rows("worker_reputation")
             nan_rows = rows("worker_nan_rows", probe_tree) if probe_tree is not None else None
+            # bounded-wait's deadline verdicts: a timed-out worker's NaN row is
+            # explained, a stale one named (JAX :2126-2170)
+            timeouts, stale_rows = rows("straggler_timeout"), rows("stale_infill")
             regime = pending_metrics.get("chaos_regime")
             regime = None if regime is None else np.atleast_1d(regime.detach().cpu().numpy())
-            present = [v for v in (dist, rep, nan_rows, regime) if v is not None]
+            present = [v for v in (dist, rep, nan_rows, regime, timeouts) if v is not None]
             for i in range(max(v.shape[0] for v in present) if present else 0):
                 ridx = None if regime is None else int(regime[min(i, regime.shape[0] - 1)])
                 ledger.observe(pending_start + i + 1,
@@ -1135,7 +1308,9 @@ def _train(args, stop, axis):
                                worker_nan=None if nan_rows is None else nan_rows[i],
                                reputation=None if rep is None else rep[i],
                                regime=ridx,
-                               regime_desc=chaos.describe(ridx) if ridx is not None else None)
+                               regime_desc=chaos.describe(ridx) if ridx is not None else None,
+                               timeout=None if timeouts is None else timeouts[i],
+                               stale=None if stale_rows is None else stale_rows[i])
 
     def observe_pending():
         """Feed the forensics ledger and the watchdog the previous call's
@@ -1150,6 +1325,9 @@ def _train(args, stop, axis):
         with trace.span("block.probe_fetch", cat="guardian"):
             view = health.host_view(pending_metrics)
             losses = np.atleast_1d(pending_loss.detach().cpu().numpy())
+            timeouts = pending_metrics.get("nb_timeouts")
+            if timeouts is not None:
+                timeouts = np.atleast_1d(timeouts.detach().cpu().numpy())
         start = pending_start
         pending_loss = pending_metrics = None
         rollback_at = 0
@@ -1158,6 +1336,14 @@ def _train(args, stop, axis):
             spikes = np.atleast_1d(view["spike"]).astype(np.float64)
             for i in range(losses.shape[0]):
                 action = watchdog.observe(start + i + 1, float(losses[i]), bool(finite[i]), float(spikes[i]))
+                if action is None and timeouts is not None:
+                    # bounded-wait: timeouts beyond the declared budget,
+                    # sustained, roll back and climb the ladder (JAX :2306-2335)
+                    action = watchdog.observe_timeouts(start + i + 1, int(timeouts[i]), overrides.f)
+                if action is None and ts.bounded_step is not None and ts.bounded_step.controller is not None:
+                    # an adaptive window pinned at its ceiling: the arrival
+                    # tail outgrew the budgeted window
+                    action = watchdog.observe_ceiling(start + i + 1, ts.bounded_step.controller.at_ceiling)
                 if action == "recovered":
                     info("guardian: recovered — %d healthy step(s) since the last rollback" % guardian.recover_after)
                     summaries.event(start + i + 1, "guardian_recovered", {
@@ -1430,6 +1616,8 @@ def _train(args, stop, axis):
         compile_watch.close()
         if prefetcher is not None:
             prefetcher.close()
+        if ts.bounded_step is not None:
+            ts.bounded_step.close()
         eval_file.close()
         summaries.close()
         # the lagged feed drained before the report is written: the last

@@ -15,12 +15,36 @@ imports the experiments this package ports (``cnnet``, ``mnist``,
 ``digits``, ``digits-conv``, ``mnistAttack``, ``digitsAttack``) by name.
 """
 
+import copy
+import threading
+import weakref
+
 import torch
 from torch.func import functional_call
 
 from ..utils import ClassRegister
 
 experiments = ClassRegister("experiment")
+
+#: each thread's copies of the experiments' modules (module -> copy)
+_THREAD_MODULES = threading.local()
+
+
+def thread_module(module):
+    """``module`` on the main thread, else this thread's own copy of it:
+    ``functional_call`` swaps a module's parameters in place while it runs,
+    so threads that run one experiment's loss at once (bounded-wait's
+    submissions) must not share the module.  The copy's own parameters are
+    never read (the caller's are swapped in)."""
+    if threading.current_thread() is threading.main_thread():
+        return module
+    copies = getattr(_THREAD_MODULES, "copies", None)
+    if copies is None:
+        copies = _THREAD_MODULES.copies = weakref.WeakKeyDictionary()
+    replica = copies.get(module)
+    if replica is None:
+        replica = copies[module] = copy.deepcopy(module)
+    return replica
 
 
 def register(name, cls):
@@ -56,7 +80,7 @@ class Experiment:
         return init_params(self.model, torch.Generator().manual_seed(int(seed)))
 
     def logits(self, params, images):
-        return functional_call(self.model, params, (images,))
+        return functional_call(thread_module(self.model), params, (images,))
 
     def loss(self, params, batch):
         logits = self.logits(params, batch["image"])

@@ -134,7 +134,9 @@ class WireCodec:
     """One wire codec: ``encode`` at the sender, ``decode`` at the
     aggregation boundary, ``roundtrip`` for the wire image.  The row
     methods work on the last axis, so a (d,) row and (n, d) rows go
-    through the same code; ``payload`` is a dict of tensors."""
+    through the same code, and ``decode`` takes the (n, ...) stack of n
+    rows' payloads as it takes one (bounded-wait stacks the payloads that
+    arrived); ``payload`` is a dict of tensors."""
 
     name = "wire"
     uses_ef = False
@@ -147,6 +149,13 @@ class WireCodec:
 
     def bytes_per_row(self, d):
         """Wire bytes of one encoded (d,) row (payload and side channel)."""
+        raise NotImplementedError
+
+    def payload_zeros(self, d, device=None):
+        """A zeroed payload of one (d,) row on ``device``: what a slot nobody
+        submitted holds under bounded-wait (its content is never read: the
+        aggregate masks the slot to NaN after decoding); only its keys,
+        shapes and dtypes matter, to stack with the rows that arrived."""
         raise NotImplementedError
 
     def validate_d(self, d):
@@ -216,6 +225,10 @@ class Int8Codec(WireCodec):
     def bytes_per_row(self, d):
         return d + _F32_BYTES  # a byte a coordinate and the float32 scale
 
+    def payload_zeros(self, d, device=None):
+        return {"q": torch.zeros((d,), dtype=torch.int8, device=device),
+                "scale": torch.zeros((), dtype=torch.float32, device=device)}
+
     def spec(self):
         return "int8:ef" if self.uses_ef else "int8"
 
@@ -266,6 +279,11 @@ class TopKCodec(WireCodec):
 
     def bytes_per_row(self, d):
         return self._k_for(d) * (_F32_BYTES + _I32_BYTES)
+
+    def payload_zeros(self, d, device=None):
+        k = self._k_for(d)
+        return {"v": torch.zeros((k,), dtype=torch.float32, device=device),
+                "i": torch.zeros((k,), dtype=torch.int32, device=device)}
 
     def spec(self):
         body = "k=%d" % self.k if self.k is not None else "frac=%g" % self.frac

@@ -103,9 +103,21 @@ batch; ``put_batches`` also places a step-axis slice of a chunk and
 ``assemble_batches`` joins the slices (the input pipeline's transfer);
 ``build_gar_probe`` times the rule alone (``--gar-probe``).
 
+The bounded-wait protocol (``parallel/bounded.py``, JAX
+``engine.py:2249-2708``) splits the step in two: ``build_worker_grad``, one
+worker's submission (its gradient, augmentation, momentum, local attack and
+wire encoding, steps 0-3 for one row), which the protocol runs once a
+worker on a stream of its own, and ``build_bounded_aggregate``, the
+aggregate and update of steps 4-8 over the rows that arrived, the others
+NaN or a stale carry (``build_incremental_fold`` decodes a row into the
+aggregate's buffer as it lands).  It needs granularity ``vector``, no
+lossy link or chaos schedule in the step, and one rank (W = 1).  The
+sharded mode's submission builders (``build_group_grad``,
+``build_submesh_grad``) wait for the sharded engine (ROADMAP queue 1 item
+8).
+
 Refused with a UserException: a chaos schedule's ``forge=``/``tamper=``
-regimes and secure submission (ROADMAP queue 1 item 7), bounded-wait
-(``step_deadline``, item 6b), the sharded mode,
+regimes and secure submission (ROADMAP queue 1 item 7), the sharded mode,
 ``leaf_bucketing=True`` (the bucketed per-leaf path needs kernels with a
 batch dimension), and ``l1_regularize``/``l2_regularize`` (the JAX flat
 engine refuses them too: its loss carries them).
@@ -149,7 +161,7 @@ def gar_key(seed, step):
 
 
 #: engine options of the JAX package this port does not carry yet
-UNPORTED_OPTIONS = ("secure", "step_deadline")
+UNPORTED_OPTIONS = ("secure",)
 
 
 def stream_generator(seed, step, worker, tag, device):
@@ -158,6 +170,15 @@ def stream_generator(seed, step, worker, tag, device):
     words = np.random.SeedSequence([seed, step, worker, tag]).generate_state(2, np.uint32)
     value = (int(words[0]) << 31) ^ int(words[1])
     return torch.Generator(device=device).manual_seed(value)
+
+
+def bias_correction(beta, count, device):
+    """Adam's momentum bias correction ``1 - beta^count`` in float32, as the
+    JAX engine computes it, as a 0-d tensor on ``device``: the momentum is
+    divided by a tensor (CUDA divides by a host scalar as a product with its
+    reciprocal, a bit off the quotient)."""
+    correction = np.float32(1.0) - np.float32(beta) ** np.float32(count)
+    return torch.full((), float(correction), dtype=torch.float32, device=device)
 
 
 def validate_reputation_args(gar, reputation_decay, quarantine_threshold):
@@ -448,11 +469,7 @@ class RobustEngine:
         beta = self.worker_momentum
         state.momentum = beta * state.momentum + (1.0 - beta) * rows
         state.momentum_steps += 1
-        # 1 - beta^k in float32, as the JAX engine computes it; divided by a
-        # 0-d tensor on the rows' device (CUDA divides by a host scalar as a
-        # product with its reciprocal, a bit off the quotient)
-        correction = np.float32(1.0) - np.float32(beta) ** np.float32(state.momentum_steps)
-        return state.momentum / torch.full((), float(correction), dtype=torch.float32, device=rows.device)
+        return state.momentum / bias_correction(beta, state.momentum_steps, rows.device)
 
     def _prepare_rows(self, rows, reputation=None, ridx=None):
         """Omniscient attacks (the static one, then regime ``ridx``'s: the
@@ -855,6 +872,185 @@ class RobustEngine:
 
         probe.rows = rows
         return probe
+
+    # ------------------------------------------------------------------ #
+    # bounded-wait (parallel/bounded.py): the step split into one submission
+    # a worker and one aggregate over the rows that arrived
+
+    def _check_bounded_wait_supported(self):
+        """The bounded-wait builders' preconditions (JAX ``engine.py:2255-2290``
+        for the flat mode), and one rank: the port's worker axis is W
+        processes, and the protocol's submission threads poll one process's
+        streams (the JAX runner refuses ``process_count() > 1``)."""
+        if self.granularity != "vector":
+            raise UserException("bounded-wait aggregates the whole flattened gradient (granularity vector); per-leaf "
+                                "selection is not supported")
+        if self.lossy_link is not None or self.chaos is not None:
+            raise UserException("bounded-wait replaces the simulated transport: drop --UDP/--chaos in-graph regimes "
+                                "(straggler regimes move to the host straggler model, parallel/bounded.py)")
+        if self.nb_devices > 1:
+            raise UserException("bounded-wait is single-process: its submission threads wait on one process's "
+                                "streams, and a worker axis of %d ranks (--nb-devices) is %d processes; run "
+                                "--nb-devices 1" % (self.nb_devices, self.nb_devices))
+
+    def _augment_worker(self, worker_batch, seed, step, widx):
+        """Worker ``widx``'s in-step augmentation alone, its draws from its
+        (seed, step, widx, 3) stream: the rows of ``_augment``'s for that
+        worker."""
+        transform = self.batch_transform
+        draws = transform.draw(worker_batch["image"].shape[0],
+                               stream_generator(seed, step, widx, AUGMENT_TAG, "cpu"))
+        return transform(worker_batch, {key: self._to_device(value) for key, value in draws.items()})
+
+    def build_worker_grad(self, loss_fn):
+        """One worker's submission (JAX ``build_worker_grad`` and
+        ``_bounded_submission_body``, ``engine.py:2292-2400``):
+        ``grad_fn(params, worker_batch, seed, step, widx, momentum=None,
+        momentum_steps=0, ef=None) -> {loss, row[, momentum][, ef]}``.
+
+        ``params`` are read and never written (the protocol hands it a copy
+        of the round's parameters), ``worker_batch`` is the worker's own
+        (no leading n).  In JAX's order: the in-step augmentation from the
+        worker's (seed, step, widx, 3) stream; the loss and its gradient
+        (``torch.autograd.grad``, not vmapped); the gradient flattened in JAX's coordinate order; under
+        worker momentum the worker's new momentum row ``beta m[widx] + (1 -
+        beta) g`` (returned as ``momentum``) divided by ``1 - beta^(
+        momentum_steps + 1)``, the global count, in float32 on the host and
+        a true division by a device tensor (trap m); the local attack on
+        ``widx < r`` from the (seed, step, widx, 1) stream; then the wire:
+        under a codec ``row`` is the encoded payload (with error feedback
+        ``C(row + ef[widx])``, the new residual returned as ``ef``), else
+        the row in the exchange dtype.  ``momentum`` and ``ef`` are the
+        whole (n, d) buffers of the state."""
+        self._check_bounded_wait_supported()
+        beta = self.worker_momentum
+        attack = self.attack if self.attack is not None and not self.attack.omniscient else None
+
+        def grad_fn(params, worker_batch, seed, step, widx, momentum=None, momentum_steps=0, ef=None):
+            if self.batch_transform is not None:
+                worker_batch = self._augment_worker(worker_batch, seed, step, widx)
+            # plain autograd on leaves of their own: one worker needs no
+            # functorch transform, whose wrappers cost cnnet ~3 ms of host time
+            # a worker on the H100 (8.5 against 5.5 ms,
+            # scripts/torch_bounded_timing.py), time the submission threads
+            # spend holding the GIL
+            leaves = {name: value.detach().requires_grad_(True) for name, value in params.items()}
+            with torch.enable_grad():
+                loss = loss_fn(leaves, worker_batch)
+                grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            with torch.no_grad():
+                row = FlatMap(params).flatten(grads)
+                out = {"loss": loss.detach()}
+                if beta is not None:
+                    new_m = beta * momentum[widx] + (1.0 - beta) * row
+                    out["momentum"] = new_m
+                    row = new_m / bias_correction(beta, int(momentum_steps) + 1, row.device)
+                if attack is not None and widx < self.nb_real_byz:
+                    row = attack.apply_local(row, stream_generator(seed, step, widx, ATTACK_TAG, row.device))
+                if self.codec is not None:
+                    if ef is not None:
+                        payload, _, out["ef"] = self.codec.ef_encode(row, ef[widx])
+                    else:
+                        payload = self.codec.encode(row)
+                    out["row"] = payload
+                    return out
+                out["row"] = row if self.exchange_dtype is None else row.to(self.exchange_dtype)
+                return out
+
+        return grad_fn
+
+    def build_bounded_aggregate(self, tx, params_template, rows_form="wire", stale_reweight=False):
+        """The aggregator's side (JAX ``build_bounded_aggregate``,
+        ``engine.py:2491-2671``): ``agg(state, rows, losses, arrived, stale,
+        extras) -> (state, metrics)``, the state updated in place.
+
+        ``rows`` is the (n, ...) stack of what crossed the wire
+        (``rows_form="wire"``: the exchange dtype's rows, or the codec's
+        stacked payloads, decoded here) or of rows decoded already
+        (``"decoded"``, the incremental fold's buffer); ``losses`` (n,);
+        ``arrived`` and ``stale`` (n,) bool on the device; ``extras`` the
+        (n, d) ``momentum`` and ``ef`` rows the submissions returned and,
+        under ``stale_reweight``, the (n,) int ``stale_age``.  In JAX's
+        order: decode; NaN where neither arrived nor stale; the dtype wire's
+        image; each stale row scaled by ``c(a) = 1/(1 + a)`` (float32, a
+        true division on the device); ``_prepare_rows`` (the omniscient
+        attack and the quarantine); the distances and the rule with the
+        step's GAR key; the update; the loss summed over the arrived
+        workers; momentum and residual rows written back only where
+        arrived (``momentum_steps`` + 1); ``_finalize_step``.  The metrics
+        add ``straggler_timeout`` (~arrived), ``stale_infill``,
+        ``nb_timeouts`` (NaN drops and stale rows alike: the f budget they
+        spend), ``nb_stale`` and, reweighted, ``stale_reweight_coeff``."""
+        self._check_bounded_wait_supported()
+        if rows_form not in ("wire", "decoded"):
+            raise UserException("rows_form must be 'wire' or 'decoded' (got %r)" % (rows_form,))
+        flatmap = FlatMap(params_template)
+        d = flatmap.size
+        if self.codec is not None:
+            self.codec.validate_d(d)
+
+        @torch.no_grad()
+        def agg_fn(state, rows, losses, arrived, stale, extras):
+            if rows_form == "wire" and self.codec is not None:
+                rows = self.codec.decode(rows, d)
+            else:
+                rows = rows.to(torch.float32)
+            # the deadline's verdict: a worker neither arrived nor stale is a
+            # NaN row, as a fully lossy link's
+            rows = torch.where((arrived | stale)[:, None], rows, torch.nan)
+            if rows_form == "wire" and self.codec is None:
+                rows = wire_roundtrip(rows, self.exchange_dtype)
+            coeff = None
+            if stale_reweight:
+                ages = extras["stale_age"].to(torch.float32)
+                ones = torch.ones_like(ages)
+                coeff = torch.where(stale, ones / (1.0 + ages), ones)
+                rows = rows * coeff[:, None]
+            rows, raw_rows = self._prepare_rows(rows, state.reputation)
+            agg, participation = self._aggregate_block(rows, gar_key(state.seed, state.step))
+            agg = agg.to(torch.float32)
+            tx.apply(state.params, flatmap.inflate(agg), state.opt_state)
+            wdist, rep_dist = self._sq_dists(rows, raw_rows, agg)
+            worker_nan = torch.any(~torch.isfinite(rows), dim=1) if self.health_probe else None
+            if self.worker_momentum is not None:
+                # a timed-out worker's momentum update never completed
+                state.momentum = torch.where(arrived[:, None], extras["momentum"], state.momentum)
+                state.momentum_steps += 1
+            if self.carries_ef:
+                state.ef = torch.where(arrived[:, None], extras["ef"], state.ef)
+            state, metrics = self._finalize_step(state, torch.where(arrived, losses, 0.0), agg, worker_nan,
+                                                 participation, wdist, rep_dist)
+            metrics["straggler_timeout"] = ~arrived
+            metrics["stale_infill"] = stale
+            metrics["nb_timeouts"] = torch.sum(~arrived, dtype=torch.int32)
+            metrics["nb_stale"] = torch.sum(stale, dtype=torch.int32)
+            if coeff is not None:
+                metrics["stale_reweight_coeff"] = coeff
+            return state, metrics
+
+        return agg_fn
+
+    def build_incremental_fold(self, d):
+        """The incremental fold (JAX ``engine.py:2673-2708``): ``(fold,
+        fresh)``, ``fresh()`` a zeroed (n, d) float32 buffer on the device
+        and ``fold(buffer, wire_row, widx)`` worker ``widx``'s row decoded
+        into it in place (returned), as it lands; the aggregate then takes
+        the buffer with ``rows_form="decoded"``.  A row is decoded alone as
+        it is in the stack, so the bits are the stacked path's."""
+        self._check_bounded_wait_supported()
+        codec, n, device = self.codec, self.nb_workers, self.device
+        if codec is not None:
+            codec.validate_d(d)
+
+        @torch.no_grad()
+        def fold(buffer, wire_row, widx):
+            buffer[widx] = codec.decode(wire_row, d) if codec is not None else wire_row.to(torch.float32)
+            return buffer
+
+        def fresh():
+            return torch.zeros((n, d), dtype=torch.float32, device=device)
+
+        return fold, fresh
 
     def build_eval_sums(self, metric_fn):
         """eval_step(state, batch) -> dict name -> (sum, count) over the batch:

@@ -168,6 +168,16 @@ Phases, in order (any failure exits non-zero and prints no result):
    exact, ms a step against the f32 wire.  A resume of ``digits-conv``
    under ``--exchange int8:ef`` ends with the uninterrupted run's bits,
    the residuals included.
+   The bounded-wait phase (``bounded_phase``, legs A-H): the bounded
+   aggregate at (8, 1,756,682) on the card against the CPU for krum,
+   median, trimmed-mean and average-nan (timed-out and stale rows, K1, K3,
+   K5 and K6 once a call); the synchronous protocol (a CUDA stream a
+   worker) against the fused step, both rounds' ms; cnnet through the
+   runner under two persistent stragglers (``--step-deadline``), stale
+   infill with and without ``--stale-reweight``, the guardian's escalation
+   for timeouts beyond f; the adaptive window (``--deadline-percentile
+   71.4``) with the honest arrivals' p50/p95; ``int8:ef`` folded as rows
+   land against the stacked path, bit for bit; a 2 ms deadline's race.
    Last, a cnnet + krum step and a digits-conv + krum step are split into
    their phases (host batch, transfer, augmentation, worker gradients,
    attack + aggregate, update), with the batches streamed and drawn on the
@@ -270,6 +280,22 @@ def device_ms(fn, torch, iters=20, warmup=3, tries=3):
         if per_call and len(events) == per_call * iters:
             return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
     return None
+
+
+def card_busy_us(torch, prof):
+    """(microseconds the card was busy, events): the union of the card's
+    event intervals in a torch.profiler trace."""
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, reach = 0.0, None
+    for lo, hi in intervals:
+        if reach is None or lo > reach:
+            busy_us += hi - lo
+            reach = hi
+        elif hi > reach:
+            busy_us += hi - reach
+            reach = hi
+    return busy_us, len(intervals)
 
 
 def poison(x, columns=True):
@@ -2352,16 +2378,8 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), 
     step_us = run(steps) / steps  # untraced whole steps, the denominator of the busy share
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_us = run(5)
-    intervals = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, reach = 0.0, None
-    for lo, hi in intervals:
-        if reach is None or lo > reach:
-            busy_us += hi - lo
-            reach = hi
-        elif hi > reach:
-            busy_us += hi - reach
-            reach = hi
+    busy_us, nb_events = card_busy_us(torch, prof)
+    intervals = nb_events
     busy = busy_us / 5 / step_us if intervals else None
     per_step["whole step"] = step_us / 1e3
     print("breakdown %s%s+krum n=8 %s input, ms/step over %d steps: %s; phases sum %.2f ms; whole step %.2f ms "
@@ -2370,7 +2388,7 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), 
           % (experiment, "(%s)" % " ".join(args) if args else "", input_source, steps,
              json.dumps({k: v for k, v in per_step.items() if k != "whole step"}),
              sum(v for k, v in per_step.items() if k != "whole step"), step_us / 1e3,
-             "%.2f" % (busy_us / 5e3) if intervals else "not measured", wall_us / 1e3, len(intervals),
+             "%.2f" % (busy_us / 5e3) if intervals else "not measured", wall_us / 1e3, nb_events,
              "%.3f" % busy if busy is not None else "not measured"))
     del state, engine
     torch.cuda.empty_cache()
@@ -2676,6 +2694,346 @@ def codec_phase(torch, kernels, runner, card, workdir):
 
 
 
+#: bounded_phase: cnnet at its published width, n = 8, f = 2, batch 128,
+#: streamed; the first round's loss of the synchronous protocol against the
+#: fused step within BOUNDED_LOSS_RTOL relative: the same weights and
+#: batches, but one worker's forward alone against the eight vmapped, whose
+#: convolutions and cross-entropy means sum in other orders (float32, a few
+#: ulps of each worker's loss)
+BOUNDED_ROUNDS = 6
+BOUNDED_LOSS_RTOL = 1e-5
+BOUNDED_KERNELS = {"krum": "pairwise_sq_distances", "median": "coordinate_median",
+                   "trimmed-mean": "coordinate_trimmed_mean", "average-nan": "average_nan_columns"}
+BOUNDED_STRAGGLERS = ["--chaos", "0:straggle=1.0", "--chaos-args", "straggle-workers:2", "--straggler-stall", "1.0",
+                      "--step-deadline", "0.25"]
+
+
+def _bounded_stack(torch, gars, models, rule, lr=0.05, **engine_kw):
+    """(experiment, optimizer, engine on the card) for cnnet + ``rule``, n = 8, f = 2."""
+    from aggregathor_tpu_torch.core import build_optimizer, build_schedule
+    from aggregathor_tpu_torch.parallel import RobustEngine
+
+    exp = models.instantiate("cnnet", [])
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:%s" % lr]))
+    return exp, tx, RobustEngine(gars.instantiate(rule, 8, 2), 8, device=engine_kw.pop("device", "cuda"),
+                                 **engine_kw)
+
+
+def _bounded_rounds(torch, step, state, batches):
+    """Run ``step`` over the placed ``batches``; per round (ms to the round's
+    end on the card, ms from its close to the update's end, metrics)."""
+    out = []
+    for batch in batches:
+        begin = time.monotonic()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        end = time.monotonic()
+        closed = getattr(step, "last_closed_at", None)
+        out.append(((end - begin) * 1e3, (end - closed) * 1e3 if closed else None, metrics))
+    return state, out
+
+
+def _bounded_runner_leg(runner, kernels, label, argv, workdir, steps):
+    """One bounded-wait leg of cnnet through the runner (streamed, n = 8,
+    f = 2), with its journal and forensics report; returns (result, journal
+    records, forensics report, launches)."""
+    from aggregathor_tpu_torch.obs import events
+
+    directory = os.path.join(workdir, "bounded-%s" % label)
+    os.makedirs(directory)
+    kernels.reset_launch_counts()
+    result = runner.main(["--experiment", "cnnet", "--seed", "1", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
+                          "--max-step", str(steps), "--evaluation-delta", "-1", "--evaluation-period", "-1",
+                          "--journal", os.path.join(directory, "j.jsonl"),
+                          "--forensics", os.path.join(directory, "f.json"), *argv])
+    counts = kernels.launch_counts()
+    check(result["steps"] == steps and result["final_loss"] is not None and math.isfinite(result["final_loss"]),
+          "bounded %s: %s steps, final loss %s" % (label, result["steps"], result["final_loss"]))
+    return (result, events.load_journal(os.path.join(directory, "j.jsonl")),
+            json.load(open(os.path.join(directory, "f.json"))), counts)
+
+
+def bounded_phase(torch, gars, kernels, models, runner, card, workdir):
+    """Bounded-wait on the card (``--step-deadline``); returns {kernel: launches}.
+
+    cnnet at d = 1,756,682, n = 8, f = 2, batch 128, streamed, cuDNN pinned
+    to its deterministic algorithms.  A: the bounded aggregate at (8, d) on
+    the card against the CPU, workers 0-1 timed out, then stale at ages
+    [3, 1] (reweighted), for krum, median, trimmed-mean and average-nan: the
+    same masks and coefficients, krum's selection identical, the aggregate
+    (the update of zero parameters at lr 1) within 1e-5 relative, the rule's
+    kernel once a call.  B: the synchronous protocol (no deadline, no stall)
+    against the fused step on the same batches, both rounds' ms; the first
+    round's loss within BOUNDED_LOSS_RTOL; three traced rounds give the
+    card's busy share, and the eight submissions run one after another
+    without threads their time.  C: two persistent stragglers
+    through the runner (BOUNDED_STRAGGLERS, krum): every warm round times
+    out exactly workers 0-1, a ``bounded_round`` each, each under 0.5 s on
+    the journal's clock, forensics names ``stragglers == [0, 1]``, K1 once
+    a round.  D: ``--stale-infill --stale-max-age 2`` under median, then
+    with ``--stale-reweight``: stale at rounds 1-2, NaN drops after (JAX
+    ``test_bounded.py:283-321``), coefficients 1/2 and 1/3, K3 once a round.
+    E: ``--deadline-percentile 71.4`` from a 0.5 s window under two
+    stragglers, average-nan: the window's trajectory, the honest arrivals' p50/p95 and
+    the ms from the close to the update; the window ends below its start.
+    F: ``int8:ef`` with ``incremental`` against the stacked path: the same
+    losses bit for bit, the overlap fraction.  G: three persistent
+    stragglers at f = 2 under ``--guardian`` (average-nan): a rollback for
+    ``straggler_timeouts`` and the ``f+1`` escalation.  H: a 2 ms deadline
+    under average-nan: no exception, arrivals + timeouts = n each round, the
+    skipped units counted, ``close()`` within its bound.  No kernel is
+    built in the phase (``build.add_build_listener``)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from aggregathor_tpu_torch.chaos import ChaosSchedule
+    from aggregathor_tpu_torch.obs.metrics import MetricsRegistry
+    from aggregathor_tpu_torch.ops import build
+    from aggregathor_tpu_torch.parallel.bounded import BoundedWaitStep, HostStragglerModel
+    from aggregathor_tpu_torch.parallel.deadline import DeadlineController
+
+    torch.backends.cudnn.deterministic = True
+    builds = []
+
+    def note_build(*args):
+        builds.append(args)
+
+    build.add_build_listener(note_build)
+    totals = {name: 0 for name in kernels.KERNELS}
+    n = 8
+    # A: the aggregate, card against CPU
+    template = {k: torch.zeros_like(v) for k, v in models.instantiate("cnnet", []).init(0).items()}
+    d = sum(v.numel() for v in template.values())
+    rows = torch.randn((n, d), generator=torch.Generator().manual_seed(15)) * torch.linspace(0.5, 2.0, n)[:, None]
+    rows[5] *= 40.0  # an outlier
+    arrived = torch.tensor([False, False] + [True] * 6)
+    cases = (("timed out", False, torch.zeros(n, dtype=torch.bool), {}),
+             ("stale [3, 1]", True, torch.tensor([True, True] + [False] * 6),
+              {"stale_age": torch.tensor([3, 1] + [0] * 6, dtype=torch.int32)}))
+    for rule, kernel in BOUNDED_KERNELS.items():
+        for label, reweight, stale, extras in cases:
+            got = {}
+            for device in ("cuda", "cpu"):
+                exp, tx, engine = _bounded_stack(torch, gars, models, rule, lr=1.0, worker_metrics=True,
+                                                 device=device)
+                agg = engine.build_bounded_aggregate(tx, template, stale_reweight=reweight)
+                state = engine.init_state(template, tx, seed=1)
+                kernels.reset_launch_counts()
+                state, m = agg(state, rows.to(device), torch.ones(n, device=device), arrived.to(device),
+                               stale.to(device), {k: v.to(device) for k, v in extras.items()})
+                if device == "cuda":
+                    counts = kernels.launch_counts()
+                    check({k: c for k, c in counts.items() if c} == {kernel: 1},
+                          "bounded A %s %s: launches %s (want %s once)" % (rule, label, counts, kernel))
+                    totals[kernel] += 1
+                got[device] = ({k: v.cpu() for k, v in m.items() if k != "probe"},
+                               -torch.cat([state.params[name].detach().cpu().reshape(-1)
+                                           for name in sorted(state.params)]))
+            (card_m, card_agg), (cpu_m, cpu_agg) = got["cuda"], got["cpu"]
+            for key in ("straggler_timeout", "stale_infill", "nb_timeouts", "nb_stale", "stale_reweight_coeff") + (
+                    ("worker_participation",) if rule == "krum" else ()):
+                check((key in card_m) == (key in cpu_m) and (key not in cpu_m or torch.equal(card_m[key], cpu_m[key])),
+                      "bounded A %s %s: %s differs on the card" % (rule, label, key))
+            check(torch.equal(torch.isnan(card_agg), torch.isnan(cpu_agg)), "bounded A %s %s: NaN pattern" % (rule, label))
+            finite = torch.isfinite(cpu_agg)
+            err = torch.abs(card_agg[finite] - cpu_agg[finite])
+            worst = float((err / torch.clamp(torch.abs(cpu_agg[finite]), min=1.0)).max())
+            check(worst <= 1e-5, "bounded A %s %s: aggregate off the CPU's by %.3g" % (rule, label, worst))
+            print("bounded A %-12s %-12s on %s against the CPU: masks, coefficients%s identical, aggregate within "
+                  "%.3g relative, %s once" % (rule, label, card, " and selection" if rule == "krum" else "", worst,
+                                              kernel))
+    del rows
+    # B: the synchronous protocol against the fused step
+    exp, tx, engine = _bounded_stack(torch, gars, models, "krum")
+    init = exp.init(1)
+    it = exp.make_train_iterator(n, seed=2)
+    batches = [engine.put_batch(next(it)) for _ in range(BOUNDED_ROUNDS)]
+    step = BoundedWaitStep(engine, exp.loss, tx, init)
+    kernels.reset_launch_counts()
+    try:
+        state, sync = _bounded_rounds(torch, step, engine.init_state(init, tx, seed=1), batches)
+        check(kernels.launch_counts()["pairwise_sq_distances"] == BOUNDED_ROUNDS, "bounded B: K1 once a round")
+        totals["pairwise_sq_distances"] += BOUNDED_ROUNDS
+        # where a round's time goes: the card's busy share over three
+        # traced rounds, and the same eight submissions one after another on
+        # the caller's thread and stream (no threads, no streams)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            begin = time.monotonic()
+            state, _ = _bounded_rounds(torch, step, state, batches[:3])
+            traced_ms = (time.monotonic() - begin) * 1e3
+        busy_us, nb_events = card_busy_us(torch, prof)
+    finally:
+        step.close()
+    grad_fn, sequential = engine.build_worker_grad(exp.loss), []
+    for batch in batches[:3]:
+        begin = time.monotonic()
+        params = {k: v.detach().clone() for k, v in state.params.items()}
+        for w in range(n):
+            grad_fn(params, {k: v[w] for k, v in batch.items()}, state.seed, state.step, w)
+        torch.cuda.synchronize()
+        sequential.append((time.monotonic() - begin) * 1e3)
+    fused_step, fused_state, fused = engine.build_step(exp.loss, tx), engine.init_state(init, tx, seed=1), []
+    for batch in batches:
+        begin = time.monotonic()
+        fused_state, metrics = fused_step(fused_state, batch)
+        torch.cuda.synchronize()
+        fused.append(((time.monotonic() - begin) * 1e3, float(metrics["total_loss"])))
+    first, want = float(sync[0][2]["total_loss"]), fused[0][1]
+    check(abs(first - want) <= BOUNDED_LOSS_RTOL * abs(want), "bounded B: first loss %r vs the fused %r" % (first, want))
+    check(all(not bool(m["straggler_timeout"].any()) for _, _, m in sync), "bounded B: a timeout without a deadline")
+    sync_ms = [ms for ms, _, _ in sync[1:]]
+    fused_ms = [ms for ms, _ in fused[1:]]
+    print("bounded B synchronous protocol cnnet+krum on %s: round ms excl. 1st %s (median %.2f) against the fused "
+          "step's %s (median %.2f); first loss %.6f vs %.6f (rel %.2g); losses %s vs %s" % (
+              card, ", ".join("%.2f" % v for v in sync_ms), statistics.median(sync_ms),
+              ", ".join("%.2f" % v for v in fused_ms), statistics.median(fused_ms), first, want,
+              abs(first - want) / abs(want), ", ".join("%.4f" % float(m["total_loss"]) for _, _, m in sync),
+              ", ".join("%.4f" % loss for _, loss in fused)))
+    print("bounded B where a synchronous round goes on %s: the card busy %.2f ms a round over 3 traced rounds (%.1f "
+          "ms traced wall, %d device events, torch.profiler): busy share %.3f of the untraced median round; the 8 "
+          "submissions alone, one after another on one thread and stream: %s ms" % (
+              card, busy_us / 3e3, traced_ms, nb_events, busy_us / 3e3 / statistics.median(sync_ms),
+              ", ".join("%.2f" % v for v in sequential)))
+    del fused_state, batches
+    # C: two persistent stragglers through the runner
+    result, journal, report, counts = _bounded_runner_leg(runner, kernels, "C", ["--aggregator", "krum"]
+                                                          + BOUNDED_STRAGGLERS, workdir, 8)
+    rounds = [r for r in journal if r["type"] == "bounded_round"]
+    check([r["step"] for r in rounds] == list(range(1, 8)), "bounded C: bounded_round steps %s"
+          % [r["step"] for r in rounds])
+    check(all(r["timed_out"] == [0, 1] for r in rounds), "bounded C: timed out %s" % [r["timed_out"] for r in rounds])
+    closes = [r["t_mono"] for r in rounds]
+    durations = [b - a for a, b in zip(closes, closes[1:])]
+    check(max(durations) < 0.5, "bounded C: a warm round took %.3f s" % max(durations))
+    check(report["stragglers"] == [0, 1], "bounded C: forensics stragglers %s" % report["stragglers"])
+    check(counts["pairwise_sq_distances"] == 8 and sum(counts.values()) == 8, "bounded C: launches %s" % counts)
+    totals["pairwise_sq_distances"] += 8
+    print("bounded C 2 stragglers (stall 1.0 s, deadline 0.25 s) cnnet+krum on %s: rounds 2-7 closed after %s s; "
+          "skipped %s; forensics stragglers %s; K1 %d; steps/s excl. 1st %.3f" % (
+              card, ", ".join("%.3f" % v for v in durations), [r["skipped_units"] for r in rounds],
+              report["stragglers"], counts["pairwise_sq_distances"], result["steps_per_s"]))
+    # D: stale infill, naive then reweighted
+    for extra in ([], ["--stale-reweight"]):
+        label = "D" + ("-reweight" if extra else "")
+        result, journal, report, counts = _bounded_runner_leg(
+            runner, kernels, label, ["--aggregator", "median", "--stale-infill", "--stale-max-age", "2"]
+            + BOUNDED_STRAGGLERS + extra, workdir, 5)
+        rounds = [r for r in journal if r["type"] == "bounded_round"]
+        stale = [r["stale_infill"] for r in rounds]
+        check(stale == [[0, 1], [0, 1], [], []] and all(r["timed_out"] == [0, 1] for r in rounds),
+              "bounded %s: stale %s, timed out %s" % (label, stale, [r["timed_out"] for r in rounds]))
+        weights = [(r["step"], r["worker"], r["coefficient"]) for r in journal if r["type"] == "stale_reweight"]
+        want = [(1, 0, 0.5), (1, 1, 0.5), (2, 0, 1 / 3), (2, 1, 1 / 3)] if extra else []
+        check(weights == want, "bounded %s: reweights %s" % (label, weights))
+        check(counts["coordinate_median"] == 5 and sum(counts.values()) == 5, "bounded %s: launches %s"
+              % (label, counts))
+        totals["coordinate_median"] += 5
+        print("bounded %-10s median on %s: stale rows by round %s, then NaN drops; reweights %s; K3 %d" % (
+            label, card, stale, weights, counts["coordinate_median"]))
+    # E: the adaptive window (average-nan: an honest worker the window cuts
+    # off is one more NaN row, which the rule absorbs at any count)
+    exp, tx, engine = _bounded_stack(torch, gars, models, "average-nan")
+    it = exp.make_train_iterator(n, seed=3)
+    controller = DeadlineController(0.5, percentile=71.4, floor=0.01, ema=0.3)
+    model = HostStragglerModel(n, 1.0, chaos=ChaosSchedule("0:calm 1:straggle=1.0", n, args=["straggle-workers:2"]))
+    step = BoundedWaitStep(engine, exp.loss, tx, init, deadline=0.5, straggler_model=model, controller=controller)
+    windows, honest, to_update, round_ms = [controller.window], [], [], []
+    kernels.reset_launch_counts()
+    try:
+        state = engine.init_state(init, tx, seed=1)
+        for _ in range(16):
+            state, out = _bounded_rounds(torch, step, state, [engine.put_batch(next(it))])
+            ms, after_close, metrics = out[0]
+            round_ms.append(ms)
+            to_update.append(after_close)
+            windows.append(controller.window)
+            honest.extend(float(a) for a in step.last_arrivals[2:] if math.isfinite(a))
+    finally:
+        step.close()
+    check(windows[-1] < windows[0], "bounded E: the window ended at %.4f s, not below %.4f" % (windows[-1], windows[0]))
+    check(math.isfinite(float(metrics["total_loss"])), "bounded E: non-finite loss")
+    p50, p95 = np.percentile(honest, 50) * 1e3, np.percentile(honest, 95) * 1e3
+    check(kernels.launch_counts()["average_nan_columns"] == 16, "bounded E: K6 once a round")
+    totals["average_nan_columns"] += 16
+    print("bounded E --deadline-percentile 71.4 from 0.5 s, 2 stragglers, cnnet+average-nan on %s: window s %s; honest "
+          "arrivals p50 %.2f ms p95 %.2f ms (%d); round ms %s; ms from the close to the update %s (median %.2f)" % (
+              card, ", ".join("%.4f" % w for w in windows), p50, p95, len(honest),
+              ", ".join("%.1f" % v for v in round_ms), ", ".join("%.2f" % v for v in to_update[1:]),
+              statistics.median(to_update[1:])))
+    # F: incremental against stacked, int8:ef
+    runs = {}
+    for incremental in (False, True):
+        exp, tx, engine = _bounded_stack(torch, gars, models, "krum", exchange="int8:ef")
+        it = exp.make_train_iterator(n, seed=4)
+        model = HostStragglerModel(n, 30.0, chaos=ChaosSchedule("0:calm 1:straggle=1.0", n,
+                                                                args=["straggle-workers:2"]))
+        registry = MetricsRegistry()
+        step = BoundedWaitStep(engine, exp.loss, tx, init, deadline=0.5, straggler_model=model, registry=registry,
+                               stale_infill=True, incremental=incremental)
+        try:
+            _, out = _bounded_rounds(torch, step, engine.init_state(init, tx, seed=1),
+                                     [engine.put_batch(next(it)) for _ in range(5)])
+        finally:
+            step.close()
+        runs[incremental] = ([m["total_loss"].cpu() for _, _, m in out], [ms for ms, _, _ in out],
+                             registry.snapshot(), step)
+    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(runs[False][0], runs[True][0])),
+          "bounded F: incremental losses %s vs stacked %s" % (runs[True][0], runs[False][0]))
+    snapshot, fold_step = runs[True][2], runs[True][3]
+    print("bounded F int8:ef incremental vs stacked cnnet+krum on %s: losses bit-identical %s; overlap fraction %.3f "
+          "(%d of %d folds); round ms stacked %s, incremental %s" % (
+              card, ", ".join("%.6f" % float(v) for v in runs[True][0]),
+              fold_step.overlapped_folds_total / max(fold_step.folds_total, 1), fold_step.overlapped_folds_total,
+              fold_step.folds_total, ", ".join("%.1f" % v for v in runs[False][1]),
+              ", ".join("%.1f" % v for v in runs[True][1])))
+    check(snapshot["exchange_folds_total"] == fold_step.folds_total > 0, "bounded F: fold counter")
+    # G: the guardian escalates for timeouts beyond f
+    result, journal, report, counts = _bounded_runner_leg(
+        runner, kernels, "G", ["--aggregator", "average-nan", "--chaos", "0:calm 1:straggle=1.0", "--chaos-args",
+                               "straggle-workers:3", "--straggler-stall", "1.0", "--step-deadline", "0.3",
+                               "--guardian", "--guardian-args", "patience:2", "recover:2",
+                               "--checkpoint-dir", os.path.join(workdir, "bounded-G-ckpt"), "--checkpoint-delta", "1",
+                               "--checkpoint-period", "-1"], workdir, 8)
+    decisions = [r for r in journal if r["type"] == "guardian_rollback_decision"]
+    check(decisions and decisions[0]["reason"] == "straggler_timeouts" and result["escalations"][:1] == ["f+1"],
+          "bounded G: decisions %s, escalations %s" % (decisions, result["escalations"]))
+    check(sum(counts.values()) == counts["average_nan_columns"] > 0, "bounded G: launches %s" % counts)
+    totals["average_nan_columns"] += counts["average_nan_columns"]
+    print("bounded G 3 stragglers at f=2 under --guardian, average-nan on %s: rollbacks %s, escalations %s, K6 %d"
+          % (card, [(r["from_step"], r["to_step"], r["reason"]) for r in result["rollbacks"]], result["escalations"],
+             counts["average_nan_columns"]))
+    # H: a deadline below the honest compute
+    exp, tx, engine = _bounded_stack(torch, gars, models, "average-nan")
+    it = exp.make_train_iterator(n, seed=5)
+    registry = MetricsRegistry()
+    step = BoundedWaitStep(engine, exp.loss, tx, init, deadline=0.002, registry=registry)
+    kernels.reset_launch_counts()
+    try:
+        _, out = _bounded_rounds(torch, step, engine.init_state(init, tx, seed=1),
+                                 [engine.put_batch(next(it)) for _ in range(8)])
+    finally:
+        begin = time.monotonic()
+        step.close()
+        closed_in = time.monotonic() - begin
+    torch.cuda.synchronize()
+    snapshot = registry.snapshot()
+    late = [int(m["nb_timeouts"]) for _, _, m in out]
+    arrivals = [int((~m["straggler_timeout"]).sum()) for _, _, m in out]
+    skipped = int(sum(snapshot.get("straggler_skipped_rounds_total", {}).values()))
+    check(all(a + t == n for a, t in zip(arrivals, late)) and sum(late) > 0, "bounded H: arrivals %s timeouts %s"
+          % (arrivals, late))
+    check(sum(snapshot["straggler_timeouts_total"].values()) == sum(late), "bounded H: timeout counter")
+    check(closed_in < 5.5, "bounded H: close() took %.2f s" % closed_in)
+    check(kernels.launch_counts()["average_nan_columns"] == 8, "bounded H: K6 once a round")
+    totals["average_nan_columns"] += 8
+    print("bounded H deadline 2 ms average-nan cnnet on %s: arrivals %s, timeouts %s, skipped units %d, round ms %s, "
+          "close() %.3f s" % (card, arrivals, late, skipped, ", ".join("%.1f" % ms for ms, _, _ in out), closed_in))
+    build.remove_build_listener(note_build)
+    check(not builds, "bounded: kernels built during the phase: %s" % builds)
+    torch.backends.cudnn.deterministic = False
+    return totals
+
+
 def main():
     import torch
 
@@ -2718,6 +3076,7 @@ def main():
                        guardian_phase(torch, kernels, runner, card, workdir),
                        chaos_phase(torch, gars, kernels, models, runner, card, workdir),
                        codec_phase(torch, kernels, runner, card, workdir),
+                       bounded_phase(torch, gars, kernels, models, runner, card, workdir),
                        multirank_phase(torch, kernels, card)):
             for kernel, count in counts.items():
                 totals[kernel] += count

@@ -206,8 +206,8 @@ def test_gaussian_streams_are_per_step_and_per_worker():
 
 
 @pytest.mark.parametrize("option", [
-    # forge/tamper need secure submission (not ported); bounded-wait neither
-    {"chaos": ChaosSchedule("0:forge=0.5", 8, nb_real_byz=2), "nb_real_byz": 2}, {"step_deadline": 1.0},
+    # forge/tamper need secure submission (not ported)
+    {"chaos": ChaosSchedule("0:forge=0.5", 8, nb_real_byz=2), "nb_real_byz": 2},
     {"secure": True},
     {"leaf_bucketing": True}, {"l1_regularize": 0.1}, {"sharding": "sharded"},
     {"flight": FlightRecorder(4, 8, chaos=True)},

@@ -760,3 +760,126 @@ def test_chaos_steps_on_the_card_match_the_cpu(cuda_device, monkeypatch):
     assert card["regime"] == cpu["regime"] == [0, 0, 0, 1, 1, 2, 2, 2] and card["nan"] == cpu["nan"]
     np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-5)
     torch.testing.assert_close(card["params"], cpu["params"], rtol=1e-4, atol=1e-5)
+
+
+def _bounded_engines(rule, device, **kw):
+    from aggregathor_tpu_torch.parallel import RobustEngine as Engine
+
+    exp = models.instantiate("mnist", ["hidden:16", "batch-size:16"])
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+    return exp, tx, Engine(gars.instantiate(rule, 8, 2), 8, device=device, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule, kernel", [("krum", "pairwise_sq_distances"), ("median", "coordinate_median"),
+                                          ("trimmed-mean", "coordinate_trimmed_mean"),
+                                          ("average-nan", "average_nan_columns")])
+def test_bounded_aggregate_on_the_card_matches_the_cpu(cuda_device, rule, kernel):
+    """The bounded aggregate on injected rows, workers 0-1 timed out, then
+    stale at ages 3 and 1 (reweighted): the card's masks, counts and
+    coefficients are the CPU's, krum's selection identical, the parameters
+    within rtol 1e-5, atol 1e-6 (the rules' sums in another order), and the
+    rule's kernel launched once a call."""
+    n = 8
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        exp, tx, engine = _bounded_engines(rule, device, worker_metrics=True)
+        template = exp.init(3)
+        d = sum(v.numel() for v in template.values())
+        rows = torch.randn((n, d), generator=torch.Generator().manual_seed(9)) * torch.linspace(0.1, 2.0, n)[:, None]
+        arrived = torch.tensor([False, False] + [True] * 6)
+        cases = ((False, torch.zeros(n, dtype=torch.bool), {}),
+                 (True, torch.tensor([True, True] + [False] * 6),
+                  {"stale_age": torch.tensor([3, 1, 0, 0, 0, 0, 0, 0], dtype=torch.int32)}))
+        out = []
+        for reweight, stale, extras in cases:
+            agg = engine.build_bounded_aggregate(tx, template, stale_reweight=reweight)
+            state = engine.init_state(template, tx, seed=1)
+            kernels.reset_launch_counts()
+            state, m = agg(state, rows.to(device), torch.ones(n, device=device), arrived.to(device),
+                           stale.to(device), {k: v.to(device) for k, v in extras.items()})
+            counts = kernels.launch_counts()
+            if device.type == "cuda":
+                assert {k: c for k, c in counts.items() if c} == {kernel: 1}
+            out.append(({k: v.cpu() for k, v in m.items() if k != "probe"},
+                        torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()])))
+        runs.append(out)
+    for (card_m, card_p), (cpu_m, cpu_p) in zip(*runs):
+        for key in ("straggler_timeout", "stale_infill", "nb_timeouts", "nb_stale", "stale_reweight_coeff"):
+            if key in cpu_m:
+                assert torch.equal(card_m[key], cpu_m[key]), key
+        if "worker_participation" in cpu_m and rule == "krum":
+            assert torch.equal(card_m["worker_participation"], cpu_m["worker_participation"])
+        torch.testing.assert_close(card_p, cpu_p, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_concurrent_submissions_on_the_card_equal_sequential_ones(cuda_device):
+    """Three synchronous bounded-wait rounds (a CUDA stream a worker) against
+    the same submissions run one at a time on the caller's stream, then
+    aggregated: the parameters and momenta bit for bit."""
+    from aggregathor_tpu_torch.parallel.bounded import BoundedWaitStep
+
+    n = 8
+    exp, tx, engine = _bounded_engines("krum", cuda_device, worker_momentum=0.9)
+    template = exp.init(3)
+    batches = [engine.put_batch(b) for b in (lambda it: [next(it) for _ in range(3)])(exp.make_train_iterator(n, 4))]
+    state = engine.init_state(template, tx, seed=1)
+    step = BoundedWaitStep(engine, exp.loss, tx, template)
+    try:
+        for batch in batches:
+            state, _ = step(state, batch)
+    finally:
+        step.close()
+    ref = engine.init_state(template, tx, seed=1)
+    grad_fn, agg_fn = engine.build_worker_grad(exp.loss), engine.build_bounded_aggregate(tx, template)
+    for batch in batches:
+        params = {k: v.detach().clone() for k, v in ref.params.items()}
+        outs = [grad_fn(params, {k: v[w] for k, v in batch.items()}, ref.seed, ref.step, w, momentum=ref.momentum,
+                        momentum_steps=ref.momentum_steps) for w in range(n)]
+        ref, _ = agg_fn(ref, torch.stack([o["row"] for o in outs]), torch.stack([o["loss"] for o in outs]),
+                        torch.ones(n, dtype=torch.bool, device=cuda_device),
+                        torch.zeros(n, dtype=torch.bool, device=cuda_device),
+                        {"momentum": torch.stack([o["momentum"] for o in outs])})
+    for key, value in ref.params.items():
+        assert torch.equal(state.params[key], value), key
+    assert torch.equal(state.momentum, ref.momentum)
+
+
+@pytest.mark.gpu
+def test_a_deadline_below_the_compute_on_the_card(cuda_device):
+    """A 2 ms deadline under average-nan: late submissions still run on their
+    streams while the aggregate updates the parameters; no exception, every
+    worker arrives or times out each round, the skipped units are counted,
+    and close() returns within its bound."""
+    import time
+
+    from aggregathor_tpu_torch.obs.metrics import MetricsRegistry
+    from aggregathor_tpu_torch.parallel.bounded import BoundedWaitStep
+
+    n = 8
+    exp = models.instantiate("cnnet", ["batch-size:32"])
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+    engine = RobustEngine(gars.instantiate("average-nan", n, 2), n, device=cuda_device)
+    template = exp.init(3)
+    registry = MetricsRegistry()
+    step = BoundedWaitStep(engine, exp.loss, tx, template, deadline=0.002, registry=registry)
+    state = engine.init_state(template, tx, seed=1)
+    it = exp.make_train_iterator(n, 4)
+    timeouts = 0
+    try:
+        for _ in range(8):
+            state, m = step(state, engine.put_batch(next(it)))
+            late = m["straggler_timeout"].cpu()
+            assert int(m["nb_timeouts"]) == int(late.sum())
+            timeouts += int(late.sum())
+    finally:
+        begin = time.monotonic()
+        step.close()
+        closed_in = time.monotonic() - begin
+    torch.cuda.synchronize()
+    snapshot = registry.snapshot()
+    assert closed_in < 5.5 and timeouts > 0
+    assert sum(snapshot["straggler_timeouts_total"].values()) == timeouts
+    assert sum(snapshot.get("straggler_skipped_rounds_total", {}).values()) > 0
+    assert snapshot["bounded_wait_rounds_total"] == 8
