@@ -273,6 +273,12 @@ class ChaosSchedule:
     def straggler_stale(self, ridx):
         return bool(self._straggler_stale[ridx])
 
+    def forge_rate(self, ridx):
+        return float(self._forge_rates[ridx])
+
+    def tamper_rate(self, ridx):
+        return float(self._tamper_rates[ridx])
+
     def draw_drops(self, d, seed, step, worker, ridx):
         """(nb_packets,) bool CPU tensor: the storm's lost packets of worker
         ``worker``'s (d,) row at ``step``, drawn at regime ``ridx``'s rate

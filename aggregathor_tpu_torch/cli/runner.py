@@ -20,7 +20,10 @@ recorder (``--flight``, ``--flight-dump``), the metrics plane
 ``--guardian-args``), the run journal (``--journal``, ``--cause``,
 ``--journal-max-bytes``), the forensics ledger (``--forensics``), the
 profiler window (``--xprof``), the worker axis (``--nb-devices``), the
-reference's drop-in compatibility flags and ``--device``.  It runs on CUDA unless ``--device cpu`` is given; with no
+security flags (``--session-secret``, ``--secure``, ``--secure-mask``,
+``--allow-unsigned``, ``--no-legacy-checkpoint-tags``,
+``--encrypt-checkpoints``, below), the reference's drop-in compatibility
+flags and ``--device``.  It runs on CUDA unless ``--device cpu`` is given; with no
 GPU and no ``--device cpu`` it fails instead of falling back.
 
 ``--chaos SCHEDULE`` (``chaos/schedule.py``) replaces ``--attack`` and
@@ -164,6 +167,28 @@ saved with its ``.md`` at exit (the stop handlers' path included).
 with each dispatch inside it annotated ``train step <s>``
 (``obs/profiler.py``); the ``compile_*`` and ``device_memory_*`` families
 are on the registry.
+
+Security (``secure/``, ``parallel/auth.py``, ``parallel/crypto.py``;
+JAX ``runner.py:1442-1630``, ``:2064-2100``): ``--session-secret`` tags
+every snapshot (a ``.tag`` sidecar under the ``b"ckpt"`` keys, verified at
+every restore; a tag of the key scheme before contexts is accepted once
+and re-tagged unless ``--no-legacy-checkpoint-tags``) and runs the
+bring-up handshake after the restore (every rank proves the secret and
+holds the same parameters; a W-rank run without a secret is warned
+about).  ``--encrypt-checkpoints`` encrypts the snapshots (encrypt-then-
+MAC).  ``--secure`` authenticates every submission: the engine digests
+each row sent and received, a forged or tampered row (the chaos
+``forge=``/``tamper=`` regimes) is NaN, and the lead's
+``SubmissionAuthenticator`` signs and verifies each step's digests one
+call behind (a ``secure.verify`` span), naming each rejected worker to the
+forensics ledger as ``forgery`` evidence and on the ``secure_*`` counters;
+with ``--checkpoint-dir`` a signed custody manifest lands beside every
+snapshot and is verified at every restore (``--allow-unsigned`` lets a
+snapshot without one through).  ``--secure-mask`` computes the group means
+of ``bucketing`` (or ``hier`` with ``inner=average``) in the masked
+integer domain of ``secure/masking.py``, checked again at every guardian
+rebuild.  ``--secure`` and ``--secure-mask`` need ``--session-secret``;
+``--secure-mask`` refuses ``--exchange`` codecs and ``--step-deadline``.
 
 At the end it prints the performance report (in-graph and off-graph time,
 step latency percentiles, steps/s with and without the first step), the
@@ -424,6 +449,46 @@ def build_parser():
         help="run id stamped on every summary line, the span trace's metadata and /status (default: generated)",
     )
     parser.add_argument("--seed", type=int, default=0, help="base seed")
+    parser.add_argument(
+        "--session-secret", default=None, metavar="SECRET",
+        help="shared secret authenticating the multi-host boundary: every process HMAC-tags a digest of its "
+             "post-init parameters and verifies every peer's tag at bring-up; any process launched without the "
+             "secret (or with a tampered payload) aborts the cluster (reference: signed worker->PS pushes + TLS "
+             "channels, mpi_rendezvous_mgr.patch:585-627, grpc_channel.patch:70-85)",
+    )
+    parser.add_argument(
+        "--secure", action="store_true",
+        help="authenticated gradient submission (secure/, docs/security.md): every worker's per-step row is "
+             "digest-tagged under a per-(worker, step) HMAC key from --session-secret, verified before "
+             "aggregation; a failed tag becomes a NaN row AND a named 'forgery' forensics evidence entry "
+             "(reject-and-name); custody manifests are written beside every checkpoint and verified on restore; "
+             "zero added recompiles (requires --session-secret)",
+    )
+    parser.add_argument(
+        "--secure-mask", action="store_true",
+        help="bucket-level additive masking (Bonawitz-style, secure/masking.py): individual gradient rows are "
+             "one-time-padded and the pads cancel EXACTLY inside bucket/hier group means — requires a mean-inner "
+             "meta-GAR spec (bucketing:..., or hier:inner=average,...) and --session-secret; a worker that drops "
+             "mid-step NaNs its whole group",
+    )
+    parser.add_argument(
+        "--allow-unsigned", action="store_true",
+        help="let a --secure run restore checkpoints that carry NO custody manifest (e.g. resuming a directory "
+             "written before --secure was enabled): provenance is then unverified for that restore; new snapshots "
+             "are signed as usual",
+    )
+    parser.add_argument(
+        "--no-legacy-checkpoint-tags", action="store_true",
+        help="refuse snapshots tagged under the pre-context-separation key scheme instead of accepting + "
+             "re-tagging them once; set this when no pre-upgrade snapshots exist to close the downgrade acceptance "
+             "entirely",
+    )
+    parser.add_argument(
+        "--encrypt-checkpoints", action="store_true",
+        help="encrypt snapshot bytes at rest under a key derived from --session-secret (SHAKE-256 keystream, "
+             "encrypt-then-MAC with the HMAC tag) — the framework-side counterpart of the reference's TLS channels "
+             "(grpc_channel.patch:70-85) for state that outlives the run; requires --session-secret",
+    )
     # Cadences (negative disables; defaults from config.py, as in the JAX runner)
     parser.add_argument("--evaluation-file", default=None, help="TSV evaluation log path")
     parser.add_argument("--evaluation-delta", type=int, default=None, help="eval every this many steps")
@@ -747,6 +812,9 @@ def _train(args, stop, axis):
                             % args.granularity)
     if args.leaf_bucketing != "auto" and args.granularity != "leaf":
         warning("--leaf-bucketing only affects --granularity leaf; ignored for granularity %r" % args.granularity)
+    if (args.secure or args.secure_mask) and not args.session_secret:
+        raise UserException("--secure/--secure-mask derive their per-worker keys and mask pads from "
+                            "--session-secret; pass it")
     # the wire codec, parsed before anything is built (JAX :634-663)
     exchange_codec = None
     if args.exchange:
@@ -758,6 +826,10 @@ def _train(args, stop, axis):
             # bf16 lands on the dtype twin, bit-compatible with --exchange-dtype
             args.exchange_dtype = "bfloat16"
             args.exchange = None
+    if exchange_codec is not None and args.secure_mask:
+        raise UserException("--exchange %s + --secure-mask is not supported: the fixed-point pairwise pads cancel "
+                            "exactly over the EXACT float32 rows, and a lossy wire codec would corrupt the "
+                            "cancellation — run masking on the f32/bf16 wire" % exchange_codec.spec())
     cause = parse_cause_flag(args.cause)
     # the guardian's configuration is parsed before anything is built, so a
     # bad ladder or threshold fails before the first launch
@@ -780,7 +852,7 @@ def _train(args, stop, axis):
     flight_rec = None
     if args.flight:
         flight_rec = obs_flight.FlightRecorder(args.flight, n, probe=True, worker_metrics=args.worker_metrics,
-                                               chaos=bool(args.chaos) and not bounded_wait)
+                                               chaos=bool(args.chaos) and not bounded_wait, secure=args.secure)
         if args.flight < unroll:
             warning("--flight capacity %d < --unroll %d: a summary fetch cannot cover the whole last chunk; "
                     "size the ring to at least the unroll (ideally the summary delta)" % (args.flight, unroll))
@@ -826,6 +898,10 @@ def _train(args, stop, axis):
                                     "cannot be interrupted -- use --unroll 1")
             if args.input_source == "device":
                 raise UserException("--step-deadline dispatches per-worker host batches; use --input-source stream")
+            if args.secure_mask:
+                raise UserException("--step-deadline + --secure-mask is not supported: the pairwise pads are added "
+                                    "inside the fused submission pipeline and would not cancel across per-worker "
+                                    "dispatches (--secure digests DO ride the bounded path)")
             if args.udp > 0:
                 raise UserException("--step-deadline replaces the simulated lossy transport; drop --UDP (real "
                                     "timeouts produce the NaN rows)")
@@ -859,6 +935,16 @@ def _train(args, stop, axis):
                                 "--incremental-aggregation are bounded-wait options; pass --step-deadline (or "
                                 "--straggler-stall for the synchronous baseline)")
 
+        # bucket-level masking (secure/masking.py): the pads' seed from the
+        # session secret; the spec's feasibility is checked by
+        # enable_masking here and at every escalation's rebuild, so a rung
+        # to an unmaskable rule is refused, not run unmasked
+        group_masking = None
+        if args.secure_mask:
+            from ..secure import GroupMasking
+
+            group_masking = GroupMasking.from_secret(args.session_secret.encode())
+
         def build_training(ov):
             """The rebuildable half of the run, built from an ``Overrides``
             record (JAX ``TrainingStack``, runner.py:1203-1240): the rule,
@@ -868,6 +954,10 @@ def _train(args, stop, axis):
             the flight recorder and the registry instruments stay."""
             stack = types.SimpleNamespace(overrides=ov, gar_probe_fn=None)
             stack.gar = gars.instantiate(ov.gar_name, n, ov.f, list(ov.gar_args))
+            if group_masking is not None:
+                from ..secure import enable_masking
+
+                enable_masking(stack.gar, group_masking)
             if ov.lr_scale != 1.0:
                 # the ladder's lr damping composes with the named schedule
                 def schedule(count, _base=base_schedule, _scale=ov.lr_scale):
@@ -882,7 +972,7 @@ def _train(args, stop, axis):
                 quarantine_threshold=ov.quarantine_threshold, granularity=args.granularity,
                 leaf_bucketing={"auto": "auto", "on": True, "off": False}[args.leaf_bucketing],
                 trace_ops=args.trace_ops, flight=flight_rec, device=device, axis=axis,
-                chaos=None if bounded_wait else chaos, exchange=exchange_codec)
+                chaos=None if bounded_wait else chaos, exchange=exchange_codec, secure=args.secure)
             stack.bounded_step = None
             if bounded_wait:
                 # one submission a worker and a deadline-closed round; the
@@ -934,9 +1024,41 @@ def _train(args, stop, axis):
     # is taken in save(), before the next step updates the parameters
     # the lead alone writes (and restores) snapshots, evaluation rows and
     # summaries (JAX keeps them lead-only)
+    ckpt_auth = ckpt_cipher = None
+    if args.encrypt_checkpoints and not args.session_secret:
+        raise UserException("--encrypt-checkpoints derives its key from --session-secret; pass both")
+    if args.session_secret and args.checkpoint_dir:
+        # the session secret tags the snapshots too, under its b"ckpt" keys
+        # (apart from the handshake's)
+        from ..parallel.auth import GradientAuthenticator
+
+        ckpt_auth = GradientAuthenticator(args.session_secret.encode(), 1, context=b"ckpt")
+        if args.encrypt_checkpoints:
+            from ..parallel.crypto import SnapshotCipher
+
+            ckpt_cipher = SnapshotCipher(args.session_secret.encode())
+    # authenticated submission (secure/submit.py): the lead signs and
+    # verifies the digests, fed one call behind like the forensics ledger
+    secure_auth = None
+    if args.secure and lead:
+        from ..secure import SubmissionAuthenticator
+
+        secure_auth = SubmissionAuthenticator(args.session_secret.encode(), n, registry=registry)
+    # the chain of custody (secure/custody.py): a signed lineage manifest
+    # beside every snapshot, verified at every restore
+    custody = None
+    if args.secure and args.checkpoint_dir and lead:
+        from ..secure import ChainOfCustody
+        from ..secure.custody import data_digest_for
+
+        identity = "%s|%s|seed=%d|n=%d" % (args.experiment, " ".join(args.experiment_args), args.seed, n)
+        custody = ChainOfCustody(args.session_secret.encode(), run_id=run_id, experiment=args.experiment,
+                                 gar_spec=overrides.describe(), data_digest=data_digest_for(experiment, identity),
+                                 submission=secure_auth, allow_unsigned=args.allow_unsigned)
     checkpoints = Checkpoints(
         args.checkpoint_dir, pick(args.checkpoint_base_name, config.default_checkpoint_base_name),
-        args.checkpoint_keep, background=True, nb_workers=n,
+        args.checkpoint_keep, authenticator=ckpt_auth, background=True,
+        allow_legacy_tags=not args.no_legacy_checkpoint_tags, cipher=ckpt_cipher, custody=custody, nb_workers=n,
     ) if args.checkpoint_dir and lead else None
     eval_file = EvalFile(args.evaluation_file if lead else None)
     summaries = SummaryWriter(args.summary_dir if lead else None, run_id=run_id)
@@ -1228,6 +1350,10 @@ def _train(args, stop, axis):
                 forensics_fed["start"] = None
                 ledger.note_guardian(rstep, "rollback", {"reason": reason, "from_step": int(at_step),
                                                          "attempt": attempt})
+            # the abandoned verdicts: the replay re-verifies its steps (the
+            # tag chain keeps the abandoned timeline, an append-only audit)
+            secure_verdicts.clear()
+            secure_fed["start"] = None
             state = pending_loss = pending_metrics = None  # the old state's memory goes with it
             rung = guardian.ladder.rung(attempt)
             if rung is not None:
@@ -1238,6 +1364,8 @@ def _train(args, stop, axis):
                     if ts.bounded_step is not None:
                         ts.bounded_step.close()  # the old stack's submission threads
                     overrides, ts = new_overrides, new_ts
+                    if custody is not None:
+                        custody.gar_spec = overrides.describe()  # later manifests sign the new spec
                     info("guardian: escalated — %s (now %s)" % (rung.describe(), overrides.describe()))
                     summaries.event(rstep, "guardian_escalation", {
                         "rung": rung.describe(), "attempt": attempt, "overrides": overrides.describe()})
@@ -1277,6 +1405,32 @@ def _train(args, stop, axis):
             if chaos is not None:
                 chaos_regime_seen = chaos.regime_at(step)
 
+    # the secure feed (JAX :2064-2100): the lead's HMAC sign and verify of
+    # the previous call's digests, one call behind as the forensics feed,
+    # so the host's work never waits for the call in flight; the verdicts,
+    # by step, become the ledger's forgery evidence
+    secure_fed = {"start": None}
+    secure_verdicts = {}
+
+    def feed_pending_secure():
+        if secure_auth is None or pending_metrics is None or "secure" not in pending_metrics:
+            return
+        if secure_fed["start"] == pending_start:
+            return
+        secure_fed["start"] = pending_start
+        with trace.span("secure.verify", cat="obs"):
+            sec = {name: value.detach().cpu().numpy() for name, value in pending_metrics["secure"].items()}
+            sent, recv, forged, rejected = sec["digest_sent"], sec["digest_recv"], sec["forged"], sec["rejected"]
+            for i in range(sent.shape[0]):
+                at_step = pending_start + i + 1
+                ok = secure_auth.process_step(at_step, sent[i], recv[i], forged=forged[i])
+                if not np.array_equal(~ok, rejected[i].astype(bool)):
+                    # the step's rejection models the tag check exactly: a
+                    # disagreement means the simulation drifted
+                    warning("secure: host verification disagrees with the in-graph rejection at step %d" % at_step)
+                if ledger is not None:
+                    secure_verdicts[at_step] = ~ok
+
     # the forensics feed: one ledger observation a completed step, from the
     # previous call (JAX :2105-2165); ``forensics_fed`` keeps the same call
     # from being fed twice
@@ -1309,6 +1463,7 @@ def _train(args, stop, axis):
                                reputation=None if rep is None else rep[i],
                                regime=ridx,
                                regime_desc=chaos.describe(ridx) if ridx is not None else None,
+                               forgery=secure_verdicts.pop(pending_start + i + 1, None),
                                timeout=None if timeouts is None else timeouts[i],
                                stale=None if stale_rows is None else stale_rows[i])
 
@@ -1319,6 +1474,7 @@ def _train(args, stop, axis):
         Returns True when a rollback happened: the caller drops the call it
         has in flight."""
         nonlocal pending_loss, pending_metrics
+        feed_pending_secure()
         feed_pending_forensics()
         if watchdog is None or pending_metrics is None:
             return False
@@ -1449,6 +1605,18 @@ def _train(args, stop, axis):
         restored, offstep = agree([restored, offstep], (True, True))
         if restored:
             broadcast_state(state, axis)
+        # the bring-up handshake (JAX :1611-1630), after the restore, so the
+        # digest covers the parameters training starts from; every rank
+        if args.session_secret:
+            from ..parallel.auth import authenticate_processes
+
+            with Context("auth"):
+                authenticate_processes(args.session_secret.encode(), state.params, step=offstep, axis=axis)
+                info("Host handshake OK: %d process(es) authenticated" % W)
+        elif W > 1:
+            warning("Multi-process run without --session-secret: the host boundary is UNAUTHENTICATED (the "
+                    "reference signs every worker->PS tensor, mpi_rendezvous_mgr.patch:585-627); pass the same "
+                    "--session-secret on every host to enable the bring-up handshake")
         reset_input(offstep)
         step, loop_steps_per_s = offstep, 0.0
         if chaos is not None:
@@ -1622,6 +1790,7 @@ def _train(args, stop, axis):
         summaries.close()
         # the lagged feed drained before the report is written: the last
         # call's evidence sits one call behind by design
+        flush("secure-drain", feed_pending_secure)
         flush("forensics-drain", feed_pending_forensics)
         if args.journal and obs_events.installed() is not None:
             # run_end closes the causal timeline before the forensics report

@@ -23,8 +23,12 @@ A ragged n (s not dividing n) is padded with NaN rows to a multiple of s,
 so the last bucket is NaN: the inner rule then sees f + 1 bad rows and must
 be NaN-tolerant (refused at construction otherwise).  The worker
 participation is the bucket's scattered back through the permutation,
-divided by s.  The JAX rule's ``masking`` hook (bucket means in the masked
-integer domain of ``secure/``) is not ported.
+divided by s.  With ``masking`` set (``secure.enable_masking``) the bucket
+means are computed in the exact masked integer domain of
+``secure/masking.py`` (``masked_group_mean``, the step's key folding in
+the pad stream and, on a W-rank axis, the rank): the same means bit for
+bit as unmasked, a bucket holding a NaN row is NaN (the padded bucket
+already was).
 """
 
 import torch
@@ -47,6 +51,8 @@ class BucketingGAR(GAR):
     uses_axis = True
     uses_key = True
     ARG_DEFAULTS = {"s": 2, "inner": "krum"}
+    #: a ``secure.masking.GroupMasking`` (``secure.enable_masking``) or None
+    masking = None
 
     def __init__(self, nb_workers, nb_byz_workers, args=None):
         super().__init__(nb_workers, nb_byz_workers, args)
@@ -67,7 +73,7 @@ class BucketingGAR(GAR):
                 "does not cleanly exclude; pick a NaN-excluding inner rule or an s dividing n"
                 % (self.s, self.nb_workers, type(self.inner).__name__))
 
-    def _buckets(self, block, key, perm=None):
+    def _buckets(self, block, key, perm=None, axis=None):
         """``(bucket means, perm)``; ``perm`` overrides the key's draw (the
         tests inject the JAX package's)."""
         n, d = self.nb_workers, block.shape[-1]
@@ -78,19 +84,24 @@ class BucketingGAR(GAR):
         if self.nb_padded:
             pad = torch.full((self.nb_padded, d), torch.nan, dtype=block.dtype, device=block.device)
             stack = torch.cat([stack, pad])
-        return torch.mean(stack.view(self.nb_buckets, self.s, d), dim=1), perm
+        grouped = stack.view(self.nb_buckets, self.s, d)
+        if self.masking is not None:
+            from ..secure.masking import masked_group_mean
+
+            return masked_group_mean(grouped, key, self.masking, axis=axis), perm
+        return torch.mean(grouped, dim=1), perm
 
     def _inner_key(self, key):
         # a nested randomized inner rule re-draws too, from a derived key
         return None if key is None else fold_in_seed(key, 1)
 
     def aggregate_block(self, block, dist2=None, key=None, axis=None):
-        buckets, _ = self._buckets(block, key)
+        buckets, _ = self._buckets(block, key, axis=axis)
         return self.inner._call_aggregate(buckets, sub_rule_distances(self.inner, buckets, axis),
                                           key=self._inner_key(key), axis=axis)
 
     def aggregate_block_and_participation(self, block, dist2=None, key=None, axis=None):
-        buckets, perm = self._buckets(block, key)
+        buckets, perm = self._buckets(block, key, axis=axis)
         agg, bucket_part = self.inner.aggregate_block_and_participation(
             buckets, sub_rule_distances(self.inner, buckets, axis),
             **rule_kwargs(self.inner, key=self._inner_key(key), axis=axis))

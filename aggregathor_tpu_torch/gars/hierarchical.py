@@ -37,9 +37,11 @@ g) partials once), the outer ones by another, and every sub-rule gets the
 axis.  Keys (int seeds): group i's is ``fold(fold(key, 1), i)``, the
 outer rule's ``fold(key, 2)``.  The participation factorises through the
 tree: the outer weight of a worker's group times its weight within the
-group (1/g for a coordinate-wise inner rule).  The JAX rule's ``masking``
-hook (group means in the masked integer domain of ``secure/``) is not
-ported.
+group (1/g for a coordinate-wise inner rule).  With ``masking`` set
+(``secure.enable_masking``, ``inner=average``) the group summaries are
+``secure.masking.masked_group_mean`` of the (n/g, g, d) groups under the
+raw key (and, on a W-rank axis, the rank), each worker's weight in its
+group 1/g.
 """
 
 import torch
@@ -93,6 +95,8 @@ class HierarchicalGAR(GAR):
     uses_axis = True
     uses_key = True
     ARG_DEFAULTS = {"g": 4, "inner": "median", "outer": "krum", "inner_f": -1}
+    #: a ``secure.masking.GroupMasking`` (``secure.enable_masking``) or None
+    masking = None
 
     def __init__(self, nb_workers, nb_byz_workers, args=None):
         super().__init__(nb_workers, nb_byz_workers, args)
@@ -121,13 +125,25 @@ class HierarchicalGAR(GAR):
         # disjoint from the per-group inner streams (fold(key, 1) then i)
         return None if key is None else fold_in_seed(key, 2)
 
+    def _inner_pass(self, block, key, with_participation, axis):
+        if self.masking is not None:
+            from ..secure.masking import masked_group_mean
+
+            summaries = masked_group_mean(block.reshape(self.nb_groups, self.g, block.shape[-1]), key,
+                                          self.masking, axis=axis)
+            parts = None
+            if with_participation:
+                parts = torch.full((self.nb_groups, self.g), 1.0 / self.g, dtype=torch.float32, device=block.device)
+            return summaries, parts
+        return group_pass(self.inner, block, self.g, self._inner_key(key), with_participation, axis)
+
     def aggregate_block(self, block, dist2=None, key=None, axis=None):
-        summaries, _ = group_pass(self.inner, block, self.g, self._inner_key(key), False, axis)
+        summaries, _ = self._inner_pass(block, key, False, axis)
         return self.outer._call_aggregate(summaries, sub_rule_distances(self.outer, summaries, axis),
                                           key=self._outer_key(key), axis=axis)
 
     def aggregate_block_and_participation(self, block, dist2=None, key=None, axis=None):
-        summaries, inner_part = group_pass(self.inner, block, self.g, self._inner_key(key), True, axis)
+        summaries, inner_part = self._inner_pass(block, key, True, axis)
         agg, outer_part = self.outer.aggregate_block_and_participation(
             summaries, sub_rule_distances(self.outer, summaries, axis),
             **rule_kwargs(self.outer, key=self._outer_key(key), axis=axis))

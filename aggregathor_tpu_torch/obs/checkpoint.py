@@ -25,11 +25,22 @@ joins the pending writes and raises the first failure.  The restore, the
 CPU copy and the write are spans of ``obs/trace.py`` (``checkpoint.restore``,
 ``checkpoint.fetch``, ``checkpoint.write``, the last on the writer thread).
 
-Snapshot authentication, encryption and the chain of custody of the JAX
-package (``authenticator``, ``cipher``, ``custody``) are not ported yet;
-passing one raises.
+Optional authentication, encryption and custody, in JAX's order:
+``authenticator`` (a ``parallel.auth.GradientAuthenticator``) tags every
+snapshot in a ``.tag`` sidecar (slot 0, bound to the step); ``cipher`` (a
+``parallel.crypto.SnapshotCipher``) encrypts the bytes before they reach
+the disk; ``custody`` (a ``secure.ChainOfCustody``) writes a signed lineage
+manifest beside each snapshot.  A save encrypts, then writes the manifest
+over the encrypted bytes, then tags them (encrypt-then-MAC), the sidecars
+landing before the snapshot's rename.  A restore verifies the tag (a tag
+of the key scheme before contexts is accepted once under the same secret
+and re-tagged at once, unless ``allow_legacy_tags=False``), then the
+manifest, then decrypts: a tampered blob is refused before a keystream
+byte is derived.  Pruning and ``discard_after`` take the sidecars with
+their snapshots.
 """
 
+import io
 import os
 import pickle
 import re
@@ -38,7 +49,7 @@ import torch
 
 from . import trace
 from ..core.train_state import host_snapshot, load_snapshot
-from ..utils import UserException, info
+from ..utils import UserException, info, warning
 
 
 def _describe(tree, prefix=""):
@@ -57,13 +68,14 @@ def _describe(tree, prefix=""):
 
 class Checkpoints:
     def __init__(self, directory, base_name="model", max_to_keep=5, authenticator=None,
-                 background=False, cipher=None, custody=None, nb_workers=None):
+                 background=False, allow_legacy_tags=True, cipher=None, custody=None, nb_workers=None):
         """``nb_workers``: the run's n, the rows a snapshot's residuals must
         hold (default: the live state's rows, those of a one-rank run)."""
-        for name, value in (("authenticator", authenticator), ("cipher", cipher), ("custody", custody)):
-            if value is not None:
-                raise UserException("Checkpoints(%s=...) is not available in the PyTorch port yet" % name)
         self.directory = directory
+        self.authenticator = authenticator
+        self.cipher = cipher
+        self.custody = custody
+        self.allow_legacy_tags = bool(allow_legacy_tags)
         self.base_name = base_name
         self.max_to_keep = int(max_to_keep)
         self.nb_workers = None if nb_workers is None else int(nb_workers)
@@ -112,10 +124,11 @@ class Checkpoints:
         ``wait()`` first when background writes may be pending."""
         dropped = [s for s in self.steps() if s > step]
         for old in dropped:
-            try:
-                os.remove(self._path(old))
-            except OSError:
-                pass
+            for path in (self._path(old), self._path(old) + ".tag", self._path(old) + ".manifest.json"):
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
         return dropped
 
     def restore(self, state, step=None):
@@ -133,8 +146,24 @@ class Checkpoints:
         elif step not in steps:
             raise UserException("No checkpoint for step %d in %r" % (step, self.directory))
         path = self._path(step)
+        with open(path, "rb") as fd:
+            data = fd.read()
+        if self.authenticator is not None:
+            self._verify_tag(path, step, data)
+        if self.custody is not None:
+            # provenance before anything is read: the manifest signs the
+            # bytes on disk (secure/custody.py)
+            self.custody.verify(path, step, data)
+        if self.cipher is not None:
+            data = self.cipher.decrypt(step, data)
+        else:
+            from ..parallel.crypto import SnapshotCipher
+
+            if SnapshotCipher.is_encrypted(data):
+                raise UserException("Checkpoint %r is encrypted; pass --encrypt-checkpoints with the matching "
+                                    "--session-secret to restore it" % (path,))
         try:
-            snapshot = torch.load(path, map_location="cpu", weights_only=True)
+            snapshot = torch.load(io.BytesIO(data), map_location="cpu", weights_only=True)
         except (pickle.UnpicklingError, RuntimeError, EOFError) as exc:  # a foreign or torn file
             raise UserException("Cannot read checkpoint %r: %s" % (path, exc))
         template = {"step": state.step, "seed": state.seed, "params": state.params, "opt_state": state.opt_state}
@@ -160,6 +189,37 @@ class Checkpoints:
         info("Restored checkpoint at step %d from %r" % (step, self.directory))
         return state, step
 
+    def _verify_tag(self, path, step, data):
+        """The ``.tag`` sidecar's check (fail-closed), with the one-time
+        migration of a tag of the key scheme before contexts."""
+        tag_path = path + ".tag"
+        try:
+            with open(tag_path, "rb") as fd:
+                tag = fd.read()
+        except OSError:
+            raise UserException(
+                "Checkpoint %r has no authentication tag. If it predates tagging (saved without --session-secret), "
+                "restore once WITHOUT the secret and resume with it — new snapshots are tagged; otherwise treat the "
+                "snapshot as untrusted" % (path,))
+        if self.authenticator.verify(0, step, data, tag):
+            return
+        legacy_ok = getattr(self.authenticator, "verify_legacy", None)
+        if not (self.allow_legacy_tags and legacy_ok is not None and legacy_ok(0, step, data, tag)):
+            raise UserException("Checkpoint %r failed HMAC verification: corrupted, forged, or a --session-secret "
+                                "mismatch; treat the snapshot as untrusted" % (path,))
+        # accepted under the same secret: re-tagged at once, so the
+        # downgrade window closes for this snapshot now
+        try:
+            tag_tmp = tag_path + ".tmp"
+            with open(tag_tmp, "wb") as fd:
+                fd.write(self.authenticator.sign(0, step, data))
+            os.replace(tag_tmp, tag_path)
+            retag = "re-tagged under the current scheme"
+        except OSError:
+            retag = "re-tagging skipped (directory not writable)"
+        warning("Checkpoint %r was tagged under the legacy key scheme (pre-context-separation); accepted under "
+                "the same session secret, %s" % (path, retag))
+
     def save(self, state, step=None, ef=None):
         """Snapshot ``state`` (at ``step``, default ``state.step``; ``ef``:
         every worker's residuals gathered from a W-rank axis, default
@@ -168,10 +228,13 @@ class Checkpoints:
         step = int(state.step if step is None else step)
         with trace.span("checkpoint.fetch", cat="checkpoint", step=step):
             snapshot = host_snapshot(state, ef=ef)
+        # the lineage on the caller's thread: the manifest signs the tag
+        # chain's head as of this save
+        lineage = self.custody.lineage(step) if self.custody is not None else None
         if self._pool is not None:
-            self._pending.append(self._pool.submit(self._write, snapshot, step))
+            self._pending.append(self._pool.submit(self._write, snapshot, step, lineage))
             return self._path(step)
-        return self._write(snapshot, step)
+        return self._write(snapshot, step, lineage)
 
     def wait(self, shutdown=False):
         """Join every pending background write, then raise the first
@@ -191,14 +254,33 @@ class Checkpoints:
             raise first_error
 
     @trace.span("checkpoint.write", cat="checkpoint")
-    def _write(self, snapshot, step):
+    def _write(self, snapshot, step, lineage=None):
+        buffer = io.BytesIO()
+        torch.save(snapshot, buffer)
+        data = buffer.getvalue()
+        if self.cipher is not None:
+            data = self.cipher.encrypt(step, data)  # before the tag: encrypt-then-MAC
         path = self._path(step)
+        if self.custody is not None:
+            # over the bytes on disk; lands before the snapshot's rename, as
+            # the tag does (discovery scans .ckpt files)
+            self.custody.write(path, step, data, payload=lineage)
+        if self.authenticator is not None:
+            tag_tmp = path + ".tag.tmp"
+            with open(tag_tmp, "wb") as fd:
+                fd.write(self.authenticator.sign(0, step, data))
+            os.replace(tag_tmp, path + ".tag")
         tmp = path + ".tmp"
-        torch.save(snapshot, tmp)
+        with open(tmp, "wb") as fd:
+            fd.write(data)
         os.replace(tmp, path)
         if self.max_to_keep > 0:
             for old in self.steps()[: -self.max_to_keep]:
-                if old != self._pinned:  # the last-known-good survives pruning
-                    os.remove(self._path(old))
+                if old == self._pinned:
+                    continue  # the last-known-good survives pruning
+                os.remove(self._path(old))
+                for sidecar in (self._path(old) + ".tag", self._path(old) + ".manifest.json"):
+                    if os.path.exists(sidecar):
+                        os.remove(sidecar)
         return path
 

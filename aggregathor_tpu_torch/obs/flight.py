@@ -20,12 +20,11 @@ lane                  shape     source
 ``worker_nan``        (C, n)    the probe's NaN-row flags
 ``worker_sq_dist``    (C, n)    per-worker squared distance (worker metrics)
 ``chaos_regime``      (C,)      the step's chaos regime index (``--chaos``)
+``secure_rejected``   (C, n)    the rejected submissions (``--secure``)
 ====================  ========  =========================================
 
 Each lane stores the value the metrics dict carries, so a fetched row is
-bit-identical to that step's metrics.  The JAX package's secure-verdict
-lane waits for secure submission: ``validate_for`` refuses a recorder
-that asks for it.
+bit-identical to that step's metrics.
 
 The post-mortem document has schema ``aggregathor.obs.flight.v1``
 (``dump_window``); non-finite floats are the strings ``"nan"``, ``"inf"``
@@ -67,8 +66,7 @@ class FlightRecorder:
       probe: record the probe lanes (needs the engine's ``health_probe``).
       worker_metrics: record ``worker_sq_dist`` (needs ``worker_metrics``).
       chaos: record the regime-index lane; needs a chaos schedule.
-      secure: the JAX package's secure-verdict lane, whose source this
-        port does not compute yet.
+      secure: record the rejected-submission lane; needs secure submission.
     """
 
     def __init__(self, capacity, nb_workers, probe=True, worker_metrics=False, chaos=False, secure=False):
@@ -143,6 +141,8 @@ class FlightRecorder:
             put("worker_sq_dist", metrics["worker_sq_dist"])
         if self.chaos:
             put("chaos_regime", metrics["chaos_regime"])
+        if self.secure:
+            put("secure_rejected", metrics["secure"]["rejected"])
         return buffers
 
     # ------------------------------------------------------------------ #

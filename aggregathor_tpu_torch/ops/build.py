@@ -83,13 +83,16 @@ def hashed_dir(parent, flags, paths):
 
 def start_build(compiler, flags, source, target):
     """Start ``compiler flags -o <tmp> source`` for the shared library
-    ``target``; returns ``wait()``, which waits for the compiler and, when
-    it succeeded, moves the library into place (atomic: a reader never sees
+    ``target`` (``source`` one path or a list of units linked together);
+    returns ``wait()``, which waits for the compiler and, when it
+    succeeded, moves the library into place (atomic: a reader never sees
     half a library).  ``wait()`` returns (exit code, stdout, stderr)."""
+    sources = [source] if isinstance(source, str) else list(source)
+    source = sources[0]  # the build's name for the listeners
     os.makedirs(os.path.dirname(target), exist_ok=True)
     tmp = "%s.%d.tmp" % (target, os.getpid())
     begin = time.perf_counter()
-    proc = subprocess.Popen([compiler, *flags, "-o", tmp, source], stdout=subprocess.PIPE,
+    proc = subprocess.Popen([compiler, *flags, "-o", tmp, *sources], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
     def wait():

@@ -1,12 +1,13 @@
-"""The host C++ GAR library, built at first use and loaded with ctypes.
+"""The host C++ library (GARs and HMAC), built at first use and loaded with ctypes.
 
-The port's copy of the GAR half of ``aggregathor_tpu/ops/native``: the
-sources ``kernels.cpp`` and ``threadpool.hpp`` in this directory (copies of
-the JAX package's) compile with ``c++ -std=c++17 -O3 -fPIC -shared
--pthread`` into ``.build-<hash>/libagg_host.so`` here, the hash covering the
-sources and the flags (``.gitignore`` lists ``.build-*``), so an edited
-source rebuilds and an unchanged one loads at once.  The JAX package's
-library is never loaded.  ``AGTPU_NATIVE_CXX`` names another compiler.
+The port's copy of ``aggregathor_tpu/ops/native`` without its TFRecord
+reader: the sources ``kernels.cpp``, ``auth.cpp`` and ``threadpool.hpp``
+in this directory (copies of the JAX package's) compile, the two units in
+one run of ``c++ -std=c++17 -O3 -fPIC -shared -pthread``, into
+``.build-<hash>/libagg_host.so`` here, the hash covering the sources and
+the flags (``.gitignore`` lists ``.build-*``), so an edited source rebuilds
+and an unchanged one loads at once.  The JAX package's library is never
+loaded.  ``AGTPU_NATIVE_CXX`` names another compiler.
 
 The ``*-native`` rules (``gars/native_host.py``) call :func:`load` at
 construction: a missing compiler is their UserException.  This is host
@@ -16,8 +17,11 @@ Public API (numpy arrays in and out, float32 or float64, row-major):
 ``average(g)  average_nan(g)  median(g)  averaged_median(g, f)
 pairwise_sq_distances(g)  krum(g, f, m=None)  bulyan(g, f)``, and
 ``num_threads()``, ``load()``, ``library_path()``.  ``AGTPU_NUM_THREADS``
-bounds the pool.  The TFRecord reader (``io.cpp``) and the HMAC
-(``auth.cpp``) of the JAX library are not ported.
+bounds the pool.  The host authentication of ``parallel/auth.py``
+(``auth.cpp``, SHA-256 and HMAC-SHA256 after RFC 6234/2104): ``sha256(data)``,
+``hmac_sha256(key, data)`` and ``hmac_verify(key, data, tag)`` on bytes or
+uint8 arrays.  The TFRecord reader (``io.cpp``) of the JAX library is not
+ported.
 """
 
 import ctypes
@@ -30,7 +34,9 @@ import numpy as np
 from .. import build
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("kernels.cpp", "threadpool.hpp")
+SOURCES = ("kernels.cpp", "auth.cpp", "threadpool.hpp")
+#: the units compiled into the one library
+COMPILE_UNITS = ("kernels.cpp", "auth.cpp")
 CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
@@ -53,7 +59,8 @@ def library_path():
 
 def _build(target):
     compiler = _compiler()
-    code, _, err = build.start_build(compiler, CXX_FLAGS, os.path.join(_DIR, "kernels.cpp"), target)()
+    code, _, err = build.start_build(compiler, CXX_FLAGS, [os.path.join(_DIR, name) for name in COMPILE_UNITS],
+                                     target)()
     if code != 0:
         raise RuntimeError("native build failed (%s %s):\n%s" % (compiler, " ".join(CXX_FLAGS), err.strip()))
 
@@ -72,6 +79,13 @@ def _declare(lib):
         fn = getattr(lib, "agtpu_pairwise_sqdist_%s" % suffix)
         fn.restype = None
         fn.argtypes = [ptr, i64, i64, ctypes.POINTER(ctypes.c_double)]
+    u8p, size = ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t
+    lib.agtpu_sha256.restype = None
+    lib.agtpu_sha256.argtypes = [u8p, size, u8p]
+    lib.agtpu_hmac_sha256.restype = None
+    lib.agtpu_hmac_sha256.argtypes = [u8p, size, u8p, size, u8p]
+    lib.agtpu_hmac_verify.restype = ctypes.c_int
+    lib.agtpu_hmac_verify.argtypes = [u8p, size, u8p, size, u8p]
 
 
 def load():
@@ -154,3 +168,42 @@ def pairwise_sq_distances(grads):
     out = np.empty((n, n), dtype=np.float64)
     getattr(lib, "agtpu_pairwise_sqdist_%s" % suffix)(_ptr(g, ctype), n, d, _ptr(out, ctypes.c_double))
     return out
+
+
+# --------------------------------------------------------------------------- #
+# host authentication (auth.cpp; parallel/auth.py is the policy layer)
+
+def _u8(buf):
+    arr = buf if isinstance(buf, np.ndarray) else np.frombuffer(bytes(buf), dtype=np.uint8)
+    arr = np.ascontiguousarray(arr, dtype=np.uint8).ravel()
+    return arr, arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), arr.size
+
+
+def sha256(data):
+    """The 32-byte SHA-256 digest of ``data`` (bytes or a uint8 array)."""
+    lib = load()
+    _, dptr, dlen = _u8(data)
+    out = np.empty(32, dtype=np.uint8)
+    lib.agtpu_sha256(dptr, dlen, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return out.tobytes()
+
+
+def hmac_sha256(key, data):
+    """The 32-byte HMAC-SHA256 tag of ``data`` under ``key``."""
+    lib = load()
+    _, kptr, klen = _u8(key)
+    _, dptr, dlen = _u8(data)
+    out = np.empty(32, dtype=np.uint8)
+    lib.agtpu_hmac_sha256(kptr, klen, dptr, dlen, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return out.tobytes()
+
+
+def hmac_verify(key, data, tag):
+    """Constant-time check of a 32-byte tag (a tag of another length is False)."""
+    if len(tag) != 32:
+        return False
+    lib = load()
+    _, kptr, klen = _u8(key)
+    _, dptr, dlen = _u8(data)
+    _, tptr, _ = _u8(tag)
+    return bool(lib.agtpu_hmac_verify(kptr, klen, dptr, dlen, tptr))

@@ -65,8 +65,14 @@ them.  A stalled thread sleeps in slices of at most 50 ms and checks the
 step's poison between them, so ``close()`` and interpreter exit never hang.
 
 Not carried: the sharded mode's submesh units (``build_group_grad``,
-``build_submesh_grad``: the sharded engine, ROADMAP queue 1 item 8), the
-tree topology (item 10) and the secure digests (item 7).
+``build_submesh_grad``: the sharded engine, ROADMAP queue 1 item 8) and
+the tree topology (item 10).
+
+Under ``secure`` each submission returns its row's digest, and the round
+hands the aggregate the digest of what arrived for each slot: the
+submission's own, a stale carry's (kept with the carry), or the digest of
+the NaN drop row for a slot that timed out (sender and receiver agree on
+it, so a timeout is no forgery: forensics names it).
 """
 
 import threading
@@ -258,8 +264,17 @@ class BoundedWaitStep:
         self._fold_fn = self._fresh_buffer = None
         if self.incremental:
             self._fold_fn, self._fresh_buffer = engine.build_incremental_fold(d)
-        # the CLEVER carry: the last row each worker delivered, and its age
+        self.secure = bool(engine.secure)
+        self._nan_digest = None
+        if self.secure:
+            from ..secure.submit import row_digest
+
+            # the drop row's digest, over the f32 NaN row on every wire (under
+            # a codec the drop's image is still the NaN row the aggregate masks in)
+            self._nan_digest = row_digest(torch.full((d,), torch.nan, dtype=torch.float32, device=self.device))
+        # the CLEVER carry: the last row each worker delivered, its digest and its age
         self._carry = [None] * self.nb_workers
+        self._carry_digest = [None] * self.nb_workers
         self._carry_age = np.zeros((self.nb_workers,), np.int64)
         self.timeouts_total = np.zeros((self.nb_workers,), np.int64)
         self.stale_total = np.zeros((self.nb_workers,), np.int64)
@@ -442,6 +457,7 @@ class BoundedWaitStep:
         losses, rows = [None] * n, [None] * n
         mom_rows = [None] * n if self.momentum else None
         ef_rows = [None] * n if self.ef else None
+        digests = [None] * n if self.secure else None
         for w in range(n):
             fut = futures.get(w)
             result = None
@@ -464,14 +480,22 @@ class BoundedWaitStep:
                     mom_rows[w] = out["momentum"]
                 if self.ef:
                     ef_rows[w] = out["ef"]
+                if self.secure:
+                    digests[w] = out["digest"]
+                    if self.stale_infill:
+                        self._carry_digest[w] = out["digest"]
             else:
                 self._carry_age[w] += 1
                 losses[w] = self._miss_loss
                 if self.stale_infill and self._carry[w] is not None and self._carry_age[w] <= self.stale_max_age:
                     stale[w] = True  # the carry re-enters, and spends the f budget
                     rows[w] = self._carry[w]
+                    if self.secure:
+                        digests[w] = self._carry_digest[w]
                 else:
                     rows[w] = self._miss_row
+                    if self.secure:
+                        digests[w] = self._nan_digest
                 if self.momentum:
                     mom_rows[w] = self._zero_row  # never read: the aggregate keeps the old row
                 if self.ef:
@@ -520,6 +544,8 @@ class BoundedWaitStep:
             extras["momentum"] = torch.stack(mom_rows)
         if self.ef:
             extras["ef"] = torch.stack(ef_rows)
+        if self.secure:
+            extras["digests"] = torch.stack(digests)
         rows_in = buffer if self.incremental else _stack(rows)
         with trace.span("bounded_wait.aggregate", cat="train", step=step_idx):
             return self.agg_fn(state, rows_in, torch.stack(losses), flags[0].bool(), flags[1].bool(), extras)

@@ -36,9 +36,23 @@ rank:
    stream, at the regime's rate); its stragglers (one (seed, step, w, 5)
    draw: a late row becomes NaN, or under ``straggle-mode=stale`` the
    carry's row).  The carry then takes every row as it arrived (before
-   the omniscient attack), and the health probe flags the rows holding a
-   non-finite value.  The chaos regime is the step's, ``regime_at(
-   step)``, and every step's metrics carry it (``chaos_regime``).
+   the omniscient attack and the forgery below).  Then the submission
+   forgery and its authentication (JAX ``engine.py:544-595``): under the
+   regime's ``forge`` rate a worker w < r replaces its row with Gaussian
+   noise times ``FORGE_SCALE`` (an impersonator; the draw is the first
+   uniform of the (seed, step, w, 5) stream, the lateness draw's, as JAX
+   draws both from one key; the noise from its own stream); under
+   ``secure`` the sent row's digest (``secure.row_digest``) is taken;
+   under the ``tamper`` rate (the (seed, step, w, 6) stream) one exponent
+   bit of a drawn coordinate flips; the received row's digest is taken
+   (the sent one where nothing was tampered); and under ``secure`` a
+   forged or tampered row is NaN before the rule sees it, the digests and
+   verdicts riding ``metrics["secure"]`` (``digest_sent``,
+   ``digest_recv``: (n, 4) uint32; ``forged``, ``rejected``: (n,) bool,
+   gathered worker-major at W > 1) to the host's HMAC check.  The health
+   probe then flags the rows holding a non-finite value.  The chaos regime
+   is the step's, ``regime_at(step)``, and every step's metrics carry it
+   (``chaos_regime``).
 4. **The wire** (``exchange_dtype``): under bfloat16 every row crosses it
    rounded (``compress.wire_roundtrip``); the rule computes in float32.  At
    W > 1 the wire is the reshard (``_reshard_to_blocks``, JAX
@@ -116,8 +130,7 @@ sharded mode's submission builders (``build_group_grad``,
 ``build_submesh_grad``) wait for the sharded engine (ROADMAP queue 1 item
 8).
 
-Refused with a UserException: a chaos schedule's ``forge=``/``tamper=``
-regimes and secure submission (ROADMAP queue 1 item 7), the sharded mode,
+Refused with a UserException: the sharded mode,
 ``leaf_bucketing=True`` (the bucketed per-leaf path needs kernels with a
 batch dimension), and ``l1_regularize``/``l2_regularize`` (the JAX flat
 engine refuses them too: its loss carries them).
@@ -149,6 +162,16 @@ from .mesh import WorkerAxis
 ATTACK_TAG = 1
 AUGMENT_TAG = 3
 SAMPLE_TAG = 4
+#: the submission forgery's streams: the forge verdict reads the first
+#: uniform of the lateness stream (5, ``chaos/stragglers.py``), as JAX's
+#: ``bernoulli(fold_in(wkey, 5))`` shares the straggler's key; the tamper
+#: verdict (6); the impostor's noise and the tampered coordinate on
+#: streams of their own, apart from 1-6, ``GAR_KEY_TAG`` and
+#: ``RNG_PERTURB_TAG``
+FORGE_TAG = 5
+TAMPER_TAG = 6
+IMPOSTOR_TAG = 51
+TAMPER_COORD_TAG = 61
 
 def gar_key(seed, step):
     """The step's GAR key, an int seed: ``fold_in_seed(fold_in_seed(seed,
@@ -161,7 +184,7 @@ def gar_key(seed, step):
 
 
 #: engine options of the JAX package this port does not carry yet
-UNPORTED_OPTIONS = ("secure",)
+UNPORTED_OPTIONS = ()
 
 
 def stream_generator(seed, step, worker, tag, device):
@@ -212,8 +235,7 @@ def validate_reputation_args(gar, reputation_decay, quarantine_threshold):
 
 def validate_chaos_args(chaos, attack, lossy_link, nb_workers, nb_real_byz):
     """A ChaosSchedule against the engine's own configuration (JAX
-    ``engine.py:120-148``); returns ``chaos``.  The schedule's forge and
-    tamper regimes need secure submission, which the port has not yet."""
+    ``engine.py:120-148``); returns ``chaos``."""
     if chaos is None:
         return None
     if attack is not None or lossy_link is not None:
@@ -229,11 +251,6 @@ def validate_chaos_args(chaos, attack, lossy_link, nb_workers, nb_real_byz):
         if chaos.nb_real_byz != nb_real_byz:
             raise UserException("ChaosSchedule was built for %d real Byzantine workers but the engine declares %d"
                                 % (chaos.nb_real_byz, nb_real_byz))
-    if chaos.has_forgery:
-        raise UserException(
-            "chaos forge=/tamper= regimes forge and bit-flip signed submissions: they need secure submission "
-            "(secure/submit.py's FORGE_SCALE, tamper_row and digests), which the PyTorch port does not carry yet "
-            "(ROADMAP.md queue 1 item 7)")
     return chaos
 
 
@@ -294,6 +311,8 @@ class RobustEngine:
       trace_ops: print a TRACE line after each phase of the step.
       health_probe: add ``metrics["probe"]`` (default on).
       flight: an ``obs.flight.FlightRecorder`` or None.
+      secure: authenticated submission: digests of every row sent and
+        received, a forged or tampered row NaN (``metrics["secure"]``).
       device: "cuda" (default) or "cpu"; CUDA without a GPU raises.
       sharding: only "flat" is ported.
       axis: the ``parallel.mesh.WorkerAxis`` of a W-rank run (its device
@@ -304,7 +323,7 @@ class RobustEngine:
                  exchange_dtype=None, worker_momentum=None, batch_transform=None, worker_metrics=False,
                  reputation_decay=None, quarantine_threshold=0.0, granularity="vector", leaf_bucketing="auto",
                  trace_ops=False, health_probe=True, flight=None, l1_regularize=None, l2_regularize=None,
-                 device="cuda", sharding="flat", axis=None, chaos=None, exchange=None, **options):
+                 device="cuda", sharding="flat", axis=None, chaos=None, exchange=None, secure=False, **options):
         for name, value in options.items():
             if name not in UNPORTED_OPTIONS:
                 raise TypeError("RobustEngine got an unexpected keyword argument %r" % name)
@@ -361,10 +380,12 @@ class RobustEngine:
         self.granularity = granularity
         self.trace_ops = bool(trace_ops)
         self.health_probe = bool(health_probe)
+        self.secure = bool(secure)
         self.flight = flight
         if flight is not None:
             flight.validate_for(nb_workers=self.nb_workers, probe=self.health_probe,
-                                worker_metrics=self.worker_metrics, chaos=self.chaos is not None)
+                                worker_metrics=self.worker_metrics, chaos=self.chaos is not None,
+                                secure=self.secure)
         # CLEVER infill reads the rows received last step (TrainState.carry);
         # stale-mode stragglers re-send the same carry
         self.carries_gradients = (lossy_link is not None and lossy_link.clever) or (
@@ -417,7 +438,9 @@ class RobustEngine:
         codec (with ``ef``, the rank's residuals, updated in place), the
         lossy link on the lossy workers, the regime's drop storm and its
         stragglers.  ``carry`` (the rows received last step) is then
-        overwritten with the rows as they arrived, in place."""
+        overwritten with the rows as they arrived, in place, before the
+        forgery (``_forge_and_authenticate``).  Returns ``(rows, secure)``,
+        ``secure`` the rank's digests and verdicts (None unless secure)."""
         local = [(j, self.axis.worker_index(j)) for j in range(self.workers_per_device)]
         workers = [w for _, w in local]
         chaos = self.chaos
@@ -458,7 +481,83 @@ class RobustEngine:
                 rows[j] = chaos.stragglers.apply(rows[j], late, stale, previous=carry[j] if carry is not None else None)
         if carry is not None:
             carry.copy_(rows)
-        return rows
+        return self._forge_and_authenticate(rows, local, seed, step, ridx)
+
+    def draw_forge(self, seed, step, worker, rate):
+        """bool: does worker ``worker`` forge at ``step``?  The first uniform
+        of its (seed, step, w, 5) stream below ``rate``, the same uniform
+        the straggler lateness reads (trap s)."""
+        generator = stream_generator(seed, step, worker, FORGE_TAG, "cpu")
+        return bool(torch.rand((), generator=generator) < rate)
+
+    def draw_tamper(self, seed, step, worker, rate):
+        """bool: is worker ``worker``'s row tampered at ``step``?  The first
+        uniform of its (seed, step, w, 6) stream below ``rate``."""
+        generator = stream_generator(seed, step, worker, TAMPER_TAG, "cpu")
+        return bool(torch.rand((), generator=generator) < rate)
+
+    def draw_tamper_coord(self, seed, step, worker, d):
+        """The coordinate a tamper flips, uniform in [0, d)."""
+        generator = stream_generator(seed, step, worker, TAMPER_COORD_TAG, "cpu")
+        return int(torch.randint(0, d, (), generator=generator))
+
+    def draw_impostor(self, seed, step, worker, d):
+        """An impostor's (d,) row: N(0, 1) noise times ``FORGE_SCALE``, drawn
+        on the engine's device."""
+        from ..secure.submit import FORGE_SCALE
+
+        generator = stream_generator(seed, step, worker, IMPOSTOR_TAG, self.device)
+        return torch.randn(d, generator=generator, dtype=torch.float32, device=self.device) * FORGE_SCALE
+
+    def _forge_and_authenticate(self, rows, local, seed, step, ridx):
+        """The forgery pipeline on the local (k, d) rows, in JAX's order
+        (``engine.py:544-595``): forge, sent digest, tamper, received
+        digest, rejection (module docstring, step 3).  Returns ``(rows,
+        secure)``; ``secure`` holds the rank's (k, 4) uint32 digests and
+        (k,) bool verdicts, or is None unless ``secure``."""
+        chaos = self.chaos
+        forgery = chaos is not None and chaos.has_forgery
+        if not (forgery or self.secure):
+            return rows, None
+        from ..secure.submit import row_digest, tamper_row
+
+        k, d = rows.shape
+        forged, tampered = np.zeros(k, bool), np.zeros(k, bool)
+        forge_rate = chaos.forge_rate(ridx) if forgery else 0.0
+        tamper_rate = chaos.tamper_rate(ridx) if forgery else 0.0
+        if forge_rate > 0:
+            for j, w in local:
+                if w < self.nb_real_byz and self.draw_forge(seed, step, w, forge_rate):
+                    forged[j] = True
+                    rows[j] = self.draw_impostor(seed, step, w, d)
+        sent = row_digest(rows) if self.secure else None
+        if tamper_rate > 0:
+            for j, w in local:
+                if w < self.nb_real_byz and self.draw_tamper(seed, step, w, tamper_rate):
+                    tampered[j] = True
+                    rows[j] = tamper_row(rows[j], self.draw_tamper_coord(seed, step, w, d))
+        if not self.secure:
+            return rows, None
+        # an untampered row arrives as sent: its digest is the sender's
+        recv = sent.clone() if tampered.any() else sent
+        for j in np.nonzero(tampered)[0]:
+            recv[j] = row_digest(rows[j])
+        rejected = forged | tampered
+        for j in np.nonzero(rejected)[0]:
+            rows[j] = float("nan")
+        flags = self._to_device(torch.from_numpy(np.stack([forged, rejected])))
+        return rows, {"digest_sent": sent, "digest_recv": recv, "forged": flags[0], "rejected": flags[1]}
+
+    def _gather_secure(self, secure):
+        """The ranks' digests and verdicts, worker-major (n, ...), on every rank."""
+        if secure is None or self.nb_devices == 1:
+            return secure
+        out = {}
+        for name, value in secure.items():
+            wire = value.to(torch.int64) if value.dtype == torch.uint32 else value
+            gathered = self.axis.all_gather(wire).reshape((self.nb_workers,) + tuple(value.shape[1:]))
+            out[name] = gathered.to(value.dtype)
+        return out
 
     def _send(self, state, rows):
         """What the workers send: their gradients, or under worker momentum
@@ -603,7 +702,8 @@ class RobustEngine:
             participation = participation / nb_parts
         return torch.cat(parts), participation, wdist, rep_dist
 
-    def _finalize_step(self, state, losses, agg, worker_nan, participation, wdist, rep_dist, ridx=None):
+    def _finalize_step(self, state, losses, agg, worker_nan, participation, wdist, rep_dist, ridx=None,
+                       secure=None):
         """After the update: the loss sum (summed across the ranks), the
         reputation EMA, the probe, the metrics dict and the flight
         recorder's row; advances ``state.step``.  Returns ``(state,
@@ -625,6 +725,8 @@ class RobustEngine:
             metrics[health.PROBE_KEY] = health.probe_metrics(
                 total_loss, update_norm, health.spike_score(total_loss, state.loss_ema), worker_nan)
             state.loss_ema = health.update_loss_ema(state.loss_ema, total_loss)
+        if secure is not None:
+            metrics["secure"] = secure
         if ridx is not None:
             # the observability layer's regime column (JAX :911-914): filled
             # on the device, as a copy from host memory would wait for the card
@@ -768,8 +870,8 @@ class RobustEngine:
             self._mark(state, "losses+gradients done: local loss sum", torch.sum(losses))
             with torch.no_grad():
                 ridx = self.chaos.regime_at(state.step) if self.chaos is not None else None
-                rows = self._perturb_local(self._send(state, rows), state.seed, state.step, state.carry, ridx,
-                                           state.ef if self.carries_ef else None)
+                rows, secure = self._perturb_local(self._send(state, rows), state.seed, state.step, state.carry,
+                                                   ridx, state.ef if self.carries_ef else None)
                 # the rows as they arrived, before the omniscient attack
                 worker_nan = torch.any(~torch.isfinite(rows), dim=1) if self.health_probe else None
                 if worker_nan is not None and self.nb_devices > 1:
@@ -783,7 +885,8 @@ class RobustEngine:
                 self._mark(state, "aggregate done: |agg|", torch.linalg.vector_norm(agg))
                 tx.apply(state.params, flatmap.inflate(agg), state.opt_state)
                 self._mark(state, "apply done: |p0|", torch.linalg.vector_norm(state.params[flatmap.slices[0][0]]))
-                return self._finalize_step(state, losses, agg, worker_nan, participation, wdist, rep_dist, ridx)
+                return self._finalize_step(state, losses, agg, worker_nan, participation, wdist, rep_dist, ridx,
+                                           self._gather_secure(secure))
 
         return step
 
@@ -920,9 +1023,13 @@ class RobustEngine:
         ``widx < r`` from the (seed, step, widx, 1) stream; then the wire:
         under a codec ``row`` is the encoded payload (with error feedback
         ``C(row + ef[widx])``, the new residual returned as ``ef``), else
-        the row in the exchange dtype.  ``momentum`` and ``ef`` are the
+        the row in the exchange dtype.  Under ``secure`` ``digest`` is the
+        (4,) ``row_digest`` of the codec's decoded image, or of the row
+        before the dtype's rounding.  ``momentum`` and ``ef`` are the
         whole (n, d) buffers of the state."""
         self._check_bounded_wait_supported()
+        from ..secure.submit import row_digest
+
         beta = self.worker_momentum
         attack = self.attack if self.attack is not None and not self.attack.omniscient else None
 
@@ -949,11 +1056,16 @@ class RobustEngine:
                     row = attack.apply_local(row, stream_generator(seed, step, widx, ATTACK_TAG, row.device))
                 if self.codec is not None:
                     if ef is not None:
-                        payload, _, out["ef"] = self.codec.ef_encode(row, ef[widx])
+                        payload, image, out["ef"] = self.codec.ef_encode(row, ef[widx])
                     else:
                         payload = self.codec.encode(row)
+                        image = self.codec.decode(payload, row.shape[-1]) if self.secure else None
+                    if self.secure:
+                        out["digest"] = row_digest(image)  # the wire image, what the aggregate decodes
                     out["row"] = payload
                     return out
+                if self.secure:
+                    out["digest"] = row_digest(row)  # before the dtype's rounding, as JAX's
                 out["row"] = row if self.exchange_dtype is None else row.to(self.exchange_dtype)
                 return out
 
@@ -969,8 +1081,10 @@ class RobustEngine:
         stacked payloads, decoded here) or of rows decoded already
         (``"decoded"``, the incremental fold's buffer); ``losses`` (n,);
         ``arrived`` and ``stale`` (n,) bool on the device; ``extras`` the
-        (n, d) ``momentum`` and ``ef`` rows the submissions returned and,
-        under ``stale_reweight``, the (n,) int ``stale_age``.  In JAX's
+        (n, d) ``momentum`` and ``ef`` rows the submissions returned,
+        under ``stale_reweight`` the (n,) int ``stale_age`` and under
+        ``secure`` the (n, 4) ``digests`` of what arrived (the drop row's,
+        a stale carry's).  In JAX's
         order: decode; NaN where neither arrived nor stale; the dtype wire's
         image; each stale row scaled by ``c(a) = 1/(1 + a)`` (float32, a
         true division on the device); ``_prepare_rows`` (the omniscient
@@ -980,7 +1094,9 @@ class RobustEngine:
         arrived (``momentum_steps`` + 1); ``_finalize_step``.  The metrics
         add ``straggler_timeout`` (~arrived), ``stale_infill``,
         ``nb_timeouts`` (NaN drops and stale rows alike: the f budget they
-        spend), ``nb_stale`` and, reweighted, ``stale_reweight_coeff``."""
+        spend), ``nb_stale``, reweighted ``stale_reweight_coeff`` and, under
+        ``secure``, ``secure`` with the digests as sent and as received (no
+        transform lies between) and no forged or rejected worker."""
         self._check_bounded_wait_supported()
         if rows_form not in ("wire", "decoded"):
             raise UserException("rows_form must be 'wire' or 'decoded' (got %r)" % (rows_form,))
@@ -1018,8 +1134,13 @@ class RobustEngine:
                 state.momentum_steps += 1
             if self.carries_ef:
                 state.ef = torch.where(arrived[:, None], extras["ef"], state.ef)
+            secure = None
+            if self.secure:
+                nobody = torch.zeros(self.nb_workers, dtype=torch.bool, device=agg.device)
+                secure = {"digest_sent": extras["digests"], "digest_recv": extras["digests"], "forged": nobody,
+                          "rejected": nobody}
             state, metrics = self._finalize_step(state, torch.where(arrived, losses, 0.0), agg, worker_nan,
-                                                 participation, wdist, rep_dist)
+                                                 participation, wdist, rep_dist, secure=secure)
             metrics["straggler_timeout"] = ~arrived
             metrics["stale_infill"] = stale
             metrics["nb_timeouts"] = torch.sum(~arrived, dtype=torch.int32)

@@ -178,6 +178,14 @@ Phases, in order (any failure exits non-zero and prints no result):
    for timeouts beyond f; the adaptive window (``--deadline-percentile
    71.4``) with the honest arrivals' p50/p95; ``int8:ef`` folded as rows
    land against the stacked path, bit for bit; a 2 ms deadline's race.
+   The secure phase (``secure_phase``): ``row_digest`` and
+   ``masked_group_mean`` at cnnet's width on the card against the CPU, bit
+   for bit, and timed; cnnet + krum under a forge/tamper schedule with
+   ``--secure`` (every rejected worker named ``forgery``, K1 once a step)
+   and without (the digest tax), average-nan under ``--secure`` (K6 over
+   the rejected rows), an ``--encrypt-checkpoints`` save and resume under
+   custody and a flipped byte refused, and ``--secure-mask`` bucketing
+   (the centring and K2 on the bucket means) against the unmasked leg.
    Last, a cnnet + krum step and a digits-conv + krum step are split into
    their phases (host batch, transfer, augmentation, worker gradients,
    attack + aggregate, update), with the batches streamed and drawn on the
@@ -2339,7 +2347,7 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), 
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         with torch.no_grad():
-            rows = engine._prepare_rows(engine._perturb_local(rows, state.seed, state.step))
+            rows = engine._prepare_rows(engine._perturb_local(rows, state.seed, state.step)[0])
             rows = rows[0] if isinstance(rows, tuple) else rows  # (rows, raw rows) since the reputation
             agg = engine._aggregate_block(rows)
             agg = agg[0] if isinstance(agg, tuple) else agg  # (aggregate, participation) likewise
@@ -3034,6 +3042,215 @@ def bounded_phase(torch, gars, kernels, models, runner, card, workdir):
     return totals
 
 
+#: secure_phase: cnnet + krum, n = 8, f = 2, r = 2 under a schedule that
+#: forges steps 2-4 and tampers from step 5 on (every rejected row is the
+#: coalition's); 16 steps, as the first few after the build vary and the
+#: digest tax is the difference of two legs' mean step times
+SECURE_STEPS = 16
+SECURE_SCHEDULE = "0:calm 2:forge=1.0 5:tamper=1.0"
+SECURE_REJECTED_STEPS = SECURE_STEPS - 2
+
+
+def _secure_leg(runner, kernels, label, argv, workdir, steps=SECURE_STEPS):
+    """One cnnet leg through the runner (drawn on the card, n = 8): returns
+    (result, launches, its directory)."""
+    directory = os.path.join(workdir, "secure-%s" % label)
+    os.makedirs(directory, exist_ok=True)
+    kernels.reset_launch_counts()
+    result = runner.main(["--experiment", "cnnet", "--experiment-args", "augment:device", "--input-source", "device",
+                          "--seed", "1", "--nb-workers", "8", "--max-step", str(steps), "--evaluation-delta", "-1",
+                          "--evaluation-period", "-1", *argv])
+    counts = kernels.launch_counts()
+    check(result["final_loss"] is not None and math.isfinite(result["final_loss"]),
+          "secure %s: final loss %s" % (label, result["final_loss"]))
+    return result, counts, directory
+
+
+def _secure_engine_ms(torch, steps=12):
+    """{secure: median ms of the engine's cnnet + krum step alone, drawn on
+    the card and synchronised} under SECURE_SCHEDULE, the first two steps
+    left out."""
+    from aggregathor_tpu_torch import gars, models
+    from aggregathor_tpu_torch.chaos import ChaosSchedule
+    from aggregathor_tpu_torch.core import build_optimizer, build_schedule
+    from aggregathor_tpu_torch.parallel import RobustEngine
+
+    exp = models.instantiate("cnnet", ["augment:device"])
+    out = {}
+    for secure in (False, True):
+        engine = RobustEngine(gars.instantiate("krum", 8, 2), 8, nb_real_byz=2, secure=secure,
+                              chaos=ChaosSchedule(SECURE_SCHEDULE, 8, nb_real_byz=2),
+                              batch_transform=exp.device_transform(), device="cuda")
+        tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+        state, data = engine.init_state(exp.init(1), tx, seed=1), engine.replicate(exp.train_arrays())
+        multi = engine.build_sampled_multi_step(exp.loss, tx, 1, exp.batch_size)
+        times = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            state, _ = multi(state, data)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - begin) * 1e3)
+        out[secure] = statistics.median(times[2:])
+    return out
+
+
+def secure_phase(torch, kernels, runner, card, workdir):
+    """Secure submission, masking and the checkpoints' crypto on the card
+    (``secure/``); returns {kernel: launches}.
+
+    At cnnet's d = 1,756,682: ``row_digest`` of (8, d) rows on the card
+    equals the CPU's bit for bit, clean and poisoned (NaN, +-inf, -0.0 and
+    subnormal coordinates), timed at (1, d) and (8, d) beside its byte bound
+    (4d read a row); ``masked_group_mean`` at bucketing's (4, 2, d) equals
+    the CPU's bit for bit, masked and unmasked, and masked equals unmasked,
+    both timed.  Then cnnet + krum (n = 8, f = 2, r = 2) through the
+    runner for SECURE_STEPS steps under SECURE_SCHEDULE with ``--secure``:
+    K1 once a step, the forensics report names workers 0 and 1 with
+    SECURE_REJECTED_STEPS ``forgery`` entries each and no other worker,
+    ``secure_forgeries_total`` the same, the loss finite, and the host's
+    ``secure.verify`` span read from ``--trace-file``; the same argv without
+    ``--secure`` (the forged rows enter the rule) gives the digest tax, ms a
+    step of both, beside the engine's step alone with and without
+    (``_secure_engine_ms``).  average-nan under ``--secure``: K6 once a step over the
+    rejected NaN rows.  ``--encrypt-checkpoints`` under custody: a save, a
+    resume that restores it (tag, manifest, decryption), then one flipped
+    byte refused.  ``--secure-mask`` with ``bucketing:s=2,inner=krum`` (f =
+    1): the centring and K2 once a step on the 4 bucket means (the inner
+    krum's distances, as for unmasked bucketing), ms a step against the
+    same leg unmasked."""
+    from aggregathor_tpu_torch.obs import metrics as obs_metrics
+    from aggregathor_tpu_torch.secure import GroupMasking, manifest_path, masked_group_mean, row_digest
+    from aggregathor_tpu_torch.utils import UserException
+
+    d = CNNET_D
+    rows = torch.randn((8, d), generator=torch.Generator().manual_seed(21))
+    poisoned = rows.clone()
+    poisoned[1] = float("nan")
+    poisoned[2, ::7], poisoned[3, 1::7] = float("inf"), float("-inf")
+    poisoned[4, ::3], poisoned[5, ::11] = -0.0, 1e-40
+    for label, x in (("clean", rows), ("poisoned", poisoned)):
+        check(torch.equal(row_digest(x.cuda()).cpu(), row_digest(x)),
+              "row_digest of the %s (8, %d) rows differs between the card and the CPU" % (label, d))
+    cuda_rows = rows.cuda()
+    digest_ms = {1: time_ms(lambda: row_digest(cuda_rows[0]), torch), 8: time_ms(lambda: row_digest(cuda_rows), torch)}
+    grouped = (rows * 10.0).view(4, 2, d)
+    grouped[1, 0, ::5] = float("nan")
+    grouped[2, 1, :3] = torch.tensor([2.0 ** 31, 2.0 ** 32, -3.4e38])
+    key = 12345
+    masked_cpu = masked_group_mean(grouped, key, GroupMasking.from_secret(b"s"))
+    cuda_grouped = grouped.cuda()
+    masked = masked_group_mean(cuda_grouped, key, GroupMasking.from_secret(b"s"))
+    plain = masked_group_mean(cuda_grouped, key, GroupMasking.from_secret(b"s", enabled=False))
+    check(torch.equal(masked.cpu().view(torch.int32), masked_cpu.view(torch.int32)),
+          "masked_group_mean at (4, 2, %d) differs between the card and the CPU" % d)
+    check(torch.equal(masked.view(torch.int32), plain.view(torch.int32)), "masked differs from unmasked on the card")
+    check(bool(torch.isnan(masked[1]).all()) and bool(torch.isfinite(masked[[0, 3]]).all()),
+          "masked_group_mean: the NaN row's bucket must be NaN, the clean ones finite")
+    mask_ms = {label: time_ms(lambda m=m: masked_group_mean(cuda_grouped, key, m), torch, iters=5)
+               for label, m in (("masked", GroupMasking.from_secret(b"s")),
+                                ("unmasked", GroupMasking.from_secret(b"s", enabled=False)))}
+    del cuda_rows, cuda_grouped, masked, plain
+    print("secure on %s: row_digest at (8, %d) bit-identical to the CPU's, clean and poisoned; %.4f ms at (1, d), "
+          "%.4f ms at (8, d), %.4f ms a row (CUDA events; bound 4d bytes a row: %.4f ms); masked_group_mean at "
+          "(4, 2, d) bit-identical to the CPU's, masked == unmasked: masked %.3f ms, unmasked %.3f ms"
+          % (card, d, digest_ms[1], digest_ms[8], digest_ms[8] / 8, 4 * d / MEMORY_BYTES_PER_S * 1e3,
+             mask_ms["masked"], mask_ms["unmasked"]))
+
+    totals = {name: 0 for name in kernels.KERNELS}
+
+    def held(label, counts, kernel, result):
+        wanted = (kernel,) if isinstance(kernel, str) else kernel
+        want = {name: result["steps"] if name in wanted else 0 for name in kernels.KERNELS}
+        check(counts == want, "secure %s: launches %s (want %s)" % (label, counts, want))
+        for name, count in counts.items():
+            totals[name] += count
+
+    krum = ["--aggregator", "krum", "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2",
+            "--chaos", SECURE_SCHEDULE]
+    secure = ["--secure", "--session-secret", "s"]
+    def observed(label):
+        # both legs of the tax keep the same observers: the forensics feed
+        # and the span trace
+        directory = os.path.join(workdir, "secure-%s" % label)
+        return ["--forensics", os.path.join(directory, "f.json"), "--trace-file", os.path.join(directory, "t.json")]
+
+    before = obs_metrics.REGISTRY.snapshot()
+    result, counts, directory = _secure_leg(runner, kernels, "krum", krum + secure + observed("krum"), workdir)
+    forensics, span_trace = os.path.join(directory, "f.json"), os.path.join(directory, "t.json")
+    held("krum", counts, "pairwise_sq_distances", result)
+    report = json.load(open(forensics))
+    named = {entry["worker"]: entry["evidence"].get("forgery", 0) for entry in report["workers"]}
+    check(named == {w: SECURE_REJECTED_STEPS if w < 2 else 0 for w in range(8)},
+          "secure krum: forgery evidence %s (want workers 0 and 1, %d each)" % (named, SECURE_REJECTED_STEPS))
+    after = obs_metrics.REGISTRY.snapshot()
+    crypto_ms = sum(after[name] - before.get(name, 0.0) for name in (
+        "secure_sign_seconds_total", "secure_verify_seconds_total")) / SECURE_STEPS * 1e3
+    after, before = after.get("secure_forgeries_total", {}), before.get("secure_forgeries_total", {})
+    forged = {w: after.get("worker=%d" % w, 0.0) - before.get("worker=%d" % w, 0.0) for w in range(8)}
+    check(forged == {w: float(SECURE_REJECTED_STEPS) if w < 2 else 0.0 for w in range(8)},
+          "secure krum: secure_forgeries_total grew %s" % forged)
+    spans = [e["dur"] for e in json.load(open(span_trace))["traceEvents"] if e.get("name") == "secure.verify"]
+    check(len(spans) == SECURE_STEPS, "secure krum: %d secure.verify spans (want %d)" % (len(spans), SECURE_STEPS))
+    plain_result, counts, _ = _secure_leg(runner, kernels, "krum-plain", krum + observed("krum-plain"), workdir)
+    held("krum-plain", counts, "pairwise_sq_distances", plain_result)
+    secure_ms, plain_ms = 1e3 / result["steps_per_s"], 1e3 / plain_result["steps_per_s"]
+    engine_ms = _secure_engine_ms(torch)
+    print("secure leg cnnet+krum on %s: %d steps, final loss %.4f, %.2f ms a step excl. 1st; without --secure "
+          "%.2f ms (digest tax %.2f ms, x%.3f); the engine's step alone, synchronised, median of 10: secure %.2f "
+          "ms, plain %.2f ms; secure.verify %.3f ms a step on the host (mean of %d spans, the wait for the "
+          "card's call included), of which signing and verifying %.3f ms; forgery evidence %s; launches K1=%d"
+          % (card, SECURE_STEPS, result["final_loss"], secure_ms, plain_ms, secure_ms - plain_ms,
+             secure_ms / plain_ms, engine_ms[True], engine_ms[False], statistics.mean(spans) / 1e3, len(spans),
+             crypto_ms, named, result["launches"]["pairwise_sq_distances"]))
+    result, counts, _ = _secure_leg(runner, kernels, "average-nan", [
+        "--aggregator", "average-nan", "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2",
+        "--chaos", SECURE_SCHEDULE] + secure, workdir)
+    held("average-nan", counts, "average_nan_columns", result)
+    # encrypted checkpoints under custody: save, resume, a flipped byte
+    ckpt = os.path.join(workdir, "secure-ckpt")
+    crypto = secure + ["--encrypt-checkpoints", "--checkpoint-dir", ckpt, "--checkpoint-delta", "2",
+                       "--checkpoint-period", "-1"]
+    result, counts, _ = _secure_leg(runner, kernels, "ckpt-a", krum + crypto, workdir, steps=4)
+    held("ckpt-a", counts, "pairwise_sq_distances", result)
+    latest = os.path.join(ckpt, "model-4.ckpt")
+    check(open(latest, "rb").read(5) == b"ATPC1" and os.path.exists(manifest_path(latest))
+          and os.path.exists(latest + ".tag"), "secure ckpt: model-4 is not an encrypted, tagged, signed snapshot")
+    result, counts, _ = _secure_leg(runner, kernels, "ckpt-b", krum + crypto, workdir, steps=6)
+    check(result["restored_step"] == 4 and result["steps"] == 2, "secure ckpt: resumed from %s for %s steps"
+          % (result["restored_step"], result["steps"]))
+    held("ckpt-b", counts, "pairwise_sq_distances", result)
+    latest = os.path.join(ckpt, "model-6.ckpt")
+    with open(latest, "r+b") as fd:
+        fd.seek(1000)
+        byte = fd.read(1)
+        fd.seek(1000)
+        fd.write(bytes([byte[0] ^ 0x01]))
+    try:
+        _secure_leg(runner, kernels, "ckpt-c", krum + crypto, workdir, steps=8)
+        fail("secure ckpt: a snapshot with one flipped byte was restored")
+    except UserException as exc:
+        check("failed HMAC verification" in str(exc), "secure ckpt: refused for another reason: %s" % exc)
+    print("secure checkpoints on %s: cnnet encrypted, tagged and signed at steps 2 and 4, resumed from 4 to 6 "
+          "(tag, custody, decryption), a flipped byte of model-6 refused at its tag" % card)
+    # masking: the 4 bucket means of s = 2, krum with f = 1 on them
+    bucket = ["--aggregator", "bucketing:s=2,inner=krum", "--nb-decl-byz-workers", "1", "--nb-real-byz-workers", "1",
+              "--attack", "signflip"]
+    mask_result, counts, _ = _secure_leg(runner, kernels, "masked", bucket + ["--secure-mask", "--session-secret", "s"],
+                                         workdir)
+    # krum's distances of the bucket means: the centring and K2 (sub_rule_distances)
+    bucket_kernels = ("nanmedian_columns", "pairwise_sq_distances_gram")
+    held("masked", counts, bucket_kernels, mask_result)
+    result, counts, _ = _secure_leg(runner, kernels, "unmasked", bucket, workdir)
+    held("unmasked", counts, bucket_kernels, result)
+    print("secure-mask leg cnnet bucketing:s=2,inner=krum on %s: %d steps, final loss %.4f, %.2f ms a step excl. "
+          "1st; unmasked %.2f ms; launches centring=%d K2=%d"
+          % (card, SECURE_STEPS, mask_result["final_loss"], 1e3 / mask_result["steps_per_s"],
+             1e3 / result["steps_per_s"], mask_result["launches"]["nanmedian_columns"],
+             mask_result["launches"]["pairwise_sq_distances_gram"]))
+    return totals
+
+
 def main():
     import torch
 
@@ -3077,6 +3294,7 @@ def main():
                        chaos_phase(torch, gars, kernels, models, runner, card, workdir),
                        codec_phase(torch, kernels, runner, card, workdir),
                        bounded_phase(torch, gars, kernels, models, runner, card, workdir),
+                       secure_phase(torch, kernels, runner, card, workdir),
                        multirank_phase(torch, kernels, card)):
             for kernel, count in counts.items():
                 totals[kernel] += count

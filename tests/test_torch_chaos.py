@@ -19,8 +19,8 @@
   plain average at exactly step 3 (JAX ``tests/test_chaos.py:207-227``);
   f always-late stragglers are absorbed by median and krum.
 - The engine's refusals (with ``--attack``/``--UDP``, n and coalition
-  mismatches, forge/tamper needing secure submission) and the flight
-  recorder's ``chaos_regime`` lane.
+  mismatches; a forge/tamper schedule builds) and the flight recorder's
+  ``chaos_regime`` lane.
 - The runner: refusals as JAX's, and a ``--chaos`` run whose eval TSV
   ``chaos_regime`` column, summary regimes and ``chaos_regime_switch``
   events equal the JAX runner's (``--nb-devices 1``).
@@ -339,9 +339,10 @@ def test_chaos_engine_validation_and_flight_lane():
         RobustEngine(gar, 4, chaos=ChaosSchedule("0:attack=zero", 4, nb_real_byz=1), device="cpu")
     with pytest.raises(UserException):  # coalition-size mismatch
         RobustEngine(gar, 4, nb_real_byz=2, chaos=ChaosSchedule("0:attack=zero", 4, nb_real_byz=1), device="cpu")
-    with pytest.raises(UserException, match="item 7"):  # forge needs secure submission
-        RobustEngine(gar, 4, nb_real_byz=1, chaos=ChaosSchedule("0:calm 2:tamper=0.5", 4, nb_real_byz=1),
-                     device="cpu")
+    # forge/tamper regimes build, with and without secure submission (test_torch_secure.py runs them)
+    for secure in (False, True):
+        assert RobustEngine(gar, 4, nb_real_byz=1, chaos=ChaosSchedule("0:calm 2:tamper=0.5", 4, nb_real_byz=1),
+                            secure=secure, device="cpu").chaos.has_forgery
     recorder = FlightRecorder(8, 8, chaos=True)
     chaos = ChaosSchedule("0:calm 2:straggle=0.5", 8)
     exp, engine, step, state = _setup("average-nan", chaos=chaos)
@@ -363,7 +364,7 @@ RUN = ["--experiment", "mnist", "--experiment-args", "batch-size:16", "--aggrega
 @pytest.mark.parametrize("extra", [
     ["--attack", "zero", "--chaos", "0:drop=0.1"], ["--UDP", "2", "--chaos", "0:drop=0.1"],
     ["--chaos", "0:kill=train"], ["--chaos", "0:corrupt-agg=1.0"], ["--chaos", "0:calm", "--chaos-args", "bogus:1"],
-    ["--chaos", "0:forge=0.5"],
+    ["--chaos", "0:forge=0.5", "--secure"],
 ], ids=["attack", "udp", "kill", "topology", "args", "forge"])
 def test_runner_chaos_refusals_like_jax(extra):
     from aggregathor_tpu.cli import runner as jrunner
@@ -372,9 +373,8 @@ def test_runner_chaos_refusals_like_jax(extra):
     argv = RUN + ["--max-step", "1", "--evaluation-period", "-1"] + extra
     with pytest.raises(UserException):
         runner.main(argv + ["--device", "cpu"])
-    if "forge" not in extra[-1]:  # JAX runs forge without --secure (the forged row enters aggregation)
-        with pytest.raises(JaxUserException):
-            jrunner.main(argv + ["--nb-devices", "1"])
+    with pytest.raises(JaxUserException):
+        jrunner.main(argv + ["--nb-devices", "1"])
 
 
 def _eval_regimes(path):

@@ -206,9 +206,9 @@ def test_gaussian_streams_are_per_step_and_per_worker():
 
 
 @pytest.mark.parametrize("option", [
-    # forge/tamper need secure submission (not ported)
-    {"chaos": ChaosSchedule("0:forge=0.5", 8, nb_real_byz=2), "nb_real_byz": 2},
-    {"secure": True},
+    # a forge regime without its coalition, a secure lane without secure submission
+    {"chaos": ChaosSchedule("0:forge=0.5", 8, nb_real_byz=2)},
+    {"flight": FlightRecorder(4, 8, secure=True)},
     {"leaf_bucketing": True}, {"l1_regularize": 0.1}, {"sharding": "sharded"},
     {"flight": FlightRecorder(4, 8, chaos=True)},
 ])

@@ -29,7 +29,9 @@ the sequential stream with every chunk held) and the GAR probe against the
 CPU's on the same rows.  The guardian: a rollback restores its pinned
 snapshot's parameters on the card bit for bit, and after each rebuild of
 the engine the card holds, at the same point of the loop, what it held
-before the first, within one cnnet state.
+before the first, within one cnnet state.  Secure submission: the row
+digests and the masked group means are the CPU's bits on the card, and a
+forge/tamper schedule rejects the same workers there as on the CPU.
 """
 
 import numpy as np
@@ -883,3 +885,53 @@ def test_a_deadline_below_the_compute_on_the_card(cuda_device):
     assert sum(snapshot["straggler_timeouts_total"].values()) == timeouts
     assert sum(snapshot.get("straggler_skipped_rounds_total", {}).values()) > 0
     assert snapshot["bounded_wait_rounds_total"] == 8
+
+
+@pytest.mark.gpu
+def test_secure_digests_and_masked_means_on_the_card_are_the_cpus_bits(cuda_device):
+    """``row_digest`` of poisoned rows (NaN, +-inf, -0.0, subnormals) and
+    ``masked_group_mean`` masked and unmasked (a NaN row, values past the
+    fixed point's range): the card's bits are the CPU's, and masked equals
+    unmasked."""
+    from aggregathor_tpu_torch.secure import GroupMasking, masked_group_mean, row_digest
+
+    rows = torch.randn((8, 100_003), generator=torch.Generator().manual_seed(3)) * 10.0
+    rows[1] = float("nan")
+    rows[2, ::7], rows[3, 1::7], rows[4, ::3], rows[5, ::11] = float("inf"), float("-inf"), -0.0, 1e-40
+    for salt in (0, 5):
+        assert torch.equal(row_digest(rows.to(cuda_device), salt=salt).cpu(), row_digest(rows, salt=salt))
+    grouped = rows.view(4, 2, -1).clone()
+    grouped[2, 0, :3] = torch.tensor([2.0 ** 31, 2.0 ** 32, -3.4e38])
+    want = masked_group_mean(grouped, 17, GroupMasking.from_secret(b"s"))
+    for enabled in (True, False):
+        got = masked_group_mean(grouped.to(cuda_device), 17, GroupMasking.from_secret(b"s", enabled=enabled))
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), enabled
+
+
+@pytest.mark.gpu
+def test_secure_steps_on_the_card_match_the_cpu(cuda_device):
+    """Six MLP steps of median under a forge/tamper schedule with secure
+    submission: the forged and rejected workers and the NaN rows are the
+    CPU's (the verdicts come from CPU generators), the losses within rtol
+    1e-5."""
+    from aggregathor_tpu_torch.chaos import ChaosSchedule
+
+    out = {}
+    for device in ("cpu", cuda_device):
+        exp = models.instantiate("mnist", ["hidden:16", "batch-size:16"])
+        engine = RobustEngine(gars.instantiate("median", 8, 2), 8, nb_real_byz=2, secure=True, device=device,
+                              chaos=ChaosSchedule("0:calm 2:forge=0.5 4:tamper=0.5", 8, nb_real_byz=2))
+        tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+        step, state = engine.build_step(exp.loss, tx), engine.init_state(exp.init(1), tx, seed=1)
+        it = exp.make_train_iterator(8, seed=2)
+        runs = []
+        for _ in range(6):
+            state, metrics = step(state, engine.put_batch(next(it)))
+            runs.append((float(metrics["total_loss"]), metrics["secure"]["forged"].cpu().tolist(),
+                         metrics["secure"]["rejected"].cpu().tolist(),
+                         metrics["probe"]["worker_nan_rows"].cpu().tolist()))
+        out[str(device)] = runs
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose([r[0] for r in card], [r[0] for r in cpu], rtol=1e-5)
+    assert [r[1:] for r in card] == [r[1:] for r in cpu]
+    assert any(any(r[2]) for r in cpu)

@@ -246,9 +246,24 @@ def test_restore_into_a_mismatched_state_raises(tmp_path, other):
 
 
 def test_unported_checkpoint_options_refuse(tmp_path):
-    for name in ("authenticator", "cipher", "custody"):
-        with pytest.raises(UserException):
-            checkpoint.Checkpoints(str(tmp_path), **{name: object()})
+    """A snapshot saved without a tag, encryption or a custody manifest is
+    refused by a manager that expects one (fail-closed, as in JAX), and
+    nothing is loaded."""
+    from aggregathor_tpu_torch.parallel.auth import GradientAuthenticator
+    from aggregathor_tpu_torch.parallel.crypto import SnapshotCipher
+    from aggregathor_tpu_torch.secure import ChainOfCustody
+
+    state, _ = _state(1.0)
+    checkpoint.Checkpoints(str(tmp_path)).save(state, 4)
+    for name, value, message in (
+            ("authenticator", GradientAuthenticator(b"s", 1, context=b"ckpt"), "no authentication tag"),
+            ("cipher", SnapshotCipher(b"s"), "not encrypted"),
+            ("custody", ChainOfCustody(b"s"), "no custody manifest")):
+        template, _ = _state(-1.0)
+        before = {k: v.detach().clone() for k, v in template.params.items()}
+        with pytest.raises(UserException, match=message):
+            checkpoint.Checkpoints(str(tmp_path), **{name: value}).restore(template)
+        _equal_trees({k: v.detach() for k, v in template.params.items()}, before)
 
 
 def test_eval_file_rows_match_jax(tmp_path):

@@ -252,6 +252,22 @@ def test_input_flags_take_the_jax_defaults_and_choices():
         runner.build_parser().parse_args(argv + ["--input-source", "disk"])
 
 
+#: the JAX runner's options the port still lacks (later slices shrink it)
+CLI_GAP = {"--mesh", "--microbatches", "--l1-regularize", "--l2-regularize", "--slo-baseline", "--slo-capture",
+           "--slo-verdict", "--topology"}
+
+
+def test_the_cli_gap_is_the_known_eight_options():
+    from aggregathor_tpu.cli.runner import build_parser as jax_parser
+
+    def options(parser):
+        return {option for action in parser._actions for option in action.option_strings}
+
+    ours, theirs = options(runner.build_parser()), options(jax_parser())
+    assert theirs - ours == CLI_GAP
+    assert ours - theirs == {"--device"}
+
+
 def _final_params(directory, argv):
     result = runner.main(argv + ["--checkpoint-dir", str(directory), "--checkpoint-delta", "1000",
                                  "--checkpoint-period", "-1"])

@@ -5,7 +5,8 @@ imports only numpy, torch and the port, never jax or the JAX package (the
 test files do).  ``run_cases(axis, cases)`` builds the port's engine on the
 given worker axis for each case and steps it on the given global batches;
 each rank keeps its k workers of them.  A case's ``chaos`` (a schedule
-spec, with ``chaos_args``) is built here, on each rank.
+spec, with ``chaos_args``) is built here, on each rank, and its
+``mask_secret`` masks the rule's groups (``secure.enable_masking``).
 """
 
 import numpy as np
@@ -34,15 +35,22 @@ def run_case(axis, case, weights, batches):
     attack = attacks.instantiate(case["attack"], n, r) if case.get("attack") else None
     lossy = LossyLink(case["udp"], case["udp_args"]) if case.get("udp") else None
     tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:%s" % case.get("lr", 0.05)]))
-    engine = RobustEngine(gars.instantiate(case["rule"], n, f), n, nb_real_byz=r, attack=attack, lossy_link=lossy,
-                          worker_metrics=True, device="cpu", axis=axis, chaos=_chaos(case),
-                          **case.get("options", {}))
+    gar = gars.instantiate(case["rule"], n, f)
+    if case.get("mask_secret"):
+        from aggregathor_tpu_torch.secure import GroupMasking, enable_masking
+
+        enable_masking(gar, GroupMasking.from_secret(case["mask_secret"]))
+    engine = RobustEngine(gar, n, nb_real_byz=r, attack=attack, lossy_link=lossy, worker_metrics=True, device="cpu",
+                          axis=axis, chaos=_chaos(case), **case.get("options", {}))
     step = engine.build_step(exp.loss, tx)
     state = engine.init_state({name: torch.as_tensor(value) for name, value in weights.items()}, tx,
                               seed=case.get("seed", 1))
-    out = {"rank": axis.rank, "loss": [], "participation": [], "worker_sq_dist": [], "worker_nan": [], "regime": []}
+    out = {"rank": axis.rank, "loss": [], "participation": [], "worker_sq_dist": [], "worker_nan": [], "regime": [],
+           "secure": []}
     for batch in batches:
         state, metrics = step(state, engine.put_batch(batch))
+        if "secure" in metrics:
+            out["secure"].append({name: value.numpy().copy() for name, value in metrics["secure"].items()})
         out["loss"].append(float(metrics["total_loss"]))
         out["regime"].append(int(metrics["chaos_regime"]) if "chaos_regime" in metrics else None)
         part = metrics.get("worker_participation")
@@ -51,6 +59,26 @@ def run_case(axis, case, weights, batches):
         out["worker_nan"].append(metrics["probe"]["worker_nan_rows"].numpy().copy())
     out["params"] = {name: value.detach().numpy().copy() for name, value in state.params.items()}
     out["ef"] = None if state.ef is None else engine.gather_ef(state).numpy().copy()
+    return out
+
+
+def handshakes(axis, weights):
+    """The bring-up handshake on this rank: equal secrets and parameters
+    (returns W), rank 1 with a wrong secret, rank 1 with other parameters
+    (each returns the UserException's message, or None)."""
+    from aggregathor_tpu_torch.parallel.auth import authenticate_processes
+    from aggregathor_tpu_torch.utils import UserException
+
+    params = {name: torch.as_tensor(value) for name, value in weights.items()}
+    out = {"equal": authenticate_processes(b"s3cret", params, axis=axis)}
+    for name, secret, mine in (
+            ("wrong_secret", b"wrong" if axis.rank == 1 else b"s3cret", params),
+            ("diverged", b"s3cret", {k: v + float(axis.rank) for k, v in params.items()})):
+        try:
+            authenticate_processes(secret, mine, axis=axis)
+            out[name] = None
+        except UserException as exc:
+            out[name] = str(exc)
     return out
 
 
