@@ -31,14 +31,14 @@ from torch import nn
 
 from ..utils import UserException, parse_keyval
 from . import Experiment, register
-from .common import check_dtype
+from .common import ConvF64WeightGrad, check_dtype, conv_weight_grad_f64, max_pool
 from .datasets import WorkerBatchIterator, eval_batches, load_cifar10
 
 
 def max_pool_same(x):
     """flax ``max_pool(x, (3, 3), strides=(2, 2), padding="SAME")`` on NCHW
-    input with even height and width: pad 0 before, 1 after, with -inf."""
-    return F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=float("-inf")), kernel_size=3, stride=2)
+    input: on even sizes pad 0 before, 1 after, with -inf."""
+    return max_pool(x, 3, 2, "SAME")
 
 
 def conv_weight_grad(x, grad_out, weight):
@@ -46,48 +46,16 @@ def conv_weight_grad(x, grad_out, weight):
     square kernel and "same" padding, computed in float64 from the float32
     operands and rounded to float32."""
     padding = weight.shape[-1] // 2
-    return torch.ops.aten.convolution_backward(
-        grad_out.double(), x.double(), weight.double(), None, [1, 1], [padding] * 2, [1, 1], False, [0, 0], 1,
-        [False, True, False])[1].to(weight.dtype)
-
-
-class _Conv2d(torch.autograd.Function):
-    """A stride-1 ``conv2d`` whose weight gradient is ``conv_weight_grad``;
-    the forward and the input gradient are cuDNN's float32 ones.  vmap
-    batches it by running these bodies under vmap (``generate_vmap_rule``)."""
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(x, weight, bias, padding):
-        return F.conv2d(x, weight, bias, padding=padding)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        x, weight, _, padding = inputs
-        ctx.save_for_backward(x, weight)
-        ctx.padding = padding
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        x, weight = ctx.saved_tensors
-        grad_x = grad_w = grad_b = None
-        if ctx.needs_input_grad[0]:
-            grad_x = torch.ops.aten.convolution_backward(
-                grad_out, x, weight, None, [1, 1], [ctx.padding] * 2, [1, 1], False, [0, 0], 1,
-                [True, False, False])[0]
-        if ctx.needs_input_grad[1]:
-            grad_w = conv_weight_grad(x, grad_out, weight)
-        if ctx.needs_input_grad[2]:
-            grad_b = grad_out.sum((0, 2, 3))
-        return grad_x, grad_w, grad_b, None
+    return conv_weight_grad_f64(x, grad_out, weight, (1, 1), (padding, padding))
 
 
 def conv2d(x, conv):
     """``conv`` (a stride-1 ``nn.Conv2d`` whose parameters ``functional_call``
-    may have swapped) on ``x``: on CUDA through ``_Conv2d``."""
+    may have swapped) on ``x``: on CUDA with its weight gradient in float64
+    (``common.ConvF64WeightGrad``, whose float64 gradient is
+    ``conv_weight_grad``'s)."""
     if x.device.type == "cuda":
-        return _Conv2d.apply(x, conv.weight, conv.bias, conv.padding[0])
+        return ConvF64WeightGrad.apply(x, conv.weight, conv.bias, (1, 1), conv.padding, 1)
     return conv(x)
 
 

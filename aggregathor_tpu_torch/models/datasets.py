@@ -1,8 +1,8 @@
 """Input pipelines: real data when present, deterministic synthetic otherwise.
 
 Copies of the numpy loaders of ``aggregathor_tpu/models/datasets.py`` (the
-npz, sklearn-digits and synthetic branches; the CIFAR-10 TFRecord reader is
-not ported yet), so both packages see the same batches, bit for bit, with
+npz, TFRecord, sklearn-digits and synthetic branches), so both packages see
+the same batches, bit for bit, with
 ``WorkerBatchIterator.next_many`` (k batches as one chunk, gathered into a
 caller's buffer with ``out=``), the ``DevicePrefetcher`` thread and the
 ``ChunkPipeline`` of the ``--unroll`` path (a gather sharded over a small
@@ -15,7 +15,10 @@ Gaussians around fixed random templates, flagged by ``.synthetic``.  The
 digits loader tries scikit-learn's bundled corpus between the two.
 
 File formats accepted: ``mnist.npz`` / ``cifar10.npz`` / ``digits.npz`` with
-x_train/y_train/x_test/y_test (the keras layout).  The port ships the real
+x_train/y_train/x_test/y_test (the keras layout), and slim's TFRecord
+shards of CIFAR-10 (``cifar10_train.tfrecord`` / ``cifar10_test.tfrecord``)
+and ImageNet (``train-00000-of-01024`` ...), read by ``tfrecord.py`` and
+cached beside them as ``cifar10.npz`` / ``imagenet<size>-t<n>-v<m>.npz``.  The port ships the real
 digits corpus as ``DIGITS_DIR/digits.npz`` (already shuffled and split as
 ``load_digits8x8`` does, pixels as uint8 0..16); point ``AGGREGATHOR_DATA``
 at ``DIGITS_DIR`` to read it where scikit-learn is not installed.
@@ -26,7 +29,7 @@ import threading
 
 import numpy as np
 
-from ..utils import UserException, info, warning
+from ..utils import UserException, can_access, info, warning
 
 #: the directory of the port's own copy of the digits corpus (``digits.npz``)
 DIGITS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
@@ -195,12 +198,94 @@ def load_mnist():
     return _synthetic_classification("mnist", (28, 28, 1), 10, nb_train=8192, nb_test=2048, seed=7)
 
 
+def _find_cifar10_tfrecords():
+    from .tfrecord import has_cifar10_tfrecords
+
+    for dirname in _data_dirs():
+        for candidate in (dirname, os.path.join(dirname, "cifar10")):
+            if has_cifar10_tfrecords(candidate):
+                if not can_access(candidate, read=True):
+                    warning("CIFAR-10 shards at %r are not readable; skipping" % candidate)
+                    continue
+                return candidate
+    return None
+
+
+def _cache_npz(directory, name, x_train, y_train, x_test, y_test):
+    cache = os.path.join(directory, name)
+    try:
+        np.savez_compressed(cache, x_train=x_train, y_train=y_train, x_test=x_test, y_test=y_test)
+        info("Cached npz at %s" % cache)
+    except OSError:
+        pass  # a read-only data directory: decode again next run
+
+
 def load_cifar10():
-    """32x32x3 images in [0, 1]; a cifar10.npz or the synthetic stand-in."""
+    """32x32x3 images in [0, 1]: a cifar10.npz, else slim's TFRecord shards
+    (cached as cifar10.npz beside them), else the synthetic stand-in."""
     path = _find_npz("cifar10.npz")
     if path:
         return _load_npz(path, (32, 32, 3), 255.0, nb_classes=10)
+    tfr_dir = _find_cifar10_tfrecords()
+    if tfr_dir:
+        from .tfrecord import read_cifar10_split
+
+        x_train, y_train = read_cifar10_split(tfr_dir, "train")
+        x_test, y_test = read_cifar10_split(tfr_dir, "test")
+        info("Loaded CIFAR-10 TFRecord shards from %s" % tfr_dir)
+        _cache_npz(tfr_dir, "cifar10.npz", x_train, y_train, x_test, y_test)
+        return ArrayDataset(
+            x_train.astype(np.float32) / 255.0, y_train, x_test.astype(np.float32) / 255.0, y_test,
+            nb_classes=_head_size(10, y_train, y_test, "CIFAR-10"), synthetic=False,
+        )
     return _synthetic_classification("cifar10", (32, 32, 3), 10, nb_train=8192, nb_test=2048, seed=11)
+
+
+def load_imagenet_standin(image_size=224, nb_classes=1000):
+    """Synthetic ImageNet-shaped data (512 train, 128 test images), for
+    throughput, not accuracy."""
+    return _synthetic_classification("imagenet%d" % image_size, (image_size, image_size, 3), nb_classes,
+                                     nb_train=512, nb_test=128, seed=13)
+
+
+def _find_imagenet_tfrecords():
+    from .tfrecord import has_imagenet_tfrecords
+
+    for dirname in _data_dirs():
+        for candidate in (dirname, os.path.join(dirname, "imagenet")):
+            if has_imagenet_tfrecords(candidate):
+                if not can_access(candidate, read=True):
+                    warning("ImageNet shards at %r are not readable; skipping" % candidate)
+                    continue
+                return candidate
+    return None
+
+
+def load_imagenet(image_size=224, nb_classes=1000, limit_train=4096, limit_test=1024):
+    """slim-layout TFRecord ImageNet when shards are on disk, decoded and
+    resized to ``image_size``, as a deterministic capped subset (the first
+    ``limit_train`` / ``limit_test`` examples in shard order, cached as
+    ``imagenet<size>-t<limit_train>-v<limit_test>.npz``); else the
+    synthetic stand-in.  slim's labels are 1-based (0 = background): the
+    head covers the requested count and every label seen."""
+    cache_name = "imagenet%d-t%d-v%d.npz" % (image_size, limit_train, limit_test)
+    path = _find_npz(cache_name, subdirs=("imagenet",))
+    if path:
+        return _load_npz(path, (image_size, image_size, 3), 255.0, nb_classes=nb_classes)
+    tfr_dir = _find_imagenet_tfrecords()
+    if tfr_dir:
+        from .tfrecord import read_imagenet_split
+
+        x_train, y_train = read_imagenet_split(tfr_dir, "train", image_size, limit=limit_train)
+        x_test, y_test = read_imagenet_split(tfr_dir, "validation", image_size, limit=limit_test)
+        info("Loaded ImageNet TFRecord shards from %s (capped subset: %d train / %d validation examples at %dx%d)"
+             % (tfr_dir, len(x_train), len(x_test), image_size, image_size))
+        _cache_npz(tfr_dir, cache_name, x_train, y_train, x_test, y_test)
+        return ArrayDataset(
+            x_train.astype(np.float32) / 255.0, y_train, x_test.astype(np.float32) / 255.0, y_test,
+            nb_classes=_head_size(nb_classes, y_train, y_test, "ImageNet subset"), synthetic=False,
+        )
+    return load_imagenet_standin(image_size, nb_classes)
 
 
 def load_digits8x8(train_fraction=0.8, seed=11):

@@ -191,3 +191,16 @@ def check(name):
 
 def instantiate(name, seed=0):
     return PREPROCESSING[check(name)](seed)
+
+
+def default_for(model_name):
+    """slim preprocessing_factory's default for a zoo model (JAX
+    ``default_for``): lenet and cifarnet keep their own pipelines, vgg and
+    resnet use vgg's, every other model inception's."""
+    if model_name.startswith("lenet"):
+        return "lenet"
+    if model_name.startswith("cifarnet"):
+        return "cifarnet"
+    if model_name.startswith(("vgg", "resnet")):
+        return "vgg"
+    return "inception"

@@ -1,9 +1,9 @@
-"""The host C++ library (GARs and HMAC), built at first use and loaded with ctypes.
+"""The host C++ library (GARs, HMAC, TFRecord), built at first use and loaded with ctypes.
 
-The port's copy of ``aggregathor_tpu/ops/native`` without its TFRecord
-reader: the sources ``kernels.cpp``, ``auth.cpp`` and ``threadpool.hpp``
-in this directory (copies of the JAX package's) compile, the two units in
-one run of ``c++ -std=c++17 -O3 -fPIC -shared -pthread``, into
+The port's copy of ``aggregathor_tpu/ops/native``: the sources
+``kernels.cpp``, ``auth.cpp``, ``io.cpp`` and ``threadpool.hpp`` in this
+directory (copies of the JAX package's) compile, the three units in one
+run of ``c++ -std=c++17 -O3 -fPIC -shared -pthread``, into
 ``.build-<hash>/libagg_host.so`` here, the hash covering the sources and
 the flags (``.gitignore`` lists ``.build-*``), so an edited source rebuilds
 and an unchanged one loads at once.  The JAX package's library is never
@@ -20,8 +20,10 @@ pairwise_sq_distances(g)  krum(g, f, m=None)  bulyan(g, f)``, and
 bounds the pool.  The host authentication of ``parallel/auth.py``
 (``auth.cpp``, SHA-256 and HMAC-SHA256 after RFC 6234/2104): ``sha256(data)``,
 ``hmac_sha256(key, data)`` and ``hmac_verify(key, data, tag)`` on bytes or
-uint8 arrays.  The TFRecord reader (``io.cpp``) of the JAX library is not
-ported.
+uint8 arrays.  The TFRecord framing of ``models/tfrecord.py`` (``io.cpp``):
+``crc32c(data)`` and ``tfrecord_index(buf, verify=True)``; ``available()``
+says whether the library builds (the reader falls back to its Python
+walker where it does not, as the JAX package's does).
 """
 
 import ctypes
@@ -34,9 +36,9 @@ import numpy as np
 from .. import build
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("kernels.cpp", "auth.cpp", "threadpool.hpp")
+SOURCES = ("kernels.cpp", "auth.cpp", "io.cpp", "threadpool.hpp")
 #: the units compiled into the one library
-COMPILE_UNITS = ("kernels.cpp", "auth.cpp")
+COMPILE_UNITS = ("kernels.cpp", "auth.cpp", "io.cpp")
 CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
@@ -86,6 +88,11 @@ def _declare(lib):
     lib.agtpu_hmac_sha256.argtypes = [u8p, size, u8p, size, u8p]
     lib.agtpu_hmac_verify.restype = ctypes.c_int
     lib.agtpu_hmac_verify.argtypes = [u8p, size, u8p, size, u8p]
+    i64p = ctypes.POINTER(i64)
+    lib.agtpu_crc32c.restype = ctypes.c_uint32
+    lib.agtpu_crc32c.argtypes = [u8p, size]
+    lib.agtpu_tfrecord_index.restype = i64
+    lib.agtpu_tfrecord_index.argtypes = [u8p, i64, i64p, i64p, i64, ctypes.c_int]
 
 
 def load():
@@ -101,6 +108,15 @@ def load():
             _declare(lib)
             _lib = lib
         return _lib
+
+
+def available():
+    """True when the library builds and loads on this machine."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def num_threads():
@@ -207,3 +223,35 @@ def hmac_verify(key, data, tag):
     _, dptr, dlen = _u8(data)
     _, tptr, _ = _u8(tag)
     return bool(lib.agtpu_hmac_verify(kptr, klen, dptr, dlen, tptr))
+
+
+# --------------------------------------------------------------------------- #
+# TFRecord framing (io.cpp; models/tfrecord.py is the reader)
+
+def crc32c(data):
+    """The CRC32C (Castagnoli) of bytes or a uint8 array: TFRecord's checksum."""
+    lib = load()
+    _, ptr, length = _u8(data)
+    return int(lib.agtpu_crc32c(ptr, length))
+
+
+def tfrecord_index(buf, verify=True):
+    """Index a whole TFRecord shard held in ``buf`` (bytes, mmap or a uint8
+    array): ``(offsets, lengths)`` int64 arrays, payload i being
+    ``buf[offsets[i]:offsets[i] + lengths[i]]``.  ``verify`` checks every
+    framing CRC (the payloads in parallel on the pool).  Raises ValueError
+    at the first corrupt byte offset."""
+    lib = load()
+    arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
+    arr = np.ascontiguousarray(arr, dtype=np.uint8).ravel()
+    ptr, length = arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), arr.size
+    cap = max(1, length // 16 + 1)  # every record has 16 bytes of framing
+    offsets = np.empty(cap, dtype=np.int64)
+    lengths = np.empty(cap, dtype=np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    count = int(lib.agtpu_tfrecord_index(ptr, length, offsets.ctypes.data_as(i64p), lengths.ctypes.data_as(i64p),
+                                         cap, 1 if verify else 0))
+    if count < 0:
+        raise ValueError("corrupt TFRecord framing at byte %d" % (-count - 1))
+    # copies: views would pin the file-sized scratch
+    return offsets[:count].copy(), lengths[:count].copy()

@@ -11,7 +11,7 @@ every rule sees float32 rows.  Specs (``--exchange``,
 - ``f32``/``float32``: the uncompressed wire (no codec, no cast);
 - ``bf16``/``bfloat16``: the engine's ``exchange_dtype`` twin, 2x;
 - ``int8[:ef]``: per-row symmetric quantization, ``q = clip(round(row /
-  safe), -127, 127)`` with ``scale = max|row| / 127`` and ``safe`` the scale
+  safe), -127, 127)`` with ``scale = max|row| * fl(1/127)`` and ``safe`` the scale
   where it is finite and > 0, else 1; a row whose magnitude is non-finite
   decodes to a NaN row (~3.97x at large d);
 - ``topk:k=K[,ef]`` / ``topk:frac=F[,ef]``: the k largest magnitudes as
@@ -24,10 +24,14 @@ finite, else 0 (a NaN row must not poison every later send).  The engine
 carries the residual in ``TrainState.ef`` (the rank's (k, d) rows), which
 the checkpoint saves and restores bit for bit.
 
-Two traps of the translation, both held against the JAX package bit for bit
+Three traps of the translation, held against the JAX package bit for bit
 (``tests/test_torch_codec.py``) and the card against the CPU
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``):
 
+- int8's scale is ``max|row|`` times the float32 reciprocal of 127: XLA
+  rewrites a division by a constant into that multiply, so it is what the
+  JAX engine's compiled step computes (a true division differs by an ulp
+  on some rows, and the residual carries the ulp into later quotients);
 - int8's quotient is a true division by a tensor on the rows' device: a
   multiply by the reciprocal (what CUDA does for a host scalar divisor)
   moves half-way cases by one quantum;
@@ -209,8 +213,9 @@ class Int8Codec(WireCodec):
 
     def encode(self, row):
         row = row.to(torch.float32)
-        # true divisions by tensors on the rows' device (module docstring)
-        scale = torch.amax(torch.abs(row), dim=-1) / torch.full((), 127.0, device=row.device)
+        # the scale as XLA compiles ``max / 127``, the quotient a true
+        # division by a tensor on the rows' device (module docstring)
+        scale = torch.amax(torch.abs(row), dim=-1) * torch.full((), 1.0 / 127.0, device=row.device)
         safe = torch.where((scale > 0) & torch.isfinite(scale), scale, torch.ones_like(scale))
         q = torch.clamp(torch.round(row / safe.unsqueeze(-1)), -127.0, 127.0)
         # a NaN coordinate would cast to an arbitrary int8: 0 (the scale is NaN anyway)

@@ -711,7 +711,9 @@ class RobustEngine:
         total_loss = torch.sum(losses)
         if self.nb_devices > 1:
             total_loss = self.axis.all_reduce_sum(total_loss)
-        update_norm = torch.linalg.vector_norm(agg)
+        # a cascaded sum of squares: torch's CPU vector_norm of a float32
+        # vector of 11M coordinates errs by ~4e-4 relative
+        update_norm = torch.sqrt(torch.sum(torch.square(agg)))
         metrics = {"total_loss": total_loss, "grad_norm": update_norm}
         reputation = state.reputation  # before this step's update: the mask used it
         if self.reputation_decay is not None:

@@ -186,6 +186,20 @@ Phases, in order (any failure exits non-zero and prints no result):
    the rejected rows), an ``--encrypt-checkpoints`` save and resume under
    custody and a flipped byte refused, and ``--secure-mask`` bucketing
    (the centring and K2 on the bucket means) against the unmasked leg.
+   The zoo phase (``zoo_phase``, before the ranks): cuDNN's float32 conv
+   weight gradient at each of ResNet-50's 23 conv shapes on Z1 and the
+   ImageNet stem against float64 (the shapes of
+   ``common.F64_WEIGHT_GRAD_SHAPES`` take the float64 path, the rest must
+   hold 1e-5 of the largest entry); Z1 ``slim-resnet_v1_50-digits32`` +
+   Bulyan at n = 32, f = 7, batch 16 (d = 23,519,690; K1's staged tiles
+   and K4 at beta = 2 once a step; the peak memory, its breakdown and the
+   gradient phase with every weight gradient in float64); Z2 the ImageNet
+   shape at 224x224 (the stand-in, d = 25,557,032); Z3 resnet_v1_18 +
+   krum on digits32, 400 steps, real test accuracy >= 0.92; Z4 every one
+   of the 34 nets, 2 median steps each, within 120 s; Z5 a Bulyan step card
+   against CPU (float32 within 2e-2, float64 within 1e-9, the same
+   selections); K1 and K4 at the zoo's widths, timed.  Every zoo leg runs
+   with the vmap fallback's warning an error.
    Last, a cnnet + krum step and a digits-conv + krum step are split into
    their phases (host batch, transfer, augmentation, worker gradients,
    attack + aggregate, update), with the batches streamed and drawn on the
@@ -2289,9 +2303,11 @@ def gar_extensions_phase(torch, gars, kernels, runner, card, workdir, gar_ms):
     return totals
 
 
-def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), input_source="stream"):
-    """Where a krum step's time goes (n = 8, f = 2, r = 2 signflip; cnnet
-    unless told otherwise), and how busy the card is.
+def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), input_source="stream",
+                    rule=("krum", 8, 2)):
+    """Where a step's time goes (``rule`` = (name, n, f), r = f signflip;
+    krum at n = 8, f = 2 and cnnet unless told otherwise), and how busy the
+    card is.
 
     The phases are the engine's own step pieces, timed on the host clock with
     the card synchronized after each (so each phase's device work lands in
@@ -2312,8 +2328,9 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), 
     exp = models.instantiate(experiment, list(args))
     tx = build_optimizer("sgd", build_schedule("fixed", []))
     transform = getattr(exp, "device_transform", lambda: None)()
-    engine = RobustEngine(gars.instantiate("krum", 8, 2), 8, nb_real_byz=2,
-                          attack=attacks.instantiate("signflip", 8, 2), device="cuda",
+    rule_name, n, f = rule
+    engine = RobustEngine(gars.instantiate(rule_name, n, f), n, nb_real_byz=f,
+                          attack=attacks.instantiate("signflip", n, f), device="cuda",
                           **({"batch_transform": transform} if transform is not None else {}))
     state = engine.init_state(exp.init(1), tx, seed=1)
     flatmap = FlatMap(state.params)
@@ -2322,7 +2339,7 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), 
         data = engine.replicate(exp.train_arrays())
         nb_examples = next(iter(data.values())).shape[0]
     else:
-        it = exp.make_train_iterator(8, seed=2)
+        it = exp.make_train_iterator(n, seed=2)
     augment = getattr(engine, "_augment", None)
     names = ("host batch", "to device", "augment", "worker gradients", "attack + aggregate", "update")
     totals = dict.fromkeys(names, 0.0)
@@ -2390,10 +2407,10 @@ def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), 
     intervals = nb_events
     busy = busy_us / 5 / step_us if intervals else None
     per_step["whole step"] = step_us / 1e3
-    print("breakdown %s%s+krum n=8 %s input, ms/step over %d steps: %s; phases sum %.2f ms; whole step %.2f ms "
+    print("breakdown %s%s+%s n=%d %s input, ms/step over %d steps: %s; phases sum %.2f ms; whole step %.2f ms "
           "untraced; card busy %s ms/step over 5 traced steps (%.1f ms traced wall, torch.profiler, %d device "
           "events): busy share %s of the untraced step"
-          % (experiment, "(%s)" % " ".join(args) if args else "", input_source, steps,
+          % (experiment, "(%s)" % " ".join(args) if args else "", rule_name, n, input_source, steps,
              json.dumps({k: v for k, v in per_step.items() if k != "whole step"}),
              sum(v for k, v in per_step.items() if k != "whole step"), step_us / 1e3,
              "%.2f" % (busy_us / 5e3) if intervals else "not measured", wall_us / 1e3, nb_events,
@@ -2712,8 +2729,12 @@ BOUNDED_ROUNDS = 6
 BOUNDED_LOSS_RTOL = 1e-5
 BOUNDED_KERNELS = {"krum": "pairwise_sq_distances", "median": "coordinate_median",
                    "trimmed-mean": "coordinate_trimmed_mean", "average-nan": "average_nan_columns"}
-BOUNDED_STRAGGLERS = ["--chaos", "0:straggle=1.0", "--chaos-args", "straggle-workers:2", "--straggler-stall", "1.0",
-                      "--step-deadline", "0.25"]
+#: the stragglers of legs C and D: the deadline is many times a warm
+#: round's honest arrivals (leg B prints a round's ms), so a host stall of a
+#: few hundred ms does not time out an honest worker; the stall is four
+#: deadlines, so workers 0-1 sit out every warm round of a leg
+BOUNDED_STRAGGLERS = ["--chaos", "0:straggle=1.0", "--chaos-args", "straggle-workers:2", "--straggler-stall", "4.0",
+                      "--step-deadline", "1.0"]
 
 
 def _bounded_stack(torch, gars, models, rule, lr=0.05, **engine_kw):
@@ -2916,7 +2937,7 @@ def bounded_phase(torch, gars, kernels, models, runner, card, workdir):
     check(report["stragglers"] == [0, 1], "bounded C: forensics stragglers %s" % report["stragglers"])
     check(counts["pairwise_sq_distances"] == 8 and sum(counts.values()) == 8, "bounded C: launches %s" % counts)
     totals["pairwise_sq_distances"] += 8
-    print("bounded C 2 stragglers (stall 1.0 s, deadline 0.25 s) cnnet+krum on %s: rounds 2-7 closed after %s s; "
+    print("bounded C 2 stragglers (stall 4.0 s, deadline 1.0 s) cnnet+krum on %s: rounds 2-7 closed after %s s; "
           "skipped %s; forensics stragglers %s; K1 %d; steps/s excl. 1st %.3f" % (
               card, ", ".join("%.3f" % v for v in durations), [r["skipped_units"] for r in rounds],
               report["stragglers"], counts["pairwise_sq_distances"], result["steps_per_s"]))
@@ -3251,6 +3272,333 @@ def secure_phase(torch, kernels, runner, card, workdir):
     return totals
 
 
+#: the zoo on the card (``zoo_phase``): config 3 of BASELINE.md, ResNet-50 +
+#: Bulyan, at n = 32 with the largest f Bulyan admits there (n >= 4f + 3);
+#: t = n - 2f - 2 = 16 selections, beta = t - 2f = 2
+ZOO_N, ZOO_F = 32, 7
+ZOO_D = {"slim-resnet_v1_50-digits32": 23519690, "slim-resnet_v1_50-imagenet": 25557032}
+ZOO_BULYAN = ["--aggregator", "bulyan", "--nb-workers", str(ZOO_N), "--nb-decl-byz-workers", str(ZOO_F),
+              "--nb-real-byz-workers", str(ZOO_F), "--attack", "signflip"]
+ZOO_LEGS = [
+    # (label, runner arguments, kernels each step launches once)
+    ("Z1 resnet_v1_50-digits32+bulyan", ["--experiment", "slim-resnet_v1_50-digits32", "--experiment-args",
+                                         "batch-size:16", "preprocessing:none", *ZOO_BULYAN, "--max-step", "10"],
+     ("pairwise_sq_distances", "coordinate_averaged_median")),
+    ("Z2 resnet_v1_50-imagenet+bulyan", ["--experiment", "slim-resnet_v1_50-imagenet", "--experiment-args",
+                                         "image-size:224", "batch-size:2", *ZOO_BULYAN, "--max-step", "5"],
+     ("pairwise_sq_distances", "coordinate_averaged_median")),
+    ("Z3 resnet_v1_18-digits32+krum", ["--experiment", "slim-resnet_v1_18-digits32", "--experiment-args",
+                                       "batch-size:8", "preprocessing:none", "--aggregator", "krum", "--nb-workers",
+                                       "8", "--nb-decl-byz-workers", "2", "--learning-rate", "polynomial",
+                                       "--learning-rate-args", "initial-rate:0.05", "end-rate:0.005",
+                                       "decay-step:400", "--max-step", "400", "--evaluation-delta", "100"],
+     ("pairwise_sq_distances",)),
+]
+#: Z3's least real test accuracy (the JAX package reached 0.944 at 400 steps,
+#: docs/robustness.md)
+ZOO_ANCHOR_FLOOR = 0.92
+#: Z4's wall-time budget for all 34 nets, seconds
+ZOO_NAMES_BUDGET_S = 120.0
+#: the ImageNet 7x7/2 stem of Z2 (2 images a worker), beside Z1's ResNet-50
+#: convs: (label, in, out, kernel, stride, padding, size, batch)
+ZOO_STEM_SHAPE = ("stem 7x7/2 3->64 pad 3", 3, 64, 7, 2, ((3, 3), (3, 3)), 224, 2)
+#: Z5: the card's worker gradients and aggregate against the port's CPU step
+#: in float32, each within this share of its largest magnitude: a ReLU whose
+#: input lies within rounding of 0 flips between the two summation orders
+#: and moves a row by up to ~1e-2 of its largest entry (the port's CPU
+#: against JAX's CPU: 1.4e-2 on resnet_v1_18); and in float64, where no
+#: such flip happens, within ZOO_CARD_CPU_F64_RTOL
+ZOO_CARD_CPU_RTOL = 2e-2
+ZOO_CARD_CPU_F64_RTOL = 1e-9
+#: the vmap fallback's warning: a batching rule is missing
+VMAP_FALLBACK = ".*performance drop because we have not yet implemented the batching rule.*"
+
+
+def zoo_conv_shapes(torch):
+    """The distinct conv shapes of ResNet-50 on Z1 (digits32: one input
+    channel, the 3x3/1 stem, 32x32; n = 32 workers of 16 images), read off
+    the model by a forward of one image, and Z2's ImageNet stem:
+    [(label, in, out, kernel, stride, padding, size, batch)]."""
+    from aggregathor_tpu_torch.models.common import Conv
+    from aggregathor_tpu_torch.models.resnet import ResNet
+
+    model = ResNet(50, 10, small_inputs=True, channels=1)
+    seen = {}
+
+    def hook(module, inputs, output):
+        (kh, kw), (s, _) = module.weight.shape[-2:], module.stride
+        cout, cin = module.weight.shape[:2]
+        size = inputs[0].shape[-1]
+        key = (cin, cout, kh, s, size)
+        seen.setdefault(key, ("%dx%d/%d %d->%d at %d" % (kh, kw, s, cin, cout, size), cin, cout, kh, s,
+                              module.padding, size, 16))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, Conv)]
+    with torch.no_grad():
+        model(torch.zeros((1, 32, 32, 1)))
+    for handle in handles:
+        handle.remove()
+    return list(seen.values()) + [ZOO_STEM_SHAPE]
+
+
+def zoo_weight_grads(torch):
+    """cuDNN's float32 weight gradient of each ResNet-50 conv shape on the
+    zoo legs (``zoo_conv_shapes``), vmapped over the n = 32 workers as the
+    engine runs it, held against float64 on the card: the largest |error| a
+    worker over that worker's largest |entry|.  A shape within
+    ``VMAP_RTOL`` takes the float32 path; one beyond must be in
+    ``common.F64_WEIGHT_GRAD_SHAPES`` (and is held there).  Returns {label:
+    (cuDNN's error, the taken path's error, float32 ms, float64 ms, listed)}."""
+    from torch.func import grad, vmap
+
+    from aggregathor_tpu_torch.models import common
+
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    out = {}
+    for label, cin, cout, k, s, padding, size, batch in zoo_conv_shapes(torch):
+        x = torch.randn((ZOO_N, batch, cin, size, size), device="cuda", generator=gen)
+        w = torch.randn((cout, cin, k, k), device="cuda", generator=gen) / math.sqrt(cin * k * k)
+        osize = -(-size // s) if padding == "SAME" else (size + 6 - k) // s + 1
+        g = torch.randn((ZOO_N, batch, cout, osize, osize), device="cuda", generator=gen)
+        listed = ((k, k), (s, s), cin, cout) in common.F64_WEIGHT_GRAD_SHAPES
+
+        def wgrad(weight, xb, gb, f64_weight_grad=False):
+            return grad(lambda v: (common.conv2d(xb, v, None, (s, s), padding, 1, f64_weight_grad) * gb).sum())(weight)
+
+        def run(dtype, f64_weight_grad=False):
+            return vmap(lambda xb, gb: wgrad(w.to(dtype), xb.to(dtype), gb.to(dtype), f64_weight_grad))(x, g)
+
+        want = run(torch.float64)
+        got = run(torch.float32, listed)
+        torch.cuda.synchronize()
+        scale = want.abs().flatten(1).max(dim=1).values
+        err = float(((got.double() - want).abs().flatten(1).max(dim=1).values / scale).max())
+        f32_ms = time_ms(lambda: run(torch.float32), torch, iters=5, warmup=1)
+        f64_ms = time_ms(lambda: run(torch.float32, True), torch, iters=5, warmup=1)
+        # cuDNN's float32 error even where the float64 path is taken: the measurement behind the choice
+        cudnn = err if not listed else float(((run(torch.float32).double() - want).abs().flatten(1).max(dim=1).values
+                                              / scale).max())
+        print("zoo weight gradient %-26s x (%d, %d, %d, %d, %d) on %s: cuDNN float32 %.3g of the largest entry, "
+              "%s %.3g (tolerance %g); float32 %.3f ms, float64 weight gradient %.3f ms"
+              % (label, ZOO_N, batch, cin, size, size, card_line(), cudnn,
+                 "taken: the float64 path" if listed else "taken: cuDNN float32", err, VMAP_RTOL, f32_ms, f64_ms))
+        out[label] = (cudnn, err, f32_ms, f64_ms, listed)
+        del x, g, want, got
+    torch.cuda.empty_cache()
+    wrong = [label for label, (cudnn, err, _, _, listed) in out.items() if err > VMAP_RTOL]
+    check(not wrong, "zoo weight gradient beyond %g of the largest entry at %s: list those shapes in "
+          "F64_WEIGHT_GRAD_SHAPES" % (VMAP_RTOL, ", ".join(wrong)))
+    return out
+
+
+def _zoo_leg(torch, kernels, runner, label, argv, expected):
+    """Drive one zoo leg through the runner with the vmap fallback an error;
+    check its launches a step; returns (result, counts, peak MB)."""
+    import contextlib
+    import io
+    import warnings
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    output = io.StringIO()
+    with warnings.catch_warnings(), contextlib.redirect_stdout(output), contextlib.redirect_stderr(output):
+        warnings.filterwarnings("error", message=VMAP_FALLBACK)
+        result = runner.main(["--seed", "1", "--evaluation-period", "-1", *argv])
+    text = output.getvalue()
+    sys.stdout.write("".join(line + "\n" for line in text.splitlines() if "Training" in line or "stand-in" in line))
+    counts = kernels.launch_counts()
+    steps = result["steps"]
+    check(result["final_loss"] is not None and math.isfinite(result["final_loss"]), "%s: non-finite loss" % label)
+    for name in kernels.KERNELS:
+        want = steps * (1 if name in expected else 0)
+        check(counts[name] == want, "%s: %s launched %d times in %d steps (want %d)"
+              % (label, name, counts[name], steps, want))
+    return result, counts, torch.cuda.max_memory_allocated() / 2**20, text
+
+
+def zoo_card_cpu(torch, gars, kernels, models):
+    """Z5: one Bulyan step of resnet_v1_50 on digits32 (n = 7, f = 1, batch
+    2) from the same weights and batch on the card and on the CPU: the
+    worker gradients and the aggregate within ``ZOO_CARD_CPU_RTOL`` of their
+    largest magnitudes, Bulyan's selections identical."""
+    from aggregathor_tpu_torch.core import FlatMap
+    from aggregathor_tpu_torch.parallel import RobustEngine
+
+    n, f = 7, 1
+    exp = models.instantiate("slim-resnet_v1_50-digits32", ["batch-size:2", "preprocessing:none"])
+    params = exp.init(3)
+    batch = next(exp.make_train_iterator(n, seed=4))
+    rows, weights, aggregate = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        engine = RobustEngine(gars.instantiate("bulyan", n, f), n, device=device)
+        on = {k: v.to(device) for k, v in params.items()}
+        _, r = engine._worker_gradients(on, engine.put_batch(batch), exp.loss, FlatMap(on))
+        gar = engine.gar
+        dist2 = kernels.pairwise_sq_distances(r)
+        weights[device] = gar.selection_weights(dist2).cpu()
+        aggregate[device] = gar.aggregate(r).cpu()
+        rows[device] = r.cpu()
+    row_err = float(((rows["cuda"] - rows["cpu"]).abs().max(dim=1).values / rows["cpu"].abs().max(dim=1).values).max())
+    agg_err = float((aggregate["cuda"] - aggregate["cpu"]).abs().max() / aggregate["cpu"].abs().max())
+    same = torch.equal(weights["cuda"] > 0, weights["cpu"] > 0)
+    # the same gradients in float64 on both devices (every layer's compute
+    # dtype float64): the card's convs, norms and pools against the CPU's
+    model = exp.model.double()
+    for m in model.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+    f64 = {}
+    for device in ("cpu", "cuda"):
+        on = {k: v.double().to(device) for k, v in params.items()}
+        images = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        grads = torch.func.vmap(torch.func.grad(exp.loss), in_dims=(None, 0))(on, images)
+        f64[device] = torch.cat([grads[name].flatten(1) for name in sorted(grads)], dim=1).cpu()
+    f64_err = float(((f64["cuda"] - f64["cpu"]).abs().max(dim=1).values / f64["cpu"].abs().max(dim=1).values).max())
+    print("zoo Z5 resnet_v1_50-digits32 bulyan n=7 f=1 batch 2, card vs CPU from one init and batch on %s: worker "
+          "gradients %.3g, aggregate %.3g of their largest magnitudes (tolerance %g), Bulyan's selections %s; in "
+          "float64 the worker gradients %.3g (tolerance %g)"
+          % (card_line(), row_err, agg_err, ZOO_CARD_CPU_RTOL, "identical" if same else "DIFFER", f64_err,
+             ZOO_CARD_CPU_F64_RTOL))
+    check(row_err <= ZOO_CARD_CPU_RTOL and agg_err <= ZOO_CARD_CPU_RTOL, "zoo Z5: card and CPU differ")
+    check(same, "zoo Z5: Bulyan's selections differ between the card and the CPU")
+    check(f64_err <= ZOO_CARD_CPU_F64_RTOL, "zoo Z5: card and CPU differ in float64")
+
+
+def zoo_kernel_rows(torch, kernels):
+    """K1 (staged tiles) and K4 (registers, beta = 2) at the zoo's widths:
+    held against their plain versions and timed, as the kernel phase's rows."""
+    gen = torch.Generator(device="cuda").manual_seed(20261019)
+    library = {"pairwise_sq_distances": lambda x: torch.cdist(x, x).square(), "coordinate_averaged_median": None}
+    rows = []
+    for experiment, d in ZOO_D.items():
+        for name, n, args in (("pairwise_sq_distances", ZOO_N, ()),
+                              ("coordinate_averaged_median", ZOO_N - 2 * ZOO_F - 2, (ZOO_N - 4 * ZOO_F - 2,))):
+            x = torch.randn((n, d), device="cuda", generator=gen)
+            got = getattr(kernels, name)(x, *args)
+            torch.cuda.synchronize()
+            err = compare(name, got, kernels.PLAIN[name](x, *args), torch, x, args)
+            row = timed_row(torch, kernels, name, x, args, library[name], err)
+            if row["device_ms"] is None:  # 20 traced calls lost events at these widths: 5
+                row["device_ms"] = device_ms(lambda: getattr(kernels, name)(x, *args), torch, iters=5)
+            row.update(name=name, experiment=experiment)
+            print("zoo kernel %-27s (%d, %d) %s: %.4f ms (on the card %s ms), plain %.3f ms, library %s ms, bound "
+                  "%.3f ms (%s), max |err| %g, on %s"
+                  % (name, n, d, experiment, row["ms"], "not measured" if row["device_ms"] is None
+                     else "%.4f" % row["device_ms"], row["plain_ms"],
+                     "%.3f" % row["library_ms"] if row["library_ms"] is not None else "none",
+                     row["bound_ms"], row["bound_by"], err, card_line()))
+            rows.append(row)
+            del x, got
+            torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_phase(torch, gars, kernels, models, runner, card):
+    """The model zoo on the card (``models/zoo.py``); returns {kernel:
+    launches} over its legs.
+
+    - the conv weight gradient: cuDNN's float32 one against float64 at
+      every ResNet-50 conv shape of the legs (``zoo_weight_grads``);
+    - Z1: ``slim-resnet_v1_50-digits32`` + Bulyan at n = 32, f = 7 (r = 7
+      signflip), batch 16 a worker, 10 steps: d = 23,519,690, K1 (staged
+      tiles) and K4 (beta = 2) once a step; its breakdown, and the
+      gradient phase with every weight gradient in float64;
+    - Z2: ``slim-resnet_v1_50-imagenet`` at 224x224 (the synthetic
+      stand-in), batch 2, the same rule, 5 steps: d = 25,557,032;
+    - Z3: ``slim-resnet_v1_18-digits32`` + krum (n = 8, f = 2), batch 8,
+      polynomial decay 0.05 -> 0.005 over 400 steps: real test accuracy >=
+      ``ZOO_ANCHOR_FLOOR``;
+    - Z4: each of the 34 nets on digits32, median at n = 3, batch 2, 2 steps:
+      finite losses, K3 once a step, no vmap fallback, within
+      ``ZOO_NAMES_BUDGET_S``;
+    - Z5: card against CPU (``zoo_card_cpu``);
+    - K1 and K4 at Z1's and Z2's widths (``zoo_kernel_rows``).
+    Every leg runs with the vmap fallback's warning turned into an error."""
+    from aggregathor_tpu_torch.models import zoo
+
+    totals = {name: 0 for name in kernels.KERNELS}
+    zoo_weight_grads(torch)
+    # Z1's memory, reckoned before the run: the (32, d) float32 rows, three
+    # more (n, d) buffers in select_combine, and the vmap's activations
+    d = ZOO_D["slim-resnet_v1_50-digits32"]
+    print("zoo Z1 memory reckoned: rows %.2f GB, select_combine's buffers %.2f GB, activations of %d images at "
+          "32x32 ~%.0f GB (~47 MB an image)" % (ZOO_N * d * 4 / 1e9, 3 * ZOO_N * d * 4 / 1e9, ZOO_N * 16,
+                                               ZOO_N * 16 * 47e6 / 1e9))
+    for label, argv, expected in ZOO_LEGS:
+        start = time.perf_counter()
+        result, counts, peak_mb, text = _zoo_leg(torch, kernels, runner, label, argv, expected)
+        for name, count in counts.items():
+            totals[name] += count
+        experiment = argv[1]
+        if experiment in ZOO_D:
+            check("d=%d" % ZOO_D[experiment] in text, "%s: d is not %d" % (label, ZOO_D[experiment]))
+        accuracy = result["evaluation"]["accuracy"] if result["evaluation"] else None
+        print("zoo leg %s: %d steps, %.3f steps/s excl. 1st on %s, final loss %.4f, accuracy %s, peak %.0f MB, "
+              "%.1f s, launches %s" % (label, result["steps"], result["steps_per_s"], card, result["final_loss"],
+                                       "%.4f" % accuracy if accuracy is not None else "-", peak_mb,
+                                       time.perf_counter() - start, json.dumps(counts, sort_keys=True)))
+        if label.startswith("Z3"):
+            check(accuracy is not None and accuracy >= ZOO_ANCHOR_FLOOR,
+                  "%s: test accuracy %s < %g" % (label, accuracy, ZOO_ANCHOR_FLOOR))
+        if label.startswith("Z1"):
+            per_step, _ = breakdown_phase(torch, gars, models, steps=5, experiment=argv[1],
+                                          args=["batch-size:16", "preprocessing:none"],
+                                          rule=("bulyan", ZOO_N, ZOO_F))
+            print("zoo Z1 split at d = %d on %s: worker gradients %.2f ms, attack + aggregate %.2f ms a step "
+                  "(gradient share %.3f of the two)"
+                  % (d, card, per_step["worker gradients"], per_step["attack + aggregate"],
+                     per_step["worker gradients"] / (per_step["worker gradients"] + per_step["attack + aggregate"])))
+            zoo_f64_cost(torch, gars, models, argv[1])
+    # Z4: every name of the factory
+    start = time.perf_counter()
+    for name in sorted(zoo.MODEL_FACTORY):
+        t0 = time.perf_counter()
+        result, counts, peak_mb, text = _zoo_leg(
+            torch, kernels, runner, "Z4 " + name,
+            ["--experiment", "slim-%s-digits32" % name, "--experiment-args", "batch-size:2", "preprocessing:none",
+             "--aggregator", "median", "--nb-workers", "3", "--nb-decl-byz-workers", "1", "--max-step", "2",
+             "--evaluation-delta", "-1"], ("coordinate_median",))
+        for kernel, count in counts.items():
+            totals[kernel] += count
+        width = [line for line in text.splitlines() if "Training" in line][0].rsplit("d=", 1)[1]
+        print("zoo Z4 %-20s d=%s, final loss %.4f, %.1f ms a step excl. 1st, %.1f s with set-up, peak %.0f MB"
+              % (name, width, result["final_loss"], 1e3 / result["steps_per_s"], time.perf_counter() - t0, peak_mb))
+    elapsed = time.perf_counter() - start
+    print("zoo Z4: the %d nets in %.1f s on %s (budget %.0f s)" % (len(zoo.MODEL_FACTORY), elapsed, card,
+                                                                    ZOO_NAMES_BUDGET_S))
+    check(elapsed <= ZOO_NAMES_BUDGET_S, "zoo Z4 took %.1f s (budget %.0f s)" % (elapsed, ZOO_NAMES_BUDGET_S))
+    zoo_card_cpu(torch, gars, kernels, models)
+    zoo_kernel_rows(torch, kernels)
+    return totals
+
+
+def zoo_f64_cost(torch, gars, models, experiment):
+    """Z1's worker-gradient phase with cuDNN's float32 weight gradients and
+    with every conv's weight gradient in float64: the cost a blanket float64
+    rule would add."""
+    from aggregathor_tpu_torch.core import FlatMap
+    from aggregathor_tpu_torch.models.common import Conv
+    from aggregathor_tpu_torch.parallel import RobustEngine
+
+    exp = models.instantiate(experiment, ["batch-size:16", "preprocessing:none"])
+    engine = RobustEngine(gars.instantiate("bulyan", ZOO_N, ZOO_F), ZOO_N, device="cuda")
+    params = {k: v.cuda() for k, v in exp.init(1).items()}
+    batch = engine.put_batch(next(exp.make_train_iterator(ZOO_N, seed=2)))
+    flatmap = FlatMap(params)
+    convs = [m for m in exp.model.modules() if isinstance(m, Conv)]
+    times = {}
+    for label, flag in (("float32", False), ("float64 weight gradients", True)):
+        for m in convs:
+            m.f64_weight_grad = flag
+        times[label] = time_ms(lambda: engine._worker_gradients(params, batch, exp.loss, flatmap), torch,
+                               iters=3, warmup=1)
+    print("zoo Z1 worker gradients (n = %d, batch 16, resnet_v1_50) on %s: %.1f ms with cuDNN's float32 weight "
+          "gradients, %.1f ms with all %d convs' in float64" % (ZOO_N, card_line(), times["float32"],
+                                                                times["float64 weight gradients"], len(convs)))
+    del params, batch, engine
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -3295,6 +3643,7 @@ def main():
                        codec_phase(torch, kernels, runner, card, workdir),
                        bounded_phase(torch, gars, kernels, models, runner, card, workdir),
                        secure_phase(torch, kernels, runner, card, workdir),
+                       zoo_phase(torch, gars, kernels, models, runner, card),
                        multirank_phase(torch, kernels, card)):
             for kernel, count in counts.items():
                 totals[kernel] += count

@@ -474,7 +474,7 @@ def test_conv_weight_gradient_on_the_card_is_float32_exact(cuda_device, monkeypa
     it in float64), the input gradient within 1e-5 too."""
     from torch.func import grad, vmap
 
-    from aggregathor_tpu_torch.models.cnnet import _Conv2d
+    from aggregathor_tpu_torch.models.common import ConvF64WeightGrad
 
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
@@ -485,7 +485,7 @@ def test_conv_weight_gradient_on_the_card_is_float32_exact(cuda_device, monkeypa
     bias = torch.randn(64, generator=gen).to(cuda_device)
 
     def loss(w, b, xi, pi):
-        return torch.sum(_Conv2d.apply(xi, w, b, 2) * pi)
+        return torch.sum(ConvF64WeightGrad.apply(xi, w, b, (1, 1), (2, 2), 1) * pi)
 
     got = vmap(grad(loss, argnums=(0, 1, 2)), in_dims=(None, None, 0, 0))(weight, bias, x, probe)
     want = vmap(grad(loss, argnums=(0, 1, 2)), in_dims=(None, None, 0, 0))(
@@ -935,3 +935,116 @@ def test_secure_steps_on_the_card_match_the_cpu(cuda_device):
     np.testing.assert_allclose([r[0] for r in card], [r[0] for r in cpu], rtol=1e-5)
     assert [r[1:] for r in card] == [r[1:] for r in cpu]
     assert any(any(r[2]) for r in cpu)
+
+
+# --------------------------------------------------------------------------- #
+# the model zoo's layers on the card
+
+
+def _zoo_ops():
+    from aggregathor_tpu_torch.models import common
+
+    return {
+        "conv 3x3/1": lambda x, w: common.conv2d(x, w[0], None, (1, 1), "SAME"),
+        "conv 3x3/2": lambda x, w: common.conv2d(x, w[0], None, (2, 2), "SAME"),
+        "conv 1x1/2": lambda x, w: common.conv2d(x, w[1], None, (2, 2), "SAME"),
+        "conv 7x7/2 pad 3": lambda x, w: common.conv2d(x, w[2], None, (2, 2), ((3, 3), (3, 3))),
+        "depthwise 3x3/2": lambda x, w: common.conv2d(x, w[3], None, (2, 2), "SAME", groups=8),
+        "max pool 3x3/2": lambda x, w: common.max_pool(x, 3, 2, "SAME"),
+        "avg pool 3x3/1": lambda x, w: common.avg_pool(x, 3, 1, "SAME"),
+        "avg pool 5x5/3": lambda x, w: common.avg_pool(x, 5, 3, "SAME"),
+        "resize to 64": lambda x, w: common.resize_min(x, 64),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [31, 32])
+@pytest.mark.parametrize("op", list(_zoo_ops()))
+def test_zoo_same_layers_on_the_card_match_the_cpu(cuda_device, monkeypatch, op, size):
+    """XLA's "SAME" padding (asymmetric at stride 2 on even sizes), the
+    -inf and count-including pools and the bilinear upsample on the card:
+    forward and input gradient within 1e-5 of the largest entry of the CPU's
+    (float32 sums in another order)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(size)
+    x = torch.randn((4, 8, size, size), generator=gen)
+    weights = [torch.randn(shape, generator=gen) / shape[1:].numel() ** 0.5
+               for shape in (torch.Size((6, 8, 3, 3)), torch.Size((6, 8, 1, 1)), torch.Size((6, 8, 7, 7)),
+                             torch.Size((16, 1, 3, 3)))]
+    fn = _zoo_ops()[op]
+    probe = torch.randn(fn(x, weights).shape, generator=gen)
+    results = []
+    for device in ("cpu", cuda_device):
+        xi = x.to(device).requires_grad_(True)
+        out = fn(xi, [w.to(device) for w in weights])
+        (grad,) = torch.autograd.grad(torch.sum(out * probe.to(device)), xi)
+        results.append((out.detach().cpu(), grad.cpu()))
+    for got, want in zip(results[1], results[0]):
+        assert got.shape == want.shape
+        assert float(torch.max(torch.abs(got - want))) <= 1e-5 * float(torch.max(torch.abs(want)))
+
+
+@pytest.mark.gpu
+def test_zoo_bottleneck_gradient_under_vmap_on_the_card(cuda_device):
+    """One ResNet bottleneck (stride 2, the projection) vmapped over 4
+    workers on the card with the batching-rule fallback an error: in
+    float64 its parameter and input gradients equal the CPU's within 1e-10
+    of the largest entry (in float32 a ReLU whose input lies within rounding
+    of 0 may flip between the two)."""
+    import warnings
+
+    from torch.func import functional_call, grad, vmap
+
+    from aggregathor_tpu_torch.models.resnet import BottleneckBlock
+
+    block = BottleneckBlock(64, 32, 2)
+    params = models.common.init_params(block, torch.Generator().manual_seed(1))
+    x = torch.randn((4, 2, 64, 16, 16), generator=torch.Generator().manual_seed(2), dtype=torch.float64)
+
+    def loss(p, xb):
+        return torch.sum(torch.sin(functional_call(block, p, (xb,))))
+
+    grads = {}
+    for device in ("cpu", cuda_device):
+        block.to(device, torch.float64)
+        on = {k: v.to(device, torch.float64) for k, v in params.items()}
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            grads[str(device)] = vmap(grad(loss, argnums=(0, 1)), in_dims=(None, 0))(on, x.to(device))
+            block.float()
+            vmap(grad(loss), in_dims=(None, 0))({k: v.float() for k, v in on.items()}, x.to(device).float())
+    (cpu_p, cpu_x), (card_p, card_x) = grads["cpu"], grads[str(cuda_device)]
+    for want, got in [(cpu_p[k], card_p[k]) for k in cpu_p] + [(cpu_x, card_x)]:
+        assert float(torch.max(torch.abs(got.cpu() - want))) <= 1e-10 * float(torch.max(torch.abs(want)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin, cout, k, stride, size", [(64, 64, 3, 1, 32), (128, 128, 3, 1, 16), (256, 256, 3, 1, 8),
+                                                        (64, 256, 1, 1, 32), (128, 128, 3, 2, 32)])
+def test_zoo_weight_gradient_choice_holds_on_the_card(cuda_device, monkeypatch, cin, cout, k, stride, size):
+    """The zoo's conv weight gradient on the card, as the engine runs it (32
+    workers of 16 images vmapped, ResNet-50's shapes on digits32): within
+    1e-5 of its largest entry of the float64 one, through cuDNN's float32
+    path, or the float64 path where ``common.F64_WEIGHT_GRAD_SHAPES`` lists
+    the shape (cuDNN's float32 errs there by 2.8e-5 and 1.3e-5)."""
+    from torch.func import functional_call, grad, vmap
+
+    from aggregathor_tpu_torch.models.common import F64_WEIGHT_GRAD_SHAPES, Conv
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    conv = Conv(cin, cout, k, stride, bias=False).to(cuda_device)
+    assert conv.f64_weight_grad == (((k, k), (stride, stride), cin, cout) in F64_WEIGHT_GRAD_SHAPES)
+    gen = torch.Generator().manual_seed(cin + k)
+    weight = (torch.randn((cout, cin, k, k), generator=gen) / (cin * k * k) ** 0.5).to(cuda_device)
+    x = torch.randn((32, 16, cin, size, size), generator=gen).to(cuda_device)
+    out = -(-size // stride)
+    probe = torch.randn((32, 16, cout, out, out), generator=gen).to(cuda_device)
+
+    def wgrad(w, xb, pb):
+        return grad(lambda v: torch.sum(functional_call(conv, {"weight": v}, (xb,)) * pb))(w)
+
+    got = vmap(wgrad, in_dims=(None, 0, 0))(weight, x, probe)
+    conv.double()
+    want = vmap(wgrad, in_dims=(None, 0, 0))(weight.double(), x.double(), probe.double())
+    err = (got.double() - want).abs().flatten(1).max(dim=1).values / want.abs().flatten(1).max(dim=1).values
+    assert float(err.max()) <= 1e-5

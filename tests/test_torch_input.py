@@ -11,8 +11,8 @@
   gradient lies percent-level off the float64 gradient while the port's
   lies within 1e-5 of it, so there the port's vmapped rows are held
   against its float64 loop instead.
-- cnnet's CUDA convolution route (``_Conv2d``, its weight gradient in
-  float64) has the native convolution's gradients under vmap and grad on
+- cnnet's CUDA convolution route (``common.ConvF64WeightGrad``, its weight
+  gradient in float64) has the native convolution's gradients under vmap and grad on
   the CPU, within 1e-12 in float64 and 1e-5 of the largest entry in float32.
 - The in-step augmentation: given the JAX package's offsets and flips, the
   port's apply equals ``_device_cifarnet`` and ``_device_flip`` bit for bit
@@ -147,13 +147,14 @@ def test_vmapped_cnnet_gradients_follow_the_float64_loop():
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_the_cuda_convolution_route_has_the_convolutions_gradients(dtype):
-    """cnnet's convolutions take ``_Conv2d`` on CUDA (its weight gradient
+    """cnnet's convolutions take ``ConvF64WeightGrad`` on CUDA (its weight gradient
     computed in float64): here, on the CPU, its gradients under vmap and
     grad are the native convolution's, within 1e-12 in float64 and 1e-5 of
     the largest entry in float32."""
     from torch.func import grad, vmap
 
-    from aggregathor_tpu_torch.models.cnnet import _Conv2d, conv_weight_grad
+    from aggregathor_tpu_torch.models.cnnet import conv_weight_grad
+    from aggregathor_tpu_torch.models.common import ConvF64WeightGrad
 
     gen = torch.Generator().manual_seed(0)
     x = torch.randn((3, 10, 4, 12, 12), generator=gen, dtype=dtype)
@@ -166,7 +167,7 @@ def test_the_cuda_convolution_route_has_the_convolutions_gradients(dtype):
         return lambda w, b, xi, pi: torch.sum(torch.sin(conv(xi, w, b)) * pi)
 
     native = loss(lambda xi, w, b: torch.nn.functional.conv2d(xi, w, b, padding=2))
-    route = loss(lambda xi, w, b: _Conv2d.apply(xi, w, b, 2))
+    route = loss(lambda xi, w, b: ConvF64WeightGrad.apply(xi, w, b, (1, 1), (2, 2), 1))
     grads = [vmap(grad(f, argnums=(0, 1, 2)), in_dims=(None, None, 0, 0))(weight, bias, x, probe)
              for f in (native, route)]
     for want, got in zip(*grads):

@@ -362,7 +362,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "utils/access.py", "utils/plugins.py", "cli/__init__.py", "parallel/mesh.py", "obs/profiler.py",
                    "obs/forensics.py", "utils/cluster.py", "cli/deploy.py", "chaos/__init__.py",
                    "chaos/schedule.py", "chaos/stragglers.py", "chaos/campaign.py", "chaos/replica_faults.py",
-                   "parallel/compress.py"):
+                   "parallel/compress.py", "models/zoo.py", "models/resnet.py", "models/vgg.py",
+                   "models/classic.py", "models/mobilenet.py", "models/inception.py", "models/nasnet.py",
+                   "models/tfrecord.py", "models/common.py", "ops/native/__init__.py"):
         assert os.path.join(REPO, "aggregathor_tpu_torch", module) in paths, module
     offenders = [
         (os.path.relpath(path, REPO), module)
