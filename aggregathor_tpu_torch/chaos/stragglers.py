@@ -39,7 +39,7 @@ class StragglerModel:
             raise UserException("straggle-workers must lie in [0, nb_workers]=%d (got %d)"
                                 % (self.nb_workers, self.nb_eligible))
 
-    def draw_late(self, seed, step, worker, rate):
+    def draw_late(self, seed, step, worker, rate, tag=STRAGGLER_KEY_TAG):
         """bool: is worker ``worker`` late at ``step``?  One draw of the
         (seed, step, worker, 5) stream on a CPU generator (``torch.rand <
         rate``: never at rate 0, always at rate 1), gated by
@@ -48,7 +48,7 @@ class StragglerModel:
 
         if self.nb_eligible and worker >= self.nb_eligible:
             return False
-        generator = stream_generator(seed, step, worker, STRAGGLER_KEY_TAG, torch.device("cpu"))
+        generator = stream_generator(seed, step, worker, tag, torch.device("cpu"))
         return bool(torch.rand((), generator=generator) < rate)
 
     def apply(self, grad, late, stale, previous=None):

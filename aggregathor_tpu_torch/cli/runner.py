@@ -244,6 +244,12 @@ def build_parser():
     parser.add_argument("--optimizer-args", nargs="*", default=[], help="key:value optimizer arguments")
     parser.add_argument("--learning-rate", default="fixed", help="learning-rate schedule name")
     parser.add_argument("--learning-rate-args", nargs="*", default=[], help="key:value schedule arguments")
+    parser.add_argument("--l1-regularize", type=float, default=None,
+                        help="l1 loss regularization (the flat engine wraps each worker's loss; the sharded engine "
+                             "adds l1 sign(p) to the completed gradients)")
+    parser.add_argument("--l2-regularize", type=float, default=None,
+                        help="l2 loss regularization (the flat engine wraps each worker's loss; the sharded engine "
+                             "adds 2 l2 p to the completed gradients)")
     parser.add_argument("--max-step", type=int, default=None, help="train step count (default config.py)")
     parser.add_argument(
         "--unroll", type=int, default=1,
@@ -357,6 +363,16 @@ def build_parser():
         "--worker-momentum", type=float, default=None, metavar="BETA",
         help="workers send momenta (beta in (0,1)) instead of raw gradients: history-aware robustness "
              "(Karimireddy et al. 2021)",
+    )
+    parser.add_argument(
+        "--mesh", default=None, metavar="W,PP,TP",
+        help="route training through the sharded engine on a (worker x pipeline x tensor) grid of W PP TP ranks: "
+             "per-layer robust aggregation on sharded gradients, the (n, d) matrix never materialized (needs an "
+             "experiment that publishes sharded hooks, e.g. transformer); W must divide --nb-workers",
+    )
+    parser.add_argument(
+        "--microbatches", type=int, default=2,
+        help="pipeline microbatches per step (sharded engine only; default 2)",
     )
     parser.add_argument(
         "--granularity", default="vector", choices=["vector", "leaf", "layer", "global"],
@@ -667,6 +683,52 @@ def _spawned_rank(argv, rank, size, init_method):
     main(argv, rank=(rank, size, init_method))
 
 
+def parse_mesh(text):
+    """``--mesh W,PP,TP`` -> (W, PP, TP), or None without it (JAX :521-530)."""
+    from ..utils import UserException
+
+    if not text:
+        return None
+    try:
+        axes = tuple(int(x) for x in text.split(","))
+        if len(axes) != 3 or any(a < 1 for a in axes):
+            raise ValueError
+    except ValueError:
+        raise UserException("--mesh wants W,PP,TP positive integers (got %r)" % text) from None
+    return axes
+
+
+def check_mesh_flags(args):
+    """The JAX runner's refusals of ``--mesh`` (JAX :650-655, :951-980,
+    :1023-1045), before any rank is spawned; bounded-wait on the sharded
+    engine is ROADMAP queue 1 item 8c."""
+    from .. import models
+    from ..parallel import compress
+    from ..utils import UserException
+
+    if args.input_source == "device":
+        raise UserException("--input-source device needs the flat engine (the sharded engine's batches flow "
+                            "through the pipeline stages); drop --mesh or use --input-source stream")
+    if not getattr(models.get(args.experiment), "supports_sharded", False):
+        raise UserException(
+            "Experiment %r does not publish sharded hooks (sharded_init/sharded_specs/sharded_loss); --mesh "
+            "currently works with: %s" % (args.experiment, ", ".join(
+                name for name in models.itemize() if getattr(models.get(name), "supports_sharded", False)) or "none"))
+    if args.exchange:
+        codec = compress.parse_exchange_spec(args.exchange)[1]
+        if codec is not None:
+            raise UserException("--exchange %s needs the flat engine (drop --mesh): the sharded per-(worker, leaf) "
+                                "submissions would need per-leaf codec state — --exchange bf16 works everywhere"
+                                % codec.spec())
+    if args.incremental_aggregation:
+        raise UserException("--incremental-aggregation folds per-WORKER rows; the sharded mode's per-submesh "
+                            "submissions need a per-group fold layout — run the flat engine")
+    if args.step_deadline is not None or args.straggler_stall > 0:
+        raise UserException("--step-deadline/--straggler-stall on the sharded engine (--mesh: per-submesh "
+                            "submission units) is not available in the PyTorch port yet (ROADMAP queue 1 item 8c); "
+                            "drop --mesh")
+
+
 def default_nb_devices(n, device):
     """JAX's default (``runner.py:786-788``): the largest divisor of n at
     most the number of cards; 1 on the CPU, the port's one CPU device."""
@@ -696,11 +758,22 @@ def _run(args, stop, argv, rank):
         wait_for_cuda(args.backend_timeout)
     device = resolve_device(args.device)
     n = args.nb_workers
+    mesh_axes = parse_mesh(args.mesh)
+    if mesh_axes is not None:
+        grid_size = mesh_axes[0] * mesh_axes[1] * mesh_axes[2]
+        if args.nb_devices is not None and args.nb_devices != grid_size:
+            raise UserException("--nb-devices %d contradicts --mesh %s (%d ranks)" % (args.nb_devices, args.mesh,
+                                                                                    grid_size))
+        if n % mesh_axes[0]:
+            raise UserException("--mesh worker axis W=%d must divide --nb-workers %d (k = n/W logical Byzantine "
+                                "workers a (pipe x model) submesh)" % (mesh_axes[0], n))
+        check_mesh_flags(args)
+        args.nb_devices = grid_size
     if plan is not None and args.nb_devices is not None and args.nb_devices != plan[1]:
         raise UserException("--nb-devices %d contradicts the group's world size %d" % (args.nb_devices, plan[1]))
     if plan is None:
         size = args.nb_devices if args.nb_devices is not None else default_nb_devices(n, device)
-        if size < 1 or n < 1 or n % size:
+        if size < 1 or n < 1 or (n % size and mesh_axes is None):
             raise UserException("--nb-devices %d must divide --nb-workers %d (k = n/W workers a device)" % (size, n))
         plan = (0, size, None)
     rank_index, size, init_method = plan
@@ -719,11 +792,18 @@ def _run(args, stop, argv, rank):
                                     name="rank-%d" % r) for r in range(1, size)]
         for child in children:
             child.start()
+    if mesh_axes is not None and size > 1 and device.type == "cpu":
+        # the grid's ranks share the host's cores, one intra-op pool each
+        # (as mesh.spawn's ranks): oversubscribed pools stall every
+        # pipeline and ring collective
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
     # a collective whose peer died raises (gloo) or times out (NCCL, after
     # mesh.DEFAULT_TIMEOUT): the lead never returns past a dead rank
     axis_device = torch.device(device.type) if size > 1 else device
     try:
-        axis = mesh.join(n, size, rank_index, init_method, device=axis_device)
+        # under --mesh the process group is the grid's world, one rank a
+        # device (the engine's worker axis is the grid's)
+        axis = mesh.join(n if mesh_axes is None else size, size, rank_index, init_method, device=axis_device)
         try:
             result = _train(args, stop, axis)
         finally:
@@ -807,11 +887,12 @@ def _train(args, stop, axis):
         raise UserException("--flight-dump needs --flight CAPACITY")
     if args.live_ready_file and args.live_port is None:
         raise UserException("--live-ready-file needs --live-port")
-    if args.granularity in ("layer", "global"):
-        raise UserException("--granularity %s needs the sharded engine (--mesh), which this port does not carry yet"
-                            % args.granularity)
-    if args.leaf_bucketing != "auto" and args.granularity != "leaf":
-        warning("--leaf-bucketing only affects --granularity leaf; ignored for granularity %r" % args.granularity)
+    mesh_axes = parse_mesh(args.mesh)
+    if mesh_axes is None:
+        if args.granularity in ("layer", "global"):
+            raise UserException("--granularity %s needs the sharded engine: pass --mesh W,PP,TP" % args.granularity)
+        if args.leaf_bucketing != "auto" and args.granularity != "leaf":
+            warning("--leaf-bucketing only affects --granularity leaf; ignored for granularity %r" % args.granularity)
     if (args.secure or args.secure_mask) and not args.session_secret:
         raise UserException("--secure/--secure-mask derive their per-worker keys and mask pads from "
                             "--session-secret; pass it")
@@ -861,6 +942,24 @@ def _train(args, stop, axis):
 
     with Context("setup"):
         experiment = models.instantiate(args.experiment, args.experiment_args)
+        grid = None
+        if mesh_axes is not None:
+            # the sharded engine's warnings (JAX :966-975; its refusals ran
+            # before the ranks spawned, check_mesh_flags)
+            if args.leaf_bucketing != "auto":
+                warning("--leaf-bucketing applies to the flat engine's leaf path only; the sharded engine always "
+                        "aggregates per bucket")
+            if args.trace_ops:
+                warning("--trace-ops narrates the flat engine's step body only; ignored under --mesh (use --trace "
+                        "for a profiler window)")
+                args.trace_ops = False
+            from ..parallel.mesh import make_mesh
+
+            W_axis, PP, TP = mesh_axes
+            grid = make_mesh(W_axis, TP, PP, device=device)
+            if lead:
+                info("Sharded mesh: %d worker slot(s) x %d pipeline stage(s) x %d-way tensor parallelism on %d %s "
+                     "rank(s), %d logical worker(s)/slot" % (W_axis, PP, TP, grid.size, device.type, n // W_axis))
         if args.input_source == "device":
             if experiment.train_arrays() is None and experiment.route_augmentation_to_device():
                 # the host tier's in-step twin takes over (its draws change:
@@ -945,6 +1044,24 @@ def _train(args, stop, axis):
 
             group_masking = GroupMasking.from_secret(args.session_secret.encode())
 
+        def make_regularized_loss(base_loss, l1, l2):
+            """The flat engine's l1/l2 (JAX :1186-1200): the per-worker loss
+            plus l1 times the sum of |p| and l2 times the sum of p^2 over the
+            leaves (the reference's graph.py:125-139); ``base_loss`` itself
+            without them."""
+            if not (l1 or l2):
+                return base_loss
+
+            def loss_fn(params, batch):
+                loss = base_loss(params, batch)
+                if l1:
+                    loss = loss + l1 * sum(torch.sum(torch.abs(p)) for p in params.values())
+                if l2:
+                    loss = loss + l2 * sum(torch.sum(p * p) for p in params.values())
+                return loss
+
+            return loss_fn
+
         def build_training(ov):
             """The rebuildable half of the run, built from an ``Overrides``
             record (JAX ``TrainingStack``, runner.py:1203-1240): the rule,
@@ -965,6 +1082,26 @@ def _train(args, stop, axis):
             else:
                 schedule = base_schedule
             stack.tx = build_optimizer(args.optimizer, schedule, args.optimizer_args)
+            stack.eval_loss_fn = None
+            if grid is not None:
+                # the sharded mode (JAX :1238-1298): ``vector`` (whole-vector
+                # selection) is spelled ``global`` there; l1/l2 are applied
+                # analytically on the completed gradients
+                stack.engine = RobustEngine(
+                    stack.gar, n, sharding="sharded", mesh=grid, nb_real_byz=r, attack=attack, lossy_link=lossy,
+                    granularity="global" if args.granularity == "vector" else args.granularity,
+                    exchange_dtype=args.exchange_dtype, worker_momentum=args.worker_momentum,
+                    worker_metrics=args.worker_metrics, reputation_decay=ov.reputation_decay,
+                    quarantine_threshold=ov.quarantine_threshold, l1_regularize=args.l1_regularize,
+                    l2_regularize=args.l2_regularize, chaos=chaos, secure=args.secure, flight=flight_rec)
+                loss_fn = experiment.sharded_loss(mesh_axes[1], args.microbatches)
+                stack.bounded_step = None
+                stack.step_fn = stack.engine.build_step(loss_fn, stack.tx)
+                stack.multi_fn = stack.engine.build_multi_step(loss_fn, stack.tx) if unroll > 1 else None
+                # metric sums need a dense replica; evaluation reports the loss
+                stack.eval_fn = None
+                stack.eval_loss_fn = stack.engine.build_eval(loss_fn)
+                return stack
             stack.engine = RobustEngine(
                 stack.gar, n, nb_real_byz=r, attack=attack, lossy_link=lossy, exchange_dtype=args.exchange_dtype,
                 worker_momentum=args.worker_momentum, batch_transform=experiment.device_transform(),
@@ -974,33 +1111,39 @@ def _train(args, stop, axis):
                 trace_ops=args.trace_ops, flight=flight_rec, device=device, axis=axis,
                 chaos=None if bounded_wait else chaos, exchange=exchange_codec, secure=args.secure)
             stack.bounded_step = None
+            loss_fn = make_regularized_loss(experiment.loss, args.l1_regularize, args.l2_regularize)
             if bounded_wait:
                 # one submission a worker and a deadline-closed round; the
                 # controller is shared by every rebuilt stack
                 stack.bounded_step = BoundedWaitStep(
-                    stack.engine, experiment.loss, stack.tx, params_template, deadline=args.step_deadline,
+                    stack.engine, loss_fn, stack.tx, params_template, deadline=args.step_deadline,
                     straggler_model=straggler_model, registry=registry, controller=deadline_controller,
                     stale_infill=args.stale_infill, stale_max_age=args.stale_max_age,
                     stale_reweight=args.stale_reweight, incremental=args.incremental_aggregation)
                 stack.step_fn = stack.bounded_step
             else:
-                stack.step_fn = stack.engine.build_step(experiment.loss, stack.tx)
+                stack.step_fn = stack.engine.build_step(loss_fn, stack.tx)
             if args.input_source == "device":
-                stack.multi_fn = stack.engine.build_sampled_multi_step(experiment.loss, stack.tx, unroll,
+                stack.multi_fn = stack.engine.build_sampled_multi_step(loss_fn, stack.tx, unroll,
                                                                        experiment.batch_size)
             else:
-                stack.multi_fn = stack.engine.build_multi_step(experiment.loss, stack.tx) if unroll > 1 else None
+                stack.multi_fn = stack.engine.build_multi_step(loss_fn, stack.tx) if unroll > 1 else None
             stack.eval_fn = stack.engine.build_eval_sums(experiment.metrics)
             return stack
 
         def make_fresh_state(seed):
             # the parameters always from the run's seed; ``seed`` moves only
             # the random streams (a rollback with no snapshot, JAX :1327-1332)
+            if grid is not None:
+                # the sharded parameters from ``seed``, as JAX's init_state
+                # draws them from PRNGKey(seed)
+                return ts.engine.init_state(experiment.sharded_init(mesh_axes[1]), experiment.sharded_specs(),
+                                            ts.tx, seed=seed)
             return ts.engine.init_state(experiment.init(args.seed), ts.tx, seed=seed)
 
         ts = build_training(overrides)
         state = make_fresh_state(args.seed)
-        model_dim = sum(p.numel() for p in state.params.values())
+        model_dim = ts.engine.model_dim if grid is not None else sum(p.numel() for p in state.params.values())
         # the train split lives on the device, uploaded once for the run (JAX
         # uploads it again with every rebuilt stack, :1354-1358; the ladder
         # never changes the data)
@@ -1107,14 +1250,42 @@ def _train(args, stop, axis):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    def share_restored(state, host):
+        """Every rank's ``state`` from the lead's restored ``host`` (the state
+        itself in the flat mode, the global layout under --mesh): the lead's
+        values broadcast, then each rank's blocks loaded (``put_state``)."""
+        broadcast_state(host, axis)
+        if grid is not None:
+            ts.engine.put_state(state, host)
+
+    def sharded_eval_sums(batch):
+        """The metric sums of a dense replica of the sharded parameters on
+        the batch, its worker dim folded (one process holding every block:
+        the one-rank grid; JAX :1742-1770)."""
+        with torch.no_grad():
+            params = experiment.sharded_to_dense_params({k: v.detach() for k, v in state.params.items()})
+            flat = {key: torch.as_tensor(np.ascontiguousarray(value)).reshape((-1,) + tuple(value.shape[2:])).to(device)
+                    for key, value in batch.items()}
+            return experiment.metrics(params, flat)
+
     @trace.span("eval", cat="eval")
     def run_eval(step):
         sums = {}
+        values = []
         for batch in experiment.make_eval_iterator(n):
-            for name, (total, count) in ts.eval_fn(state, ts.engine.put_batch(batch)).items():
+            if ts.eval_fn is None:
+                # the sharded engine reports the mean sharded loss, and the
+                # dense metrics where one process holds every block
+                values.append(float(ts.eval_loss_fn(state, ts.engine.put_batch(batch))))
+                folded = sharded_eval_sums(batch) if grid.size == 1 else {}
+            else:
+                folded = ts.eval_fn(state, ts.engine.put_batch(batch))
+            for name, (total, count) in folded.items():
                 prev = sums.get(name, (0.0, 0.0))
                 sums[name] = (prev[0] + float(total), prev[1] + float(count))
         metrics = {name: total / max(count, 1.0) for name, (total, count) in sums.items()}
+        if ts.eval_fn is None:
+            metrics["loss"] = sum(values) / max(len(values), 1)
         if chaos is not None:
             # the regime of the last completed step (JAX :1782-1788)
             metrics["chaos_regime"] = chaos.regime_at(max(step - 1, 0))
@@ -1385,10 +1556,11 @@ def _train(args, stop, axis):
                 # worker, tag), so the perturbation replaces the seed (trap
                 # c); the lead restores, every rank receives its state
                 state = make_fresh_state(args.seed)
+                host = ts.engine.global_state(state)  # every rank: a collective under --mesh
                 if checkpoints is not None:
-                    state, rstep = checkpoints.restore(state, step=target)
-                    state.seed = fold_in_seed(state.seed, RNG_PERTURB_TAG + attempt)
-                broadcast_state(state, axis)
+                    host, rstep = checkpoints.restore(host, step=target)
+                    host.seed = fold_in_seed(host.seed, RNG_PERTURB_TAG + attempt)
+                share_restored(state, host)
             else:
                 state = make_fresh_state(args.seed + RESEED_STRIDE * (attempt + 1))
             step = rstep
@@ -1590,9 +1762,12 @@ def _train(args, stop, axis):
         # the per-step attack and lossy streams derive from (seed, step,
         # worker, tag), so the restored step is all they need
         restored = 0
+        # under --mesh the lead restores the global layout (every rank
+        # gathers it: a collective) and each rank loads its blocks
+        host = ts.engine.global_state(state)
         if checkpoints is not None and checkpoints.can_restore():
             with Context("restore"):
-                state, offstep = checkpoints.restore(state)
+                host, offstep = checkpoints.restore(host)
             restored = 1
             dropped = eval_file.truncate_after(offstep)
             if dropped:
@@ -1604,14 +1779,19 @@ def _train(args, stop, axis):
         # the lead restores; every rank starts from its state
         restored, offstep = agree([restored, offstep], (True, True))
         if restored:
-            broadcast_state(state, axis)
+            share_restored(state, host)
+        # the flat mode's host is the state: no reference to it may outlive
+        # the restore, or a rollback's fresh state leaves this one alive
+        del host
         # the bring-up handshake (JAX :1611-1630), after the restore, so the
         # digest covers the parameters training starts from; every rank
         if args.session_secret:
             from ..parallel.auth import authenticate_processes
 
             with Context("auth"):
-                authenticate_processes(args.session_secret.encode(), state.params, step=offstep, axis=axis)
+                # under --mesh each rank holds its own blocks (JAX verify_equal=mesh_axes is None)
+                authenticate_processes(args.session_secret.encode(), state.params, step=offstep, axis=axis,
+                                       verify_equal=grid is None)
                 info("Host handshake OK: %d process(es) authenticated" % W)
         elif W > 1:
             warning("Multi-process run without --session-secret: the host boundary is UNAUTHENTICATED (the "
@@ -1729,14 +1909,18 @@ def _train(args, stop, axis):
                 if ckpt_fire:
                     check_divergence()
                     ef_rows = ts.engine.gather_ef(state)  # every rank: a collective at W > 1
+                    saved = ts.engine.global_state(state)  # every rank: a collective under --mesh
                     if checkpoints is not None:
                         checkpoints.wait()  # surface a previous write's failure
-                        checkpoints.save(state, step, ef=ef_rows)
+                        checkpoints.save(saved, step, ef=ef_rows)
                         if watchdog is not None and watchdog.healthy and probe_clean(many):
                             # last-known-good: spared by pruning, the rollback
                             # target; every step of the call must read clean
                             # (JAX :2493-2501)
                             checkpoints.pin(step)
+                    # the flat mode's is the state itself: a rollback must
+                    # be able to free it
+                    del saved
                     ckpt_trigger.fired(step)
                 if summary_fire:
                     check_divergence()
@@ -1755,8 +1939,10 @@ def _train(args, stop, axis):
                     evaluation = run_eval(step)
                 if args.checkpoint_dir and ckpt_trigger.last_step != step:
                     ef_rows = ts.engine.gather_ef(state)  # every rank: a collective at W > 1
+                    saved = ts.engine.global_state(state)  # every rank: a collective under --mesh
                     if checkpoints is not None:
-                        checkpoints.save(state, step, ef=ef_rows)
+                        checkpoints.save(saved, step, ef=ef_rows)
+                    del saved
                 if summary_trigger.last_step != step:
                     fire_summary(step, metrics)
     finally:

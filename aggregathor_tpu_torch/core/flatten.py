@@ -12,7 +12,9 @@ flattens, and back when it inflates.
 Naming bridge (also used by ``models.common.params_from_jax``): a torch
 parameter ``<module>.weight`` of rank 4 is the flax ``<module>/kernel`` in
 HWIO, of rank 2 the ``<module>/kernel`` in (in, out), of rank 1 a norm's
-``<module>/scale``; ``<module>.bias`` is ``<module>/bias``.
+``<module>/scale``; ``<module>.bias`` is ``<module>/bias``.  A name with no
+module (the transformer's ``wq``, ``embed``, ...) is a leaf of a plain JAX
+dict, in the JAX layout already: its path is the name, with no permutation.
 """
 
 import torch
@@ -25,7 +27,9 @@ def jax_leaf(name, ndim):
     """(jax path tuple, permutation torch -> JAX layout or None) of a torch
     parameter name such as ``conv1.weight``."""
     module, _, leaf = name.rpartition(".")
-    path = tuple(module.split(".")) if module else ()
+    if not module:
+        return (name,), None
+    path = tuple(module.split("."))
     if leaf == "bias":
         return path + ("bias",), None
     if leaf == "weight" and ndim in _KERNEL_PERMS:

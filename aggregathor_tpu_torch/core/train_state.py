@@ -96,7 +96,10 @@ def _reset_side_buffers(state):
     initial values, in place: momentum zeroed with no update counted,
     everyone trusted, no EMA, every ring slot empty (integer lanes -1, float
     lanes NaN).  The carry stays as it is."""
-    if state.momentum is not None:
+    if isinstance(state.momentum, dict):  # the sharded mode's per-leaf buffers
+        for buffer in state.momentum.values():
+            buffer.zero_()
+    elif state.momentum is not None:
         state.momentum.zero_()
     state.momentum_steps = 0
     if state.reputation is not None:

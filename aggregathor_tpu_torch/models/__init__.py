@@ -12,8 +12,8 @@ so the engine can treat both packages alike:
 
 Images enter the models in the JAX package's NHWC layout.  The registry
 imports the experiments this package ports (``cnnet``, ``mnist``,
-``digits``, ``digits-conv``, ``mnistAttack``, ``digitsAttack`` and the
-zoo's ``slim-<model>-<dataset>``) by name.
+``digits``, ``digits-conv``, ``mnistAttack``, ``digitsAttack``,
+``transformer`` and the zoo's ``slim-<model>-<dataset>``) by name.
 """
 
 import copy
@@ -155,4 +155,4 @@ class Experiment:
         return True
 
 
-from . import cnnet, digits, mnist, mnist_attack, zoo  # noqa: E402,F401  (self-registering experiments)
+from . import cnnet, digits, mnist, mnist_attack, transformer, zoo  # noqa: E402,F401  (self-registering experiments)

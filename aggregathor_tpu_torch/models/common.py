@@ -85,12 +85,18 @@ def _walk(tree, prefix=()):
 
 
 def params_from_jax(tree):
-    """flax parameters (nested dict of numpy arrays) -> {torch name: tensor}."""
+    """flax parameters (nested dict of numpy arrays) -> {torch name: tensor}.
+    A top-level leaf of a plain dict (the transformer's ``wq``, ``embed``,
+    stage-stacked or not) keeps its name and layout: it is copied, never
+    transposed."""
     tree = dict(tree)
     if set(tree) == {"params"}:
         tree = dict(tree["params"])
     params = {}
     for path, value in _walk(tree):
+        if len(path) == 1:
+            params[path[0]] = torch.tensor(np.ascontiguousarray(value), dtype=torch.float32)
+            continue
         module, leaf = ".".join(path[:-1]), path[-1]
         if leaf == "kernel" and value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW

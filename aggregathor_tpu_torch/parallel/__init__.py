@@ -1,4 +1,7 @@
-"""The flat robust engine on one device (``engine``) and the attacks."""
+"""The robust engine (``engine``: the flat dataflow over a worker axis and
+the sharded one over a (worker, pipe, model) grid), the grid
+(``mesh.make_mesh``) and the attacks."""
 
 from . import attacks  # noqa: F401
-from .engine import RobustEngine  # noqa: F401
+from .engine import RobustEngine, ShardedRobustEngine  # noqa: F401
+from .mesh import make_mesh  # noqa: F401

@@ -1,7 +1,12 @@
-"""The robust training engine, flat dataflow over a worker axis.
+"""The robust training engine: the flat dataflow over a worker axis, and
+the sharded one over a (worker, pipe, model) grid.
 
-Counterpart of the flat mode of ``aggregathor_tpu/parallel/engine.py``
-(its dataflow, ``engine.py:1-31``).  The n logical workers lie over a
+Counterpart of ``aggregathor_tpu/parallel/engine.py``: the flat mode (its
+dataflow, ``engine.py:1-31``) below, the sharded mode
+(``sharding="sharded"``, JAX ``engine.py:1440-2170``) at the end: a
+logical worker is a (pipe x model) submesh of ranks running a pipelined,
+tensor-parallel replica (``models/transformer.py``), and the rule runs per
+parameter bucket on the sharded gradients (``_sharded_build_step``).  The n logical workers lie over a
 ``parallel.mesh.WorkerAxis`` of W ranks, one process a device, k = n/W
 workers a rank (worker w = rank k + j); at W = 1 (the default) one device
 holds the whole (n, d) matrix and no collective runs.  Per step, on each
@@ -126,14 +131,15 @@ aggregate and update of steps 4-8 over the rows that arrived, the others
 NaN or a stale carry (``build_incremental_fold`` decodes a row into the
 aggregate's buffer as it lands).  It needs granularity ``vector``, no
 lossy link or chaos schedule in the step, and one rank (W = 1).  The
-sharded mode's submission builders (``build_group_grad``,
-``build_submesh_grad``) wait for the sharded engine (ROADMAP queue 1 item
-8).
+sharded mode's submission units (``build_group_grad``,
+``build_submesh_grad``) are ROADMAP queue 1 item 8c: its bounded builders
+refuse.
 
-Refused with a UserException: the sharded mode,
-``leaf_bucketing=True`` (the bucketed per-leaf path needs kernels with a
-batch dimension), and ``l1_regularize``/``l2_regularize`` (the JAX flat
-engine refuses them too: its loss carries them).
+Refused with a UserException: ``leaf_bucketing=True`` on the flat mode
+(the bucketed per-leaf path needs kernels with a batch dimension), and
+``l1_regularize``/``l2_regularize`` on the flat mode (the JAX flat engine
+refuses them too: its loss carries them; the sharded mode applies them
+analytically).
 """
 
 import numpy as np
@@ -148,9 +154,10 @@ from ..guardian import probe as health
 from ..ops import kernels
 from ..utils import UserException, fold_in_seed, resolve_device
 from ..gars import rule_kwargs
-from ..gars.common import completed_distances
+from ..gars.common import centered_gram_sq_distances, completed_distances
 from .compress import parse_exchange_spec, wire_dtype, wire_roundtrip
-from .mesh import WorkerAxis
+from .lossy import LOSSY_TAG
+from .mesh import WorkerAxis, make_mesh
 
 #: stream tags, as the JAX engine folds them: the local attacks (1), the
 #: in-step augmentation (3) and the device-side sampling (4); the lossy
@@ -172,6 +179,27 @@ FORGE_TAG = 5
 TAMPER_TAG = 6
 IMPOSTOR_TAG = 51
 TAMPER_COORD_TAG = 61
+#: the sharded mode's streams (trap c), apart from the flat mode's: JAX
+#: keys the perturbation per (worker, leaf), ``fold_in(fold_in(key, w),
+#: i)`` then tags 1 and 2, here (seed, step, w, ``leaf_tag(i, t)``); the
+#: lateness one draw a worker (JAX 30_000 + w), the submission forgery's
+#: verdicts and draws on JAX's 32_000 + w offsets, the impostor of leaf i on
+#: 32_100 + i
+LEAF_TAG_STRIDE = 100_000
+SHARDED_LATE_TAG = 30_000
+SHARDED_FORGE_TAG = 32_005
+SHARDED_TAMPER_TAG = 32_006
+SHARDED_TAMPER_COORD_TAG = 32_061
+SHARDED_IMPOSTOR_TAG = 32_100
+#: the in-group axes of the sharded mode (replication, the submesh psums)
+IN_GROUP_AXES = ("pipe", "model")
+
+
+def leaf_tag(i, tag):
+    """The stream tag of leaf ``i``'s ``tag`` (1 attack, 2 link) in the
+    sharded mode: ``LEAF_TAG_STRIDE (i + 1) + tag``, above every other tag."""
+    return LEAF_TAG_STRIDE * (int(i) + 1) + int(tag)
+
 
 def gar_key(seed, step):
     """The step's GAR key, an int seed: ``fold_in_seed(fold_in_seed(seed,
@@ -284,7 +312,7 @@ def index_metrics(metrics, index):
 
 
 class RobustEngine:
-    """The robust engine on one device (see the module docstring).
+    """The robust engine (see the module docstring).
 
     Args:
       gar: the aggregation rule (``gars.instantiate``).
@@ -314,41 +342,69 @@ class RobustEngine:
       secure: authenticated submission: digests of every row sent and
         received, a forged or tampered row NaN (``metrics["secure"]``).
       device: "cuda" (default) or "cpu"; CUDA without a GPU raises.
-      sharding: only "flat" is ported.
-      axis: the ``parallel.mesh.WorkerAxis`` of a W-rank run (its device
-        wins over ``device``); None: one rank.
+      sharding: "flat" or "sharded" (None: sharded when ``mesh`` is given);
+        granularity then "layer" (default), "leaf" or "global", and
+        ``l1_regularize``/``l2_regularize`` apply.
+      axis: the ``parallel.mesh.WorkerAxis`` of a W-rank flat run (its
+        device wins over ``device``); None: one rank.
+      mesh: the ``parallel.mesh.DeviceGrid`` of a sharded run (None: the
+        one-rank grid on ``device``).
     """
 
     def __init__(self, gar, nb_workers=None, nb_real_byz=0, attack=None, lossy_link=None,
                  exchange_dtype=None, worker_momentum=None, batch_transform=None, worker_metrics=False,
-                 reputation_decay=None, quarantine_threshold=0.0, granularity="vector", leaf_bucketing="auto",
+                 reputation_decay=None, quarantine_threshold=0.0, granularity=None, leaf_bucketing="auto",
                  trace_ops=False, health_probe=True, flight=None, l1_regularize=None, l2_regularize=None,
-                 device="cuda", sharding="flat", axis=None, chaos=None, exchange=None, secure=False, **options):
+                 device="cuda", sharding=None, axis=None, chaos=None, exchange=None, secure=False, mesh=None,
+                 **options):
         for name, value in options.items():
             if name not in UNPORTED_OPTIONS:
                 raise TypeError("RobustEngine got an unexpected keyword argument %r" % name)
             if value not in (None, False, 0, 0.0):
                 raise UserException("%s is not available in the PyTorch port yet" % name)
-        if sharding != "flat":
-            raise UserException("sharding=%r is not available in the PyTorch port yet (flat only)" % sharding)
-        if granularity not in ("vector", "leaf"):
-            raise UserException(
-                "granularity must be vector or leaf (got %r); layer/global need the sharded mode "
-                "(sharding='sharded')" % (granularity,)
-            )
+        # the mode: explicit wins; else a grid means the sharded mode
+        if sharding is None:
+            sharding = "sharded" if mesh is not None else "flat"
+        if sharding not in ("flat", "sharded"):
+            raise UserException("sharding must be 'flat' or 'sharded' (got %r)" % (sharding,))
+        self.sharded = sharding == "sharded"
+        if granularity is None:
+            granularity = "layer" if self.sharded else "vector"
+        if self.sharded:
+            if granularity not in ("layer", "leaf", "global"):
+                raise UserException("sharded granularity must be layer, leaf or global (got %r)" % (granularity,))
+            if batch_transform is not None:
+                raise UserException("batch_transform is a flat-engine feature (the sharded batches flow through "
+                                    "the pipeline stages)")
+            if trace_ops:
+                raise UserException("trace_ops narrates the flat step body only; use --trace for a profiler window "
+                                    "on the sharded engine")
+            if axis is not None:
+                raise UserException("the sharded engine takes its grid as mesh= (parallel.mesh.make_mesh), not a "
+                                    "worker axis")
+        else:
+            if granularity not in ("vector", "leaf"):
+                raise UserException(
+                    "granularity must be vector or leaf (got %r); layer/global need the sharded mode "
+                    "(sharding='sharded')" % (granularity,)
+                )
+            if mesh is not None:
+                raise UserException("the flat engine takes its worker axis as axis=, not a grid (mesh=)")
+            if l1_regularize or l2_regularize:
+                raise UserException(
+                    "the flat engine takes l1/l2 inside loss_fn (the per-worker loss is global there); "
+                    "l1_regularize/l2_regularize are the sharded engine's analytic equivalent"
+                )
         if leaf_bucketing != "auto" and not isinstance(leaf_bucketing, bool):
             raise UserException("leaf_bucketing must be 'auto' or a bool (got %r)" % (leaf_bucketing,))
-        if leaf_bucketing is True:
+        if leaf_bucketing is True and not self.sharded:
             raise UserException(
                 "leaf_bucketing=True (one batched rule call per leaf size) is not available in the PyTorch "
                 "port yet: it needs the distance and rank kernels with a batch dimension; 'auto' and False "
                 "run the per-leaf loop"
             )
-        if l1_regularize or l2_regularize:
-            raise UserException(
-                "the flat engine takes l1/l2 inside loss_fn (the per-worker loss is global there); "
-                "l1_regularize/l2_regularize are the sharded engine's analytic equivalent"
-            )
+        self.l1_regularize = float(l1_regularize) if l1_regularize else None
+        self.l2_regularize = float(l2_regularize) if l2_regularize else None
         self.gar = gar
         self.nb_workers = int(nb_workers if nb_workers is not None else gar.nb_workers)
         self.nb_real_byz = int(nb_real_byz)
@@ -368,6 +424,11 @@ class RobustEngine:
             if spec_dtype is not None:
                 self.exchange_dtype = spec_dtype
         if self.codec is not None:
+            if self.sharded:
+                raise UserException(
+                    "--exchange %s needs the flat engine: the sharded dataflow's per-(worker, leaf) submissions "
+                    "would need per-leaf codec/error-feedback state, a different protocol (bf16/f32 wire dtypes "
+                    "work everywhere)" % self.codec.spec())
             self.codec.validate_for(gar=gar)
         #: the per-worker error-feedback residual rides TrainState.ef
         self.carries_ef = self.codec is not None and self.codec.uses_ef
@@ -390,6 +451,22 @@ class RobustEngine:
         # stale-mode stragglers re-send the same carry
         self.carries_gradients = (lossy_link is not None and lossy_link.clever) or (
             self.chaos is not None and self.chaos.needs_carry)
+        if self.sharded:
+            if granularity == "global" and (gar.uses_axis or gar.uses_key) and not gar.needs_distances:
+                # the global path sums distances across the leaves; an
+                # iterative rule would need its row norms summed so
+                raise UserException("granularity:global is not supported for %s (whole-vector norms across leaves "
+                                    "are not implemented); use granularity:layer" % type(gar).__name__)
+            if gar.nb_workers != self.nb_workers:
+                raise UserException("GAR was built for n=%d but the mesh worker axis is %d"
+                                    % (gar.nb_workers, self.nb_workers))
+            if mesh is None:
+                mesh = make_mesh(1, 1, 1, device=device)
+            if self.nb_workers % mesh.shape["worker"]:
+                raise UserException("nb_workers (%d) must be a multiple of the worker mesh axis (%d)"
+                                    % (self.nb_workers, mesh.shape["worker"]))
+            axis = mesh.worker.with_workers(self.nb_workers)
+        self.mesh = mesh
         if axis is None:
             axis = WorkerAxis(self.nb_workers, 1, 0, resolve_device(device))
         elif axis.nb_workers != self.nb_workers:
@@ -483,22 +560,23 @@ class RobustEngine:
             carry.copy_(rows)
         return self._forge_and_authenticate(rows, local, seed, step, ridx)
 
-    def draw_forge(self, seed, step, worker, rate):
+    def draw_forge(self, seed, step, worker, rate, tag=FORGE_TAG):
         """bool: does worker ``worker`` forge at ``step``?  The first uniform
         of its (seed, step, w, 5) stream below ``rate``, the same uniform
-        the straggler lateness reads (trap s)."""
-        generator = stream_generator(seed, step, worker, FORGE_TAG, "cpu")
+        the straggler lateness reads (trap s); the sharded mode passes its
+        own ``tag``."""
+        generator = stream_generator(seed, step, worker, tag, "cpu")
         return bool(torch.rand((), generator=generator) < rate)
 
-    def draw_tamper(self, seed, step, worker, rate):
+    def draw_tamper(self, seed, step, worker, rate, tag=TAMPER_TAG):
         """bool: is worker ``worker``'s row tampered at ``step``?  The first
         uniform of its (seed, step, w, 6) stream below ``rate``."""
-        generator = stream_generator(seed, step, worker, TAMPER_TAG, "cpu")
+        generator = stream_generator(seed, step, worker, tag, "cpu")
         return bool(torch.rand((), generator=generator) < rate)
 
-    def draw_tamper_coord(self, seed, step, worker, d):
+    def draw_tamper_coord(self, seed, step, worker, d, tag=TAMPER_COORD_TAG):
         """The coordinate a tamper flips, uniform in [0, d)."""
-        generator = stream_generator(seed, step, worker, TAMPER_COORD_TAG, "cpu")
+        generator = stream_generator(seed, step, worker, tag, "cpu")
         return int(torch.randint(0, d, (), generator=generator))
 
     def draw_impostor(self, seed, step, worker, d):
@@ -702,18 +780,23 @@ class RobustEngine:
             participation = participation / nb_parts
         return torch.cat(parts), participation, wdist, rep_dist
 
-    def _finalize_step(self, state, losses, agg, worker_nan, participation, wdist, rep_dist, ridx=None,
-                       secure=None):
-        """After the update: the loss sum (summed across the ranks), the
-        reputation EMA, the probe, the metrics dict and the flight
-        recorder's row; advances ``state.step``.  Returns ``(state,
-        metrics)``."""
+    def _flat_totals(self, losses, agg):
+        """``(total_loss, update_norm)`` of the flat dataflow: the loss sum
+        (summed across the ranks) and the norm of the (d,) aggregate."""
         total_loss = torch.sum(losses)
         if self.nb_devices > 1:
             total_loss = self.axis.all_reduce_sum(total_loss)
         # a cascaded sum of squares: torch's CPU vector_norm of a float32
         # vector of 11M coordinates errs by ~4e-4 relative
-        update_norm = torch.sqrt(torch.sum(torch.square(agg)))
+        return total_loss, torch.sqrt(torch.sum(torch.square(agg)))
+
+    def _finalize_step(self, state, total_loss, update_norm, worker_nan, participation, wdist, rep_dist, ridx=None,
+                       secure=None):
+        """After the update, shared by the flat and the sharded dataflows
+        (and bounded-wait's aggregate), which pass values already summed
+        across their ranks: the reputation EMA, the probe, the metrics dict
+        and the flight recorder's row; advances ``state.step``.  Returns
+        ``(state, metrics)``."""
         metrics = {"total_loss": total_loss, "grad_norm": update_norm}
         reputation = state.reputation  # before this step's update: the mask used it
         if self.reputation_decay is not None:
@@ -732,7 +815,7 @@ class RobustEngine:
         if ridx is not None:
             # the observability layer's regime column (JAX :911-914): filled
             # on the device, as a copy from host memory would wait for the card
-            metrics["chaos_regime"] = torch.full((), ridx, dtype=torch.int32, device=agg.device)
+            metrics["chaos_regime"] = torch.full((), ridx, dtype=torch.int32, device=update_norm.device)
         if self.worker_metrics:
             metrics["worker_sq_dist"] = wdist
             if participation is not None:
@@ -756,7 +839,7 @@ class RobustEngine:
 
     # ------------------------------------------------------------------ #
 
-    def init_state(self, params, tx, seed=0):
+    def _flat_init_state(self, params, tx, seed=0):
         """A TrainState holding ``params`` moved to the engine's device
         (leaf tensors that require grad), a fresh optimizer state and the
         side buffers of the features that are on: under clever infill (or
@@ -850,7 +933,7 @@ class RobustEngine:
         engine's device once, for ``build_sampled_multi_step``."""
         return {key: torch.as_tensor(np.ascontiguousarray(value)).to(self.device) for key, value in tree.items()}
 
-    def build_step(self, loss_fn, tx):
+    def _flat_build_step(self, loss_fn, tx):
         """Build the robust training step.
 
         Args:
@@ -887,29 +970,10 @@ class RobustEngine:
                 self._mark(state, "aggregate done: |agg|", torch.linalg.vector_norm(agg))
                 tx.apply(state.params, flatmap.inflate(agg), state.opt_state)
                 self._mark(state, "apply done: |p0|", torch.linalg.vector_norm(state.params[flatmap.slices[0][0]]))
-                return self._finalize_step(state, losses, agg, worker_nan, participation, wdist, rep_dist, ridx,
-                                           self._gather_secure(secure))
+                return self._finalize_step(state, *self._flat_totals(losses, agg), worker_nan, participation, wdist,
+                                           rep_dist, ridx, self._gather_secure(secure))
 
         return step
-
-    def build_multi_step(self, loss_fn, tx, repeat_steps=None):
-        """Build a K-step trainer: K steps of the step body in one call, with
-        metrics per step (leading K).
-
-        - ``repeat_steps=None``: ``multi(state, batches)`` with every batch
-          leaf leading (K, n, ...) (``put_batches``): K distinct batches.
-        - ``repeat_steps=K``: ``multi(state, batch)`` reuses one
-          worker-major batch for K steps.
-        """
-        body = self.build_step(loss_fn, tx)
-
-        def multi(state, batches):
-            if repeat_steps is not None:
-                return _run_steps(body, state, int(repeat_steps), lambda state, k: batches)
-            count = next(iter(batches.values())).shape[0]
-            return _run_steps(body, state, count, lambda state, k: {key: value[k] for key, value in batches.items()})
-
-        return multi
 
     def _sample_indices(self, seed, step, nb_examples, batch_size):
         """(n, batch_size) int64 indices on the device: worker w's draw,
@@ -931,7 +995,8 @@ class RobustEngine:
         cut into chunks, and a resumed run needs no fast-forward; the
         in-step augmentation runs on the sampled batch as on a streamed one.
         """
-        body = self.build_step(loss_fn, tx)
+        self._flat_only("build_sampled_multi_step")
+        body = self._flat_build_step(loss_fn, tx)
         nb_steps, batch_size = int(repeat_steps), int(batch_size)
 
         def multi(state, data):
@@ -945,7 +1010,7 @@ class RobustEngine:
 
         return multi
 
-    def build_gar_probe(self, d, seed=0):
+    def _flat_build_gar_probe(self, d, seed=0):
         """The rule alone at the run's (n, d) (JAX ``_flat_build_gar_probe``):
         the instrument behind the runner's ``--gar-probe``.
 
@@ -986,7 +1051,13 @@ class RobustEngine:
         """The bounded-wait builders' preconditions (JAX ``engine.py:2255-2290``
         for the flat mode), and one rank: the port's worker axis is W
         processes, and the protocol's submission threads poll one process's
-        streams (the JAX runner refuses ``process_count() > 1``)."""
+        streams (the JAX runner refuses ``process_count() > 1``).  The
+        sharded mode's submission units (JAX ``build_group_grad``,
+        ``build_submesh_grad``) are ROADMAP queue 1 item 8c."""
+        if self.sharded:
+            raise UserException("bounded-wait on the sharded engine (build_group_grad/build_submesh_grad, a unit "
+                                "forfeiting its k rows) is not available in the PyTorch port yet (ROADMAP queue 1 "
+                                "item 8c); run the flat engine")
         if self.granularity != "vector":
             raise UserException("bounded-wait aggregates the whole flattened gradient (granularity vector); per-leaf "
                                 "selection is not supported")
@@ -1141,8 +1212,8 @@ class RobustEngine:
                 nobody = torch.zeros(self.nb_workers, dtype=torch.bool, device=agg.device)
                 secure = {"digest_sent": extras["digests"], "digest_recv": extras["digests"], "forged": nobody,
                           "rejected": nobody}
-            state, metrics = self._finalize_step(state, torch.where(arrived, losses, 0.0), agg, worker_nan,
-                                                 participation, wdist, rep_dist, secure=secure)
+            state, metrics = self._finalize_step(state, *self._flat_totals(torch.where(arrived, losses, 0.0), agg),
+                                                 worker_nan, participation, wdist, rep_dist, secure=secure)
             metrics["straggler_timeout"] = ~arrived
             metrics["stale_infill"] = stale
             metrics["nb_timeouts"] = torch.sum(~arrived, dtype=torch.int32)
@@ -1179,6 +1250,7 @@ class RobustEngine:
         """eval_step(state, batch) -> dict name -> (sum, count) over the batch:
         ``metric_fn`` vmapped over the k local workers, summed over them and
         (W > 1) across the ranks."""
+        self._flat_only("build_eval_sums")
 
         @torch.no_grad()
         def eval_step(state, batch):
@@ -1195,7 +1267,7 @@ class RobustEngine:
 
         return eval_step
 
-    def build_eval(self, metric_fn):
+    def _flat_build_eval(self, metric_fn):
         """Like ``build_eval_sums`` but divides, returning per-batch means."""
         eval_sums = self.build_eval_sums(metric_fn)
 
@@ -1204,6 +1276,554 @@ class RobustEngine:
             return {name: total / torch.clamp(count, min=1) for name, (total, count) in folded.items()}
 
         return means
+
+    # ------------------------------------------------------------------ #
+    # the public surface, one for both modes (JAX engine.py:2168-2247)
+
+    def _flat_only(self, name):
+        if self.sharded:
+            raise UserException("%s is a flat-engine builder; the sharded engine has build_step, build_multi_step "
+                                "and build_eval" % name)
+
+    def init_state(self, *args, **kwargs):
+        """The TrainState of this engine's mode: flat ``init_state(params,
+        tx, seed=0)``; sharded ``init_state(init_fn, specs, tx, seed=0)``."""
+        if self.sharded:
+            return self._sharded_init_state(*args, **kwargs)
+        return self._flat_init_state(*args, **kwargs)
+
+    def build_step(self, loss_fn, tx):
+        """The robust training step of the engine's mode."""
+        if self.sharded:
+            return self._sharded_build_step(loss_fn, tx)
+        return self._flat_build_step(loss_fn, tx)
+
+    def build_multi_step(self, loss_fn, tx, repeat_steps=None):
+        """Build a K-step trainer: K steps of the mode's step body in one
+        call, with metrics per step (leading K).
+
+        - ``repeat_steps=None``: ``multi(state, batches)`` with every batch
+          leaf leading (K, n, ...) (``put_batches``): K distinct batches.
+        - ``repeat_steps=K``: ``multi(state, batch)`` reuses one
+          worker-major batch for K steps.
+        """
+        body = self.build_step(loss_fn, tx)
+
+        def multi(state, batches):
+            if repeat_steps is not None:
+                return _run_steps(body, state, int(repeat_steps), lambda state, k: batches)
+            count = next(iter(batches.values())).shape[0]
+            return _run_steps(body, state, count, lambda state, k: {key: value[k] for key, value in batches.items()})
+
+        return multi
+
+    def build_eval(self, fn):
+        """flat: ``build_eval(metric_fn)`` -> per-batch means; sharded:
+        ``build_eval(loss_fn)`` -> the mean sharded loss."""
+        if self.sharded:
+            return self._sharded_build_eval(fn)
+        return self._flat_build_eval(fn)
+
+    def build_gar_probe(self, d, seed=0):
+        """The rule alone at the engine's (n, d) (``--gar-probe``)."""
+        if self.sharded:
+            return self._sharded_build_gar_probe(d, seed=seed)
+        return self._flat_build_gar_probe(d, seed=seed)
+
+    # ------------------------------------------------------------------ #
+    # the sharded dataflow (logical worker = a (pipe x model) submesh),
+    # JAX engine.py:1440-2166
+
+    def _spec_names(self, spec):
+        return {entry for entry in spec or () if entry is not None}
+
+    def _replication_axes(self, spec):
+        """The in-group axes over which a leaf with this spec is replicated."""
+        names = self._spec_names(spec)
+        return tuple(a for a in IN_GROUP_AXES if a not in names)
+
+    def _replication_scale(self, spec):
+        scale = 1.0
+        for a in self._replication_axes(spec):
+            scale /= self.mesh.shape[a]
+        return scale
+
+    def _shard(self, value, spec):
+        """This rank's block of a global leaf: each dim named by ``spec``
+        cut into the axis's size, block ``coord``."""
+        for dim, name in enumerate(spec or ()):
+            if name is None:
+                continue
+            size, index = self.mesh.shape[name], self.mesh.axis(name).rank
+            if value.shape[dim] % size:
+                raise UserException("leaf dim %d of size %d does not divide over the %s axis of size %d"
+                                    % (dim, value.shape[dim], name, size))
+            block = value.shape[dim] // size
+            value = value.narrow(dim, index * block, block)
+        return value
+
+    def _unshard(self, value, spec):
+        """The global leaf of this rank's block (a collective over the
+        worker's (pipe, model) submesh: every rank calls it)."""
+        group = self.mesh.group
+        if group.size == 1:
+            return value
+        pp, tp = self.mesh.shape["pipe"], self.mesh.shape["model"]
+        parts = group.all_gather(value).reshape((pp, tp) + tuple(value.shape))
+        spec = tuple(spec or ())
+        rows = []
+        for p in range(pp):
+            row = parts[p]
+            rows.append(torch.cat(row.unbind(0), dim=spec.index("model")) if "model" in spec else row[0])
+        return torch.cat(rows, dim=spec.index("pipe")) if "pipe" in spec else rows[0]
+
+    def _map_state_leaves(self, tree, fn):
+        """``fn(tensor, spec)`` over the params-shaped dicts of a params or
+        optimizer-state tree (other leaves as they are)."""
+        if isinstance(tree, dict) and tree and set(tree) <= set(self._specs) and all(
+                isinstance(v, torch.Tensor) for v in tree.values()):
+            return {name: fn(value, self._specs[name]) for name, value in tree.items()}
+        if isinstance(tree, dict):
+            return {key: self._map_state_leaves(value, fn) for key, value in tree.items()}
+        return tree
+
+    def _sharded_init_state(self, init_fn, specs, tx, seed=0):
+        """The sharded TrainState (JAX ``_sharded_init_state``).
+
+        ``init_fn(seed)`` builds the global parameter dict (on the CPU, the
+        same on every rank; e.g. ``transformer.init_params``), ``specs``
+        its axis names a dim (``transformer.param_specs``).  Each rank keeps
+        its (pipe, model) block of every leaf, on its device; the optimizer
+        state is built on those blocks (the rules are elementwise, so it is
+        the block of the global state); the momentum and the carry are
+        per-leaf (k, *block) buffers of the rank's k workers."""
+        global_params = init_fn(int(seed))
+        self._specs = {name: tuple(specs[name]) for name in global_params}
+        self.model_dim = sum(value.numel() for value in global_params.values())
+        params = {name: self._shard(value, self._specs[name]).detach().to(self.device, torch.float32).clone()
+                  .requires_grad_(True) for name, value in global_params.items()}
+        state = TrainState(params=params, opt_state=tx.init(params), step=0, seed=int(seed))
+        k = self.workers_per_device
+
+        def per_worker_zeros():
+            return {name: torch.zeros((k,) + tuple(p.shape), dtype=torch.float32, device=self.device)
+                    for name, p in params.items()}
+
+        if self.worker_momentum is not None:
+            state.momentum = per_worker_zeros()
+        if self.carries_gradients:
+            state.carry = per_worker_zeros()
+        if self.reputation_decay is not None:
+            state.reputation = torch.ones(self.nb_workers, dtype=torch.float32, device=self.device)
+        if self.health_probe:
+            state.loss_ema = torch.full((), health.EMA_UNSET, dtype=torch.float32, device=self.device)
+        if self.flight is not None:
+            state.flight = self.flight.init_buffers(self.device)
+        return state
+
+    def global_state(self, state):
+        """The global parameters and optimizer state of a sharded ``state``
+        (blocks gathered over each worker's submesh), with its step and
+        seed, as a TrainState on the device: what a checkpoint saves and a
+        restore loads into (``put_state``).  A collective: every rank calls
+        it.  The flat mode's state is global already."""
+        if not self.sharded:
+            return state
+        with torch.no_grad():
+            params = self._map_state_leaves(state.params, self._unshard)
+            opt_state = self._map_state_leaves(state.opt_state, self._unshard)
+        return TrainState(params=params, opt_state=opt_state, step=int(state.step), seed=int(state.seed))
+
+    def put_state(self, state, global_state):
+        """Load a global state (``global_state``'s layout, e.g. restored from
+        a checkpoint) into the live sharded ``state`` in place: each rank
+        its blocks, the step and the seed; the side buffers reset as a
+        restore resets them.  Returns ``state``."""
+        from ..core.train_state import _reset_side_buffers
+
+        with torch.no_grad():
+            for tree, saved in ((state.params, global_state.params), (state.opt_state, global_state.opt_state)):
+                blocks = self._map_state_leaves(saved, self._shard)
+
+                def load(live, new):
+                    for key, value in new.items():
+                        if isinstance(value, dict):
+                            load(live[key], value)
+                        elif isinstance(value, torch.Tensor):
+                            live[key].copy_(value)
+                        else:
+                            live[key] = value
+
+                load(tree, blocks)
+            _reset_side_buffers(state)
+        state.step, state.seed = int(global_state.step), int(global_state.seed)
+        return state
+
+    def _sharded_worker_gradients(self, params, batch, loss_fn):
+        """((k,) local partial losses, {name: (k, *block) gradient}) of the
+        rank's k workers.  At PP TP = 1 the loss calls no collective and
+        the k workers run as one ``torch.func.vmap`` of ``grad_and_value``,
+        as the flat engine's; beyond, the loss calls collectives, which
+        cannot run under a vmap, and the k workers run as a loop of k
+        forward and backward passes (JAX's k = 1 path has no vmap either).
+        A leaf a rank's loss does not reach (``embed`` off stage 0) gets a
+        zero gradient: the psum over its replication axes completes it."""
+        grid = self.mesh
+        names = list(params)
+        detached = {name: value.detach() for name, value in params.items()}
+        if grid.in_group_size == 1:
+            grads, losses = vmap(grad_and_value(lambda p, b: loss_fn(p, b, grid)), in_dims=(None, 0))(detached, batch)
+            return losses.detach(), {name: grads[name] for name in names}
+        losses, rows = [], {name: [] for name in names}
+        for j in range(self.workers_per_device):
+            leaves = {name: value.detach().requires_grad_(True) for name, value in detached.items()}
+            with torch.enable_grad():
+                loss = loss_fn(leaves, {key: value[j] for key, value in batch.items()}, grid)
+                # backward(), not autograd.grad(inputs=): every collective's
+                # backward must run (parallel/collectives.py)
+                loss.backward()
+            losses.append(loss.detach())
+            for name in names:
+                grad = leaves[name].grad
+                rows[name].append(torch.zeros_like(leaves[name]) if grad is None else grad)
+        return torch.stack(losses), {name: torch.stack(value) for name, value in rows.items()}
+
+    def _sharded_perturb(self, g, i, widx, seed, step, previous=None, ridx=None, late=None):
+        """Worker ``widx``'s leaf ``i`` block (JAX ``_perturb``): the local
+        attacks (on w < r), the lossy link, the regime's drop storm and its
+        stragglers, each leaf on its own (seed, step, w, leaf_tag(i, t))
+        streams.  Returns the block as it arrived."""
+        flat = g.reshape(-1)
+        prev = previous.reshape(-1) if previous is not None else None
+        chaos = self.chaos
+        if widx < self.nb_real_byz:
+            if self.attack is not None and not self.attack.omniscient:
+                flat = self.attack.apply_local(flat, stream_generator(seed, step, widx, leaf_tag(i, ATTACK_TAG),
+                                                                      self.device))
+            if chaos is not None and chaos.has_local_attacks:
+                flat = chaos.apply_local_attacks(ridx, flat, stream_generator(seed, step, widx,
+                                                                              leaf_tag(i, ATTACK_TAG), self.device))
+        d = flat.shape[0]
+        link = self.lossy_link
+        if link is not None:
+            drops = link.draw_drops(d, seed, step, widx, tag=leaf_tag(i, LOSSY_TAG))
+            flat = link.apply_rows(flat[None], [widx], drops[None],
+                                   previous=None if prev is None else prev[None])[0]
+        if chaos is not None and chaos.drop_rate(ridx) > 0:
+            drops = chaos.link.draw_drops(d, seed, step, widx, drop_rate=chaos.drop_rate(ridx),
+                                          tag=leaf_tag(i, LOSSY_TAG))
+            flat = chaos.link.apply_rows(flat[None], [widx], drops[None])[0]
+        if late is not None:
+            flat = chaos.stragglers.apply(flat, late, chaos.straggler_stale(ridx), previous=prev)
+        return flat.reshape(g.shape)
+
+    def _sharded_submission(self, g_leaves, seed, step, ridx):
+        """The submission forgery on the sharded leaves (JAX
+        ``_submission_pipeline``): under the regime's ``forge`` rate every
+        leaf of a coalition worker is replaced by impostor noise; under
+        ``secure`` the sender's digest is the sum mod 2^32 of the leaves'
+        ``row_digest``, leaf i salted ``i * 0x9E3779B1``; ``tamper`` flips a
+        bit of the first leaf after signing; the receiver's digest follows
+        and a rejected worker's every leaf reads NaN.  Returns ``(g_leaves,
+        secure_local)``, the rank's (k, 4) digest sums (this submesh's
+        blocks only) and (k,) verdicts, or None unless ``secure``."""
+        chaos = self.chaos
+        forgery = chaos is not None and chaos.has_forgery
+        if not (self.secure or forgery):
+            return g_leaves, None
+        from ..secure.submit import FORGE_SCALE, DIGEST_LANES, row_digest, tamper_row
+
+        k = self.workers_per_device
+        forge_rate = chaos.forge_rate(ridx) if forgery else 0.0
+        tamper_rate = chaos.tamper_rate(ridx) if forgery else 0.0
+        g_leaves = [g.clone() for g in g_leaves]
+        sent = torch.zeros((k, DIGEST_LANES), dtype=torch.int64, device=self.device)
+        recv = torch.zeros_like(sent)
+        forged, rejected = np.zeros(k, bool), np.zeros(k, bool)
+        for j in range(k):
+            widx = self.axis.worker_index(j)
+            is_forge = forgery and widx < self.nb_real_byz and forge_rate > 0 and self.draw_forge(
+                seed, step, widx, forge_rate, tag=SHARDED_FORGE_TAG)
+            is_tamper = forgery and widx < self.nb_real_byz and tamper_rate > 0 and self.draw_tamper(
+                seed, step, widx, tamper_rate, tag=SHARDED_TAMPER_TAG)
+            forged[j], rejected[j] = is_forge, is_forge or is_tamper
+            for i, g in enumerate(g_leaves):
+                flat = g[j].reshape(-1).to(torch.float32)
+                if is_forge:
+                    generator = stream_generator(seed, step, widx, SHARDED_IMPOSTOR_TAG + i, self.device)
+                    flat = torch.randn(flat.shape[0], generator=generator, dtype=torch.float32,
+                                       device=self.device) * FORGE_SCALE
+                digest = None
+                if self.secure:
+                    digest = row_digest(flat, salt=i * 0x9E3779B1).to(torch.int64)
+                    sent[j] += digest
+                if is_tamper and i == 0:
+                    flat = tamper_row(flat, self.draw_tamper_coord(seed, step, widx, flat.shape[0],
+                                                                   tag=SHARDED_TAMPER_COORD_TAG))
+                    if self.secure:
+                        digest = row_digest(flat, salt=0).to(torch.int64)
+                if self.secure:
+                    recv[j] += digest
+                    if rejected[j]:
+                        flat = torch.full_like(flat, float("nan"))
+                g[j] = flat.reshape(g[j].shape).to(g.dtype)
+        if not self.secure:
+            return g_leaves, None
+        flags = self._to_device(torch.from_numpy(np.stack([forged, rejected])))
+        return g_leaves, {"digest_sent": sent & 0xFFFFFFFF, "digest_recv": recv & 0xFFFFFFFF,
+                          "forged": flags[0], "rejected": flags[1]}
+
+    def _leaf_buckets(self, g, spec):
+        """A locally worker-stacked (k, ...) leaf as (k, n_buckets,
+        d_bucket): under ``layer`` a stage-stacked leaf has one bucket a
+        layer, every other leaf one bucket."""
+        k = g.shape[0]
+        if self.granularity == "layer" and spec is not None and len(spec) >= 2 and spec[0] == "pipe":
+            return g.reshape(k, g.shape[1] * g.shape[2], -1)
+        return g.reshape(k, 1, -1)
+
+    def _gather_rows(self, buckets):
+        """(k, Lb, d) local buckets -> (Lb, n, d) float32 rows of every
+        worker: one all_gather over the worker axis, in the wire's dtype,
+        worker-major (global worker = group k + local slot)."""
+        if self.exchange_dtype is not None:
+            buckets = buckets.to(self.exchange_dtype)
+        if self.nb_devices > 1:
+            buckets = self.axis.all_gather(buckets)  # (W, k, Lb, d)
+        rows = buckets.to(torch.float32).reshape((self.nb_workers,) + tuple(buckets.shape[-2:]))
+        return rows.transpose(0, 1).contiguous()
+
+    def _apply_omniscient(self, rows, ridx=None):
+        """The coalition's attacks on each (n, d) bucket; the forged rows
+        cross the wire again (the ported omniscient attacks draw nothing,
+        so no stream)."""
+        byz_mask = torch.arange(self.nb_workers, device=rows.device) < self.nb_real_byz
+        forged = False
+        if self.attack is not None and self.attack.omniscient:
+            rows = torch.stack([self.attack.apply_matrix(bucket, byz_mask) for bucket in rows])
+            forged = True
+        if self.chaos is not None and self.chaos.has_omniscient_attacks:
+            rows = torch.stack([self.chaos.apply_omniscient_attacks(ridx, bucket, byz_mask) for bucket in rows])
+            forged = True
+        if forged:
+            rows = wire_roundtrip(rows, self.exchange_dtype)
+        return rows
+
+    def _bucket_distances(self, bucket, spec):
+        """One bucket's (n, n) distances: the centring and K2 (the centred
+        Gram form JAX computes in jnp), summed over the model axis when the
+        leaf's coordinates are sharded across it, clamped at 0.  The port's
+        Gram form clamps each block's partial at 0 before that sum."""
+        partial = centered_gram_sq_distances(bucket)
+        if "model" in self._spec_names(spec):
+            partial = self.mesh.psum(partial, ("model",))
+        return torch.clamp_min(partial, 0.0)
+
+    def _sharded_build_step(self, loss_fn, tx):
+        """The sharded step (JAX ``_make_sharded_body``, ``engine.py:1721-2022``):
+        ``step(state, batch)``, ``batch`` the rank's k workers' (k, B, S)
+        batch (``put_batch``), ``loss_fn(params, batch, grid)`` the local
+        partial loss (``transformer.make_pipeline_loss``).
+
+        1. the k workers' local losses and gradients
+           (``_sharded_worker_gradients``);
+        2. each leaf's gradient summed over its replication axes (the
+           in-group axes its spec does not name), then l1/l2 analytically,
+           ``l1 sign(p) + 2 l2 p`` on the completed gradient, the norm
+           scaled by 1/(replication) added to every worker's loss;
+        3. worker momentum (bias-corrected, per leaf);
+        4. the per-(worker, leaf) perturbation and the submission forgery;
+        5. per leaf: the buckets (``_leaf_buckets``), gathered over the
+           worker axis (``_gather_rows``), the omniscient attack, the
+           quarantine (before any distance), then per bucket the rule: its
+           distances (``_bucket_distances``: the centring and K2, a launch
+           each a bucket; under ``global`` one accumulation over the
+           leaves, each scaled by 1/(replication), summed over the
+           submesh), an iterative rule completing its norms over the model
+           axis when the leaf is sharded there, a randomized one keyed by
+           the step's ``gar_key``; the buckets loop (the port has no
+           batched kernels, ROADMAP queue 2 item 1);
+        6. the optimizer on each rank's blocks; the grad norm, the loss
+           sum, the reputation, worker distance and participation
+           accumulators scaled by 1/(replication) and summed over the
+           submesh (JAX's scales); the probe's NaN rows and the secure
+           lanes gathered worker-major; ``_finalize_step``."""
+        gar, grid = self.gar, self.mesh
+        k = self.workers_per_device
+
+        def step(state, batch):
+            names = sorted(state.params)
+            specs = [self._specs[name] for name in names]
+            seed, stepno = state.seed, state.step
+            chaos = self.chaos
+            ridx = chaos.regime_at(stepno) if chaos is not None else None
+            lates = [None] * k
+            if chaos is not None and chaos.straggler_rate(ridx) > 0:
+                rate = chaos.straggler_rate(ridx)
+                # one lateness draw a worker, for all its leaves
+                lates = [chaos.stragglers.draw_late(seed, stepno, self.axis.worker_index(j), rate, tag=SHARDED_LATE_TAG)
+                         for j in range(k)]
+            losses, grads = self._sharded_worker_gradients(state.params, batch, loss_fn)
+            with torch.no_grad():
+                g_leaves = [grid.psum(grads[name], self._replication_axes(spec)) for name, spec in zip(names, specs)]
+                l1, l2 = self.l1_regularize, self.l2_regularize
+                if l1 or l2:
+                    reg = torch.zeros((), dtype=torch.float32, device=self.device)
+                    for i, (name, spec) in enumerate(zip(names, specs)):
+                        p32 = state.params[name].detach().to(torch.float32)
+                        delta = torch.zeros_like(p32)
+                        if l1:
+                            delta = delta + l1 * torch.sign(p32)
+                            reg = reg + l1 * torch.sum(torch.abs(p32)) * self._replication_scale(spec)
+                        if l2:
+                            delta = delta + 2.0 * l2 * p32
+                            reg = reg + l2 * torch.sum(p32 * p32) * self._replication_scale(spec)
+                        g_leaves[i] = g_leaves[i] + delta.to(g_leaves[i].dtype)
+                    losses = losses + reg
+                if self.worker_momentum is not None:
+                    beta = self.worker_momentum
+                    state.momentum_steps += 1
+                    correction = bias_correction(beta, state.momentum_steps, self.device)
+                    for i, name in enumerate(names):
+                        state.momentum[name] = beta * state.momentum[name] + (1.0 - beta) * g_leaves[i]
+                        g_leaves[i] = state.momentum[name] / correction
+                if self.attack is not None or self.lossy_link is not None or chaos is not None:
+                    for i, name in enumerate(names):
+                        g = g_leaves[i]
+                        outs = []
+                        for j in range(k):
+                            previous = state.carry[name][j] if state.carry is not None else None
+                            outs.append(self._sharded_perturb(g[j], i, self.axis.worker_index(j), seed, stepno,
+                                                              previous, ridx, lates[j]))
+                        g_leaves[i] = torch.stack(outs)
+                        if state.carry is not None:
+                            state.carry[name] = g_leaves[i].clone()
+                g_leaves, secure_local = self._sharded_submission(g_leaves, seed, stepno, ridx)
+
+                all_rows = [self._apply_omniscient(self._gather_rows(self._leaf_buckets(g, spec)), ridx)
+                            for g, spec in zip(g_leaves, specs)]
+                raw_all_rows = all_rows
+                if self.quarantine_threshold:
+                    masked = quarantine_mask(state.reputation, self.quarantine_threshold, gar.nb_byz_workers)
+                    all_rows = [torch.where(masked[None, :, None], torch.nan, rows) for rows in all_rows]
+                global_dist2 = None
+                if self.granularity == "global" and gar.needs_distances:
+                    acc = torch.zeros((self.nb_workers, self.nb_workers), dtype=torch.float32, device=self.device)
+                    for rows, spec in zip(all_rows, specs):
+                        acc = acc + centered_gram_sq_distances(rows.reshape(self.nb_workers, -1)) * \
+                            self._replication_scale(spec)
+                    global_dist2 = torch.clamp_min(grid.psum(acc, IN_GROUP_AXES), 0.0)
+                key = gar_key(seed, stepno)
+                n = self.nb_workers
+                wdist = torch.zeros(n, dtype=torch.float32, device=self.device)
+                rep_dist = torch.zeros(n, dtype=torch.float32, device=self.device)
+                part_sum = torch.zeros(n, dtype=torch.float32, device=self.device)
+                part_count = 0.0
+                agg_leaves = {}
+                for name, rows, raw_rows, g, spec in zip(names, all_rows, raw_all_rows, g_leaves, specs):
+                    axis = grid.model if "model" in self._spec_names(spec) and grid.model.size > 1 else None
+                    aggs, parts = [], []
+                    for b in range(rows.shape[0]):
+                        bucket = rows[b]
+                        if gar.needs_distances:
+                            dist2 = global_dist2 if global_dist2 is not None else self._bucket_distances(bucket, spec)
+                            if self.worker_metrics:
+                                agg, part = gar.aggregate_block_and_participation(bucket, dist2)
+                            else:
+                                agg, part = gar.aggregate_block(bucket, dist2), None
+                        elif gar.uses_axis or gar.uses_key:
+                            if self.worker_metrics:
+                                agg, part = gar.aggregate_block_and_participation(
+                                    bucket, None, **rule_kwargs(gar, key, axis))
+                            else:
+                                agg, part = gar._call_aggregate(bucket, None, key=key, axis=axis), None
+                        else:
+                            agg, part = gar.aggregate_block(bucket, None), None
+                        aggs.append(agg.to(torch.float32))
+                        parts.append(part)
+                    agg = torch.stack(aggs)  # (Lb, d_b)
+                    scale = self._replication_scale(spec)
+                    if self.reputation_decay is not None:
+                        rdiff = raw_rows - agg[:, None, :]
+                        rep_dist = rep_dist + torch.sum(rdiff * rdiff, dim=(0, 2)) * scale
+                    if self.worker_metrics:
+                        diff = rows - agg[:, None, :]
+                        wdist = wdist + torch.sum(diff * diff, dim=(0, 2)) * scale
+                        if parts[0] is not None:
+                            stacked = self.granularity == "layer" and len(spec) >= 2 and spec[0] == "pipe"
+                            pscale = 1.0 / grid.shape["model"] / (1 if stacked else grid.shape["pipe"])
+                            part_sum = part_sum + torch.sum(torch.stack(parts), dim=0) * pscale
+                            part_count += len(parts) * (grid.shape["pipe"] if stacked else 1)
+                    agg_leaves[name] = agg.reshape(g.shape[1:]).to(g.dtype)
+                tx.apply(state.params, agg_leaves, state.opt_state)
+
+                sq = torch.zeros((), dtype=torch.float32, device=self.device)
+                for name, spec in zip(names, specs):
+                    sq = sq + torch.sum(torch.square(agg_leaves[name].to(torch.float32))) * \
+                        self._replication_scale(spec)
+                grad_norm = torch.sqrt(grid.psum(sq, IN_GROUP_AXES))
+                total_loss = torch.sum(losses)
+                if grid.size > 1:
+                    total_loss = grid.world.all_reduce_sum(total_loss)
+                worker_nan = None
+                if self.health_probe:
+                    bad = torch.zeros(k, dtype=torch.int64, device=self.device)
+                    for g in g_leaves:
+                        bad = bad + torch.sum(~torch.isfinite(g.reshape(k, -1)), dim=1)
+                    bad = grid.psum(bad, IN_GROUP_AXES) > 0
+                    worker_nan = bad if self.nb_devices == 1 else self.axis.all_gather(bad).reshape(n)
+                secure = None
+                if secure_local is not None:
+                    secure = {}
+                    for field, summed in (("digest_sent", True), ("digest_recv", True), ("forged", False),
+                                          ("rejected", False)):
+                        value = secure_local[field]
+                        if summed:
+                            value = grid.psum(value, IN_GROUP_AXES) & 0xFFFFFFFF
+                        if self.nb_devices > 1:
+                            value = self.axis.all_gather(value).reshape((n,) + tuple(value.shape[1:]))
+                        secure[field] = value.to(torch.uint32) if summed else value
+                return self._finalize_step(
+                    state, total_loss, grad_norm, worker_nan,
+                    grid.psum(part_sum, IN_GROUP_AXES) / part_count if part_count else None,
+                    grid.psum(wdist, IN_GROUP_AXES) if self.worker_metrics else None,
+                    grid.psum(rep_dist, IN_GROUP_AXES) if self.reputation_decay is not None else None,
+                    ridx, secure)
+
+        return step
+
+    def _sharded_build_eval(self, loss_fn):
+        """``eval(state, batch)``: the mean over the workers of the sharded
+        loss (the local partials summed over every rank, divided by n)."""
+        grid = self.mesh
+
+        @torch.no_grad()
+        def eval_step(state, batch):
+            params = {name: value.detach() for name, value in state.params.items()}
+            total = sum(loss_fn(params, {key: value[j] for key, value in batch.items()}, grid)
+                        for j in range(self.workers_per_device))
+            if grid.size > 1:
+                total = grid.world.all_reduce_sum(total)
+            return total / self.nb_workers
+
+        return eval_step
+
+    def _sharded_build_gar_probe(self, d, seed=0):
+        """The rule once over whole-model (n, d) synthetic rows on this rank
+        (JAX ``_sharded_build_gar_probe``): exact for ``global``, an upper
+        bound of the per-bucket work otherwise; the distances are the
+        centring and K2, as the step's.  The caller synchronises before
+        reading the clock."""
+        generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        rows = torch.randn((self.nb_workers, int(d)), generator=generator, dtype=torch.float32, device=self.device)
+
+        @torch.no_grad()
+        def probe(step=0):
+            dist2 = centered_gram_sq_distances(probe.rows) if self.gar.needs_distances else None
+            return self.gar._call_aggregate(probe.rows, dist2, key=gar_key(seed, step))
+
+        probe.rows = rows
+        return probe
 
 
 def _run_steps(body, state, count, batch_of):
@@ -1214,3 +1834,20 @@ def _run_steps(body, state, count, batch_of):
         state, step_metrics = body(state, batch_of(state, k))
         metrics.append(step_metrics)
     return state, stack_metrics(metrics)
+
+
+class ShardedRobustEngine(RobustEngine):
+    """``RobustEngine(..., sharding="sharded")`` under JAX's historical name
+    and signature (JAX ``engine.py:2711-2731``): ``mesh`` a
+    ``parallel.mesh.DeviceGrid`` (None: the one-rank grid on ``device``)."""
+
+    def __init__(self, mesh, gar, nb_real_byz=0, attack=None, lossy_link=None, granularity="layer",
+                 exchange_dtype=None, worker_momentum=None, worker_metrics=False, reputation_decay=None,
+                 quarantine_threshold=0.0, l1_regularize=None, l2_regularize=None, chaos=None, health_probe=True,
+                 nb_workers=None, secure=False, flight=None, device="cuda"):
+        super().__init__(gar, nb_workers=nb_workers, nb_real_byz=nb_real_byz, attack=attack, lossy_link=lossy_link,
+                         granularity=granularity, exchange_dtype=exchange_dtype, worker_momentum=worker_momentum,
+                         worker_metrics=worker_metrics, reputation_decay=reputation_decay,
+                         quarantine_threshold=quarantine_threshold, l1_regularize=l1_regularize,
+                         l2_regularize=l2_regularize, chaos=chaos, health_probe=health_probe, secure=secure,
+                         flight=flight, sharding="sharded", mesh=mesh, device=device)

@@ -50,14 +50,15 @@ class LossyLink:
     def nb_packets(self, d):
         return -(-d // self.packet_coords)
 
-    def draw_drops(self, d, seed, step, worker, drop_rate=None):
+    def draw_drops(self, d, seed, step, worker, drop_rate=None, tag=LOSSY_TAG):
         """(nb_packets,) bool CPU tensor: which packets of worker ``worker``'s
-        (d,) row are lost at ``step``, from the (seed, step, worker, 2) stream;
-        ``drop_rate`` overrides the configured rate (a chaos regime's storm)."""
+        (d,) row are lost at ``step``, from the (seed, step, worker, 2) stream
+        (the sharded mode passes its leaf's ``tag``); ``drop_rate``
+        overrides the configured rate (a chaos regime's storm)."""
         from .engine import stream_generator
 
         rate = self.drop_rate if drop_rate is None else float(drop_rate)
-        generator = stream_generator(seed, step, worker, LOSSY_TAG, torch.device("cpu"))
+        generator = stream_generator(seed, step, worker, tag, torch.device("cpu"))
         return torch.rand(self.nb_packets(d), generator=generator) < rate
 
     def apply_rows(self, rows, workers, drops, previous=None):

@@ -1,4 +1,5 @@
-"""The worker axis over ``torch.distributed``.
+"""The worker axis over ``torch.distributed``, and the (worker, pipe, model)
+grid of the sharded engine (``make_mesh``, ``DeviceGrid``).
 
 Counterpart of ``aggregathor_tpu/parallel/mesh.py``.  The JAX package lays
 its n logical workers over a ``worker`` mesh axis of W devices, k = n/W
@@ -72,7 +73,7 @@ class WorkerAxis:
     """W ranks of ``nb_workers`` logical workers, k = n/W a rank, worker
     w = rank * k + j on rank ``rank``.  ``group`` is None at W = 1."""
 
-    def __init__(self, nb_workers, size=1, rank=0, device="cuda", group=None, backend=None):
+    def __init__(self, nb_workers, size=1, rank=0, device="cuda", group=None, backend=None, ranks=None):
         self.nb_workers = int(nb_workers)
         self.size = int(size)
         self.rank = int(rank)
@@ -87,6 +88,9 @@ class WorkerAxis:
         self.backend = backend
         self.staged = backend == "gloo" and self.device.type == "cuda"
         self.stats = {"calls": 0, "seconds": 0.0, "bytes": 0}
+        #: the process-group ranks of the axis's members, in axis order (the
+        #: point-to-point peers of ``ppermute``); None: the world's 0..W-1
+        self.ranks = None if ranks is None else [int(r) for r in ranks]
 
     @property
     def lead(self):
@@ -97,7 +101,8 @@ class WorkerAxis:
         (one process group serves engines of several n)."""
         if int(nb_workers) == self.nb_workers:
             return self
-        axis = WorkerAxis(nb_workers, self.size, self.rank, self.device, group=self.group, backend=self.backend)
+        axis = WorkerAxis(nb_workers, self.size, self.rank, self.device, group=self.group, backend=self.backend,
+                          ranks=self.ranks)
         axis.stats = self.stats
         return axis
 
@@ -177,6 +182,29 @@ class WorkerAxis:
                 bits = wire.view(torch.uint8) if wire.dtype in BYTE_VIEWED else wire
             dist.broadcast(bits, src=src, group=self.group)
             return self._back(wire, tensor)
+
+        return self._timed(run, tensor.numel() * tensor.element_size())
+
+    def ppermute(self, tensor, shift=1):
+        """Rank i's ``tensor`` on rank (i + shift) mod W: one
+        ``batch_isend_irecv`` of a send to that rank and a receive from rank
+        (i - shift) mod W (``jax.lax.ppermute`` on a ring); returns what
+        arrived."""
+        tensor = tensor.contiguous()
+
+        def peer(index):
+            index %= self.size
+            return self.ranks[index] if self.ranks is not None else index
+
+        def run():
+            wire, bits = self._wire(tensor)
+            out = torch.empty_like(wire)
+            out_bits = out.view(torch.uint8) if out.dtype in BYTE_VIEWED else out
+            ops = [dist.P2POp(dist.isend, bits, peer(self.rank + shift), group=self.group),
+                   dist.P2POp(dist.irecv, out_bits, peer(self.rank - shift), group=self.group)]
+            for request in dist.batch_isend_irecv(ops):
+                request.wait()
+            return self._back(out, tensor)
 
         return self._timed(run, tensor.numel() * tensor.element_size())
 
@@ -310,3 +338,101 @@ def factor_devices(n_devices):
         twos //= 2
         slot = (slot + 1) % 3
     return tuple(sizes)
+
+
+#: the grid's axis names, in JAX's mesh order (``config.worker_axis``,
+#: ``pipe_axis``, ``model_axis``)
+worker_axis, pipe_axis, model_axis = "worker", "pipe", "model"
+GRID_AXES = (worker_axis, pipe_axis, model_axis)
+
+
+class DeviceGrid:
+    """A (worker, pipe, model) grid of W PP TP ranks, laid out as
+    ``jax.make_mesh((W, PP, TP))``: rank = (w PP + p) TP + m.
+
+    ``worker``, ``pipe`` and ``model`` are this rank's three axes, each a
+    :class:`WorkerAxis` over its own group: the ranks of the same (p, m),
+    of the same (w, m) (the pipeline ring) and of the same (w, p) (the
+    tensor-, sequence- and expert-parallel axis).  ``group`` is the
+    (pipe, model) submesh of this rank's logical worker (the ranks of the
+    same w), ``world`` every rank.  An axis of size 1 has no group and runs
+    no collective.  ``shape`` maps each name to its size."""
+
+    def __init__(self, shape, rank, device, world, worker, pipe, model, group):
+        self.shape = dict(zip(GRID_AXES, shape))
+        self.rank = int(rank)
+        self.device = torch.device(device)
+        self.world, self.worker, self.pipe, self.model, self.group = world, worker, pipe, model, group
+
+    @property
+    def size(self):
+        return self.shape[worker_axis] * self.shape[pipe_axis] * self.shape[model_axis]
+
+    @property
+    def in_group_size(self):
+        return self.shape[pipe_axis] * self.shape[model_axis]
+
+    def axis(self, name):
+        return {worker_axis: self.worker, pipe_axis: self.pipe, model_axis: self.model}[name]
+
+    def psum(self, tensor, names):
+        """``tensor`` summed over the in-group axes ``names`` (a subset of
+        pipe and model; both: one collective over ``group``); axes of size 1
+        are skipped."""
+        names = tuple(name for name in names if self.shape[name] > 1)
+        if not names:
+            return tensor
+        if len(names) == 2:
+            return self.group.all_reduce_sum(tensor)
+        return self.axis(names[0]).all_reduce_sum(tensor)
+
+
+def make_mesh(nb_workers=1, model_parallelism=1, pipeline_parallelism=1, device="cuda"):
+    """This process's :class:`DeviceGrid` of ``nb_workers`` x
+    ``pipeline_parallelism`` x ``model_parallelism`` ranks (JAX
+    ``make_mesh``, ``mesh.py:25-53``, whose ``nb_workers`` is the worker
+    axis's size too).  The grid spans the process group already joined
+    (``join``/``spawn``), whose world size must be the product; without a
+    group it is the one-rank (1, 1, 1) grid.  Every rank calls it, in the
+    same order: each axis's groups are made with ``dist.new_group``, which
+    every rank enters for every group."""
+    shape = (int(nb_workers), int(pipeline_parallelism), int(model_parallelism))
+    if min(shape) < 1:
+        raise UserException("the mesh's axes must be positive (got W,PP,TP = %d,%d,%d)" % shape)
+    need = shape[0] * shape[1] * shape[2]
+    joined = dist.is_available() and dist.is_initialized()
+    world_size = dist.get_world_size() if joined else 1
+    if world_size != need:
+        raise UserException("Mesh needs %d ranks (%d workers x %d pipe x %d model) but the process group holds %d"
+                            % (need, shape[0], shape[1], shape[2], world_size))
+    rank = dist.get_rank() if joined else 0
+    backend = dist.get_backend() if joined else None
+    device = resolve_device(device)
+    W, PP, TP = shape
+    coords = (rank // (PP * TP), (rank // TP) % PP, rank % TP)
+
+    def rank_of(w, p, m):
+        return (w * PP + p) * TP + m
+
+    def axis_over(members_of, size, index):
+        """The WorkerAxis of this rank's group among the groups
+        ``members_of(c)`` for every c; every rank makes every group."""
+        mine = None
+        if size > 1:
+            for members in members_of():
+                group = dist.new_group(members)
+                if rank in members:
+                    mine = (group, members)
+        if mine is None:
+            return WorkerAxis(1, 1, 0, device)
+        return WorkerAxis(size, size, index, device, group=mine[0], backend=backend, ranks=mine[1])
+
+    w0, p0, m0 = coords
+    worker = axis_over(lambda: [[rank_of(w, p, m) for w in range(W)] for p in range(PP) for m in range(TP)], W, w0)
+    pipe = axis_over(lambda: [[rank_of(w, p, m) for p in range(PP)] for w in range(W) for m in range(TP)], PP, p0)
+    model = axis_over(lambda: [[rank_of(w, p, m) for m in range(TP)] for w in range(W) for p in range(PP)], TP, m0)
+    group = axis_over(lambda: [[rank_of(w, p, m) for p in range(PP) for m in range(TP)] for w in range(W)],
+                      PP * TP, p0 * TP + m0)
+    world = WorkerAxis(need, need, rank, device, group=dist.group.WORLD if need > 1 else None,
+                       backend=backend if need > 1 else None)
+    return DeviceGrid(shape, rank, device, world, worker, pipe, model, group)

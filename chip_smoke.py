@@ -3478,8 +3478,9 @@ def zoo_kernel_rows(torch, kernels):
             torch.cuda.synchronize()
             err = compare(name, got, kernels.PLAIN[name](x, *args), torch, x, args)
             row = timed_row(torch, kernels, name, x, args, library[name], err)
-            if row["device_ms"] is None:  # 20 traced calls lost events at these widths: 5
-                row["device_ms"] = device_ms(lambda: getattr(kernels, name)(x, *args), torch, iters=5)
+            for iters in (5, 2, 1):  # 20 traced calls lost events at these widths: fewer
+                if row["device_ms"] is None:
+                    row["device_ms"] = device_ms(lambda: getattr(kernels, name)(x, *args), torch, iters=iters)
             row.update(name=name, experiment=experiment)
             print("zoo kernel %-27s (%d, %d) %s: %.4f ms (on the card %s ms), plain %.3f ms, library %s ms, bound "
                   "%.3f ms (%s), max |err| %g, on %s"
@@ -3599,6 +3600,413 @@ def zoo_f64_cost(torch, gars, models, experiment):
     torch.cuda.empty_cache()
 
 
+#: BASELINE config 5 at the JAX package's single-chip widths (config 5f,
+#: benchmarks/train_configs.py:147-160): d = 8,917,248 over 12 leaves, krum at
+#: n = 8, f = r = 2 (signflip).  The bytes are the Python stdlib's
+#: (``corpus-source:code``, vocab max(1024, 256) = 1024, so d is unchanged):
+#: the Markov stream at vocab 1024 draws a (1024, 1024, 1024) float64
+#: transition table of 8.6 GB (1024^3 float64 values) for each experiment
+#: built, host work that is not the system under test
+TFM_ARGS = ["d-model:256", "heads:4", "layers:8", "seq:256", "batch-size:8", "vocab:1024", "corpus-source:code",
+            "corpus:500000"]
+TFM_D = 8917248
+TFM_LEAVES = 12
+TFM_BUCKETS = 75  # 9 stacked leaves x 8 layers + 3 under granularity layer
+TFM_BASE = ["--experiment", "transformer", "--experiment-args", *TFM_ARGS, "--nb-workers", "8",
+            "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "signflip",
+            "--evaluation-period", "-1", "--evaluation-delta", "-1"]
+TFM_SHARDED = ["--mesh", "1,1,1", "--microbatches", "2"]
+#: (label, argv, steps, {kernel: launches a step})
+TFM_LEGS = [
+    ("T1 config 5f flat leaf", ["--aggregator", "krum", "--granularity", "leaf"], 10,
+     {"pairwise_sq_distances": TFM_LEAVES}),
+    ("T2 config 5 sharded layer", ["--aggregator", "krum", "--granularity", "layer", *TFM_SHARDED], 10,
+     {"nanmedian_columns": TFM_BUCKETS, "pairwise_sq_distances_gram": TFM_BUCKETS}),
+    ("T3 sharded global", ["--aggregator", "krum", "--granularity", "global", *TFM_SHARDED], 5,
+     {"nanmedian_columns": TFM_LEAVES, "pairwise_sq_distances_gram": TFM_LEAVES}),
+    ("T3 sharded median", ["--aggregator", "median", "--granularity", "layer", *TFM_SHARDED], 5,
+     {"coordinate_median": TFM_BUCKETS}),
+]
+#: T4: the card's first sharded step against the CPU's, from one init and
+#: batch: each bucket's aggregate within this share of its largest magnitude
+#: (float32 gradients summed in other orders over 16,384 tokens), the loss
+#: within it relative.  A control step on the card with TF32 matmuls must
+#: land outside it, so a gradient path that slipped to a lower precision
+#: fails T4
+TFM_CARD_CPU_RTOL = 1e-5
+#: T5: the (1, 2, 2) grid against one rank, and the card's grid against the
+#: CPU's, each leaf within this share of its largest magnitude
+TFM_GRID_RTOL = 1e-5
+TFM_GRID_A = dict(vocab_size=1024, d_model=256, n_heads=4, n_layers=4)
+TFM_GRID_B = dict(vocab_size=1024, d_model=128, n_heads=2, n_layers=4, n_experts=4)
+#: T6 (docs/robustness.md:326-331): the held-out nll below this share of the
+#: corpus's own unigram entropy (JAX tests/test_transformer.py:441-470)
+TFM_REAL_SHARE = 0.95
+
+
+def _tfm_leg(torch, kernels, runner, label, argv, steps, per_step):
+    """One transformer leg through the runner: exact launches a step,
+    finite loss; returns (result, peak MB)."""
+    import contextlib
+    import io
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    output = io.StringIO()
+    with contextlib.redirect_stdout(output), contextlib.redirect_stderr(output):
+        result = runner.main(["--seed", "1", *TFM_BASE, *argv, "--max-step", str(steps)])
+    sys.stdout.write("".join(line + "\n" for line in output.getvalue().splitlines() if "Training" in line))
+    counts = kernels.launch_counts()
+    check(result["final_loss"] is not None and math.isfinite(result["final_loss"]), "%s: non-finite loss" % label)
+    check(result["steps"] == steps, "%s: ran %d steps (want %d)" % (label, result["steps"], steps))
+    for name in kernels.KERNELS:
+        want = steps * per_step.get(name, 0)
+        check(counts[name] == want, "%s: %s launched %d times in %d steps (want %d)"
+              % (label, name, counts[name], steps, want))
+    return result, counts, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _tfm_engine(gars, attacks, rule, device, **options):
+    from aggregathor_tpu_torch.parallel import RobustEngine
+
+    n, f, r = 8, 2, 2
+    return RobustEngine(gars.instantiate(rule, n, f), n, nb_real_byz=r, attack=attacks.instantiate("signflip", n, r),
+                        device=device, **options)
+
+
+def _tfm_buckets(engine, grads):
+    """The (n, d_b) rows of every bucket of a sharded step's gradients
+    (before the attack), in the step's order."""
+    buckets = []
+    for name in sorted(grads):
+        rows = engine._gather_rows(engine._leaf_buckets(grads[name], engine._specs[name]))
+        buckets += [rows[b] for b in range(rows.shape[0])]
+    return buckets
+
+
+def _tfm_times(torch, gars, models):
+    """Gradient, GAR and distance ms a step of T1 (flat, leaf) and T2
+    (sharded, layer) on one batch, by CUDA events (3 calls after one)."""
+    from aggregathor_tpu_torch.core import FlatMap, build_optimizer, build_schedule
+    from aggregathor_tpu_torch.parallel import attacks
+    from aggregathor_tpu_torch.parallel.engine import gar_key
+
+    exp = models.instantiate("transformer", TFM_ARGS)
+    batch = next(exp.make_train_iterator(8, seed=2))
+    tx = build_optimizer("sgd", build_schedule("fixed", []))
+    out = {}
+    flat = _tfm_engine(gars, attacks, "krum", "cuda", granularity="leaf")
+    state = flat.init_state(exp.init(1), tx, seed=1)
+    fmap, on = FlatMap(state.params), flat.put_batch(batch)
+    check(fmap.size == TFM_D and len(fmap.slices) == TFM_LEAVES, "transformer: d = %d over %d leaves (want %d over %d)"
+          % (fmap.size, len(fmap.slices), TFM_D, TFM_LEAVES))
+    out["T1 gradient"] = time_ms(lambda: flat._worker_gradients(state.params, on, exp.loss, fmap), torch, 3, 1)
+    _, rows = flat._worker_gradients(state.params, on, exp.loss, fmap)
+    with torch.no_grad():
+        out["T1 GAR"] = time_ms(lambda: flat._aggregate_per_leaf(rows, fmap, None, gar_key(1, 0)), torch, 3, 1)
+    del state, rows
+    sharded = _tfm_engine(gars, attacks, "krum", "cuda", sharding="sharded", granularity="layer")
+    state = sharded.init_state(exp.sharded_init(1), exp.sharded_specs(), tx, seed=1)
+    check(sharded.model_dim == TFM_D, "transformer: the sharded d = %d" % sharded.model_dim)
+    loss, on = exp.sharded_loss(1, 2), sharded.put_batch(batch)
+    out["T2 gradient"] = time_ms(lambda: sharded._sharded_worker_gradients(state.params, on, loss), torch, 3, 1)
+    _, grads = sharded._sharded_worker_gradients(state.params, on, loss)
+    buckets = _tfm_buckets(sharded, grads)
+    from aggregathor_tpu_torch.gars.common import centered_gram_sq_distances
+
+    gar = sharded.gar
+    with torch.no_grad():
+        out["T2 distances"] = time_ms(lambda: [centered_gram_sq_distances(b) for b in buckets], torch, 3, 1)
+        out["T2 GAR"] = time_ms(lambda: [gar.aggregate_block(b, centered_gram_sq_distances(b)) for b in buckets],
+                                torch, 3, 1)
+    del state, grads, buckets
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tfm_card_cpu(torch, gars, models):
+    """T4: T2's first step (the gradients, each bucket's distances, Krum's
+    selection and aggregate) on the card and on the port's CPU from the same
+    carried-over weights and batch; then the card's step again with TF32
+    matmuls, the control that the tolerance must reject."""
+    from aggregathor_tpu_torch.core import build_optimizer, build_schedule
+    from aggregathor_tpu_torch.gars.common import centered_gram_sq_distances
+    from aggregathor_tpu_torch.parallel import attacks
+
+    exp = models.instantiate("transformer", TFM_ARGS)
+    batch = next(exp.make_train_iterator(8, seed=2))
+    weights = exp.sharded_init(1)(1)
+    tx = build_optimizer("sgd", build_schedule("fixed", []))
+    got = {}
+    for run in ("cuda", "cpu", "tf32"):
+        device = "cpu" if run == "cpu" else "cuda"
+        torch.backends.cuda.matmul.allow_tf32 = run == "tf32"
+        try:
+            engine = _tfm_engine(gars, attacks, "krum", device, sharding="sharded", granularity="layer")
+            state = engine.init_state(lambda seed: weights, exp.sharded_specs(), tx, seed=1)
+            losses, grads = engine._sharded_worker_gradients(state.params, engine.put_batch(batch),
+                                                             exp.sharded_loss(1, 2))
+            with torch.no_grad():
+                sel, aggs = [], []
+                for bucket in _tfm_buckets(engine, grads):
+                    dist2 = centered_gram_sq_distances(bucket)
+                    sel.append((engine.gar.selection_weights(dist2) > 0).cpu())
+                    aggs.append(engine.gar.aggregate_block(bucket, dist2).cpu())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        got[run] = (losses.cpu(), sel, aggs)
+        del engine, state, grads
+
+    def compare(card):
+        (lc, sc, ac), (lh, sh, ah) = got[card], got["cpu"]
+        same = all(torch.equal(a, b) for a, b in zip(sc, sh))
+        agg_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(ac, ah))
+        return same, agg_err, float(((lc - lh).abs() / lh.abs()).max())
+
+    (same, agg_err, loss_err), (c_same, c_agg, c_loss) = compare("cuda"), compare("tf32")
+    print("transformer T4 config 5 sharded layer, first step card vs CPU from one init and batch on %s: %d buckets, "
+          "Krum's selections %s, aggregates within %.3g of their largest magnitude, losses within %.3g relative "
+          "(tolerance %g); the control with TF32 matmuls: selections %s, aggregates %.3g, losses %.3g"
+          % (card_line(), len(got["cuda"][1]), "identical" if same else "DIFFER", agg_err, loss_err,
+             TFM_CARD_CPU_RTOL, "identical" if c_same else "differ", c_agg, c_loss))
+    check(len(got["cuda"][1]) == TFM_BUCKETS, "transformer T4: %d buckets (want %d)"
+          % (len(got["cuda"][1]), TFM_BUCKETS))
+    check(same, "transformer T4: Krum's selections differ between the card and the CPU")
+    check(agg_err <= TFM_CARD_CPU_RTOL and loss_err <= TFM_CARD_CPU_RTOL, "transformer T4: card and CPU differ")
+    check(not c_same or c_agg > TFM_CARD_CPU_RTOL or c_loss > TFM_CARD_CPU_RTOL,
+          "transformer T4: the tolerance %g does not reject the TF32 control" % TFM_CARD_CPU_RTOL)
+
+
+def transformer_grid_rank(axis, cases):
+    """One rank of T5 (a spawned process re-imports this module): for each
+    ``(case, weights, batches)`` of ``cases``, the sharded engine on the
+    case's grid, median at n = 4, f = 1, layer, from the global
+    ``weights``; per-step losses and this rank's launches, the global
+    parameters on rank 0."""
+    import torch
+
+    from aggregathor_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for case, weights, batches in cases:
+        W, PP, TP = case["mesh"]
+        out.append(_tfm_grid_run(mesh.make_mesh(W, TP, PP, device=axis.device), case, weights, batches))
+    return out
+
+
+def _tfm_grid_run(grid, case, weights, batches):
+    """The sharded engine on ``grid``, median at n = 4, f = 1, layer, from
+    the global ``weights``, one step a batch."""
+    import torch
+
+    from aggregathor_tpu_torch import gars
+    from aggregathor_tpu_torch.core import build_optimizer, build_schedule
+    from aggregathor_tpu_torch.models import transformer as tfm
+    from aggregathor_tpu_torch.ops import kernels
+    from aggregathor_tpu_torch.parallel import ShardedRobustEngine
+
+    cfg = tfm.TransformerConfig(**case["cfg"])
+    pp = grid.shape["pipe"]
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.1"]))
+    engine = ShardedRobustEngine(grid, gars.instantiate("median", 4, 1), nb_workers=4, granularity="layer",
+                                 device=grid.device)
+    state = engine.init_state(lambda seed: {k: torch.as_tensor(v) for k, v in weights.items()},
+                              tfm.param_specs(cfg), tx, seed=1)
+    step = engine.build_step(tfm.make_pipeline_loss(cfg, pp, 2), tx)
+    kernels.reset_launch_counts()
+    out = {"loss": [], "ms": []}
+    for batch in batches:
+        begin = time.perf_counter()
+        state, metrics = step(state, engine.put_batch(batch))
+        out["loss"].append(float(metrics["total_loss"]))
+        out["ms"].append((time.perf_counter() - begin) * 1e3)
+    out["counts"] = kernels.launch_counts()
+    if grid.device.type == "cuda":
+        out["peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    snapshot = engine.global_state(state)
+    out["params"] = None if grid.rank else {k: v.detach().cpu().numpy() for k, v in snapshot.params.items()}
+    return out
+
+
+def _tfm_grid_phase(torch, kernels):
+    """T5: four gloo ranks sharing the card at (1, 2, 2) (``shared_card``, as
+    ``multirank_phase``): T5a dense, 3 steps, against one rank on the card
+    from the same weights and batches; T5b switch-MoE, 2 steps, against the
+    same four-rank grid on the CPU.  Returns {kernel: launches} over the
+    card's ranks."""
+    import numpy as np
+
+    from aggregathor_tpu_torch.models import transformer as tfm
+    from aggregathor_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(17)
+
+    def batches(seq, steps):
+        return [{"tokens": rng.integers(0, 1024, size=(4, 8, seq)).astype(np.int32),
+                 "targets": rng.integers(0, 1024, size=(4, 8, seq)).astype(np.int32)} for _ in range(steps)]
+
+    def leaf_err(got, want):
+        return max(float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max()) for k in want)
+
+    totals = {name: 0 for name in kernels.KERNELS}
+    legs = (("T5a dense", TFM_GRID_A, 256, 3, "one rank on the card"),
+            ("T5b switch-MoE", TFM_GRID_B, 128, 2, "the grid on the CPU"))
+    cases = []
+    for _, cfg, seq, steps, _ in legs:
+        weights = {k: v.numpy() for k, v in tfm.init_params(tfm.TransformerConfig(**cfg),
+                                                            torch.Generator().manual_seed(5), 2).items()}
+        cases.append(({"cfg": cfg, "mesh": (1, 2, 2)}, weights, batches(seq, steps)))
+    begin = time.perf_counter()
+    # both legs in one spawn: the ranks' start (a CUDA context each) once
+    spawned = mesh.spawn(transformer_grid_rank, 4, 4, (cases,), device="cuda", shared_card=True, timeout=600)
+    wall = time.perf_counter() - begin
+    for index, (label, cfg, seq, steps, other) in enumerate(legs):
+        case, weights, data = cases[index]
+        ranks = [rank[index] for rank in spawned]
+        if other.startswith("one"):
+            single = _tfm_grid_run(mesh.make_mesh(1, 1, 1, device="cuda"), {"cfg": cfg}, tfm.merge_stages(weights),
+                                   data)
+            want = single["params"]
+            got = {k: v.reshape(want[k].shape) for k, v in ranks[0]["params"].items()}
+        else:
+            cpu = mesh.spawn(transformer_grid_rank, 4, 4, ([cases[index]],), device="cpu", timeout=600)
+            single, want, got = cpu[0][0], cpu[0][0]["params"], ranks[0]["params"]
+        err = leaf_err(got, want)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["loss"], single["loss"]))
+        buckets = 9 + (1 if cfg.get("n_experts") else 0)
+        per_step = buckets * cfg["n_layers"] // 2 + 3  # the rank's stage: half the layers
+        print("transformer %s at (1, 2, 2), 4 gloo ranks sharing %s (collectives staged through the host: says "
+              "nothing of NVLink): %d steps (both legs %.1f s with the ranks' start), step %.0f ms on rank 0; "
+              "parameters within "
+              "%.3g of %s (tolerance %g), losses %.3g relative; launches a rank %s; peak %.0f MB on rank 0"
+              % (label, card_line(), steps, wall, statistics.median(ranks[0]["ms"]), err, other, TFM_GRID_RTOL,
+                 loss_err, [r["counts"]["coordinate_median"] for r in ranks], ranks[0]["peak_mb"]))
+        check(err <= TFM_GRID_RTOL and loss_err <= TFM_GRID_RTOL, "transformer %s: the grid differs from %s"
+              % (label, other))
+        for rank, result in enumerate(ranks):
+            for name in kernels.KERNELS:
+                want_count = steps * per_step if name == "coordinate_median" else 0
+                check(result["counts"][name] == want_count, "transformer %s rank %d: %s launched %d times (want %d)"
+                      % (label, rank, name, result["counts"][name], want_count))
+                totals[name] += result["counts"][name]
+    return totals
+
+
+def _tfm_real_bytes(runner):
+    """T6: real bytes (docs/robustness.md:326-331): flat krum n = 4, f = 1,
+    adam 3e-3, 300 steps, and the sharded engine at (1, 1, 1), layer,
+    median, 150 steps; the held-out nll below ``TFM_REAL_SHARE`` times the
+    corpus's unigram entropy."""
+    import numpy as np
+
+    from aggregathor_tpu_torch import models
+
+    args = ["corpus-source:code", "corpus:500000", "d-model:64", "layers:2"]
+    exp = models.instantiate("transformer", args)
+    counts = np.bincount(exp.corpus, minlength=256).astype(np.float64)
+    p = counts / counts.sum()
+    unigram = float(-(p[p > 0] * np.log(p[p > 0])).sum())
+    base = ["--seed", "1", "--experiment", "transformer", "--experiment-args", *args, "--nb-workers", "4",
+            "--nb-decl-byz-workers", "1", "--optimizer", "adam", "--learning-rate-args", "initial-rate:0.003",
+            "--evaluation-period", "-1"]
+    for label, argv, steps in (("flat krum", ["--aggregator", "krum"], 300),
+                               ("sharded (1,1,1) layer median", ["--aggregator", "median", "--mesh", "1,1,1",
+                                                                 "--granularity", "layer"], 150)):
+        begin = time.perf_counter()
+        result = runner.main(base + argv + ["--max-step", str(steps), "--evaluation-delta", str(steps)])
+        nll = result["evaluation"]["nll"]
+        print("transformer T6 real bytes (the Python stdlib of this machine, %d train bytes), %s, %d steps in %.1f "
+              "s on %s: held-out nll %.3f nats (%.3f bits/byte) against the corpus's unigram entropy %.3f nats "
+              "(%.3f bits/byte), bar %.3f" % (len(exp.corpus), label, steps, time.perf_counter() - begin, card_line(),
+                                              nll, nll / math.log(2), unigram, unigram / math.log(2),
+                                              TFM_REAL_SHARE * unigram))
+        check(nll < TFM_REAL_SHARE * unigram, "transformer T6 %s: held-out nll %.3f not below %.3f"
+              % (label, nll, TFM_REAL_SHARE * unigram))
+
+
+def tfm_kernel_rows(torch, kernels):
+    """K1, the centring, K2 and K3 at the transformer's bucket and leaf
+    widths (n = 8): held against their plain versions and timed."""
+    gen = torch.Generator(device="cuda").manual_seed(20261020)
+    library = {"pairwise_sq_distances": lambda x: torch.cdist(x, x).square(),
+               "pairwise_sq_distances_gram": lambda x: torch.cdist(x, x).square(), "nanmedian_columns": None,
+               "coordinate_median": lambda x: torch.kthvalue(x, x.shape[0] // 2 + 1, dim=0).values}
+    shapes = {"pairwise_sq_distances": (2097152, 262144, 256),  # T1's leaves: w_gate, embed, a norm
+              "nanmedian_columns": (262144, 65536, 256),        # T2's buckets: w_gate's layer, wq's, a norm
+              "pairwise_sq_distances_gram": (2097152, 262144, 65536, 256),  # and T3's global leaves
+              "coordinate_median": (262144, 65536, 256)}
+    rows = []
+    for name, widths in shapes.items():
+        for d in widths:
+            x = torch.randn((8, d), device="cuda", generator=gen)
+            args = (kernels.nanmedian_columns(x),) if name == "pairwise_sq_distances_gram" else ()
+            got = getattr(kernels, name)(x, *args)
+            torch.cuda.synchronize()
+            err = compare(name, got, kernels.PLAIN[name](x, *args), torch, x, args)
+            row = timed_row(torch, kernels, name, x, args, library[name], err)
+            row["name"] = name
+            print("transformer kernel %-27s (8, %d): %.4f ms (on the card %s ms), plain %.3f ms, library %s ms, "
+                  "bound %.2f us (%s), max |err| %g, on %s"
+                  % (name, d, row["ms"], "not measured" if row["device_ms"] is None else "%.4f" % row["device_ms"],
+                     row["plain_ms"], "%.3f" % row["library_ms"] if row["library_ms"] is not None else "none",
+                     row["bound_ms"] * 1e3, row["bound_by"], err, card_line()))
+            rows.append(row)
+            del x, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def transformer_phase(torch, gars, kernels, models, runner, card, kernel_rows):
+    """The transformer and the sharded engine on the card (BASELINE config
+    5; ``models/transformer.py``, ``RobustEngine(sharding="sharded")``);
+    returns {kernel: launches} over its legs and appends the kernel rows at
+    its widths to ``kernel_rows``.
+
+    - T1 config 5f through the runner, flat, granularity leaf: K1 once a leaf
+      (12 a step), d = 8,917,248;
+    - T2 the same model sharded at (1, 1, 1), layer: the centring and K2 once
+      a bucket (75 a step);
+    - T3 global (12 + 12 a step) and median (K3 75 a step);
+      each prints steps/s excluding the first, and the engine's gradient,
+      GAR and distance ms a step, and the peak MB;
+    - T4 the first sharded step card vs CPU: Krum's selections identical;
+    - T5 four gloo ranks sharing the card at (1, 2, 2): the pipe ring, ring
+      attention, the Megatron-SP MLP and the MoE all-to-all on CUDA tensors;
+    - T6 real bytes, flat and sharded, below the unigram bar."""
+    begin = time.perf_counter()
+    parts = {}
+    totals = {name: 0 for name in kernels.KERNELS}
+    results = {}
+    for label, argv, steps, per_step in TFM_LEGS:
+        result, counts, peak_mb = _tfm_leg(torch, kernels, runner, label, argv, steps, per_step)
+        results[label] = result
+        for name, count in counts.items():
+            totals[name] += count
+        print("transformer %s, %s, %d steps on %s: d = %d, %.3f steps/s excl. 1st, loss %.4f, launches a step %s, "
+              "peak %.0f MB" % (label, " ".join(argv), steps, card, TFM_D, result["steps_per_s"], result["final_loss"],
+                                per_step, peak_mb))
+    parts["T1-T3"] = time.perf_counter() - begin
+    times = _tfm_times(torch, gars, models)
+    parts["phases"] = time.perf_counter() - begin - sum(parts.values())
+    print("transformer step phases on %s (CUDA events, one batch): T1 flat leaf gradient %.1f ms, GAR %.1f ms (12 "
+          "K1); T2 sharded layer gradient %.1f ms, GAR %.1f ms (75 buckets), of which distances %.1f ms (75 "
+          "centring + 75 K2)" % (card, times["T1 gradient"], times["T1 GAR"], times["T2 gradient"], times["T2 GAR"],
+                                 times["T2 distances"]))
+    _tfm_card_cpu(torch, gars, models)
+    parts["T4"] = time.perf_counter() - begin - sum(parts.values())
+    for name, count in _tfm_grid_phase(torch, kernels).items():
+        totals[name] += count
+    parts["T5"] = time.perf_counter() - begin - sum(parts.values())
+    _tfm_real_bytes(runner)
+    parts["T6"] = time.perf_counter() - begin - sum(parts.values())
+    kernel_rows.extend(tfm_kernel_rows(torch, kernels))
+    parts["kernels"] = time.perf_counter() - begin - sum(parts.values())
+    print("transformer phase: %.1f s (%s)" % (time.perf_counter() - begin,
+                                            ", ".join("%s %.1f s" % item for item in parts.items())))
+    return totals
+
+
 def main():
     import torch
 
@@ -3632,6 +4040,7 @@ def main():
         for kernel, count in gar_extensions_phase(torch, gars, kernels, runner, card, workdir, gar_ms).items():
             totals[kernel] += count
         corpus_phase()
+        tfm_rows = []
         for kernel, count in digits_phase(torch, kernels, runner, card).items():
             totals[kernel] += count
         for counts in (pipeline_phase(torch, kernels, runner, card),
@@ -3644,12 +4053,14 @@ def main():
                        bounded_phase(torch, gars, kernels, models, runner, card, workdir),
                        secure_phase(torch, kernels, runner, card, workdir),
                        zoo_phase(torch, gars, kernels, models, runner, card),
+                       transformer_phase(torch, gars, kernels, models, runner, card, tfm_rows),
                        multirank_phase(torch, kernels, card)):
             for kernel, count in counts.items():
                 totals[kernel] += count
         for row in rows:
             check(totals[row["name"]] > 0, "%s was never launched on the main path" % row["name"])
             row["launches"] = totals[row["name"]]
+            row["transformer_shapes"] = [r for r in tfm_rows if r["name"] == row["name"]]
         attack_phase(runner, workdir)
         krum = ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2"]
         resume_phase(torch, runner, os.path.join(workdir, "mlp"), "digits", [], krum + [

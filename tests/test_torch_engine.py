@@ -209,7 +209,8 @@ def test_gaussian_streams_are_per_step_and_per_worker():
     # a forge regime without its coalition, a secure lane without secure submission
     {"chaos": ChaosSchedule("0:forge=0.5", 8, nb_real_byz=2)},
     {"flight": FlightRecorder(4, 8, secure=True)},
-    {"leaf_bucketing": True}, {"l1_regularize": 0.1}, {"sharding": "sharded"},
+    # the sharded mode is ported: its vector granularity refuses, as JAX's
+    {"leaf_bucketing": True}, {"l1_regularize": 0.1}, {"sharding": "sharded", "granularity": "vector"},
     {"flight": FlightRecorder(4, 8, chaos=True)},
 ])
 def test_unported_engine_features_refuse(option):

@@ -31,7 +31,10 @@ snapshot's parameters on the card bit for bit, and after each rebuild of
 the engine the card holds, at the same point of the loop, what it held
 before the first, within one cnnet state.  Secure submission: the row
 digests and the masked group means are the CPU's bits on the card, and a
-forge/tamper schedule rejects the same workers there as on the CPU.
+forge/tamper schedule rejects the same workers there as on the CPU.  The
+transformer (config 5's widths): a bucket of each width through the
+centring, K2 and Krum against the CPU, the switch MoE and the dense ring
+attention, and the vmapped gradient with every warning an error.
 """
 
 import numpy as np
@@ -1048,3 +1051,78 @@ def test_zoo_weight_gradient_choice_holds_on_the_card(cuda_device, monkeypatch, 
     want = vmap(wgrad, in_dims=(None, 0, 0))(weight.double(), x.double(), probe.double())
     err = (got.double() - want).abs().flatten(1).max(dim=1).values / want.abs().flatten(1).max(dim=1).values
     assert float(err.max()) <= 1e-5
+
+
+# --------------------------------------------------------------------------- #
+# the transformer and the sharded engine (config 5's widths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 65536, 262144])
+def test_transformer_bucket_distances_and_krum_on_the_card_match_the_cpu(cuda_device, d):
+    """One (8, d) bucket of the sharded layer path at config 5's bucket
+    widths (a norm, an attention layer, an MLP layer) through the centring,
+    K2 and Krum on the card: the distances within K2's Gram bound of the
+    CPU's, Krum's selection identical, the aggregate within rtol 1e-6."""
+    from aggregathor_tpu_torch.gars.common import centered_gram_sq_distances
+
+    rows = torch.from_numpy(np.random.default_rng(d).normal(size=(8, d)).astype(np.float32))
+    gar = gars.instantiate("krum", 8, 2)
+    got = {}
+    for device in ("cpu", cuda_device):
+        x = rows.to(device)
+        dist2 = centered_gram_sq_distances(x)
+        got[str(device)] = (dist2.cpu(), (gar.selection_weights(dist2) > 0).cpu(), gar.aggregate_block(x, dist2).cpu())
+    (dc, sc, ac), (dg, sg, ag) = got["cpu"], got[str(cuda_device)]
+    norms = torch.sum(rows.double() ** 2, dim=1)
+    assert bool(torch.all(torch.abs(dg.double() - dc.double()) <= 1e-5 * (norms[:, None] + norms[None, :])))
+    assert torch.equal(sg, sc)
+    torch.testing.assert_close(ag, ac, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_transformer_moe_and_ring_attention_on_the_card_match_the_cpu(cuda_device):
+    """``moe_block`` (capacity overflow included) and the dense
+    ``ring_attention`` on the card against the CPU (rtol 1e-5: float32
+    products summed in another order)."""
+    from aggregathor_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(vocab_size=64, d_model=64, n_heads=4, n_layers=2, n_experts=4, capacity_factor=0.5)
+    p = tfm.init_params(cfg, torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    h = torch.randn((2, 32, 64), generator=gen)
+    q, k, v = (torch.randn((2, 64, 4, 16), generator=gen) for _ in range(3))
+    out = {}
+    for device in ("cpu", cuda_device):
+        args = [p[name][0, 0].to(device) for name in ("router", "we_gate", "we_up", "we_down")]
+        moe, aux = tfm.moe_block(h.to(device), *args, cfg, None)
+        ring = tfm.ring_attention(q.to(device), k.to(device), v.to(device), torch.arange(64, device=device), None)
+        out[str(device)] = (moe.cpu(), aux.cpu(), ring.cpu())
+    for want, got in zip(out["cpu"], out[str(cuda_device)]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert bool(torch.any(torch.all(out["cpu"][0].reshape(64, 64) == 0.0, dim=1)))  # tokens over capacity
+
+
+@pytest.mark.gpu
+def test_transformer_gradient_under_vmap_on_the_card(cuda_device):
+    """The flat engine's vmapped transformer gradient (dense and MoE) on the
+    card with every warning an error (no batching-rule fallback): each
+    worker's row within 1e-4 of its largest magnitude of the CPU's."""
+    import warnings
+
+    from aggregathor_tpu_torch.core import FlatMap
+
+    for experts in ("0", "4"):
+        exp = models.instantiate("transformer", ["vocab:64", "d-model:32", "heads:2", "layers:2", "seq:16",
+                                                 "batch-size:4", "experts:" + experts, "corpus:4096"])
+        batch = next(exp.make_train_iterator(4, seed=1))
+        rows = {}
+        for device in ("cpu", cuda_device):
+            engine = RobustEngine(gars.instantiate("average", 4, 0), 4, device=device)
+            params = {k: v.to(device) for k, v in exp.init(2).items()}
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                _, r = engine._worker_gradients(params, engine.put_batch(batch), exp.loss, FlatMap(params))
+            rows[str(device)] = r.cpu()
+        want, got = rows["cpu"], rows[str(cuda_device)]
+        assert bool(torch.all(torch.abs(got - want).max(dim=1).values <= 1e-4 * torch.abs(want).max(dim=1).values))

@@ -359,6 +359,34 @@ def test_recovered_run_ends_near_a_healthy_median_run(parity, tmp_path):
     assert np.isfinite(recovered) and recovered <= 1.10 * healthy["final_loss"], (recovered, healthy["final_loss"])
 
 
+def test_a_rollback_leaves_one_train_state_alive(tmp_path, monkeypatch):
+    """After each rollback (f+1, then median) the run holds one TrainState
+    at the watchdog's first observation, as before it: no reference to the
+    abandoned state (a snapshot's, a restore's) outlives it (the card's
+    ``test_a_rebuild_releases_the_old_engines_memory`` counts the bytes)."""
+    import gc
+
+    from aggregathor_tpu_torch.core.train_state import TrainState
+
+    seen, observe = {}, tguardian.Watchdog.observe
+
+    def recording(self, step, *args):
+        if step == 1 and (self.attempts, step) not in seen:
+            gc.collect()
+            seen[(self.attempts, step)] = sum(isinstance(o, TrainState) for o in gc.get_objects())
+        return observe(self, step, *args)
+
+    monkeypatch.setattr(tguardian.Watchdog, "observe", recording)
+    result = runner.main(["--experiment", "mnist", "--experiment-args", "batch-size:16", "--nb-workers", "8",
+                          "--nb-decl-byz-workers", "2", "--prefetch", "0", "--evaluation-delta", "-1",
+                          "--evaluation-period", "-1", "--checkpoint-period", "-1", "--checkpoint-dir",
+                          str(tmp_path / "ckpt"), "--aggregator", "average", "--nb-real-byz-workers", "2", "--attack",
+                          "inf", "--max-step", "8", "--guardian", "--guardian-args", "recover:5",
+                          "--checkpoint-delta", "100", "--device", "cpu"])
+    assert result["escalations"] == ["f+1", "gar=median"]
+    assert [seen[(attempt, 1)] for attempt in (0, 1, 2)] == [1, 1, 1]
+
+
 def test_rollback_under_unroll_rebuilds_the_chunk_pipeline(tmp_path, monkeypatch):
     built, losses = [], {}
     real = datasets.ChunkPipeline

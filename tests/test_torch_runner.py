@@ -22,6 +22,12 @@
   for bit (10 + 10 steps against 20); the evaluation rows fall where the JAX
   runner's cadence puts them, at every step with ``--unroll 1`` and at chunk
   boundaries with ``--unroll 10``, and the evaluations they share agree;
+- ``--l1-regularize``/``--l2-regularize`` on the flat engine give the JAX
+  runner's losses (from JAX's weights, ``--nb-devices 1`` there);
+  ``--mesh 1,1,1`` (the sharded engine) trains the transformer with
+  evaluation (the sharded loss and the dense metrics) and checkpoints, and
+  a run resumed from its snapshot ends with the uninterrupted run's bits;
+  the JAX runner's refusals of ``--mesh`` are the port's;
 - the port imports nothing of JAX, flax, optax or the JAX package (AST
   scan of every module, of ``chip_smoke.py`` and of the GPU tests, which
   run on a machine without JAX).
@@ -252,12 +258,12 @@ def test_input_flags_take_the_jax_defaults_and_choices():
         runner.build_parser().parse_args(argv + ["--input-source", "disk"])
 
 
-#: the JAX runner's options the port still lacks (later slices shrink it)
-CLI_GAP = {"--mesh", "--microbatches", "--l1-regularize", "--l2-regularize", "--slo-baseline", "--slo-capture",
-           "--slo-verdict", "--topology"}
+#: the JAX runner's options the port still lacks: the fleet planes' (ROADMAP
+#: queue 1 item 10; later slices shrink it)
+CLI_GAP = {"--slo-baseline", "--slo-capture", "--slo-verdict", "--topology"}
 
 
-def test_the_cli_gap_is_the_known_eight_options():
+def test_the_cli_gap_is_the_known_four_options():
     from aggregathor_tpu.cli.runner import build_parser as jax_parser
 
     def options(parser):
@@ -364,7 +370,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "chaos/schedule.py", "chaos/stragglers.py", "chaos/campaign.py", "chaos/replica_faults.py",
                    "parallel/compress.py", "models/zoo.py", "models/resnet.py", "models/vgg.py",
                    "models/classic.py", "models/mobilenet.py", "models/inception.py", "models/nasnet.py",
-                   "models/tfrecord.py", "models/common.py", "ops/native/__init__.py"):
+                   "models/tfrecord.py", "models/common.py", "ops/native/__init__.py", "models/transformer.py",
+                   "parallel/collectives.py", "parallel/sharded_engine.py"):
         assert os.path.join(REPO, "aggregathor_tpu_torch", module) in paths, module
     offenders = [
         (os.path.relpath(path, REPO), module)
@@ -372,3 +379,99 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         if module.split(".")[0] in FORBIDDEN
     ]
     assert offenders == []
+
+
+# --------------------------------------------------------------------- #
+# l1/l2 and the sharded engine (--mesh)
+
+
+def _summary_losses(directory):
+    events = [json.loads(line) for name in sorted(os.listdir(directory))
+              for line in open(os.path.join(directory, name))]
+    return {e["step"]: e["total_loss"] for e in events if "total_loss" in e}
+
+
+def test_l1_l2_regularize_matches_the_jax_runner(tmp_path, monkeypatch):
+    import jax
+    import numpy as np
+
+    from aggregathor_tpu import models as jmodels
+    from aggregathor_tpu.cli import runner as jrunner
+    from aggregathor_tpu_torch.models import mnist
+    from aggregathor_tpu_torch.models.common import params_from_jax
+
+    jexp = jmodels.instantiate("mnist", ["hidden:16", "batch-size:8"])
+    monkeypatch.setattr(mnist.MNISTExperiment, "init", lambda self, seed: params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jexp.init(jax.random.PRNGKey(seed)))))
+    argv = MNIST + ["--aggregator", "krum", "--l1-regularize", "1e-3", "--l2-regularize", "1e-2", "--max-step", "3",
+                    "--learning-rate-args", "initial-rate:0.05", "--evaluation-delta", "-1", "--evaluation-period",
+                    "-1", "--summary-delta", "1", "--summary-period", "-1", "--prefetch", "0"]
+    jrunner.main(argv + ["--summary-dir", str(tmp_path / "jax"), "--nb-devices", "1"])
+    runner.main(argv + ["--summary-dir", str(tmp_path / "port"), "--device", "cpu"])
+    plain = tmp_path / "plain"
+    runner.main([a for a in argv if a not in ("--l1-regularize", "1e-3", "--l2-regularize", "1e-2")]
+                + ["--summary-dir", str(plain), "--device", "cpu"])
+    want, got = _summary_losses(tmp_path / "jax"), _summary_losses(tmp_path / "port")
+    assert sorted(got) == sorted(want) == [1, 2, 3]
+    np.testing.assert_allclose([got[k] for k in (1, 2, 3)], [want[k] for k in (1, 2, 3)], rtol=1e-4)
+    assert got[1] > _summary_losses(plain)[1]  # the norms ride the loss
+
+
+MESH = ["--experiment", "transformer", "--experiment-args", "d-model:16", "heads:2", "layers:2", "seq:16",
+        "batch-size:4", "vocab:32", "corpus:4096", "--aggregator", "krum", "--nb-workers", "5",
+        "--nb-decl-byz-workers", "1", "--mesh", "1,1,1", "--granularity", "layer", "--optimizer", "adam",
+        "--evaluation-delta", "100", "--evaluation-period", "-1", "--checkpoint-delta", "3", "--checkpoint-period",
+        "-1", "--device", "cpu"]
+
+
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads: the tiny transformer's many small ops stall on a
+    full pool when the suite's workers share the cores."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(previous)
+
+
+@pytest.mark.usefixtures("two_threads")
+def test_mesh_run_evaluates_checkpoints_and_resumes_bit_for_bit(tmp_path):
+    whole = runner.main(MESH + ["--max-step", "6", "--checkpoint-dir", str(tmp_path / "whole")])
+    runner.main(MESH + ["--max-step", "3", "--checkpoint-dir", str(tmp_path / "split")])
+    resumed = runner.main(MESH + ["--max-step", "6", "--checkpoint-dir", str(tmp_path / "split")])
+    assert resumed["restored_step"] == 3 and resumed["steps"] == 3 and whole["steps"] == 6
+    assert set(whole["evaluation"]) == {"loss", "accuracy", "nll"}
+    # one rank holds every block: the dense replica's nll is the sharded loss
+    assert abs(whole["evaluation"]["loss"] - whole["evaluation"]["nll"]) < 1e-5
+    assert whole["evaluation"] == resumed["evaluation"]
+    a, b = (torch.load(tmp_path / name / "model-6.ckpt", weights_only=True) for name in ("whole", "split"))
+    assert a["params"]["wq"].shape == (1, 2, 16, 16)
+    for tree in ("params", "opt_state"):
+        for name, value in a[tree].items():
+            if isinstance(value, dict):
+                for leaf, tensor in value.items():
+                    assert torch.equal(tensor, b[tree][name][leaf]), (tree, name, leaf)
+            else:
+                assert value == b[tree][name] if not isinstance(value, torch.Tensor) else torch.equal(
+                    value, b[tree][name])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--experiment", "mnist", "--mesh", "1,1,1", "--aggregator", "median", "--nb-workers", "2"],
+    ["--experiment", "transformer", "--mesh", "2,1,1", "--aggregator", "median", "--nb-workers", "3"],
+    ["--experiment", "transformer", "--mesh", "2,2", "--aggregator", "median", "--nb-workers", "2"],
+    ["--experiment", "mnist", "--granularity", "layer", "--aggregator", "median", "--nb-workers", "2"],
+    ["--experiment", "transformer", "--mesh", "1,1,1", "--aggregator", "median", "--nb-workers", "2",
+     "--input-source", "device"],
+    ["--experiment", "transformer", "--mesh", "1,1,1", "--aggregator", "median", "--nb-workers", "2",
+     "--exchange", "int8"],
+], ids=["no-hooks", "w-divides-n", "malformed", "layer-flat", "input-device", "codec"])
+def test_mesh_refusals_match_the_jax_runner(argv):
+    from aggregathor_tpu.cli import runner as jrunner
+    from aggregathor_tpu.utils import UserException as JaxUserException
+
+    argv = argv + ["--max-step", "1", "--evaluation-period", "-1"]
+    with pytest.raises(JaxUserException):
+        jrunner.main(argv)
+    with pytest.raises(UserException):
+        runner.main(argv + ["--device", "cpu"])

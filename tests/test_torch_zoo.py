@@ -1,7 +1,7 @@
 """The port's model zoo (``models/zoo.py``) against the JAX package's.
 
-- the registry: the port's experiment names are JAX's minus
-  ``transformer`` (the gap test holds that list);
+- the registry: the port's experiment names are JAX's, all 109 (the gap
+  test holds the empty gap);
 - the factory's 34 names, ``AUX_CAPABLE``, ``DATASETS`` and each name's
   preprocessing default (``preprocessing.default_for``) equal JAX's;
 - the ``dtype``, ``preprocessing`` and ``augment`` refusals are JAX's;
@@ -31,9 +31,9 @@ from aggregathor_tpu_torch.models import zoo
 from aggregathor_tpu_torch.models.common import params_from_jax
 from aggregathor_tpu_torch.utils import UserException
 
-#: the JAX experiments the port does not register: the sharded transformer
-#: (ROADMAP queue 1, item 8b); a later slice shrinks this set
-EXPERIMENT_GAP = {"transformer"}
+#: the JAX experiments the port does not register: none since the
+#: transformer (ROADMAP queue 1, item 8b) came across
+EXPERIMENT_GAP = set()
 
 
 def test_the_experiment_gap_is_the_known_list():
@@ -41,6 +41,7 @@ def test_the_experiment_gap_is_the_known_list():
     assert theirs - ours == EXPERIMENT_GAP
     assert ours - theirs == set()
     assert sum(name.startswith("slim-") for name in ours) == 102
+    assert len(ours) == 109
 
 
 def test_factory_datasets_aux_and_preprocessing_defaults_match_jax():

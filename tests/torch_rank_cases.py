@@ -174,3 +174,115 @@ def run_sampled(axis, case, weights, steps):
         state, many = multi(state, data)
         losses.extend(float(v) for v in many["total_loss"])
     return {"loss": losses, "params": {name: value.detach().numpy().copy() for name, value in state.params.items()}}
+
+
+# --------------------------------------------------------------------------- #
+# the (worker, pipe, model) grid: the transformer's collectives and the
+# sharded engine (tests/test_torch_sharded_ranks.py)
+
+
+def _cfg(kwargs):
+    from aggregathor_tpu_torch.models import transformer as tfm
+
+    return tfm.TransformerConfig(**kwargs)
+
+
+def ring_check(grid, seed):
+    """Ring attention over the model axis against the dense form on this
+    rank's sequence block: the output and the gradients of a fixed
+    projection of it (the ppermute's transpose); max abs errors."""
+    from aggregathor_tpu_torch.models import transformer as tfm
+
+    rng = np.random.default_rng(seed)
+    q, k, v, w = (torch.tensor(rng.normal(size=(2, 16, 2, 8)), dtype=torch.float32) for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    dense = tfm.ring_attention(*leaves, torch.arange(16), None)
+    dgrads = torch.autograd.grad(torch.sum(dense * w), leaves)
+    T, m = grid.model.size, grid.model.rank
+    sb = 16 // T
+    cut = slice(m * sb, (m + 1) * sb)
+    blocks = [t[:, cut].clone().requires_grad_(True) for t in (q, k, v)]
+    ringed = tfm.ring_attention(*blocks, m * sb + torch.arange(sb), grid.model)
+    rgrads = torch.autograd.grad(torch.sum(ringed * w[:, cut]), blocks)
+    errors = [float(torch.max(torch.abs(ringed - dense[:, cut])))]
+    errors += [float(torch.max(torch.abs(a - b[:, cut]))) for a, b in zip(rgrads, dgrads)]
+    return errors
+
+
+def pipeline_check(grid, cfg_kwargs, weights, batch, microbatches):
+    """The pipelined, sharded loss of this rank's blocks against the dense
+    loss of the merged weights: (the submesh's summed partial losses, the
+    dense loss, the largest relative gradient error over the leaves, each
+    rank's gradient summed over its replication axes and held against the
+    dense gradient's block)."""
+    from aggregathor_tpu_torch.models import transformer as tfm
+    from aggregathor_tpu_torch.parallel.engine import IN_GROUP_AXES
+
+    cfg = _cfg(cfg_kwargs)
+    specs = tfm.param_specs(cfg)
+    pp = grid.shape["pipe"]
+    glob = {name: torch.as_tensor(value) for name, value in weights.items()}
+    engine = RobustEngine(gars.instantiate("average", grid.shape["worker"], 0), grid.shape["worker"],
+                          sharding="sharded", mesh=grid, device="cpu")
+    local = {name: engine._shard(value, specs[name]).clone().requires_grad_(True) for name, value in glob.items()}
+    tb = {key: torch.as_tensor(value) for key, value in batch.items()}
+    loss = tfm.make_pipeline_loss(cfg, pp, microbatches)(local, tb, grid)
+    names = sorted(local)
+    loss.backward()  # every collective's backward runs (parallel/collectives.py)
+    grads = [local[name].grad for name in names]
+    total = float(grid.psum(loss.detach(), IN_GROUP_AXES))
+    merged = {name: value.clone().requires_grad_(True) for name, value in
+              tfm.merge_stages(glob).items()}
+    dense = tfm.loss_dense(merged, tb, cfg)
+    dgrads = dict(zip(sorted(merged), torch.autograd.grad(dense, [merged[name] for name in sorted(merged)])))
+    worst = 0.0
+    for name, grad in zip(names, grads):
+        grad = torch.zeros_like(local[name]) if grad is None else grad
+        grad = grid.psum(grad, engine._replication_axes(specs[name]))
+        want = dgrads[name]
+        if name not in tfm.NON_STACKED_LEAVES:
+            want = want.reshape(glob[name].shape)
+        want = engine._shard(want, specs[name])
+        worst = max(worst, float(torch.max(torch.abs(grad - want)) / torch.max(torch.abs(want))))
+    return total, float(dense), worst
+
+
+def sharded_steps(grid, case, weights, batches):
+    """The sharded engine on ``grid`` from the global ``weights``: per-step
+    losses, participations and the final global parameters (rank 0 only)."""
+    from aggregathor_tpu_torch.models import transformer as tfm
+    from aggregathor_tpu_torch.parallel import ShardedRobustEngine
+
+    cfg = _cfg(case["cfg"])
+    n = case["n"]
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:%s" % case.get("lr", 0.1)]))
+    engine = ShardedRobustEngine(grid, gars.instantiate(case["rule"], n, case["f"]), nb_workers=n,
+                                 granularity=case["granularity"], worker_metrics=True, device="cpu")
+    state = engine.init_state(lambda seed: {k: torch.as_tensor(v) for k, v in weights.items()},
+                              tfm.param_specs(cfg), tx, seed=1)
+    step = engine.build_step(tfm.make_pipeline_loss(cfg, grid.shape["pipe"], case.get("microbatches", 2)), tx)
+    out = {"loss": [], "participation": []}
+    for batch in batches:
+        state, metrics = step(state, engine.put_batch(batch))
+        out["loss"].append(float(metrics["total_loss"]))
+        part = metrics.get("worker_participation")
+        out["participation"].append(None if part is None else part.numpy().copy())
+    snapshot = engine.global_state(state)
+    if grid.rank != 0:
+        return None
+    out["params"] = {name: value.detach().numpy().copy() for name, value in snapshot.params.items()}
+    return out
+
+
+def grid_jobs(axis, grids):
+    """For each ``(shape, jobs)`` of ``grids``, in order, the ``jobs``
+    ((name, args) pairs of this module's grid targets) on a (W, PP, TP) grid
+    over the spawned ranks: one spawn serves every grid shape of its world
+    size (each ``make_mesh`` makes its own groups)."""
+    from aggregathor_tpu_torch.parallel import mesh
+
+    out = []
+    for shape, jobs in grids:
+        grid = mesh.make_mesh(shape[0], shape[2], shape[1], device="cpu")
+        out.append([globals()[name](grid, *args) for name, args in jobs])
+    return out
