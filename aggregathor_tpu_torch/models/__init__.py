@@ -7,6 +7,7 @@ so the engine can treat both packages alike:
                                     layout), made on the CPU from the seed
 - ``loss(params, batch)``        -> scalar (one worker's batch)
 - ``metrics(params, batch)``     -> dict name -> (sum, count) accumulators
+- ``predict_logits(params, x)``  -> (B, classes) logits, the serving path
 - ``make_train_iterator(...)``   -> infinite worker-major numpy batch iterator
 - ``make_eval_iterator(...)``    -> finite epoch over the held-out split
 
@@ -82,6 +83,17 @@ class Experiment:
 
     def logits(self, params, images):
         return functional_call(thread_module(self.model), params, (images,))
+
+    def predict_logits(self, params, x):
+        """The serving apply path (JAX ``Experiment.predict_logits``): ``(B,
+        *sample_shape)`` NHWC float32 -> ``(B, classes)`` logits, the bare
+        model with no training-only head (aux logits, label smoothing and
+        weight decay live in ``loss``).  ``serve/engine.py`` calls it once a
+        replica and bucket; an experiment whose forward differs overrides it."""
+        if getattr(self, "model", None) is None:
+            raise NotImplementedError("Experiment %r keeps no .model; override predict_logits()"
+                                      % type(self).__name__)
+        return self.logits(params, x)
 
     def loss(self, params, batch):
         logits = self.logits(params, batch["image"])

@@ -107,6 +107,10 @@ class CNNet(nn.Module):
 
 
 class CNNetExperiment(Experiment):
+    #: one image's shape, which serving validates requests against (the JAX
+    #: experiment has none, so its serving engine cannot take cnnet)
+    sample_shape = (32, 32, 3)
+
     def __init__(self, args):
         super().__init__(args)
         kv = parse_keyval(args, {

@@ -200,6 +200,27 @@ Phases, in order (any failure exits non-zero and prints no result):
    against CPU (float32 within 2e-2, float64 within 1e-9, the same
    selections); K1 and K4 at the zoo's widths, timed.  Every zoo leg runs
    with the vmap fallback's warning an error.
+   The serve phase (``serve_phase``, after the transformer's): S1 cnnet
+   trained 4 steps with ``--secure`` and checkpoints, then served by
+   ``python -m aggregathor_tpu_torch.cli.serve`` (3 replicas, median,
+   replica 1 NaN, custody under the session secret) from a subprocess:
+   ``/healthz`` reports custody verified; requests of 1, 3, 17 and 64 rows
+   and 100 rows split client-side (a 100-row request is refused, 400) give
+   the clean replica's predictions with disagreement exactly [0, null, 0]
+   (the median of identical replicas is the clean logits bit for bit, which
+   an in-process engine shows on the logits themselves); a SIGHUP reload to
+   a newer step moves ``weights_step`` with no request failing; no kernel
+   library is built after the ready file (the build directory and the
+   child's ``serve_kernel_builds``); K3 once a served bucket (the child's
+   ``serve_kernel_launches``); SIGTERM exits 0.  S2 an in-process engine on
+   ``slim-resnet_v1_50-digits32`` (d = 23,519,690, R = 3, one NaN replica,
+   buckets 1-32): the vote equals the clean replica's logits bit for bit,
+   predict's p50 and p99 a bucket with the K3 vote's share.  S3 K3-K6 and
+   K1 at the vote's shapes (R, bucket x 10) held against their plain
+   versions (R = 3, 5, 7, poisoned) and timed; an engine a rule
+   (averaged-median, trimmed-mean, average-nan, krum at R = 5, two NaN
+   replicas) launching its kernel once a bucket and serving the clean
+   predictions; a ContinuousBatcher leg at lanes 1 and 2 (requests/s).
    Last, a cnnet + krum step and a digits-conv + krum step are split into
    their phases (host batch, transfer, augmentation, worker gradients,
    attack + aggregate, update), with the batches streamed and drawn on the
@@ -213,6 +234,7 @@ Phases, in order (any failure exits non-zero and prints no result):
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -4007,6 +4029,396 @@ def transformer_phase(torch, gars, kernels, models, runner, card, kernel_rows):
     return totals
 
 
+SERVE_STEPS = 4
+SERVE_SECRET = "serve-secret"
+SERVE_TOP = 64
+SERVE_REQUESTS = (1, 3, 17, 64, 100)
+SERVE_ZOO = "slim-resnet_v1_50-digits32"
+SERVE_ZOO_D = 23519690
+SERVE_ZOO_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVE_ZOO_CALLS = 30
+#: the vote's matrix widths, bucket x 10 classes: buckets 4, 32 and 64
+SERVE_WIDTHS = (40, 320, 640)
+#: (kernel, rule) of the other vote rules' engine legs at R = 5, f = 2
+SERVE_RULES = (("coordinate_averaged_median", "averaged-median"), ("coordinate_trimmed_mean", "trimmed-mean"),
+               ("average_nan_columns", "average-nan"), ("pairwise_sq_distances", "krum"))
+
+
+def _serve_metrics(base):
+    """{(family, kernel label or None): value} of the serving child's
+    Prometheus exposition."""
+    import urllib.request
+
+    from aggregathor_tpu_torch.obs.metrics import parse_prometheus
+
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as response:
+        parsed = parse_prometheus(response.read().decode())
+    return {(name, labels.get("kernel")): value for family in parsed.values()
+            for name, labels, value in family["samples"]}
+
+
+def _serve_post(base, rows):
+    """(HTTP code, body, ms) of one /predict."""
+    import urllib.error
+    import urllib.request
+
+    request = urllib.request.Request(base + "/predict", data=json.dumps({"inputs": rows.tolist()}).encode(),
+                                     headers={"Content-Type": "application/json"})
+    begin = time.perf_counter()
+    try:
+        with urllib.request.urlopen(request, timeout=120) as response:
+            return response.status, json.loads(response.read()), (time.perf_counter() - begin) * 1e3
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read()), (time.perf_counter() - begin) * 1e3
+
+
+def _build_snapshot(build):
+    """{file: (size, mtime)} of the kernel build directory."""
+    root = build.build_dir()
+    return {name: (os.stat(os.path.join(root, name)).st_size, os.stat(os.path.join(root, name)).st_mtime_ns)
+            for name in sorted(os.listdir(root))}
+
+
+def _clean_logits(torch, exp, params, rows, top):
+    """The clean replica's float32 logits on the card, a lone forward at
+    each chunk's bucket (as the engine pads), cut to the rows."""
+    import numpy as np
+
+    from aggregathor_tpu_torch.serve import bucket_ladder, choose_bucket
+
+    ladder = bucket_ladder(top)
+    out = []
+    for start in range(0, len(rows), top):
+        part = rows[start:start + top]
+        pad = np.zeros((choose_bucket(len(part), ladder),) + part.shape[1:], np.float32)
+        pad[:len(part)] = part
+        with torch.no_grad():
+            out.append(exp.predict_logits(params, torch.from_numpy(pad).to("cuda")).float()[:len(part)].cpu())
+    return torch.cat(out).numpy()
+
+
+def _serve_s1(torch, kernels, runner, card, workdir, totals):
+    """S1: train cnnet under --secure, serve it from a cli.serve subprocess."""
+    import numpy as np
+
+    from aggregathor_tpu_torch import gars, models
+    from aggregathor_tpu_torch.cli import serve as serve_cli
+    from aggregathor_tpu_torch.ops import build
+    from aggregathor_tpu_torch.serve import InferenceEngine
+
+    ckpt = os.path.join(workdir, "serve-ck")
+    train = ["--experiment", "cnnet", "--experiment-args", "augment:device", "--input-source", "device", "--seed",
+             "1", "--aggregator", "median", "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--evaluation-delta",
+             "-1", "--evaluation-period", "-1", "--checkpoint-dir", ckpt, "--checkpoint-delta", "2",
+             "--checkpoint-period", "-1", "--secure", "--session-secret", SERVE_SECRET]
+    kernels.reset_launch_counts()
+    result = runner.main(train + ["--max-step", str(SERVE_STEPS)])
+    counts = kernels.launch_counts()
+    check(result["final_loss"] is not None and math.isfinite(result["final_loss"]), "serve S1: training diverged")
+    check(counts["coordinate_median"] == SERVE_STEPS, "serve S1: K3 %d times in %d steps"
+          % (counts["coordinate_median"], SERVE_STEPS))
+    for name, count in counts.items():
+        totals[name] += count
+    ready, log_path = os.path.join(workdir, "serve-ready"), os.path.join(workdir, "serve.log")
+    argv = [sys.executable, "-m", "aggregathor_tpu_torch.cli.serve", "--experiment", "cnnet", "--ckpt-dir", ckpt,
+            "--replicas", "3", "--gar", "median", "--poison-replica", "1:nan", "--port", "0", "--ready-file", ready,
+            "--session-secret", SERVE_SECRET, "--max-batch", str(SERVE_TOP)]
+    begin = time.perf_counter()
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+                                 stderr=subprocess.STDOUT)
+    try:
+        while not os.path.exists(ready) and child.poll() is None and time.perf_counter() - begin < 300:
+            time.sleep(0.1)
+        if not os.path.exists(ready):
+            fail("serve S1: no ready file (exit %s): %s" % (child.poll(), open(log_path).read()[-3000:]))
+        startup_s = time.perf_counter() - begin
+        snapshot = _build_snapshot(build)
+        host, port, pid = open(ready).read().split()
+        base = "http://%s:%s" % (host, port)
+        import urllib.request
+
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as response:
+            health = json.loads(response.read())
+        check(health["custody_verified"] is True, "serve S1: custody not verified: %s" % health)
+        check(health["weights_step"] == SERVE_STEPS, "serve S1: weights step %s" % health["weights_step"])
+        metrics = _serve_metrics(base)
+        k3_before = metrics[("serve_kernel_launches", "coordinate_median")]
+        check(k3_before == 7, "serve S1: warmup launched K3 %s times over 7 buckets" % k3_before)
+
+        exp = models.instantiate("cnnet", [])
+        args = serve_cli.build_parser().parse_args(["--experiment", "cnnet", "--ckpt-dir", ckpt, "--replicas", "1",
+                                                    "--session-secret", SERVE_SECRET])
+        clean = {k: v.to("cuda") for k, v in serve_cli.load_replicas(args, exp)[0][0].items()}
+        rng = np.random.default_rng(20261018)
+        served = 0
+        for rows in SERVE_REQUESTS:
+            x = rng.random((rows, 32, 32, 3), np.float32)
+            want = _clean_logits(torch, exp, clean, x, SERVE_TOP)
+            if rows > SERVE_TOP:
+                code, body, _ = _serve_post(base, x)
+                check(code == 400 and "ladder top" in body.get("error", ""),
+                      "serve S1: a %d-row request was not refused: %s %s" % (rows, code, body))
+            preds, times = [], []
+            for start in range(0, rows, SERVE_TOP):  # split client-side, as the 400 asks
+                code, body, ms = _serve_post(base, x[start:start + SERVE_TOP])
+                check(code == 200, "serve S1: %d rows: HTTP %s %s" % (rows, code, body))
+                check(body["disagreement"][0] == 0.0 and body["disagreement"][1] is None
+                      and body["disagreement"][2] == 0.0,
+                      "serve S1: %d rows: disagreement %s, not [0, null, 0]" % (rows, body["disagreement"]))
+                preds += body["predictions"]
+                times.append(ms)
+                served += 1
+            check(preds == np.argmax(want, axis=-1).tolist(), "serve S1: %d rows: predictions differ from the "
+                  "clean replica's" % rows)
+            print("serve S1 cnnet /predict %d rows on %s: %s ms over HTTP (%d request(s)), the clean replica's "
+                  "predictions, disagreement [0, null, 0]" % (rows, card, " + ".join("%.2f" % t for t in times),
+                                                              len(times)))
+        metrics = _serve_metrics(base)
+        k3 = metrics[("serve_kernel_launches", "coordinate_median")] - k3_before
+        check(k3 == served, "serve S1: K3 %d times for %d served buckets" % (k3, served))
+
+        # the same vote in-process, on the logits themselves
+        replicas = [clean, {k: torch.full_like(v, float("nan")) for k, v in clean.items()}, clean]
+        engine = InferenceEngine(exp, replicas, gar=gars.instantiate("median", 3, 1), max_batch=SERVE_TOP)
+        kernels.reset_launch_counts()
+        engine.warmup()
+        for rows in SERVE_REQUESTS:
+            x = rng.random((rows, 32, 32, 3), np.float32)
+            got = engine.predict(x)["logits"]
+            check(np.array_equal(got.view(np.int32), _clean_logits(torch, exp, clean, x, SERVE_TOP).view(np.int32)),
+                  "serve S1: the in-process vote at %d rows is not the clean logits bit for bit" % rows)
+        in_process = kernels.launch_counts()["coordinate_median"]
+        want = sum(-(-rows // SERVE_TOP) for rows in SERVE_REQUESTS) + len(engine.buckets)
+        check(in_process == want, "serve S1: the in-process engine launched K3 %d times, not %d" % (in_process, want))
+        totals["coordinate_median"] += in_process
+        del engine, replicas
+
+        # a newer step, then SIGHUP: requests keep flowing, the step moves
+        kernels.reset_launch_counts()
+        runner.main(train + ["--max-step", str(SERVE_STEPS + 2)])
+        for name, count in kernels.launch_counts().items():
+            totals[name] += count
+        import threading
+
+        seen, stop = [], threading.Event()
+
+        def traffic():
+            x = np.random.default_rng(7).random((3, 32, 32, 3), np.float32)
+            while not stop.is_set():
+                code, body, _ = _serve_post(base, x)
+                seen.append((code, body.get("weights_step")))
+                if body.get("weights_step") == SERVE_STEPS + 2:
+                    return
+
+        thread = threading.Thread(target=traffic, daemon=True)
+        thread.start()
+        time.sleep(0.2)
+        reload_begin = time.perf_counter()
+        child.send_signal(signal.SIGHUP)
+        thread.join(120)
+        stop.set()
+        reload_s = time.perf_counter() - reload_begin
+        codes = sorted({code for code, _ in seen})
+        steps = [step for _, step in seen]
+        check(codes == [200], "serve S1: requests failed during the reload: %s" % codes)
+        check(steps and steps[-1] == SERVE_STEPS + 2 and steps == sorted(steps),
+              "serve S1: weights_step did not move to %d: %s" % (SERVE_STEPS + 2, steps[-5:]))
+        metrics = _serve_metrics(base)
+        k3_total = metrics[("serve_kernel_launches", "coordinate_median")] - k3_before
+        check(k3_total == served + len(seen), "serve S1: K3 %d times for %d served buckets"
+              % (k3_total, served + len(seen)))
+        totals["coordinate_median"] += int(k3_total) + 7
+        check(metrics[("serve_kernel_builds", None)] == 0 and _build_snapshot(build) == snapshot,
+              "serve S1: a kernel library was built after the ready file")
+        child.send_signal(signal.SIGTERM)
+        code = child.wait(120)
+        check(code == 0, "serve S1: cli.serve exited %s after SIGTERM" % code)
+        print("serve S1 on %s: cli.serve ready in %.1f s (3 replicas, median, replica 1 NaN, custody verified); "
+              "SIGHUP to step %d in %.2f s under %d requests, none failed; K3 %d launches in the child (7 warmup + "
+              "%d buckets), no kernel built after the ready file; SIGTERM exit 0"
+              % (card, startup_s, SERVE_STEPS + 2, reload_s, len(seen), k3_total + 7, k3_total))
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(30)
+
+
+def _serve_s2(torch, gars, kernels, models, card, totals):
+    """S2: ResNet-50 on digits32 in an in-process engine, R = 3, one NaN
+    replica, buckets 1-32: the vote bit for bit, latency a bucket."""
+    import numpy as np
+
+    from aggregathor_tpu_torch.chaos.replica_faults import corrupt_params
+    from aggregathor_tpu_torch.ops import build
+    from aggregathor_tpu_torch.serve import InferenceEngine
+
+    exp = models.instantiate(SERVE_ZOO, [])
+    params = exp.init(3)
+    d = sum(v.numel() for v in params.values())
+    check(d == SERVE_ZOO_D, "serve S2: d = %d, not %d" % (d, SERVE_ZOO_D))
+    replicas = [params, corrupt_params(params, "nan"), params]
+    engine = InferenceEngine(exp, replicas, gar=gars.instantiate("median", 3, 1), buckets=SERVE_ZOO_BUCKETS)
+    clean = {k: v.to("cuda") for k, v in params.items()}
+    kernels.reset_launch_counts()
+    engine.warmup()
+    launches = kernels.launch_counts()["coordinate_median"]
+    built = []
+    build.add_build_listener(built.append)
+    rng = np.random.default_rng(11)
+    rows = []
+
+    def predict(x):  # counts the engine's own K3 launches, not the timings'
+        nonlocal launches
+        before = kernels.launch_counts()["coordinate_median"]
+        out = engine.predict(x)
+        launches += kernels.launch_counts()["coordinate_median"] - before
+        return out
+
+    try:
+        for bucket in SERVE_ZOO_BUCKETS + (48,):  # 48: chunks of 32 and 16
+            x = rng.random((bucket,) + engine.sample_shape, np.float32)
+            got = predict(x)
+            want = _clean_logits(torch, exp, clean, x, SERVE_ZOO_BUCKETS[-1])
+            check(np.array_equal(got["logits"].view(np.int32), want.view(np.int32)),
+                  "serve S2: %d rows: the vote is not the clean logits bit for bit" % bucket)
+            check(got["disagreement"][0] == 0.0 and np.isposinf(got["disagreement"][1])
+                  and got["disagreement"][2] == 0.0, "serve S2: disagreement %s" % got["disagreement"])
+            if bucket == 48:
+                continue
+            times = []
+            for _ in range(SERVE_ZOO_CALLS):
+                begin = time.perf_counter()
+                predict(x)
+                times.append((time.perf_counter() - begin) * 1e3)
+            times.sort()
+            flat = torch.randn((3, bucket * 10), device="cuda")
+            flat[1] = float("nan")
+            vote_ms = time_ms(lambda: kernels.coordinate_median(flat), torch, iters=50, warmup=5)
+            stack = engine._live[0]
+            forward_ms = time_ms(lambda: [exp.predict_logits({k: v[r] for k, v in stack.items()},
+                                                             torch.from_numpy(x).to("cuda")) for r in range(3)],
+                                 torch, iters=10, warmup=2)
+            p50, p99 = times[len(times) // 2], times[min(len(times) - 1, int(0.99 * len(times)))]
+            rows.append((bucket, p50, p99, forward_ms, vote_ms))
+            print("serve S2 %s R=3 median bucket %d on %s: predict p50 %.2f ms, p99 %.2f ms (%d calls, eager); the "
+                  "three forwards %.2f ms, the K3 vote (3, %d) %.4f ms = %.4f of p50"
+                  % (SERVE_ZOO, bucket, card, p50, p99, SERVE_ZOO_CALLS, forward_ms, bucket * 10, vote_ms,
+                     vote_ms / p50))
+        # one K3 a bucket call: the warmup, a check and the timed calls a
+        # bucket, and 48 rows in two chunks
+        want = len(SERVE_ZOO_BUCKETS) * (2 + SERVE_ZOO_CALLS) + 2
+        check(launches == want, "serve S2: K3 launched %d times, not %d" % (launches, want))
+        check(built == [] and engine.compile_count == len(SERVE_ZOO_BUCKETS),
+              "serve S2: a kernel built or a new bucket shape after the warmup")
+    finally:
+        build.remove_build_listener(built.append)
+    totals["coordinate_median"] += launches
+    del engine, replicas, clean
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _serve_s3(torch, gars, kernels, models, card, totals):
+    """S3: the vote kernels at (R, bucket x 10) held against their plain
+    versions and timed; an engine a rule; the ContinuousBatcher's lanes."""
+    import numpy as np
+
+    from aggregathor_tpu_torch.chaos.replica_faults import corrupt_params
+    from aggregathor_tpu_torch.serve import ContinuousBatcher, InferenceEngine
+
+    gen = torch.Generator(device="cuda").manual_seed(20261019)
+    library = {"coordinate_median": lambda x: torch.kthvalue(x, x.shape[0] // 2 + 1, dim=0).values,
+               "coordinate_averaged_median": None, "coordinate_trimmed_mean": None,
+               "average_nan_columns": lambda x: torch.nanmean(x, 0),
+               "pairwise_sq_distances": lambda x: torch.cdist(x, x).square()}
+
+    def args_of(name, n):
+        f = (n - 1) // 2
+        return {"coordinate_averaged_median": (n - f,), "coordinate_trimmed_mean": (f, n - 2 * f)}.get(name, ())
+
+    rows, held = [], 0
+    for name in library:
+        for n in (3, 5, 7):
+            for d in SERVE_WIDTHS:
+                x = poison(torch.randn((n, d), device="cuda", generator=gen),
+                           columns=name != "pairwise_sq_distances")
+                args = args_of(name, n)
+                got = getattr(kernels, name)(x, *args)
+                torch.cuda.synchronize()
+                err = compare(name, got, kernels.PLAIN[name](x, *args), torch, x, args)
+                held += 1
+                if d == SERVE_WIDTHS[-1] and n == (3 if name == "coordinate_median" else 5):
+                    row = timed_row(torch, kernels, name, x, args, library[name], err)
+                    row["name"] = name
+                    rows.append(row)
+                    print("serve kernel %-27s (%d, %d), poisoned: %.4f ms (on the card %s ms), plain %.3f ms, "
+                          "library %s ms, bound %.3f us (%s), max |err| %g, on %s"
+                          % (name, n, d, row["ms"], "not measured" if row["device_ms"] is None
+                             else "%.4f" % row["device_ms"], row["plain_ms"],
+                             "%.3f" % row["library_ms"] if row["library_ms"] is not None else "none",
+                             row["bound_ms"] * 1e3, row["bound_by"], err, card))
+    print("serve S3: %d (kernel, R, width) cases held against their plain versions (R = 3, 5, 7; widths %s)"
+          % (held, list(SERVE_WIDTHS)))
+
+    exp = models.instantiate("cnnet", [])
+    params = exp.init(5)
+    replicas = [params] * 3 + [corrupt_params(params, "nan")] * 2
+    x = np.random.default_rng(13).random((50, 32, 32, 3), np.float32)
+    for name, rule in SERVE_RULES:
+        engine = InferenceEngine(exp, replicas, gar=gars.instantiate(rule, 5, 2), buckets=(4, 64))
+        clean = InferenceEngine(exp, [params], buckets=(4, 64)).predict(x)
+        kernels.reset_launch_counts()
+        engine.warmup()
+        out = engine.predict(x[:3]), engine.predict(x)
+        counts = kernels.launch_counts()
+        check(counts[name] == 4, "serve S3 %s: %s launched %d times for 4 bucket calls" % (rule, name, counts[name]))
+        check(np.array_equal(out[1]["predictions"], clean["predictions"]),
+              "serve S3 %s: the vote over two NaN replicas is not the clean predictions" % rule)
+        for kernel, count in counts.items():
+            totals[kernel] += count
+        print("serve S3 cnnet R=5 %s on %s: %s once a bucket call (4), the clean predictions over two NaN "
+              "replicas, disagreement %s" % (rule, card, name, out[1]["disagreement"].tolist()))
+
+    engine = InferenceEngine(exp, [params, corrupt_params(params, "nan"), params],
+                             gar=gars.instantiate("median", 3, 1), max_batch=SERVE_TOP)
+    engine.warmup()
+    request = x[:4]
+    for lanes in (1, 2):
+        batcher = ContinuousBatcher(engine.predict, engine.buckets, queue_bound=4096, nb_lanes=lanes)
+        before = kernels.launch_counts()["coordinate_median"]
+        begin = time.perf_counter()
+        tickets = [batcher.submit(request) for _ in range(256)]
+        for ticket in tickets:
+            ticket.wait(120.0)
+        seconds = time.perf_counter() - begin
+        totals["coordinate_median"] += kernels.launch_counts()["coordinate_median"] - before
+        print("serve S3 ContinuousBatcher cnnet R=3 median, %d lane(s), 256 requests of 4 rows submitted at once, "
+              "on %s: %.1f requests/s, %d batches (%.1f rows a batch)"
+              % (lanes, card, 256 / seconds, batcher.batch_count, batcher.served_rows / batcher.batch_count))
+        batcher.close()
+    return rows
+
+
+def serve_phase(torch, gars, kernels, models, runner, card, workdir, kernel_rows):
+    """Serving on the card (``serve/``, ``cli/serve.py``): S1 cnnet through
+    the serve CLI, S2 ResNet-50 on digits32 in-process, S3 the other vote
+    kernels and the batcher (module docstring); returns {kernel: launches}
+    and appends the kernel rows at the vote's shapes to ``kernel_rows``."""
+    begin = time.perf_counter()
+    totals = {name: 0 for name in kernels.KERNELS}
+    parts = {}
+    _serve_s1(torch, kernels, runner, card, workdir, totals)
+    parts["S1"] = time.perf_counter() - begin
+    _serve_s2(torch, gars, kernels, models, card, totals)
+    parts["S2"] = time.perf_counter() - begin - sum(parts.values())
+    kernel_rows.extend(_serve_s3(torch, gars, kernels, models, card, totals))
+    parts["S3"] = time.perf_counter() - begin - sum(parts.values())
+    print("serve phase: %.1f s (%s), launches %s" % (time.perf_counter() - begin, ", ".join(
+        "%s %.1f s" % item for item in parts.items()), {k: v for k, v in totals.items() if v}))
+    return totals
+
+
 def main():
     import torch
 
@@ -4040,7 +4452,7 @@ def main():
         for kernel, count in gar_extensions_phase(torch, gars, kernels, runner, card, workdir, gar_ms).items():
             totals[kernel] += count
         corpus_phase()
-        tfm_rows = []
+        tfm_rows, serve_rows = [], []
         for kernel, count in digits_phase(torch, kernels, runner, card).items():
             totals[kernel] += count
         for counts in (pipeline_phase(torch, kernels, runner, card),
@@ -4054,6 +4466,7 @@ def main():
                        secure_phase(torch, kernels, runner, card, workdir),
                        zoo_phase(torch, gars, kernels, models, runner, card),
                        transformer_phase(torch, gars, kernels, models, runner, card, tfm_rows),
+                       serve_phase(torch, gars, kernels, models, runner, card, workdir, serve_rows),
                        multirank_phase(torch, kernels, card)):
             for kernel, count in counts.items():
                 totals[kernel] += count
@@ -4061,6 +4474,7 @@ def main():
             check(totals[row["name"]] > 0, "%s was never launched on the main path" % row["name"])
             row["launches"] = totals[row["name"]]
             row["transformer_shapes"] = [r for r in tfm_rows if r["name"] == row["name"]]
+            row["serve_shapes"] = [r for r in serve_rows if r["name"] == row["name"]]
         attack_phase(runner, workdir)
         krum = ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2"]
         resume_phase(torch, runner, os.path.join(workdir, "mlp"), "digits", [], krum + [

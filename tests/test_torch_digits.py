@@ -23,6 +23,7 @@
 import jax
 import numpy as np
 import pytest
+import torch
 
 from aggregathor_tpu import gars as jgars
 from aggregathor_tpu import models as jmodels
@@ -180,6 +181,19 @@ def _accuracy(eval_sums, state, put, batches):
     return hits / total
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the 300-step runs: the digits MLP's ops are
+    tiny, and a full pool of spinning threads per process stalls when the
+    suite's workers share the cores (8 threads: 128 s for the runner's 300
+    steps beside five busy cores; 1 thread: 8.5 s, the same accuracy)."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
+@pytest.mark.usefixtures("one_thread")
 def test_digits_krum_under_little_attack_matches_the_jax_package(sklearn_path):
     n, f, r, steps = 8, 2, 2, 300
     jexp, texp = jmodels.instantiate("digits", []), tmodels.instantiate("digits", [])
@@ -209,6 +223,7 @@ def test_digits_krum_under_little_attack_matches_the_jax_package(sklearn_path):
     assert tacc > 0.8
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_digits_real_accuracy_under_krum_through_the_runner(sklearn_path):
     result = runner.main(["--experiment", "digits", "--aggregator", "krum", "--nb-workers", "8",
                           "--nb-decl-byz-workers", "2", "--max-step", "300", "--evaluation-delta", "300",

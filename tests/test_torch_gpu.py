@@ -34,7 +34,10 @@ digests and the masked group means are the CPU's bits on the card, and a
 forge/tamper schedule rejects the same workers there as on the CPU.  The
 transformer (config 5's widths): a bucket of each width through the
 centring, K2 and Krum against the CPU, the switch MoE and the dense ring
-attention, and the vmapped gradient with every warning an error.
+attention, and the vmapped gradient with every warning an error.  Serving:
+the median vote over a NaN replica is the clean replica's logits bit for
+bit with one K3 launch a bucket call, no kernel library is built after the
+warmup, and each vote rule's engine on the card matches the CPU's.
 """
 
 import numpy as np
@@ -1126,3 +1129,107 @@ def test_transformer_gradient_under_vmap_on_the_card(cuda_device):
             rows[str(device)] = r.cpu()
         want, got = rows["cpu"], rows[str(cuda_device)]
         assert bool(torch.all(torch.abs(got - want).max(dim=1).values <= 1e-4 * torch.abs(want).max(dim=1).values))
+
+
+# --------------------------------------------------------------------- #
+# serving: the replicated vote on the card's rank kernels
+
+
+def _serve_engine(cuda_device, rule="median", nb_replicas=3, poisoned=(1,), max_batch=16):
+    from aggregathor_tpu_torch.chaos.replica_faults import corrupt_params
+    from aggregathor_tpu_torch.serve import InferenceEngine
+
+    exp = models.instantiate("cnnet", ["batch-size:4"])
+    params = exp.init(7)
+    replicas = [corrupt_params(params, "nan") if r in poisoned else params for r in range(nb_replicas)]
+    vote = gars.instantiate(rule, nb_replicas, (nb_replicas - 1) // 2)
+    return exp, params, InferenceEngine(exp, replicas, gar=vote, max_batch=max_batch, device="cuda")
+
+
+@pytest.mark.gpu
+def test_serve_vote_on_the_card_is_the_clean_replica_bit_for_bit(cuda_device):
+    """Median of two identical replicas and a NaN one returns the clean
+    replica's logits, bit for bit, at every bucket (K3 returns an original
+    value; each replica's forward is a lone forward at the bucket), with one
+    K3 launch a bucket call and disagreement [0, inf, 0]."""
+    from aggregathor_tpu_torch.serve import choose_bucket
+
+    exp, params, engine = _serve_engine(cuda_device)
+    engine.warmup()
+    on_card = {k: v.to(cuda_device) for k, v in params.items()}
+    rng = np.random.default_rng(5)
+    for rows in (1, 3, 16, 21):
+        x = rng.random((rows, 32, 32, 3), np.float32)
+        before = kernels.launch_counts()["coordinate_median"]
+        out = engine.predict(x)
+        chunks = -(-rows // 16)
+        assert kernels.launch_counts()["coordinate_median"] - before == chunks
+        want = []
+        for start in range(0, rows, 16):
+            part = x[start:start + 16]
+            bucket = choose_bucket(len(part), engine.buckets)
+            pad = np.zeros((bucket, 32, 32, 3), np.float32)
+            pad[:len(part)] = part
+            with torch.no_grad():
+                want.append(exp.predict_logits(on_card, torch.from_numpy(pad).to(cuda_device))[:len(part)].cpu())
+        want = torch.cat(want).numpy()
+        assert np.array_equal(out["logits"].view(np.int32), want.view(np.int32)), rows
+        np.testing.assert_array_equal(out["predictions"], np.argmax(want, axis=-1))
+        assert out["disagreement"][0] == 0.0 and out["disagreement"][2] == 0.0
+        assert np.isposinf(out["disagreement"][1])
+
+
+@pytest.mark.gpu
+def test_serve_builds_no_kernel_library_after_warmup_on_the_card(cuda_device):
+    """After warmup, serving every bucket, a hot swap and a pool resize build
+    no kernel library and run no new bucket shape."""
+    from aggregathor_tpu_torch.ops import build
+
+    built = []
+
+    def listener(*args):
+        built.append(args)
+
+    exp, params, engine = _serve_engine(cuda_device, rule="average-nan", poisoned=())
+    assert engine.warmup() == len(engine.buckets)
+    build.add_build_listener(listener)
+    try:
+        rng = np.random.default_rng(6)
+        for rows in (1, 2, 5, 16, 40):
+            engine.predict(rng.random((rows, 32, 32, 3), np.float32))
+        engine.swap_replicas([exp.init(8)] * 3, step=2)
+        engine.set_active_replicas([0, 2])
+        assert engine.predict(rng.random((3, 32, 32, 3), np.float32))["active_replicas"] == [0, 2]
+        assert built == [] and engine.compile_count == len(engine.buckets)
+    finally:
+        build.remove_build_listener(listener)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule, nb_replicas", [("median", 3), ("averaged-median", 5), ("trimmed-mean", 5),
+                                               ("average-nan", 5), ("krum", 5), ("average", 3)])
+def test_serve_vote_on_the_card_matches_the_cpu(cuda_device, monkeypatch, rule, nb_replicas):
+    """Each vote rule's engine on the card against the same engine on the
+    CPU, on NaN- and scale-poisoned replicas, TF32 off: predictions equal,
+    voted logits within 1e-4 of the largest (the forwards' convolutions sum
+    in other orders), the same non-finite disagreement pattern."""
+    from aggregathor_tpu_torch.chaos.replica_faults import corrupt_params
+    from aggregathor_tpu_torch.serve import InferenceEngine
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    exp = models.instantiate("cnnet", ["batch-size:4"])
+    params = exp.init(9)
+    faulty = [corrupt_params(params, "nan"), corrupt_params(params, "scale", 100.0)][: (nb_replicas - 1) // 2]
+    replicas = [params] * (nb_replicas - len(faulty)) + faulty
+    vote = gars.instantiate(rule, nb_replicas, (nb_replicas - 1) // 2)
+    x = np.random.default_rng(10).random((6, 32, 32, 3), np.float32)
+    card = InferenceEngine(exp, replicas, gar=vote, max_batch=8, device="cuda").predict(x)
+    cpu = InferenceEngine(exp, replicas, gar=vote, max_batch=8, device="cpu").predict(x)
+    assert np.array_equal(np.isnan(card["logits"]), np.isnan(cpu["logits"]))
+    finite = np.isfinite(cpu["logits"])
+    scale = float(np.abs(cpu["logits"][finite]).max()) if finite.any() else 0.0
+    np.testing.assert_allclose(card["logits"][finite], cpu["logits"][finite], rtol=1e-4, atol=1e-4 * scale)
+    np.testing.assert_array_equal(card["predictions"], cpu["predictions"])
+    assert np.array_equal(np.isfinite(card["disagreement"]), np.isfinite(cpu["disagreement"]))

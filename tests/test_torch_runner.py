@@ -371,7 +371,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "parallel/compress.py", "models/zoo.py", "models/resnet.py", "models/vgg.py",
                    "models/classic.py", "models/mobilenet.py", "models/inception.py", "models/nasnet.py",
                    "models/tfrecord.py", "models/common.py", "ops/native/__init__.py", "models/transformer.py",
-                   "parallel/collectives.py", "parallel/sharded_engine.py"):
+                   "parallel/collectives.py", "parallel/sharded_engine.py", "serve/__init__.py",
+                   "serve/engine.py", "serve/continuous.py", "serve/weights.py", "serve/autoscale.py",
+                   "serve/frontend.py", "serve/campaign.py", "cli/serve.py", "serve/router.py", "cli/router.py",
+                   "obs/fleet.py", "obs/causal.py"):
         assert os.path.join(REPO, "aggregathor_tpu_torch", module) in paths, module
     offenders = [
         (os.path.relpath(path, REPO), module)
