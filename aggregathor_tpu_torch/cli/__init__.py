@@ -1,4 +1,18 @@
-"""Command-line entry points: the training runner (``python -m aggregathor_tpu_torch.cli.runner``)."""
+"""Command-line entry points: the training runner (``python -m
+aggregathor_tpu_torch.cli.runner``), ``deploy``, ``serve``, ``router``,
+``supervise`` and ``postmortem``."""
+
+
+def console_entry(main):
+    """Run a CLI's main: a UserException becomes a clean error and exit
+    code 1 (JAX ``cli/__init__.py:11``)."""
+    from ..utils import UserException, error
+
+    try:
+        return main()
+    except UserException as exc:
+        error(str(exc))
+        return 1
 
 
 def add_causal_flags(parser):

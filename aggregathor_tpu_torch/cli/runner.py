@@ -34,8 +34,9 @@ where a ``chaos_regime_switch`` summary event is written; the summaries
 and the ``train_chaos_regime`` gauge carry the last step's regime, the
 evaluation TSV's ``chaos_regime`` column the regime of the last completed
 step (``step - 1``), and the forensics ledger each step's regime.  The
-schedule's process and topology keys are refused (this runner has no
-``--topology``).  ``--exchange SPEC`` (``parallel/compress.py``) sets the
+schedule's process keys are refused, and its topology keys
+(``corrupt-agg``, ``straggle-agg``) unless ``--topology`` is given.
+``--exchange SPEC`` (``parallel/compress.py``) sets the
 wire: ``bf16`` is ``--exchange-dtype bfloat16``, ``int8[:ef]`` and
 ``topk:k=K|frac=F[,ef]`` engage the codec; ``bytes_on_wire_total`` counts
 n rows of the codec's bytes a step, and the error-feedback residual is
@@ -60,6 +61,24 @@ and stale rows; the watchdog rolls back on timeouts beyond f
 (``observe_timeouts``) and on a window pinned at its ceiling
 (``observe_ceiling``).  A rollback that rebuilds the stack, and the exit
 (a stop signal's included), close the step's threads.
+
+``--topology tree:...`` (``topology/``, JAX ``runner.py:857-898``) makes
+the tree spec the aggregation rule (with ``--aggregator tree`` and no
+``--aggregator-args``; the spec stands for the rule in the guardian's
+``Overrides``) and implies bounded-wait: each round's stacked wire rows go
+through the ``TreeAggregator`` (per-level windows from ``--step-deadline``
+and the deadline knobs, custody keyed by ``--session-secret``, the chaos
+``corrupt-agg``/``straggle-agg`` targets), which clears the leaf spans of
+excluded subtrees from the masks the aggregate reads; with ``--forensics``
+the ledger names corrupt sub-aggregators ``"LEVEL.UNIT"``.  Not with
+``--mesh``, ``--incremental-aggregation`` or more than one device.
+
+The regression sentinel (``obs/slo.py``): ``--slo-capture PATH`` writes
+this run's end-state ``steps_per_s``, ``gar_seconds_total`` and
+``input_overlap_fraction`` as a baseline document, ``--slo-baseline PATH``
+loads one at startup and judges the run at its natural end (PASS or
+REGRESS: an info line, an ``slo_verdict`` summary event, ``/status``'s
+``slo``), ``--slo-verdict PATH`` writes the verdict document too.
 
 A summary event carries, beside the four scalars, the worker diagnostics
 the engine computes (``worker_sq_dist`` and ``suspect_worker``, the most
@@ -281,6 +300,17 @@ def build_parser():
              "and no in-graph transport simulation (--UDP/non-straggler --chaos)",
     )
     parser.add_argument(
+        "--topology", default=None, metavar="SPEC",
+        help="aggregation-tree topology (topology/): replace the PS star with L levels of untrusted "
+             "sub-aggregators, e.g. tree:g=16x4,rules=median>trimmed-mean>krum,link=int8,redundancy=2,agg-f=1x0.  "
+             "The tree IS the aggregation rule (pass --aggregator tree; the spec substitutes into the guardian's "
+             "Overrides record): f-budgets compose through the levels at parse time, every inter-level link rides "
+             "the declared wire codec, each level closes its own bounded-wait round, sub-aggregator custody is "
+             "chain-verified (a forged emission NAMES its (level, unit) in forensics — never laundered into worker "
+             "blame), and redundancy=r serves a faulted unit from a sibling shadow.  Needs the flat engine and one "
+             "device; implies bounded-wait dispatch (add --step-deadline for real per-level windows)",
+    )
+    parser.add_argument(
         "--straggler-stall", type=float, default=0.0, metavar="SECONDS",
         help="bounded-wait straggler injection: a worker drawn late holds its submission this long before "
              "dispatching (the chaos straggler regimes' wall-clock twin; with --chaos the per-regime straggle rates "
@@ -459,6 +489,21 @@ def build_parser():
     parser.add_argument(
         "--live-ready-file", default=None, metavar="PATH",
         help="write 'host port' here once the live exporter is bound (requires --live-port)",
+    )
+    parser.add_argument(
+        "--slo-baseline", default=None, metavar="JSON",
+        help="regression sentinel (obs/slo.py): load this baseline document (schema aggregathor.obs.slo.v1, "
+             "seeded via --slo-capture on a healthy run) and emit a PASS/REGRESS verdict on steps/s, "
+             "gar_seconds_total and input_overlap_fraction at run end (an slo_verdict summary event + info line)",
+    )
+    parser.add_argument(
+        "--slo-verdict", default=None, metavar="JSON",
+        help="also write the sentinel verdict document here (requires --slo-baseline)",
+    )
+    parser.add_argument(
+        "--slo-capture", default=None, metavar="JSON",
+        help="capture THIS run's end-state throughput metrics as a fresh SLO baseline document here (what "
+             "--slo-baseline loads)",
     )
     parser.add_argument(
         "--run-id", default=None, metavar="ID",
@@ -723,6 +768,10 @@ def check_mesh_flags(args):
     if args.incremental_aggregation:
         raise UserException("--incremental-aggregation folds per-WORKER rows; the sharded mode's per-submesh "
                             "submissions need a per-group fold layout — run the flat engine")
+    if args.topology is not None:
+        raise UserException("--topology needs the flat engine: the tree's custody plane signs the stacked "
+                            "per-worker wire rows, which the sharded submesh submissions never materialize — drop "
+                            "--mesh")
     if args.step_deadline is not None or args.straggler_stall > 0:
         raise UserException("--step-deadline/--straggler-stall on the sharded engine (--mesh: per-submesh "
                             "submission units) is not available in the PyTorch port yet (ROADMAP queue 1 item 8c); "
@@ -777,10 +826,11 @@ def _run(args, stop, argv, rank):
             raise UserException("--nb-devices %d must divide --nb-workers %d (k = n/W workers a device)" % (size, n))
         plan = (0, size, None)
     rank_index, size, init_method = plan
-    if size > 1 and (args.step_deadline is not None or args.straggler_stall > 0):
+    if size > 1 and (args.step_deadline is not None or args.straggler_stall > 0 or args.topology is not None):
         # before any rank is spawned (JAX refuses process_count() > 1)
-        raise UserException("--step-deadline is single-process (the submission threads wait on one process's "
-                            "streams); a worker axis of %d ranks is %d processes: pass --nb-devices 1" % (size, size))
+        raise UserException("--step-deadline/--topology is single-process (the submission threads wait on one "
+                            "process's streams); a worker axis of %d ranks is %d processes: pass --nb-devices 1"
+                            % (size, size))
     children = []
     if size > 1 and init_method is None:
         # the lead: W - 1 ranks on the same arguments, spawned before the
@@ -796,7 +846,7 @@ def _run(args, stop, argv, rank):
         # the grid's ranks share the host's cores, one intra-op pool each
         # (as mesh.spawn's ranks): oversubscribed pools stall every
         # pipeline and ring collective
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+        torch.set_num_threads(max(1, mesh.host_threads() // size))
     # a collective whose peer died raises (gloo) or times out (NCCL, after
     # mesh.DEFAULT_TIMEOUT): the lead never returns past a dead rank
     axis_device = torch.device(device.type) if size > 1 else device
@@ -844,6 +894,7 @@ def _train(args, stop, axis):
     from ..parallel.engine import fold_in_seed, index_metrics, stack_metrics
     from ..parallel.lossy import LossyLink
     from ..obs import profiler as obs_profiler
+    from ..obs import slo as obs_slo
     from ..obs.forensics import ForensicsLedger
     from ..core.train_state import broadcast_state
     from ..utils import Context, UserException, info, warning
@@ -887,6 +938,11 @@ def _train(args, stop, axis):
         raise UserException("--flight-dump needs --flight CAPACITY")
     if args.live_ready_file and args.live_port is None:
         raise UserException("--live-ready-file needs --live-port")
+    if args.slo_verdict and not args.slo_baseline:
+        raise UserException("--slo-verdict needs --slo-baseline")
+    # the sentinel's baseline loads at startup: a missing or garbled
+    # document fails before the run, not at the verdict (JAX :671-679)
+    sentinel = obs_slo.Sentinel(args.slo_baseline) if args.slo_baseline else None
     mesh_axes = parse_mesh(args.mesh)
     if mesh_axes is None:
         if args.granularity in ("layer", "global"):
@@ -920,14 +976,33 @@ def _train(args, stop, axis):
         if not args.checkpoint_dir:
             raise UserException("--guardian rolls back to on-disk snapshots; pass --checkpoint-dir")
     watchdog = Watchdog(guardian) if guardian is not None else None
+    # the aggregation tree (--topology, topology/): the spec parses and
+    # composes its budgets here, before anything is built, and substitutes
+    # for --aggregator in the Overrides record, so an escalation to a flat
+    # rung retires the host tree plane and a rollback to the tree's rung
+    # brings it back (JAX :857-890)
+    topology_spec = topology = None
+    if args.topology is not None:
+        from ..topology import parse_topology_spec
+
+        if args.aggregator != "tree":
+            raise UserException("--topology replaces the aggregation rule with the tree spec; pass --aggregator "
+                                "tree (got %r)" % args.aggregator)
+        if args.aggregator_args:
+            raise UserException("--topology carries the tree's arguments inline (tree:g=...,rules=...); drop "
+                                "--aggregator-args")
+        topology_spec = parse_topology_spec(args.topology, n, f)
+        if lead:
+            info("Topology: %s" % topology_spec.describe())
     # the knobs the escalation ladder may change; the training stack is built
     # from this record so a rollback can rebuild it mid-run
-    overrides = Overrides(f, args.aggregator, tuple(args.aggregator_args),
+    overrides = Overrides(f, args.topology if topology_spec is not None else args.aggregator,
+                          () if topology_spec is not None else tuple(args.aggregator_args),
                           reputation_decay=args.reputation_decay, quarantine_threshold=args.quarantine_threshold)
     # bounded-wait (parallel/bounded.py): under a deadline, or stalls without
-    # one (the synchronous baseline), the schedule moves to the host's clock
-    # and the step has no chaos regime (JAX :893-897)
-    bounded_wait = args.step_deadline is not None or args.straggler_stall > 0
+    # one (the synchronous baseline), or the tree, the schedule moves to the
+    # host's clock and the step has no chaos regime (JAX :893-897)
+    bounded_wait = args.step_deadline is not None or args.straggler_stall > 0 or topology_spec is not None
     # the flight recorder's layout is fixed for the run: built once and
     # shared by every rebuilt stack (its ring is per-state)
     flight_rec = None
@@ -976,11 +1051,16 @@ def _train(args, stop, axis):
         lossy = LossyLink(args.udp, args.udp_args) if args.udp > 0 else None
         chaos = None
         if args.chaos:
-            # no --topology in this runner: the sub-aggregator keys refuse,
-            # as the JAX runner's do without --topology
-            chaos = ChaosSchedule(args.chaos, n, nb_real_byz=r, args=args.chaos_args, allow_topology_faults=False)
+            # the sub-aggregator keys (corrupt-agg, straggle-agg) only under
+            # --topology, each naming a node the tree has (JAX :934-945)
+            chaos = ChaosSchedule(args.chaos, n, nb_real_byz=r, args=args.chaos_args,
+                                  allow_topology_faults=topology_spec is not None)
             info("Chaos schedule: %d regime(s): %s"
                  % (len(chaos), "  ".join("%d:%s" % t for t in chaos.transitions())))
+            if topology_spec is not None:
+                for regime in chaos.regimes:
+                    for level, unit in regime.agg_corrupt + regime.agg_straggle:
+                        topology_spec.validate_fault_target(level, unit)
         base_schedule = build_schedule(args.learning_rate, args.learning_rate_args)
         # bounded-wait's straggler model and deadline controller, checked
         # before anything is built (JAX :1013-1175); the controller is built
@@ -1028,6 +1108,24 @@ def _train(args, stop, axis):
                     ceiling=args.deadline_ceiling, ema=args.deadline_ema, registry=registry)
             # the rows' layout, for the aggregate's flatten and inflate
             params_template = experiment.init(args.seed)
+            if topology_spec is not None:
+                if args.incremental_aggregation:
+                    raise UserException("--topology and --incremental-aggregation are mutually exclusive: the "
+                                        "tree's custody plane signs the stacked wire rows at the round barrier, "
+                                        "which the incremental fold never materializes")
+                from ..topology import TreeAggregator
+
+                # built once, outside the rebuild, as the deadline controller:
+                # the custody chain's head and the per-level windows outlive
+                # an escalation (JAX :1128-1166)
+                topology = TreeAggregator(
+                    topology_spec, registry=registry,
+                    session_secret=args.session_secret.encode() if args.session_secret else None,
+                    deadline=args.step_deadline,
+                    deadline_opts=dict(percentile=args.deadline_percentile, floor=args.deadline_floor,
+                                       ceiling=args.deadline_ceiling, ema=args.deadline_ema)
+                    if args.deadline_percentile is not None else None)
+                topology.schedule = chaos
         elif (args.deadline_percentile is not None or args.stale_infill or args.stale_reweight
               or args.straggler_jitter > 0 or args.incremental_aggregation):
             raise UserException("--deadline-percentile/--stale-infill/--stale-reweight/--straggler-jitter/"
@@ -1119,7 +1217,10 @@ def _train(args, stop, axis):
                     stack.engine, loss_fn, stack.tx, params_template, deadline=args.step_deadline,
                     straggler_model=straggler_model, registry=registry, controller=deadline_controller,
                     stale_infill=args.stale_infill, stale_max_age=args.stale_max_age,
-                    stale_reweight=args.stale_reweight, incremental=args.incremental_aggregation)
+                    stale_reweight=args.stale_reweight, incremental=args.incremental_aggregation,
+                    # the tree rides its own rung only: an escalation that
+                    # swaps the rule retires the host plane with it
+                    topology=topology if topology is not None and ov.gar_name == args.topology else None)
                 stack.step_fn = stack.bounded_step
             else:
                 stack.step_fn = stack.engine.build_step(loss_fn, stack.tx)
@@ -1208,6 +1309,10 @@ def _train(args, stop, axis):
     # Byzantine forensics ledger (obs/forensics.py): fed one call behind,
     # written at exit; lead-only, the diagnostics being the same on every rank
     ledger = ForensicsLedger(n, run_id=run_id) if args.forensics and lead else None
+    if topology is not None and ledger is not None:
+        # the tree's custody verdicts land on the ledger's sub-aggregator
+        # surface: a forged emission names its (level, unit), never a worker
+        topology.ledger = ledger
 
     # Training gauges and counters on the process-wide registry, as the JAX
     # runner registers them: the summary's values, updated at every fire
@@ -1242,7 +1347,7 @@ def _train(args, stop, axis):
         info("Device memory gauges live on %s" % device)
     xprof = obs_profiler.ProfilerWindow(args.xprof, args.trace_dir, registry=registry, device=device,
                                         run_id=run_id) if args.xprof and lead else None
-    live_state = {"step": 0, "flight": None}
+    live_state = {"step": 0, "flight": None, "slo": None}
     probe = {"calls": 0}
     timeline = {"rollbacks": [], "escalations": [], "recovered": [], "steps_by_overrides": {}}
 
@@ -1808,7 +1913,7 @@ def _train(args, stop, axis):
             def live_status():
                 return {"step": live_state["step"], "max_step": max_step,
                         "steps_per_s": perf.steps_per_s_excl_first(), "overrides": overrides.describe(),
-                        "flight": live_state["flight"], "slo": None}
+                        "flight": live_state["flight"], "slo": live_state["slo"]}
 
             live = obs_live.LiveExporter(registry=registry, status_provider=live_status, run_id=run_id,
                                          host=args.live_host, port=args.live_port)
@@ -1945,6 +2050,25 @@ def _train(args, stop, axis):
                     del saved
                 if summary_trigger.last_step != step:
                     fire_summary(step, metrics)
+            if step > offstep and not diverged and not stop["requested"]:
+                # the regression sentinel at run end (obs/slo.py, JAX
+                # :2530-2556), before the summaries close (the verdict is a
+                # summary event too); a run a signal stopped is not judged
+                if sentinel is not None or args.slo_capture:
+                    slo_current = obs_slo.collect_current(registry, perf)
+                if sentinel is not None:
+                    verdict = sentinel.verdict(slo_current, run_id=run_id)
+                    live_state["slo"] = verdict
+                    info(obs_slo.describe_verdict(verdict))
+                    summaries.event(step, "slo_verdict", {"verdict": verdict["verdict"],
+                                                          "regressed": verdict["regressed"],
+                                                          "checks": verdict["checks"]})
+                    if args.slo_verdict and lead:
+                        obs_slo.save_verdict(args.slo_verdict, verdict)
+                        info("SLO verdict -> %r" % args.slo_verdict)
+                if args.slo_capture and lead:
+                    doc = obs_slo.capture(args.slo_capture, slo_current, run_id=run_id)
+                    info("SLO baseline -> %r (metrics: %s)" % (args.slo_capture, ", ".join(sorted(doc["metrics"]))))
     finally:
         aborting = sys.exc_info()[0] is not None
         gap_close()

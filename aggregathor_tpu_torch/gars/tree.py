@@ -31,6 +31,20 @@ from .common import sub_rule_distances
 from .hierarchical import group_pass
 
 
+def level_pass(spec, level, rows, key, with_participation=False, axis=None):
+    """Level ``level`` (0-based) of the tree ``spec``: its rule over groups
+    of the rows (``group_pass``, group i keyed ``fold(fold(key, level + 1),
+    i)``), then the inter-level link, since what a sub-aggregator ships is
+    what the next level aggregates -> ``(summaries, participation)``.  The
+    in-graph rule and the host protocol's emissions (``topology/tree.py``)
+    both run this."""
+    from ..parallel.compress import wire_roundtrip
+
+    base = None if key is None else fold_in_seed(key, level + 1)
+    rows, part = group_pass(spec.rules[level], rows, spec.group_sizes[level], base, with_participation, axis)
+    return wire_roundtrip(rows, spec.link_dtype, codec=spec.link_codec), part
+
+
 class TreeGAR(GAR):
     uses_axis = True
     uses_key = True
@@ -51,18 +65,10 @@ class TreeGAR(GAR):
         self.nan_row_tolerant = (any(rule.nan_row_tolerant for rule in self.spec.rules)
                                  or self.spec.root_rule.nan_row_tolerant)
 
-    def _link_roundtrip(self, summaries):
-        """What a sub-aggregator ships is what the next level aggregates."""
-        from ..parallel.compress import wire_roundtrip
-
-        return wire_roundtrip(summaries, self.spec.link_dtype, codec=self.spec.link_codec)
-
     def _levels(self, block, key, with_participation, axis=None):
         rows, parts = block, []
-        for level, (rule, g) in enumerate(zip(self.spec.rules, self.spec.group_sizes)):
-            base = None if key is None else fold_in_seed(key, level + 1)
-            rows, part = group_pass(rule, rows, g, base, with_participation, axis)
-            rows = self._link_roundtrip(rows)
+        for level in range(self.spec.nb_levels):
+            rows, part = level_pass(self.spec, level, rows, key, with_participation, axis)
             parts.append(part)
         return rows, parts
 

@@ -65,8 +65,16 @@ them.  A stalled thread sleeps in slices of at most 50 ms and checks the
 step's poison between them, so ``close()`` and interpreter exit never hang.
 
 Not carried: the sharded mode's submesh units (``build_group_grad``,
-``build_submesh_grad``: the sharded engine, ROADMAP queue 1 item 8) and
-the tree topology (item 10).
+``build_submesh_grad``: the sharded engine, ROADMAP queue 1 item 8c).
+
+Under ``topology`` (a :class:`~aggregathor_tpu_torch.topology.TreeAggregator`,
+the runner's ``--topology``) the round's stacked wire rows go through the
+tree's protocol at the barrier, after the worker-plane bookkeeping (timeout
+counters, tracer, ``bounded_round``, the leaf controller): the per-level
+emissions, custody, the level windows, reconstruction and exclusion, in a
+``bounded_wait.topology`` span.  The masks it returns, excluded subtrees
+cleared, are the ones the aggregate reads.  It reads the rows the caller's
+stream already waited for, on that stream.
 
 Under ``secure`` each submission returns its row's digest, and the round
 hands the aggregate the digest of what arrived for each slot: the
@@ -85,6 +93,7 @@ import torch
 from ..obs import events, trace
 from ..utils import UserException
 from .compress import bytes_per_row
+from .engine import gar_key
 
 #: longest sleep of a stalled submission between two checks of the poison
 STALL_SLICE_S = 0.05
@@ -198,7 +207,8 @@ class BoundedWaitStep:
       worker), ``bounded_wait_rounds_total``,
       ``bounded_wait_deadline_seconds`` and, incremental, the
       ``exchange_*`` fold families.
-    - ``topology``: refused (the aggregation tree, ROADMAP queue 1 item 10).
+    - ``topology``: the tree's host protocol, bound here to the leaf plane
+      (module docstring); not with ``incremental``.
     """
 
     def __init__(self, engine, loss_fn, tx, params_template, deadline=None, straggler_model=None, registry=None,
@@ -215,9 +225,13 @@ class BoundedWaitStep:
         self.stale_max_age = int(stale_max_age)
         if stale_infill and self.stale_max_age < 1:
             raise UserException("--stale-max-age must be >= 1 round (got %d)" % self.stale_max_age)
-        if topology is not None:
-            raise UserException("--topology (the aggregation tree's per-level bounded wait) is not available in "
-                                "the PyTorch port yet (ROADMAP queue 1 item 10)")
+        if topology is not None and engine.sharded:
+            raise UserException("--topology drives per-WORKER leaf rows; the sharded engine's per-submesh "
+                                "submission units are a different grouping than the tree's — run the flat engine")
+        if topology is not None and incremental:
+            raise UserException("--topology and --incremental-aggregation are mutually exclusive: the tree's "
+                                "custody plane signs the stacked wire rows at the barrier, which the incremental "
+                                "fold never materializes")
         self.engine = engine
         self.nb_workers = self.nb_units = engine.nb_workers
         self.deadline = deadline
@@ -229,6 +243,7 @@ class BoundedWaitStep:
         self.codec = engine.codec
         self.ef = bool(engine.carries_ef)
         self.incremental = bool(incremental)
+        self.topology = topology
         self.grad_fn = engine.build_worker_grad(loss_fn)
         self.agg_fn = engine.build_bounded_aggregate(tx, params_template,
                                                      rows_form="decoded" if self.incremental else "wire",
@@ -261,6 +276,9 @@ class BoundedWaitStep:
                                         device=self.device)
         self._miss_loss = torch.zeros((), dtype=torch.float32, device=self.device)
         self._zero_row = torch.zeros((d,), dtype=torch.float32, device=self.device)
+        if topology is not None:
+            # the tree's emissions decode and sign exactly these wire rows
+            topology.bind(self.nb_workers, d, codec=self.codec)
         self._fold_fn = self._fresh_buffer = None
         if self.incremental:
             self._fold_fn, self._fresh_buffer = engine.build_incremental_fold(d)
@@ -534,6 +552,11 @@ class BoundedWaitStep:
             self._c_rounds.inc()
             if deadline is not None:
                 self._g_deadline.set(float(deadline))
+        rows_in = buffer if self.incremental else _stack(rows)
+        if self.topology is not None:
+            with trace.span("bounded_wait.topology", cat="train", step=step_idx):
+                arrived, stale = self.topology.process_round(step_idx, arrived, stale, arrival_seconds, rows_in,
+                                                             leaf_window=deadline, key=gar_key(state.seed, step_idx))
         # the masks and ages cross to the card once, through pinned memory
         flags = self.engine._to_device(torch.from_numpy(
             np.stack([arrived, stale, self._carry_age]).astype(np.int32)))
@@ -546,9 +569,17 @@ class BoundedWaitStep:
             extras["ef"] = torch.stack(ef_rows)
         if self.secure:
             extras["digests"] = torch.stack(digests)
-        rows_in = buffer if self.incremental else _stack(rows)
         with trace.span("bounded_wait.aggregate", cat="train", step=step_idx):
             return self.agg_fn(state, rows_in, torch.stack(losses), flags[0].bool(), flags[1].bool(), extras)
+
+    def _cache_size(self):
+        """The compile surface (JAX ``bounded.py:896-907``): the tree's
+        emission shapes a level, else 1 once the first round ran (the
+        submission and the aggregate run eagerly, one shape each)."""
+        sizes = [int(self._warm)]
+        if self.topology is not None:
+            sizes.append(self.topology.cache_size())
+        return max(sizes)
 
     def _trace_round(self, tracer, step_idx, round_t0_us, deadline, arrived, stale, arrival_seconds, skipped_units):
         """Each unit's round on its own track, as one span from the round's

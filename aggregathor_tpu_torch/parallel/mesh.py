@@ -239,6 +239,12 @@ def join(nb_workers, size, rank, init_method, device="cuda", shared_card=False, 
     return WorkerAxis(nb_workers, size, rank, device, group=dist.group.WORLD, backend=backend)
 
 
+def host_threads():
+    """The intra-op threads this process's ranks split between them:
+    ``OMP_NUM_THREADS`` where it is set, else every core."""
+    return int(os.environ.get("OMP_NUM_THREADS") or 0) or os.cpu_count() or 1
+
+
 def environment_rank():
     """``(rank, size, init_method)`` from ``RANK``, ``WORLD_SIZE`` and
     ``MASTER_ADDR``/``MASTER_PORT`` (what ``cli/deploy`` and torchrun
@@ -256,8 +262,9 @@ def _spawned(target, nb_workers, size, rank, init_method, device, shared_card, a
 
     axis = None
     try:
-        # the ranks share the host's cores: one intra-op pool each
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+        # the ranks share the host's cores, or the OMP_NUM_THREADS the
+        # spawning process was given: one intra-op pool each
+        torch.set_num_threads(max(1, host_threads() // size))
         axis = join(nb_workers, size, rank, init_method, device=device, shared_card=shared_card)
         queue.put((rank, True, target(axis, *args)))
     except BaseException:

@@ -1,14 +1,13 @@
 """Declarative aggregation-tree specification (the ``tree:`` grammar).
 
-A copy of ``aggregathor_tpu/topology/spec.py``, cut to what the port's
-``gars/tree.py`` needs: the parse, the budgets, the link's dtype or codec
-and its byte accounting.  Its lazy imports reach the
-port's ``gars`` registry and ``parallel/compress.py``, whose
-``parse_exchange_spec`` serves the ``f32``, ``bf16``, ``int8`` and ``topk``
-links (a link with error feedback is refused).  The host plane
-(``topology/tree.py``: per-level bounded wait, custody, shadows), its
-helpers (leaf spans, shadow units, fault targets) and ``--topology`` are
-not ported.
+A copy of ``aggregathor_tpu/topology/spec.py``: the parse, the budgets, the
+link's dtype or codec and its byte accounting, which the port's
+``gars/tree.py`` runs on, and the host protocol's shape helpers (leaf spans,
+shadow units, custody slots, fault targets), which ``topology/tree.py``
+runs on.  Its lazy imports reach the port's ``gars`` registry and
+``parallel/compress.py``, whose ``parse_exchange_spec`` serves the ``f32``,
+``bf16``, ``int8`` and ``topk`` links (a link with error feedback is
+refused).
 
 The parameter-server star has one trusted aggregator and one GAR call; a
 tree replaces it with L levels of *untrusted* sub-aggregators (CodedReduce,
@@ -58,6 +57,8 @@ property is carried by the levels ABOVE: the root rule is instantiated
 with ``(m_L, b_root)`` so its own feasibility check (krum's ``n >= f + 3``,
 bulyan's ``n >= 4f + 3``, ...) runs here, at parse time.
 """
+
+import numpy as np
 
 from ..utils import UserException
 
@@ -247,6 +248,41 @@ class TreeSpec:
     @property
     def nb_levels(self):
         return len(self.group_sizes)
+
+    def leaf_span(self, level, unit):
+        """Leaf workers under unit ``unit`` of level ``level`` (1-based
+        level), as a ``range``: the mask a whole-subtree exclusion clears."""
+        width = int(np.prod(self.group_sizes[:level]))
+        return range(unit * width, (unit + 1) * width)
+
+    def shadows(self, level, unit):
+        """Sibling units holding shadow copies of ``unit``'s groups at
+        ``level`` (circular assignment, r - 1 of them)."""
+        m = self.nb_units[level - 1]
+        return [(unit + k) % m for k in range(1, self.redundancy)]
+
+    def unit_index(self, level, unit):
+        """Flat index of (level, unit) across all levels: the unit's key
+        slot in the custody authenticator."""
+        return int(sum(self.nb_units[:level - 1]) + unit)
+
+    @property
+    def total_units(self):
+        return int(sum(self.nb_units))
+
+    def validate_fault_target(self, level, unit):
+        """Refuse a chaos ``corrupt-agg``/``straggle-agg`` target outside
+        this tree."""
+        if not 1 <= level <= self.nb_levels:
+            raise UserException(
+                "topology fault targets level %d but the tree has %d "
+                "level(s)" % (level, self.nb_levels)
+            )
+        if not 0 <= unit < self.nb_units[level - 1]:
+            raise UserException(
+                "topology fault targets unit %d.%d but level %d has %d "
+                "unit(s)" % (level, unit, level, self.nb_units[level - 1])
+            )
 
     # ------------------------------------------------------------------ #
     # wire accounting (static, like parallel/compress.bytes_per_row)

@@ -221,6 +221,23 @@ Phases, in order (any failure exits non-zero and prints no result):
    (averaged-median, trimmed-mean, average-nan, krum at R = 5, two NaN
    replicas) launching its kernel once a bucket and serving the clean
    predictions; a ContinuousBatcher leg at lanes 1 and 2 (requests/s).
+   The topology phase (``topology_phase``, after the serve phase): F1
+   cnnet at n = 32, f = 1 through ``--topology tree:g=4x2,rules=median>
+   median>krum,redundancy=2`` with a far deadline under ``0:corrupt-agg=1.1
+   3:straggle-agg=2.1``, 8 steps: unit 1.1's forged tag and unit 2.1's
+   timeout each served by shadow 2 (the journal and forensics name them),
+   every round's masks untouched, the parameters bit-identical to the same
+   run without the schedule (cuDNN pinned), K3 4, the centring and K2 once
+   a step; F1b the schedule without redundancy (``median>median>median,
+   agg-f=1x1``): both subtrees excluded, leaves 4-7 then 8-15 cleared from
+   the masks, the losses finite, K3 5 a step; F2 the emissions alone at
+   ``tree:g=8,rules=krum>median``, n = 64, on the card's rows against the
+   CPU's plain emission (1e-5; digests equal where the summaries are
+   bit-equal), the centring and K2 once a unit, timed; the kernels at the
+   tree's shapes held and timed; F3 the sentinel: a capture, its repeat
+   PASS, a baseline ×10 faster REGRESS; F4 ``cli.supervise`` over a
+   ``cli.serve`` child serving cnnet: SIGKILLed, restarted, ``/healthz``
+   answers, ``cli.postmortem`` exits 0.
    Last, a cnnet + krum step and a digits-conv + krum step are split into
    their phases (host batch, transfer, augmentation, worker gradients,
    attack + aggregate, update), with the batches streamed and drawn on the
@@ -4419,6 +4436,358 @@ def serve_phase(torch, gars, kernels, models, runner, card, workdir, kernel_rows
     return totals
 
 
+TOPO_N = 32
+TOPO_STEPS = 8
+#: seconds: far above a warm round of 32 cnnet submissions on the card, so
+#: no honest unit times out and only the injected faults decide
+TOPO_DEADLINE = "60"
+TOPO_F1 = "tree:g=4x2,rules=median>median>krum,redundancy=2"
+TOPO_F1B = "tree:g=4x2,rules=median>median>median,agg-f=1x1"
+TOPO_SCHEDULE = "0:corrupt-agg=1.1 3:straggle-agg=2.1"
+#: launches a step: the two median levels run in the emissions and in the
+#: step's rule (K3 twice each), then the root (krum: the centring and K2 at
+#: 4 rows; median: K3)
+TOPO_LAUNCHES = {"F1": {"coordinate_median": 4, "nanmedian_columns": 1, "pairwise_sq_distances_gram": 1},
+                 "F1b": {"coordinate_median": 5}}
+TOPO_F2 = "tree:g=8,rules=krum>median"
+TOPO_F2_N = 64
+TOPO_EMIT_TOL = 1e-5
+#: the kernels' shapes on the tree's path: F1's levels on the transposed
+#: layout, F1's root and F2's units
+TOPO_SHAPES = (("coordinate_median", 4, 8 * CNNET_D, "F1 level 1"), ("coordinate_median", 2, 4 * CNNET_D, "F1 level 2"),
+               ("nanmedian_columns", 4, CNNET_D, "F1 root"), ("pairwise_sq_distances_gram", 4, CNNET_D, "F1 root"),
+               ("nanmedian_columns", 8, CNNET_D, "F2 unit"), ("pairwise_sq_distances_gram", 8, CNNET_D, "F2 unit"))
+TOPO_SLO_STEPS = 12
+
+
+def _topology_leg(torch, runner, kernels, label, spec, schedule, workdir):
+    """One ``--topology`` run of cnnet at n = 32, f = 1 through the runner
+    with a checkpoint at its end; the masks each round's ``process_round``
+    returned are recorded.  Returns (result, {step: loss}, journal's topology
+    records, forensics report, masks, final parameters, launches, seconds,
+    per-level emission seconds)."""
+    from aggregathor_tpu_torch.obs import events, metrics as obs_metrics
+    from aggregathor_tpu_torch.topology import tree as topology_tree
+
+    directory = os.path.join(workdir, "topology-%s" % label)
+    os.makedirs(os.path.join(directory, "sum"))
+    masks = []
+    process_round = topology_tree.TreeAggregator.process_round
+
+    def recorded(self, *args, **kwargs):
+        out = process_round(self, *args, **kwargs)
+        masks.append((out[0].copy(), out[1].copy()))
+        return out
+
+    def level_seconds():
+        family = {f.name: f for f in obs_metrics.REGISTRY.families()}.get("topology_level_seconds_total")
+        return {} if family is None else {values[0]: child.value for values, child in family.children().items()}
+
+    argv = ["--experiment", "cnnet", "--seed", "1", "--nb-workers", str(TOPO_N), "--nb-decl-byz-workers", "1",
+            "--aggregator", "tree", "--topology", spec, "--step-deadline", TOPO_DEADLINE, "--max-step",
+            str(TOPO_STEPS), "--evaluation-delta", "-1", "--evaluation-period", "-1", "--checkpoint-dir", directory,
+            "--checkpoint-delta", str(TOPO_STEPS), "--checkpoint-period", "-1", "--summary-dir",
+            os.path.join(directory, "sum"), "--summary-delta", "1", "--journal", os.path.join(directory, "j.jsonl"),
+            "--forensics", os.path.join(directory, "f.json")]
+    if schedule:
+        argv += ["--chaos", schedule]
+    before = level_seconds()
+    topology_tree.TreeAggregator.process_round = recorded
+    try:
+        kernels.reset_launch_counts()
+        begin = time.perf_counter()
+        result = runner.main(argv)
+        seconds = time.perf_counter() - begin
+        counts = kernels.launch_counts()
+    finally:
+        topology_tree.TreeAggregator.process_round = process_round
+    levels = {level: value - before.get(level, 0.0) for level, value in level_seconds().items()}
+    losses = {}
+    for name in os.listdir(os.path.join(directory, "sum")):
+        for line in open(os.path.join(directory, "sum", name)):
+            event = json.loads(line)
+            if "total_loss" in event:
+                losses[event["step"]] = event["total_loss"]
+    check(sorted(losses) == list(range(1, TOPO_STEPS + 1)) and all(math.isfinite(v) for v in losses.values()),
+          "topology %s: losses %s" % (label, losses))
+    journal = [r for r in events.load_journal(os.path.join(directory, "j.jsonl")) if r["type"].startswith("topology_")]
+    report = json.load(open(os.path.join(directory, "f.json")))
+    params = torch.load(os.path.join(directory, "model-%d.ckpt" % TOPO_STEPS), weights_only=True)["params"]
+    check(len(masks) == TOPO_STEPS, "topology %s: %d rounds through the tree" % (label, len(masks)))
+    return result, losses, journal, report, masks, params, counts, seconds, levels
+
+
+def _topology_f1(torch, runner, kernels, card, workdir, totals):
+    """F1 and F1b through the runner (``topology_phase``)."""
+    import numpy as np
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        legs = {label: _topology_leg(torch, runner, kernels, label, spec, schedule, workdir)
+                for label, spec, schedule in (("F1", TOPO_F1, TOPO_SCHEDULE), ("F1-calm", TOPO_F1, None),
+                                              ("F1b", TOPO_F1B, TOPO_SCHEDULE))}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for label, leg in legs.items():
+        per_step = TOPO_LAUNCHES[label.split("-")[0]]
+        counts = leg[6]
+        for name, count in counts.items():
+            check(count == per_step.get(name, 0) * TOPO_STEPS,
+                  "topology %s: %s launched %d times in %d steps, not %d a step"
+                  % (label, name, count, TOPO_STEPS, per_step.get(name, 0)))
+            totals[name] += count
+        print("topology %s on %s: %s, cnnet n=%d f=1 d=%d, %d steps in %.1f s (%.2f steps/s after the first), "
+              "losses %s, launches %s, emission ms a round by level %s"
+              % (label, card, TOPO_F1B if label == "F1b" else TOPO_F1, TOPO_N, CNNET_D, TOPO_STEPS, leg[7],
+                 leg[0]["steps_per_s"], ["%.4f" % leg[1][k] for k in sorted(leg[1])],
+                 {k: v for k, v in counts.items() if v},
+                 {level: round(value / TOPO_STEPS * 1e3, 3) for level, value in sorted(leg[8].items())}))
+    # F1: both faults reconstructed from a shadow, nothing excluded, the
+    # masks and the parameters those of the run without the schedule
+    _, _, journal, report, masks, params, _, _, _ = legs["F1"]
+    view = [(r["type"], r["step"], r["level"], r["unit"], r.get("excluded"), r.get("shadow"), r.get("trigger"))
+            for r in journal]
+    want = []
+    for step in range(TOPO_STEPS):
+        if step < 3:
+            want += [("topology_corruption_verdict", step, 1, 1, False, None, None),
+                     ("topology_reconstruction", step, 1, 1, None, 2, "forgery")]
+        else:
+            want += [("topology_level_timeout", step, 2, 1, False, None, None),
+                     ("topology_reconstruction", step, 2, 1, None, 2, "timeout")]
+    check(view == want, "topology F1: journal %s" % view[:6])
+    check(report["corrupt_subaggregators"] == ["1.1"], "topology F1: forensics %s" % report["corrupt_subaggregators"])
+    check(all(a.all() and not s.any() for a, s in masks), "topology F1: a reconstructed fault cleared a mask")
+    calm = legs["F1-calm"]
+    check(calm[2] == [] and all(a.all() for a, _ in calm[4]), "topology F1-calm: the calm run faulted")
+    for name, value in params.items():
+        check(torch.equal(value.view(torch.int32), calm[5][name].view(torch.int32)),
+              "topology F1: %s differs from the run without the schedule" % name)
+    check(legs["F1"][1] == calm[1], "topology F1: losses differ from the run without the schedule")
+    # F1b: no redundancy, so both faulted subtrees are excluded, their leaf
+    # spans cleared from the masks the aggregate reads
+    _, _, journal, report, masks, _, _, _, _ = legs["F1b"]
+    view = [(r["type"], r["step"], r["level"], r["unit"], r["excluded"]) for r in journal]
+    want = [("topology_corruption_verdict", step, 1, 1, True) if step < 3 else
+            ("topology_level_timeout", step, 2, 1, True) for step in range(TOPO_STEPS)]
+    check(view == want, "topology F1b: journal %s" % view[:6])
+    for step, (arrived, stale) in enumerate(masks):
+        cleared = list(range(4, 8)) if step < 3 else list(range(8, 16))
+        check(np.nonzero(~arrived)[0].tolist() == cleared and not stale.any(),
+              "topology F1b: round %d cleared %s, not %s" % (step, np.nonzero(~arrived)[0].tolist(), cleared))
+    print("topology F1 on %s: unit 1.1 forged at steps 0-2 and unit 2.1 late at 3-7, each served by shadow 2 "
+          "(journal and forensics name them), masks untouched, parameters bit-identical to the run without the "
+          "schedule; F1b (no redundancy, budgets [1, 2, 3]): both subtrees excluded, leaves 4-7 then 8-15 cleared, "
+          "losses finite" % card)
+
+
+def _topology_f2(torch, kernels, card):
+    """F2: the emissions alone at ``TOPO_F2`` on the card's rows against the
+    CPU's plain emission of the same rows."""
+    import numpy as np
+
+    from aggregathor_tpu_torch.topology import TreeAggregator, parse_topology_spec
+
+    n, key = TOPO_F2_N, 7
+    gen = torch.Generator(device="cuda").manual_seed(20261021)
+    rows = torch.randn((n, CNNET_D), device="cuda", generator=gen)
+    valid = np.ones(n, bool)
+    valid[[3, 17]] = False  # two leaf timeouts: NaN rows in units 0 and 2
+    card_tree, cpu_tree = (TreeAggregator(parse_topology_spec(TOPO_F2, n, 1)) for _ in range(2))
+    card_tree.bind(n, CNNET_D)
+    cpu_tree.bind(n, CNNET_D)
+    card_tree.emissions(rows, valid, key)  # builds nothing new: warm the allocator
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    begin = time.perf_counter()
+    emitted = card_tree.emissions(rows, valid, key)
+    host_ms = (time.perf_counter() - begin) * 1e3
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    units = card_tree.spec.nb_units[0]
+    check(counts == {"nanmedian_columns": units, "pairwise_sq_distances_gram": units},
+          "topology F2: launches %s, not the centring and K2 once a unit of %d" % (counts, units))
+    want = cpu_tree.emissions(rows.cpu(), valid, key)
+    errors, equal_digests = [], 0
+    for (got, digests, _), (ref, ref_digests, _) in zip(emitted, want):
+        got = got.cpu()
+        check(torch.equal(torch.isnan(got), torch.isnan(ref)), "topology F2: NaN pattern differs")
+        finite = torch.isfinite(ref)
+        err = torch.abs(got[finite] - ref[finite])
+        errors.append(float(err.max()) if err.numel() else 0.0)
+        check(bool(torch.all(err <= TOPO_EMIT_TOL * (1.0 + torch.abs(ref[finite])))),
+              "topology F2: summaries off by %g" % errors[-1])
+        for unit in range(got.shape[0]):
+            if torch.equal(got[unit].view(torch.int32), ref[unit].view(torch.int32)):
+                check(np.array_equal(digests[unit], ref_digests[unit]), "topology F2: unit %d's digest" % unit)
+                equal_digests += 1
+    masked = card_tree._leaf_rows(rows, torch.as_tensor(valid, device="cuda"))
+    level_ms = time_ms(lambda: card_tree.emit_level(0, masked, key), torch, iters=10, warmup=2)
+    check(card_tree.cache_size() == 1, "topology F2: %d shapes a level" % card_tree.cache_size())
+    print("topology F2 on %s: %s emissions at n=%d d=%d, launches %s (the centring and K2 at 8 rows a unit), level 1 "
+          "%.3f ms on the card (CUDA events), %.3f ms a call with the digests' copy; summaries within %s of the CPU's "
+          "plain emission (tolerance %g), %d of %d units bit-equal with equal digests"
+          % (card, TOPO_F2, n, CNNET_D, counts, level_ms, host_ms, errors, TOPO_EMIT_TOL, equal_digests, units))
+    del rows, masked, emitted
+    torch.cuda.empty_cache()
+
+
+def _topology_f3(runner, kernels, card, workdir, totals):
+    """F3: the sentinel through the runner: capture, PASS, REGRESS."""
+    directory = os.path.join(workdir, "topology-slo")
+    os.makedirs(directory)
+    baseline, verdict = os.path.join(directory, "slo.json"), os.path.join(directory, "verdict.json")
+    argv = ["--experiment", "cnnet", "--seed", "1", "--aggregator", "krum", "--nb-workers", "8",
+            "--nb-decl-byz-workers", "2", "--max-step", str(TOPO_SLO_STEPS), "--evaluation-delta", "-1",
+            "--evaluation-period", "-1"]
+    kernels.reset_launch_counts()
+    captured = runner.main(argv + ["--slo-capture", baseline])
+    doc = json.load(open(baseline))
+    check(doc["schema"] == "aggregathor.obs.slo.v1" and doc["metrics"]["steps_per_s"] > 0,
+          "topology F3: capture %s" % doc)
+    # the judged run repeats the captured one, warm: a tolerance of half
+    # keeps the PASS clear of the host's noise
+    doc["tolerances"]["steps_per_s"] = 0.5
+    json.dump(doc, open(baseline, "w"))
+    judged = runner.main(argv + ["--slo-baseline", baseline, "--slo-verdict", verdict])
+    passed = json.load(open(verdict))
+    check(passed["schema"] == "aggregathor.obs.slo.v1.verdict" and passed["verdict"] == "PASS",
+          "topology F3: the repeated run's verdict %s" % passed)
+    doc["metrics"]["steps_per_s"] *= 10.0
+    json.dump(doc, open(baseline, "w"))
+    runner.main(argv + ["--slo-baseline", baseline, "--slo-verdict", verdict])
+    regressed = json.load(open(verdict))
+    check(regressed["verdict"] == "REGRESS" and regressed["regressed"] == 1, "topology F3: ×10 baseline %s"
+          % regressed)
+    for name, count in kernels.launch_counts().items():
+        totals[name] += count
+    print("topology F3 on %s: cnnet + krum n=8, %d steps: captured %.2f steps/s, the repeat %.2f steps/s PASS "
+          "(tolerance 0.5), against ×10 REGRESS; verdict schema %s"
+          % (card, TOPO_SLO_STEPS, captured["steps_per_s"], judged["steps_per_s"], regressed["schema"]))
+
+
+def _topology_f4(workdir, card):
+    """F4: ``cli.supervise`` over one ``cli.serve`` child serving cnnet on the
+    card (serve S1's checkpoints); the child SIGKILLed is restarted and
+    answers ``/healthz``; ``cli.postmortem`` over the journals exits 0."""
+    import urllib.request
+
+    directory = os.path.join(workdir, "topology-fleet")
+    os.makedirs(directory)
+    serve_ready, sup_ready = os.path.join(directory, "serve-ready"), os.path.join(directory, "sup-ready")
+    serve_journal, sup_journal = os.path.join(directory, "serve.jsonl"), os.path.join(directory, "sup.jsonl")
+    fleet = {"instances": [{
+        "name": "serve", "role": "serve", "ready_file": serve_ready, "journal": serve_journal, "cause_flag": True,
+        "log": os.path.join(directory, "serve.log"), "cwd": os.path.dirname(os.path.abspath(__file__)),
+        "argv": ["{python}", "-m", "aggregathor_tpu_torch.cli.serve", "--experiment", "cnnet", "--ckpt-dir",
+                 os.path.join(workdir, "serve-ck"), "--replicas", "3", "--gar", "median", "--port", "0",
+                 "--ready-file", serve_ready, "--session-secret", SERVE_SECRET, "--journal", serve_journal]}]}
+    spec = os.path.join(directory, "fleet.json")
+    json.dump(fleet, open(spec, "w"))
+    log_path = os.path.join(directory, "supervise.log")
+    begin = time.perf_counter()
+    with open(log_path, "w") as log:
+        supervisor = subprocess.Popen(
+            [sys.executable, "-m", "aggregathor_tpu_torch.cli.supervise", "--fleet", spec, "--tick-interval", "0.25",
+             "--down-after", "2", "--supervisor-args", "patience:0.5", "--ready-file", sup_ready, "--journal",
+             sup_journal], cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log, stderr=subprocess.STDOUT)
+
+    def healthz(timeout):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline and supervisor.poll() is None:
+            if os.path.exists(serve_ready):
+                host, port, pid = open(serve_ready).read().split()
+                try:
+                    with urllib.request.urlopen("http://%s:%s/healthz" % (host, port), timeout=5) as response:
+                        return int(pid), json.loads(response.read())
+                except OSError:
+                    pass
+            time.sleep(0.2)
+        fail("topology F4: no /healthz answer (supervisor exit %s): %s" % (supervisor.poll(),
+                                                                         open(log_path).read()[-3000:]))
+
+    try:
+        first, health = healthz(300)
+        ready_s = time.perf_counter() - begin
+        check(health["custody_verified"] is True, "topology F4: %s" % health)
+        killed_at = time.perf_counter()
+        os.kill(first, signal.SIGKILL)
+        while os.path.exists(serve_ready) and open(serve_ready).read().split()[2] == str(first):
+            check(time.perf_counter() - killed_at < 300, "topology F4: the child was not restarted")
+            time.sleep(0.2)
+        second, health = healthz(300)
+        restart_s = time.perf_counter() - killed_at
+        check(second != first and health["custody_verified"] is True, "topology F4: restarted child %s" % health)
+    finally:
+        if supervisor.poll() is None:
+            supervisor.send_signal(signal.SIGTERM)
+            try:
+                supervisor.wait(120)
+            except subprocess.TimeoutExpired:
+                supervisor.kill()
+                supervisor.wait(30)
+    check(supervisor.returncode == 0, "topology F4: cli.supervise exited %s" % supervisor.returncode)
+    report = os.path.join(directory, "postmortem.json")
+    code = subprocess.run([sys.executable, "-m", "aggregathor_tpu_torch.cli.postmortem", "--journal",
+                           "supervisor=" + sup_journal, "--journal", "serve=" + serve_journal, "--report", report,
+                           "--quiet"], cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          timeout=120).returncode
+    story = json.load(open(report))
+    check(code == 0 and story["verdict"] == "PASS", "topology F4: postmortem exit %d, %s" % (code, story))
+    restarts = [c for c in story["chains"] if c["kind"] == "spawn"]
+    check(restarts, "topology F4: no spawn chain in the postmortem: %s" % story["chains"])
+    print("topology F4 on %s: cli.supervise spawned cli.serve (cnnet, 3 replicas, median) ready in %.1f s; SIGKILL "
+          "pid %d, restarted as pid %d answering /healthz in %.1f s; cli.postmortem exit 0 (%d events, %d spawn "
+          "chain(s))" % (card, ready_s, first, second, restart_s, story["events_total"], len(restarts)))
+
+
+def topology_kernel_rows(torch, kernels):
+    """K3, the centring and K2 at the tree's shapes (``TOPO_SHAPES``), held
+    against their plain versions and timed."""
+    gen = torch.Generator(device="cuda").manual_seed(20261022)
+    library = {"pairwise_sq_distances_gram": lambda x: torch.cdist(x, x).square(), "nanmedian_columns": None,
+               "coordinate_median": lambda x: torch.kthvalue(x, x.shape[0] // 2 + 1, dim=0).values}
+    rows = []
+    for name, n, d, label in TOPO_SHAPES:
+        x = torch.randn((n, d), device="cuda", generator=gen)
+        args = (kernels.nanmedian_columns(x),) if name == "pairwise_sq_distances_gram" else ()
+        got = getattr(kernels, name)(x, *args)
+        torch.cuda.synchronize()
+        err = compare(name, got, kernels.PLAIN[name](x, *args), torch, x, args)
+        row = timed_row(torch, kernels, name, x, args, library[name], err)
+        row["name"], row["label"] = name, label
+        print("topology kernel %-27s (%d, %d) %s: %.4f ms (on the card %s ms), plain %.3f ms, library %s ms, "
+              "bound %.2f us (%s), max |err| %g, on %s"
+              % (name, n, d, label, row["ms"], "not measured" if row["device_ms"] is None else "%.4f"
+                 % row["device_ms"], row["plain_ms"], "%.3f" % row["library_ms"] if row["library_ms"] is not None
+                 else "none", row["bound_ms"] * 1e3, row["bound_by"], err, card_line()))
+        rows.append(row)
+        del x, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def topology_phase(torch, kernels, runner, card, workdir, kernel_rows):
+    """The fleet planes on the card: F1 and F1b the tree's protocol through
+    the runner, F2 its emissions alone, F3 the sentinel, F4 the supervisor
+    and the postmortem (module docstring); returns {kernel: launches} of the
+    runner legs and appends the kernel rows at the tree's shapes."""
+    begin = time.perf_counter()
+    totals = {name: 0 for name in kernels.KERNELS}
+    parts = {}
+    _topology_f1(torch, runner, kernels, card, workdir, totals)
+    parts["F1"] = time.perf_counter() - begin
+    _topology_f2(torch, kernels, card)
+    kernel_rows.extend(topology_kernel_rows(torch, kernels))
+    parts["F2"] = time.perf_counter() - begin - sum(parts.values())
+    _topology_f3(runner, kernels, card, workdir, totals)
+    parts["F3"] = time.perf_counter() - begin - sum(parts.values())
+    _topology_f4(workdir, card)
+    parts["F4"] = time.perf_counter() - begin - sum(parts.values())
+    print("topology phase: %.1f s (%s), launches %s" % (time.perf_counter() - begin, ", ".join(
+        "%s %.1f s" % item for item in parts.items()), {k: v for k, v in totals.items() if v}))
+    return totals
+
+
 def main():
     import torch
 
@@ -4452,7 +4821,7 @@ def main():
         for kernel, count in gar_extensions_phase(torch, gars, kernels, runner, card, workdir, gar_ms).items():
             totals[kernel] += count
         corpus_phase()
-        tfm_rows, serve_rows = [], []
+        tfm_rows, serve_rows, topology_rows = [], [], []
         for kernel, count in digits_phase(torch, kernels, runner, card).items():
             totals[kernel] += count
         for counts in (pipeline_phase(torch, kernels, runner, card),
@@ -4467,6 +4836,7 @@ def main():
                        zoo_phase(torch, gars, kernels, models, runner, card),
                        transformer_phase(torch, gars, kernels, models, runner, card, tfm_rows),
                        serve_phase(torch, gars, kernels, models, runner, card, workdir, serve_rows),
+                       topology_phase(torch, kernels, runner, card, workdir, topology_rows),
                        multirank_phase(torch, kernels, card)):
             for kernel, count in counts.items():
                 totals[kernel] += count
@@ -4475,6 +4845,7 @@ def main():
             row["launches"] = totals[row["name"]]
             row["transformer_shapes"] = [r for r in tfm_rows if r["name"] == row["name"]]
             row["serve_shapes"] = [r for r in serve_rows if r["name"] == row["name"]]
+            row["topology_shapes"] = [r for r in topology_rows if r["name"] == row["name"]]
         attack_phase(runner, workdir)
         krum = ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2"]
         resume_phase(torch, runner, os.path.join(workdir, "mlp"), "digits", [], krum + [

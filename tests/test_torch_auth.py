@@ -43,6 +43,8 @@ from aggregathor_tpu_torch.parallel.auth import GradientAuthenticator, derive_wo
 from aggregathor_tpu_torch.parallel.crypto import _MAGIC, SnapshotCipher
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 CONTEXTS = (b"gradient", b"submit", b"ckpt", b"ckpt-enc", b"handshake", b"handshake-enc", b"custody")
 
 

@@ -60,6 +60,8 @@ from aggregathor_tpu_torch.parallel.lossy import LossyLink
 from aggregathor_tpu_torch.parallel.mesh import WorkerAxis
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 EXP_ARGS = ["hidden:16", "batch-size:16"]
 LR = ["initial-rate:0.05"]
 
@@ -542,8 +544,18 @@ def test_refusals_like_jax():
             BoundedWaitStep(engine, lambda p, b: 0.0, None, params, **kwargs)
         with pytest.raises(JaxUserException):
             JaxStep(jengine, lambda p, b: 0.0, None, {}, **kwargs)
+    # the tree's host plane signs the stacked wire rows, which the
+    # incremental fold never materializes: both packages refuse the pair
+    from aggregathor_tpu.topology import TreeAggregator as JaxTree, parse_topology_spec as jparse
+    from aggregathor_tpu_torch.topology import TreeAggregator, parse_topology_spec
+
+    tree = "tree:g=2,rules=median>average-nan"
     with pytest.raises(UserException, match="topology"):
-        BoundedWaitStep(engine, lambda p, b: 0.0, None, params, deadline=0.2, topology=object())
+        BoundedWaitStep(engine, lambda p, b: 0.0, None, params, deadline=0.2, incremental=True,
+                        topology=TreeAggregator(parse_topology_spec(tree, n, 1)))
+    with pytest.raises(JaxUserException, match="topology"):
+        JaxStep(jengine, lambda p, b: 0.0, None, {}, deadline=0.2, incremental=True,
+                topology=JaxTree(jparse(tree, n, 1)))
     # the placeholder is gone: the engine takes no step_deadline keyword, as JAX's
     with pytest.raises(TypeError):
         RobustEngine(gar, n, device="cpu", step_deadline=1.0)

@@ -35,6 +35,8 @@ from aggregathor_tpu_torch.cli import runner
 from aggregathor_tpu_torch.obs import events as tevents, metrics as tmetrics
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 BASE = ["--experiment", "digits", "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--prefetch", "0",
         "--checkpoint-period", "-1", "--evaluation-period", "-1", "--summary-delta", "2", "--seed", "1"]
 STRAGGLERS = ["--chaos", "0:calm 1:straggle=1.0", "--straggler-stall", "30", "--step-deadline", "0.5"]

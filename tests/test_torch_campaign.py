@@ -26,6 +26,8 @@ from aggregathor_tpu_torch.models import mnist
 from aggregathor_tpu_torch.models.common import params_from_jax
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 GRID = ["--experiment", "mnist", "--experiment-args", "batch-size:16", "--nb-workers", "8",
         "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2"]
 

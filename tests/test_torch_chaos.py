@@ -55,6 +55,8 @@ from aggregathor_tpu_torch.parallel import RobustEngine, attacks
 from aggregathor_tpu_torch.parallel.lossy import LossyLink
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 GOOD_SPECS = [
     ("0:calm 500:drop=0.3 1000:attack=empire,epsilon=4.0 1500:straggle=0.25,straggle-mode=stale", 8, 2, []),
     ("40:attack=signflip,scale=2.0 0:calm", 4, 1, []),

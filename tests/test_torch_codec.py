@@ -47,6 +47,8 @@ from aggregathor_tpu_torch.parallel import RobustEngine, attacks
 from aggregathor_tpu_torch.parallel import compress
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 
 def _rows(seed=0, n=8, d=1000):
     """Rows at several scales, with half-way int8 quotients, a zero row,

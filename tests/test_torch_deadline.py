@@ -30,6 +30,8 @@ from aggregathor_tpu_torch.parallel.bounded import HostStragglerModel
 from aggregathor_tpu_torch.parallel.deadline import ARRIVAL_BUCKETS, DeadlineController
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 
 @pytest.fixture(autouse=True)
 def _no_journal_leak():

@@ -43,6 +43,8 @@ from aggregathor_tpu_torch.models import preprocessing as tpre
 from aggregathor_tpu_torch.models.common import params_from_jax
 from aggregathor_tpu_torch.parallel import RobustEngine, attacks
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 SPLITS = ("x_train", "y_train", "x_test", "y_test")
 LOADERS = ("load_digits8x8", "load_digits_upscaled")
 

@@ -28,6 +28,8 @@ import pytest
 from aggregathor_tpu.obs import events as jevents
 from aggregathor_tpu_torch.obs import events as tevents
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 PACKAGES = (("jax", jevents), ("port", tevents))
 
 

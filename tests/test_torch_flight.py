@@ -43,6 +43,8 @@ from aggregathor_tpu_torch.obs import flight
 from aggregathor_tpu_torch.parallel import RobustEngine, attacks
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 MLP = ("mnist", ["hidden:16", "batch-size:16"])
 
 

@@ -46,6 +46,8 @@ from aggregathor_tpu_torch.ops import build
 from aggregathor_tpu_torch.parallel import attacks
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 EXP = ["--experiment", "mnist", "--experiment-args", "hidden:16", "batch-size:8", "--nb-workers", "8",
        "--learning-rate-args", "initial-rate:0.05", "--evaluation-delta", "-1", "--evaluation-period", "-1",
        "--summary-period", "-1", "--checkpoint-period", "-1", "--prefetch", "0"]

@@ -48,6 +48,8 @@ from aggregathor_tpu_torch.cli import runner
 from aggregathor_tpu_torch.gars.hierarchical import group_pass
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

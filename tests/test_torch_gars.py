@@ -20,6 +20,8 @@ from aggregathor_tpu_torch import gars as tgars
 from aggregathor_tpu_torch.gars.common import smallest_k_mask
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 RULES = ["average", "average-nan", "krum", "median", "averaged-median", "bulyan", "trimmed-mean"]
 
 

@@ -1233,3 +1233,66 @@ def test_serve_vote_on_the_card_matches_the_cpu(cuda_device, monkeypatch, rule, 
     np.testing.assert_allclose(card["logits"][finite], cpu["logits"][finite], rtol=1e-4, atol=1e-4 * scale)
     np.testing.assert_array_equal(card["predictions"], cpu["predictions"])
     assert np.array_equal(np.isfinite(card["disagreement"]), np.isfinite(cpu["disagreement"]))
+
+
+@pytest.mark.gpu
+def test_tree_emissions_on_the_card_match_the_cpu(cuda_device):
+    """The tree's emissions (``chip_smoke.py`` F2 at a small width): krum
+    units of 8 rows, two leaf timeouts; the card's summaries within 1e-5 of
+    the CPU's, equal digests wherever the summaries are bit-equal, the
+    centring and K2 once a unit, and no new shape after the first round."""
+    from aggregathor_tpu_torch.topology import TreeAggregator, parse_topology_spec
+
+    n, d, key = 64, 4099, 7
+    rows = torch.from_numpy(np.random.default_rng(21).normal(size=(n, d)).astype(np.float32))
+    valid = np.ones(n, bool)
+    valid[[3, 17]] = False
+    trees = {device: TreeAggregator(parse_topology_spec("tree:g=8,rules=krum>median", n, 1)) for device in ("cuda",
+                                                                                                          "cpu")}
+    for tree in trees.values():
+        tree.bind(n, d)
+    kernels.reset_launch_counts()
+    card = trees["cuda"].emissions(rows.to(cuda_device), valid, key)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {"nanmedian_columns": 8,
+                                                                      "pairwise_sq_distances_gram": 8}
+    cpu = trees["cpu"].emissions(rows, valid, key)
+    for (got, digests, _), (want, want_digests, _) in zip(card, cpu):
+        got = got.cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        finite = torch.isfinite(want)
+        assert torch.all(torch.abs(got[finite] - want[finite]) <= 1e-5 * (1.0 + torch.abs(want[finite])))
+        for unit in range(got.shape[0]):
+            if torch.equal(got[unit].view(torch.int32), want[unit].view(torch.int32)):
+                np.testing.assert_array_equal(digests[unit], want_digests[unit])
+    trees["cuda"].emissions(rows.to(cuda_device), valid, key)
+    assert trees["cuda"].cache_size() == 1
+
+
+@pytest.mark.gpu
+def test_tree_protocol_on_the_card_reconstructs_like_the_cpu(cuda_device):
+    """The tree's protocol (``chip_smoke.py`` F1 on injected rows): unit 1.1
+    forged, then unit 2.1 late, each served by a shadow; the card's masks,
+    journal records and custody chain (median levels: K3 returns an original
+    value, so the digests are the CPU's) equal the CPU's."""
+    from aggregathor_tpu_torch.chaos import ChaosSchedule
+    from aggregathor_tpu_torch.obs.forensics import ForensicsLedger
+    from aggregathor_tpu_torch.topology import TreeAggregator, parse_topology_spec
+
+    n, d, spec, schedule = 32, 4099, "tree:g=4x2,rules=median>median>krum,redundancy=2", "0:corrupt-agg=1.1 " \
+        "3:straggle-agg=2.1"
+    rng = np.random.default_rng(22)
+    batches = [rng.normal(size=(n, d)).astype(np.float32) for _ in range(5)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        tree = TreeAggregator(parse_topology_spec(spec, n, 1))
+        tree.schedule = ChaosSchedule(schedule, n, allow_topology_faults=True)
+        tree.ledger = ForensicsLedger(n)
+        tree.bind(n, d)
+        masks = [tree.process_round(step, np.ones(n, bool), np.zeros(n, bool), np.full(n, 0.01),
+                                    torch.from_numpy(rows).to(device)) for step, rows in enumerate(batches)]
+        out[device] = ([(a.tolist(), s.tolist()) for a, s in masks], tree.ledger.report()["sub_aggregators"],
+                       tree.chain())
+    assert out["cuda"] == out["cpu"]
+    assert all(all(a) for a, _ in out["cuda"][0])
+    assert [(r["level"], r["unit"], r["evidence"]) for r in out["cuda"][1]] == [
+        (1, 1, {"forgery": 3, "reconstructed": 3}), (2, 1, {"timeout": 2, "reconstructed": 2})]

@@ -48,6 +48,8 @@ from aggregathor_tpu_torch.obs.checkpoint import Checkpoints
 from aggregathor_tpu_torch.parallel import RobustEngine
 from aggregathor_tpu_torch.utils import UserException, can_access
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 PACKAGES = (("jax", jguardian, jevents), ("port", tguardian, tevents))
 JAX_REGISTERED = " (registered: %s)" % ", ".join(sorted(jgars.itemize()))
 

@@ -56,6 +56,8 @@ from aggregathor_tpu_torch.models.datasets import DevicePrefetcher, WorkerBatchI
 from aggregathor_tpu_torch.parallel import RobustEngine
 from aggregathor_tpu_torch.parallel.engine import AUGMENT_TAG, SAMPLE_TAG
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 TOL = 1e-5
 
 

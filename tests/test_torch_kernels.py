@@ -41,6 +41,8 @@ from aggregathor_tpu.gars.trimmed_mean import trimmed_mean_columns
 from aggregathor_tpu.ops import pallas_kernels as pk
 from aggregathor_tpu_torch.ops import kernels
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 RTOL_MEAN, ATOL_MEAN = 1e-6, 1e-6
 RTOL_DIST = 1e-5
 

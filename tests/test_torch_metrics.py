@@ -38,6 +38,8 @@ from aggregathor_tpu_torch.obs import live, metrics, perf, trace
 from aggregathor_tpu_torch.parallel import RobustEngine
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 
 def _exercise(module):
     """One operation sequence on a fresh registry of ``module``: counters,

@@ -32,6 +32,8 @@ from aggregathor_tpu_torch.models import datasets as tdatasets
 from aggregathor_tpu_torch.models.common import params_from_jax, params_to_jax
 from aggregathor_tpu_torch.parallel import RobustEngine
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 MODELS = [("mnist", ["hidden:16", "batch-size:4"], 1e-5), ("cnnet", ["batch-size:2"], 1e-4),
           ("digits", ["batch-size:4"], 1e-5), ("digits-conv", ["batch-size:2"], 1e-4)]
 #: the flat gradient's width at the published sizes: cnnet, and the digits

@@ -49,6 +49,8 @@ from aggregathor_tpu.parallel import make_mesh
 from aggregathor_tpu_torch.models.common import params_from_jax
 from aggregathor_tpu_torch.parallel import mesh
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 STEPS = 3
 EXP_ARGS = ["hidden:16", "batch-size:8"]
 CHAOS_SPEC = "0:drop=0.3 1:attack=empire,epsilon=4.0 2:straggle=0.5,straggle-mode=stale"

@@ -36,6 +36,8 @@ from aggregathor_tpu_torch.obs import metrics
 from aggregathor_tpu_torch.utils import UserException
 from aggregathor_tpu_torch.utils import cluster
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN = ["--experiment", "mnist", "--experiment-args", "hidden:16", "batch-size:8", "--aggregator", "krum",
        "--nb-workers", "8", "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "signflip",

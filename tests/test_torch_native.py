@@ -31,6 +31,8 @@ from aggregathor_tpu_torch.gars import oracle
 from aggregathor_tpu_torch.ops import native
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: name -> (oracle, the card-tier rule it extends)

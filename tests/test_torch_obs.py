@@ -35,6 +35,8 @@ from aggregathor_tpu_torch.core import TrainState, build_optimizer, build_schedu
 from aggregathor_tpu_torch.obs import cadence, checkpoint, evalfile, perf, summaries
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 
 class Clock:
     """A scripted ``time.monotonic``."""

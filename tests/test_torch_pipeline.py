@@ -54,6 +54,8 @@ from aggregathor_tpu_torch.obs import live, metrics, trace
 from aggregathor_tpu_torch.parallel import RobustEngine
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 
 @pytest.fixture
 def corpus(rng):

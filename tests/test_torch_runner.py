@@ -43,6 +43,8 @@ import torch
 from aggregathor_tpu_torch.cli import runner
 from aggregathor_tpu_torch.utils import UserException, resolve_device
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aggregathor_tpu")
 
@@ -258,19 +260,30 @@ def test_input_flags_take_the_jax_defaults_and_choices():
         runner.build_parser().parse_args(argv + ["--input-source", "disk"])
 
 
-#: the JAX runner's options the port still lacks: the fleet planes' (ROADMAP
-#: queue 1 item 10; later slices shrink it)
+#: the last four JAX options the port lacked, ported with the fleet planes
 CLI_GAP = {"--slo-baseline", "--slo-capture", "--slo-verdict", "--topology"}
 
 
+def _options(parser):
+    return {option: action for action in parser._actions for option in action.option_strings}
+
+
 def test_the_cli_gap_is_the_known_four_options():
+    """The four options the gap held now parse as JAX's: the same defaults,
+    metavars and types."""
     from aggregathor_tpu.cli.runner import build_parser as jax_parser
 
-    def options(parser):
-        return {option for action in parser._actions for option in action.option_strings}
+    ours, theirs = _options(runner.build_parser()), _options(jax_parser())
+    for option in sorted(CLI_GAP):
+        assert (ours[option].default, ours[option].metavar, ours[option].type) == (
+            theirs[option].default, theirs[option].metavar, theirs[option].type), option
 
-    ours, theirs = options(runner.build_parser()), options(jax_parser())
-    assert theirs - ours == CLI_GAP
+
+def test_the_cli_gap_is_empty_but_the_port_s_device():
+    from aggregathor_tpu.cli.runner import build_parser as jax_parser
+
+    ours, theirs = set(_options(runner.build_parser())), set(_options(jax_parser()))
+    assert theirs - ours == set()
     assert ours - theirs == {"--device"}
 
 
@@ -374,7 +387,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "parallel/collectives.py", "parallel/sharded_engine.py", "serve/__init__.py",
                    "serve/engine.py", "serve/continuous.py", "serve/weights.py", "serve/autoscale.py",
                    "serve/frontend.py", "serve/campaign.py", "cli/serve.py", "serve/router.py", "cli/router.py",
-                   "obs/fleet.py", "obs/causal.py"):
+                   "obs/fleet.py", "obs/causal.py", "obs/slo.py", "topology/__init__.py", "topology/spec.py",
+                   "topology/tree.py", "supervisor/__init__.py", "supervisor/policy.py", "supervisor/actuator.py",
+                   "cli/supervise.py", "cli/postmortem.py"):
         assert os.path.join(REPO, "aggregathor_tpu_torch", module) in paths, module
     offenders = [
         (os.path.relpath(path, REPO), module)

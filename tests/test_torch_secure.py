@@ -70,6 +70,8 @@ from aggregathor_tpu_torch.utils import UserException
 
 import torch_rank_cases as cases_module
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 
 def _host(tree):
     return jax.tree_util.tree_map(np.asarray, tree)

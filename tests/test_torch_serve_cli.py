@@ -31,6 +31,8 @@ from aggregathor_tpu_torch.cli import serve as serve_cli
 from aggregathor_tpu_torch.utils import UserException
 from serve_parity import two_threads  # noqa: F401  (a fixture)
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 pytestmark = pytest.mark.usefixtures("two_threads")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -16,6 +16,8 @@ import pytest
 
 from serve_parity import Pair, cnnet_in_float64, run_matrix, two_threads  # noqa: F401  (a fixture)
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 pytestmark = pytest.mark.usefixtures("two_threads", "x64")
 
 #: R = 1 unvoted; median under every mode at R = 3; the distance rule and

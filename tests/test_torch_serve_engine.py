@@ -34,6 +34,8 @@ from serve_parity import (  # noqa: F401  (two_threads is a fixture)
     two_threads,
 )
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 pytestmark = pytest.mark.usefixtures("two_threads")
 
 

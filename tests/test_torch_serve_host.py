@@ -24,6 +24,8 @@ from aggregathor_tpu_torch.serve.continuous import (
 from aggregathor_tpu_torch.serve.weights import CheckpointWatcher
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 
 # --------------------------------------------------------------------- #
 # ContinuousPolicy: pure batch formation on synthetic time

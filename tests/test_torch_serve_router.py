@@ -25,6 +25,8 @@ from aggregathor_tpu_torch.serve import (
 )
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 
 @pytest.fixture
 def journal(tmp_path):

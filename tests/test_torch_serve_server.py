@@ -35,6 +35,8 @@ from aggregathor_tpu_torch.serve.frontend import MAX_BODY_BYTES
 from conftest import assert_zero_recompiles
 from serve_parity import two_threads  # noqa: F401  (a fixture)
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 pytestmark = pytest.mark.usefixtures("two_threads")
 
 _DIGITS = None

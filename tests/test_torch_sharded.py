@@ -49,6 +49,8 @@ from aggregathor_tpu_torch.parallel import RobustEngine, attacks
 from aggregathor_tpu_torch.parallel.sharded_engine import ShardedRobustEngine
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 JCFG = jtfm.TransformerConfig(vocab_size=17, d_model=16, n_heads=2, n_layers=2)
 CFG = tfm.TransformerConfig(vocab_size=17, d_model=16, n_heads=2, n_layers=2)
 N, BATCH, SEQ = 5, 2, 8

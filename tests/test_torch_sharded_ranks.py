@@ -43,6 +43,8 @@ from aggregathor_tpu_torch.parallel import mesh
 
 import torch_rank_cases as cases_module
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 DENSE = dict(vocab_size=17, d_model=16, n_heads=2, n_layers=2)
 MOE = dict(vocab_size=17, d_model=16, n_heads=2, n_layers=2, n_experts=4)
 GRANULARITIES = ("layer", "leaf", "global")

@@ -26,6 +26,8 @@ from aggregathor_tpu_torch.models import tfrecord
 from aggregathor_tpu_torch.ops import native
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 #: (data, CRC32C): RFC 3720's check vectors and the common "123456789"
 CRC_VECTORS = [(b"", 0), (b"123456789", 0xE3069283), (bytes(32), 0x8A9136AA), (b"\xff" * 32, 0x62A8AB43),
                (bytes(range(32)), 0x46DD794E), (bytes(range(31, -1, -1)), 0x113FDB5C)]

@@ -35,6 +35,8 @@ from aggregathor_tpu_torch.core.flatten import FlatMap
 from aggregathor_tpu_torch.models import transformer as tfm
 from aggregathor_tpu_torch.models.common import params_from_jax, params_to_jax
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 JCFG = jtfm.TransformerConfig(vocab_size=17, d_model=16, n_heads=2, n_layers=2)
 CFG = tfm.TransformerConfig(vocab_size=17, d_model=16, n_heads=2, n_layers=2)
 JMOE = jtfm.TransformerConfig(vocab_size=17, d_model=16, n_heads=2, n_layers=2, n_experts=4, capacity_factor=0.5)

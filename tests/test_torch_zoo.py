@@ -31,6 +31,8 @@ from aggregathor_tpu_torch.models import zoo
 from aggregathor_tpu_torch.models.common import params_from_jax
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 #: the JAX experiments the port does not register: none since the
 #: transformer (ROADMAP queue 1, item 8b) came across
 EXPERIMENT_GAP = set()
@@ -76,7 +78,7 @@ def test_defaults_and_surface_match_jax():
 def _pair(name, args):
     jexp = jmodels.instantiate("slim-%s-digits32" % name, args)
     texp = tmodels.instantiate("slim-%s-digits32" % name, args)
-    jparams = jexp.init(jax.random.PRNGKey(5))
+    jparams = jax.jit(jexp.init)(jax.random.PRNGKey(5))  # flax's eager init of a deep net takes minutes
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
     batch = jax.tree_util.tree_map(lambda x: x[0], next(jexp.make_train_iterator(1, seed=3)))
     return jexp, texp, jparams, tparams, batch

@@ -26,6 +26,8 @@ from aggregathor_tpu_torch.models import common
 from aggregathor_tpu_torch.models import inception as inc
 from aggregathor_tpu_torch.models.common import params_from_jax
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 
 class _JaxAux(fnn.Module):
     """flax's aux head, called in a module's scope as the nets call it."""

@@ -17,6 +17,8 @@ from aggregathor_tpu_torch.models import mobilenet as mob
 from aggregathor_tpu_torch.models import nasnet as nas
 from test_torch_zoo_blocks import SIZES, _compare
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 BLOCKS = {
     "SeparableBlock-s1": (lambda: jmob.SeparableBlock(12, 1), lambda c: mob.SeparableBlock(c, 12, 1), 8),
     "SeparableBlock-s2": (lambda: jmob.SeparableBlock(12, 2), lambda c: mob.SeparableBlock(c, 12, 2), 8),

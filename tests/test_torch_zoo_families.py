@@ -31,6 +31,8 @@ from aggregathor_tpu_torch import models as tmodels
 from aggregathor_tpu_torch.core import FlatMap
 from aggregathor_tpu_torch.models.common import params_from_jax, params_to_jax
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 #: a net of every family (the aux-capable ones build their aux head)
 FAMILIES = ["resnet_v1_18", "resnet_v2_50", "vgg_a", "lenet", "cifarnet", "alexnet_v2", "overfeat",
             "mobilenet_v1_025", "mobilenet_v2_035", "inception_v1", "inception_v2", "inception_v3", "inception_v4",

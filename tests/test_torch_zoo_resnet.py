@@ -49,6 +49,8 @@ from aggregathor_tpu_torch.models.common import params_from_jax, params_to_jax
 from aggregathor_tpu_torch.models.resnet import ResNet
 from aggregathor_tpu_torch.parallel import RobustEngine
 
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 #: case -> (flax module, port module, input shape (H, W, C))
 CASES = {
     "resnet_v1_18": (dict(depth=18, classes=10, small_inputs=True), dict(preact=False), (32, 32, 1)),
@@ -74,7 +76,8 @@ def cases():
         tmodel = ResNet(jkw["depth"], jkw["classes"], small_inputs=jkw["small_inputs"], channels=shape[2], **tkw)
         x = rng.normal(size=(2, 2) + shape).astype(np.float32)  # (n = 2 workers, batch 2)
         y = rng.integers(0, 10, size=(2, 2)).astype(np.int32)
-        jparams = jmodel.init(jax.random.PRNGKey(7), jnp.zeros((1,) + shape, jnp.float32))
+        # jitted: flax's eager init of a ResNet-50 takes most of a minute
+        jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(7), jnp.zeros((1,) + shape, jnp.float32))
         out[name] = (jmodel, tmodel, jparams, params_from_jax(_host(jparams)), x, y)
     return out
 
@@ -167,7 +170,7 @@ def test_bfloat16_forward():
     jmodel = JaxResNet(depth=18, classes=10, small_inputs=True, dtype=jnp.bfloat16)
     tmodel = ResNet(18, 10, small_inputs=True, channels=1, dtype=torch.bfloat16)
     x = np.random.default_rng(4).normal(size=(2, 32, 32, 1)).astype(np.float32)
-    jparams = jmodel.init(jax.random.PRNGKey(1), x)
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(1), x)
     tparams = params_from_jax(_host(jparams))
     assert all(v.dtype == torch.float32 for v in tparams.values())
     want = np.asarray(jmodel.apply(jparams, x))
