@@ -412,8 +412,9 @@ def build_parser():
     )
     parser.add_argument(
         "--leaf-bucketing", default="auto", choices=["auto", "on", "off"],
-        help="granularity:leaf implementation: on batches same-sized leaves into one rule call (not "
-             "available in this port: it needs batched kernels); auto and off loop over the leaves",
+        help="granularity:leaf implementation: on stacks same-sized leaves into one vmapped rule call per "
+             "distinct size (one batched launch of each kernel), off loops over the leaves; auto is on on a "
+             "card and off on the CPU; the two paths make the same selections (the same per-leaf keys)",
     )
     parser.add_argument(
         "--reputation-decay", type=float, default=None, metavar="BETA",
@@ -680,7 +681,8 @@ def main(argv=None, rank=None):
     """Run the training; returns a summary dict: the steps run in this call,
     the step restored from (``restored_step``), steps/s excluding the first
     step (over the training loop), the final loss and evaluation, kernel
-    launches, the device, the performance report (``perf``), the run id, the
+    launches (``launches``, and ``batched_launches`` of the kernels' batched
+    forms), the device, the performance report (``perf``), the run id, the
     input pipeline that fed the loop (``input_pipeline``: its class name, or
     None) with its consumer's wait (``input_wait_s``, summed over the
     pipelines a rollback rebuilt), the GAR probe's calls
@@ -1846,6 +1848,7 @@ def _train(args, stop, axis):
     # shows at a call boundary (JAX :2365-2372, :2470-2480)
     chaos_regime_seen = None
     launches_before = kernels.launch_counts()
+    batched_before = kernels.batched_launch_counts()
     metrics, evaluation, perf, report, prefetcher, live, train_iter = {}, None, None, None, None, None, None
     feeders = []
     step, diverged, offstep = 0, False, 0
@@ -2156,9 +2159,12 @@ def _train(args, stop, axis):
             raise flush_errors[0]
 
     launches = {name: count - launches_before[name] for name, count in kernels.launch_counts().items()}
+    batched_launches = {name: count - batched_before[name] for name, count in kernels.batched_launch_counts().items()}
     if evaluation is not None:
         info("  final evaluation      %s" % "  ".join("%s=%.4f" % kv for kv in sorted(evaluation.items())))
     info("  kernel launches       %s" % "  ".join("%s=%d" % kv for kv in sorted(launches.items())))
+    if any(batched_launches.values()):
+        info("  batched launches      %s" % "  ".join("%s=%d" % kv for kv in sorted(batched_launches.items())))
     waits = [feeder.wait_seconds for feeder in feeders if getattr(feeder, "wait_seconds", None) is not None]
     return {
         "steps": step - offstep,
@@ -2167,6 +2173,7 @@ def _train(args, stop, axis):
         "final_loss": float(metrics["total_loss"]) if metrics else None,
         "evaluation": evaluation,
         "launches": launches,
+        "batched_launches": batched_launches,
         "device": str(device),
         "perf": report,
         "run_id": run_id,

@@ -17,7 +17,11 @@ The meta-rules (``bucketing``, ``hier``, ``tree``) compose registered
 rules through ``instantiate``; the randomized ones take a ``key``, an int
 seed (the engine's per-step ``fold_in_seed(fold_in_seed(seed, step),
 GAR_KEY_TAG)``), where the JAX package takes a PRNG key, and derive their
-children's keys with ``utils.fold_in_seed`` where JAX folds.  The
+children's keys with ``common.fold_key`` where JAX folds.  Under the flat
+engine's bucketed granularity:leaf path a rule runs inside
+``torch.func.vmap`` over a bucket of leaves and its key is the bucket's
+``common.LeafKeys``: each leaf's seed, folded alike, its draws made on the
+host and picked by the leaf's batched position.  The
 ``*-native`` names run the host C++ library (``ops/native``) on their dense
 ``aggregate``.
 

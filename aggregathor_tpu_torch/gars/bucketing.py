@@ -6,11 +6,11 @@ inner rule (``inner=``, any registered name or inline spec), which runs with
 the same declared f (its feasibility is checked at construction).
 
 The permutation comes from the step's key, an int seed:
-``torch.randperm(n, generator=torch.Generator("cpu").manual_seed(key))``,
-moved to the rows' device, so a CPU and a card run permute alike; the JAX
+``torch.randperm(n, generator=torch.Generator("cpu").manual_seed(key))``
+(``seed_permutation``), moved to the rows' device, so a CPU and a card run permute alike; the JAX
 package draws ``jax.random.permutation`` from its PRNG key, which torch
 cannot reproduce (trap c: the tests inject JAX's permutation through
-``_buckets(perm=)`` and ``key_permutation``).  ``key=None`` is the
+``_buckets(perm=)``, ``key_permutation`` and ``seed_permutation``).  ``key=None`` is the
 identity, as in JAX.  The inner
 rule's key is ``fold_in_seed(key, 1)``.  The inner distances, when the
 inner rule needs them, come from ``centered_gram_sq_distances`` on the
@@ -33,18 +33,21 @@ already was).
 
 import torch
 
-from ..utils import fold_in_seed
 from . import GAR, instantiate, register, rule_kwargs
-from .common import sub_rule_distances
+from .common import draw_keyed, fold_key, sub_rule_distances
+
+
+def seed_permutation(seed, n):
+    """The (n,) permutation of an int seed, drawn on a CPU generator."""
+    return torch.randperm(n, generator=torch.Generator("cpu").manual_seed(int(seed)))
 
 
 def key_permutation(key, n, device):
-    """The (n,) permutation of a step's key (identity for None), drawn on a
-    CPU generator and moved to ``device``."""
+    """The (n,) permutation of a step's key (identity for None), moved to
+    ``device``; under a bucket's ``LeafKeys`` each leaf's own seed's."""
     if key is None:
         return torch.arange(n, device=device)
-    generator = torch.Generator("cpu").manual_seed(int(key))
-    return torch.randperm(n, generator=generator).to(device)
+    return draw_keyed(key, lambda seed: seed_permutation(seed, n)).to(device)
 
 
 class BucketingGAR(GAR):
@@ -84,7 +87,7 @@ class BucketingGAR(GAR):
         if self.nb_padded:
             pad = torch.full((self.nb_padded, d), torch.nan, dtype=block.dtype, device=block.device)
             stack = torch.cat([stack, pad])
-        grouped = stack.view(self.nb_buckets, self.s, d)
+        grouped = stack.reshape(self.nb_buckets, self.s, d)
         if self.masking is not None:
             from ..secure.masking import masked_group_mean
 
@@ -93,7 +96,7 @@ class BucketingGAR(GAR):
 
     def _inner_key(self, key):
         # a nested randomized inner rule re-draws too, from a derived key
-        return None if key is None else fold_in_seed(key, 1)
+        return fold_key(key, 1)
 
     def aggregate_block(self, block, dist2=None, key=None, axis=None):
         buckets, _ = self._buckets(block, key, axis=axis)
@@ -110,8 +113,7 @@ class BucketingGAR(GAR):
         # worker i inherits 1/s of its bucket's weight; under a ragged n the
         # padded slots sit at the end of the permuted stack and are dropped
         per_worker = torch.repeat_interleave(bucket_part / self.s, self.s)[: self.nb_workers]
-        participation = torch.zeros(self.nb_workers, dtype=per_worker.dtype, device=per_worker.device)
-        return agg, participation.index_copy_(0, perm, per_worker)
+        return agg, torch.index_select(per_worker, 0, torch.argsort(perm))
 
 
 register("bucketing", BucketingGAR)

@@ -51,12 +51,15 @@ class BulyanGAR(GAR):
         ranks = torch.argsort(torch.argsort(clean, dim=-1, stable=True), dim=-1)
         pruned = torch.where(ranks < n - f - 2, clean, 0.0)
         live = torch.sum(pruned, dim=-1)
+        index = torch.arange(n, device=dist2.device)
         rows = []
         for k in range(self.nb_selections):
             rows.append(selection_mean_weights(live, self.nb_multikrum - k))
+            # the removal as whole-vector ops (no indexing by a tensor value),
+            # so that torch.func.vmap takes it over a bucket of leaves
             best = torch.argmin(nonfinite_to_inf(live))
-            live = live - pruned[:, best]
-            live[best] = torch.inf
+            live = live - torch.gather(pruned, 1, best.reshape(1, 1).expand(n, 1))[:, 0]
+            live = torch.where(index == best, torch.inf, live)
         return torch.stack(rows)
 
     def aggregate_block(self, block, dist2=None):

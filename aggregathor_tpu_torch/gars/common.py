@@ -9,6 +9,48 @@ masks, never NaN comparisons.
 import torch
 
 from ..ops import kernels
+from ..utils import fold_in_seed
+
+
+class LeafKeys:
+    """The rule keys of a bucket of same-sized leaves under one
+    ``torch.func.vmap`` call (the flat engine's bucketed granularity:leaf
+    path): leaf b's int seed ``seeds[b]``, and ``index``, the vmapped
+    (batched 0-d) position of the leaf the call sees.  A rule folds it as it
+    folds an int seed (``fold_key``) and draws through it (``draw_keyed``):
+    the draw is made on the host for every leaf's seed, stacked, and indexed
+    by the batched position, so each leaf gets its own seed's draw, as in
+    the per-leaf loop."""
+
+    def __init__(self, seeds, index):
+        self.seeds = tuple(int(seed) for seed in seeds)
+        self.index = index
+
+    def fold(self, data):
+        return LeafKeys([fold_in_seed(seed, data) for seed in self.seeds], self.index)
+
+    def pick(self, table):
+        """Row ``index`` of the (L, ...) ``table``: a batched tensor."""
+        return torch.index_select(table.to(self.index.device), 0, self.index.reshape(1))[0]
+
+
+def fold_key(key, data):
+    """``fold_in_seed(key, data)`` of an int seed or a bucket's ``LeafKeys``;
+    None for None."""
+    if key is None:
+        return None
+    return key.fold(data) if isinstance(key, LeafKeys) else fold_in_seed(key, data)
+
+
+def draw_keyed(key, draw):
+    """``draw(seed)`` (a tensor or a tuple of tensors) for an int seed; for a
+    bucket's ``LeafKeys``, each leaf's own seed's draw as one batched value."""
+    if not isinstance(key, LeafKeys):
+        return draw(key)
+    drawn = [draw(seed) for seed in key.seeds]
+    if isinstance(drawn[0], tuple):
+        return tuple(key.pick(torch.stack(parts)) for parts in zip(*drawn))
+    return key.pick(torch.stack(drawn))
 
 
 def nonfinite_to_inf(x):

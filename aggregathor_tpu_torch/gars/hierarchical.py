@@ -15,8 +15,9 @@ inner rule is within-group damage control with ``inner_f = min(f, g - 1)``
 unless ``inner_f=K`` is given.  ``nan_row_tolerant`` holds when either
 level's rule is.
 
-The JAX rule vmaps the inner rule over the (n/g, g, d) groups; the port has
-no batched kernels, so :func:`group_pass` takes one of two routes:
+The JAX rule vmaps the inner rule over the (n/g, g, d) groups; the port
+does not batch the groups (its batched kernels serve the bucketed leaf
+path), so :func:`group_pass` takes one of two routes:
 
 - a coordinate-wise inner rule (median, averaged-median, trimmed-mean,
   average, average-nan) runs ONCE on the transposed layout: (n/g, g, d) is
@@ -46,9 +47,8 @@ group 1/g.
 
 import torch
 
-from ..utils import fold_in_seed
 from . import GAR, instantiate, register, rule_kwargs
-from .common import centered_gram_sq_distances, completed_distances, sub_rule_distances
+from .common import centered_gram_sq_distances, completed_distances, fold_key, sub_rule_distances
 
 
 def group_pass(rule, rows, g, key, with_participation, axis=None):
@@ -74,7 +74,7 @@ def group_pass(rule, rows, g, key, with_participation, axis=None):
             centered_gram_sq_distances(rows[i * g:(i + 1) * g].contiguous()) for i in range(nb_groups)]), axis)
     for i in range(nb_groups):
         block = rows[i * g:(i + 1) * g]
-        group_key = None if key is None else fold_in_seed(key, i)
+        group_key = fold_key(key, i)
         dist2 = dist2s[i]
         if with_participation:
             agg, part = rule.aggregate_block_and_participation(
@@ -119,11 +119,11 @@ class HierarchicalGAR(GAR):
         self.nan_row_tolerant = self.inner.nan_row_tolerant or self.outer.nan_row_tolerant
 
     def _inner_key(self, key):
-        return None if key is None else fold_in_seed(key, 1)
+        return fold_key(key, 1)
 
     def _outer_key(self, key):
         # disjoint from the per-group inner streams (fold(key, 1) then i)
-        return None if key is None else fold_in_seed(key, 2)
+        return fold_key(key, 2)
 
     def _inner_pass(self, block, key, with_participation, axis):
         if self.masking is not None:

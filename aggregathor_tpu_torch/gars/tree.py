@@ -25,9 +25,8 @@ W-rank engine (``axis``) the levels run on each rank's column block, their
 distances completed across the ranks as ``hier``'s are.
 """
 
-from ..utils import fold_in_seed
 from . import GAR, register, rule_kwargs
-from .common import sub_rule_distances
+from .common import fold_key, sub_rule_distances
 from .hierarchical import group_pass
 
 
@@ -40,7 +39,7 @@ def level_pass(spec, level, rows, key, with_participation=False, axis=None):
     both run this."""
     from ..parallel.compress import wire_roundtrip
 
-    base = None if key is None else fold_in_seed(key, level + 1)
+    base = fold_key(key, level + 1)
     rows, part = group_pass(spec.rules[level], rows, spec.group_sizes[level], base, with_participation, axis)
     return wire_roundtrip(rows, spec.link_dtype, codec=spec.link_codec), part
 
@@ -73,7 +72,7 @@ class TreeGAR(GAR):
         return rows, parts
 
     def _root_key(self, key):
-        return None if key is None else fold_in_seed(key, self.spec.nb_levels + 2)
+        return fold_key(key, self.spec.nb_levels + 2)
 
     def aggregate_block(self, block, dist2=None, key=None, axis=None):
         rows, _ = self._levels(block, key, False, axis)

@@ -166,22 +166,23 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: narrows a 64-bit address to a 32-bit int
 _SIGNATURES = {
     "distances": {
-        # n, d, the card's SMs -> the grid's blocks (the scratch's rows)
-        "agg_pairwise_sq_distances_blocks": (_I, _LL, _I),
-        # x, out, scratch, counter, n, d, the card's SMs, stream
-        "agg_pairwise_sq_distances": (_P, _P, _P, _P, _I, _LL, _I, _P),
+        # leaves, n, d, the card's SMs -> the grid's blocks a leaf (the scratch's rows a leaf)
+        "agg_pairwise_sq_distances_blocks": (_I, _I, _LL, _I),
+        # x, out, scratch, counters, leaves, n, d, the card's SMs, stream
+        "agg_pairwise_sq_distances": (_P, _P, _P, _P, _I, _I, _LL, _I, _P),
     },
     "coordinate": {
-        # the rank entries end with the sort layout: rows, lanes, columns, stride
-        "agg_coordinate_median": (_P, _P, _I, _LL, _I, _I, _I, _I, _P),
-        "agg_coordinate_averaged_median": (_P, _P, _I, _LL, _I, _I, _I, _I, _I, _P),
-        "agg_coordinate_trimmed_mean": (_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P),
-        "agg_average_nan_columns": (_P, _P, _I, _LL, _P),
-        "agg_nanmedian_columns": (_P, _P, _I, _LL, _I, _I, _I, _I, _P),
+        # x, out, leaves, n, d, then the rank entries end with the sort
+        # layout: rows, lanes, columns, stride
+        "agg_coordinate_median": (_P, _P, _I, _I, _LL, _I, _I, _I, _I, _P),
+        "agg_coordinate_averaged_median": (_P, _P, _I, _I, _LL, _I, _I, _I, _I, _I, _P),
+        "agg_coordinate_trimmed_mean": (_P, _P, _I, _I, _LL, _I, _I, _I, _I, _I, _I, _P),
+        "agg_average_nan_columns": (_P, _P, _I, _I, _LL, _P),
+        "agg_nanmedian_columns": (_P, _P, _I, _I, _LL, _I, _I, _I, _I, _P),
     },
     "gram": {
-        # x, centre (None: a zero centre), out, scratch, n, d, chunk, stream
-        "agg_gram_sq_distances": (_P, _P, _P, _P, _I, _LL, _I, _P),
+        # x, centre (None: a zero centre), out, scratch, leaves, n, d, chunk, stream
+        "agg_gram_sq_distances": (_P, _P, _P, _P, _I, _I, _LL, _I, _P),
     },
 }
 

@@ -61,6 +61,20 @@
 //      device memory (L1/L2 serve the repeats); slow, but right at any n.
 //      No caller of the port comes near it; only the n = 1030 checks run it.
 //
+// The batched form (every entry takes a leaf count L): x is a stack of L
+// (n, w) leaves, (L, n, w) contiguous, and out the (L, w) results.  The
+// kernels see L * w columns: column g = b * w + c is leaf b's column c, its
+// row r at b * n * w + r * w + c (`column_base`), and out[g] is where the
+// (L, w) output keeps it.  Each column runs the unbatched arithmetic, so a
+// batched launch gives the bits of L unbatched ones.  No transposed copy is
+// made: one launch serves a bucket of same-sized parameter leaves (the flat
+// engine's bucketed granularity:leaf path), bound by the same bytes, L n w
+// * 4 read once.  The leaf arithmetic is a template flag (BATCHED): one
+// leaf runs the unbatched instances, whose code is what it was before the
+// batched form, so the column pointer a batched instance keeps in
+// registers costs the unbatched kernels nothing (the sort path ran 2.6x
+// slower on an H100 80GB HBM3 with it in every instance).
+//
 // K6 needs no rank: one thread per column reads each of the n values once,
 // adds the finite ones and counts them in row order, for any n (nothing is
 // kept, so no register template), and writes count > 0 ? total / count : 0.
@@ -80,6 +94,13 @@ __device__ __forceinline__ float inf_key(float v) {
   return isfinite(v) ? v : INFINITY;
 }
 
+// Where column `col` of the L * w columns starts: leaf col / w's column
+// col % w of the stacked (L, n, w) leaves, rows w floats apart.
+__device__ __forceinline__ long long column_base(long long col, int n, long long w) {
+  const long long leaf = col / w;
+  return leaf * n * w + (col - leaf * w);
+}
+
 // ---------------------------------------------------------------------------
 // n <= MAXN: the column lives in registers.  `a`/`b`: median target and beta
 // (K3/K4), or trim and keep (K5).
@@ -94,19 +115,22 @@ __device__ __forceinline__ int rank_in(const float (&key)[MAXN], int i) {
   return r;
 }
 
-template <int MAXN, int OP>
+template <int MAXN, int OP, bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
 coord_regs(const float* __restrict__ x, float* __restrict__ out, int n,
-           long long d, int a, int b) {
+           long long d, long long w, int a, int b) {
   const long long col = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (col >= d) {
     return;
   }
+  // batched: the column's first row and the rows' stride, once a thread
+  const long long base = BATCHED ? column_base(col, n, w) : col;
+  const long long stride = BATCHED ? w : d;
   float val[MAXN];
   float key[MAXN];
 #pragma unroll
   for (int j = 0; j < MAXN; ++j) {
-    val[j] = j < n ? x[(long long)j * d + col] : NAN;
+    val[j] = j < n ? x[(long long)j * stride + base] : NAN;
     key[j] = inf_key(val[j]);
   }
   float result = 0.0f;
@@ -260,10 +284,10 @@ struct SortLayout {
 
 // The stride is a template parameter, not an argument: a run-time stride
 // made the sort path 10-11 % slower on an H100 80GB HBM3.
-template <int P, int LANES, int STRIDE>
+template <int P, int LANES, int STRIDE, bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
 coord_sort(const float* __restrict__ x, float* __restrict__ out, int n, long long d,
-           int op, int a, int b) {
+           long long w, int op, int a, int b) {
   constexpr int E = P / LANES;
   constexpr int C = kThreads / LANES;
   constexpr int stride = STRIDE;
@@ -275,6 +299,10 @@ coord_sort(const float* __restrict__ x, float* __restrict__ out, int n, long lon
 
   const int tid = threadIdx.x;
   const long long col0 = (long long)blockIdx.x * C;
+  // batched: a thread stages one column of the tile (kThreads is a
+  // multiple of C, so i % C is tid % C for every i it loads)
+  const long long own = col0 + tid % C;
+  const float* column_in = BATCHED && own < d ? x + column_base(own, n, w) : x;
   // kLoadBatch loads in flight a thread before the first store: one at a
   // time leaves the loads latency-bound, far below the memory rate
   const int total = n * C;
@@ -285,7 +313,11 @@ coord_sort(const float* __restrict__ x, float* __restrict__ out, int n, long lon
       const int i = base + u * kThreads;
       const int row = i / C;
       const long long col = col0 + (i - row * C);
-      v[u] = i < total && col < d ? x[(long long)row * d + col] : 0.0f;
+      if (BATCHED) {
+        v[u] = i < total && col < d ? column_in[(long long)row * w] : 0.0f;
+      } else {
+        v[u] = i < total && col < d ? x[(long long)row * d + col] : 0.0f;
+      }
     }
 #pragma unroll
     for (int u = 0; u < kLoadBatch; ++u) {
@@ -451,30 +483,34 @@ coord_sort(const float* __restrict__ x, float* __restrict__ out, int n, long lon
 }
 
 template <int P, int LANES, int STRIDE>
-int launch_sort(const float* x, float* out, int n, long long d, SortLayout l, int op, int a,
-                int b, cudaStream_t s) {
+int launch_sort(const float* x, float* out, int n, long long d, long long w, SortLayout l, int op,
+                int a, int b, cudaStream_t s) {
   constexpr int C = kThreads / LANES;
   if (l.rows != P || l.lanes != LANES || l.columns != C || l.stride != STRIDE || n > P) {
     return (int)cudaErrorInvalidValue;
   }
   const unsigned int grid = (unsigned int)((d + C - 1) / C);
   const size_t shared = (size_t)n * STRIDE * sizeof(float);
-  coord_sort<P, LANES, STRIDE><<<grid, kThreads, shared, s>>>(x, out, n, d, op, a, b);
+  if (w < d) {
+    coord_sort<P, LANES, STRIDE, true><<<grid, kThreads, shared, s>>>(x, out, n, d, w, op, a, b);
+  } else {
+    coord_sort<P, LANES, STRIDE, false><<<grid, kThreads, shared, s>>>(x, out, n, d, w, op, a, b);
+  }
   return (int)cudaGetLastError();
 }
 
 // The instantiated layouts, one per P; the caller's must match one exactly.
-int launch_sorted(const float* x, float* out, int n, long long d, SortLayout l, int op,
-                  int a, int b, cudaStream_t s) {
+int launch_sorted(const float* x, float* out, int n, long long d, long long w, SortLayout l,
+                  int op, int a, int b, cudaStream_t s) {
   switch (l.rows) {
     case 128:
-      return launch_sort<128, 8, 36>(x, out, n, d, l, op, a, b, s);
+      return launch_sort<128, 8, 36>(x, out, n, d, w, l, op, a, b, s);
     case 256:
-      return launch_sort<256, 16, 18>(x, out, n, d, l, op, a, b, s);
+      return launch_sort<256, 16, 18>(x, out, n, d, w, l, op, a, b, s);
     case 512:
-      return launch_sort<512, 32, 9>(x, out, n, d, l, op, a, b, s);
+      return launch_sort<512, 32, 9>(x, out, n, d, w, l, op, a, b, s);
     case 1024:
-      return launch_sort<1024, 32, 9>(x, out, n, d, l, op, a, b, s);
+      return launch_sort<1024, 32, 9>(x, out, n, d, w, l, op, a, b, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -484,18 +520,18 @@ int launch_sorted(const float* x, float* out, int n, long long d, SortLayout l, 
 // n > 1024: every rank pass re-reads the column from device memory.  No caller
 // of the port comes near it; it keeps every n served.
 
-__device__ __forceinline__ float row_key(const float* column, long long d, int j,
+__device__ __forceinline__ float row_key(const float* column, long long w, int j,
                                          bool deviation, float med) {
-  const float v = column[(long long)j * d];
+  const float v = column[(long long)j * w];
   return deviation ? inf_key(fabsf(v - med)) : inf_key(v);
 }
 
-__device__ int rank_global(const float* column, long long d, int n, int i,
+__device__ int rank_global(const float* column, long long w, int n, int i,
                            bool deviation, float med) {
-  const float ki = row_key(column, d, i, deviation, med);
+  const float ki = row_key(column, w, i, deviation, med);
   int r = 0;
   for (int j = 0; j < n; ++j) {
-    const float kj = row_key(column, d, j, deviation, med);
+    const float kj = row_key(column, w, j, deviation, med);
     r += (kj < ki) || (kj == ki && j < i);
   }
   return r;
@@ -503,19 +539,19 @@ __device__ int rank_global(const float* column, long long d, int n, int i,
 
 __global__ void __launch_bounds__(kThreads)
 coord_global(const float* __restrict__ x, float* __restrict__ out, int n,
-             long long d, int op, int a, int b) {
+             long long d, long long w, int op, int a, int b) {
   const long long col = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (col >= d) {
     return;
   }
-  const float* column = x + col;
+  const float* column = x + (w < d ? column_base(col, n, w) : col);
   float result = 0.0f;
   if (op == kTrimmedMean) {
     float sum = 0.0f;
     for (int i = 0; i < n; ++i) {
-      const int r = rank_global(column, d, n, i, false, 0.0f);
+      const int r = rank_global(column, w, n, i, false, 0.0f);
       if (r >= a && r < a + b) {
-        sum += inf_key(column[(long long)i * d]);
+        sum += inf_key(column[(long long)i * w]);
       }
     }
     const float mean = sum / (float)b;
@@ -523,19 +559,19 @@ coord_global(const float* __restrict__ x, float* __restrict__ out, int n,
   } else if (op == kNanMedian) {
     int finite = 0;
     for (int i = 0; i < n; ++i) {
-      finite += isfinite(column[(long long)i * d]);
+      finite += isfinite(column[(long long)i * w]);
     }
     const int r0 = finite > 0 ? (finite - 1) / 2 : 0;
     const int r1 = finite / 2;
     float low = 0.0f;
     float high = 0.0f;
     for (int i = 0; finite > 0 && i < n; ++i) {
-      const int r = rank_global(column, d, n, i, false, 0.0f);
+      const int r = rank_global(column, w, n, i, false, 0.0f);
       if (r == r0) {
-        low = column[(long long)i * d];
+        low = column[(long long)i * w];
       }
       if (r == r1) {
-        high = column[(long long)i * d];
+        high = column[(long long)i * w];
       }
     }
     const float median = (finite & 1) ? low : (low + high) / 2.0f;
@@ -543,8 +579,8 @@ coord_global(const float* __restrict__ x, float* __restrict__ out, int n,
   } else {
     float med = 0.0f;
     for (int i = 0; i < n; ++i) {
-      if (rank_global(column, d, n, i, false, 0.0f) == a) {
-        med = column[(long long)i * d];
+      if (rank_global(column, w, n, i, false, 0.0f) == a) {
+        med = column[(long long)i * w];
         break;
       }
     }
@@ -552,8 +588,8 @@ coord_global(const float* __restrict__ x, float* __restrict__ out, int n,
     if (op == kAveragedMedian) {
       float sum = 0.0f;
       for (int i = 0; i < n; ++i) {
-        if (rank_global(column, d, n, i, true, med) < b) {
-          sum += column[(long long)i * d];
+        if (rank_global(column, w, n, i, true, med) < b) {
+          sum += column[(long long)i * w];
         }
       }
       result = sum / (float)b;
@@ -564,46 +600,61 @@ coord_global(const float* __restrict__ x, float* __restrict__ out, int n,
 
 // K3-K5 and the centring beyond the register path: the sort in the caller's
 // layout, or, for a layout of zero rows, the re-reading path.
-int launch_beyond_registers(const float* x, float* out, int n, long long d, SortLayout l,
-                            int op, int a, int b, cudaStream_t s) {
+int launch_beyond_registers(const float* x, float* out, int n, long long d, long long w,
+                            SortLayout l, int op, int a, int b, cudaStream_t s) {
   if (l.rows != 0) {
-    return launch_sorted(x, out, n, d, l, op, a, b, s);
+    return launch_sorted(x, out, n, d, w, l, op, a, b, s);
   }
   const unsigned int grid = (unsigned int)((d + kThreads - 1) / kThreads);
-  coord_global<<<grid, kThreads, 0, s>>>(x, out, n, d, op, a, b);
+  coord_global<<<grid, kThreads, 0, s>>>(x, out, n, d, w, op, a, b);
   return (int)cudaGetLastError();
 }
 
-template <int OP>
-int launch(const float* x, float* out, int n, long long d, int a, int b, SortLayout l,
-           void* stream) {
+template <int MAXN, int OP>
+void launch_regs(const float* x, float* out, int n, long long d, long long w, int a, int b,
+                 cudaStream_t s) {
   const unsigned int grid = (unsigned int)((d + kThreads - 1) / kThreads);
+  if (w < d) {
+    coord_regs<MAXN, OP, true><<<grid, kThreads, 0, s>>>(x, out, n, d, w, a, b);
+  } else {
+    coord_regs<MAXN, OP, false><<<grid, kThreads, 0, s>>>(x, out, n, d, w, a, b);
+  }
+}
+
+// The L * w columns of L stacked (n, w) leaves (one leaf: L = 1, w = d).
+template <int OP>
+int launch(const float* x, float* out, int leaves, int n, long long w, int a, int b, SortLayout l,
+           void* stream) {
+  const long long d = (long long)leaves * w;
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 8) {
-    coord_regs<8, OP><<<grid, kThreads, 0, s>>>(x, out, n, d, a, b);
+    launch_regs<8, OP>(x, out, n, d, w, a, b, s);
   } else if (n <= 16) {
-    coord_regs<16, OP><<<grid, kThreads, 0, s>>>(x, out, n, d, a, b);
+    launch_regs<16, OP>(x, out, n, d, w, a, b, s);
   } else if (n <= 32) {
-    coord_regs<32, OP><<<grid, kThreads, 0, s>>>(x, out, n, d, a, b);
+    launch_regs<32, OP>(x, out, n, d, w, a, b, s);
   } else if (n <= 64) {
-    coord_regs<64, OP><<<grid, kThreads, 0, s>>>(x, out, n, d, a, b);
+    launch_regs<64, OP>(x, out, n, d, w, a, b, s);
   } else {
-    return launch_beyond_registers(x, out, n, d, l, OP, a, b, s);
+    return launch_beyond_registers(x, out, n, d, w, l, OP, a, b, s);
   }
   return (int)cudaGetLastError();
 }
 
+template <bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
 average_nan_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
-                   long long d) {
+                   long long d, long long w) {
   const long long col = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (col >= d) {
     return;
   }
+  const long long base = BATCHED ? column_base(col, n, w) : col;
+  const long long stride = BATCHED ? w : d;
   float total = 0.0f;
   float count = 0.0f;
   for (int j = 0; j < n; ++j) {
-    const float v = x[(long long)j * d + col];
+    const float v = x[(long long)j * stride + base];
     if (isfinite(v)) {
       total += v;
       count += 1.0f;
@@ -616,40 +667,47 @@ average_nan_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
 
 extern "C" {
 
-// x: (n, d) row-major float32; out: (d,).  Each returns cudaGetLastError().
+// x: (leaves, n, d) row-major float32, the stacked leaves (one matrix:
+// leaves = 1); out: (leaves, d).  Each returns cudaGetLastError().
 // (rows, lanes, columns, stride): the sort path's layout (`SortLayout`), read
 // beyond 64 rows; zero rows for the re-reading path.
-int agg_coordinate_median(const float* x, float* out, int n, long long d, int rows,
+int agg_coordinate_median(const float* x, float* out, int leaves, int n, long long d, int rows,
                           int lanes, int columns, int stride, void* stream) {
-  return launch<kMedian>(x, out, n, d, n / 2, 0, {rows, lanes, columns, stride}, stream);
+  return launch<kMedian>(x, out, leaves, n, d, n / 2, 0, {rows, lanes, columns, stride}, stream);
 }
 
-int agg_coordinate_averaged_median(const float* x, float* out, int n, long long d,
+int agg_coordinate_averaged_median(const float* x, float* out, int leaves, int n, long long d,
                                    int beta, int rows, int lanes, int columns, int stride,
                                    void* stream) {
-  return launch<kAveragedMedian>(x, out, n, d, n / 2, beta, {rows, lanes, columns, stride},
-                                 stream);
+  return launch<kAveragedMedian>(x, out, leaves, n, d, n / 2, beta,
+                                 {rows, lanes, columns, stride}, stream);
 }
 
-int agg_coordinate_trimmed_mean(const float* x, float* out, int n, long long d, int trim,
-                                int keep, int rows, int lanes, int columns, int stride,
+int agg_coordinate_trimmed_mean(const float* x, float* out, int leaves, int n, long long d,
+                                int trim, int keep, int rows, int lanes, int columns, int stride,
                                 void* stream) {
-  return launch<kTrimmedMean>(x, out, n, d, trim, keep, {rows, lanes, columns, stride},
+  return launch<kTrimmedMean>(x, out, leaves, n, d, trim, keep, {rows, lanes, columns, stride},
                               stream);
 }
 
 // The centring median of the distances beyond 64 rows: numpy's nanmedian
 // per column, 0 where nothing is finite, at any n.
-int agg_nanmedian_columns(const float* x, float* out, int n, long long d, int rows,
+int agg_nanmedian_columns(const float* x, float* out, int leaves, int n, long long d, int rows,
                           int lanes, int columns, int stride, void* stream) {
-  return launch_beyond_registers(x, out, n, d, {rows, lanes, columns, stride}, kNanMedian, 0,
-                                 0, (cudaStream_t)stream);
+  return launch_beyond_registers(x, out, n, (long long)leaves * d, d,
+                                 {rows, lanes, columns, stride}, kNanMedian, 0, 0,
+                                 (cudaStream_t)stream);
 }
 
-int agg_average_nan_columns(const float* x, float* out, int n, long long d,
+int agg_average_nan_columns(const float* x, float* out, int leaves, int n, long long d,
                             void* stream) {
-  const unsigned int grid = (unsigned int)((d + kThreads - 1) / kThreads);
-  average_nan_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(x, out, n, d);
+  const long long total = (long long)leaves * d;
+  const unsigned int grid = (unsigned int)((total + kThreads - 1) / kThreads);
+  if (leaves > 1) {
+    average_nan_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(x, out, n, total, d);
+  } else {
+    average_nan_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(x, out, n, total, d);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -73,6 +73,16 @@
 // did not help, and staging through registers took 255 registers.  16-byte
 // copies or TMA would halve the copies, but the cnnet rows are only 8-byte
 // aligned.
+// The batched form: L stacked (n, d) leaves, (L, n, d) contiguous, in one
+// launch of the same kernels over a (blocks, L) grid, each leaf's layout
+// sized for its share of the SMs (`k1::batched_layout`).  Block (b, l)
+// offsets x, the scratch, the output and the arrival counter to leaf l's and
+// then runs the unbatched code: leaf l's blocks reduce among themselves and
+// the last of them to arrive finishes leaf l, so each leaf's sums run in
+// the order of an unbatched launch of that layout.  The wrapper keeps one
+// zeroed counter a leaf.  The offsets are a template flag (BATCHED): one
+// leaf runs the unbatched instances, whose pointers stay kernel parameters
+// (offset ones would take registers these kernels spend on sums).
 // Semantics, as the plain version's: the diagonal is computed like any
 // pair, so it is exactly 0 for a finite row; a NaN anywhere in row i makes
 // row and column i NaN; an inf gives inf off the diagonal and NaN on it
@@ -177,13 +187,19 @@ __device__ __forceinline__ void load_column(const float* __restrict__ x, long lo
   }
 }
 
-template <int N, int W>
+template <int N, int W, bool BATCHED>
 __global__ void __launch_bounds__(kRowThreads)
 rows_kernel(const float* __restrict__ x, float* __restrict__ scratch, float* __restrict__ out,
             unsigned int* counter, long long d, long long chunk) {
   constexpr int kPairs = pair_count(N);
   constexpr long long kStep = (long long)kRowThreads * W;
   extern __shared__ float smem[];  // (warps, pairs) sums, then the finish's slices
+  if (BATCHED) {  // leaf blockIdx.y: its rows, scratch, output and counter
+    x += (long long)blockIdx.y * N * d;
+    scratch += (long long)blockIdx.y * gridDim.x * kPairs;
+    out += (long long)blockIdx.y * N * N;
+    counter += blockIdx.y;
+  }
   float acc[kPairs];
 #pragma unroll
   for (int p = 0; p < kPairs; ++p) acc[p] = 0.0f;
@@ -303,13 +319,19 @@ __device__ __forceinline__ void load_rows(const float* pair, int block, float (&
   }
 }
 
-template <int N, int kBytes>
+template <int N, int kBytes, bool BATCHED>
 __global__ void __launch_bounds__(kTileMaxThreads, kTileBlocksPerSM)  // two blocks an SM: 128 registers a thread
 tiles_kernel(const float* __restrict__ x, float* __restrict__ scratch, float* __restrict__ out,
              unsigned int* counter, int n, long long d, long long chunk) {
   constexpr int kStride = tile_pair_stride(N);
   constexpr int kStageFloats = tile_floats(N);
   extern __shared__ __align__(16) float smem[];
+  if (BATCHED) {  // leaf blockIdx.y: its rows, scratch, output and counter
+    x += (long long)blockIdx.y * n * d;
+    scratch += (long long)blockIdx.y * gridDim.x * pair_count(n);
+    out += (long long)blockIdx.y * n * n;
+    counter += blockIdx.y;
+  }
   constexpr int kLanes = task_lanes(N);
   const Tasks tasks(n, N);
   const int task = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
@@ -425,38 +447,41 @@ tiles_kernel(const float* __restrict__ x, float* __restrict__ scratch, float* __
 
 // ------------------------------------------------------------ the launches
 
+// (Every leaf starts 8-byte aligned when x is and d is even.)
 template <int N>
-cudaError_t launch_rows(const float* x, float* out, float* scratch, unsigned int* counter, long long d,
-                        const Layout& l, cudaStream_t s) {
+cudaError_t launch_rows(const float* x, float* out, float* scratch, unsigned int* counter, int leaves,
+                        long long d, const Layout& l, cudaStream_t s) {
+  const dim3 grid(l.blocks, leaves);
   // 8-byte loads need every row start 8-byte aligned: d even and x too
-  if (d % 2 == 0 && (uintptr_t)x % 8 == 0) {
-    rows_kernel<N, 2><<<l.blocks, l.threads, l.smem, s>>>(x, scratch, out, counter, d, l.chunk);
-  } else {
-    rows_kernel<N, 1><<<l.blocks, l.threads, l.smem, s>>>(x, scratch, out, counter, d, l.chunk);
-  }
+  const bool pairs = d % 2 == 0 && (uintptr_t)x % 8 == 0;
+  auto kernel = pairs ? (leaves > 1 ? rows_kernel<N, 2, true> : rows_kernel<N, 2, false>)
+                      : (leaves > 1 ? rows_kernel<N, 1, true> : rows_kernel<N, 1, false>);
+  kernel<<<grid, l.threads, l.smem, s>>>(x, scratch, out, counter, d, l.chunk);
   return cudaGetLastError();
 }
 
 // The register instance of l.rows rows, out of RegisterRows.
 template <int... Ns>
 cudaError_t launch_register_rows(std::integer_sequence<int, Ns...>, const float* x, float* out, float* scratch,
-                                 unsigned int* counter, long long d, const Layout& l, cudaStream_t s) {
+                                 unsigned int* counter, int leaves, long long d, const Layout& l,
+                                 cudaStream_t s) {
   cudaError_t err = cudaErrorInvalidValue;
-  ((err = l.rows == Ns ? launch_rows<Ns>(x, out, scratch, counter, d, l, s) : err), ...);
+  ((err = l.rows == Ns ? launch_rows<Ns>(x, out, scratch, counter, leaves, d, l, s) : err), ...);
   return err;
 }
 
 template <int N>
-cudaError_t launch_tiles(const float* x, float* out, float* scratch, unsigned int* counter, int n,
-                         long long d, const Layout& l, cudaStream_t s) {
+cudaError_t launch_tiles(const float* x, float* out, float* scratch, unsigned int* counter, int leaves,
+                         int n, long long d, const Layout& l, cudaStream_t s) {
   // 8-byte copies need every row start 8-byte aligned: d even and x too
   const bool pairs = d % 2 == 0 && (uintptr_t)x % 8 == 0;
-  auto kernel = pairs ? tiles_kernel<N, 8> : tiles_kernel<N, 4>;
+  auto kernel = pairs ? (leaves > 1 ? tiles_kernel<N, 8, true> : tiles_kernel<N, 8, false>)
+                      : (leaves > 1 ? tiles_kernel<N, 4, true> : tiles_kernel<N, 4, false>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
   if (err != cudaSuccess) {
     return err;
   }
-  kernel<<<l.blocks, l.threads, l.smem, s>>>(x, scratch, out, counter, n, d, l.chunk);
+  kernel<<<dim3(l.blocks, leaves), l.threads, l.smem, s>>>(x, scratch, out, counter, n, d, l.chunk);
   return cudaGetLastError();
 }
 
@@ -464,32 +489,33 @@ cudaError_t launch_tiles(const float* x, float* out, float* scratch, unsigned in
 
 extern "C" {
 
-// The grid K1 takes for an (n, d) matrix on a card of `sms` SMs: the rows
-// of the scratch that agg_pairwise_sq_distances needs.  0 if n or d is out
-// of range.
-int agg_pairwise_sq_distances_blocks(int n, long long d, int sms) {
-  if (n < 1 || n > kMaxRows || d < 1 || sms < 1) {
+// The grid K1 takes a leaf for `leaves` stacked (n, d) matrices on a card
+// of `sms` SMs: the scratch rows a leaf that agg_pairwise_sq_distances
+// needs.  0 if leaves, n or d is out of range.
+int agg_pairwise_sq_distances_blocks(int leaves, int n, long long d, int sms) {
+  if (leaves < 1 || leaves > 65535 || n < 1 || n > kMaxRows || d < 1 || sms < 1) {
     return 0;
   }
-  return distance_layout(n, d, sms).blocks;
+  return batched_layout(leaves, n, d, sms).blocks;
 }
 
-// x: (n, d) row-major float32; out: (n, n); scratch:
-// agg_pairwise_sq_distances_blocks(n, d, sms) * n(n+1)/2 floats; counter:
-// one unsigned int, 0 on entry (and on return: the last block resets it),
-// used by no other stream meanwhile.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for n or d out of range.
-int agg_pairwise_sq_distances(const float* x, float* out, float* scratch, unsigned int* counter,
-                              int n, long long d, int sms, void* stream) {
-  if (n < 1 || n > kMaxRows || d < 1 || sms < 1) {
+// x: (leaves, n, d) row-major float32 (one matrix: leaves = 1); out:
+// (leaves, n, n); scratch: leaves * agg_pairwise_sq_distances_blocks(...) *
+// n(n+1)/2 floats; counters: `leaves` unsigned ints, 0 on entry (and on
+// return: each leaf's last block resets its own), used by no other stream
+// meanwhile.  Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// leaves, n or d out of range.
+int agg_pairwise_sq_distances(const float* x, float* out, float* scratch, unsigned int* counters,
+                              int leaves, int n, long long d, int sms, void* stream) {
+  if (leaves < 1 || leaves > 65535 || n < 1 || n > kMaxRows || d < 1 || sms < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const Layout l = distance_layout(n, d, sms);
+  const Layout l = batched_layout(leaves, n, d, sms);
   cudaStream_t s = (cudaStream_t)stream;
   switch (l.rows) {
-    case 32: return (int)launch_tiles<32>(x, out, scratch, counter, n, d, l, s);
-    case 64: return (int)launch_tiles<64>(x, out, scratch, counter, n, d, l, s);
-    default: return (int)launch_register_rows(RegisterRows{}, x, out, scratch, counter, d, l, s);
+    case 32: return (int)launch_tiles<32>(x, out, scratch, counters, leaves, n, d, l, s);
+    case 64: return (int)launch_tiles<64>(x, out, scratch, counters, leaves, n, d, l, s);
+    default: return (int)launch_register_rows(RegisterRows{}, x, out, scratch, counters, leaves, d, l, s);
   }
 }
 

@@ -108,4 +108,12 @@ inline Layout distance_layout(int n, long long d, int sms) {
   return l;
 }
 
+// One leaf's layout in a batched launch over `leaves` stacked (n, d)
+// leaves (the grid's x dimension; y counts the leaves): each leaf takes
+// its share of the SMs, so the whole grid still comes near one wave.  One
+// leaf: distance_layout's.
+inline Layout batched_layout(int leaves, int n, long long d, int sms) {
+  return distance_layout(n, d, (sms + leaves - 1) / leaves);
+}
+
 }  // namespace k1

@@ -52,6 +52,14 @@
 //      of the same accumulation, so the diagonal of a finite row is exactly
 //      0, and (i, j) and (j, i) read the same entries, so the output is
 //      symmetric bit for bit.
+// The batched form: L stacked (n, d) leaves, (L, n, d) contiguous, with (L,
+// d) centres, in one launch of each kernel: the leaf is the partial
+// kernel's grid z (x, its centre and its partial tiles offset to leaf z's)
+// and the finish's thread index runs over the L n^2 outputs.  The wrapper
+// sizes the chunks across the whole bucket (`kernels.gram_chunk`).  Each
+// leaf's sums run in the order of an unbatched launch of that chunk.  The
+// partial kernel's offsets are a template flag (BATCHED), so one leaf runs
+// the unbatched instance, its pointers kernel parameters.
 // Non-finite values: a split cannot keep FP32's mix of +inf and NaN (inf
 // splits into hi = inf, lo = inf - inf = NaN, and a hi rounded up flips lo's
 // sign), so every non-finite value, after centring, carries NaN (its lo part)
@@ -215,7 +223,7 @@ __device__ __forceinline__ void slab_products(float (&d)[64], const float* a_hi,
   }
 }
 
-template <int kBytes, int kStages>
+template <int kBytes, int kStages, bool BATCHED>
 __global__ void __launch_bounds__(kThreads, 1)
 partial_kernel(const float* __restrict__ x, const float* __restrict__ centre,
                float* __restrict__ partial, int n, long long d, int chunk, int nb_chunks,
@@ -228,6 +236,13 @@ partial_kernel(const float* __restrict__ x, const float* __restrict__ centre,
   auto split_at = [&](int b, int u, int p) {
     return split_base + ((b * nb_tiles + u) * 2 + p) * kSplitFloats;
   };
+  if (BATCHED) {  // leaf blockIdx.z: its rows, centre and partial tiles
+    x += (long long)blockIdx.z * n * d;
+    if (centre != nullptr) {
+      centre += (long long)blockIdx.z * d;
+    }
+    partial += (long long)blockIdx.z * gridDim.y * nb_chunks * kTile * kTile;
+  }
   int ti, tj;
   pair_tiles(blockIdx.y, tiles, &ti, &tj);
   const bool diagonal = ti == tj;
@@ -340,13 +355,16 @@ __device__ __forceinline__ float gram_entry(const float* __restrict__ partial,
 }
 
 __global__ void __launch_bounds__(kThreads)
-finish_kernel(const float* __restrict__ partial, float* __restrict__ out, int n,
+finish_kernel(const float* __restrict__ partial, float* __restrict__ out, int leaves, int n,
               int nb_chunks, int tiles) {
   const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (long long)n * n) {
+  const long long entries = (long long)n * n;
+  if (idx >= leaves * entries) {
     return;
   }
-  const int i = (int)(idx / n), j = (int)(idx % n);
+  // leaf idx / n^2's partial tiles
+  partial += idx / entries * (tiles * (tiles + 1) / 2) * nb_chunks * kTile * kTile;
+  const int i = (int)(idx % entries / n), j = (int)(idx % n);
   const float gij = gram_entry(partial, i, j, tiles, nb_chunks);
   const float gii = gram_entry(partial, i, i, tiles, nb_chunks);
   const float gjj = gram_entry(partial, j, j, tiles, nb_chunks);
@@ -355,55 +373,58 @@ finish_kernel(const float* __restrict__ partial, float* __restrict__ out, int n,
 }
 
 template <int kBytes, int kStages>
-cudaError_t launch_partial(const float* x, const float* centre, float* scratch, int n,
+cudaError_t launch_partial(const float* x, const float* centre, float* scratch, int leaves, int n,
                            long long d, int chunk, int nb_chunks, int tiles, cudaStream_t s) {
   const int nb_tiles = tiles > 1 ? 2 : 1;
   const int smem = (kStages * (nb_tiles * kRawFloats + kSlab) + 2 * nb_tiles * 2 * kSplitFloats)
                    * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(partial_kernel<kBytes, kStages>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = leaves > 1 ? partial_kernel<kBytes, kStages, true> : partial_kernel<kBytes, kStages, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) {
     return err;
   }
-  partial_kernel<kBytes, kStages><<<dim3(nb_chunks, tiles * (tiles + 1) / 2), kThreads, smem, s>>>(
+  kernel<<<dim3(nb_chunks, tiles * (tiles + 1) / 2, leaves), kThreads, smem, s>>>(
       x, centre, scratch, n, d, chunk, nb_chunks, tiles);
   return cudaGetLastError();
 }
 
 template <int kBytes>
-cudaError_t launch_partial(const float* x, const float* centre, float* scratch, int n,
+cudaError_t launch_partial(const float* x, const float* centre, float* scratch, int leaves, int n,
                            long long d, int chunk, int nb_chunks, int tiles, cudaStream_t s) {
   return tiles > 1
-      ? launch_partial<kBytes, kStagesTwoTiles>(x, centre, scratch, n, d, chunk, nb_chunks, tiles, s)
-      : launch_partial<kBytes, kStagesOneTile>(x, centre, scratch, n, d, chunk, nb_chunks, tiles, s);
+      ? launch_partial<kBytes, kStagesTwoTiles>(x, centre, scratch, leaves, n, d, chunk, nb_chunks, tiles, s)
+      : launch_partial<kBytes, kStagesOneTile>(x, centre, scratch, leaves, n, d, chunk, nb_chunks, tiles, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: (n, d) row-major float32; centre: (d,) float32 or null (a zero centre);
-// out: (n, n); scratch: tiles(tiles+1)/2 * nb_chunks * 128 * 128 floats,
-// tiles = ceil(n / 128), nb_chunks = ceil(d / chunk), chunk a multiple of 32.
+// x: (leaves, n, d) row-major float32 (one matrix: leaves = 1); centre:
+// (leaves, d) float32 or null (a zero centre); out: (leaves, n, n);
+// scratch: leaves * tiles(tiles+1)/2 * nb_chunks * 128 * 128 floats, tiles
+// = ceil(n / 128), nb_chunks = ceil(d / chunk), chunk a multiple of 32.
 // Returns cudaGetLastError().
 int agg_gram_sq_distances(const float* x, const float* centre, float* out, float* scratch,
-                          int n, long long d, int chunk, void* stream) {
-  if (n < 1 || d < 1 || chunk <= 0 || chunk % kSlab != 0) {
+                          int leaves, int n, long long d, int chunk, void* stream) {
+  if (leaves < 1 || leaves > 65535 || n < 1 || d < 1 || chunk <= 0 || chunk % kSlab != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int tiles = (n + kTile - 1) / kTile;
   const int nb_chunks = (int)((d + chunk - 1) / chunk);
   cudaStream_t s = (cudaStream_t)stream;
   // 8-byte copies need every row start 8-byte aligned: d even and x too
+  // (then every leaf's rows are)
   const bool pairs = d % 2 == 0 && (uintptr_t)x % 8 == 0;
-  cudaError_t err = pairs ? launch_partial<8>(x, centre, scratch, n, d, chunk, nb_chunks, tiles, s)
-                          : launch_partial<4>(x, centre, scratch, n, d, chunk, nb_chunks, tiles, s);
+  cudaError_t err = pairs
+      ? launch_partial<8>(x, centre, scratch, leaves, n, d, chunk, nb_chunks, tiles, s)
+      : launch_partial<4>(x, centre, scratch, leaves, n, d, chunk, nb_chunks, tiles, s);
   if (err != cudaSuccess) {
     return (int)err;
   }
-  const long long entries = (long long)n * n;
+  const long long entries = (long long)leaves * n * n;
   finish_kernel<<<(unsigned int)((entries + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      scratch, out, n, nb_chunks, tiles);
+      scratch, out, leaves, n, nb_chunks, tiles);
   return (int)cudaGetLastError();
 }
 

@@ -280,7 +280,9 @@ class TopKCodec(WireCodec):
     def decode(self, payload, d):
         values = payload["v"]
         out = torch.zeros(values.shape[:-1] + (d,), dtype=torch.float32, device=values.device)
-        return out.scatter_(-1, payload["i"].to(torch.int64), values)
+        # out of place: the zeros are not batched under torch.func.vmap (the
+        # bucketed leaf path), the values are
+        return out.scatter(-1, payload["i"].to(torch.int64), values)
 
     def bytes_per_row(self, d):
         return self._k_for(d) * (_F32_BYTES + _I32_BYTES)

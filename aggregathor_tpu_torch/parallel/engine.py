@@ -87,7 +87,12 @@ rank:
    each leaf's (k, d_leaf) rows are ``all_gather``ed and every rank runs
    the rule on whole leaf rows, JAX's unrolled path ``engine.py:799-858``),
    the participation is the mean over the leaves, and the aggregate does
-   not cross the wire again; under ``"vector"`` the (d,) aggregate crosses
+   not cross the wire again.  Bucketed (``leaf_bucketing``: True, or
+   "auto" on a card, JAX ``engine.py:684-691``), the same-sized leaves go
+   through one ``torch.func.vmap`` of steps 4-6
+   (``_aggregate_per_leaf_bucketed``, JAX ``engine.py:694-797``): one rule
+   call, one all_gather and one batched launch of each kernel a leaf
+   size.  Under ``"vector"`` the (d,) aggregate crosses
    it back: at W > 1 the blocks' aggregates, in the wire's dtype, are
    ``all_gather``ed and cut to d, and the workers' distances to it are
    summed across the ranks.
@@ -135,11 +140,9 @@ sharded mode's submission units (``build_group_grad``,
 ``build_submesh_grad``) are ROADMAP queue 1 item 8c: its bounded builders
 refuse.
 
-Refused with a UserException: ``leaf_bucketing=True`` on the flat mode
-(the bucketed per-leaf path needs kernels with a batch dimension), and
-``l1_regularize``/``l2_regularize`` on the flat mode (the JAX flat engine
-refuses them too: its loss carries them; the sharded mode applies them
-analytically).
+Refused with a UserException: ``l1_regularize``/``l2_regularize`` on the
+flat mode (the JAX flat engine refuses them too: its loss carries them;
+the sharded mode applies them analytically).
 """
 
 import numpy as np
@@ -149,7 +152,7 @@ from torch.func import grad_and_value, vmap
 from ..core.flatten import FlatMap
 from ..core.train_state import TrainState
 from ..gars import GAR_KEY_TAG
-from ..gars.common import nonfinite_to_inf, smallest_k_mask
+from ..gars.common import LeafKeys, nonfinite_to_inf, smallest_k_mask
 from ..guardian import probe as health
 from ..ops import kernels
 from ..utils import UserException, fold_in_seed, resolve_device
@@ -335,7 +338,9 @@ class RobustEngine:
       quarantine_threshold: mask (NaN) the rows of at most f workers whose
         reputation is below it; 0 disables.
       granularity: "vector" (the whole row) or "leaf" (per parameter leaf).
-      leaf_bucketing: "auto" or False, both the per-leaf loop.
+      leaf_bucketing: under granularity "leaf", True runs one vmapped rule
+        call per leaf size (the batched kernels), False the per-leaf loop,
+        "auto" the first on a card and the second on the CPU.
       trace_ops: print a TRACE line after each phase of the step.
       health_probe: add ``metrics["probe"]`` (default on).
       flight: an ``obs.flight.FlightRecorder`` or None.
@@ -397,12 +402,6 @@ class RobustEngine:
                 )
         if leaf_bucketing != "auto" and not isinstance(leaf_bucketing, bool):
             raise UserException("leaf_bucketing must be 'auto' or a bool (got %r)" % (leaf_bucketing,))
-        if leaf_bucketing is True and not self.sharded:
-            raise UserException(
-                "leaf_bucketing=True (one batched rule call per leaf size) is not available in the PyTorch "
-                "port yet: it needs the distance and rank kernels with a batch dimension; 'auto' and False "
-                "run the per-leaf loop"
-            )
         self.l1_regularize = float(l1_regularize) if l1_regularize else None
         self.l2_regularize = float(l2_regularize) if l2_regularize else None
         self.gar = gar
@@ -473,6 +472,10 @@ class RobustEngine:
             raise UserException("the worker axis holds %d workers, the engine %d" % (axis.nb_workers, self.nb_workers))
         self.axis = axis
         self.device = axis.device
+        # granularity:leaf runs bucketed where asked, and by default on a card
+        # (JAX: on the accelerator, engine.py:684-691)
+        self.leaf_bucketed = leaf_bucketing is True or (leaf_bucketing == "auto" and self.device.type == "cuda")
+        self._bucket_layouts = {}
         self.nb_devices = axis.size
         self.workers_per_device = axis.workers_per_device
         if self.nb_real_byz > self.nb_workers:
@@ -780,6 +783,72 @@ class RobustEngine:
             participation = participation / nb_parts
         return torch.cat(parts), participation, wdist, rep_dist
 
+    def _flat_leaf_buckets(self, flatmap):
+        """``(buckets, order)``: {leaf size: [(leaf index, offset), ...]} in
+        flattening order, and the (d,) gather taking the buckets' stacked
+        aggregates, concatenated, back to flattening order (cached a layout)."""
+        layout = tuple((offset, size) for _, _, offset, size, _, _ in flatmap.slices)
+        cached = self._bucket_layouts.get(layout)
+        if cached is None:
+            buckets = {}
+            for i, (offset, size) in enumerate(layout):
+                buckets.setdefault(size, []).append((i, offset))
+            order = np.empty(sum(size for _, size in layout), np.int64)
+            pos = 0
+            for size, entries in buckets.items():
+                for _, offset in entries:
+                    order[offset:offset + size] = np.arange(pos, pos + size)
+                    pos += size
+            cached = self._bucket_layouts[layout] = (buckets, torch.from_numpy(order).to(self.device))
+        return cached
+
+    def _aggregate_per_leaf_bucketed(self, rows, flatmap, reputation, key=None, ridx=None):
+        """granularity:leaf bucketed by leaf size (JAX ``_aggregate_per_leaf_
+        bucketed``, ``engine.py:694-797``): the same-sized leaves, in
+        flattening order, stacked into one (L, n, size) tensor through the
+        wire (at W > 1 one ``all_gather`` a bucket, (W, L, k, size) to (L,
+        n, size)), then one ``torch.func.vmap`` over the leaves of the
+        preparation, the distances and the rule, so that each kernel runs
+        its batched form once a bucket.  Leaf i's rule key is
+        ``fold_in_seed(key, i)``, as in the loop, handed to the rule as the
+        bucket's ``LeafKeys``: both paths make the same selections.  The
+        participation is the mean over the leaves, the distances summed over
+        them, and one gather puts the aggregates back in flattening order.
+        Returns ``(agg, participation, wdist, rep_dist)``."""
+        buckets, order = self._flat_leaf_buckets(flatmap)
+        parts, sums = [], {}
+        nb_parts = 0
+        for size, entries in buckets.items():
+            stack = torch.stack([rows[:, offset:offset + size] for _, offset in entries])  # (L, k, size)
+            if self.exchange_dtype is not None:
+                stack = stack.to(self.exchange_dtype)
+            if self.nb_devices > 1:
+                stack = self.axis.all_gather(stack).transpose(0, 1).reshape(len(entries), self.nb_workers, size)
+            stack = stack.to(torch.float32)
+            seeds = None if key is None else [fold_in_seed(key, i) for i, _ in entries]
+
+            def per_leaf(leaf, index):
+                leaf, raw_leaf = self._prepare_rows(leaf, reputation, ridx)
+                agg_leaf, part = self._aggregate_block(leaf, None if seeds is None else LeafKeys(seeds, index))
+                wdist, rep_dist = self._sq_dists(leaf, raw_leaf, agg_leaf)
+                # vmap returns tensors only: the features that are off stay out
+                named = {"participation": part, "wdist": wdist, "rep_dist": rep_dist}
+                return agg_leaf, {name: value for name, value in named.items() if value is not None}
+
+            # randomness "same": a rule's draws are keyed (LeafKeys draws each
+            # leaf's on a generator of its own seed), none is the vmap's
+            aggs, extras = vmap(per_leaf, randomness="same")(stack, torch.arange(len(entries), device=stack.device))
+            parts.append(aggs.reshape(-1))
+            for name, value in extras.items():
+                total = torch.sum(value, dim=0)
+                sums[name] = total if name not in sums else sums[name] + total
+            nb_parts += len(entries)
+        participation = sums.get("participation")
+        if participation is not None:
+            participation = participation / nb_parts
+        return (torch.index_select(torch.cat(parts), 0, order), participation, sums.get("wdist"),
+                sums.get("rep_dist"))
+
     def _flat_totals(self, losses, agg):
         """``(total_loss, update_norm)`` of the flat dataflow: the loss sum
         (summed across the ranks) and the norm of the (d,) aggregate."""
@@ -963,8 +1032,9 @@ class RobustEngine:
                     worker_nan = self.axis.all_gather(worker_nan).reshape(self.nb_workers)  # worker-major
                 key = gar_key(state.seed, state.step)
                 if self.granularity == "leaf":
-                    agg, participation, wdist, rep_dist = self._aggregate_per_leaf(
-                        rows, flatmap, state.reputation, key, ridx)
+                    per_leaf = (self._aggregate_per_leaf_bucketed if self.leaf_bucketed
+                                else self._aggregate_per_leaf)
+                    agg, participation, wdist, rep_dist = per_leaf(rows, flatmap, state.reputation, key, ridx)
                 else:
                     agg, participation, wdist, rep_dist = self._aggregate_vector(rows, state.reputation, key, ridx)
                 self._mark(state, "aggregate done: |agg|", torch.linalg.vector_norm(agg))
@@ -1641,8 +1711,9 @@ class RobustEngine:
            leaves, each scaled by 1/(replication), summed over the
            submesh), an iterative rule completing its norms over the model
            axis when the leaf is sharded there, a randomized one keyed by
-           the step's ``gar_key``; the buckets loop (the port has no
-           batched kernels, ROADMAP queue 2 item 1);
+           the step's ``gar_key``; the buckets loop, one rule call a
+           bucket (the batched kernels of the flat leaf path could serve
+           it: ROADMAP queue 2 item 2);
         6. the optimizer on each rank's blocks; the grad norm, the loss
            sum, the reputation, worker distance and participation
            accumulators scaled by 1/(replication) and summed over the

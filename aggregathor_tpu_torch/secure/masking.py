@@ -38,6 +38,7 @@ import hashlib
 
 import torch
 
+from ..gars.common import draw_keyed
 from ..utils import UserException, fold_in_seed
 
 #: fold tag of the mask stream from the rule's per-step key, apart from
@@ -154,7 +155,8 @@ def masked_group_mean(grouped, key, masking, axis=None, pads=None):
     hi, lo = _encode64(torch.where(finite, x, 0.0))
     if masking.enabled:
         if pads is None:
-            pads = draw_pads(x.shape, pad_seed(key, masking, axis), x.device)
+            # each leaf's own pads under a bucket's LeafKeys
+            pads = draw_keyed(key, lambda seed: draw_pads(x.shape, pad_seed(seed, masking, axis), x.device))
         mask_hi, mask_lo = (torch.as_tensor(p, device=x.device).to(torch.int64) for p in pads)
         # the chain: member j adds m_j and subtracts m_{(j+1) mod s}, so the
         # group's sum of masks telescopes to 0 mod 2^64

@@ -63,9 +63,10 @@ Phases, in order (any failure exits non-zero and prints no result):
    (the centring and K2), bulyan at n=128 (the centring, K2, and K4 on the
    sort path), and the lossy link: average-nan (K6) and krum under --UDP, and
    average under --UDP with CLEVER infill; then the engine's options: krum
-   per parameter leaf (``--granularity leaf``) at n=8 (K1 once for each of
-   the 14 leaves a step, ``PER_LEAF``, counted from ``FlatMap.slices``) and
-   at n=128 (the centring and K2 once a leaf, the 10-wide logits bias
+   per parameter leaf (``--granularity leaf``, bucketed by leaf size on the
+   card: the batched kernels once for each of cnnet's 9 leaf sizes a step,
+   none unbatched, ``PER_BUCKET``, counted from ``FlatMap.slices``) at n=8
+   (K1) and at n=128 (the centring and K2, the 10-wide logits bias
    included), the suspicion flags of JAX ``test_engine.py``'s quarantine
    test (``SUSPICION``: worker metrics, reputation 0.5, quarantine 0.4)
    under a deviation-100 gaussian attack with krum and a 64-row flight
@@ -85,8 +86,9 @@ Phases, in order (any failure exits non-zero and prints no result):
    cnnet's leaf widths (10 to 1,572,864 columns, a NaN row in each: K1 and
    K6 at n = 8, the centring and K2 at n = 128), and the MLP with momentum,
    reputation, quarantine, worker metrics and granularity:leaf runs 5 steps
-   on the card and on the CPU from one init at n = 8 (K1) and n = 72 (K2,
-   the quarantined rows' all-NaN distances): identical participation,
+   on the card (bucketed) and on the CPU (the per-leaf loop) from one init
+   at n = 8 (K1) and n = 72 (K2, the quarantined rows' all-NaN distances):
+   identical participation,
    reputations, quarantine counts and masked rows, parameters within rtol
    1e-4, atol 1e-5.  Then each rule's
    aggregate of a small poisoned matrix on the card is held against the
@@ -289,6 +291,17 @@ def fail(message):
 def check(condition, message):
     if not condition:
         fail(message)
+
+
+def batched(name):
+    """The key of kernel ``name``'s batched form in a phase's launch counts
+    and in the kernels line."""
+    return name + "_batched"
+
+
+def zero_counts(kernels):
+    """{kernel: 0} for every kernel and its batched form."""
+    return {key: 0 for name in kernels.KERNELS for key in (name, batched(name))}
 
 
 def card_line():
@@ -775,8 +788,9 @@ def extension_kernel_shapes(torch, kernels, randn, rank_poison, report, rows, li
     torch.cuda.empty_cache()
 
 
-#: a leg's launches a step: once for each parameter leaf (``--granularity leaf``)
-PER_LEAF = "per leaf"
+#: a leg's launches a step: ``--granularity leaf`` runs bucketed on the card
+#: ("auto"), one batched launch for each distinct leaf size and none unbatched
+PER_BUCKET = "per bucket"
 #: the suspicion flags of JAX ``test_engine.py``'s quarantine test
 SUSPICION = ["--worker-metrics", "--reputation-decay", "0.5", "--quarantine-threshold", "0.4", "--summary-delta", "10"]
 
@@ -816,15 +830,15 @@ LEGS = [
                         "--UDP", "2", "--max-step", "5"], ("pairwise_sq_distances",)),
     ("cnnet+average+UDP-clever", ["--aggregator", "average", "--nb-workers", "8", "--UDP", "4",
                                   "--UDP-args", "clever:true", "--max-step", "5"], ()),
-    # the engine's robustness options (a dict: launches a step, PER_LEAF
-    # once for each parameter leaf of the FlatMap, 14 for cnnet)
+    # the engine's robustness options (a dict: launches a step, PER_BUCKET
+    # batched once for each leaf size of the FlatMap, 9 for cnnet's 14 leaves)
     ("cnnet+krum-leaf", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
                          "--nb-real-byz-workers", "2", "--attack", "signflip", "--granularity", "leaf",
-                         "--max-step", "5"], {"pairwise_sq_distances": PER_LEAF}),
+                         "--max-step", "5"], {"pairwise_sq_distances": PER_BUCKET}),
     ("cnnet+krum-leaf-n128", ["--aggregator", "krum", "--nb-workers", "128", "--nb-decl-byz-workers", "8",
                               "--nb-real-byz-workers", "8", "--attack", "signflip", "--granularity", "leaf",
                               "--max-step", "3"],
-     {"pairwise_sq_distances_gram": PER_LEAF, "nanmedian_columns": PER_LEAF}),
+     {"pairwise_sq_distances_gram": PER_BUCKET, "nanmedian_columns": PER_BUCKET}),
     ("cnnet+krum+suspicion", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
                               "--nb-real-byz-workers", "2", "--attack", "gaussian", "--attack-args", "deviation:100",
                               *SUSPICION, "--flight", "64", "--max-step", "30"], ("pairwise_sq_distances",)),
@@ -878,7 +892,8 @@ LEG_CHECKS = {
 
 
 def main_path_phase(torch, kernels, runner, card, workdir, models):
-    """Drive each leg through the runner; returns {kernel: launches} summed over the legs.
+    """Drive each leg through the runner; returns {kernel: launches} summed
+    over the legs, the batched forms' under ``batched(name)``.
 
     Each leg writes its summaries under ``workdir``; a leg of ``LEG_CHECKS``
     is held to its check on its last summary (or, for --trace-ops, on what
@@ -889,9 +904,10 @@ def main_path_phase(torch, kernels, runner, card, workdir, models):
     from aggregathor_tpu_torch.core import FlatMap
 
     slices = FlatMap(models.instantiate("cnnet", []).init(0)).slices
-    print("cnnet's %d parameter leaves (granularity:leaf launches a step), widths: %s"
-          % (len(slices), ", ".join("%s %d" % (name, size) for name, _, _, size, _, _ in slices)))
-    totals = {name: 0 for name in kernels.KERNELS}
+    sizes = {size for _, _, _, size, _, _ in slices}
+    print("cnnet's %d parameter leaves in %d sizes (granularity:leaf's batched launches a step), widths: %s"
+          % (len(slices), len(sizes), ", ".join("%s %d" % (name, size) for name, _, _, size, _, _ in slices)))
+    totals = zero_counts(kernels)
     steps_per_s = {}
     for label, argv, expected in LEGS:
         per_step = expected if isinstance(expected, dict) else dict.fromkeys(expected, 1)
@@ -905,16 +921,20 @@ def main_path_phase(torch, kernels, runner, card, workdir, models):
             result = runner.main(["--experiment", "cnnet", "--seed", "1", "--evaluation-period", "-1",
                                   "--summary-dir", summary_dir, *argv])
         sys.stdout.write(output.getvalue())
-        counts = kernels.launch_counts()
+        counts, batched_counts = kernels.launch_counts(), kernels.batched_launch_counts()
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         steps = result["steps"]
         check(result["final_loss"] is not None and math.isfinite(result["final_loss"]), "%s: non-finite loss" % label)
         for name in kernels.KERNELS:
             launches = per_step.get(name, 0)
-            want = steps * (len(slices) if launches == PER_LEAF else launches)
-            check(counts[name] == want, "%s: %s launched %d times in %d steps (want %d)"
-                  % (label, name, counts[name], steps, want))
+            want, want_batched = (0, steps * len(sizes)) if launches == PER_BUCKET else (steps * launches, 0)
+            check(counts[name] == want and batched_counts[name] == want_batched,
+                  "%s: %s launched %d times and %d batched in %d steps (want %d and %d)"
+                  % (label, name, counts[name], batched_counts[name], steps, want, want_batched))
             totals[name] += counts[name]
+            totals[batched(name)] += batched_counts[name]
+        if any(batched_counts.values()):
+            counts = dict(counts, **{batched(name): count for name, count in batched_counts.items() if count})
         extra = ""
         if label in LEG_CHECKS:
             [name] = os.listdir(summary_dir)
@@ -1895,6 +1915,8 @@ def options_reference_phase(torch, gars, kernels, models, steps=5):
 
     exp = models.instantiate("mnist", ["hidden:16", "batch-size:16"])
     nb_leaves = len(FlatMap(exp.init(3)).slices)
+    nb_sizes = len({size for _, _, _, size, _, _ in FlatMap(exp.init(3)).slices})
+    totals = zero_counts(kernels)
 
     def run(device, n, f):
         tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
@@ -1916,10 +1938,15 @@ def options_reference_phase(torch, gars, kernels, models, steps=5):
                            (72, 8, ("pairwise_sq_distances_gram", "nanmedian_columns"))):
         kernels.reset_launch_counts()
         card, card_params = run("cuda", n, f)
-        counts = kernels.launch_counts()
+        counts, unbatched = kernels.batched_launch_counts(), kernels.launch_counts()
         cpu, cpu_params = run("cpu", n, f)
-        check(counts == {name: steps * nb_leaves * (name in launched) for name in counts},
-              "options n=%d: launches %s (want %s once a leaf a step)" % (n, counts, launched))
+        # bucketed on the card ("auto"), the per-leaf loop on the CPU
+        check(counts == {name: steps * nb_sizes * (name in launched) for name in counts}
+              and not any(unbatched.values()),
+              "options n=%d: batched launches %s, launches %s (want %s batched once a leaf size a step)"
+              % (n, counts, unbatched, launched))
+        for name, count in counts.items():
+            totals[batched(name)] += count
         for k, (a, b) in enumerate(zip(card, cpu)):
             for name in ("worker_participation", "worker_reputation", "nb_quarantined"):
                 check(torch.equal(a[name], b[name]), "options n=%d step %d: %s %s on the card, %s on the CPU"
@@ -1931,11 +1958,12 @@ def options_reference_phase(torch, gars, kernels, models, steps=5):
         check(bool(torch.allclose(card_params, cpu_params, rtol=1e-4, atol=1e-5)),
               "options n=%d: parameters differ from the CPU (max %g)"
               % (n, float((card_params - cpu_params).abs().max())))
-        print("options on the card against the CPU, n=%d f=%d, %d steps of the MLP (momentum 0.9, reputation 0.5, "
-              "quarantine 0.4, worker metrics, granularity:leaf over %d leaves): participation, reputations and %d "
-              "quarantined identical, parameters within %.3g; launches %s"
-              % (n, f, steps, nb_leaves, int(card[-1]["nb_quarantined"]),
-                 float((card_params - cpu_params).abs().max()), json.dumps(counts, sort_keys=True)))
+        print("options on the card (bucketed) against the CPU (per-leaf loop), n=%d f=%d, %d steps of the MLP "
+              "(momentum 0.9, reputation 0.5, quarantine 0.4, worker metrics, granularity:leaf over %d leaves in %d "
+              "sizes): participation, reputations and %d quarantined identical, parameters within %.3g; batched "
+              "launches %s" % (n, f, steps, nb_leaves, nb_sizes, int(card[-1]["nb_quarantined"]),
+                               float((card_params - cpu_params).abs().max()), json.dumps(counts, sort_keys=True)))
+    return totals
 
 
 def vmap_phase(torch, gars, models, n=8):
@@ -2077,6 +2105,277 @@ def vmap_phase(torch, gars, models, n=8):
              *wgrad_ms))
     for name, err in op_errs.items():
         check(err <= VMAP_RTOL, "%s: float32 off float64 by %.3g of the largest entry" % (name, err))
+
+
+#: the bucketed granularity:leaf path (``leaf_bucketing_phase``).  B1 holds
+#: each batched kernel at cnnet's buckets and at ResNet-50's largest (config
+#: 3, slim-resnet_v1_50-digits32: 32 leaves of 256, 11 of 262,144), with the
+#: rows each kernel's path gives it: K1 at krum's n = 8 and config 3's n =
+#: 32, the centring and K2 at krum's n = 72, K3, K5 and K6 at n = 8 and 32,
+#: K4 at n = 8 (beta 6) and Bulyan's t = 16 selections of config 3 (beta 2);
+#: the kernels line's batched rows are timed at the 11 x 262,144 bucket
+LEAF_RESNET_BUCKETS = ((32, 256), (11, 262144))
+LEAF_ROWS = {"pairwise_sq_distances": (8, 32), "pairwise_sq_distances_gram": (72, 72), "nanmedian_columns": (72, 72),
+             "coordinate_median": (8, 32), "coordinate_averaged_median": (8, 16), "coordinate_trimmed_mean": (8, 32),
+             "average_nan_columns": (8, 32)}
+LEAF_ARGS = {"coordinate_averaged_median": {8: (6,), 16: (2,)}, "coordinate_trimmed_mean": {8: (2, 4), 32: (7, 18)}}
+LEAF_STEPS = 5
+LEAF_ZOO_STEPS = 3
+#: B4 (config 3 through the runner): the final loss of the bucketed run
+#: within this share of the loop's (the same batches and selections; the
+#: aggregates differ in float32 rounding, carried through two updates)
+LEAF_ZOO_LOSS_RTOL = 1e-4
+
+
+def _leaf_stack(torch, gen, leaves, n, width):
+    """(leaves, n, width) float32 leaves on the card: a NaN row in the first
+    leaf, and in every leaf rows 1 and 2 tied on their first columns."""
+    x = torch.randn((leaves, n, width), device="cuda", generator=gen)
+    x[0, n // 2] = float("nan")
+    x[:, 1, : min(width, 5)] = x[:, 2, : min(width, 5)]
+    return x
+
+
+def _batched_call(kernels, name, x, args):
+    """``name``'s batched form on the (L, n, s) stack ``x``, given K2 its
+    stack of centres; returns (result, the arguments given)."""
+    form, _ = kernels.BATCHED[name]
+    if name == "pairwise_sq_distances_gram":
+        args = (kernels.nanmedian_columns_batched(x),)
+    return form(x, *args), args
+
+
+def _batched_bounds(kernels, name, leaves, n, width):
+    """``bounds`` of one batched call: the leaves' columns side by side, and
+    K1's and K2's (n, n) output once a leaf."""
+    nbytes, ops, counted, peak = bounds(kernels, name, n, leaves * width)
+    if name in ("pairwise_sq_distances", "pairwise_sq_distances_gram"):
+        nbytes += (leaves - 1) * n * n * 4
+    return nbytes, ops, counted, peak
+
+
+def leaf_bucketing_phase(torch, gars, kernels, models, runner, card):
+    """The bucketed granularity:leaf path on the card (``leaf_bucketing=
+    True``, "auto" on a card); returns {batched(kernel): launches} of its
+    runs and the kernels line's rows of the batched forms.
+
+    - B1: each batched kernel against its batched plain version (``compare``'s
+      tolerances, leaf by leaf) at cnnet's buckets and ResNet-50's largest,
+      a NaN row and ties in each; K3-K6 and the centring bit for bit against
+      L unbatched launches; one batched launch a call; timed at (11, n,
+      262,144) by CUDA events (the call) and torch.profiler (the card),
+      beside the batched plain version, one library call (torch.cdist on the
+      stack, torch.kthvalue and torch.nanmean along the rows) and the bound.
+    - B2: cnnet + krum (n = 8, f = 2, signflip, worker metrics, reputation
+      0.5, quarantine 0.4) per leaf, 5 steps bucketed and 5 through the loop
+      from one init: participation, reputation and quarantine identical,
+      parameters within the options phase's rtol 1e-4 / atol 1e-5; K1
+      batched once a leaf size (9 a step) against once a leaf (14); steps/s
+      and GAR ms a step each way.
+    - B3: krum at n = 72 on cnnet's leaves: the batched centring and K2 (9
+      a call against 14), participation identical, aggregates within rtol
+      1e-5 / atol 1e-6; GAR ms each way.
+    - B4: config 3 (ResNet-50 digits32 + Bulyan, n = 32, f = 7, batch 16)
+      through the runner per leaf, 3 steps each way: K1 and K4 batched 22
+      times a step against 161 unbatched; ms a step each way.
+    - B5: median, trimmed-mean and average-nan per leaf on cnnet (n = 8),
+      2 steps bucketed against the loop: K3, K5 and K6 batched 9 times a
+      step."""
+    import collections
+
+    from aggregathor_tpu_torch.core import FlatMap, build_optimizer, build_schedule
+    from aggregathor_tpu_torch.parallel import RobustEngine, attacks
+    from aggregathor_tpu_torch.parallel.engine import gar_key
+
+    begin = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    cnnet = models.instantiate("cnnet", [])
+    slices = FlatMap(cnnet.init(0)).slices
+    cnnet_buckets = sorted((count, size) for size, count in
+                           collections.Counter(size for _, _, _, size, _, _ in slices).items())
+    nb_sizes = len(cnnet_buckets)
+    totals = zero_counts(kernels)
+    library = {"pairwise_sq_distances": lambda x: torch.cdist(x, x).square(),
+               "pairwise_sq_distances_gram": lambda x: torch.cdist(x, x).square(),
+               "coordinate_median": lambda x: torch.kthvalue(x, x.shape[1] // 2 + 1, dim=1).values,
+               "average_nan_columns": lambda x: torch.nanmean(x, 1)}
+
+    # B1: the batched kernels on their own
+    rows = []
+    for name, (cnnet_rows, resnet_rows) in LEAF_ROWS.items():
+        form, plain = kernels.BATCHED[name]
+        errors, held = [], 0
+        for buckets, n in ((cnnet_buckets, cnnet_rows), (LEAF_RESNET_BUCKETS, resnet_rows)):
+            for leaves, width in buckets:
+                x = _leaf_stack(torch, gen, leaves, n, width)
+                args = LEAF_ARGS.get(name, {}).get(n, ())
+                kernels.reset_launch_counts()
+                got, args = _batched_call(kernels, name, x, args)
+                torch.cuda.synchronize()
+                check(kernels.batched_launch_counts()[name] == 1 and not any(kernels.launch_counts().values()),
+                      "B1 %s (%d, %d, %d): not one batched launch" % (name, leaves, n, width))
+                want = plain(x, *args)
+                for b in range(leaves):
+                    errors.append(compare(name, got[b], want[b], torch, x[b], tuple(a[b] for a in args
+                                                                                    if torch.is_tensor(a))))
+                if name not in ("pairwise_sq_distances", "pairwise_sq_distances_gram"):
+                    one_by_one = torch.stack([getattr(kernels, name)(x[b], *args) for b in range(leaves)])
+                    check(torch.equal(got.view(torch.int32), one_by_one.view(torch.int32)),
+                          "B1 %s (%d, %d, %d): not the bits of %d unbatched launches"
+                          % (name, leaves, n, width, leaves))
+                held += leaves
+                del x, got, want
+        leaves, width = LEAF_RESNET_BUCKETS[-1]
+        n = resnet_rows
+        x = _leaf_stack(torch, gen, leaves, n, width)
+        _, args = _batched_call(kernels, name, x, LEAF_ARGS.get(name, {}).get(n, ()))
+        info = kernels.KERNELS[name]
+        ms = time_ms(lambda: form(x, *args), torch, iters=20, warmup=5)
+        card_ms = device_ms(lambda: form(x, *args), torch)
+        plain_ms = time_ms(lambda: plain(x, *args), torch, iters=5, warmup=1)
+        library_ms = time_ms(lambda: library[name](x), torch, iters=5) if name in library else None
+        nbytes, ops, counted, peak = _batched_bounds(kernels, name, leaves, n, width)
+        bytes_ms, ops_ms = nbytes / MEMORY_BYTES_PER_S * 1e3, ops / peak * 1e3
+        row = {"name": batched(name), "route": "cuda", "source": info.source, "replaces": info.replaces,
+               "launches": 0, "max_abs_err": max(errors), "ms": ms, "device_ms": card_ms, "plain_ms": plain_ms,
+               "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": library_ms, "shape": [leaves, n, width], "operations": ops, "operations_ms": ops_ms,
+               "operations_counted": counted, "operations_per_s": peak}
+        rows.append(row)
+        print("batched kernel %-27s %s (%d, %d, %d): %.4f ms (on the card %s ms), batched plain %.3f ms, library %s "
+              "ms, bound %.1f us (%s), max |err| %g over %d leaves held; K3-K6 and the centring bit for bit against "
+              "unbatched launches; on %s"
+              % (name, info.label, leaves, n, width, ms, "not measured" if card_ms is None else "%.4f" % card_ms,
+                 plain_ms, "-" if library_ms is None else "%.3f" % library_ms, row["bound_ms"] * 1e3, row["bound_by"],
+                 row["max_abs_err"], held, card))
+        del x
+    torch.cuda.empty_cache()
+
+    # B2: cnnet + krum per leaf, bucketed and through the loop, from one init
+    def cnnet_run(rule, n, f, bucketing, steps, **options):
+        tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+        engine = RobustEngine(gars.instantiate(rule, n, f), n, granularity="leaf", leaf_bucketing=bucketing,
+                              device="cuda", **options)
+        state = engine.init_state(cnnet.init(1), tx, seed=3)
+        step = engine.build_step(cnnet.loss, tx)
+        it = cnnet.make_train_iterator(n, seed=4)
+        batches = [engine.put_batch(next(it)) for _ in range(steps)]
+        kernels.reset_launch_counts()
+        trail, start = [], None
+        for k, batch in enumerate(batches):
+            if k == 1:
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+            state, metrics = step(state, batch)
+            trail.append({name: value.cpu() for name, value in metrics.items() if name.startswith("worker_")
+                          or name == "nb_quarantined"})
+        torch.cuda.synchronize()
+        steps_per_s = (steps - 1) / (time.perf_counter() - start)
+        counts = (kernels.launch_counts(), kernels.batched_launch_counts())
+        return trail, torch.cat([p.detach().reshape(-1) for p in state.params.values()]), steps_per_s, counts
+
+    krum_options = dict(nb_real_byz=2, attack=attacks.instantiate("signflip", 8, 2), worker_metrics=True,
+                        reputation_decay=0.5, quarantine_threshold=0.4)
+    bucket_trail, bucket_params, bucket_rate, (unbatched, batched_counts) = cnnet_run(
+        "krum", 8, 2, "auto", LEAF_STEPS, **krum_options)
+    check(not any(unbatched.values()) and batched_counts == {
+        name: LEAF_STEPS * nb_sizes * (name == "pairwise_sq_distances") for name in batched_counts},
+        "B2: bucketed launches %s, batched %s (want K1 batched %d a step)" % (unbatched, batched_counts, nb_sizes))
+    for name, count in batched_counts.items():
+        totals[batched(name)] += count
+    loop_trail, loop_params, loop_rate, (loop_counts, _) = cnnet_run("krum", 8, 2, False, LEAF_STEPS, **krum_options)
+    check(loop_counts["pairwise_sq_distances"] == LEAF_STEPS * len(slices),
+          "B2: the loop launched K1 %d times (want %d)"
+          % (loop_counts["pairwise_sq_distances"], LEAF_STEPS * len(slices)))
+    for k, (a, b) in enumerate(zip(bucket_trail, loop_trail)):
+        for name in ("worker_participation", "worker_reputation", "nb_quarantined"):
+            check(torch.equal(a[name], b[name]), "B2 step %d: %s %s bucketed, %s per leaf"
+                  % (k, name, a[name].tolist(), b[name].tolist()))
+    check(bool(torch.allclose(bucket_params, loop_params, rtol=1e-4, atol=1e-5)),
+          "B2: parameters differ (max %g)" % float((bucket_params - loop_params).abs().max()))
+    flatmap = FlatMap(cnnet.init(0))
+    gar_ms = {}
+    with torch.no_grad():
+        for n, f in ((8, 2), (72, 8)):
+            x = torch.randn((n, CNNET_D), device="cuda", generator=gen)
+            x[n // 2] = float("nan")
+            engine = RobustEngine(gars.instantiate("krum", n, f), n, granularity="leaf", worker_metrics=True,
+                                  device="cuda")
+            key = gar_key(1, 0)
+            outs = {}
+            for way, fn in (("bucketed", engine._aggregate_per_leaf_bucketed), ("loop", engine._aggregate_per_leaf)):
+                kernels.reset_launch_counts()
+                outs[way] = fn(x, flatmap, None, key)
+                torch.cuda.synchronize()
+                outs[way + " counts"] = (kernels.launch_counts(), kernels.batched_launch_counts())
+                gar_ms["krum n=%d %s" % (n, way)] = time_ms(lambda: fn(x, flatmap, None, key), torch, iters=10)
+            if n == 72:
+                # B3: the batched centring and K2 on every leaf size
+                unbatched, batched_counts = outs["bucketed counts"]
+                check(not any(unbatched.values()) and batched_counts == {
+                    name: nb_sizes * (name in ("pairwise_sq_distances_gram", "nanmedian_columns"))
+                    for name in batched_counts}, "B3: launches %s, batched %s" % (unbatched, batched_counts))
+                for name, count in batched_counts.items():
+                    totals[batched(name)] += count
+                check(outs["loop counts"][0]["pairwise_sq_distances_gram"] == len(slices), "B3: the loop's K2 launches")
+            (agg, part, wdist, _), (want, want_part, want_wdist, _) = outs["bucketed"], outs["loop"]
+            check(torch.equal(part, want_part), "B3 n=%d: participation %s bucketed, %s per leaf"
+                  % (n, part.tolist(), want_part.tolist()))
+            check(bool(torch.allclose(agg, want, rtol=1e-5, atol=1e-6)) and bool(torch.allclose(
+                wdist, want_wdist, rtol=1e-5, atol=1e-6, equal_nan=True)),
+                "B3 n=%d: aggregate or worker distances differ (max %g)" % (n, float((agg - want).abs().max())))
+            del x, outs, agg, want
+    print("B2 cnnet+krum granularity:leaf n=8 on %s: %d steps bucketed (K1 batched %d a step) %.3f steps/s excl. 1st, "
+          "per-leaf loop (K1 %d a step) %.3f steps/s; participation, reputation and quarantine identical, parameters "
+          "within %.3g; B3 krum n=72 (centring and K2 batched %d a call against %d): participation identical; GAR ms a "
+          "step %s" % (card, LEAF_STEPS, nb_sizes, bucket_rate, len(slices), loop_rate,
+                       float((bucket_params - loop_params).abs().max()), nb_sizes, len(slices),
+                       json.dumps(gar_ms, sort_keys=True)))
+    torch.cuda.empty_cache()
+
+    # B5: the coordinate-wise rules bucketed against the loop, 2 steps
+    for rule, name in (("median", "coordinate_median"), ("trimmed-mean", "coordinate_trimmed_mean"),
+                       ("average-nan", "average_nan_columns")):
+        _, params, _, (unbatched, batched_counts) = cnnet_run(rule, 8, 2, True, 2)
+        check(not any(unbatched.values()) and batched_counts == {k: 2 * nb_sizes * (k == name) for k in batched_counts},
+              "B5 %s: launches %s, batched %s" % (rule, unbatched, batched_counts))
+        totals[batched(name)] += batched_counts[name]
+        _, want, _, _ = cnnet_run(rule, 8, 2, False, 2)
+        check(bool(torch.allclose(params, want, rtol=1e-4, atol=1e-5)), "B5 %s: parameters differ" % rule)
+    print("B5 median, trimmed-mean, average-nan per leaf on cnnet n=8: K3, K5, K6 batched %d a step, parameters within "
+          "rtol 1e-4 / atol 1e-5 of the loop" % nb_sizes)
+
+    # B4: config 3 through the runner, bucketed and through the loop
+    zoo = "slim-resnet_v1_50-digits32"
+    zoo_slices = FlatMap(models.instantiate(zoo, ["batch-size:16", "preprocessing:none"]).init(0)).slices
+    zoo_sizes = len({size for _, _, _, size, _, _ in zoo_slices})
+    argv = ["--experiment", zoo, "--experiment-args", "batch-size:16", "preprocessing:none", *ZOO_BULYAN,
+            "--granularity", "leaf", "--max-step", str(LEAF_ZOO_STEPS), "--evaluation-period", "-1",
+            "--evaluation-delta", "-1", "--seed", "1"]
+    zoo_results = {}
+    for way, flag in (("bucketed", "auto"), ("loop", "off")):
+        result = runner.main(argv + ["--leaf-bucketing", flag])
+        zoo_results[way] = result
+        check(result["steps"] == LEAF_ZOO_STEPS and math.isfinite(result["final_loss"]), "B4 %s: run" % way)
+        per_leaf = zoo_sizes if way == "bucketed" else len(zoo_slices)
+        launched = result["batched_launches"] if way == "bucketed" else result["launches"]
+        other = result["launches"] if way == "bucketed" else result["batched_launches"]
+        for name in kernels.KERNELS:
+            want = LEAF_ZOO_STEPS * per_leaf * (name in ("pairwise_sq_distances", "coordinate_averaged_median"))
+            check(launched[name] == want and other[name] == 0, "B4 %s: %s launched %d (want %d), other form %d"
+                  % (way, name, launched[name], want, other[name]))
+        if way == "bucketed":
+            for name, count in result["batched_launches"].items():
+                totals[batched(name)] += count
+    a, b = zoo_results["bucketed"]["final_loss"], zoo_results["loop"]["final_loss"]
+    check(abs(a - b) <= LEAF_ZOO_LOSS_RTOL * abs(b), "B4: final loss %g bucketed, %g per leaf" % (a, b))
+    print("B4 config 3 %s + bulyan n=%d f=%d batch 16 granularity:leaf (%d leaves, %d sizes) on %s: bucketed %.1f ms a "
+          "step excl. 1st (K1 and K4 batched %d a step), per-leaf loop %.1f ms (%d a step); final loss %.6f vs %.6f"
+          % (zoo, ZOO_N, ZOO_F, len(zoo_slices), zoo_sizes, card, 1e3 / zoo_results["bucketed"]["steps_per_s"],
+             zoo_sizes, 1e3 / zoo_results["loop"]["steps_per_s"], len(zoo_slices), a, b))
+    torch.cuda.empty_cache()
+    print("leaf bucketing phase: %.1f s" % (time.perf_counter() - begin))
+    return totals, rows
 
 
 def gar_phase(torch, gars, models):
@@ -3650,6 +3949,9 @@ TFM_ARGS = ["d-model:256", "heads:4", "layers:8", "seq:256", "batch-size:8", "vo
             "corpus:500000"]
 TFM_D = 8917248
 TFM_LEAVES = 12
+#: the 12 leaves' sizes: embed and unembed 262,144, final_norm 256, the two
+#: stacked norms 2,048, wq/wk/wv/wo 524,288, the three MLP weights 2,097,152
+TFM_LEAF_SIZES = 5
 TFM_BUCKETS = 75  # 9 stacked leaves x 8 layers + 3 under granularity layer
 TFM_BASE = ["--experiment", "transformer", "--experiment-args", *TFM_ARGS, "--nb-workers", "8",
             "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "signflip",
@@ -3657,8 +3959,9 @@ TFM_BASE = ["--experiment", "transformer", "--experiment-args", *TFM_ARGS, "--nb
 TFM_SHARDED = ["--mesh", "1,1,1", "--microbatches", "2"]
 #: (label, argv, steps, {kernel: launches a step})
 TFM_LEGS = [
+    # flat leaf runs bucketed on the card: K1 batched once a leaf size
     ("T1 config 5f flat leaf", ["--aggregator", "krum", "--granularity", "leaf"], 10,
-     {"pairwise_sq_distances": TFM_LEAVES}),
+     {batched("pairwise_sq_distances"): TFM_LEAF_SIZES}),
     ("T2 config 5 sharded layer", ["--aggregator", "krum", "--granularity", "layer", *TFM_SHARDED], 10,
      {"nanmedian_columns": TFM_BUCKETS, "pairwise_sq_distances_gram": TFM_BUCKETS}),
     ("T3 sharded global", ["--aggregator", "krum", "--granularity", "global", *TFM_SHARDED], 5,
@@ -3695,10 +3998,11 @@ def _tfm_leg(torch, kernels, runner, label, argv, steps, per_step):
     with contextlib.redirect_stdout(output), contextlib.redirect_stderr(output):
         result = runner.main(["--seed", "1", *TFM_BASE, *argv, "--max-step", str(steps)])
     sys.stdout.write("".join(line + "\n" for line in output.getvalue().splitlines() if "Training" in line))
-    counts = kernels.launch_counts()
+    counts = dict(kernels.launch_counts(), **{batched(name): count
+                                              for name, count in kernels.batched_launch_counts().items()})
     check(result["final_loss"] is not None and math.isfinite(result["final_loss"]), "%s: non-finite loss" % label)
     check(result["steps"] == steps, "%s: ran %d steps (want %d)" % (label, result["steps"], steps))
-    for name in kernels.KERNELS:
+    for name in counts:
         want = steps * per_step.get(name, 0)
         check(counts[name] == want, "%s: %s launched %d times in %d steps (want %d)"
               % (label, name, counts[name], steps, want))
@@ -4002,8 +4306,9 @@ def transformer_phase(torch, gars, kernels, models, runner, card, kernel_rows):
     returns {kernel: launches} over its legs and appends the kernel rows at
     its widths to ``kernel_rows``.
 
-    - T1 config 5f through the runner, flat, granularity leaf: K1 once a leaf
-      (12 a step), d = 8,917,248;
+    - T1 config 5f through the runner, flat, granularity leaf (bucketed on
+      the card): K1 batched once a leaf size (5 a step for 12 leaves), d =
+      8,917,248;
     - T2 the same model sharded at (1, 1, 1), layer: the centring and K2 once
       a bucket (75 a step);
     - T3 global (12 + 12 a step) and median (K3 75 a step);
@@ -4015,7 +4320,7 @@ def transformer_phase(torch, gars, kernels, models, runner, card, kernel_rows):
     - T6 real bytes, flat and sharded, below the unigram bar."""
     begin = time.perf_counter()
     parts = {}
-    totals = {name: 0 for name in kernels.KERNELS}
+    totals = zero_counts(kernels)
     results = {}
     for label, argv, steps, per_step in TFM_LEGS:
         result, counts, peak_mb = _tfm_leg(torch, kernels, runner, label, argv, steps, per_step)
@@ -4816,7 +5121,12 @@ def main():
         totals = main_path_phase(torch, kernels, runner, card, workdir, models)
         reference_phase(torch, gars, kernels, models)
         leaf_width_phase(torch, kernels, models)
-        options_reference_phase(torch, gars, kernels, models)
+        for kernel, count in options_reference_phase(torch, gars, kernels, models).items():
+            totals[kernel] += count
+        leaf_counts, batched_rows = leaf_bucketing_phase(torch, gars, kernels, models, runner, card)
+        for kernel, count in leaf_counts.items():
+            totals[kernel] += count
+        rows += batched_rows
         gar_ms = gar_phase(torch, gars, models)
         for kernel, count in gar_extensions_phase(torch, gars, kernels, runner, card, workdir, gar_ms).items():
             totals[kernel] += count
@@ -4843,6 +5153,8 @@ def main():
         for row in rows:
             check(totals[row["name"]] > 0, "%s was never launched on the main path" % row["name"])
             row["launches"] = totals[row["name"]]
+            if row["name"] in kernels.KERNELS:
+                row["batched_launches"] = totals[batched(row["name"])]
             row["transformer_shapes"] = [r for r in tfm_rows if r["name"] == row["name"]]
             row["serve_shapes"] = [r for r in serve_rows if r["name"] == row["name"]]
             row["topology_shapes"] = [r for r in topology_rows if r["name"] == row["name"]]
@@ -4870,7 +5182,7 @@ def main():
     breakdown_phase(torch, gars, models, input_source="device", args=["augment:device", "dtype:bfloat16"])
 
     print("held against their plain versions: %s" % ", ".join(
-        "%s (%s)" % (row["name"], kernels.KERNELS[row["name"]].label) for row in rows))
+        "%s (%s)" % (row["name"], kernels.KERNELS[row["name"].replace("_batched", "")].label) for row in rows))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

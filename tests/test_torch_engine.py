@@ -1,9 +1,9 @@
 """The port's engine, optimizers and attacks against the JAX package's.
 
 - From the same weights and batches, 3 robust steps of the MLP
-  (``hidden:16``, n = 8) per rule: krum under signflip r=2, bulyan,
-  median, trimmed-mean, averaged-median (and krum under the omniscient
-  empire attack).  The JAX engine runs with ``GRAFT_GAR_TIER=pallas``
+  (``hidden:16``, n = 8) per rule: krum under signflip r=2, bulyan (on
+  injected rows, ``torch_injected.py``: trap ay), median, trimmed-mean,
+  averaged-median (and krum under the omniscient empire attack).  The JAX engine runs with ``GRAFT_GAR_TIER=pallas``
   (tests/test_pallas.py's force) so its GARs take the Pallas kernel path in
   interpret mode.  Parameters after each step: atol 1e-5 (float32 gradient
   and aggregate sums in another order, scaled by the 0.05 step size).
@@ -47,13 +47,17 @@ from aggregathor_tpu_torch.parallel import RobustEngine, attacks
 from aggregathor_tpu_torch.parallel.lossy import LossyLink
 from aggregathor_tpu_torch.utils import UserException
 
+from torch_injected import injected
+from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
+
 
 def _host(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _run_both(experiment, exp_args, rule, n, f, r, attack, steps, lr=0.05):
-    """Parameters (port dict) after each step of both engines from one init."""
+def _run_both(experiment, exp_args, rule, n, f, r, attack, steps, lr=0.05, rows=False):
+    """Parameters (port dict) after each step of both engines from one init;
+    with ``rows`` the model's gradients are injected rows (``torch_injected``)."""
     jexp, texp = jmodels.instantiate(experiment, exp_args), tmodels.instantiate(experiment, exp_args)
     jtx = jax_optimizer("sgd", jax_schedule("fixed", ["initial-rate:%s" % lr]))
     ttx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:%s" % lr]))
@@ -68,11 +72,17 @@ def _run_both(experiment, exp_args, rule, n, f, r, attack, steps, lr=0.05):
     jstate = jengine.init_state(init, jtx, seed=1)
     tstate = tengine.init_state(params_from_jax(_host(init)), ttx, seed=1)
     it = jexp.make_train_iterator(n, seed=2)
+    if rows:
+        jloss, tloss, pairs = injected(_host(init), n, steps)
+        jstep, tstep = jengine.build_step(jloss, jtx), tengine.build_step(tloss, ttx)
+        it = iter(pairs)
     out = []
     for _ in range(steps):
-        batch = next(it)
-        jstate, jmetrics = jstep(jstate, jengine.shard_batch(batch))
-        tstate, tmetrics = tstep(tstate, tengine.put_batch(batch))
+        jbatch = tbatch = next(it)
+        if rows:
+            jbatch, tbatch = jbatch
+        jstate, jmetrics = jstep(jstate, jengine.shard_batch(jbatch))
+        tstate, tmetrics = tstep(tstate, tengine.put_batch(tbatch))
         want = params_from_jax(_host(jstate.params))
         got = {k: v.detach().clone() for k, v in tstate.params.items()}
         out.append((got, want, float(tmetrics["total_loss"]), float(jmetrics["total_loss"])))
@@ -93,7 +103,11 @@ ENGINE_CASES = [
 def test_three_steps_match_the_jax_kernel_tier(monkeypatch, case):
     monkeypatch.setenv("GRAFT_GAR_TIER", "pallas")
     rule, n, f, r, attack = case
-    for got, want, tloss, jloss in _run_both("mnist", ["hidden:16", "batch-size:16"], rule, n, f, r, attack, 3):
+    # Bulyan on injected rows: its averaged median flips a per-coordinate
+    # near-tie (a gap of 4e-9) with the rounding of the MLP's gradients at
+    # some intra-op pool sizes (trap ay, torch_injected.py)
+    for got, want, tloss, jloss in _run_both("mnist", ["hidden:16", "batch-size:16"], rule, n, f, r, attack, 3,
+                                             rows=rule == "bulyan"):
         assert abs(tloss - jloss) <= 1e-5 * max(1.0, abs(jloss))
         for key in want:
             np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), rtol=1e-5, atol=1e-5, err_msg=key)
@@ -210,7 +224,7 @@ def test_gaussian_streams_are_per_step_and_per_worker():
     {"chaos": ChaosSchedule("0:forge=0.5", 8, nb_real_byz=2)},
     {"flight": FlightRecorder(4, 8, secure=True)},
     # the sharded mode is ported: its vector granularity refuses, as JAX's
-    {"leaf_bucketing": True}, {"l1_regularize": 0.1}, {"sharding": "sharded", "granularity": "vector"},
+    {"l1_regularize": 0.1}, {"sharding": "sharded", "granularity": "vector"},
     {"flight": FlightRecorder(4, 8, chaos=True)},
 ])
 def test_unported_engine_features_refuse(option):

@@ -37,7 +37,11 @@ centring, K2 and Krum against the CPU, the switch MoE and the dense ring
 attention, and the vmapped gradient with every warning an error.  Serving:
 the median vote over a NaN replica is the clean replica's logits bit for
 bit with one K3 launch a bucket call, no kernel library is built after the
-warmup, and each vote rule's engine on the card matches the CPU's.
+warmup, and each vote rule's engine on the card matches the CPU's.  The
+kernels' batched forms (one launch over an (L, n, s) stack of leaves) hold
+their batched plain versions at the unbatched tolerances and give K3-K6 and
+the centring's bits of L unbatched launches; granularity:leaf under "auto"
+runs them once a leaf size a step.
 """
 
 import numpy as np
@@ -506,9 +510,11 @@ def test_conv_weight_gradient_on_the_card_is_float32_exact(cuda_device, monkeypa
 def test_engine_options_on_the_card_match_the_cpu(cuda_device, monkeypatch, n, f, launched):
     """Three MLP steps with worker momentum, reputation, quarantine (the
     signflip x10 coalition is masked from step 3), worker metrics, the bf16
-    wire and granularity:leaf: the distance kernels launch once a leaf a
-    step, the participation, reputations and quarantine count are identical
-    to the CPU's (K2's all-NaN distances of a quarantined row included), the
+    wire and granularity:leaf (bucketed on the card, "auto"; the per-leaf
+    loop on the CPU): the distance kernels' batched forms launch once a leaf
+    size a step (the MLP's 4 leaves are 4 sizes) and no unbatched launch,
+    the participation, reputations and quarantine count are identical to the
+    CPU's (K2's all-NaN distances of a quarantined row included), the
     parameters within rtol 1e-4, atol 1e-5."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     runs = []
@@ -522,15 +528,17 @@ def test_engine_options_on_the_card_match_the_cpu(cuda_device, monkeypatch, n, f
         state = engine.init_state(exp.init(3), tx, seed=3)
         step = engine.build_step(exp.loss, tx)
         it = exp.make_train_iterator(n, seed=4)
-        before = kernels.launch_counts()
+        before, before_batched = kernels.launch_counts(), kernels.batched_launch_counts()
         trail = []
         for _ in range(3):
             state, metrics = step(state, engine.put_batch(next(it)))
             trail.append([metrics[name].cpu() for name in ("worker_participation", "worker_reputation",
                                                            "nb_quarantined")])
         launches = {name: count - before[name] for name, count in kernels.launch_counts().items()}
+        batched = {name: count - before_batched[name] for name, count in kernels.batched_launch_counts().items()}
         if device.type == "cuda":
-            assert launches == {name: 3 * 4 * (name in launched) for name in launches}
+            assert launches == dict.fromkeys(launches, 0)
+            assert batched == {name: 3 * 4 * (name in launched) for name in batched}
         runs.append((trail, torch.cat([p.detach().cpu().reshape(-1) for p in state.params.values()])))
     for card, cpu in zip(runs[0][0], runs[1][0]):
         for a, b in zip(card, cpu):
@@ -1296,3 +1304,95 @@ def test_tree_protocol_on_the_card_reconstructs_like_the_cpu(cuda_device):
     assert all(all(a) for a, _ in out["cuda"][0])
     assert [(r["level"], r["unit"], r["evidence"]) for r in out["cuda"][1]] == [
         (1, 1, {"forgery": 3, "reconstructed": 3}), (2, 1, {"timeout": 2, "reconstructed": 2})]
+
+
+# --------------------------------------------------------------------------- #
+# The kernels' batched forms and the bucketed granularity:leaf path
+
+#: (L, n, s): cnnet's 64-wide bucket of 6 and single leaves, ResNet-50's
+#: bucket of 32 x 256 and 11 leaves as config 3's 11 x 262,144 (chip_smoke.py
+#: holds that width), odd widths
+BATCHED_SHAPES = [(6, 8, 64), (1, 8, 4800), (3, 8, 1025), (32, 32, 256), (11, 32, 26215), (6, 72, 64),
+                  (3, 72, 4099), (2, 21, 4098), (2, 130, 4097), (4, 16, 1023)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L, n, s", BATCHED_SHAPES)
+@pytest.mark.parametrize("name", sorted(kernels.BATCHED))
+def test_batched_kernels_match_their_batched_plain_versions(cuda_device, name, L, n, s):
+    """Each batched form, one batched launch, against its batched plain
+    version leaf by leaf at the unbatched tolerances; K3-K6 and the centring
+    bit for bit against L unbatched launches."""
+    x = torch.from_numpy(np.stack([_poisoned(n, s, 17 + b, name.startswith("pairwise")) for b in range(L)]))
+    x = x.to(cuda_device)
+    form, plain = kernels.BATCHED[name]
+    trim = (n - 1) // 4
+    args = {"coordinate_averaged_median": (max(1, n - 4),),
+            "coordinate_trimmed_mean": (trim, n - 2 * trim)}.get(name, ())
+    if name == "pairwise_sq_distances_gram":
+        args = (kernels.nanmedian_columns_batched(x),)
+    gram = name == "pairwise_sq_distances_gram" or n > kernels.DISTANCE_MAX_ROWS
+    # beyond 64 rows the distances are the batched centring and K2
+    counted = "pairwise_sq_distances_gram" if name == "pairwise_sq_distances" and gram else name
+    before, before_batched = kernels.launch_counts(), kernels.batched_launch_counts()
+    got = form(x, *args)
+    torch.cuda.synchronize()
+    assert kernels.batched_launch_counts()[counted] == before_batched[counted] + 1
+    assert kernels.launch_counts() == before
+    want = plain(x, *args)
+    got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
+    centre = args[0] if args and torch.is_tensor(args[0]) else kernels.nanmedian_columns_plain(x)
+    for b in range(L):
+        if name in ("coordinate_median", "nanmedian_columns"):
+            np.testing.assert_array_equal(got_np[b].view(np.int32), want_np[b].view(np.int32))
+        elif name.startswith("pairwise") and gram:
+            _gram_close(got_np[b], want_np[b], (x[b] - centre[b][None, :]).cpu().numpy())
+        elif name == "pairwise_sq_distances":
+            _close(got_np[b], want_np[b], 1e-5)
+        else:
+            _close(got_np[b], want_np[b], 1e-6, 1e-6)
+    if name not in ("pairwise_sq_distances", "pairwise_sq_distances_gram"):
+        one_by_one = torch.stack([getattr(kernels, name)(x[b], *args) for b in range(L)])
+        assert torch.equal(got.view(torch.int32), one_by_one.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule, launched", [("krum", {"pairwise_sq_distances"}),
+                                            ("bulyan", {"pairwise_sq_distances", "coordinate_averaged_median"}),
+                                            ("median", {"coordinate_median"})])
+def test_leaf_bucketing_auto_on_cuda_runs_the_batched_kernels(cuda_device, rule, launched):
+    """granularity:leaf under "auto" on the card: one batched launch of the
+    rule's kernels a leaf size a step (cnnet's 14 leaves are 9 sizes), none
+    unbatched, and the loop's selections (the participation's support; its
+    values, summed over the leaves in another order, within rtol 1e-5 /
+    atol 1e-6) and parameters (rtol 1e-4, atol 1e-5) from one init."""
+    from aggregathor_tpu_torch.core import FlatMap
+
+    exp = models.instantiate("cnnet", ["batch-size:8"])
+    sizes = len({size for _, _, _, size, _, _ in FlatMap(exp.init(0)).slices})
+    n, f = (11, 2) if rule == "bulyan" else (8, 2)
+    runs = {}
+    for bucketing in ("auto", False):
+        tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+        engine = RobustEngine(gars.instantiate(rule, n, f), n, nb_real_byz=f,
+                              attack=attacks.instantiate("signflip", n, f),
+                              worker_metrics=True, granularity="leaf", leaf_bucketing=bucketing, device=cuda_device)
+        assert engine.leaf_bucketed == (bucketing == "auto")
+        state = engine.init_state(exp.init(1), tx, seed=3)
+        step = engine.build_step(exp.loss, tx)
+        it = exp.make_train_iterator(n, seed=4)
+        kernels.reset_launch_counts()
+        parts = []
+        for _ in range(2):
+            state, metrics = step(state, engine.put_batch(next(it)))
+            parts.append(metrics.get("worker_participation"))
+        if bucketing == "auto":
+            assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+            assert kernels.batched_launch_counts() == {name: 2 * sizes * (name in launched) for name in kernels.KERNELS}
+        runs[bucketing] = parts, torch.cat([p.detach().reshape(-1) for p in state.params.values()])
+    for a, b in zip(runs["auto"][0], runs[False][0]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a > 0, b > 0)
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(runs["auto"][1], runs[False][1], rtol=1e-4, atol=1e-5)

@@ -12,7 +12,8 @@
   1e-6 (JAX's own device-count tolerance, ``tests/test_engine.py:60-80``);
   every rank ends with the same parameters, bit for bit.
 - The port at W in {1, 2, 4} against itself on the same cases (the same
-  tolerance), and at W = 2 against W = 1 under granularity:leaf, worker
+  tolerance), and at W = 2 against W = 1 under granularity:leaf (the
+  per-leaf loop, and bucketed: one all_gather a leaf size), worker
   momentum with the bf16 wire, reputation with quarantine, the lossy link's
   CLEVER carry (the port's own drop draws, keyed by the global worker) and
   the device-sampled trainer (``--input-source device``, 2 calls of 2
@@ -75,6 +76,10 @@ OPTION_CASES = [
     # the port's own chaos draws, keyed by the global worker, on its owning rank
     ("chaos", "average-nan", 8, 2, 2, None, {"chaos": CHAOS_SPEC, "chaos_args": ["packet-coords:64"]}, None),
     ("int8-ef", "krum", 8, 2, 2, "signflip", {"exchange": "int8:ef"}, None),
+    # the bucketed leaf path: one all_gather a leaf size, (W, L, k, size) to
+    # (L, n, size); hidden:10's two 10-wide biases make a bucket of two
+    ("leaf-bucketed", "krum", 8, 2, 2, "signflip",
+     {"granularity": "leaf", "leaf_bucketing": True, "exp_args": ["hidden:10", "batch-size:8"]}, None),
 ]
 #: codec cases at W = 2 against the JAX engine at W = 2, not against W = 1:
 #: the forged matrix crosses the wire again as (n, blk) column blocks, so
@@ -88,9 +93,9 @@ def _host(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _data(n):
+def _data(n, exp_args=EXP_ARGS):
     """The MLP's flax weights (as the port's numpy dict) and STEPS global batches."""
-    jexp = jmodels.instantiate("mnist", EXP_ARGS)
+    jexp = jmodels.instantiate("mnist", exp_args)
     init = jexp.init(jax.random.PRNGKey(11))
     weights = {k: v.numpy() for k, v in params_from_jax(_host(init)).items()}
     it = jexp.make_train_iterator(n, seed=2)
@@ -98,9 +103,10 @@ def _data(n):
 
 
 def _port_case(case_id, rule, n, f, r, attack, udp=None, options=None):
-    _, weights, batches = _data(n)
     options = dict(options or {})
-    case = {"id": case_id, "experiment": "mnist", "exp_args": EXP_ARGS, "rule": rule, "n": n, "f": f, "r": r,
+    exp_args = options.pop("exp_args", EXP_ARGS)
+    _, weights, batches = _data(n, exp_args)
+    case = {"id": case_id, "experiment": "mnist", "exp_args": exp_args, "rule": rule, "n": n, "f": f, "r": r,
             "attack": attack, "chaos": options.pop("chaos", None), "chaos_args": options.pop("chaos_args", []),
             "options": options}
     if udp:
