@@ -53,9 +53,10 @@ regimes say who is late; without a deadline the stalls drive the
 synchronous baseline), ``--deadline-percentile``/``-floor``/``-ceiling``/
 ``-ema`` adapt the window (``parallel/deadline.py``, built once for the
 run), ``--incremental-aggregation`` decodes each row as it lands.  It
-needs ``--unroll 1``, stream input, no ``--UDP``, one device, and a
-schedule of straggler regimes only; the flight recorder then has no chaos
-lane.  The summaries carry ``straggler_timeouts``, ``stale_infill_rows``
+needs ``--unroll 1``, stream input, no ``--UDP`` and a schedule of
+straggler regimes only; the flight recorder then has no chaos lane.  At
+``--nb-devices`` W > 1 each rank submits for its own k workers and one
+gather a round agrees the verdicts, so the run is the one-rank run's.  The summaries carry ``straggler_timeouts``, ``stale_infill_rows``
 and ``deadline_window_seconds``; the forensics ledger each step's timeouts
 and stale rows; the watchdog rolls back on timeouts beyond f
 (``observe_timeouts``) and on a window pinned at its ceiling
@@ -71,7 +72,8 @@ and the deadline knobs, custody keyed by ``--session-secret``, the chaos
 ``corrupt-agg``/``straggle-agg`` targets), which clears the leaf spans of
 excluded subtrees from the masks the aggregate reads; with ``--forensics``
 the ledger names corrupt sub-aggregators ``"LEVEL.UNIT"``.  Not with
-``--mesh``, ``--incremental-aggregation`` or more than one device.
+``--mesh`` or ``--incremental-aggregation``.  At W > 1 the lead runs the
+tree's round on the gathered wire rows and broadcasts its masks.
 
 The regression sentinel (``obs/slo.py``): ``--slo-capture PATH`` writes
 this run's end-state ``steps_per_s``, ``gar_seconds_total`` and
@@ -296,8 +298,8 @@ def build_parser():
              "submission (a CUDA stream a worker) and close every round at this host-side deadline -- workers that "
              "miss it contribute NaN rows within the same declared-f budget as Byzantine rows (timeouts + attacks "
              "<= f), land as straggler_timeout forensics evidence, and sustained over-budget timeouts are a guardian "
-             "escalation input.  Needs --unroll 1, one device (--nb-devices 1), stream input, a NaN-tolerant rule, "
-             "and no in-graph transport simulation (--UDP/non-straggler --chaos)",
+             "escalation input.  Needs --unroll 1, stream input, a NaN-tolerant rule, and no in-graph transport "
+             "simulation (--UDP/non-straggler --chaos)",
     )
     parser.add_argument(
         "--topology", default=None, metavar="SPEC",
@@ -828,11 +830,6 @@ def _run(args, stop, argv, rank):
             raise UserException("--nb-devices %d must divide --nb-workers %d (k = n/W workers a device)" % (size, n))
         plan = (0, size, None)
     rank_index, size, init_method = plan
-    if size > 1 and (args.step_deadline is not None or args.straggler_stall > 0 or args.topology is not None):
-        # before any rank is spawned (JAX refuses process_count() > 1)
-        raise UserException("--step-deadline/--topology is single-process (the submission threads wait on one "
-                            "process's streams); a worker axis of %d ranks is %d processes: pass --nb-devices 1"
-                            % (size, size))
     children = []
     if size > 1 and init_method is None:
         # the lead: W - 1 ranks on the same arguments, spawned before the

@@ -64,6 +64,34 @@ drawn from ``np.random.default_rng((seed, step, worker))`` as JAX draws
 them.  A stalled thread sleeps in slices of at most 50 ms and checks the
 step's poison between them, so ``close()`` and interpreter exit never hang.
 
+**Over W ranks** (the engine's worker axis, ``--nb-devices`` > 1) the
+protocol is one round across processes, and its result is the one-rank
+run's (JAX's flat bounded mode is one process):
+
+- Rank r runs the submissions of its own k = n/W workers, on k threads and
+  k streams, each indexed by its GLOBAL worker id into the straggler, chaos
+  and forge streams; no submission thread makes a collective call.
+- Each rank waits on its own units against the round's window, on its own
+  monotonic clock, then sends in ONE ``all_gather`` a round (a small
+  float64 tensor, host memory under gloo) its units' arrival, stale and
+  skipped flags, carry ages, arrival seconds and failures.  Every later
+  decision reads the gathered (n,) vectors only: the masks handed to the
+  aggregate, the counters, the journal, the trace, forensics' and the
+  guardian's inputs, and the controller, so every rank's window is the same
+  by construction.  A rank whose units all arrived waits in the gather;
+  the journal's round time is the lead's.
+- A failed submission fails every rank after the gather, so no rank is
+  left waiting in a collective.
+- The owner keeps each worker's CLEVER carry, digest and age, assembles
+  its k rows and hands them to the aggregate, which reshards them to column
+  blocks (``engine.build_bounded_aggregate``).
+- The incremental fold's counters (``exchange_*``) count the rank's own
+  folds.
+- Under ``topology`` the tree's level windows are wall-clock, so one
+  process decides them: the ranks gather the n wire rows, the lead runs the
+  tree's round and broadcasts the masks (and alone writes its journal and
+  custody entries).
+
 Not carried: the sharded mode's submesh units (``build_group_grad``,
 ``build_submesh_grad``: the sharded engine, ROADMAP queue 1 item 8c).
 
@@ -234,6 +262,10 @@ class BoundedWaitStep:
                                 "fold never materializes")
         self.engine = engine
         self.nb_workers = self.nb_units = engine.nb_workers
+        # this rank's k workers, first .. first + k - 1 (all n at W = 1)
+        self.axis = engine.axis
+        self.k = engine.workers_per_device
+        self.first = self.axis.worker_index(0)
         self.deadline = deadline
         self.controller = controller
         self.stale_infill = bool(stale_infill)
@@ -249,16 +281,16 @@ class BoundedWaitStep:
                                                      rows_form="decoded" if self.incremental else "wire",
                                                      stale_reweight=self.stale_reweight)
         self.device = engine.device
-        self.pool = ThreadPoolExecutor(max_workers=self.nb_units, thread_name_prefix="bw-submit")
-        # one stream a unit, made once: the card's queue of its submissions
-        self._streams = ([torch.cuda.Stream(self.device) for _ in range(self.nb_units)]
+        self.pool = ThreadPoolExecutor(max_workers=self.k, thread_name_prefix="bw-submit")
+        # one stream a local unit, made once: the card's queue of its submissions
+        self._streams = ([torch.cuda.Stream(self.device) for _ in range(self.k)]
                          if self.device.type == "cuda" else None)
         # on the card one submission enqueues its kernels at a time: the
         # enqueueing is the host's work under the GIL, which eight threads
         # interleaved slow down (module docstring); the card still runs the
         # streams' work side by side
         self._dispatch_lock = threading.Lock()
-        self._in_flight = [None] * self.nb_units
+        self._in_flight = [None] * self.k
         self._round = 0
         self._round_lock = threading.Lock()
         self._closed = False
@@ -290,19 +322,22 @@ class BoundedWaitStep:
             # the drop row's digest, over the f32 NaN row on every wire (under
             # a codec the drop's image is still the NaN row the aggregate masks in)
             self._nan_digest = row_digest(torch.full((d,), torch.nan, dtype=torch.float32, device=self.device))
-        # the CLEVER carry: the last row each worker delivered, its digest and its age
-        self._carry = [None] * self.nb_workers
-        self._carry_digest = [None] * self.nb_workers
-        self._carry_age = np.zeros((self.nb_workers,), np.int64)
+        # the CLEVER carry of this rank's workers: the last row each
+        # delivered, its digest and its age
+        self._carry = [None] * self.k
+        self._carry_digest = [None] * self.k
+        self._carry_age = np.zeros((self.k,), np.int64)
         self.timeouts_total = np.zeros((self.nb_workers,), np.int64)
         self.stale_total = np.zeros((self.nb_workers,), np.int64)
         self.folds_total = 0
         self.overlapped_folds_total = 0
         self.last_overlap_fraction = 0.0
-        #: the last round's arrival seconds by unit (inf: missed) and the
-        #: monotonic time it closed at
+        #: the last round's arrival seconds by unit (inf: missed; gathered
+        #: from every rank) and the monotonic time it closed at here
         self.last_arrivals = None
         self.last_closed_at = None
+        #: the last round's gather of the verdicts: seconds (0 at W = 1)
+        self.last_gather_s = 0.0
         self._c_timeouts = self._c_rounds = self._g_deadline = None
         self._c_late = self._c_stale = None
         self._c_folds = self._c_overlapped = self._g_overlap = None
@@ -357,12 +392,13 @@ class BoundedWaitStep:
                                cat="bounded", args={"step": step_idx})
         return True
 
-    def _submit_one(self, round_id, step_idx, unit, round_begin, args, kwargs, ready, consumer):
-        """The submission thread: the injected stall, then the submission.
-        Returns ``(arrival_seconds, outputs, done)`` or None when the round
-        closed first.  A failure raises: inside the round it surfaces at the
-        barrier, after it at the unit's next dispatch."""
-        if self.model is not None and not self._stall(step_idx, unit):
+    def _submit_one(self, round_id, step_idx, j, round_begin, args, kwargs, ready, consumer):
+        """The submission thread of local unit ``j`` (worker first + j): the
+        injected stall, then the submission.  Returns ``(arrival_seconds,
+        outputs, done)`` or None when the round closed first.  A failure
+        raises: inside the round it surfaces at the barrier, after it at the
+        unit's next dispatch."""
+        if self.model is not None and not self._stall(step_idx, self.first + j):
             return None
         with self._round_lock:
             if round_id != self._round:
@@ -370,7 +406,7 @@ class BoundedWaitStep:
         if self._streams is None:
             out = self.grad_fn(*args, **kwargs)
             return time.monotonic() - round_begin, out, None
-        stream = self._streams[unit]
+        stream = self._streams[j]
         with torch.cuda.device(self.device), torch.cuda.stream(stream):
             stream.wait_event(ready)
             for tensor in _tensors((args, kwargs)):
@@ -392,10 +428,51 @@ class BoundedWaitStep:
             consumer.wait_event(done)
         return out
 
+    def _gather(self, local):
+        """Every rank's ``local`` (rows, k) float64 verdicts, as (rows, n)
+        worker-major: one ``all_gather`` (host memory under gloo, the card
+        under NCCL); ``local`` itself at W = 1."""
+        if self.axis.size == 1:
+            return local
+        begin = time.perf_counter()
+        tensor = torch.from_numpy(local)
+        if self.axis.backend != "gloo":
+            tensor = tensor.to(self.device)
+        gathered = self.axis.all_gather(tensor).cpu().numpy()  # (W, rows, k)
+        self.last_gather_s = time.perf_counter() - begin
+        return np.concatenate(list(gathered), axis=1)
+
+    def _gather_wire(self, rows):
+        """Every worker's (n, ...) wire rows (a codec's payload dict too)
+        from the ranks' (k, ...) stacks: one ``all_gather`` a tensor."""
+        def gather(value):
+            return self.axis.all_gather(value).reshape((self.nb_workers,) + tuple(value.shape[1:]))
+
+        if isinstance(rows, dict):
+            return {key: gather(value) for key, value in rows.items()}
+        return gather(rows)
+
+    def _tree_masks(self, step_idx, arrived, stale, arrival_seconds, rows_in, deadline, key):
+        """The tree's round (module docstring): at W = 1 here; at W > 1 the
+        ranks gather the wire rows, the lead runs the round, and its masks
+        are broadcast."""
+        if self.axis.size == 1:
+            return self.topology.process_round(step_idx, arrived, stale, arrival_seconds, rows_in,
+                                               leaf_window=deadline, key=key)
+        rows_all = self._gather_wire(rows_in)
+        if self.axis.lead:
+            arrived, stale = self.topology.process_round(step_idx, arrived, stale, arrival_seconds, rows_all,
+                                                         leaf_window=deadline, key=key)
+        masks = torch.from_numpy(np.stack([arrived, stale]).astype(np.int32))
+        if self.axis.backend != "gloo":
+            masks = masks.to(self.device)
+        masks = self.axis.broadcast(masks, src=0).cpu().numpy().astype(bool)
+        return masks[0], masks[1]
+
     def __call__(self, state, batch):
         if self._closed:
             raise RuntimeError("BoundedWaitStep was closed")
-        n = self.nb_workers
+        n, k, first = self.nb_workers, self.k, self.first
         step_idx = int(state.step)
         cuda = self._streams is not None
         consumer = torch.cuda.current_stream(self.device) if cuda else None
@@ -406,50 +483,58 @@ class BoundedWaitStep:
         if cuda:
             ready = torch.cuda.Event()
             ready.record(consumer)
-        futures, skipped = {}, []
+        futures = {}
+        # this rank's verdicts on its k workers: arrived, stale, skipped,
+        # carry age, arrival seconds, failed
+        mine = np.zeros((6, k))
+        mine[4] = np.inf
+        failure = None  # (message, exception) of this rank's first failed unit
         round_begin = time.monotonic()
         tracer = trace.installed()
         round_t0_us = tracer.now_us() if tracer is not None else 0.0
-        for unit in range(self.nb_units):
-            prev = self._in_flight[unit]
+        for j in range(k):
+            prev = self._in_flight[j]
             if prev is not None and not prev.done():
-                skipped.append(unit)  # still submitting an earlier round
+                mine[2, j] = 1.0  # still submitting an earlier round
                 continue
             if prev is not None and not prev.cancelled() and prev.exception() is not None:
-                raise RuntimeError("bounded-wait: submission unit %d died after its round closed (late failure)"
-                                   % unit) from prev.exception()
-            args = (params, {key: value[unit] for key, value in batch.items()}, state.seed, step_idx, unit)
+                failure = ("bounded-wait: submission unit %d died after its round closed (late failure)"
+                           % (first + j), prev.exception())
+                mine[5, j] = 1.0
+                break
+            # batch: this rank's k workers (engine.put_batch)
+            args = (params, {key: value[j] for key, value in batch.items()}, state.seed, step_idx, first + j)
             kwargs = {}
             if self.momentum:
                 kwargs.update(momentum=state.momentum, momentum_steps=state.momentum_steps)
             if self.ef:
                 kwargs["ef"] = state.ef
-            self._in_flight[unit] = futures[unit] = self.pool.submit(
-                self._submit_one, self._round, step_idx, unit, round_begin, args, kwargs, ready, consumer)
+            self._in_flight[j] = futures[j] = self.pool.submit(
+                self._submit_one, self._round, step_idx, j, round_begin, args, kwargs, ready, consumer)
         was_warm = self._warm
         deadline = (self.controller.window if self.controller is not None else self.deadline) if was_warm else None
         self._warm = True
         buffer = self._fresh_buffer() if self.incremental else None
         folded = set()
         nb_folds = nb_overlapped = 0
-        fut_unit = {fut: unit for unit, fut in futures.items()}
+        fut_unit = {fut: j for j, fut in futures.items()}
 
         def fold_done(done, pending):
             nonlocal buffer, nb_folds, nb_overlapped
             for fut in done:
                 if fut.cancelled() or fut.exception() is not None or fut.result() is None:
                     continue  # the barrier surfaces a failure
-                unit = fut_unit[fut]
-                buffer = self._fold_fn(buffer, self._received(fut.result(), consumer)["row"], unit)
-                folded.add(unit)
+                j = fut_unit[fut]
+                buffer = self._fold_fn(buffer, self._received(fut.result(), consumer)["row"], j)
+                folded.add(j)
                 nb_folds += 1
                 nb_overlapped += bool(pending)
                 if tracer is not None:
-                    tracer.complete_at("fold", tracer.now_us(), 0.0, tracer.track(self._track_name(unit)),
+                    tracer.complete_at("fold", tracer.now_us(), 0.0, tracer.track(self._track_name(first + j)),
                                        cat="bounded", args={"step": step_idx, "overlapped": bool(pending)})
 
         with trace.span("bounded_wait.collect", cat="train"):
-            pending = set(futures.values())
+            pending = set(futures.values()) if failure is None else set()
             if deadline is None and not self.incremental:
                 if pending:
                     wait(pending)
@@ -469,61 +554,73 @@ class BoundedWaitStep:
         with self._round_lock:
             self._round += 1
         self.last_closed_at = time.monotonic()
-        arrived = np.zeros((n,), bool)
-        stale = np.zeros((n,), bool)
-        arrival_seconds = np.full((n,), np.inf)
-        losses, rows = [None] * n, [None] * n
-        mom_rows = [None] * n if self.momentum else None
-        ef_rows = [None] * n if self.ef else None
-        digests = [None] * n if self.secure else None
-        for w in range(n):
-            fut = futures.get(w)
+        losses, rows = [None] * k, [None] * k
+        mom_rows = [None] * k if self.momentum else None
+        ef_rows = [None] * k if self.ef else None
+        digests = [None] * k if self.secure else None
+        for j in range(k):
+            fut = futures.get(j)
             result = None
-            if fut is not None and fut.done():
+            if fut is not None and fut.done() and failure is None:
                 try:
                     result = fut.result()
                 except Exception as exc:
-                    raise RuntimeError("bounded-wait: submission unit %d died mid-round at step %d"
-                                       % (w, step_idx)) from exc
+                    failure = ("bounded-wait: submission unit %d died mid-round at step %d" % (first + j, step_idx),
+                               exc)
+                    mine[5, j] = 1.0
             if result is not None:
                 out = self._received(result, consumer)
-                arrived[w] = True
-                arrival_seconds[w] = result[0]
-                losses[w] = out["loss"]
-                rows[w] = out["row"]
+                mine[0, j] = 1.0
+                mine[4, j] = result[0]
+                losses[j] = out["loss"]
+                rows[j] = out["row"]
                 if self.stale_infill:
-                    self._carry[w] = out["row"]
-                    self._carry_age[w] = 0
+                    self._carry[j] = out["row"]
+                    self._carry_age[j] = 0
                 if self.momentum:
-                    mom_rows[w] = out["momentum"]
+                    mom_rows[j] = out["momentum"]
                 if self.ef:
-                    ef_rows[w] = out["ef"]
+                    ef_rows[j] = out["ef"]
                 if self.secure:
-                    digests[w] = out["digest"]
+                    digests[j] = out["digest"]
                     if self.stale_infill:
-                        self._carry_digest[w] = out["digest"]
+                        self._carry_digest[j] = out["digest"]
             else:
-                self._carry_age[w] += 1
-                losses[w] = self._miss_loss
-                if self.stale_infill and self._carry[w] is not None and self._carry_age[w] <= self.stale_max_age:
-                    stale[w] = True  # the carry re-enters, and spends the f budget
-                    rows[w] = self._carry[w]
+                self._carry_age[j] += 1
+                losses[j] = self._miss_loss
+                if self.stale_infill and self._carry[j] is not None and self._carry_age[j] <= self.stale_max_age:
+                    mine[1, j] = 1.0  # the carry re-enters, and spends the f budget
+                    rows[j] = self._carry[j]
                     if self.secure:
-                        digests[w] = self._carry_digest[w]
+                        digests[j] = self._carry_digest[j]
                 else:
-                    rows[w] = self._miss_row
+                    rows[j] = self._miss_row
                     if self.secure:
-                        digests[w] = self._nan_digest
+                        digests[j] = self._nan_digest
                 if self.momentum:
-                    mom_rows[w] = self._zero_row  # never read: the aggregate keeps the old row
+                    mom_rows[j] = self._zero_row  # never read: the aggregate keeps the old row
                 if self.ef:
-                    ef_rows[w] = self._zero_row
+                    ef_rows[j] = self._zero_row
+        mine[3] = self._carry_age
+        # the round's one collective of verdicts: every decision below reads
+        # the gathered vectors, the same on every rank
+        verdicts = self._gather(mine)
+        failed = np.nonzero(verdicts[5] > 0)[0]
+        if failed.size:
+            if failure is not None:
+                raise RuntimeError(failure[0]) from failure[1]
+            raise RuntimeError("bounded-wait: a submission of rank %d failed at step %d"
+                               % (int(failed[0]) // k, step_idx))
+        arrived, stale = verdicts[0] > 0, verdicts[1] > 0
+        skipped_units = set(int(w) for w in np.nonzero(verdicts[2] > 0)[0])
+        ages = verdicts[3].astype(np.int64)
+        arrival_seconds = verdicts[4]
         if self.incremental:
             # rows that landed after the window, and stale carries, are folded
             # at the barrier (not overlapped)
-            for w in range(n):
-                if (arrived[w] and w not in folded) or stale[w]:
-                    buffer = self._fold_fn(buffer, rows[w], w)
+            for j in range(k):
+                if (arrived[first + j] and j not in folded) or stale[first + j]:
+                    buffer = self._fold_fn(buffer, rows[j], j)
                     nb_folds += 1
             self.folds_total += nb_folds
             self.overlapped_folds_total += nb_overlapped
@@ -531,10 +628,10 @@ class BoundedWaitStep:
         self.timeouts_total += ~arrived
         self.stale_total += stale
         self.last_arrivals = arrival_seconds
-        skipped_units = set(skipped)
         if tracer is not None:
-            self._trace_round(tracer, step_idx, round_t0_us, deadline, arrived, stale, arrival_seconds, skipped_units)
-        self._journal_round(step_idx, was_warm, deadline, arrived, stale, skipped_units)
+            self._trace_round(tracer, step_idx, round_t0_us, deadline, arrived, stale, arrival_seconds, skipped_units,
+                              ages)
+        self._journal_round(step_idx, was_warm, deadline, arrived, stale, skipped_units, ages)
         if self.controller is not None and was_warm:
             # the rounds the deadline governed only: round 0 measures the builds
             self.controller.observe_round(arrival_seconds, step=step_idx)
@@ -547,7 +644,7 @@ class BoundedWaitStep:
                 self._c_timeouts.labels(worker=str(int(w))).inc()
             for w in np.nonzero(stale)[0]:
                 self._c_stale.labels(worker=str(int(w))).inc()
-            for w in skipped:
+            for w in sorted(skipped_units):
                 self._c_late.labels(worker=str(int(w))).inc()
             self._c_rounds.inc()
             if deadline is not None:
@@ -555,11 +652,10 @@ class BoundedWaitStep:
         rows_in = buffer if self.incremental else _stack(rows)
         if self.topology is not None:
             with trace.span("bounded_wait.topology", cat="train", step=step_idx):
-                arrived, stale = self.topology.process_round(step_idx, arrived, stale, arrival_seconds, rows_in,
-                                                             leaf_window=deadline, key=gar_key(state.seed, step_idx))
+                arrived, stale = self._tree_masks(step_idx, arrived, stale, arrival_seconds, rows_in, deadline,
+                                                  gar_key(state.seed, step_idx))
         # the masks and ages cross to the card once, through pinned memory
-        flags = self.engine._to_device(torch.from_numpy(
-            np.stack([arrived, stale, self._carry_age]).astype(np.int32)))
+        flags = self.engine._to_device(torch.from_numpy(np.stack([arrived, stale, ages]).astype(np.int32)))
         extras = {}
         if self.stale_reweight:
             extras["stale_age"] = flags[2]
@@ -581,7 +677,8 @@ class BoundedWaitStep:
             sizes.append(self.topology.cache_size())
         return max(sizes)
 
-    def _trace_round(self, tracer, step_idx, round_t0_us, deadline, arrived, stale, arrival_seconds, skipped_units):
+    def _trace_round(self, tracer, step_idx, round_t0_us, deadline, arrived, stale, arrival_seconds, skipped_units,
+                     ages):
         """Each unit's round on its own track, as one span from the round's
         open (JAX ``bounded.py:729-794``), and the round's counters."""
         close_us = tracer.now_us()
@@ -594,9 +691,9 @@ class BoundedWaitStep:
             elif unit in skipped_units:
                 tracer.complete_at("skipped_round", round_t0_us, 0.0, track, cat="bounded", args={"step": step_idx})
             elif stale[unit]:
-                span_args = {"step": step_idx, "age": int(self._carry_age[unit])}
+                span_args = {"step": step_idx, "age": int(ages[unit])}
                 if self.stale_reweight:
-                    span_args["coefficient"] = 1.0 / (1.0 + float(self._carry_age[unit]))
+                    span_args["coefficient"] = 1.0 / (1.0 + float(ages[unit]))
                 tracer.complete_at("stale_infill", round_t0_us, window_us, track, cat="bounded", args=span_args)
             else:
                 tracer.complete_at("timeout", round_t0_us, window_us, track, cat="bounded", args={"step": step_idx})
@@ -610,7 +707,7 @@ class BoundedWaitStep:
         if self.incremental:
             tracer.counter("bounded.overlap_fraction", self.last_overlap_fraction, ts=close_us, cat="bounded")
 
-    def _journal_round(self, step_idx, was_warm, deadline, arrived, stale, skipped_units):
+    def _journal_round(self, step_idx, was_warm, deadline, arrived, stale, skipped_units, ages):
         """The round's decisions on the journal (JAX ``bounded.py:795-817``):
         a warm round that timed someone out, infilled a carry or skipped a
         unit is a ``bounded_round``; each reweighted re-entry a
@@ -624,7 +721,7 @@ class BoundedWaitStep:
                         skipped_units=sorted(int(u) for u in skipped_units))
         if self.stale_reweight:
             for w in np.nonzero(stale)[0]:
-                age = int(self._carry_age[w])
+                age = int(ages[w])
                 events.emit("stale_reweight", step=step_idx, worker=int(w), age=age, coefficient=1.0 / (1.0 + age))
 
     def close(self, timeout=5.0):

@@ -134,11 +134,15 @@ wire encoding, steps 0-3 for one row), which the protocol runs once a
 worker on a stream of its own, and ``build_bounded_aggregate``, the
 aggregate and update of steps 4-8 over the rows that arrived, the others
 NaN or a stale carry (``build_incremental_fold`` decodes a row into the
-aggregate's buffer as it lands).  It needs granularity ``vector``, no
-lossy link or chaos schedule in the step, and one rank (W = 1).  The
-sharded mode's submission units (``build_group_grad``,
-``build_submesh_grad``) are ROADMAP queue 1 item 8c: its bounded builders
-refuse.
+aggregate's buffer as it lands).  It needs granularity ``vector`` and no
+lossy link or chaos schedule in the step.  At W > 1 each rank runs the
+submissions of its own k workers, and the aggregate takes the rank's k
+rows with every worker's masks: the rows cross the reshard to column
+blocks, the rule runs on its block with the distances completed across the
+ranks, and the blocks' aggregates are gathered (``parallel/bounded.py``
+agrees the masks).  The sharded mode's submission units
+(``build_group_grad``, ``build_submesh_grad``) are ROADMAP queue 1 item 8c:
+its bounded builders refuse.
 
 Refused with a UserException: ``l1_regularize``/``l2_regularize`` on the
 flat mode (the JAX flat engine refuses them too: its loss carries them;
@@ -1119,10 +1123,10 @@ class RobustEngine:
 
     def _check_bounded_wait_supported(self):
         """The bounded-wait builders' preconditions (JAX ``engine.py:2255-2290``
-        for the flat mode), and one rank: the port's worker axis is W
-        processes, and the protocol's submission threads poll one process's
-        streams (the JAX runner refuses ``process_count() > 1``).  The
-        sharded mode's submission units (JAX ``build_group_grad``,
+        for the flat mode).  Any worker axis: at W > 1 each rank's protocol
+        runs its own k workers' submissions on its own threads and streams,
+        and one gather a round agrees the verdicts (``parallel/bounded.py``).
+        The sharded mode's submission units (JAX ``build_group_grad``,
         ``build_submesh_grad``) are ROADMAP queue 1 item 8c."""
         if self.sharded:
             raise UserException("bounded-wait on the sharded engine (build_group_grad/build_submesh_grad, a unit "
@@ -1134,10 +1138,6 @@ class RobustEngine:
         if self.lossy_link is not None or self.chaos is not None:
             raise UserException("bounded-wait replaces the simulated transport: drop --UDP/--chaos in-graph regimes "
                                 "(straggler regimes move to the host straggler model, parallel/bounded.py)")
-        if self.nb_devices > 1:
-            raise UserException("bounded-wait is single-process: its submission threads wait on one process's "
-                                "streams, and a worker axis of %d ranks (--nb-devices) is %d processes; run "
-                                "--nb-devices 1" % (self.nb_devices, self.nb_devices))
 
     def _augment_worker(self, worker_batch, seed, step, widx):
         """Worker ``widx``'s in-step augmentation alone, its draws from its
@@ -1156,7 +1156,8 @@ class RobustEngine:
 
         ``params`` are read and never written (the protocol hands it a copy
         of the round's parameters), ``worker_batch`` is the worker's own
-        (no leading n).  In JAX's order: the in-step augmentation from the
+        (no leading n), ``widx`` its global index (a worker of this rank).  In
+        JAX's order: the in-step augmentation from the
         worker's (seed, step, widx, 3) stream; the loss and its gradient
         (``torch.autograd.grad``, not vmapped); the gradient flattened in JAX's coordinate order; under
         worker momentum the worker's new momentum row ``beta m[widx] + (1 -
@@ -1169,14 +1170,18 @@ class RobustEngine:
         the row in the exchange dtype.  Under ``secure`` ``digest`` is the
         (4,) ``row_digest`` of the codec's decoded image, or of the row
         before the dtype's rounding.  ``momentum`` and ``ef`` are the
-        whole (n, d) buffers of the state."""
+        state's (k, d) buffers of this rank's workers.  A submission encodes
+        its worker's whole (d,) row, so a codec's payload (int8's scale
+        included) does not depend on W (ROADMAP trap az)."""
         self._check_bounded_wait_supported()
         from ..secure.submit import row_digest
 
         beta = self.worker_momentum
         attack = self.attack if self.attack is not None and not self.attack.omniscient else None
+        first = self.axis.worker_index(0)
 
         def grad_fn(params, worker_batch, seed, step, widx, momentum=None, momentum_steps=0, ef=None):
+            local = widx - first  # the worker's row in the rank's (k, d) buffers
             if self.batch_transform is not None:
                 worker_batch = self._augment_worker(worker_batch, seed, step, widx)
             # plain autograd on leaves of their own: one worker needs no
@@ -1192,14 +1197,14 @@ class RobustEngine:
                 row = FlatMap(params).flatten(grads)
                 out = {"loss": loss.detach()}
                 if beta is not None:
-                    new_m = beta * momentum[widx] + (1.0 - beta) * row
+                    new_m = beta * momentum[local] + (1.0 - beta) * row
                     out["momentum"] = new_m
                     row = new_m / bias_correction(beta, int(momentum_steps) + 1, row.device)
                 if attack is not None and widx < self.nb_real_byz:
                     row = attack.apply_local(row, stream_generator(seed, step, widx, ATTACK_TAG, row.device))
                 if self.codec is not None:
                     if ef is not None:
-                        payload, image, out["ef"] = self.codec.ef_encode(row, ef[widx])
+                        payload, image, out["ef"] = self.codec.ef_encode(row, ef[local])
                     else:
                         payload = self.codec.encode(row)
                         image = self.codec.decode(payload, row.shape[-1]) if self.secure else None
@@ -1219,22 +1224,29 @@ class RobustEngine:
         ``engine.py:2491-2671``): ``agg(state, rows, losses, arrived, stale,
         extras) -> (state, metrics)``, the state updated in place.
 
-        ``rows`` is the (n, ...) stack of what crossed the wire
-        (``rows_form="wire"``: the exchange dtype's rows, or the codec's
-        stacked payloads, decoded here) or of rows decoded already
-        (``"decoded"``, the incremental fold's buffer); ``losses`` (n,);
-        ``arrived`` and ``stale`` (n,) bool on the device; ``extras`` the
-        (n, d) ``momentum`` and ``ef`` rows the submissions returned,
-        under ``stale_reweight`` the (n,) int ``stale_age`` and under
-        ``secure`` the (n, 4) ``digests`` of what arrived (the drop row's,
-        a stale carry's).  In JAX's
-        order: decode; NaN where neither arrived nor stale; the dtype wire's
-        image; each stale row scaled by ``c(a) = 1/(1 + a)`` (float32, a
-        true division on the device); ``_prepare_rows`` (the omniscient
-        attack and the quarantine); the distances and the rule with the
-        step's GAR key; the update; the loss summed over the arrived
-        workers; momentum and residual rows written back only where
-        arrived (``momentum_steps`` + 1); ``_finalize_step``.  The metrics
+        ``rows`` is the (k, ...) stack of what this rank's workers put on
+        the wire (``rows_form="wire"``: the exchange dtype's rows, or the
+        codec's stacked payloads, decoded here, on the owner) or of rows
+        decoded already (``"decoded"``, the incremental fold's buffer);
+        ``losses`` (k,); ``arrived`` and ``stale`` every worker's (n,) bool
+        masks on the device, the same on every rank; ``extras`` the (k, d)
+        ``momentum`` and ``ef`` rows the submissions returned, under
+        ``stale_reweight`` the (n,) int ``stale_age`` and under ``secure``
+        the (k, 4) ``digests`` of what arrived (the drop row's, a stale
+        carry's).  At W = 1, k = n.  In JAX's order: decode; at W > 1 the
+        reshard to the (n, ceil(d/W)) column block (``_reshard_to_blocks``,
+        the wire's dtype; the rows are decoded first, so no block needs
+        another's to decode); NaN where neither arrived nor stale; the
+        dtype wire's image; each stale row scaled by ``c(a) = 1/(1 + a)``
+        (float32, a true division on the device); ``_prepare_rows`` (the
+        omniscient attack and the quarantine); the distances (completed
+        across the ranks) and the rule with the step's GAR key; at W > 1
+        the blocks' float32 aggregates gathered and cut to d; the update;
+        the loss summed over the arrived workers (and the ranks); momentum
+        and residual rows written back only where arrived
+        (``momentum_steps`` + 1); ``_finalize_step``, the worker distances
+        and NaN rows summed across the ranks and the digests gathered
+        worker-major.  The metrics
         add ``straggler_timeout`` (~arrived), ``stale_infill``,
         ``nb_timeouts`` (NaN drops and stale rows alike: the f budget they
         spend), ``nb_stale``, reweighted ``stale_reweight_coeff`` and, under
@@ -1248,12 +1260,18 @@ class RobustEngine:
         if self.codec is not None:
             self.codec.validate_d(d)
 
+        W, k = self.nb_devices, self.workers_per_device
+        first = self.axis.worker_index(0)
+        axis = self.axis if W > 1 else None
+
         @torch.no_grad()
         def agg_fn(state, rows, losses, arrived, stale, extras):
             if rows_form == "wire" and self.codec is not None:
                 rows = self.codec.decode(rows, d)
             else:
                 rows = rows.to(torch.float32)
+            if axis is not None:
+                rows = self._reshard_to_blocks(rows)
             # the deadline's verdict: a worker neither arrived nor stale is a
             # NaN row, as a fully lossy link's
             rows = torch.where((arrived | stale)[:, None], rows, torch.nan)
@@ -1266,23 +1284,36 @@ class RobustEngine:
                 coeff = torch.where(stale, ones / (1.0 + ages), ones)
                 rows = rows * coeff[:, None]
             rows, raw_rows = self._prepare_rows(rows, state.reputation)
-            agg, participation = self._aggregate_block(rows, gar_key(state.seed, state.step))
-            agg = agg.to(torch.float32)
+            agg, participation = self._aggregate_block(rows, gar_key(state.seed, state.step), axis)
+            agg = block = agg.to(torch.float32)
+            if axis is not None:
+                agg = axis.all_gather(block).reshape(-1)[:d]
             tx.apply(state.params, flatmap.inflate(agg), state.opt_state)
-            wdist, rep_dist = self._sq_dists(rows, raw_rows, agg)
+            wdist, rep_dist = self._sq_dists(rows, raw_rows, block)
             worker_nan = torch.any(~torch.isfinite(rows), dim=1) if self.health_probe else None
+            if axis is not None:
+                # the blocks' distances and NaN rows summed across the ranks,
+                # in one collective
+                nans = None if worker_nan is None else worker_nan.to(torch.float32)
+                present = [value for value in (wdist, rep_dist, nans) if value is not None]
+                if present:
+                    summed = iter(axis.all_reduce_sum(torch.stack(present)).unbind(0))
+                    wdist = None if wdist is None else next(summed)
+                    rep_dist = None if rep_dist is None else next(summed)
+                    worker_nan = None if worker_nan is None else next(summed) > 0
+            mine = arrived[first:first + k]  # this rank's workers
             if self.worker_momentum is not None:
                 # a timed-out worker's momentum update never completed
-                state.momentum = torch.where(arrived[:, None], extras["momentum"], state.momentum)
+                state.momentum = torch.where(mine[:, None], extras["momentum"], state.momentum)
                 state.momentum_steps += 1
             if self.carries_ef:
-                state.ef = torch.where(arrived[:, None], extras["ef"], state.ef)
+                state.ef = torch.where(mine[:, None], extras["ef"], state.ef)
             secure = None
             if self.secure:
                 nobody = torch.zeros(self.nb_workers, dtype=torch.bool, device=agg.device)
-                secure = {"digest_sent": extras["digests"], "digest_recv": extras["digests"], "forged": nobody,
-                          "rejected": nobody}
-            state, metrics = self._finalize_step(state, *self._flat_totals(torch.where(arrived, losses, 0.0), agg),
+                digests = self._gather_secure({"digests": extras["digests"]})["digests"]
+                secure = {"digest_sent": digests, "digest_recv": digests, "forged": nobody, "rejected": nobody}
+            state, metrics = self._finalize_step(state, *self._flat_totals(torch.where(mine, losses, 0.0), agg),
                                                  worker_nan, participation, wdist, rep_dist, secure=secure)
             metrics["straggler_timeout"] = ~arrived
             metrics["stale_infill"] = stale
@@ -1296,23 +1327,24 @@ class RobustEngine:
 
     def build_incremental_fold(self, d):
         """The incremental fold (JAX ``engine.py:2673-2708``): ``(fold,
-        fresh)``, ``fresh()`` a zeroed (n, d) float32 buffer on the device
-        and ``fold(buffer, wire_row, widx)`` worker ``widx``'s row decoded
-        into it in place (returned), as it lands; the aggregate then takes
-        the buffer with ``rows_form="decoded"``.  A row is decoded alone as
-        it is in the stack, so the bits are the stacked path's."""
+        fresh)``, ``fresh()`` a zeroed (k, d) float32 buffer of this rank's
+        workers on the device and ``fold(buffer, wire_row, j)`` local worker
+        ``j``'s row decoded into it in place (returned), as it lands; the
+        aggregate then takes the buffer with ``rows_form="decoded"`` (at
+        W > 1 it reshards at the barrier).  A row is decoded alone as it is
+        in the stack, so the bits are the stacked path's."""
         self._check_bounded_wait_supported()
-        codec, n, device = self.codec, self.nb_workers, self.device
+        codec, k, device = self.codec, self.workers_per_device, self.device
         if codec is not None:
             codec.validate_d(d)
 
         @torch.no_grad()
-        def fold(buffer, wire_row, widx):
-            buffer[widx] = codec.decode(wire_row, d) if codec is not None else wire_row.to(torch.float32)
+        def fold(buffer, wire_row, j):
+            buffer[j] = codec.decode(wire_row, d) if codec is not None else wire_row.to(torch.float32)
             return buffer
 
         def fresh():
-            return torch.zeros((n, d), dtype=torch.float32, device=device)
+            return torch.zeros((k, d), dtype=torch.float32, device=device)
 
         return fold, fresh
 

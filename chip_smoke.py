@@ -48,7 +48,7 @@ Phases, in order (any failure exits non-zero and prints no result):
    (128, d) (centring and K2).  Distances of 64 rows must launch K1 and of
    65 the centring and K2.  The worker axis's column blocks at W = 2
    (``BLOCK_SHAPES``: K1 at (8, 878,341), the centring and K2 at (128,
-   878,341), K3 at (8, 878,341)) are held and timed too, clean and
+   878,341), K3, K5 and K6 at (8, 878,341)) are held and timed too, clean and
    poisoned.
 3. The worker gradients of cnnet at n=8, batch 128: the engine's one
    vmapped forward and backward (``torch.func``) against a per-worker loop
@@ -180,6 +180,15 @@ Phases, in order (any failure exits non-zero and prints no result):
    for timeouts beyond f; the adaptive window (``--deadline-percentile
    71.4``) with the honest arrivals' p50/p95; ``int8:ef`` folded as rows
    land against the stacked path, bit for bit; a 2 ms deadline's race.
+   Bounded-wait over two ranks (``bounded_ranks_phase``): two gloo ranks
+   spawned on ``cuda:0`` run cnnet's bounded rounds (a 1 s deadline,
+   workers 0 and 5 stalled 4 s from round 1: krum 4 rounds, median and
+   average-nan 2 each) against one rank on the same weights and batches:
+   the masks and krum's selections equal, the parameters bit-identical
+   across the ranks and within 1e-5 of the one rank's, K1, K3 and K6 once
+   a round on each rank's (8, 878,341) block, no kernel built; it prints
+   each rank's round ms, the verdicts' gather ms and the staged MB.  Each
+   phase from the pipeline's on prints its seconds.
    The secure phase (``secure_phase``): ``row_digest`` and
    ``masked_group_mean`` at cnnet's width on the card against the CPU, bit
    for bit, and timed; cnnet + krum under a forge/tamper schedule with
@@ -250,6 +259,7 @@ Phases, in order (any failure exits non-zero and prints no result):
    table, and last the JSON result line.
 """
 
+import collections
 import json
 import math
 import os
@@ -331,10 +341,14 @@ def device_ms(fn, torch, iters=20, warmup=3, tries=3):
     durations of their events in a torch.profiler trace of ``iters`` calls,
     without the host's time between launches.  The port's kernels are those
     of ops/csrc, which keep them in an anonymous namespace (PyTorch's live in
-    at::).  A trace of one call counts them; a trace of ``iters`` calls that
-    does not hold ``iters`` times as many has lost some (it happens): both
-    are taken again, and after ``tries`` such pairs the time is None, not
-    measured."""
+    at::).  A trace of one call counts them by name (an empty one, as a
+    fresh profiler's first cycle can give, is read off the longer trace when
+    every kernel's count there is the same multiple of ``iters``); a trace
+    of ``iters`` calls that does not hold ``iters`` times each count has
+    lost some (it happens, most in a long process): both are taken again.
+    After ``tries`` such pairs the time is each kernel's median recorded
+    duration times its launches a call, from the last pair (a line says so),
+    or None, not measured, when that pair did not record every kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     def traced(calls):
@@ -349,11 +363,20 @@ def device_ms(fn, torch, iters=20, warmup=3, tries=3):
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        per_call = len(traced(1))
+        per_call = collections.Counter(e.name for e in traced(1))
         events = traced(iters)
-        if per_call and len(events) == per_call * iters:
+        counts = collections.Counter(e.name for e in events)
+        multiples = set(counts.values())
+        if not per_call and len(multiples) == 1 and multiples.pop() % iters == 0:
+            per_call = collections.Counter({name: count // iters for name, count in counts.items()})
+        if per_call and counts == collections.Counter({name: c * iters for name, c in per_call.items()}):
             return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
-    return None
+    if not per_call or set(counts) != set(per_call):
+        return None
+    print("device_ms: every trace lost events (%d of %d recorded in the last): each kernel's median duration "
+          "times its launches a call" % (len(events), sum(per_call.values()) * iters))
+    return sum(statistics.median(e.time_range.elapsed_us() for e in events if e.name == name) * count
+               for name, count in per_call.items()) / 1e3
 
 
 def card_busy_us(torch, prof):
@@ -722,25 +745,27 @@ def held_shape(torch, kernels, report, by_name, library, name, x, args, label):
 
 #: the worker axis's column blocks at W = 2 (``parallel/mesh.py``): each rank
 #: holds ceil(d/2) of cnnet's coordinates; K1 on the 8 workers' block, the
-#: centring and K2 on 128 workers', K3 on the median's
+#: centring and K2 on 128 workers', K3, K5 (trim 2, keep 4) and K6 on 8
+#: workers' (the bounded ranks' median and average-nan, the fused median)
 BLOCK_D = -(-CNNET_D // 2)
 BLOCK_SHAPES = (("pairwise_sq_distances", 8), ("nanmedian_columns", 128), ("pairwise_sq_distances_gram", 128),
-                ("coordinate_median", 8))
+                ("coordinate_median", 8), ("coordinate_trimmed_mean", 8), ("average_nan_columns", 8))
+BLOCK_ARGS = {"coordinate_trimmed_mean": (2, 4)}
 
 
 def block_kernel_shapes(torch, kernels, randn, report, rows, library):
-    """Hold K1, the centring, K2 and K3 against their plain versions at the
-    worker axis's block shapes (n, 878,341), clean (timed) and with a NaN
-    row and +-inf values, and time them there."""
+    """Hold K1, the centring, K2, K3, K5 and K6 against their plain versions
+    at the worker axis's block shapes (n, 878,341), clean (timed) and with
+    a NaN row and +-inf values, and time them there."""
     by_name = {row["name"]: row for row in rows}
     for name, n in BLOCK_SHAPES:
         x = randn(n, BLOCK_D)
-        args = (kernels.nanmedian_columns(x),) if name == "pairwise_sq_distances_gram" else ()
+        args = (kernels.nanmedian_columns(x),) if name == "pairwise_sq_distances_gram" else BLOCK_ARGS.get(name, ())
         held_shape(torch, kernels, report, by_name, library, name, x, args, "block W=2")
         x[1] = float("nan")
         x[0, 5::11] = float("inf")
         x[n - 1, 3::13] = -float("inf")
-        args = (kernels.nanmedian_columns(x),) if name == "pairwise_sq_distances_gram" else ()
+        args = (kernels.nanmedian_columns(x),) if name == "pairwise_sq_distances_gram" else BLOCK_ARGS.get(name, ())
         compare(name, getattr(kernels, name)(x, *args), kernels.PLAIN[name](x, *args), torch, x, args)
         del x, args
     torch.cuda.empty_cache()
@@ -1680,9 +1705,10 @@ def guardian_phase(torch, kernels, runner, card, workdir):
                                result["final_loss"], spans["guardian.rollback"][0], spans["checkpoint.restore"][1],
                                spans["checkpoint.restore"][0], json.dumps(counts, sort_keys=True)))
 
-    # the healthy cost: --guardian on and off in turns, four pairs
+    # the healthy cost: --guardian on and off in turns, two pairs (there
+    # were four until the bounded ranks phase needed their seconds)
     rates = {"on": [], "off": []}
-    for i, mode in enumerate(("on", "off", "off", "on") * 2):
+    for i, mode in enumerate(("on", "off", "off", "on")):
         argv = GUARDIAN_COST + ["--checkpoint-dir", os.path.join(workdir, "guardian", "cost-%d" % i)]
         result, counts = run("guardian cost " + mode, argv + (["--guardian"] if mode == "on" else []))
         _held_launches("guardian cost " + mode, counts, {"pairwise_sq_distances": result["steps"]})
@@ -1691,7 +1717,7 @@ def guardian_phase(torch, kernels, runner, card, workdir):
     median = {mode: sorted(values)[len(values) // 2 - 1:len(values) // 2 + 1] for mode, values in rates.items()}
     median = {mode: sum(pair) / 2 for mode, pair in median.items()}
     print("guardian healthy cost on %s: cnnet + krum n=8 streamed, 30 steps, steps/s excl. 1st --guardian on %s, "
-          "off %s (on, off, off, on, twice): medians on %.3f, off %.3f, on/off x%.4f; spread on %.3f-%.3f, "
+          "off %s (on, off, off, on): medians on %.3f, off %.3f, on/off x%.4f; spread on %.3f-%.3f, "
           "off %.3f-%.3f" % (card, ", ".join("%.3f" % v for v in rates["on"]), ", ".join("%.3f" % v for v in
                                                                                          rates["off"]),
                              median["on"], median["off"], median["on"] / median["off"], min(rates["on"]),
@@ -3398,6 +3424,176 @@ def bounded_phase(torch, gars, kernels, models, runner, card, workdir):
     build.remove_build_listener(note_build)
     check(not builds, "bounded: kernels built during the phase: %s" % builds)
     torch.backends.cudnn.deterministic = False
+    return totals
+
+
+#: bounded_ranks_phase: two gloo ranks sharing cuda:0 run bounded-wait
+#: rounds of cnnet at its published width (n = 8, f = 2, batch 128,
+#: streamed), workers 0 (rank 0) and 5 (rank 1) stalled past the window
+#: from round 1 on; (rule, rounds, the kernel it launches once a round on
+#: each rank's (8, 878,341) block)
+BOUNDED_RANKS_LEGS = (("krum", 4, "pairwise_sq_distances"), ("median", 2, "coordinate_median"),
+                      ("average-nan", 2, "average_nan_columns"))
+BOUNDED_RANKS_LATE = (0, 5)
+BOUNDED_RANKS_STALL = 4.0
+BOUNDED_RANKS_DEADLINE = 1.0
+BOUNDED_RANKS_RTOL = 1e-5
+
+
+class LateWorkers:
+    """bounded_ranks_phase's straggler model: from round 1 on, each worker
+    of ``BOUNDED_RANKS_LATE`` holds its submission ``BOUNDED_RANKS_STALL``
+    seconds (a round closes after ``BOUNDED_RANKS_DEADLINE``)."""
+
+    def delay(self, step, worker):
+        return BOUNDED_RANKS_STALL if step >= 1 and worker in BOUNDED_RANKS_LATE else 0.0
+
+
+def bounded_ranks_leg(axis, rule, rounds):
+    """``rounds`` bounded-wait rounds of cnnet + ``rule`` on ``axis``, from
+    round 0 (no deadline) on, the launch counts and the axis's collectives
+    read over them; per round its masks, krum's participation, its loss,
+    its ms to the update's end and the verdicts' gather ms."""
+    import torch
+
+    from aggregathor_tpu_torch import gars, models
+    from aggregathor_tpu_torch.core import build_optimizer, build_schedule
+    from aggregathor_tpu_torch.ops import kernels
+    from aggregathor_tpu_torch.parallel import RobustEngine
+    from aggregathor_tpu_torch.parallel.bounded import BoundedWaitStep
+
+    n = 8
+    exp = models.instantiate("cnnet", [])
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+    engine = RobustEngine(gars.instantiate(rule, n, 2), n, worker_metrics=rule == "krum", axis=axis)
+    init = exp.init(1)
+    it = exp.make_train_iterator(n, seed=2)
+    batches = [engine.put_batch(next(it)) for _ in range(rounds)]
+    # the reshard's share of the staged bytes: its all_to_all, counted
+    reshard = {"bytes": 0}
+    all_to_all = axis.all_to_all
+
+    def counted(pieces):
+        reshard["bytes"] += pieces.numel() * pieces.element_size()
+        return all_to_all(pieces)
+
+    axis.all_to_all = counted
+    step = BoundedWaitStep(engine, exp.loss, tx, init, deadline=BOUNDED_RANKS_DEADLINE, straggler_model=LateWorkers())
+    state = engine.init_state(init, tx, seed=1)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    before = dict(axis.stats)
+    out = {"rounds": [], "round_ms": [], "gather_ms": []}
+    try:
+        for batch in batches:
+            begin = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            out["round_ms"].append((time.perf_counter() - begin) * 1e3)
+            out["gather_ms"].append(step.last_gather_s * 1e3)
+            out["rounds"].append({key: metrics[key].cpu().numpy() for key in
+                                  ("straggler_timeout", "stale_infill", "worker_participation", "total_loss")
+                                  if key in metrics})
+    finally:
+        step.close()
+        del axis.all_to_all
+    out["counts"] = kernels.launch_counts()
+    out["batched"] = sum(kernels.batched_launch_counts().values())
+    out["staged_mb"] = (axis.stats["bytes"] - before["bytes"]) / 2**20 / rounds
+    out["reshard_mb"] = reshard["bytes"] / 2**20 / rounds
+    out["params"] = torch.cat([state.params[k].detach().reshape(-1) for k in sorted(state.params)]).cpu().numpy()
+    del state, batches, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def bounded_ranks_rank(axis):
+    """One rank of ``bounded_ranks_phase`` (a spawned process re-imports
+    this module, whose top level imports nothing of the port); also the
+    one-rank run, on a one-rank axis.  Counts the kernels built meanwhile."""
+    import torch
+
+    from aggregathor_tpu_torch.ops import build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    builds = []
+
+    def note_build(*args):
+        builds.append(args)
+
+    build.add_build_listener(note_build)
+    try:
+        out = {rule: bounded_ranks_leg(axis, rule, rounds) for rule, rounds, _ in BOUNDED_RANKS_LEGS}
+    finally:
+        build.remove_build_listener(note_build)
+    out["builds"] = builds
+    return out
+
+
+def bounded_ranks_phase(torch, kernels, card):
+    """Bounded-wait over two gloo ranks spawned on ``cuda:0``
+    (``parallel.mesh.spawn``, shared card; its collectives staged through
+    pinned host memory, so its times say nothing of NVLink): cnnet at d =
+    1,756,682, n = 8, f = 2, batch 128, streamed, cuDNN pinned, a fixed 1 s
+    deadline, workers 0 and 5 stalled 4 s from round 1 on; four rounds of
+    krum, then two each of median and average-nan (NaN-drop timeouts).
+    Held against one rank on the card with the same weights and batches:
+    the masks equal, krum's selections identical, the parameters
+    bit-identical across the ranks and within 1e-5 relative of the one
+    rank's; the launches exact on each rank (K1, K3, K6 once a round on
+    the (8, 878,341) block, nothing batched); no kernel built in the
+    phase.  Prints each rank's round ms, the verdicts' gather ms and the
+    staged MB a round (the reshard's share).  Returns {kernel: launches}
+    summed over the ranks."""
+    import numpy as np
+
+    from aggregathor_tpu_torch.parallel import mesh
+    from aggregathor_tpu_torch.parallel.mesh import WorkerAxis
+
+    begin = time.perf_counter()
+    ranks = mesh.spawn(bounded_ranks_rank, 2, 8, device="cuda", shared_card=True, timeout=600)
+    spawned_s = time.perf_counter() - begin
+    one = bounded_ranks_rank(WorkerAxis(8, 1, 0, "cuda"))
+    torch.backends.cudnn.deterministic = False
+    block = -(-CNNET_D // 2)
+    totals = {name: 0 for name in kernels.KERNELS}
+    for rank, result in enumerate(ranks + [one]):
+        check(not result["builds"], "bounded ranks: %s kernels built in %s" % (
+            result["builds"], "rank %d" % rank if rank < 2 else "the one rank"))
+    late = np.isin(np.arange(8), BOUNDED_RANKS_LATE)
+    for rule, rounds, kernel in BOUNDED_RANKS_LEGS:
+        lead, other, want = ranks[0][rule], ranks[1][rule], one[rule]
+        check(bool((lead["params"] == other["params"]).all()), "bounded ranks %s: the ranks' parameters differ" % rule)
+        for i, (a, b, c) in enumerate(zip(lead["rounds"], other["rounds"], want["rounds"])):
+            for key in c:
+                same = np.array_equal(a[key], b[key]) and (key == "total_loss" or np.array_equal(a[key], c[key]))
+                check(same, "bounded ranks %s round %d: %s differs (ranks %s, %s; one rank %s)"
+                      % (rule, i, key, a[key], b[key], c[key]))
+            check(a["straggler_timeout"].tolist() == (late if i else np.zeros(8, bool)).tolist(),
+                  "bounded ranks %s round %d: timed out %s" % (rule, i, a["straggler_timeout"]))
+            rel = abs(float(a["total_loss"]) - float(c["total_loss"])) / abs(float(c["total_loss"]))
+            check(rel <= BOUNDED_RANKS_RTOL, "bounded ranks %s round %d: loss %r vs one rank's %r"
+                  % (rule, i, float(a["total_loss"]), float(c["total_loss"])))
+        err = float(np.abs(lead["params"] - want["params"]).max() / np.abs(want["params"]).max())
+        check(err <= BOUNDED_RANKS_RTOL, "bounded ranks %s: parameters off one rank's by %.3g" % (rule, err))
+        for rank, result in enumerate(ranks):
+            counts = result[rule]["counts"]
+            check(counts == {name: rounds if name == kernel else 0 for name in kernels.KERNELS}
+                  and not result[rule]["batched"], "bounded ranks %s rank %d: launches %s (want %s %d)"
+                  % (rule, rank, counts, kernel, rounds))
+            totals[kernel] += counts[kernel]
+        print("bounded ranks %s on %s: 2 ranks sharing the card (gloo, staged), %d rounds, workers %s late past a "
+              "%.1f s window from round 1: round ms rank 0 %s, rank 1 %s (one rank %s); verdict gather ms %s; staged "
+              "%.2f MB a round and rank, the reshard %.2f; %s once a round a rank on (8, %d); parameters off one "
+              "rank's by %.3g of the largest"
+              % (rule, card, rounds, list(BOUNDED_RANKS_LATE), BOUNDED_RANKS_DEADLINE,
+                 ", ".join("%.1f" % v for v in lead["round_ms"]), ", ".join("%.1f" % v for v in other["round_ms"]),
+                 ", ".join("%.1f" % v for v in want["round_ms"]), ", ".join("%.2f" % v for v in lead["gather_ms"]),
+                 lead["staged_mb"], lead["reshard_mb"], kernel, block, err))
+    print("bounded ranks phase on %s: %.1f s (the spawn's %.1f s)" % (card, time.perf_counter() - begin, spawned_s))
+    torch.cuda.empty_cache()
     return totals
 
 
@@ -5134,20 +5330,26 @@ def main():
         tfm_rows, serve_rows, topology_rows = [], [], []
         for kernel, count in digits_phase(torch, kernels, runner, card).items():
             totals[kernel] += count
-        for counts in (pipeline_phase(torch, kernels, runner, card),
-                       plane_phase(torch, kernels, runner, card, workdir, gar_ms),
-                       profiler_phase(kernels, runner, card, workdir),
-                       observability_phase(kernels, runner, card, workdir),
-                       guardian_phase(torch, kernels, runner, card, workdir),
-                       chaos_phase(torch, gars, kernels, models, runner, card, workdir),
-                       codec_phase(torch, kernels, runner, card, workdir),
-                       bounded_phase(torch, gars, kernels, models, runner, card, workdir),
-                       secure_phase(torch, kernels, runner, card, workdir),
-                       zoo_phase(torch, gars, kernels, models, runner, card),
-                       transformer_phase(torch, gars, kernels, models, runner, card, tfm_rows),
-                       serve_phase(torch, gars, kernels, models, runner, card, workdir, serve_rows),
-                       topology_phase(torch, kernels, runner, card, workdir, topology_rows),
-                       multirank_phase(torch, kernels, card)):
+        phases = (
+            ("pipeline", lambda: pipeline_phase(torch, kernels, runner, card)),
+            ("plane", lambda: plane_phase(torch, kernels, runner, card, workdir, gar_ms)),
+            ("profiler", lambda: profiler_phase(kernels, runner, card, workdir)),
+            ("observability", lambda: observability_phase(kernels, runner, card, workdir)),
+            ("guardian", lambda: guardian_phase(torch, kernels, runner, card, workdir)),
+            ("chaos", lambda: chaos_phase(torch, gars, kernels, models, runner, card, workdir)),
+            ("codec", lambda: codec_phase(torch, kernels, runner, card, workdir)),
+            ("bounded", lambda: bounded_phase(torch, gars, kernels, models, runner, card, workdir)),
+            ("bounded ranks", lambda: bounded_ranks_phase(torch, kernels, card)),
+            ("secure", lambda: secure_phase(torch, kernels, runner, card, workdir)),
+            ("zoo", lambda: zoo_phase(torch, gars, kernels, models, runner, card)),
+            ("transformer", lambda: transformer_phase(torch, gars, kernels, models, runner, card, tfm_rows)),
+            ("serve", lambda: serve_phase(torch, gars, kernels, models, runner, card, workdir, serve_rows)),
+            ("topology", lambda: topology_phase(torch, kernels, runner, card, workdir, topology_rows)),
+            ("multirank", lambda: multirank_phase(torch, kernels, card)))
+        for label, phase in phases:
+            begin = time.perf_counter()
+            counts = phase()
+            print("phase %s: %.1f s" % (label, time.perf_counter() - begin))
             for kernel, count in counts.items():
                 totals[kernel] += count
         for row in rows:

@@ -19,7 +19,7 @@ bounded-wait builders) against the JAX package's, on the CPU.
   parameters within 1e-5; the trace's per-worker tracks and counters.
 - ``close()`` (idempotent, bounded, refuses a new round), a failure inside
   a round at its barrier, one after it at the unit's next dispatch; the
-  refusals.
+  refusals.  W ranks: ``tests/test_torch_bounded_ranks.py``.
 
 The straggling runs use a calm step 0 (``0:calm 1:straggle=1.0``) and a
 stall far beyond the run, so the round that builds has no stall to wait
@@ -57,7 +57,6 @@ from aggregathor_tpu_torch.obs.metrics import MetricsRegistry
 from aggregathor_tpu_torch.parallel import RobustEngine, attacks
 from aggregathor_tpu_torch.parallel.bounded import BoundedWaitStep, HostStragglerModel
 from aggregathor_tpu_torch.parallel.lossy import LossyLink
-from aggregathor_tpu_torch.parallel.mesh import WorkerAxis
 from aggregathor_tpu_torch.utils import UserException
 
 from torch_threads import pinned_threads  # noqa: F401  (a fixture: the xdist worker's intra-op pool)
@@ -523,8 +522,9 @@ def test_refusals_like_jax():
         (RobustEngine(gar, n, granularity="leaf", device="cpu"), JaxEngine(mesh, jgar, n, granularity="leaf")),
         (RobustEngine(gar, n, lossy_link=LossyLink(2, []), device="cpu"), None),
         (RobustEngine(gar, n, chaos=ChaosSchedule("0:straggle=0.5", n), device="cpu"), None),
-        # the port's W ranks are processes: one rank only
-        (RobustEngine(gar, n, axis=WorkerAxis(n, 2, 0, "cpu")), None),
+        # the sharded engine's submission units (ROADMAP queue 1 item 8c);
+        # a worker axis of W ranks is served (tests/test_torch_bounded_ranks.py)
+        (RobustEngine(gar, n, sharding="sharded", device="cpu"), None),
     ]
     for engine, jengine in refused:
         with pytest.raises(UserException):

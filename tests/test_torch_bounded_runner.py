@@ -1,4 +1,5 @@
-"""The port's runner under bounded-wait against the JAX runner (``--nb-devices 1``).
+"""The port's runner under bounded-wait against the JAX runner, at one rank
+and over W ranks.
 
 On ``digits`` (n = 8, f = 2), each runner with a fresh registry:
 
@@ -10,6 +11,14 @@ On ``digits`` (n = 8, f = 2), each runner with a fresh registry:
 - G, the guardian: median, three stragglers (``straggle-workers:3``, beyond
   f = 2), ``--guardian``.
 
+C2 and D2 are the port's C and D at ``--nb-devices 2``, G4 its G at
+``--nb-devices 4`` (worker 2's stall lands on rank 1): its ranks are
+processes, each submitting for its own workers, one gather a round
+agreeing the verdicts, held against the JAX runner at ``--nb-devices 1``.
+JAX's bounded mode is one process whatever its mesh, and its runner's
+bounded path fails on a multi-device mesh (a ``ShardingTypeError`` in its
+per-worker batch indexing: a reference red, not held against).
+
 Step 0 is calm and the stall outlasts the run, so round 0 (which builds)
 waits for nobody and no straggler ever lands: every mask, every skipped
 unit and every journal field but the clocks is the same in both runs.
@@ -18,8 +27,7 @@ journal event for event (times, run ids, paths and pids aside), the
 forensics ``stragglers``, the bounded-wait families of the metrics file
 and their values; G's guardian timeline (a rollback for
 ``straggler_timeouts``, the ``f+1`` escalation).  Each invalid flag
-combination is refused by both runners; ``--nb-devices 2`` by the port
-(its W ranks are processes).
+combination is refused by both runners.
 """
 
 import json
@@ -50,6 +58,10 @@ LEGS = {
                  "--step-deadline", "0.5", "--aggregator", "median", "--max-step", "8", "--evaluation-delta", "-1",
                  "--guardian", "--guardian-args", "patience:2", "recover:2", "--checkpoint-delta", "1"],
 }
+#: the legs over W ranks: (leg, the one-rank leg it repeats, W)
+RANK_LEGS = (("C2", "C", 2), ("D2", "D", 2), ("G4", "G", 4))
+for _leg, _base, _size in RANK_LEGS:
+    LEGS[_leg] = LEGS[_base]
 BOUNDED_FAMILIES = ("straggler_timeouts_total", "straggler_skipped_rounds_total", "stale_infill_rows_total",
                     "bounded_wait_rounds_total", "bounded_wait_deadline_seconds")
 
@@ -65,14 +77,22 @@ def _no_journal_leak():
 def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("bounded")
     results = {}
+    ranks = {leg: (base, size) for leg, base, size in RANK_LEGS}
     with pytest.MonkeyPatch.context() as mp:
         for leg, argv in LEGS.items():
+            base, size = ranks.get(leg, (None, 1))
             for label, main, extra in (("jax", jrunner.main, ["--nb-devices", "1"]),
-                                       ("port", runner.main, ["--device", "cpu"])):
+                                       ("port", runner.main, ["--device", "cpu", "--nb-devices", str(size)])):
+                where = out / leg / label
+                where.parent.mkdir(exist_ok=True)
+                if label == "jax" and base is not None:
+                    # the JAX runner at one device: its base leg's run, the same flags
+                    where.symlink_to(out / base / label, target_is_directory=True)
+                    results[leg, label] = results[base, label]
+                    continue
                 mp.setattr(jmetrics, "REGISTRY", jmetrics.MetricsRegistry())
                 mp.setattr(tmetrics, "REGISTRY", tmetrics.MetricsRegistry())
-                where = out / leg / label
-                where.mkdir(parents=True)
+                where.mkdir()
                 results[leg, label] = main(argv + extra + [
                     "--checkpoint-dir", str(where / "ckpt"), "--summary-dir", str(where / "sum"),
                     "--journal", str(where / "j.jsonl"), "--metrics-file", str(where / "m.prom"),
@@ -107,7 +127,7 @@ def _families(path, module):
     return {name: sorted(families[name]["samples"], key=repr) for name in BOUNDED_FAMILIES if name in families}
 
 
-@pytest.mark.parametrize("leg", ["C", "D"])
+@pytest.mark.parametrize("leg", ["C", "D", "C2", "D2"])
 def test_timeline_forensics_and_registry_match_the_jax_runner(runs, leg):
     out, results = runs
     port, jax_dir = out / leg / "port", out / leg / "jax"
@@ -117,7 +137,7 @@ def test_timeline_forensics_and_registry_match_the_jax_runner(runs, leg):
     assert [r["step"] for r in rounds] == [1, 2, 3, 4, 5]
     assert all(r["timed_out"] == [0, 1] and r["nb_arrived"] == 6 and r["deadline_s"] == 0.5 for r in rounds)
     assert [r["skipped_units"] for r in rounds] == [[]] + [[0, 1]] * 4
-    if leg == "D":
+    if leg.startswith("D"):
         # a carry of age 1 and 2 re-enters, damped by 1/2 and 1/3; then the NaN drop
         assert [r["stale_infill"] for r in rounds] == [[0, 1], [0, 1], [], [], []]
         reweights = [(r["step"], r["worker"], r["age"], r["coefficient"]) for r in ours if r["type"] == "stale_reweight"]
@@ -137,18 +157,24 @@ def test_timeline_forensics_and_registry_match_the_jax_runner(runs, leg):
     assert all(math.isfinite(e["total_loss"]) for e in _summaries(jax_dir / "sum") if "total_loss" in e)
 
 
-def test_guardian_escalates_for_straggler_timeouts_like_the_jax_runner(runs):
+@pytest.mark.parametrize("leg", ["G", "G4"])
+def test_guardian_escalates_for_straggler_timeouts_like_the_jax_runner(runs, leg):
     out, results = runs
     guardian = ("guardian_rollback_decision", "guardian_rollback", "guardian_escalation", "guardian_recovered")
     views = {}
     for label, module in (("port", tevents), ("jax", jevents)):
-        views[label] = [r for r in _journal(str(out / "G" / label / "j.jsonl"), module) if r["type"] in guardian]
+        views[label] = [r for r in _journal(str(out / leg / label / "j.jsonl"), module) if r["type"] in guardian]
     assert views["port"] == views["jax"]
     decision = views["port"][0]
     assert decision["type"] == "guardian_rollback_decision" and decision["reason"] == "straggler_timeouts"
     assert decision["nb_timeouts"] == 3 and decision["budget"] == 2
-    assert results["G", "port"]["escalations"] == ["f+1"]
-    assert results["G", "port"]["rollbacks"][0]["reason"].startswith("straggler timeouts (3)")
+    assert results[leg, "port"]["escalations"] == ["f+1"]
+    assert results[leg, "port"]["rollbacks"][0]["reason"].startswith("straggler timeouts (3)")
+    if leg == "G4":
+        assert results[leg, "port"]["nb_devices"] == 4
+        # the ranks' bounded rounds are the one-rank run's, rollback included
+        one = [r for r in _journal(str(out / "G" / "port" / "j.jsonl"), tevents) if r["type"] == "bounded_round"]
+        assert [r for r in _journal(str(out / leg / "port" / "j.jsonl"), tevents) if r["type"] == "bounded_round"] == one
 
 
 @pytest.mark.parametrize("flags", [
@@ -177,10 +203,3 @@ def test_invalid_combinations_refuse_in_both_runners(flags, tmp_path):
         runner.main(argv + ["--device", "cpu"])
     with pytest.raises(JaxUserException):
         jrunner.main(argv + ["--nb-devices", "1"])
-
-
-def test_the_port_refuses_bounded_wait_over_ranks():
-    argv = BASE + ["--aggregator", "krum", "--max-step", "2", "--evaluation-delta", "-1", "--device", "cpu"]
-    for flags in (["--step-deadline", "0.2"], ["--straggler-stall", "0.1"]):
-        with pytest.raises(UserException, match="single-process"):
-            runner.main(argv + flags + ["--nb-devices", "2"])

@@ -41,7 +41,11 @@ warmup, and each vote rule's engine on the card matches the CPU's.  The
 kernels' batched forms (one launch over an (L, n, s) stack of leaves) hold
 their batched plain versions at the unbatched tolerances and give K3-K6 and
 the centring's bits of L unbatched launches; granularity:leaf under "auto"
-runs them once a leaf size a step.
+runs them once a leaf size a step.  Bounded-wait over two gloo ranks
+sharing the card (``tests/torch_rank_cases.py``'s ``bounded_cases``): a
+round's masks, krum's selections and the parameters (1e-5) are one rank's,
+and a submission stalled past a 1 s window on rank 1 is a timeout on both
+ranks.
 """
 
 import numpy as np
@@ -1396,3 +1400,60 @@ def test_leaf_bucketing_auto_on_cuda_runs_the_batched_kernels(cuda_device, rule,
             assert torch.equal(a > 0, b > 0)
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(runs["auto"][1], runs[False][1], rtol=1e-4, atol=1e-5)
+
+
+def _bounded_jobs(name, case, steps):
+    """One ``bounded_cases`` job: the MLP's weights (mnist hidden:16) and
+    injected rows (a linear loss: each worker's gradient is its rows)."""
+    weights = {k: v.numpy() for k, v in models.instantiate("mnist", ["hidden:16"]).init(0).items()}
+    rng = np.random.default_rng(6)
+    n = case["n"]
+    scales = (np.arange(n) + 1.0) / 2.0
+    batches = [{"g_" + k: (rng.normal(size=v.shape) + rng.normal(size=(n,) + v.shape)
+                          * scales.reshape((n,) + (1,) * v.ndim)).astype(np.float32) for k, v in weights.items()}
+               for _ in range(steps)]
+    return [(name, case, weights, batches)]
+
+
+@pytest.mark.gpu
+def test_two_ranks_bounded_round_on_the_shared_card_is_one_rank_s(cuda_device):
+    """Two gloo ranks sharing the card, krum n = 8, f = 2, worker 5 (rank
+    1) stalled from round 1 past a 1 s window: the masks and krum's
+    selections equal one rank's on the card, the parameters bit-identical
+    across the ranks and within 1e-5 of the one rank's."""
+    import torch_rank_cases as cases_module
+    from aggregathor_tpu_torch.parallel import mesh
+    from aggregathor_tpu_torch.parallel.mesh import WorkerAxis
+
+    case = {"n": 8, "f": 2, "rule": "krum", "stragglers": (5,), "stall": 30.0, "options": {"worker_metrics": True},
+            "step": {"deadline": 1.0}}
+    jobs = _bounded_jobs("krum", case, 2)
+    ranks = mesh.spawn(cases_module.bounded_cases, 2, 8, (jobs,), device="cuda", shared_card=True, timeout=600)
+    one = cases_module.bounded_cases(WorkerAxis(8, 1, 0, cuda_device), jobs)["krum"]
+    lead, other = ranks[0]["krum"], ranks[1]["krum"]
+    for key, value in lead["params"].items():
+        assert np.array_equal(other["params"][key], value), key
+        np.testing.assert_allclose(value, one["params"][key], rtol=1e-5, atol=1e-6, err_msg=key)
+    for a, b in zip(lead["rounds"], one["rounds"]):
+        for key in ("straggler_timeout", "stale_infill", "worker_nan", "worker_participation"):
+            assert np.array_equal(a[key], b[key]), key
+    assert lead["rounds"][1]["straggler_timeout"].tolist() == [False] * 5 + [True] + [False] * 2
+
+
+@pytest.mark.gpu
+def test_a_submission_past_the_window_on_rank_1_times_out_on_both_ranks(cuda_device):
+    """Worker 5 (rank 1) stalls 3 s in round 1 against a 1 s window: both
+    ranks record its timeout and an infinite arrival, and the lead's
+    arrival vector is rank 1's."""
+    import torch_rank_cases as cases_module
+    from aggregathor_tpu_torch.parallel import mesh
+
+    case = {"n": 8, "f": 2, "rule": "median", "stragglers": (5,), "stall": 3.0, "step": {"deadline": 1.0}}
+    ranks = mesh.spawn(cases_module.bounded_cases, 2, 8, (_bounded_jobs("median", case, 2),), device="cuda",
+                       shared_card=True, timeout=600)
+    for rank in ranks:
+        late = rank["median"]["rounds"][1]
+        assert late["straggler_timeout"].tolist() == [False] * 5 + [True] + [False] * 2
+        assert np.isinf(late["arrivals"][5]) and np.isfinite(np.delete(late["arrivals"], 5)).all()
+    assert np.array_equal(ranks[0]["median"]["rounds"][1]["arrivals"], ranks[1]["median"]["rounds"][1]["arrivals"])
+

@@ -286,3 +286,130 @@ def grid_jobs(axis, grids):
         grid = mesh.make_mesh(shape[0], shape[2], shape[1], device="cpu")
         out.append([globals()[name](grid, *args) for name, args in jobs])
     return out
+
+
+# --------------------------------------------------------------------------- #
+# bounded-wait over the worker axis (tests/test_torch_bounded_ranks.py)
+
+
+def injected_loss(params, batch):
+    """The port's side of ``tests/torch_injected.py``'s linear loss: a
+    worker's gradient is its batch's rows, exactly."""
+    return sum(torch.sum(params[name] * batch["g_" + name]) for name in sorted(params))
+
+
+class ChosenStragglers:
+    """A straggler model both packages' ``BoundedWaitStep`` accept: from
+    step ``start`` on, each worker of ``workers`` holds its submission
+    ``stall`` seconds."""
+
+    def __init__(self, workers, stall, start=1):
+        self.workers, self.stall, self.start = frozenset(workers), float(stall), int(start)
+
+    def delay(self, step, worker):
+        return self.stall if step >= self.start and worker in self.workers else 0.0
+
+
+def _gathered_rows(axis, tensor):
+    """Every worker's (n, ...) rows of the ranks' (k, ...) ``tensor``."""
+    if axis.size == 1:
+        return tensor
+    return axis.all_gather(tensor).reshape((axis.nb_workers,) + tuple(tensor.shape[1:]))
+
+
+def bounded_case(axis, case, weights, batches, journal=None):
+    """One bounded-wait run of ``case`` on ``axis``: ``BoundedWaitStep`` over
+    the port's engine and the injected loss from ``weights`` (numpy), each
+    rank keeping its k workers of the global ``batches``.  Returns, per
+    round, the masks, counts, coefficients, loss, participation, NaN rows,
+    digests, the window and the gathered arrivals; the parameters, every
+    worker's momentum and residual rows, the registry's snapshot, the
+    recorded wire payloads ``{(step, worker): ...}`` of this rank's workers;
+    the lead writes its journal to ``journal``.  The engine runs on the
+    axis's device.  Under ``case["fail"]`` = (step, worker) that submission
+    raises, and the run returns the rank's error message instead."""
+    from aggregathor_tpu_torch.obs import events
+    from aggregathor_tpu_torch.obs.metrics import MetricsRegistry
+    from aggregathor_tpu_torch.parallel.bounded import BoundedWaitStep
+    from aggregathor_tpu_torch.parallel.deadline import DeadlineController
+
+    n, f = case["n"], case["f"]
+    axis = axis.with_workers(n)
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:%s" % case.get("lr", 0.05)]))
+    # the axis's device (the CPU, or a card) is the engine's
+    engine = RobustEngine(gars.instantiate(case["rule"], n, f), n, axis=axis,
+                          **case.get("options", {}))
+    params = {name: torch.as_tensor(value) for name, value in weights.items()}
+    model = ChosenStragglers(case["stragglers"], case.get("stall", 30.0), case.get("stall_from", 1)) \
+        if case.get("stragglers") else None
+    controller = DeadlineController(**case["controller"]) if case.get("controller") else None
+    topology = None
+    if case.get("topology"):
+        from aggregathor_tpu_torch.topology import TreeAggregator, parse_topology_spec
+
+        spec, schedule = case["topology"]
+        topology = TreeAggregator(parse_topology_spec(spec, n, f))
+        topology.schedule = ChaosSchedule(schedule, n, allow_topology_faults=True)
+    registry = MetricsRegistry()
+    if journal is not None and axis.lead:
+        events.install(journal, run_id="bounded")
+    step = BoundedWaitStep(engine, injected_loss, tx, params, straggler_model=model, controller=controller,
+                           topology=topology, registry=registry, **case.get("step", {}))
+    payloads = {}
+    original = step.grad_fn
+    fail = case.get("fail")  # (step, worker): that submission raises
+
+    def recording(*args, **kwargs):
+        if fail is not None and (int(args[3]), int(args[4])) == tuple(fail):
+            raise ValueError("injected submission failure")
+        out = original(*args, **kwargs)
+        row = out["row"]
+        payloads[int(args[3]), int(args[4])] = ({key: value.cpu().numpy() for key, value in row.items()}
+                                                if isinstance(row, dict) else row.cpu().numpy())
+        return out
+
+    step.grad_fn = recording
+    out = {"rank": axis.rank, "rounds": []}
+    try:
+        state = engine.init_state(params, tx, seed=1)
+        for batch in batches:
+            try:
+                state, metrics = step(state, engine.put_batch(batch))
+            except RuntimeError as exc:
+                if fail is None:
+                    raise
+                out["error"] = str(exc)  # every rank raises after the round's gather
+                return out
+            got = {key: metrics[key].cpu().numpy() for key in
+                   ("straggler_timeout", "stale_infill", "nb_timeouts", "nb_stale", "total_loss",
+                    "stale_reweight_coeff", "worker_participation") if key in metrics}
+            got["worker_nan"] = metrics["probe"]["worker_nan_rows"].cpu().numpy()
+            if "secure" in metrics:
+                got["secure"] = {name: value.cpu().numpy() for name, value in metrics["secure"].items()}
+            got["arrivals"] = step.last_arrivals.copy()
+            got["window"] = None if controller is None else controller.window
+            got["gather_s"] = step.last_gather_s
+            out["rounds"].append(got)
+    finally:
+        step.close()
+        if journal is not None and axis.lead:
+            events.uninstall()
+    out["params"] = {name: value.detach().cpu().numpy() for name, value in state.params.items()}
+    out["momentum"] = None if state.momentum is None else _gathered_rows(axis, state.momentum).cpu().numpy()
+    out["ef"] = None if state.ef is None else engine.gather_ef(state).cpu().numpy()
+    out["timeouts_total"] = step.timeouts_total.copy()
+    out["stale_total"] = step.stale_total.copy()
+    out["registry"] = registry.snapshot()
+    out["payloads"] = payloads
+    return out
+
+
+def bounded_cases(axis, cases, journal_dir=None):
+    """Every ``(id, case, weights, batches)`` of ``cases`` on this rank, the
+    lead's journals in ``journal_dir`` (``<id>-W<size>.jsonl``)."""
+    import os
+
+    return {name: bounded_case(axis, case, weights, batches,
+                               None if journal_dir is None else os.path.join(journal_dir, "%s-W%d.jsonl"
+                                                                             % (name, axis.size)))
+            for name, case, weights, batches in cases}
