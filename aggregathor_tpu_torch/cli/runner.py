@@ -56,7 +56,13 @@ run), ``--incremental-aggregation`` decodes each row as it lands.  It
 needs ``--unroll 1``, stream input, no ``--UDP`` and a schedule of
 straggler regimes only; the flight recorder then has no chaos lane.  At
 ``--nb-devices`` W > 1 each rank submits for its own k workers and one
-gather a round agrees the verdicts, so the run is the one-rank run's.  The summaries carry ``straggler_timeouts``, ``stale_infill_rows``
+gather a round agrees the verdicts, so the run is the one-rank run's.
+Under ``--mesh W,PP,TP`` a unit is a worker-axis submesh: its k workers'
+full-batch gradients (the pipeline at one microbatch, l1/l2 folded into
+each worker's loss) are submitted together by its PP TP ranks, arrive or
+forfeit their k rows together (``submesh_timeout``), and the aggregate is
+the flat rule over the whole vector across every rank of the grid; not
+with ``--microbatches``.  The summaries carry ``straggler_timeouts``, ``stale_infill_rows``
 and ``deadline_window_seconds``; the forensics ledger each step's timeouts
 and stale rows; the watchdog rolls back on timeouts beyond f
 (``observe_timeouts``) and on a window pinned at its ceiling
@@ -403,7 +409,7 @@ def build_parser():
              "experiment that publishes sharded hooks, e.g. transformer); W must divide --nb-workers",
     )
     parser.add_argument(
-        "--microbatches", type=int, default=2,
+        "--microbatches", type=int, default=None,
         help="pipeline microbatches per step (sharded engine only; default 2)",
     )
     parser.add_argument(
@@ -749,8 +755,7 @@ def parse_mesh(text):
 
 def check_mesh_flags(args):
     """The JAX runner's refusals of ``--mesh`` (JAX :650-655, :951-980,
-    :1023-1045), before any rank is spawned; bounded-wait on the sharded
-    engine is ROADMAP queue 1 item 8c."""
+    :1023-1045), before any rank is spawned."""
     from .. import models
     from ..parallel import compress
     from ..utils import UserException
@@ -776,10 +781,37 @@ def check_mesh_flags(args):
         raise UserException("--topology needs the flat engine: the tree's custody plane signs the stacked "
                             "per-worker wire rows, which the sharded submesh submissions never materialize — drop "
                             "--mesh")
-    if args.step_deadline is not None or args.straggler_stall > 0:
-        raise UserException("--step-deadline/--straggler-stall on the sharded engine (--mesh: per-submesh "
-                            "submission units) is not available in the PyTorch port yet (ROADMAP queue 1 item 8c); "
-                            "drop --mesh")
+    if (args.step_deadline is not None or args.straggler_stall > 0) and args.microbatches is not None:
+        raise UserException("--step-deadline on the sharded engine computes per-worker FULL-batch gradients over "
+                            "experiment.loss; --microbatches only shapes the fused pipeline loss — drop it (the "
+                            "bounded path would silently ignore it)")
+
+
+def make_regularized_loss(base_loss, l1, l2, sharded=None):
+    """The per-worker loss's l1/l2 (JAX :1186-1200): the loss plus l1 times
+    the sum of |p| and l2 times the sum of p^2 over the leaves (the
+    reference's graph.py:125-139); ``base_loss`` itself without them.
+    Given the ``sharded`` engine, ``base_loss(params, batch, grid)`` is a
+    rank's local partial and each leaf's terms are scaled by 1/(its
+    replication), so that the submesh's sum carries them once."""
+    import torch
+
+    if not (l1 or l2):
+        return base_loss
+
+    def regularized(loss, params):
+        def scale(name):
+            return 1.0 if sharded is None else sharded.replication_scale(name)
+
+        if l1:
+            loss = loss + l1 * sum(scale(name) * torch.sum(torch.abs(p)) for name, p in params.items())
+        if l2:
+            loss = loss + l2 * sum(scale(name) * torch.sum(p * p) for name, p in params.items())
+        return loss
+
+    if sharded is not None:
+        return lambda params, batch, grid: regularized(base_loss(params, batch, grid), params)
+    return lambda params, batch: regularized(base_loss(params, batch), params)
 
 
 def default_nb_devices(n, device):
@@ -1141,24 +1173,6 @@ def _train(args, stop, axis):
 
             group_masking = GroupMasking.from_secret(args.session_secret.encode())
 
-        def make_regularized_loss(base_loss, l1, l2):
-            """The flat engine's l1/l2 (JAX :1186-1200): the per-worker loss
-            plus l1 times the sum of |p| and l2 times the sum of p^2 over the
-            leaves (the reference's graph.py:125-139); ``base_loss`` itself
-            without them."""
-            if not (l1 or l2):
-                return base_loss
-
-            def loss_fn(params, batch):
-                loss = base_loss(params, batch)
-                if l1:
-                    loss = loss + l1 * sum(torch.sum(torch.abs(p)) for p in params.values())
-                if l2:
-                    loss = loss + l2 * sum(torch.sum(p * p) for p in params.values())
-                return loss
-
-            return loss_fn
-
         def build_training(ov):
             """The rebuildable half of the run, built from an ``Overrides``
             record (JAX ``TrainingStack``, runner.py:1203-1240): the rule,
@@ -1190,10 +1204,25 @@ def _train(args, stop, axis):
                     exchange_dtype=args.exchange_dtype, worker_momentum=args.worker_momentum,
                     worker_metrics=args.worker_metrics, reputation_decay=ov.reputation_decay,
                     quarantine_threshold=ov.quarantine_threshold, l1_regularize=args.l1_regularize,
-                    l2_regularize=args.l2_regularize, chaos=chaos, secure=args.secure, flight=flight_rec)
-                loss_fn = experiment.sharded_loss(mesh_axes[1], args.microbatches)
+                    l2_regularize=args.l2_regularize, chaos=None if bounded_wait else chaos, secure=args.secure,
+                    flight=flight_rec)
+                loss_fn = experiment.sharded_loss(mesh_axes[1], 2 if args.microbatches is None else args.microbatches)
                 stack.bounded_step = None
-                stack.step_fn = stack.engine.build_step(loss_fn, stack.tx)
+                if bounded_wait:
+                    # a submesh's submission (JAX :1277-1300): each worker's
+                    # full-batch loss, the pipeline at one microbatch, with
+                    # l1/l2 folded into it as the flat loss folds them (the
+                    # engine's analytic terms belong to the fused step)
+                    bounded_loss = make_regularized_loss(experiment.sharded_loss(mesh_axes[1], 1),
+                                                         args.l1_regularize, args.l2_regularize, stack.engine)
+                    stack.bounded_step = BoundedWaitStep(
+                        stack.engine, bounded_loss, stack.tx, params_template, deadline=args.step_deadline,
+                        straggler_model=straggler_model, registry=registry, controller=deadline_controller,
+                        stale_infill=args.stale_infill, stale_max_age=args.stale_max_age,
+                        stale_reweight=args.stale_reweight)
+                    stack.step_fn = stack.bounded_step
+                else:
+                    stack.step_fn = stack.engine.build_step(loss_fn, stack.tx)
                 stack.multi_fn = stack.engine.build_multi_step(loss_fn, stack.tx) if unroll > 1 else None
                 # metric sums need a dense replica; evaluation reports the loss
                 stack.eval_fn = None

@@ -1,6 +1,6 @@
 """Bounded-wait robust aggregation: never wait on the slowest worker.
 
-Counterpart of ``aggregathor_tpu/parallel/bounded.py`` in its flat mode.  A
+Counterpart of ``aggregathor_tpu/parallel/bounded.py``.  A
 rule sized for f Byzantine rows absorbs a missing row for free (a lost
 packet becomes a NaN row), so the aggregator may close a round at a
 DEADLINE instead of at the last submission (OptiReduce, arXiv:2310.06993).
@@ -70,16 +70,17 @@ run's (JAX's flat bounded mode is one process):
 
 - Rank r runs the submissions of its own k = n/W workers, on k threads and
   k streams, each indexed by its GLOBAL worker id into the straggler, chaos
-  and forge streams; no submission thread makes a collective call.
+  and forge streams; no flat submission thread makes a collective call.
 - Each rank waits on its own units against the round's window, on its own
   monotonic clock, then sends in ONE ``all_gather`` a round (a small
-  float64 tensor, host memory under gloo) its units' arrival, stale and
-  skipped flags, carry ages, arrival seconds and failures.  Every later
-  decision reads the gathered (n,) vectors only: the masks handed to the
-  aggregate, the counters, the journal, the trace, forensics' and the
-  guardian's inputs, and the controller, so every rank's window is the same
-  by construction.  A rank whose units all arrived waits in the gather;
-  the journal's round time is the lead's.
+  float64 tensor, host memory under gloo) its units' arrival and skipped
+  flags, arrival seconds, failures and whether each is still in flight.
+  Every later decision reads the gathered (n,) vectors only: the masks
+  handed to the aggregate, every worker's carry age and stale verdict, the
+  counters, the journal, the trace, forensics' and the guardian's inputs,
+  and the controller, so every rank's window is the same by construction.
+  A rank whose units all arrived waits in the gather; the journal's round
+  time is the lead's.
 - A failed submission fails every rank after the gather, so no rank is
   left waiting in a collective.
 - The owner keeps each worker's CLEVER carry, digest and age, assembles
@@ -92,8 +93,37 @@ run's (JAX's flat bounded mode is one process):
   tree's round and broadcasts the masks (and alone writes its journal and
   custody entries).
 
-Not carried: the sharded mode's submesh units (``build_group_grad``,
-``build_submesh_grad``: the sharded engine, ROADMAP queue 1 item 8c).
+**The sharded mode's units** (``engine.sharded``, JAX ``bounded.py:253-301``):
+a unit is one worker-axis index of the (W, PP, TP) grid, its k = n/W
+workers submitted together by its PP TP ranks (``engine.build_group_grad``
+at PP TP = 1, k workers vmapped on one rank; ``build_submesh_grad`` beyond,
+each worker's gradient computed by the unit's ranks with their pipe ring
+and tensor-parallel collectives, and every member holding the k whole
+rows).  The unit is as late as its latest worker (the stall, drawn from
+(step, worker), is the same on every member), its track is ``submesh NN``,
+and it arrives only where every member's part arrived, at the latest
+member's time: the verdicts are gathered over every rank of the grid and
+reduced over each unit's members.  A unit that misses its window forfeits
+its k rows (NaN drops or, under stale infill, each worker's carry), as one
+``submesh_timeout`` journal event (group, forfeited = k; a skipped unit is
+named by ``bounded_round``), and the controller votes over the W units
+(``observe_round(unit_size=k)``).  The aggregate runs over all W PP TP ranks
+(``engine.build_bounded_aggregate``): the flat rule on the whole vector,
+granularity global.  The incremental fold and ``topology`` are per-worker
+protocols and refuse this mode.
+
+A submesh unit is the one place a submission thread makes collective calls,
+and three things keep them safe.  They run on process groups of the
+submission's own (``mesh.submission_grid``, made at build on every rank in
+the same order), so they never interleave with the verdict gather, the
+aggregate or the fused step, which run on the grid's groups from the
+caller's thread: a straggling unit may still be inside its collectives
+while the next round aggregates.  Every member runs the same submissions in
+the same order: a unit still in flight when a round closes is skipped next
+round on every member, decided from the gathered in-flight flags, not from
+a member's own view.  And after the stall the members agree, with one
+``all_reduce`` on the unit's group, whether the round is still open on all
+of them: all of them enter the gradient's collectives, or none does.
 
 Under ``topology`` (a :class:`~aggregathor_tpu_torch.topology.TreeAggregator`,
 the runner's ``--topology``) the round's stacked wire rows go through the
@@ -253,7 +283,14 @@ class BoundedWaitStep:
         self.stale_max_age = int(stale_max_age)
         if stale_infill and self.stale_max_age < 1:
             raise UserException("--stale-max-age must be >= 1 round (got %d)" % self.stale_max_age)
-        if topology is not None and engine.sharded:
+        # submission units (module docstring): the flat mode's is one worker;
+        # the sharded mode's one worker-axis submesh, whose k workers arrive,
+        # or forfeit their rows, as a whole (JAX bounded.py:253-301)
+        self.grouped = bool(engine.sharded)
+        if incremental and self.grouped:
+            raise UserException("--incremental-aggregation folds per-WORKER rows; the sharded mode's per-submesh "
+                                "submissions need a per-group fold layout, a different protocol — run the flat engine")
+        if topology is not None and self.grouped:
             raise UserException("--topology drives per-WORKER leaf rows; the sharded engine's per-submesh "
                                 "submission units are a different grouping than the tree's — run the flat engine")
         if topology is not None and incremental:
@@ -261,7 +298,7 @@ class BoundedWaitStep:
                                 "custody plane signs the stacked wire rows at the barrier, which the incremental "
                                 "fold never materializes")
         self.engine = engine
-        self.nb_workers = self.nb_units = engine.nb_workers
+        self.nb_workers = engine.nb_workers
         # this rank's k workers, first .. first + k - 1 (all n at W = 1)
         self.axis = engine.axis
         self.k = engine.workers_per_device
@@ -276,21 +313,43 @@ class BoundedWaitStep:
         self.ef = bool(engine.carries_ef)
         self.incremental = bool(incremental)
         self.topology = topology
-        self.grad_fn = engine.build_worker_grad(loss_fn)
+        #: the members of a unit (ranks computing it together) and the ranks
+        #: whose verdicts a round gathers
+        self._members = 1
+        self._verdict_axis = self.axis
+        self._unit_group = None
+        if self.grouped:
+            self.group_size, self.nb_units = self.k, engine.nb_devices
+            self._units_here = [self.axis.rank]  # this rank's worker-axis index
+            self._members = engine.mesh.in_group_size
+            self._verdict_axis = engine.mesh.world
+            if self._members > 1:
+                self.grad_fn = engine.build_submesh_grad(loss_fn)
+                self._unit_group = self.grad_fn.grid.group  # the submission's own submesh group
+            else:
+                self.grad_fn = engine.build_group_grad(loss_fn)
+        else:
+            self.group_size, self.nb_units = 1, self.nb_workers
+            self._units_here = [self.first + j for j in range(self.k)]
+            self.grad_fn = engine.build_worker_grad(loss_fn)
         self.agg_fn = engine.build_bounded_aggregate(tx, params_template,
                                                      rows_form="decoded" if self.incremental else "wire",
                                                      stale_reweight=self.stale_reweight)
         self.device = engine.device
-        self.pool = ThreadPoolExecutor(max_workers=self.k, thread_name_prefix="bw-submit")
+        units = len(self._units_here)
+        self.pool = ThreadPoolExecutor(max_workers=units, thread_name_prefix="bw-submit")
         # one stream a local unit, made once: the card's queue of its submissions
-        self._streams = ([torch.cuda.Stream(self.device) for _ in range(self.k)]
+        self._streams = ([torch.cuda.Stream(self.device) for _ in range(units)]
                          if self.device.type == "cuda" else None)
         # on the card one submission enqueues its kernels at a time: the
         # enqueueing is the host's work under the GIL, which eight threads
         # interleaved slow down (module docstring); the card still runs the
         # streams' work side by side
         self._dispatch_lock = threading.Lock()
-        self._in_flight = [None] * self.k
+        self._in_flight = [None] * units
+        # a unit of several ranks still in flight at the last round's close,
+        # by every member's gathered flag: skipped by all of them next round
+        self._busy = [False] * units
         self._round = 0
         self._round_lock = threading.Lock()
         self._closed = False
@@ -323,10 +382,13 @@ class BoundedWaitStep:
             # a codec the drop's image is still the NaN row the aggregate masks in)
             self._nan_digest = row_digest(torch.full((d,), torch.nan, dtype=torch.float32, device=self.device))
         # the CLEVER carry of this rank's workers: the last row each
-        # delivered, its digest and its age
+        # delivered and its digest; every worker's rounds since it last
+        # arrived, and whether it ever did (the same on every rank: both
+        # follow the gathered arrivals)
         self._carry = [None] * self.k
         self._carry_digest = [None] * self.k
-        self._carry_age = np.zeros((self.k,), np.int64)
+        self._ages = np.zeros((self.nb_workers,), np.int64)
+        self._has_carry = np.zeros((self.nb_workers,), bool)
         self.timeouts_total = np.zeros((self.nb_workers,), np.int64)
         self.stale_total = np.zeros((self.nb_workers,), np.int64)
         self.folds_total = 0
@@ -366,15 +428,20 @@ class BoundedWaitStep:
 
     # ------------------------------------------------------------------ #
 
+    def _unit_workers(self, unit):
+        return range(unit * self.group_size, (unit + 1) * self.group_size)
+
     def _track_name(self, unit):
         """The Perfetto track of one submission unit (zero-padded so the
         tracks sort numerically)."""
-        return "worker %0*d" % (len(str(max(self.nb_units - 1, 1))), unit)
+        label = "submesh" if self.grouped else "worker"
+        return "%s %0*d" % (label, len(str(max(self.nb_units - 1, 1))), unit)
 
     def _stall(self, step_idx, unit):
-        """Sleep the model's delay in slices, checking the poison between
-        them; False when the step was closed meanwhile."""
-        stall = self.model.delay(step_idx, unit)
+        """Sleep the model's delay of ``unit`` (a submesh is as late as its
+        latest worker) in slices, checking the poison between them; False
+        when the step was closed meanwhile."""
+        stall = max(self.model.delay(step_idx, w) for w in self._unit_workers(unit))
         if not stall:
             return True
         tracer = trace.installed()
@@ -392,21 +459,31 @@ class BoundedWaitStep:
                                cat="bounded", args={"step": step_idx})
         return True
 
-    def _submit_one(self, round_id, step_idx, j, round_begin, args, kwargs, ready, consumer):
-        """The submission thread of local unit ``j`` (worker first + j): the
-        injected stall, then the submission.  Returns ``(arrival_seconds,
-        outputs, done)`` or None when the round closed first.  A failure
+    def _agree(self, dispatch):
+        """True when every member of this rank's unit dispatches: one
+        ``all_reduce`` of the flags on the unit's own group, so all of them
+        or none enter the gradient's collectives."""
+        group = self._unit_group
+        flag = torch.full((1,), float(dispatch), device=self.device if group.backend == "nccl" else "cpu")
+        return float(group.all_reduce_sum(flag)[0]) == group.size
+
+    def _submit_one(self, round_id, step_idx, u, round_begin, args, kwargs, ready, consumer):
+        """The submission thread of local unit ``u``: the injected stall, then
+        the submission.  Returns ``(arrival_seconds, outputs, done)`` or None
+        when the round closed first (on any member of a submesh).  A failure
         raises: inside the round it surfaces at the barrier, after it at the
         unit's next dispatch."""
-        if self.model is not None and not self._stall(step_idx, self.first + j):
-            return None
+        dispatch = self.model is None or self._stall(step_idx, self._units_here[u])
         with self._round_lock:
-            if round_id != self._round:
-                return None  # the round closed while we stalled: no dispatch
+            dispatch = dispatch and round_id == self._round  # no dispatch after the close
+        if self._unit_group is not None:
+            dispatch = self._agree(dispatch)
+        if not dispatch:
+            return None
         if self._streams is None:
             out = self.grad_fn(*args, **kwargs)
             return time.monotonic() - round_begin, out, None
-        stream = self._streams[j]
+        stream = self._streams[u]
         with torch.cuda.device(self.device), torch.cuda.stream(stream):
             stream.wait_event(ready)
             for tensor in _tensors((args, kwargs)):
@@ -429,18 +506,28 @@ class BoundedWaitStep:
         return out
 
     def _gather(self, local):
-        """Every rank's ``local`` (rows, k) float64 verdicts, as (rows, n)
-        worker-major: one ``all_gather`` (host memory under gloo, the card
-        under NCCL); ``local`` itself at W = 1."""
-        if self.axis.size == 1:
-            return local
-        begin = time.perf_counter()
-        tensor = torch.from_numpy(local)
-        if self.axis.backend != "gloo":
-            tensor = tensor.to(self.device)
-        gathered = self.axis.all_gather(tensor).cpu().numpy()  # (W, rows, k)
-        self.last_gather_s = time.perf_counter() - begin
-        return np.concatenate(list(gathered), axis=1)
+        """Every worker's verdicts, (rows, n) worker-major, from the ranks'
+        ``local`` (rows, k) float64 ones: one ``all_gather`` over the verdict
+        axis (host memory under gloo, the card under NCCL); ``local`` itself
+        on one rank.  A unit of several members arrived only where all of
+        them did (row 0, the minimum), at their latest (every other row, the
+        maximum).  Returns ``(verdicts, index of the first rank that
+        reported a failure, or None)``."""
+        axis = self._verdict_axis
+        if axis.size == 1:
+            gathered = local[None]
+        else:
+            begin = time.perf_counter()
+            tensor = torch.from_numpy(local)
+            if axis.backend != "gloo":
+                tensor = tensor.to(self.device)
+            gathered = axis.all_gather(tensor).cpu().numpy()  # (R, rows, k)
+            self.last_gather_s = time.perf_counter() - begin
+        failed = np.nonzero(gathered[:, 3].any(axis=1))[0]
+        if self._members > 1:
+            units = gathered.reshape((-1, self._members) + local.shape)
+            gathered = np.concatenate([units[:, :, :1].min(axis=1), units[:, :, 1:].max(axis=1)], axis=1)
+        return np.concatenate(list(gathered), axis=1), (int(failed[0]) if failed.size else None)
 
     def _gather_wire(self, rows):
         """Every worker's (n, ...) wire rows (a codec's payload dict too)
@@ -484,40 +571,49 @@ class BoundedWaitStep:
             ready = torch.cuda.Event()
             ready.record(consumer)
         futures = {}
-        # this rank's verdicts on its k workers: arrived, stale, skipped,
-        # carry age, arrival seconds, failed
-        mine = np.zeros((6, k))
-        mine[4] = np.inf
+        # this rank's verdicts on its k workers: arrived, skipped, arrival
+        # seconds, failed, still in flight at the round's close
+        mine = np.zeros((5, k))
+        mine[2] = np.inf
         failure = None  # (message, exception) of this rank's first failed unit
         round_begin = time.monotonic()
         tracer = trace.installed()
         round_t0_us = tracer.now_us() if tracer is not None else 0.0
-        for j in range(k):
-            prev = self._in_flight[j]
-            if prev is not None and not prev.done():
-                mine[2, j] = 1.0  # still submitting an earlier round
+        # local unit u holds this rank's workers cols[u]
+        cols = [slice(u, u + 1) for u in range(k)] if not self.grouped else [slice(0, k)]
+        for u, unit in enumerate(self._units_here):
+            prev = self._in_flight[u]
+            # a unit of several ranks goes by its members' gathered flags, so
+            # none of them dispatches onto a busy submission group
+            busy = self._busy[u] if self._members > 1 else prev is not None and not prev.done()
+            if busy:
+                mine[1, cols[u]] = 1.0  # still submitting an earlier round
                 continue
-            if prev is not None and not prev.cancelled() and prev.exception() is not None:
-                failure = ("bounded-wait: submission unit %d died after its round closed (late failure)"
-                           % (first + j), prev.exception())
-                mine[5, j] = 1.0
+            if prev is not None and prev.done() and not prev.cancelled() and prev.exception() is not None:
+                failure = ("bounded-wait: submission unit %d died after its round closed (late failure)" % unit,
+                           prev.exception())
+                mine[3, cols[u]] = 1.0
                 break
-            # batch: this rank's k workers (engine.put_batch)
-            args = (params, {key: value[j] for key, value in batch.items()}, state.seed, step_idx, first + j)
+            # batch: this rank's k workers (engine.put_batch); a submesh keeps
+            # the leading worker axis
+            if self.grouped:
+                args = (params, batch, state.seed, step_idx, unit)
+            else:
+                args = (params, {key: value[u] for key, value in batch.items()}, state.seed, step_idx, unit)
             kwargs = {}
             if self.momentum:
                 kwargs.update(momentum=state.momentum, momentum_steps=state.momentum_steps)
             if self.ef:
                 kwargs["ef"] = state.ef
-            self._in_flight[j] = futures[j] = self.pool.submit(
-                self._submit_one, self._round, step_idx, j, round_begin, args, kwargs, ready, consumer)
+            self._in_flight[u] = futures[u] = self.pool.submit(
+                self._submit_one, self._round, step_idx, u, round_begin, args, kwargs, ready, consumer)
         was_warm = self._warm
         deadline = (self.controller.window if self.controller is not None else self.deadline) if was_warm else None
         self._warm = True
         buffer = self._fresh_buffer() if self.incremental else None
         folded = set()
         nb_folds = nb_overlapped = 0
-        fut_unit = {fut: j for j, fut in futures.items()}
+        fut_unit = {fut: u for u, fut in futures.items()}
 
         def fold_done(done, pending):
             nonlocal buffer, nb_folds, nb_overlapped
@@ -554,67 +650,79 @@ class BoundedWaitStep:
         with self._round_lock:
             self._round += 1
         self.last_closed_at = time.monotonic()
+        outputs = {}
+        for u, fut in enumerate(self._in_flight):
+            if fut is not None and not fut.done():
+                mine[4, cols[u]] = 1.0
+        for u, fut in futures.items():
+            result = None
+            if fut.done() and failure is None:
+                try:
+                    result = fut.result()
+                except Exception as exc:
+                    failure = ("bounded-wait: submission unit %d died mid-round at step %d"
+                               % (self._units_here[u], step_idx), exc)
+                    mine[3, cols[u]] = 1.0
+            if result is not None:
+                outputs[u] = self._received(result, consumer)
+                mine[0, cols[u]] = 1.0
+                mine[2, cols[u]] = result[0]
+        # the round's one collective of verdicts: every decision below reads
+        # the gathered vectors, the same on every rank
+        verdicts, failed_rank = self._gather(mine)
+        if failed_rank is not None:
+            if failure is not None:
+                raise RuntimeError(failure[0]) from failure[1]
+            raise RuntimeError("bounded-wait: a submission of rank %d failed at step %d" % (failed_rank, step_idx))
+        arrived = verdicts[0] > 0
+        skipped_units = sorted(set(int(w) // self.group_size for w in np.nonzero(verdicts[1] > 0)[0]))
+        arrival_seconds = verdicts[2]
+        self._busy = [bool(verdicts[4, self._unit_workers(unit)].any()) for unit in self._units_here]
+        # every worker's carry age and stale verdict (JAX bounded.py:657-683):
+        # a missed worker re-enters its carry for at most stale_max_age rounds
+        ages = self._ages
+        ages[arrived] = 0
+        ages[~arrived] += 1
+        stale = np.zeros((n,), bool)
+        if self.stale_infill:
+            stale = ~arrived & self._has_carry & (ages <= self.stale_max_age)
+            self._has_carry |= arrived
         losses, rows = [None] * k, [None] * k
         mom_rows = [None] * k if self.momentum else None
         ef_rows = [None] * k if self.ef else None
         digests = [None] * k if self.secure else None
         for j in range(k):
-            fut = futures.get(j)
-            result = None
-            if fut is not None and fut.done() and failure is None:
-                try:
-                    result = fut.result()
-                except Exception as exc:
-                    failure = ("bounded-wait: submission unit %d died mid-round at step %d" % (first + j, step_idx),
-                               exc)
-                    mine[5, j] = 1.0
-            if result is not None:
-                out = self._received(result, consumer)
-                mine[0, j] = 1.0
-                mine[4, j] = result[0]
-                losses[j] = out["loss"]
-                rows[j] = out["row"]
+            w = first + j
+            if arrived[w]:
+                # the unit's outputs: one worker's, or a submesh's k rows
+                out = outputs[0] if self.grouped else outputs[j]
+                pick = (lambda value: value[j]) if self.grouped else (lambda value: value)
+                losses[j] = pick(out["loss"])
+                rows[j] = pick(out["row"])
                 if self.stale_infill:
-                    self._carry[j] = out["row"]
-                    self._carry_age[j] = 0
+                    self._carry[j] = rows[j]
                 if self.momentum:
                     mom_rows[j] = out["momentum"]
                 if self.ef:
                     ef_rows[j] = out["ef"]
                 if self.secure:
-                    digests[j] = out["digest"]
+                    digests[j] = pick(out["digest"])
                     if self.stale_infill:
-                        self._carry_digest[j] = out["digest"]
+                        self._carry_digest[j] = digests[j]
+                continue
+            losses[j] = self._miss_loss
+            if stale[w]:
+                rows[j] = self._carry[j]  # the carry re-enters, and spends the f budget
+                if self.secure:
+                    digests[j] = self._carry_digest[j]
             else:
-                self._carry_age[j] += 1
-                losses[j] = self._miss_loss
-                if self.stale_infill and self._carry[j] is not None and self._carry_age[j] <= self.stale_max_age:
-                    mine[1, j] = 1.0  # the carry re-enters, and spends the f budget
-                    rows[j] = self._carry[j]
-                    if self.secure:
-                        digests[j] = self._carry_digest[j]
-                else:
-                    rows[j] = self._miss_row
-                    if self.secure:
-                        digests[j] = self._nan_digest
-                if self.momentum:
-                    mom_rows[j] = self._zero_row  # never read: the aggregate keeps the old row
-                if self.ef:
-                    ef_rows[j] = self._zero_row
-        mine[3] = self._carry_age
-        # the round's one collective of verdicts: every decision below reads
-        # the gathered vectors, the same on every rank
-        verdicts = self._gather(mine)
-        failed = np.nonzero(verdicts[5] > 0)[0]
-        if failed.size:
-            if failure is not None:
-                raise RuntimeError(failure[0]) from failure[1]
-            raise RuntimeError("bounded-wait: a submission of rank %d failed at step %d"
-                               % (int(failed[0]) // k, step_idx))
-        arrived, stale = verdicts[0] > 0, verdicts[1] > 0
-        skipped_units = set(int(w) for w in np.nonzero(verdicts[2] > 0)[0])
-        ages = verdicts[3].astype(np.int64)
-        arrival_seconds = verdicts[4]
+                rows[j] = self._miss_row
+                if self.secure:
+                    digests[j] = self._nan_digest
+            if self.momentum:
+                mom_rows[j] = self._zero_row  # never read: the aggregate keeps the old row
+            if self.ef:
+                ef_rows[j] = self._zero_row
         if self.incremental:
             # rows that landed after the window, and stale carries, are folded
             # at the barrier (not overlapped)
@@ -633,8 +741,9 @@ class BoundedWaitStep:
                               ages)
         self._journal_round(step_idx, was_warm, deadline, arrived, stale, skipped_units, ages)
         if self.controller is not None and was_warm:
-            # the rounds the deadline governed only: round 0 measures the builds
-            self.controller.observe_round(arrival_seconds, step=step_idx)
+            # the rounds the deadline governed only: round 0 measures the
+            # builds; a submesh's k arrivals are one unit's vote
+            self.controller.observe_round(arrival_seconds, step=step_idx, unit_size=self.group_size)
         if self._c_folds is not None:
             self._c_folds.inc(nb_folds)
             self._c_overlapped.inc(nb_overlapped)
@@ -644,8 +753,9 @@ class BoundedWaitStep:
                 self._c_timeouts.labels(worker=str(int(w))).inc()
             for w in np.nonzero(stale)[0]:
                 self._c_stale.labels(worker=str(int(w))).inc()
-            for w in sorted(skipped_units):
-                self._c_late.labels(worker=str(int(w))).inc()
+            for unit in skipped_units:
+                for w in self._unit_workers(unit):
+                    self._c_late.labels(worker=str(int(w))).inc()
             self._c_rounds.inc()
             if deadline is not None:
                 self._g_deadline.set(float(deadline))
@@ -684,19 +794,23 @@ class BoundedWaitStep:
         close_us = tracer.now_us()
         window_us = close_us - round_t0_us if deadline is None else float(deadline) * 1e6
         for unit in range(self.nb_units):
+            w0 = unit * self.group_size
             track = tracer.track(self._track_name(unit))
-            if arrived[unit]:
-                tracer.complete_at("submit", round_t0_us, arrival_seconds[unit] * 1e6, track, cat="bounded",
+            if arrived[w0]:
+                tracer.complete_at("submit", round_t0_us, arrival_seconds[w0] * 1e6, track, cat="bounded",
                                    args={"step": step_idx})
             elif unit in skipped_units:
                 tracer.complete_at("skipped_round", round_t0_us, 0.0, track, cat="bounded", args={"step": step_idx})
-            elif stale[unit]:
-                span_args = {"step": step_idx, "age": int(ages[unit])}
+            elif stale[w0]:
+                span_args = {"step": step_idx, "age": int(ages[w0])}
                 if self.stale_reweight:
-                    span_args["coefficient"] = 1.0 / (1.0 + float(ages[unit]))
+                    span_args["coefficient"] = 1.0 / (1.0 + float(ages[w0]))
                 tracer.complete_at("stale_infill", round_t0_us, window_us, track, cat="bounded", args=span_args)
             else:
-                tracer.complete_at("timeout", round_t0_us, window_us, track, cat="bounded", args={"step": step_idx})
+                span_args = {"step": step_idx}
+                if self.grouped:
+                    span_args["forfeited"] = self.group_size  # a submesh misses as a unit: all k rows
+                tracer.complete_at("timeout", round_t0_us, window_us, track, cat="bounded", args=span_args)
         if deadline is not None:
             tracer.counter("bounded.deadline_window_s", float(deadline), ts=close_us, cat="bounded")
         tracer.counter("bounded.arrivals", int(arrived.sum()), ts=close_us, cat="bounded")
@@ -708,21 +822,26 @@ class BoundedWaitStep:
             tracer.counter("bounded.overlap_fraction", self.last_overlap_fraction, ts=close_us, cat="bounded")
 
     def _journal_round(self, step_idx, was_warm, deadline, arrived, stale, skipped_units, ages):
-        """The round's decisions on the journal (JAX ``bounded.py:795-817``):
+        """The round's decisions on the journal (JAX ``bounded.py:795-830``):
         a warm round that timed someone out, infilled a carry or skipped a
         unit is a ``bounded_round``; each reweighted re-entry a
-        ``stale_reweight``."""
+        ``stale_reweight``; each submesh that missed its window (not one
+        skipped: no deadline judged it) a ``submesh_timeout`` with the k
+        rows it forfeited."""
         if not was_warm:
             return
         if (~arrived).any() or stale.any() or skipped_units:
             events.emit("bounded_round", step=step_idx, deadline_s=None if deadline is None else float(deadline),
                         nb_arrived=int(arrived.sum()), timed_out=[int(w) for w in np.nonzero(~arrived)[0]],
-                        stale_infill=[int(w) for w in np.nonzero(stale)[0]],
-                        skipped_units=sorted(int(u) for u in skipped_units))
+                        stale_infill=[int(w) for w in np.nonzero(stale)[0]], skipped_units=list(skipped_units))
         if self.stale_reweight:
             for w in np.nonzero(stale)[0]:
                 age = int(ages[w])
                 events.emit("stale_reweight", step=step_idx, worker=int(w), age=age, coefficient=1.0 / (1.0 + age))
+        if self.grouped:
+            for unit in range(self.nb_units):
+                if unit not in skipped_units and not arrived[unit * self.group_size]:
+                    events.emit("submesh_timeout", step=step_idx, group=unit, forfeited=self.group_size)
 
     def close(self, timeout=5.0):
         """Idempotent shutdown: poison the round so stalled threads never

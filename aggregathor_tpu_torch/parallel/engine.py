@@ -140,9 +140,11 @@ submissions of its own k workers, and the aggregate takes the rank's k
 rows with every worker's masks: the rows cross the reshard to column
 blocks, the rule runs on its block with the distances completed across the
 ranks, and the blocks' aggregates are gathered (``parallel/bounded.py``
-agrees the masks).  The sharded mode's submission units
-(``build_group_grad``, ``build_submesh_grad``) are ROADMAP queue 1 item 8c:
-its bounded builders refuse.
+agrees the masks).  The sharded mode's submission unit is a worker-axis
+index, its k workers' whole rows at once (``build_group_grad`` at PP TP = 1,
+``build_submesh_grad`` beyond, its collectives on groups of its own), and
+its aggregate (granularity global) reshards the units' rows to column blocks
+over every rank of the grid and updates each rank's own blocks.
 
 Refused with a UserException: ``l1_regularize``/``l2_regularize`` on the
 flat mode (the JAX flat engine refuses them too: its loss carries them;
@@ -712,19 +714,25 @@ class RobustEngine:
         return (sq_dist(rows) if self.worker_metrics else None,
                 sq_dist(raw_rows) if self.reputation_decay is not None else None)
 
-    def _reshard_to_blocks(self, rows):
-        """(k, d) rows of this rank's workers -> the (n, blk) float32 column
-        block of its coordinates, blk = ceil(d/W): the rows in the wire's
-        dtype, zero-padded to W blk columns, through one ``all_to_all``
-        (JAX ``_reshard_to_blocks``, ``engine.py:604-617``)."""
-        W, k = self.nb_devices, self.workers_per_device
-        d = rows.shape[1]
+    def _reshard_to_blocks(self, rows, axis=None, order=None):
+        """(m, d) rows this rank sends -> the (n, blk) float32 column block
+        of its coordinates, blk = ceil(d/R) over the R ranks of ``axis``
+        (the worker axis, m = k, by default): the rows in the wire's dtype,
+        zero-padded to R blk columns, through one ``all_to_all`` (JAX
+        ``_reshard_to_blocks``, ``engine.py:604-617``).  ``order`` picks the
+        n workers' rows, worker-major, out of the R m received ones (None:
+        they are already)."""
+        axis = self.axis if axis is None else axis
+        R, m, d = axis.size, rows.shape[0], rows.shape[1]
         if self.exchange_dtype is not None:
             rows = rows.to(self.exchange_dtype)
-        blk = -(-d // W)
-        padded = torch.nn.functional.pad(rows, (0, W * blk - d))
-        pieces = padded.view(k, W, blk).transpose(0, 1)  # (W, k, blk): piece i goes to rank i
-        return self.axis.all_to_all(pieces).reshape(self.nb_workers, blk).to(torch.float32)
+        blk = -(-d // R)
+        padded = torch.nn.functional.pad(rows, (0, R * blk - d))
+        pieces = padded.view(m, R, blk).transpose(0, 1)  # (R, m, blk): piece i goes to rank i
+        block = axis.all_to_all(pieces).reshape(R * m, blk)
+        if order is not None:
+            block = block.index_select(0, order)
+        return block.to(torch.float32)
 
     def _aggregate_vector(self, rows, reputation, key=None, ridx=None):
         """granularity:vector: the rows through the wire (at W > 1 the
@@ -1121,18 +1129,27 @@ class RobustEngine:
     # bounded-wait (parallel/bounded.py): the step split into one submission
     # a worker and one aggregate over the rows that arrived
 
-    def _check_bounded_wait_supported(self):
-        """The bounded-wait builders' preconditions (JAX ``engine.py:2255-2290``
-        for the flat mode).  Any worker axis: at W > 1 each rank's protocol
-        runs its own k workers' submissions on its own threads and streams,
-        and one gather a round agrees the verdicts (``parallel/bounded.py``).
-        The sharded mode's submission units (JAX ``build_group_grad``,
-        ``build_submesh_grad``) are ROADMAP queue 1 item 8c."""
+    def _check_bounded_wait_supported(self, allow_submesh=False):
+        """The bounded-wait builders' preconditions (JAX ``engine.py:2255-2290``).
+        Any worker axis: at W > 1 each rank's protocol runs its own k
+        workers' submissions on its own threads and streams, and one gather
+        a round agrees the verdicts (``parallel/bounded.py``).  The sharded
+        mode's units are its worker-axis submeshes (``build_group_grad`` on
+        a trivial in-group mesh, ``build_submesh_grad`` beyond)."""
         if self.sharded:
-            raise UserException("bounded-wait on the sharded engine (build_group_grad/build_submesh_grad, a unit "
-                                "forfeiting its k rows) is not available in the PyTorch port yet (ROADMAP queue 1 "
-                                "item 8c); run the flat engine")
-        if self.granularity != "vector":
+            if self.mesh.in_group_size != 1 and not allow_submesh:
+                raise UserException("build_group_grad needs trivial in-group axes (--mesh W,1,1): a (pipe x model) "
+                                    "submesh submission is one collective program whose members cannot time out "
+                                    "independently — per-SUBMESH collective timeouts are build_submesh_grad's "
+                                    "protocol (docs/engine.md, 'v3: submesh deadlines')")
+            if self.granularity != "global":
+                raise UserException("sharded bounded-wait aggregates the whole flattened gradient; use granularity "
+                                    "global (the sharded spelling of the flat mode's vector)")
+            if self.worker_momentum is not None:
+                raise UserException("sharded bounded-wait does not carry worker momentum: the sharded "
+                                    "TrainState.momentum is a per-leaf pytree, not the flat (n, d) buffer the "
+                                    "submission body indexes — run the flat engine for momentum + bounded-wait")
+        elif self.granularity != "vector":
             raise UserException("bounded-wait aggregates the whole flattened gradient (granularity vector); per-leaf "
                                 "selection is not supported")
         if self.lossy_link is not None or self.chaos is not None:
@@ -1219,6 +1236,107 @@ class RobustEngine:
 
         return grad_fn
 
+    def build_group_grad(self, loss_fn):
+        """The sharded mode's submission on a trivial in-group mesh (JAX
+        ``build_group_grad``, ``engine.py:2402-2443``): one unit a worker-axis
+        index, one rank, ``group_fn(params, group_batch, seed, step, gidx) ->
+        {loss: (k,), row: (k, d)[, digest: (k, 4)]}``.
+
+        ``loss_fn(params, batch, grid)`` is the sharded engine's local
+        partial loss at one microbatch (at PP TP = 1 the worker's whole
+        loss); ``group_batch`` the unit's (k, ...) batches, ``gidx`` its
+        worker-axis index: its workers are gidx k + j, so the local attack
+        and its streams address them as the flat mode does.  The k workers'
+        full-batch gradients are one ``torch.func.vmap``, as the flat
+        ``_worker_gradients``; each row is the whole flattened (d,) gradient
+        in JAX's coordinate order, then, in JAX's order, the local attack
+        on workers < r from the (seed, step, w, 1) stream, the digest of the
+        whole row under ``secure`` and the exchange dtype.  There is no
+        codec and no momentum (both refused on the sharded engine)."""
+        self._check_bounded_wait_supported()
+        if not self.sharded:
+            raise UserException("build_group_grad is the sharded-mode submission builder (one unit a worker-axis "
+                                "index); the flat engine dispatches build_worker_grad")
+        return self._submission_unit(loss_fn, self.mesh)
+
+    def build_submesh_grad(self, loss_fn):
+        """The sharded mode's submission on a (pipe x model) submesh (JAX
+        ``build_submesh_grad``, ``engine.py:2445-2490``): ``build_group_grad``'s
+        contract, computed by the unit's PP TP ranks together.  Each of the
+        k workers' full-batch gradients goes through ``loss_fn`` with its
+        pipe ring and tensor-parallel collectives (at one microbatch GPipe
+        is the full-batch forward), each leaf's gradient is summed over its
+        replication axes inside the unit (trap ar), the worker's loss over
+        the unit, and one ``all_gather`` over the unit gives every member
+        the k whole rows in JAX's coordinate order (traps d and x): the
+        digest and the aggregate take whole rows.
+
+        Every collective of a submission runs on process groups of its own,
+        made here on every rank in the same order
+        (``mesh.submission_grid``, the function's ``grid``): a straggling
+        unit may still be inside them when its round closes and the
+        aggregate starts on the grid's groups (``parallel/bounded.py``)."""
+        self._check_bounded_wait_supported(allow_submesh=True)
+        if not self.sharded:
+            raise UserException("build_submesh_grad is the sharded-mode submission builder (per-submesh collective "
+                                "programs); the flat engine dispatches build_worker_grad")
+        from .mesh import submission_grid
+
+        return self._submission_unit(loss_fn, submission_grid(self.mesh))
+
+    def _submission_unit(self, loss_fn, grid):
+        """A worker-axis unit's submission on ``grid`` (the one-rank grid's
+        own at PP TP = 1, the submission's groups beyond): the k workers'
+        gradients and losses, completed inside the unit, as whole rows."""
+        from ..secure.submit import row_digest
+
+        k = self.workers_per_device
+        attack = self.attack if self.attack is not None and not self.attack.omniscient else None
+
+        def unit_fn(params, group_batch, seed, step, gidx):
+            losses, grads = self._sharded_worker_gradients(params, group_batch, loss_fn, grid)
+            with torch.no_grad():
+                losses = grid.psum(losses, IN_GROUP_AXES)  # each worker's loss: its partials' sum
+                grads = {name: grid.psum(grads[name], self._replication_axes(self._specs[name])) for name in grads}
+                rows = self._whole_rows(grads, grid)
+                if attack is not None:
+                    for j in range(k):
+                        widx = gidx * k + j
+                        if widx < self.nb_real_byz:
+                            rows[j] = attack.apply_local(rows[j], stream_generator(seed, step, widx, ATTACK_TAG,
+                                                                                   rows.device))
+                out = {"loss": losses}
+                if self.secure:
+                    out["digest"] = row_digest(rows)  # the whole rows, before the dtype's rounding
+                out["row"] = rows if self.exchange_dtype is None else rows.to(self.exchange_dtype)
+                return out
+
+        unit_fn.grid = grid
+        return unit_fn
+
+    def _whole_rows(self, grads, grid):
+        """The (k, d) float32 rows, whole and in JAX's coordinate order, of the
+        unit's completed gradient blocks ``grads`` ({name: (k, *block)}): at
+        PP TP = 1 the blocks are the leaves; beyond, one ``all_gather`` of
+        the rank's blocks over the unit's ``grid.group``, each leaf's joined
+        along the dims its spec shards."""
+        layout = self._global_layout()
+        if grid.in_group_size == 1:
+            return layout.flatten_rows(grads)
+        names = sorted(grads)
+        k = grads[names[0]].shape[0]
+        local = torch.cat([grads[name].reshape(k, -1).to(torch.float32) for name in names], dim=1)
+        pp, tp = grid.shape["pipe"], grid.shape["model"]
+        parts = grid.group.all_gather(local).reshape(pp, tp, k, -1)
+        leaves, offset = {}, 0
+        for name in names:
+            block = tuple(grads[name].shape)
+            size = grads[name][0].numel()
+            piece = parts[..., offset:offset + size].reshape((pp, tp) + block)
+            leaves[name] = self._join_blocks(piece, self._specs[name], lead=1)
+            offset += size
+        return layout.flatten_rows(leaves)
+
     def build_bounded_aggregate(self, tx, params_template, rows_form="wire", stale_reweight=False):
         """The aggregator's side (JAX ``build_bounded_aggregate``,
         ``engine.py:2491-2671``): ``agg(state, rows, losses, arrived, stale,
@@ -1233,26 +1351,35 @@ class RobustEngine:
         ``momentum`` and ``ef`` rows the submissions returned, under
         ``stale_reweight`` the (n,) int ``stale_age`` and under ``secure``
         the (k, 4) ``digests`` of what arrived (the drop row's, a stale
-        carry's).  At W = 1, k = n.  In JAX's order: decode; at W > 1 the
-        reshard to the (n, ceil(d/W)) column block (``_reshard_to_blocks``,
-        the wire's dtype; the rows are decoded first, so no block needs
-        another's to decode); NaN where neither arrived nor stale; the
-        dtype wire's image; each stale row scaled by ``c(a) = 1/(1 + a)``
-        (float32, a true division on the device); ``_prepare_rows`` (the
-        omniscient attack and the quarantine); the distances (completed
-        across the ranks) and the rule with the step's GAR key; at W > 1
-        the blocks' float32 aggregates gathered and cut to d; the update;
-        the loss summed over the arrived workers (and the ranks); momentum
-        and residual rows written back only where arrived
+        carry's).  At W = 1, k = n.  In JAX's order: decode; over R > 1
+        ranks the reshard to the (n, ceil(d/R)) column block
+        (``_reshard_to_blocks``, the wire's dtype; the rows are decoded
+        first, so no block needs another's to decode); NaN where neither
+        arrived nor stale; the dtype wire's image; each stale row scaled by
+        ``c(a) = 1/(1 + a)`` (float32, a true division on the device);
+        ``_prepare_rows`` (the omniscient attack and the quarantine); the
+        distances (completed across the ranks) and the rule with the step's
+        GAR key; the blocks' float32 aggregates gathered and cut to d; the
+        update; the loss summed over the arrived workers (and the ranks);
+        momentum and residual rows written back only where arrived
         (``momentum_steps`` + 1); ``_finalize_step``, the worker distances
         and NaN rows summed across the ranks and the digests gathered
-        worker-major.  The metrics
-        add ``straggler_timeout`` (~arrived), ``stale_infill``,
-        ``nb_timeouts`` (NaN drops and stale rows alike: the f budget they
-        spend), ``nb_stale``, reweighted ``stale_reweight_coeff`` and, under
-        ``secure``, ``secure`` with the digests as sent and as received (no
-        transform lies between) and no forged or rejected worker."""
-        self._check_bounded_wait_supported()
+        worker-major.  The metrics add ``straggler_timeout`` (~arrived),
+        ``stale_infill``, ``nb_timeouts`` (NaN drops and stale rows alike:
+        the f budget they spend), ``nb_stale``, reweighted
+        ``stale_reweight_coeff`` and, under ``secure``, ``secure`` with the
+        digests as sent and as received (no transform lies between) and no
+        forged or rejected worker.
+
+        On the flat engine the R ranks are the worker axis's W.  On the
+        sharded engine (granularity global: the flat rule over the whole
+        vector, JAX ``allow_submesh=True`` at ``engine.py:2539``) they are
+        the grid's W PP TP: every member of a unit holds its k whole rows,
+        and member q of the PP TP sends rows q m .. q m + m - 1 (m =
+        ceil(k / (PP TP)), zero rows padding the last), so each row enters
+        the reshard once; the aggregate is inflated to the global leaves and
+        each rank updates its own (pipe, model) blocks."""
+        self._check_bounded_wait_supported(allow_submesh=True)
         if rows_form not in ("wire", "decoded"):
             raise UserException("rows_form must be 'wire' or 'decoded' (got %r)" % (rows_form,))
         flatmap = FlatMap(params_template)
@@ -1260,9 +1387,30 @@ class RobustEngine:
         if self.codec is not None:
             self.codec.validate_d(d)
 
-        W, k = self.nb_devices, self.workers_per_device
+        k = self.workers_per_device
         first = self.axis.worker_index(0)
-        axis = self.axis if W > 1 else None
+        owned, order = slice(0, k), None
+        if self.sharded:
+            grid = self.mesh
+            axis = grid.world if grid.size > 1 else None
+            G, q = grid.in_group_size, grid.group.rank
+            m = -(-k // G)
+            owned = slice(min(k, q * m), min(k, (q + 1) * m))
+            if k % G:
+                # rank r = w G + q sent rows q m + i of unit w; keep the real ones
+                order = torch.tensor([(w // k * G + w % k // m) * m + w % k % m for w in range(self.nb_workers)],
+                                     device=self.device)
+        else:
+            axis = self.axis if self.nb_devices > 1 else None
+            m = k
+
+        def update(state, agg):
+            if not self.sharded:
+                tx.apply(state.params, flatmap.inflate(agg), state.opt_state)
+                return
+            leaves = self._global_layout().inflate(agg)
+            tx.apply(state.params, {name: self._shard(leaves[name], self._specs[name]) for name in state.params},
+                     state.opt_state)
 
         @torch.no_grad()
         def agg_fn(state, rows, losses, arrived, stale, extras):
@@ -1271,7 +1419,10 @@ class RobustEngine:
             else:
                 rows = rows.to(torch.float32)
             if axis is not None:
-                rows = self._reshard_to_blocks(rows)
+                mine = rows[owned]
+                if mine.shape[0] < m:
+                    mine = torch.nn.functional.pad(mine, (0, 0, 0, m - mine.shape[0]))
+                rows = self._reshard_to_blocks(mine, axis, order)
             # the deadline's verdict: a worker neither arrived nor stale is a
             # NaN row, as a fully lossy link's
             rows = torch.where((arrived | stale)[:, None], rows, torch.nan)
@@ -1288,7 +1439,7 @@ class RobustEngine:
             agg = block = agg.to(torch.float32)
             if axis is not None:
                 agg = axis.all_gather(block).reshape(-1)[:d]
-            tx.apply(state.params, flatmap.inflate(agg), state.opt_state)
+            update(state, agg)
             wdist, rep_dist = self._sq_dists(rows, raw_rows, block)
             worker_nan = torch.any(~torch.isfinite(rows), dim=1) if self.health_probe else None
             if axis is not None:
@@ -1450,6 +1601,12 @@ class RobustEngine:
             scale /= self.mesh.shape[a]
         return scale
 
+    def replication_scale(self, name):
+        """1 / (the size of the in-group axes that replicate leaf ``name``):
+        a rank's share of a term over that leaf, so that the submesh's sum
+        counts it once."""
+        return self._replication_scale(self._specs[name])
+
     def _shard(self, value, spec):
         """This rank's block of a global leaf: each dim named by ``spec``
         cut into the axis's size, block ``coord``."""
@@ -1471,13 +1628,28 @@ class RobustEngine:
         if group.size == 1:
             return value
         pp, tp = self.mesh.shape["pipe"], self.mesh.shape["model"]
-        parts = group.all_gather(value).reshape((pp, tp) + tuple(value.shape))
+        return self._join_blocks(group.all_gather(value).reshape((pp, tp) + tuple(value.shape)), spec)
+
+    @staticmethod
+    def _join_blocks(parts, spec, lead=0):
+        """The global leaf of a submesh's (PP, TP, *block) blocks: joined
+        along the dims ``spec`` shards (the block's dims after ``lead``
+        leading ones), one copy where it replicates."""
         spec = tuple(spec or ())
-        rows = []
-        for p in range(pp):
-            row = parts[p]
-            rows.append(torch.cat(row.unbind(0), dim=spec.index("model")) if "model" in spec else row[0])
-        return torch.cat(rows, dim=spec.index("pipe")) if "pipe" in spec else rows[0]
+        rows = [torch.cat(row.unbind(0), dim=lead + spec.index("model")) if "model" in spec else row[0]
+                for row in parts.unbind(0)]
+        return torch.cat(rows, dim=lead + spec.index("pipe")) if "pipe" in spec else rows[0]
+
+    def _global_layout(self):
+        """The ``FlatMap`` of the global parameters (JAX's coordinate order of
+        a whole row), from the shapes ``init_state`` recorded."""
+        if getattr(self, "_global_flatmap", None) is None:
+            if getattr(self, "_global_shapes", None) is None:
+                raise UserException("the sharded engine's row layout is the global parameters': call init_state "
+                                    "before the first bounded-wait round")
+            self._global_flatmap = FlatMap({name: torch.empty(shape, device="meta")
+                                            for name, shape in self._global_shapes.items()})
+        return self._global_flatmap
 
     def _map_state_leaves(self, tree, fn):
         """``fn(tensor, spec)`` over the params-shaped dicts of a params or
@@ -1501,6 +1673,8 @@ class RobustEngine:
         per-leaf (k, *block) buffers of the rank's k workers."""
         global_params = init_fn(int(seed))
         self._specs = {name: tuple(specs[name]) for name in global_params}
+        self._global_shapes = {name: tuple(value.shape) for name, value in global_params.items()}
+        self._global_flatmap = None
         self.model_dim = sum(value.numel() for value in global_params.values())
         params = {name: self._shard(value, self._specs[name]).detach().to(self.device, torch.float32).clone()
                   .requires_grad_(True) for name, value in global_params.items()}
@@ -1561,16 +1735,17 @@ class RobustEngine:
         state.step, state.seed = int(global_state.step), int(global_state.seed)
         return state
 
-    def _sharded_worker_gradients(self, params, batch, loss_fn):
+    def _sharded_worker_gradients(self, params, batch, loss_fn, grid=None):
         """((k,) local partial losses, {name: (k, *block) gradient}) of the
-        rank's k workers.  At PP TP = 1 the loss calls no collective and
+        rank's k workers, the loss's collectives on ``grid`` (the engine's
+        by default).  At PP TP = 1 the loss calls no collective and
         the k workers run as one ``torch.func.vmap`` of ``grad_and_value``,
         as the flat engine's; beyond, the loss calls collectives, which
         cannot run under a vmap, and the k workers run as a loop of k
         forward and backward passes (JAX's k = 1 path has no vmap either).
         A leaf a rank's loss does not reach (``embed`` off stage 0) gets a
         zero gradient: the psum over its replication axes completes it."""
-        grid = self.mesh
+        grid = self.mesh if grid is None else grid
         names = list(params)
         detached = {name: value.detach() for name, value in params.items()}
         if grid.in_group_size == 1:

@@ -394,6 +394,38 @@ class DeviceGrid:
         return self.axis(names[0]).all_reduce_sum(tensor)
 
 
+def _grid_axes(shape, rank, device, backend, worker=True):
+    """This rank's ``(worker, pipe, model, group)`` axes of a (W, PP, TP)
+    grid, each over a new group (``worker`` False: no worker axis, None).
+    Every rank makes every group, in the same order (``dist.new_group``)."""
+    W, PP, TP = shape
+
+    def rank_of(w, p, m):
+        return (w * PP + p) * TP + m
+
+    def axis_over(members_of, size, index):
+        """The WorkerAxis of this rank's group among the groups
+        ``members_of(c)`` for every c; every rank makes every group."""
+        mine = None
+        if size > 1:
+            for members in members_of():
+                group = dist.new_group(members)
+                if rank in members:
+                    mine = (group, members)
+        if mine is None:
+            return WorkerAxis(1, 1, 0, device)
+        return WorkerAxis(size, size, index, device, group=mine[0], backend=backend, ranks=mine[1])
+
+    w0, p0, m0 = rank // (PP * TP), (rank // TP) % PP, rank % TP
+    worker = axis_over(lambda: [[rank_of(w, p, m) for w in range(W)] for p in range(PP) for m in range(TP)], W,
+                       w0) if worker else None
+    pipe = axis_over(lambda: [[rank_of(w, p, m) for p in range(PP)] for w in range(W) for m in range(TP)], PP, p0)
+    model = axis_over(lambda: [[rank_of(w, p, m) for m in range(TP)] for w in range(W) for p in range(PP)], TP, m0)
+    group = axis_over(lambda: [[rank_of(w, p, m) for p in range(PP) for m in range(TP)] for w in range(W)],
+                      PP * TP, p0 * TP + m0)
+    return worker, pipe, model, group
+
+
 def make_mesh(nb_workers=1, model_parallelism=1, pipeline_parallelism=1, device="cuda"):
     """This process's :class:`DeviceGrid` of ``nb_workers`` x
     ``pipeline_parallelism`` x ``model_parallelism`` ranks (JAX
@@ -415,31 +447,21 @@ def make_mesh(nb_workers=1, model_parallelism=1, pipeline_parallelism=1, device=
     rank = dist.get_rank() if joined else 0
     backend = dist.get_backend() if joined else None
     device = resolve_device(device)
-    W, PP, TP = shape
-    coords = (rank // (PP * TP), (rank // TP) % PP, rank % TP)
-
-    def rank_of(w, p, m):
-        return (w * PP + p) * TP + m
-
-    def axis_over(members_of, size, index):
-        """The WorkerAxis of this rank's group among the groups
-        ``members_of(c)`` for every c; every rank makes every group."""
-        mine = None
-        if size > 1:
-            for members in members_of():
-                group = dist.new_group(members)
-                if rank in members:
-                    mine = (group, members)
-        if mine is None:
-            return WorkerAxis(1, 1, 0, device)
-        return WorkerAxis(size, size, index, device, group=mine[0], backend=backend, ranks=mine[1])
-
-    w0, p0, m0 = coords
-    worker = axis_over(lambda: [[rank_of(w, p, m) for w in range(W)] for p in range(PP) for m in range(TP)], W, w0)
-    pipe = axis_over(lambda: [[rank_of(w, p, m) for p in range(PP)] for w in range(W) for m in range(TP)], PP, p0)
-    model = axis_over(lambda: [[rank_of(w, p, m) for m in range(TP)] for w in range(W) for p in range(PP)], TP, m0)
-    group = axis_over(lambda: [[rank_of(w, p, m) for p in range(PP) for m in range(TP)] for w in range(W)],
-                      PP * TP, p0 * TP + m0)
+    worker, pipe, model, group = _grid_axes(shape, rank, device, backend)
     world = WorkerAxis(need, need, rank, device, group=dist.group.WORLD if need > 1 else None,
                        backend=backend if need > 1 else None)
     return DeviceGrid(shape, rank, device, world, worker, pipe, model, group)
+
+
+def submission_grid(grid):
+    """A grid of ``grid``'s shape and rank whose in-group axes (pipe, model
+    and the (pipe x model) submesh) run on process groups of their own, made
+    here on every rank in the same order: a bounded-wait submission's
+    collectives (``RobustEngine.build_submesh_grad``) then never meet the
+    aggregate's, the verdicts' or the fused step's, which run on ``grid``'s.
+    Its worker axis and world are ``grid``'s (a submission calls neither)."""
+    backend = dist.get_backend() if grid.size > 1 else None
+    _, pipe, model, group = _grid_axes(tuple(grid.shape[name] for name in GRID_AXES), grid.rank, grid.device,
+                                       backend, worker=False)
+    return DeviceGrid(tuple(grid.shape[name] for name in GRID_AXES), grid.rank, grid.device, grid.world, grid.worker,
+                      pipe, model, group)

@@ -56,7 +56,7 @@ Phases, in order (any failure exits non-zero and prints no result):
    largest magnitude, no batching-rule fallback (warnings are errors); both
    timed, with the vmap's peak memory.
    Drive the port's runner on the card: cnnet + krum (n=8, f=2, r=2
-   signflip) for 30 steps at d = 1,756,682, the same with the cifarnet
+   signflip) for 15 steps at d = 1,756,682, the same with the cifarnet
    augmentation in the step and the batches drawn on the card
    (``augment:device --input-source device``), then a few steps each of
    bulyan (n=11, f=2), median, trimmed-mean, averaged-median, krum at n=128
@@ -182,7 +182,7 @@ Phases, in order (any failure exits non-zero and prints no result):
    land against the stacked path, bit for bit; a 2 ms deadline's race.
    Bounded-wait over two ranks (``bounded_ranks_phase``): two gloo ranks
    spawned on ``cuda:0`` run cnnet's bounded rounds (a 1 s deadline,
-   workers 0 and 5 stalled 4 s from round 1: krum 4 rounds, median and
+   workers 0 and 5 stalled 4 s from round 1: krum 3 rounds, median and
    average-nan 2 each) against one rank on the same weights and batches:
    the masks and krum's selections equal, the parameters bit-identical
    across the ranks and within 1e-5 of the one rank's, K1, K3 and K6 once
@@ -235,7 +235,7 @@ Phases, in order (any failure exits non-zero and prints no result):
    The topology phase (``topology_phase``, after the serve phase): F1
    cnnet at n = 32, f = 1 through ``--topology tree:g=4x2,rules=median>
    median>krum,redundancy=2`` with a far deadline under ``0:corrupt-agg=1.1
-   3:straggle-agg=2.1``, 8 steps: unit 1.1's forged tag and unit 2.1's
+   3:straggle-agg=2.1``, 6 steps: unit 1.1's forged tag and unit 2.1's
    timeout each served by shadow 2 (the journal and forensics name them),
    every round's masks untouched, the parameters bit-identical to the same
    run without the schedule (cuDNN pinned), K3 4, the centring and K2 once
@@ -260,9 +260,11 @@ Phases, in order (any failure exits non-zero and prints no result):
 """
 
 import collections
+import concurrent.futures
 import json
 import math
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -822,14 +824,14 @@ SUSPICION = ["--worker-metrics", "--reputation-decay", "0.5", "--quarantine-thre
 LEGS = [
     # (label, runner arguments, the kernels each step must launch once)
     ("cnnet+krum", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
-                    "--nb-real-byz-workers", "2", "--attack", "signflip", "--max-step", "30",
-                    "--evaluation-delta", "30"], ("pairwise_sq_distances",)),
+                    "--nb-real-byz-workers", "2", "--attack", "signflip", "--max-step", "15",
+                    "--evaluation-delta", "15"], ("pairwise_sq_distances",)),
     # augmentation in the step and the batches drawn on the card (the train
     # split held there); the same rule, attack and size as cnnet+krum
     ("cnnet-device+krum", ["--experiment-args", "augment:device", "--input-source", "device",
                            "--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
-                           "--nb-real-byz-workers", "2", "--attack", "signflip", "--max-step", "30",
-                           "--evaluation-delta", "30"], ("pairwise_sq_distances",)),
+                           "--nb-real-byz-workers", "2", "--attack", "signflip", "--max-step", "15",
+                           "--evaluation-delta", "15"], ("pairwise_sq_distances",)),
     ("cnnet+bulyan", ["--aggregator", "bulyan", "--nb-workers", "11", "--nb-decl-byz-workers", "2",
                       "--nb-real-byz-workers", "2", "--attack", "signflip", "--max-step", "5"],
      ("pairwise_sq_distances", "coordinate_averaged_median")),
@@ -872,10 +874,10 @@ LEGS = [
                                       "deviation:100", *SUSPICION, "--max-step", "10"], ("average_nan_columns",)),
     ("cnnet+krum+momentum-bf16", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
                                   "--nb-real-byz-workers", "2", "--attack", "signflip", "--worker-momentum", "0.9",
-                                  "--exchange-dtype", "bfloat16", "--max-step", "30"], ("pairwise_sq_distances",)),
+                                  "--exchange-dtype", "bfloat16", "--max-step", "15"], ("pairwise_sq_distances",)),
     ("cnnet-bf16+krum", ["--experiment-args", "dtype:bfloat16", "--aggregator", "krum", "--nb-workers", "8",
                          "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "signflip",
-                         "--max-step", "30"], ("pairwise_sq_distances",)),
+                         "--max-step", "15"], ("pairwise_sq_distances",)),
     ("cnnet+krum+trace-ops", ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2",
                               "--trace-ops", "--max-step", "2"], ("pairwise_sq_distances",)),
     # the momentum buffer at n = 128 (0.9 GB) beside the 128 workers' activations
@@ -1082,7 +1084,7 @@ def attack_phase(runner, workdir):
 #: the pipeline phase's legs (cnnet + krum n=8, f=2, 10 steps a call): the
 #: flags after the shared ones and the gather threads; the first is the
 #: synchronous reference whose losses every other leg must repeat bit for bit
-PIPELINE_STEPS = 40
+PIPELINE_STEPS = 20
 PIPELINE_LEGS = [
     ("sync", ["--prefetch", "0"], "4"),
     ("pipeline S=4", ["--prefetch", "2", "--input-slices", "4"], "4"),
@@ -1200,7 +1202,7 @@ def pipeline_phase(torch, kernels, runner, card):
         want = leg("cnnet host augmentation sync", host + ["--prefetch", "0"], "4")
         leg("cnnet host augmentation pipeline", host + ["--prefetch", "2"], "4", want=want)
         digits = ["--experiment", "digits", "--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers",
-                  "2", "--unroll", "16", "--max-step", "160", "--learning-rate-args", "initial-rate:0.1",
+                  "2", "--unroll", "16", "--max-step", "96", "--learning-rate-args", "initial-rate:0.1",
                   "--evaluation-delta", "-1", "--evaluation-period", "-1", "--summary-period", "-1"]
         want = leg("digits sync", digits + ["--prefetch", "0"], "4")
         leg("digits pipeline (pool)", digits + ["--prefetch", "2", "--input-slices", "4"], "4", want=want)
@@ -1397,7 +1399,7 @@ def observability_phase(kernels, runner, card, workdir):
 #: two ranks on one card), their collectives staged through pinned host
 #: memory, their compute on the card.  (label, rule, attack) of cnnet at
 #: n = 8 (batch 16) and the GAR probes (rule, n, f) at cnnet's width
-MULTIRANK_STEPS = 5
+MULTIRANK_STEPS = 3
 MULTIRANK_LEGS = (("krum", "krum", "signflip"), ("median", "median", "signflip"))
 MULTIRANK_PROBES = (("krum", 128, 8), ("centered-clip", 8, 2))
 #: the kernels a step (a probe call) launches on each rank
@@ -1484,7 +1486,7 @@ def multirank_rank(axis):
     return out
 
 
-def multirank_phase(torch, kernels, card):
+def multirank_phase(torch, kernels, card, two_ranks):
     """Two gloo ranks on ``cuda:0`` in two spawned processes
     (``parallel.mesh.spawn``, shared card): cnnet + krum (signflip) and
     median for ``MULTIRANK_STEPS`` steps at d = 1,756,682 and the GAR probes
@@ -1496,13 +1498,14 @@ def multirank_phase(torch, kernels, card):
     aggregate, and the launches exact on each rank (K1 once a step at (8,
     878,341), K3 once at (8, 878,341), the centring and K2 once a call at
     (128, 878,341)).  Prints the step ms of each and the staged collective
-    ms and MB a step.  Returns {kernel: launches} summed over the ranks."""
+    ms and MB a step.  The two ranks ran in ``bounded_ranks_phase``'s spawn
+    (``two_ranks["multirank"]``).  Returns {kernel: launches} summed over
+    the ranks."""
     import numpy as np
 
-    from aggregathor_tpu_torch.parallel import mesh
     from aggregathor_tpu_torch.parallel.mesh import WorkerAxis
 
-    ranks = mesh.spawn(multirank_rank, 2, 8, device="cuda", shared_card=True, timeout=900)
+    ranks = two_ranks["multirank"]
     one_axis = WorkerAxis(8, 1, 0, "cuda")
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     one = {label: multirank_leg(one_axis, rule, attack) for label, rule, attack in MULTIRANK_LEGS}
@@ -1557,13 +1560,13 @@ GUARDIAN_LEGS = [
      ("pairwise_sq_distances", "coordinate_averaged_median"), "bulyan"),
 ]
 GUARDIAN_BASE = ["--experiment", "cnnet", "--seed", "1", "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2",
-                 "--attack", "inf", "--max-step", "30", "--evaluation-delta", "-1", "--evaluation-period", "-1",
+                 "--attack", "inf", "--max-step", "20", "--evaluation-delta", "-1", "--evaluation-period", "-1",
                  "--checkpoint-period", "-1", "--summary-delta", "5", "--summary-period", "-1"]
 #: the healthy cost: cnnet + krum n=8, f=2, r=2 signflip, --guardian on
 #: and off in turns
 GUARDIAN_COST = ["--experiment", "cnnet", "--seed", "1", "--aggregator", "krum", "--nb-workers", "8",
                  "--nb-decl-byz-workers", "2", "--nb-real-byz-workers", "2", "--attack", "signflip",
-                 "--max-step", "30", "--evaluation-delta", "-1", "--evaluation-period", "-1",
+                 "--max-step", "20", "--evaluation-delta", "-1", "--evaluation-period", "-1",
                  "--checkpoint-delta", "100", "--checkpoint-period", "-1"]
 
 
@@ -1716,7 +1719,7 @@ def guardian_phase(torch, kernels, runner, card, workdir):
         rates[mode].append(result["steps_per_s"])
     median = {mode: sorted(values)[len(values) // 2 - 1:len(values) // 2 + 1] for mode, values in rates.items()}
     median = {mode: sum(pair) / 2 for mode, pair in median.items()}
-    print("guardian healthy cost on %s: cnnet + krum n=8 streamed, 30 steps, steps/s excl. 1st --guardian on %s, "
+    print("guardian healthy cost on %s: cnnet + krum n=8 streamed, 20 steps, steps/s excl. 1st --guardian on %s, "
           "off %s (on, off, off, on): medians on %.3f, off %.3f, on/off x%.4f; spread on %.3f-%.3f, "
           "off %.3f-%.3f" % (card, ", ".join("%.3f" % v for v in rates["on"]), ", ".join("%.3f" % v for v in
                                                                                          rates["off"]),
@@ -2457,7 +2460,7 @@ EXTENSION_TOL = 1e-5
 ITERATIVE_TOL = 1e-5
 ITERATIVE = ("centered-clip", "geometric-median", "rfa")
 #: rounds of the GAR timings, each over every spec
-GAR_TIME_ROUNDS = 3
+GAR_TIME_ROUNDS = 2
 
 #: (spec, n, f) held on the card against the CPU with NaN rows, each with
 #: the kernels it reaches there
@@ -2667,7 +2670,7 @@ def gar_extensions_phase(torch, gars, kernels, runner, card, workdir, gar_ms):
     return totals
 
 
-def breakdown_phase(torch, gars, models, steps=10, experiment="cnnet", args=(), input_source="stream",
+def breakdown_phase(torch, gars, models, steps=4, experiment="cnnet", args=(), input_source="stream",
                     rule=("krum", 8, 2)):
     """Where a step's time goes (``rule`` = (name, n, f), r = f signflip;
     krum at n = 8, f = 2 and cnnet unless told otherwise), and how busy the
@@ -3089,7 +3092,7 @@ def codec_phase(torch, kernels, runner, card, workdir):
 #: batches, but one worker's forward alone against the eight vmapped, whose
 #: convolutions and cross-entropy means sum in other orders (float32, a few
 #: ulps of each worker's loss)
-BOUNDED_ROUNDS = 6
+BOUNDED_ROUNDS = 4
 BOUNDED_LOSS_RTOL = 1e-5
 BOUNDED_KERNELS = {"krum": "pairwise_sq_distances", "median": "coordinate_median",
                    "trimmed-mean": "coordinate_trimmed_mean", "average-nan": "average_nan_columns"}
@@ -3432,7 +3435,7 @@ def bounded_phase(torch, gars, kernels, models, runner, card, workdir):
 #: streamed), workers 0 (rank 0) and 5 (rank 1) stalled past the window
 #: from round 1 on; (rule, rounds, the kernel it launches once a round on
 #: each rank's (8, 878,341) block)
-BOUNDED_RANKS_LEGS = (("krum", 4, "pairwise_sq_distances"), ("median", 2, "coordinate_median"),
+BOUNDED_RANKS_LEGS = (("krum", 3, "pairwise_sq_distances"), ("median", 2, "coordinate_median"),
                       ("average-nan", 2, "average_nan_columns"))
 BOUNDED_RANKS_LATE = (0, 5)
 BOUNDED_RANKS_STALL = 4.0
@@ -3532,7 +3535,14 @@ def bounded_ranks_rank(axis):
     return out
 
 
-def bounded_ranks_phase(torch, kernels, card):
+def two_rank_legs(axis):
+    """One rank of ``bounded_ranks_phase`` and of ``multirank_phase``: both
+    phases' legs in one spawn, so a rank starts (and warms cnnet on the card)
+    once."""
+    return {"bounded": bounded_ranks_rank(axis), "multirank": multirank_rank(axis)}
+
+
+def bounded_ranks_phase(torch, kernels, card, two_ranks):
     """Bounded-wait over two gloo ranks spawned on ``cuda:0``
     (``parallel.mesh.spawn``, shared card; its collectives staged through
     pinned host memory, so its times say nothing of NVLink): cnnet at d =
@@ -3545,15 +3555,19 @@ def bounded_ranks_phase(torch, kernels, card):
     rank's; the launches exact on each rank (K1, K3, K6 once a round on
     the (8, 878,341) block, nothing batched); no kernel built in the
     phase.  Prints each rank's round ms, the verdicts' gather ms and the
-    staged MB a round (the reshard's share).  Returns {kernel: launches}
-    summed over the ranks."""
+    staged MB a round (the reshard's share).  The spawn runs
+    ``multirank_phase``'s legs too (``two_rank_legs``), kept in
+    ``two_ranks["multirank"]``.  Returns {kernel: launches} summed over the
+    ranks."""
     import numpy as np
 
     from aggregathor_tpu_torch.parallel import mesh
     from aggregathor_tpu_torch.parallel.mesh import WorkerAxis
 
     begin = time.perf_counter()
-    ranks = mesh.spawn(bounded_ranks_rank, 2, 8, device="cuda", shared_card=True, timeout=600)
+    spawned = mesh.spawn(two_rank_legs, 2, 8, device="cuda", shared_card=True, timeout=900)
+    two_ranks["multirank"] = [rank["multirank"] for rank in spawned]
+    ranks = [rank["bounded"] for rank in spawned]
     spawned_s = time.perf_counter() - begin
     one = bounded_ranks_rank(WorkerAxis(8, 1, 0, "cuda"))
     torch.backends.cudnn.deterministic = False
@@ -3565,7 +3579,12 @@ def bounded_ranks_phase(torch, kernels, card):
     late = np.isin(np.arange(8), BOUNDED_RANKS_LATE)
     for rule, rounds, kernel in BOUNDED_RANKS_LEGS:
         lead, other, want = ranks[0][rule], ranks[1][rule], one[rule]
-        check(bool((lead["params"] == other["params"]).all()), "bounded ranks %s: the ranks' parameters differ" % rule)
+        a, b = lead["params"], other["params"]
+        check(bool((a == b).all()), "bounded ranks %s: the ranks' parameters differ (%d of %d entries; NaN %d and %d; "
+              "largest difference %.3g; losses %s and %s)" % (
+                  rule, int((a != b).sum()), a.size, int(np.isnan(a).sum()), int(np.isnan(b).sum()),
+                  float(np.nanmax(np.abs(a - b))) if np.isfinite(a - b).any() else float("nan"),
+                  [float(r["total_loss"]) for r in lead["rounds"]], [float(r["total_loss"]) for r in other["rounds"]]))
         for i, (a, b, c) in enumerate(zip(lead["rounds"], other["rounds"], want["rounds"])):
             for key in c:
                 same = np.array_equal(a[key], b[key]) and (key == "total_loss" or np.array_equal(a[key], c[key]))
@@ -3592,16 +3611,17 @@ def bounded_ranks_phase(torch, kernels, card):
                  ", ".join("%.1f" % v for v in lead["round_ms"]), ", ".join("%.1f" % v for v in other["round_ms"]),
                  ", ".join("%.1f" % v for v in want["round_ms"]), ", ".join("%.2f" % v for v in lead["gather_ms"]),
                  lead["staged_mb"], lead["reshard_mb"], kernel, block, err))
-    print("bounded ranks phase on %s: %.1f s (the spawn's %.1f s)" % (card, time.perf_counter() - begin, spawned_s))
+    print("bounded ranks phase on %s: %.1f s (the spawn's %.1f s, the multirank phase's legs included)"
+          % (card, time.perf_counter() - begin, spawned_s))
     torch.cuda.empty_cache()
     return totals
 
 
 #: secure_phase: cnnet + krum, n = 8, f = 2, r = 2 under a schedule that
 #: forges steps 2-4 and tampers from step 5 on (every rejected row is the
-#: coalition's); 16 steps, as the first few after the build vary and the
+#: coalition's); 12 steps, as the first few after the build vary and the
 #: digest tax is the difference of two legs' mean step times
-SECURE_STEPS = 16
+SECURE_STEPS = 12
 SECURE_SCHEDULE = "0:calm 2:forge=1.0 5:tamper=1.0"
 SECURE_REJECTED_STEPS = SECURE_STEPS - 2
 
@@ -3816,10 +3836,10 @@ ZOO_BULYAN = ["--aggregator", "bulyan", "--nb-workers", str(ZOO_N), "--nb-decl-b
 ZOO_LEGS = [
     # (label, runner arguments, kernels each step launches once)
     ("Z1 resnet_v1_50-digits32+bulyan", ["--experiment", "slim-resnet_v1_50-digits32", "--experiment-args",
-                                         "batch-size:16", "preprocessing:none", *ZOO_BULYAN, "--max-step", "10"],
+                                         "batch-size:16", "preprocessing:none", *ZOO_BULYAN, "--max-step", "6"],
      ("pairwise_sq_distances", "coordinate_averaged_median")),
     ("Z2 resnet_v1_50-imagenet+bulyan", ["--experiment", "slim-resnet_v1_50-imagenet", "--experiment-args",
-                                         "image-size:224", "batch-size:2", *ZOO_BULYAN, "--max-step", "5"],
+                                         "image-size:224", "batch-size:2", *ZOO_BULYAN, "--max-step", "3"],
      ("pairwise_sq_distances", "coordinate_averaged_median")),
     ("Z3 resnet_v1_18-digits32+krum", ["--experiment", "slim-resnet_v1_18-digits32", "--experiment-args",
                                        "batch-size:8", "preprocessing:none", "--aggregator", "krum", "--nb-workers",
@@ -4035,11 +4055,11 @@ def zoo_phase(torch, gars, kernels, models, runner, card):
     - the conv weight gradient: cuDNN's float32 one against float64 at
       every ResNet-50 conv shape of the legs (``zoo_weight_grads``);
     - Z1: ``slim-resnet_v1_50-digits32`` + Bulyan at n = 32, f = 7 (r = 7
-      signflip), batch 16 a worker, 10 steps: d = 23,519,690, K1 (staged
+      signflip), batch 16 a worker, 6 steps: d = 23,519,690, K1 (staged
       tiles) and K4 (beta = 2) once a step; its breakdown, and the
       gradient phase with every weight gradient in float64;
     - Z2: ``slim-resnet_v1_50-imagenet`` at 224x224 (the synthetic
-      stand-in), batch 2, the same rule, 5 steps: d = 25,557,032;
+      stand-in), batch 2, the same rule, 3 steps: d = 25,557,032;
     - Z3: ``slim-resnet_v1_18-digits32`` + krum (n = 8, f = 2), batch 8,
       polynomial decay 0.05 -> 0.005 over 400 steps: real test accuracy >=
       ``ZOO_ANCHOR_FLOOR``;
@@ -4076,7 +4096,7 @@ def zoo_phase(torch, gars, kernels, models, runner, card):
             check(accuracy is not None and accuracy >= ZOO_ANCHOR_FLOOR,
                   "%s: test accuracy %s < %g" % (label, accuracy, ZOO_ANCHOR_FLOOR))
         if label.startswith("Z1"):
-            per_step, _ = breakdown_phase(torch, gars, models, steps=5, experiment=argv[1],
+            per_step, _ = breakdown_phase(torch, gars, models, steps=3, experiment=argv[1],
                                           args=["batch-size:16", "preprocessing:none"],
                                           rule=("bulyan", ZOO_N, ZOO_F))
             print("zoo Z1 split at d = %d on %s: worker gradients %.2f ms, attack + aggregate %.2f ms a step "
@@ -4126,7 +4146,7 @@ def zoo_f64_cost(torch, gars, models, experiment):
         for m in convs:
             m.f64_weight_grad = flag
         times[label] = time_ms(lambda: engine._worker_gradients(params, batch, exp.loss, flatmap), torch,
-                               iters=3, warmup=1)
+                               iters=2, warmup=1)
     print("zoo Z1 worker gradients (n = %d, batch 16, resnet_v1_50) on %s: %.1f ms with cuDNN's float32 weight "
           "gradients, %.1f ms with all %d convs' in float64" % (ZOO_N, card_line(), times["float32"],
                                                                 times["float64 weight gradients"], len(convs)))
@@ -4156,9 +4176,9 @@ TFM_SHARDED = ["--mesh", "1,1,1", "--microbatches", "2"]
 #: (label, argv, steps, {kernel: launches a step})
 TFM_LEGS = [
     # flat leaf runs bucketed on the card: K1 batched once a leaf size
-    ("T1 config 5f flat leaf", ["--aggregator", "krum", "--granularity", "leaf"], 10,
+    ("T1 config 5f flat leaf", ["--aggregator", "krum", "--granularity", "leaf"], 6,
      {batched("pairwise_sq_distances"): TFM_LEAF_SIZES}),
-    ("T2 config 5 sharded layer", ["--aggregator", "krum", "--granularity", "layer", *TFM_SHARDED], 10,
+    ("T2 config 5 sharded layer", ["--aggregator", "krum", "--granularity", "layer", *TFM_SHARDED], 6,
      {"nanmedian_columns": TFM_BUCKETS, "pairwise_sq_distances_gram": TFM_BUCKETS}),
     ("T3 sharded global", ["--aggregator", "krum", "--granularity", "global", *TFM_SHARDED], 5,
      {"nanmedian_columns": TFM_LEAVES, "pairwise_sq_distances_gram": TFM_LEAVES}),
@@ -4276,25 +4296,31 @@ def _tfm_card_cpu(torch, gars, models):
     batch = next(exp.make_train_iterator(8, seed=2))
     weights = exp.sharded_init(1)(1)
     tx = build_optimizer("sgd", build_schedule("fixed", []))
+    def first_step(device):
+        engine = _tfm_engine(gars, attacks, "krum", device, sharding="sharded", granularity="layer")
+        state = engine.init_state(lambda seed: weights, exp.sharded_specs(), tx, seed=1)
+        losses, grads = engine._sharded_worker_gradients(state.params, engine.put_batch(batch),
+                                                         exp.sharded_loss(1, 2))
+        with torch.no_grad():
+            sel, aggs = [], []
+            for bucket in _tfm_buckets(engine, grads):
+                dist2 = centered_gram_sq_distances(bucket)
+                sel.append((engine.gar.selection_weights(dist2) > 0).cpu())
+                aggs.append(engine.gar.aggregate_block(bucket, dist2).cpu())
+        return losses.cpu(), sel, aggs
+
     got = {}
-    for run in ("cuda", "cpu", "tf32"):
-        device = "cpu" if run == "cpu" else "cuda"
-        torch.backends.cuda.matmul.allow_tf32 = run == "tf32"
-        try:
-            engine = _tfm_engine(gars, attacks, "krum", device, sharding="sharded", granularity="layer")
-            state = engine.init_state(lambda seed: weights, exp.sharded_specs(), tx, seed=1)
-            losses, grads = engine._sharded_worker_gradients(state.params, engine.put_batch(batch),
-                                                             exp.sharded_loss(1, 2))
-            with torch.no_grad():
-                sel, aggs = [], []
-                for bucket in _tfm_buckets(engine, grads):
-                    dist2 = centered_gram_sq_distances(bucket)
-                    sel.append((engine.gar.selection_weights(dist2) > 0).cpu())
-                    aggs.append(engine.gar.aggregate_block(bucket, dist2).cpu())
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-        got[run] = (losses.cpu(), sel, aggs)
-        del engine, state, grads
+    # the CPU's step on a thread beside the card's two (the TF32 flag is
+    # the card's alone)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(first_step, "cpu")
+        for run in ("cuda", "tf32"):
+            torch.backends.cuda.matmul.allow_tf32 = run == "tf32"
+            try:
+                got[run] = first_step("cuda")
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        got["cpu"] = cpu.result()
 
     def compare(card):
         (lc, sc, ac), (lh, sh, ah) = got[card], got["cpu"]
@@ -4316,12 +4342,13 @@ def _tfm_card_cpu(torch, gars, models):
           "transformer T4: the tolerance %g does not reject the TF32 control" % TFM_CARD_CPU_RTOL)
 
 
-def transformer_grid_rank(axis, cases):
-    """One rank of T5 (a spawned process re-imports this module): for each
-    ``(case, weights, batches)`` of ``cases``, the sharded engine on the
-    case's grid, median at n = 4, f = 1, layer, from the global
-    ``weights``; per-step losses and this rank's launches, the global
-    parameters on rank 0."""
+def transformer_grid_rank(axis, cases, bounded=()):
+    """One rank of T5 and of U1/U2 (a spawned process re-imports this
+    module): for each ``(case, weights, batches)`` of ``cases``, the sharded
+    engine on the case's grid, median at n = 4, f = 1, layer, from the
+    global ``weights``; per-step losses and this rank's launches, the global
+    parameters on rank 0.  Then each ``(leg, weights, batches, journal)`` of
+    ``bounded`` (``sharded_bounded_leg``).  Returns both lists."""
     import torch
 
     from aggregathor_tpu_torch.parallel import mesh
@@ -4331,7 +4358,12 @@ def transformer_grid_rank(axis, cases):
     for case, weights, batches in cases:
         W, PP, TP = case["mesh"]
         out.append(_tfm_grid_run(mesh.make_mesh(W, TP, PP, device=axis.device), case, weights, batches))
-    return out
+    legs = []
+    for leg, weights, batches, journal in bounded:
+        W, PP, TP = leg[1]
+        legs.append(sharded_bounded_leg(mesh.make_mesh(W, TP, PP, device=axis.device), leg, weights, batches,
+                                        journal))
+    return out, legs
 
 
 def _tfm_grid_run(grid, case, weights, batches):
@@ -4368,12 +4400,243 @@ def _tfm_grid_run(grid, case, weights, batches):
     return out
 
 
+#: U1, U2: bounded-wait on the sharded engine, config 5 at its published
+#: width (TFM_ARGS' model, d = 8,917,248), n = 8, batch 8 of 256 tokens, in
+#: T5's spawn of four gloo ranks sharing the card, a fixed 1 s window, the
+#: first unit (workers 0 .. k - 1) stalled ``SB_STALL`` s from round 1 on;
+#: (label, grid (W, PP, TP), rule, f, rounds, the kernel each rank launches
+#: once a round on its (8, ceil(d / 4)) column block)
+SB_LEGS = (("U1", (4, 1, 1), "krum", 2, 3, "pairwise_sq_distances"),
+           ("U2", (2, 2, 1), "average-nan", 4, 2, "average_nan_columns"))
+SB_CFG = dict(vocab_size=1024, d_model=256, n_heads=4, n_layers=8)
+SB_N, SB_BATCH, SB_SEQ = 8, 8, 256
+SB_STALL = 4.0
+SB_DEADLINE = 1.0
+SB_RTOL = 1e-5
+SB_BLOCK = -(-TFM_D // 4)
+
+
+class FirstUnitLate:
+    """The straggler model of U1 and U2: from round 1 on, workers 0 .. k - 1
+    (the first unit) hold their submissions ``SB_STALL`` seconds."""
+
+    def __init__(self, k):
+        self.k = k
+
+    def delay(self, step, worker):
+        return SB_STALL if step >= 1 and worker < self.k else 0.0
+
+
+def _sb_staged(axes):
+    """(bytes, seconds) of the distinct collective counters of ``axes``."""
+    seen = {id(axis.stats): axis.stats for axis in axes if axis is not None}
+    return sum(v["bytes"] for v in seen.values()), sum(v["seconds"] for v in seen.values())
+
+
+def sharded_bounded_leg(grid, leg, weights, batches, journal):
+    """One leg of U1/U2 on ``grid`` (``BoundedWaitStep`` over the sharded
+    engine, granularity global), the lead's journal in ``journal``: per
+    round the masks, the loss, its ms to the update's end and the verdicts'
+    gather ms; this rank's launches over the rounds, the kernels built after
+    round 0, the staged MB a round (the submission's groups' share and
+    seconds apart); the global parameters (rank 0)."""
+    import torch
+
+    from aggregathor_tpu_torch import gars
+    from aggregathor_tpu_torch.core import build_optimizer, build_schedule
+    from aggregathor_tpu_torch.models import transformer as tfm
+    from aggregathor_tpu_torch.obs import events
+    from aggregathor_tpu_torch.ops import build, kernels
+    from aggregathor_tpu_torch.parallel import RobustEngine
+    from aggregathor_tpu_torch.parallel.bounded import BoundedWaitStep
+
+    import numpy as np
+
+    label, (W, PP, TP), rule, f, rounds, _ = leg
+    cfg = tfm.TransformerConfig(**SB_CFG)
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+    engine = RobustEngine(gars.instantiate(rule, SB_N, f), SB_N, sharding="sharded", mesh=grid, granularity="global",
+                          device=grid.device)
+    template = {name: torch.as_tensor(value) for name, value in weights.items()}
+    state = engine.init_state(lambda seed: template, tfm.param_specs(cfg), tx, seed=1)
+    if grid.rank == 0:
+        events.install(journal, run_id=label)
+    step = BoundedWaitStep(engine, tfm.make_pipeline_loss(cfg, PP, 1), tx, template, deadline=SB_DEADLINE,
+                           straggler_model=FirstUnitLate(SB_N // W))
+    placed = [engine.put_batch(batch) for batch in batches[:rounds]]
+    own = step.grad_fn.grid if hasattr(step.grad_fn, "grid") and step.grad_fn.grid is not grid else None
+    axes = [grid.world, grid.worker, grid.pipe, grid.model, grid.group, engine.axis]
+    sub = [own.pipe, own.model, own.group] if own is not None else []
+    builds = []
+
+    def note_build(*args):
+        builds.append(args)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    before, sub_before = _sb_staged(axes + sub), _sb_staged(sub)
+    out = {"rounds": [], "round_ms": [], "gather_ms": [], "arrival_s": []}
+    try:
+        for i, batch in enumerate(placed):
+            if i == 1:
+                build.add_build_listener(note_build)  # what builds after the first round
+            begin = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            out["round_ms"].append((time.perf_counter() - begin) * 1e3)
+            out["gather_ms"].append(step.last_gather_s * 1e3)
+            arrivals = step.last_arrivals
+            out["arrival_s"].append(float(arrivals[np.isfinite(arrivals)].max()))
+            out["rounds"].append({key: metrics[key].cpu().numpy() for key in
+                                  ("straggler_timeout", "stale_infill", "worker_participation", "total_loss")
+                                  if key in metrics})
+    finally:
+        build.remove_build_listener(note_build)
+        step.close()
+        if grid.rank == 0:
+            events.uninstall()
+    out["counts"] = kernels.launch_counts()
+    out["batched"] = sum(kernels.batched_launch_counts().values())
+    after, sub_after = _sb_staged(axes + sub), _sb_staged(sub)
+    out["staged_mb"] = (after[0] - before[0]) / 2**20 / rounds
+    out["sub_mb"] = (sub_after[0] - sub_before[0]) / 2**20 / rounds
+    out["sub_ms"] = (sub_after[1] - sub_before[1]) * 1e3 / rounds
+    out["builds"] = builds
+    snapshot = engine.global_state(state)
+    out["params"] = None if grid.rank else {k: v.detach().cpu().numpy() for k, v in snapshot.params.items()}
+    del state, snapshot, placed, engine, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sb_flat(torch, leg, weights, batches):
+    """The one-rank flat bounded engine on the card from the same (merged)
+    weights and batches, the same unit's workers late: per round the masks
+    and loss, the parameters."""
+    from aggregathor_tpu_torch import gars
+    from aggregathor_tpu_torch.core import build_optimizer, build_schedule
+    from aggregathor_tpu_torch.models import transformer as tfm
+    from aggregathor_tpu_torch.parallel import RobustEngine
+    from aggregathor_tpu_torch.parallel.bounded import BoundedWaitStep
+
+    label, (W, _, _), rule, f, rounds, _ = leg
+    cfg = tfm.TransformerConfig(**SB_CFG)
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:0.05"]))
+    engine = RobustEngine(gars.instantiate(rule, SB_N, f), SB_N, device="cuda")
+    params = {name: torch.as_tensor(value) for name, value in weights.items()}
+    state = engine.init_state(params, tx, seed=1)
+    step = BoundedWaitStep(engine, lambda p, b: tfm.loss_dense(p, b, cfg), tx, params, deadline=SB_DEADLINE,
+                           straggler_model=FirstUnitLate(SB_N // W))
+    out = {"rounds": [], "round_ms": []}
+    try:
+        for batch in batches[:rounds]:
+            begin = time.perf_counter()
+            state, metrics = step(state, engine.put_batch(batch))
+            torch.cuda.synchronize()
+            out["round_ms"].append((time.perf_counter() - begin) * 1e3)
+            out["rounds"].append({key: metrics[key].cpu().numpy() for key in ("straggler_timeout", "total_loss")})
+    finally:
+        step.close()
+    out["params"] = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
+    del state, engine, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sb_inputs():
+    """U1/U2's global weights by the grid's PP (stacked leaves (PP, L/PP,
+    ...): the same values), the merged (one-stage) weights and the batches."""
+    import numpy as np
+    import torch
+
+    from aggregathor_tpu_torch.models import transformer as tfm
+
+    merged = {k: v.numpy() for k, v in tfm.init_params(tfm.TransformerConfig(**SB_CFG),
+                                                      torch.Generator().manual_seed(23), 1).items()}
+
+    def staged(pp):
+        return {k: v if k in tfm.NON_STACKED_LEAVES else v.reshape((pp, v.shape[1] // pp) + v.shape[2:])
+                for k, v in merged.items()}
+
+    rng = np.random.default_rng(29)
+    batches = [{"tokens": rng.integers(0, SB_CFG["vocab_size"], size=(SB_N, SB_BATCH, SB_SEQ)).astype(np.int32),
+                "targets": rng.integers(0, SB_CFG["vocab_size"], size=(SB_N, SB_BATCH, SB_SEQ)).astype(np.int32)}
+               for _ in range(max(leg[4] for leg in SB_LEGS))]
+    return {leg[0]: staged(leg[1][1]) for leg in SB_LEGS}, merged, batches
+
+
+def _sb_check(torch, kernels, spawned, merged, batches, journals):
+    """U1/U2 held against the one-rank flat bounded engine and their
+    contract (module docstring); returns {kernel: launches} over the ranks."""
+    import numpy as np
+
+    from aggregathor_tpu_torch.obs import events
+
+    totals = {name: 0 for name in kernels.KERNELS}
+    for index, leg in enumerate(SB_LEGS):
+        label, shape, rule, f, rounds, kernel = leg
+        W, k = shape[0], SB_N // shape[0]
+        ranks = [rank[1][index] for rank in spawned]
+        begin = time.perf_counter()
+        flat = _sb_flat(torch, leg, merged, batches)
+        flat_s = time.perf_counter() - begin
+        for rank, result in enumerate(ranks):
+            check(not result["builds"], "sharded bounded %s rank %d: %s built after the first round"
+                  % (label, rank, result["builds"]))
+            check(result["counts"] == {name: rounds if name == kernel else 0 for name in kernels.KERNELS}
+                  and not result["batched"], "sharded bounded %s rank %d: launches %s (want %s %d)"
+                  % (label, rank, result["counts"], kernel, rounds))
+            totals[kernel] += result["counts"][kernel]
+        late = np.arange(SB_N) < k
+        for i in range(rounds):
+            want = late if i else np.zeros(SB_N, bool)
+            for rank, result in enumerate(ranks):
+                got = result["rounds"][i]
+                check(got["straggler_timeout"].tolist() == want.tolist() == flat["rounds"][i]["straggler_timeout"]
+                      .tolist(), "sharded bounded %s round %d rank %d: timed out %s (one rank %s)"
+                      % (label, i, rank, got["straggler_timeout"], flat["rounds"][i]["straggler_timeout"]))
+                check(np.array_equal(got["total_loss"], ranks[0]["rounds"][i]["total_loss"]),
+                      "sharded bounded %s round %d: the ranks' losses differ" % (label, i))
+            rel = abs(float(ranks[0]["rounds"][i]["total_loss"]) - float(flat["rounds"][i]["total_loss"])) / abs(
+                float(flat["rounds"][i]["total_loss"]))
+            check(rel <= SB_RTOL, "sharded bounded %s round %d: loss %r vs one rank's %r" % (
+                label, i, float(ranks[0]["rounds"][i]["total_loss"]), float(flat["rounds"][i]["total_loss"])))
+        grid_params = ranks[0]["params"]
+        err = max(float(np.abs(grid_params[name].reshape(value.shape) - value).max() / np.abs(value).max())
+                  for name, value in flat["params"].items())
+        check(err <= SB_RTOL, "sharded bounded %s: parameters off the one rank's by %.3g" % (label, err))
+        journal = [r for r in events.load_journal(journals[label]) if r["type"] in ("bounded_round", "submesh_timeout")]
+        forfeits = [(r["step"], r["group"], r["forfeited"]) for r in journal if r["type"] == "submesh_timeout"]
+        skipped = [(r["step"], r["skipped_units"]) for r in journal if r["type"] == "bounded_round"]
+        check(forfeits and all(g == 0 and n == k for _, g, n in forfeits), "sharded bounded %s: forfeits %s"
+              % (label, forfeits))
+        # a warm round either judged the unit late (a submesh_timeout) or
+        # skipped it, still submitting an earlier round (bounded_round)
+        judged = {s for s, _, _ in forfeits} | {s for s, units in skipped if units == [0]}
+        check(judged == set(range(1, rounds)), "sharded bounded %s: rounds judged %s, skipped %s"
+              % (label, forfeits, skipped))
+        print("sharded bounded %s at %s on %s, 4 gloo ranks sharing the card (staged): config 5 d = %d, n = %d, %s "
+              "f = %d, %d rounds, unit 0 (workers 0-%d) stalled %.0f s past a %.1f s window from round 1: masks %s "
+              "every warm round, submesh_timeout %s, skipped %s; round ms by rank %s (one rank %s, %.1f s); the latest "
+              "arrived unit's s %s (rank 0); verdict gather ms rank 0 %s; staged %.2f MB a round and rank (rank 0; the submission's groups %.2f MB, "
+              "%.1f ms); %s once a round a rank on (8, %d): %s; parameters off the one rank's by %.3g of the "
+              "largest; no kernel built after round 0"
+              % (label, shape, card_line(), TFM_D, SB_N, rule, f, rounds, k - 1, SB_STALL, SB_DEADLINE,
+                 late.astype(int).tolist(), forfeits, skipped,
+                 "; ".join(", ".join("%.0f" % v for v in r["round_ms"]) for r in ranks),
+                 ", ".join("%.0f" % v for v in flat["round_ms"]), flat_s,
+                 ", ".join("%.3f" % v for v in ranks[0]["arrival_s"]), ", ".join("%.2f" % v for v in ranks[0]["gather_ms"]), ranks[0]["staged_mb"], ranks[0]["sub_mb"],
+                 ranks[0]["sub_ms"], kernel, SB_BLOCK, [r["counts"][kernel] for r in ranks], err))
+    return totals
+
+
 def _tfm_grid_phase(torch, kernels):
     """T5: four gloo ranks sharing the card at (1, 2, 2) (``shared_card``, as
-    ``multirank_phase``): T5a dense, 3 steps, against one rank on the card
-    from the same weights and batches; T5b switch-MoE, 2 steps, against the
-    same four-rank grid on the CPU.  Returns {kernel: launches} over the
-    card's ranks."""
+    ``multirank_phase``): T5a dense, 2 steps, against one rank on the card
+    from the same weights and batches; T5b switch-MoE, 1 step, against the
+    same four-rank grid on the CPU; in the same spawn U1 and U2
+    (``sharded_bounded_leg``, ``_sb_check``).  Returns {kernel: launches}
+    over the card's ranks."""
     import numpy as np
 
     from aggregathor_tpu_torch.models import transformer as tfm
@@ -4389,37 +4652,53 @@ def _tfm_grid_phase(torch, kernels):
         return max(float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max()) for k in want)
 
     totals = {name: 0 for name in kernels.KERNELS}
-    legs = (("T5a dense", TFM_GRID_A, 256, 3, "one rank on the card"),
-            ("T5b switch-MoE", TFM_GRID_B, 128, 2, "the grid on the CPU"))
+    legs = (("T5a dense", TFM_GRID_A, 256, 2, "one rank on the card"),
+            ("T5b switch-MoE", TFM_GRID_B, 128, 1, "the grid on the CPU"))
     cases = []
     for _, cfg, seq, steps, _ in legs:
         weights = {k: v.numpy() for k, v in tfm.init_params(tfm.TransformerConfig(**cfg),
                                                             torch.Generator().manual_seed(5), 2).items()}
         cases.append(({"cfg": cfg, "mesh": (1, 2, 2)}, weights, batches(seq, steps)))
+    sb_weights, sb_merged, sb_batches = _sb_inputs()
+    journals = tempfile.mkdtemp(prefix="chip_smoke-sb-")
+    sb_journals = {leg[0]: os.path.join(journals, "%s.jsonl" % leg[0]) for leg in SB_LEGS}
+    bounded = [(leg, sb_weights[leg[0]], sb_batches, sb_journals[leg[0]]) for leg in SB_LEGS]
     begin = time.perf_counter()
-    # both legs in one spawn: the ranks' start (a CUDA context each) once
-    spawned = mesh.spawn(transformer_grid_rank, 4, 4, (cases,), device="cuda", shared_card=True, timeout=600)
-    wall = time.perf_counter() - begin
+    # T5b's four CPU ranks run beside the card's spawn, which holds T5's two
+    # legs and U1/U2: the card's ranks start (a CUDA context each) once
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu_future = pool.submit(mesh.spawn, transformer_grid_rank, 4, 4, ([cases[1]],), device="cpu", timeout=900)
+        spawned = mesh.spawn(transformer_grid_rank, 4, 4, (cases, bounded), device="cuda", shared_card=True,
+                             timeout=900)
+        wall = time.perf_counter() - begin
+        cpu = cpu_future.result()
+    print("transformer T5 and U1/U2: one spawn of 4 gloo ranks sharing %s, %.1f s with the ranks' start"
+          % (card_line(), wall))
+    try:
+        for kernel, count in _sb_check(torch, kernels, spawned, sb_merged, sb_batches, sb_journals).items():
+            totals[kernel] += count
+    finally:
+        shutil.rmtree(journals, ignore_errors=True)
     for index, (label, cfg, seq, steps, other) in enumerate(legs):
         case, weights, data = cases[index]
-        ranks = [rank[index] for rank in spawned]
+        ranks = [rank[0][index] for rank in spawned]
         if other.startswith("one"):
             single = _tfm_grid_run(mesh.make_mesh(1, 1, 1, device="cuda"), {"cfg": cfg}, tfm.merge_stages(weights),
                                    data)
             want = single["params"]
             got = {k: v.reshape(want[k].shape) for k, v in ranks[0]["params"].items()}
         else:
-            cpu = mesh.spawn(transformer_grid_rank, 4, 4, ([cases[index]],), device="cpu", timeout=600)
-            single, want, got = cpu[0][0], cpu[0][0]["params"], ranks[0]["params"]
+            single, want, got = cpu[0][0][0], cpu[0][0][0]["params"], ranks[0]["params"]
         err = leaf_err(got, want)
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["loss"], single["loss"]))
         buckets = 9 + (1 if cfg.get("n_experts") else 0)
         per_step = buckets * cfg["n_layers"] // 2 + 3  # the rank's stage: half the layers
         print("transformer %s at (1, 2, 2), 4 gloo ranks sharing %s (collectives staged through the host: says "
-              "nothing of NVLink): %d steps (both legs %.1f s with the ranks' start), step %.0f ms on rank 0; "
+              "nothing of NVLink): %d steps (both legs %.1f s with the ranks' start), step %.0f ms on rank 0 (the "
+              "last); "
               "parameters within "
               "%.3g of %s (tolerance %g), losses %.3g relative; launches a rank %s; peak %.0f MB on rank 0"
-              % (label, card_line(), steps, wall, statistics.median(ranks[0]["ms"]), err, other, TFM_GRID_RTOL,
+              % (label, card_line(), steps, wall, ranks[0]["ms"][-1], err, other, TFM_GRID_RTOL,
                  loss_err, [r["counts"]["coordinate_median"] for r in ranks], ranks[0]["peak_mb"]))
         check(err <= TFM_GRID_RTOL and loss_err <= TFM_GRID_RTOL, "transformer %s: the grid differs from %s"
               % (label, other))
@@ -4434,8 +4713,8 @@ def _tfm_grid_phase(torch, kernels):
 
 def _tfm_real_bytes(runner):
     """T6: real bytes (docs/robustness.md:326-331): flat krum n = 4, f = 1,
-    adam 3e-3, 300 steps, and the sharded engine at (1, 1, 1), layer,
-    median, 150 steps; the held-out nll below ``TFM_REAL_SHARE`` times the
+    adam 3e-3, 150 steps, and the sharded engine at (1, 1, 1), layer,
+    median, 100 steps; the held-out nll below ``TFM_REAL_SHARE`` times the
     corpus's unigram entropy."""
     import numpy as np
 
@@ -4449,9 +4728,9 @@ def _tfm_real_bytes(runner):
     base = ["--seed", "1", "--experiment", "transformer", "--experiment-args", *args, "--nb-workers", "4",
             "--nb-decl-byz-workers", "1", "--optimizer", "adam", "--learning-rate-args", "initial-rate:0.003",
             "--evaluation-period", "-1"]
-    for label, argv, steps in (("flat krum", ["--aggregator", "krum"], 300),
+    for label, argv, steps in (("flat krum", ["--aggregator", "krum"], 150),
                                ("sharded (1,1,1) layer median", ["--aggregator", "median", "--mesh", "1,1,1",
-                                                                 "--granularity", "layer"], 150)):
+                                                                 "--granularity", "layer"], 100)):
         begin = time.perf_counter()
         result = runner.main(base + argv + ["--max-step", str(steps), "--evaluation-delta", str(steps)])
         nll = result["evaluation"]["nll"]
@@ -4466,19 +4745,24 @@ def _tfm_real_bytes(runner):
 
 def tfm_kernel_rows(torch, kernels):
     """K1, the centring, K2 and K3 at the transformer's bucket and leaf
-    widths (n = 8): held against their plain versions and timed."""
+    widths (n = 8), and K1, K3 and K6 at U1/U2's column block (8, ceil(d /
+    4)) (K6 with U2's forfeited unit, rows 0-3, NaN): held against their
+    plain versions and timed."""
     gen = torch.Generator(device="cuda").manual_seed(20261020)
     library = {"pairwise_sq_distances": lambda x: torch.cdist(x, x).square(),
                "pairwise_sq_distances_gram": lambda x: torch.cdist(x, x).square(), "nanmedian_columns": None,
-               "coordinate_median": lambda x: torch.kthvalue(x, x.shape[0] // 2 + 1, dim=0).values}
-    shapes = {"pairwise_sq_distances": (2097152, 262144, 256),  # T1's leaves: w_gate, embed, a norm
+               "coordinate_median": lambda x: torch.kthvalue(x, x.shape[0] // 2 + 1, dim=0).values,
+               "average_nan_columns": lambda x: torch.nanmean(x, 0)}
+    shapes = {"pairwise_sq_distances": (2097152, 262144, 256, SB_BLOCK),  # T1's leaves: w_gate, embed, a norm
               "nanmedian_columns": (262144, 65536, 256),        # T2's buckets: w_gate's layer, wq's, a norm
               "pairwise_sq_distances_gram": (2097152, 262144, 65536, 256),  # and T3's global leaves
-              "coordinate_median": (262144, 65536, 256)}
+              "coordinate_median": (262144, 65536, 256, SB_BLOCK), "average_nan_columns": (SB_BLOCK,)}
     rows = []
     for name, widths in shapes.items():
         for d in widths:
             x = torch.randn((8, d), device="cuda", generator=gen)
+            if name == "average_nan_columns":
+                x[:SB_N // 2] = float("nan")
             args = (kernels.nanmedian_columns(x),) if name == "pairwise_sq_distances_gram" else ()
             got = getattr(kernels, name)(x, *args)
             torch.cuda.synchronize()
@@ -4537,7 +4821,7 @@ def transformer_phase(torch, gars, kernels, models, runner, card, kernel_rows):
     parts["T4"] = time.perf_counter() - begin - sum(parts.values())
     for name, count in _tfm_grid_phase(torch, kernels).items():
         totals[name] += count
-    parts["T5"] = time.perf_counter() - begin - sum(parts.values())
+    parts["T5, U1-U2"] = time.perf_counter() - begin - sum(parts.values())
     _tfm_real_bytes(runner)
     parts["T6"] = time.perf_counter() - begin - sum(parts.values())
     kernel_rows.extend(tfm_kernel_rows(torch, kernels))
@@ -4554,7 +4838,7 @@ SERVE_REQUESTS = (1, 3, 17, 64, 100)
 SERVE_ZOO = "slim-resnet_v1_50-digits32"
 SERVE_ZOO_D = 23519690
 SERVE_ZOO_BUCKETS = (1, 2, 4, 8, 16, 32)
-SERVE_ZOO_CALLS = 30
+SERVE_ZOO_CALLS = 20
 #: the vote's matrix widths, bucket x 10 classes: buckets 4, 32 and 64
 SERVE_WIDTHS = (40, 320, 640)
 #: (kernel, rule) of the other vote rules' engine legs at R = 5, f = 2
@@ -4938,7 +5222,7 @@ def serve_phase(torch, gars, kernels, models, runner, card, workdir, kernel_rows
 
 
 TOPO_N = 32
-TOPO_STEPS = 8
+TOPO_STEPS = 6
 #: seconds: far above a warm round of 32 cnnet submissions on the card, so
 #: no honest unit times out and only the injected faults decide
 TOPO_DEADLINE = "60"
@@ -5076,7 +5360,7 @@ def _topology_f1(torch, runner, kernels, card, workdir, totals):
         cleared = list(range(4, 8)) if step < 3 else list(range(8, 16))
         check(np.nonzero(~arrived)[0].tolist() == cleared and not stale.any(),
               "topology F1b: round %d cleared %s, not %s" % (step, np.nonzero(~arrived)[0].tolist(), cleared))
-    print("topology F1 on %s: unit 1.1 forged at steps 0-2 and unit 2.1 late at 3-7, each served by shadow 2 "
+    print("topology F1 on %s: unit 1.1 forged at steps 0-2 and unit 2.1 late at 3-5, each served by shadow 2 "
           "(journal and forensics name them), masks untouched, parameters bit-identical to the run without the "
           "schedule; F1b (no redundancy, budgets [1, 2, 3]): both subtrees excluded, leaves 4-7 then 8-15 cleared, "
           "losses finite" % card)
@@ -5275,18 +5559,30 @@ def topology_phase(torch, kernels, runner, card, workdir, kernel_rows):
     begin = time.perf_counter()
     totals = {name: 0 for name in kernels.KERNELS}
     parts = {}
-    _topology_f1(torch, runner, kernels, card, workdir, totals)
-    parts["F1"] = time.perf_counter() - begin
-    _topology_f2(torch, kernels, card)
-    kernel_rows.extend(topology_kernel_rows(torch, kernels))
-    parts["F2"] = time.perf_counter() - begin - sum(parts.values())
+    # F4's supervised child starts, dies and restarts beside F1 and F2 (its
+    # own processes; F3's sentinel compares timed runs, so it runs alone)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        f4 = pool.submit(_topology_f4, workdir, card)
+        _topology_f1(torch, runner, kernels, card, workdir, totals)
+        parts["F1"] = time.perf_counter() - begin
+        _topology_f2(torch, kernels, card)
+        kernel_rows.extend(topology_kernel_rows(torch, kernels))
+        parts["F2"] = time.perf_counter() - begin - sum(parts.values())
+        f4.result()
+        parts["F4 (beside F1, F2)"] = time.perf_counter() - begin - sum(parts.values())
     _topology_f3(runner, kernels, card, workdir, totals)
     parts["F3"] = time.perf_counter() - begin - sum(parts.values())
-    _topology_f4(workdir, card)
-    parts["F4"] = time.perf_counter() - begin - sum(parts.values())
     print("topology phase: %.1f s (%s), launches %s" % (time.perf_counter() - begin, ", ".join(
         "%s %.1f s" % item for item in parts.items()), {k: v for k, v in totals.items() if v}))
     return totals
+
+
+def timed_phase(label, phase):
+    """``phase()``, its seconds printed as ``phase <label>: <s> s``."""
+    begin = time.perf_counter()
+    out = phase()
+    print("phase %s: %.1f s" % (label, time.perf_counter() - begin))
+    return out
 
 
 def main():
@@ -5311,24 +5607,27 @@ def main():
     print("built %s in %.1f s into %s" % (sorted(reports) or "nothing (cached)", time.perf_counter() - t0,
                                           build.build_dir()))
 
-    rows = kernel_phase(torch, kernels)
-    vmap_phase(torch, gars, models)
+    rows = timed_phase("kernels", lambda: kernel_phase(torch, kernels))
+    timed_phase("vmap", lambda: vmap_phase(torch, gars, models))
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
-        totals = main_path_phase(torch, kernels, runner, card, workdir, models)
-        reference_phase(torch, gars, kernels, models)
-        leaf_width_phase(torch, kernels, models)
-        for kernel, count in options_reference_phase(torch, gars, kernels, models).items():
+        totals = timed_phase("main path", lambda: main_path_phase(torch, kernels, runner, card, workdir, models))
+        timed_phase("reference", lambda: reference_phase(torch, gars, kernels, models))
+        timed_phase("leaf widths", lambda: leaf_width_phase(torch, kernels, models))
+        for kernel, count in timed_phase("options reference", lambda: options_reference_phase(
+                torch, gars, kernels, models)).items():
             totals[kernel] += count
-        leaf_counts, batched_rows = leaf_bucketing_phase(torch, gars, kernels, models, runner, card)
+        leaf_counts, batched_rows = timed_phase("leaf bucketing", lambda: leaf_bucketing_phase(
+            torch, gars, kernels, models, runner, card))
         for kernel, count in leaf_counts.items():
             totals[kernel] += count
         rows += batched_rows
-        gar_ms = gar_phase(torch, gars, models)
-        for kernel, count in gar_extensions_phase(torch, gars, kernels, runner, card, workdir, gar_ms).items():
+        gar_ms = timed_phase("gar", lambda: gar_phase(torch, gars, models))
+        for kernel, count in timed_phase("gar extensions", lambda: gar_extensions_phase(
+                torch, gars, kernels, runner, card, workdir, gar_ms)).items():
             totals[kernel] += count
-        corpus_phase()
-        tfm_rows, serve_rows, topology_rows = [], [], []
-        for kernel, count in digits_phase(torch, kernels, runner, card).items():
+        timed_phase("corpus", corpus_phase)
+        tfm_rows, serve_rows, topology_rows, two_ranks = [], [], [], {}
+        for kernel, count in timed_phase("digits", lambda: digits_phase(torch, kernels, runner, card)).items():
             totals[kernel] += count
         phases = (
             ("pipeline", lambda: pipeline_phase(torch, kernels, runner, card)),
@@ -5339,18 +5638,15 @@ def main():
             ("chaos", lambda: chaos_phase(torch, gars, kernels, models, runner, card, workdir)),
             ("codec", lambda: codec_phase(torch, kernels, runner, card, workdir)),
             ("bounded", lambda: bounded_phase(torch, gars, kernels, models, runner, card, workdir)),
-            ("bounded ranks", lambda: bounded_ranks_phase(torch, kernels, card)),
+            ("bounded ranks", lambda: bounded_ranks_phase(torch, kernels, card, two_ranks)),
             ("secure", lambda: secure_phase(torch, kernels, runner, card, workdir)),
             ("zoo", lambda: zoo_phase(torch, gars, kernels, models, runner, card)),
             ("transformer", lambda: transformer_phase(torch, gars, kernels, models, runner, card, tfm_rows)),
             ("serve", lambda: serve_phase(torch, gars, kernels, models, runner, card, workdir, serve_rows)),
             ("topology", lambda: topology_phase(torch, kernels, runner, card, workdir, topology_rows)),
-            ("multirank", lambda: multirank_phase(torch, kernels, card)))
+            ("multirank", lambda: multirank_phase(torch, kernels, card, two_ranks)))
         for label, phase in phases:
-            begin = time.perf_counter()
-            counts = phase()
-            print("phase %s: %.1f s" % (label, time.perf_counter() - begin))
-            for kernel, count in counts.items():
+            for kernel, count in timed_phase(label, phase).items():
                 totals[kernel] += count
         for row in rows:
             check(totals[row["name"]] > 0, "%s was never launched on the main path" % row["name"])
@@ -5360,7 +5656,8 @@ def main():
             row["transformer_shapes"] = [r for r in tfm_rows if r["name"] == row["name"]]
             row["serve_shapes"] = [r for r in serve_rows if r["name"] == row["name"]]
             row["topology_shapes"] = [r for r in topology_rows if r["name"] == row["name"]]
-        attack_phase(runner, workdir)
+        timed_phase("attack", lambda: attack_phase(runner, workdir))
+        resume_begin = time.perf_counter()
         krum = ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2"]
         resume_phase(torch, runner, os.path.join(workdir, "mlp"), "digits", [], krum + [
             "--learning-rate-args", "initial-rate:0.1"])
@@ -5376,12 +5673,16 @@ def main():
         # the int8 wire with error feedback: the residuals resume bit for bit too
         resume_phase(torch, runner, os.path.join(workdir, "conv-int8"), "digits-conv", ["batch-size:16"], krum + [
             "--learning-rate-args", "initial-rate:0.05", "--exchange", "int8:ef"])
+        print("phase resume: %.1f s" % (time.perf_counter() - resume_begin))
+    breakdown_begin = time.perf_counter()
     for source in ("stream", "device"):
         breakdown_phase(torch, gars, models, input_source=source,
                         args=["augment:device"] if source == "device" else [])
         breakdown_phase(torch, gars, models, experiment="digits-conv", args=["batch-size:16"], input_source=source)
     # cnnet in bf16 drawn on the card: the gradient phase without the host batch
     breakdown_phase(torch, gars, models, input_source="device", args=["augment:device", "dtype:bfloat16"])
+    print("phase breakdown: %.1f s" % (time.perf_counter() - breakdown_begin))
+    print("chip_smoke: %.1f s" % (time.perf_counter() - t0))
 
     print("held against their plain versions: %s" % ", ".join(
         "%s (%s)" % (row["name"], kernels.KERNELS[row["name"].replace("_batched", "")].label) for row in rows))

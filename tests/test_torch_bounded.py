@@ -19,7 +19,10 @@ bounded-wait builders) against the JAX package's, on the CPU.
   parameters within 1e-5; the trace's per-worker tracks and counters.
 - ``close()`` (idempotent, bounded, refuses a new round), a failure inside
   a round at its barrier, one after it at the unit's next dispatch; the
-  refusals.  W ranks: ``tests/test_torch_bounded_ranks.py``.
+  refusals, the sharded engine's in JAX's words (granularity, worker
+  momentum, the incremental fold, ``topology``).  W ranks:
+  ``tests/test_torch_bounded_ranks.py``; the sharded engine's units:
+  ``tests/test_torch_sharded_bounded.py``.
 
 The straggling runs use a calm step 0 (``0:calm 1:straggle=1.0``) and a
 stall far beyond the run, so the round that builds has no stall to wait
@@ -27,6 +30,7 @@ for and a straggler never lands: the masks do not depend on the clock.
 """
 
 import json
+import re
 import threading
 import time
 
@@ -522,18 +526,39 @@ def test_refusals_like_jax():
         (RobustEngine(gar, n, granularity="leaf", device="cpu"), JaxEngine(mesh, jgar, n, granularity="leaf")),
         (RobustEngine(gar, n, lossy_link=LossyLink(2, []), device="cpu"), None),
         (RobustEngine(gar, n, chaos=ChaosSchedule("0:straggle=0.5", n), device="cpu"), None),
-        # the sharded engine's submission units (ROADMAP queue 1 item 8c);
-        # a worker axis of W ranks is served (tests/test_torch_bounded_ranks.py)
-        (RobustEngine(gar, n, sharding="sharded", device="cpu"), None),
+        # the sharded engine's submesh units run at granularity global without
+        # worker momentum (tests/test_torch_sharded_bounded.py), refused
+        # otherwise in JAX's words
+        (RobustEngine(gar, n, sharding="sharded", device="cpu"), JaxEngine(mesh, jgar, n, sharding="sharded")),
+        (RobustEngine(gar, n, sharding="sharded", granularity="global", worker_momentum=0.9, device="cpu"),
+         JaxEngine(mesh, jgar, n, sharding="sharded", granularity="global", worker_momentum=0.9)),
     ]
     for engine, jengine in refused:
-        with pytest.raises(UserException):
+        with pytest.raises(UserException) as ours:
             engine.build_worker_grad(lambda p, b: 0.0)
         with pytest.raises(UserException):
             engine.build_bounded_aggregate(None, {"w.bias": torch.zeros(3)})
         if jengine is not None:
-            with pytest.raises(JaxUserException):
+            with pytest.raises(JaxUserException) as theirs:
                 jengine.build_worker_grad(lambda p, b: 0.0)
+            if engine.sharded:
+                assert str(ours.value) == str(theirs.value)
+                with pytest.raises(UserException, match="^%s$" % re.escape(str(theirs.value))):
+                    engine.build_group_grad(lambda p, b, grid: 0.0)
+    # a submesh unit's k rows are one submission: no per-worker fold, no tree
+    from aggregathor_tpu.topology import TreeAggregator as JaxTree, parse_topology_spec as jparse
+    from aggregathor_tpu_torch.topology import TreeAggregator, parse_topology_spec
+
+    sharded = RobustEngine(gar, n, sharding="sharded", granularity="global", device="cpu")
+    jsharded = JaxEngine(mesh, jgar, n, sharding="sharded", granularity="global")
+    tree = "tree:g=2,rules=median>average-nan"
+    for kwargs, jkwargs in ((dict(incremental=True), dict(incremental=True)),
+                            (dict(topology=TreeAggregator(parse_topology_spec(tree, n, 1))),
+                             dict(topology=JaxTree(jparse(tree, n, 1))))):
+        with pytest.raises(JaxUserException) as theirs:
+            JaxStep(jsharded, lambda p, b: 0.0, None, {}, deadline=0.2, **jkwargs)
+        with pytest.raises(UserException, match="^%s$" % re.escape(str(theirs.value))):
+            BoundedWaitStep(sharded, lambda p, b, grid: 0.0, None, {}, deadline=0.2, **kwargs)
     engine, jengine = RobustEngine(gar, n, device="cpu"), JaxEngine(mesh, jgar, n)
     params = tmodels.instantiate("mnist", EXP_ARGS).init(0)
     with pytest.raises(UserException):
@@ -546,10 +571,6 @@ def test_refusals_like_jax():
             JaxStep(jengine, lambda p, b: 0.0, None, {}, **kwargs)
     # the tree's host plane signs the stacked wire rows, which the
     # incremental fold never materializes: both packages refuse the pair
-    from aggregathor_tpu.topology import TreeAggregator as JaxTree, parse_topology_spec as jparse
-    from aggregathor_tpu_torch.topology import TreeAggregator, parse_topology_spec
-
-    tree = "tree:g=2,rules=median>average-nan"
     with pytest.raises(UserException, match="topology"):
         BoundedWaitStep(engine, lambda p, b: 0.0, None, params, deadline=0.2, incremental=True,
                         topology=TreeAggregator(parse_topology_spec(tree, n, 1)))

@@ -353,7 +353,12 @@ def bounded_case(axis, case, weights, batches, journal=None):
     registry = MetricsRegistry()
     if journal is not None and axis.lead:
         events.install(journal, run_id="bounded")
-    step = BoundedWaitStep(engine, injected_loss, tx, params, straggler_model=model, controller=controller,
+    loss = injected_loss
+    if case.get("l2"):
+        from aggregathor_tpu_torch.cli.runner import make_regularized_loss
+
+        loss = make_regularized_loss(loss, None, case["l2"])
+    step = BoundedWaitStep(engine, loss, tx, params, straggler_model=model, controller=controller,
                            topology=topology, registry=registry, **case.get("step", {}))
     payloads = {}
     original = step.grad_fn
@@ -413,3 +418,114 @@ def bounded_cases(axis, cases, journal_dir=None):
                                None if journal_dir is None else os.path.join(journal_dir, "%s-W%d.jsonl"
                                                                              % (name, axis.size)))
             for name, case, weights, batches in cases}
+
+
+# --------------------------------------------------------------------------- #
+# bounded-wait on the sharded engine (tests/test_torch_sharded_bounded.py)
+
+
+def sharded_injected_loss(specs):
+    """The sharded engine's local partial of ``injected_loss``: a rank's
+    blocks against its blocks of a worker's whole rows, each leaf scaled by
+    1/(its replication), so the submesh's sum is the linear loss and each
+    completed gradient block is the rows' block."""
+
+    def block(value, spec, grid):
+        for dim, name in enumerate(spec):
+            if name is not None:
+                axis = grid.axis(name)
+                size = value.shape[dim] // axis.size
+                value = value.narrow(dim, axis.rank * size, size)
+        return value
+
+    def loss(params, batch, grid):
+        total = 0.0
+        for name in sorted(params):
+            spec = tuple(specs[name])
+            scale = 1.0
+            for axis in ("pipe", "model"):
+                if axis not in spec:
+                    scale /= grid.shape[axis]
+            total = total + scale * torch.sum(params[name] * block(batch["g_" + name], spec, grid))
+        return total
+
+    return loss
+
+
+def sharded_bounded_case(grid, case, weights, batches, journal=None):
+    """One bounded-wait run of ``case`` on the sharded engine over ``grid``
+    (granularity global), the injected transformer rows of ``batches``
+    (global, each rank keeping its unit's k workers), from the global
+    ``weights``: per round the masks, counts, coefficients, loss, the
+    gathered arrivals and the window; the global parameters (rank 0); the
+    lead writes its journal to ``journal``."""
+    from aggregathor_tpu_torch.models import transformer as tfm
+    from aggregathor_tpu_torch.obs import events
+    from aggregathor_tpu_torch.obs.metrics import MetricsRegistry
+    from aggregathor_tpu_torch.parallel.bounded import BoundedWaitStep
+    from aggregathor_tpu_torch.parallel.deadline import DeadlineController
+
+    n, f = case["n"], case["f"]
+    specs = tfm.param_specs(tfm.TransformerConfig(**case["cfg"]))
+    tx = build_optimizer("sgd", build_schedule("fixed", ["initial-rate:%s" % case.get("lr", 0.05)]))
+    engine = RobustEngine(gars.instantiate(case["rule"], n, f), n, sharding="sharded", mesh=grid,
+                          granularity="global", device=grid.device, **case.get("options", {}))
+    params = {name: torch.as_tensor(value) for name, value in weights.items()}
+    model = ChosenStragglers(case["stragglers"], case.get("stall", 30.0)) if case.get("stragglers") else None
+    controller = DeadlineController(**case["controller"]) if case.get("controller") else None
+    registry = MetricsRegistry()
+    lead = grid.rank == 0
+    if journal is not None and lead:
+        events.install(journal, run_id="sharded-bounded")
+    state = engine.init_state(lambda seed: params, specs, tx, seed=1)
+    loss = sharded_injected_loss(specs)
+    if case.get("l2"):
+        # each leaf's term scaled by 1/(its replication): the submesh's sum
+        # counts it once
+        from aggregathor_tpu_torch.cli.runner import make_regularized_loss
+
+        loss = make_regularized_loss(loss, None, case["l2"], sharded=engine)
+    step = BoundedWaitStep(engine, loss, tx, params, straggler_model=model, controller=controller,
+                           registry=registry, **case.get("step", {}))
+    out = {"rank": grid.rank, "rounds": [], "nb_units": step.nb_units, "group_size": step.group_size}
+    try:
+        for batch in batches:
+            state, metrics = step(state, engine.put_batch(batch))
+            got = {key: metrics[key].cpu().numpy() for key in
+                   ("straggler_timeout", "stale_infill", "nb_timeouts", "nb_stale", "total_loss",
+                    "stale_reweight_coeff", "worker_participation") if key in metrics}
+            got["worker_nan"] = metrics["probe"]["worker_nan_rows"].cpu().numpy()
+            if "secure" in metrics:
+                got["secure"] = {name: value.cpu().numpy() for name, value in metrics["secure"].items()}
+            got["arrivals"] = step.last_arrivals.copy()
+            got["window"] = None if controller is None else controller.window
+            out["rounds"].append(got)
+    finally:
+        step.close()
+        if journal is not None and lead:
+            events.uninstall()
+    snapshot = engine.global_state(state)  # every rank: a collective over the submesh
+    out["params"] = {name: value.detach().cpu().numpy() for name, value in snapshot.params.items()}
+    out["local"] = {name: value.detach().cpu().numpy() for name, value in state.params.items()}
+    out["timeouts_total"] = step.timeouts_total.copy()
+    out["registry"] = registry.snapshot()
+    return out
+
+
+def sharded_bounded_cases(axis, grids, journal_dir=None):
+    """For each ``(shape, cases)`` of ``grids``, in order, every ``(id,
+    case, weights, batches)`` of ``cases`` on a (W, PP, TP) grid over the
+    spawned ranks, the lead's journals in ``journal_dir``
+    (``<id>-<W>x<PP>x<TP>.jsonl``)."""
+    import os
+
+    from aggregathor_tpu_torch.parallel import mesh
+
+    out = {}
+    for shape, cases in grids:
+        grid = mesh.make_mesh(shape[0], shape[2], shape[1], device=axis.device)
+        tag = "x".join(str(v) for v in shape)
+        out[tag] = {name: sharded_bounded_case(grid, case, weights, batches, None if journal_dir is None else
+                                               os.path.join(journal_dir, "%s-%s.jsonl" % (name, tag)))
+                    for name, case, weights, batches in cases}
+    return out
