@@ -108,7 +108,9 @@ Phases, in order (any failure exits non-zero and prints no result):
    steps at lr 0.1 must reach 0.95 real test accuracy (the JAX package:
    0.961), ``digits-conv`` (cnnet at 32x32x1, d = 1,753,482, batch 16) for
    400 steps at lr 0.05 must reach 0.96 (JAX: 0.975), both with cuDNN's
-   deterministic algorithms; then ``digits`` again with its batches drawn on
+   deterministic algorithms (these anchors run in a child process,
+   ``chip_smoke.py --digits-anchors``, beside the zoo phase's card legs,
+   joined before its Z4); then ``digits`` again with its batches drawn on
    the card, 10 steps a call (``--input-source device --unroll 10``), which
    must reach ``DIGITS_DEVICE_FLOOR``; each must launch K1 once a step and
    nothing else.  K1 is held at their widths (and at odd
@@ -209,8 +211,19 @@ Phases, in order (any failure exits non-zero and prints no result):
    krum on digits32, 400 steps, real test accuracy >= 0.92; Z4 every one
    of the 34 nets, 2 median steps each, within 120 s; Z5 a Bulyan step card
    against CPU (float32 within 2e-2, float64 within 1e-9, the same
-   selections); K1 and K4 at the zoo's widths, timed.  Every zoo leg runs
-   with the vmap fallback's warning an error.
+   selections; the CPU's half on a thread from the phase's start); K1 and
+   K4 at the zoo's widths, timed.  Every zoo leg runs with the vmap
+   fallback's warning an error.
+   The analysis phase (``analysis_phase``, after the GAR extensions'): the
+   port's GAR contract sweep (``aggregathor_tpu_torch/analysis``, every
+   spec of the JAX gate's list) on the card through K1-K6 and the
+   centring at d = 8 and at cnnet's width, whose findings must be the
+   CPU's sweep's at the same width, fingerprint for fingerprint (the
+   CPU's at cnnet's width in a niced child process started after the
+   build, ``chip_smoke.py --gar-sweep-cpu``); K1 launched by krum, the
+   centring and K2 by bucketing's 4 bucket means, K3 by median, K4 by
+   averaged-median and bulyan, K5 by trimmed-mean, K6 by average-nan; no
+   kernel built; within ``ANALYSIS_BUDGET_S``.
    The serve phase (``serve_phase``, after the transformer's): S1 cnnet
    trained 4 steps with ``--secure`` and checkpoints, then served by
    ``python -m aggregathor_tpu_torch.cli.serve`` (3 replicas, median,
@@ -1050,6 +1063,69 @@ def digits_phase(torch, kernels, runner, card):
         check(accuracy >= floor, "%s: real test accuracy %.4f below %.2f" % (label, accuracy, floor))
     torch.backends.cudnn.deterministic = False
     return totals
+
+
+class Child:
+    """A child process of this script started beside card work: ``python3
+    chip_smoke.py <mode> <out.json> [args]``, its output kept in a log and
+    printed when it is joined, its result the JSON it wrote; killed if the
+    parent ends first (``stop``)."""
+
+    def __init__(self, label, mode, workdir, *args):
+        self.label = label
+        self.out = os.path.join(workdir, "%s.json" % mode.strip("-"))
+        self.log_path = os.path.join(workdir, "%s.log" % mode.strip("-"))
+        self.begin = time.perf_counter()
+        self.result = None
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, self.out, *map(str, args)],
+                                         cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+                                         stderr=subprocess.STDOUT)
+
+    def join(self, timeout=900):
+        """The child's result; its log printed and its exit code checked the
+        first time, with its seconds and how long the join waited."""
+        if self.result is None:
+            waited = time.perf_counter()
+            try:
+                code = self.proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self.stop()
+                fail("%s: the child did not end within %d s" % (self.label, timeout))
+            waited = time.perf_counter() - waited
+            with open(self.log_path) as log:
+                sys.stdout.write(log.read())
+            check(code == 0, "%s: the child exited %d (its log above)" % (self.label, code))
+            with open(self.out) as fd:
+                self.result = json.load(fd)
+            print("phase %s: %.1f s in a child process, joined after waiting %.1f s"
+                  % (self.label, time.perf_counter() - self.begin, waited))
+        return self.result
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def digits_child(out):
+    """``chip_smoke.py --digits-anchors out.json``: the digits anchors
+    (``digits_phase``) in a process of their own, beside the zoo's card
+    legs; writes their {kernel: launches}."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on a GPU")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from aggregathor_tpu_torch.cli import runner
+    from aggregathor_tpu_torch.ops import kernels
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    corpus_phase()
+    totals = digits_phase(torch, kernels, runner, card_line())
+    with open(out, "w") as fd:
+        json.dump(totals, fd)
 
 
 def attack_phase(runner, workdir):
@@ -3970,49 +4046,65 @@ def _zoo_leg(torch, kernels, runner, label, argv, expected):
     return result, counts, torch.cuda.max_memory_allocated() / 2**20, text
 
 
-def zoo_card_cpu(torch, gars, kernels, models):
-    """Z5: one Bulyan step of resnet_v1_50 on digits32 (n = 7, f = 1, batch
-    2) from the same weights and batch on the card and on the CPU: the
-    worker gradients and the aggregate within ``ZOO_CARD_CPU_RTOL`` of their
-    largest magnitudes, Bulyan's selections identical."""
+def zoo_z5_half(torch, gars, kernels, models, device):
+    """One half of Z5 on ``device``: one Bulyan step of resnet_v1_50 on
+    digits32 (n = 7, f = 1, batch 2) from ``init(3)`` and the iterator's
+    seed-4 batch, on experiments of its own (a second one converted to
+    float64 for the float64 gradients); returns CPU copies of the initial weights, the worker rows,
+    Bulyan's selection weights, the aggregate and the rows in float64.  The
+    CPU half runs on a thread beside the zoo's card legs."""
     from aggregathor_tpu_torch.core import FlatMap
     from aggregathor_tpu_torch.parallel import RobustEngine
 
     n, f = 7, 1
-    exp = models.instantiate("slim-resnet_v1_50-digits32", ["batch-size:2", "preprocessing:none"])
+    args = ("slim-resnet_v1_50-digits32", ["batch-size:2", "preprocessing:none"])
+    exp = models.instantiate(*args)
     params = exp.init(3)
     batch = next(exp.make_train_iterator(n, seed=4))
-    rows, weights, aggregate = {}, {}, {}
-    for device in ("cpu", "cuda"):
-        engine = RobustEngine(gars.instantiate("bulyan", n, f), n, device=device)
-        on = {k: v.to(device) for k, v in params.items()}
-        _, r = engine._worker_gradients(on, engine.put_batch(batch), exp.loss, FlatMap(on))
-        gar = engine.gar
-        dist2 = kernels.pairwise_sq_distances(r)
-        weights[device] = gar.selection_weights(dist2).cpu()
-        aggregate[device] = gar.aggregate(r).cpu()
-        rows[device] = r.cpu()
-    row_err = float(((rows["cuda"] - rows["cpu"]).abs().max(dim=1).values / rows["cpu"].abs().max(dim=1).values).max())
-    agg_err = float((aggregate["cuda"] - aggregate["cpu"]).abs().max() / aggregate["cpu"].abs().max())
-    same = torch.equal(weights["cuda"] > 0, weights["cpu"] > 0)
-    # the same gradients in float64 on both devices (every layer's compute
-    # dtype float64): the card's convs, norms and pools against the CPU's
-    model = exp.model.double()
-    for m in model.modules():
+    engine = RobustEngine(gars.instantiate("bulyan", n, f), n, device=device)
+    on = {k: v.to(device) for k, v in params.items()}
+    _, rows = engine._worker_gradients(on, engine.put_batch(batch), exp.loss, FlatMap(on))
+    weights = engine.gar.selection_weights(kernels.pairwise_sq_distances(rows)).cpu()
+    aggregate = engine.gar.aggregate(rows).cpu()
+    # the same gradients in float64 (every layer's compute dtype float64):
+    # the card's convs, norms and pools against the CPU's, on an experiment
+    # converted before its first call (off the main thread the loss runs a
+    # copy of the module made at that call, models.thread_module)
+    exp = models.instantiate(*args)
+    exp.model.double()
+    for m in exp.model.modules():
         if isinstance(getattr(m, "dtype", None), torch.dtype):
             m.dtype = torch.float64
-    f64 = {}
-    for device in ("cpu", "cuda"):
-        on = {k: v.double().to(device) for k, v in params.items()}
-        images = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-        grads = torch.func.vmap(torch.func.grad(exp.loss), in_dims=(None, 0))(on, images)
-        f64[device] = torch.cat([grads[name].flatten(1) for name in sorted(grads)], dim=1).cpu()
-    f64_err = float(((f64["cuda"] - f64["cpu"]).abs().max(dim=1).values / f64["cpu"].abs().max(dim=1).values).max())
+    on = {k: v.double().to(device) for k, v in params.items()}
+    images = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    grads = torch.func.vmap(torch.func.grad(exp.loss), in_dims=(None, 0))(on, images)
+    f64 = torch.cat([grads[name].flatten(1) for name in sorted(grads)], dim=1).cpu()
+    return {k: v.cpu() for k, v in params.items()}, rows.cpu(), weights, aggregate, f64
+
+
+def zoo_card_cpu(torch, gars, kernels, models, cpu_half):
+    """Z5: the card's half (``zoo_z5_half``) against the CPU's, ``cpu_half``
+    (a future of the thread that ran it): the same initial weights, the
+    worker gradients and the aggregate within ``ZOO_CARD_CPU_RTOL`` of
+    their largest magnitudes, Bulyan's selections identical, and the float64
+    gradients within ``ZOO_CARD_CPU_F64_RTOL``."""
+    begin = time.perf_counter()
+    card = zoo_z5_half(torch, gars, kernels, models, "cuda")
+    waited = time.perf_counter()
+    cpu = cpu_half.result()
+    waited = time.perf_counter() - waited
+    (p_card, r_card, w_card, a_card, f_card), (p_cpu, r_cpu, w_cpu, a_cpu, f_cpu) = card, cpu
+    check(all(torch.equal(p_card[k], p_cpu[k]) for k in p_cpu), "zoo Z5: the two halves' initial weights differ")
+    row_err = float(((r_card - r_cpu).abs().max(dim=1).values / r_cpu.abs().max(dim=1).values).max())
+    agg_err = float((a_card - a_cpu).abs().max() / a_cpu.abs().max())
+    same = torch.equal(w_card > 0, w_cpu > 0)
+    f64_err = float(((f_card - f_cpu).abs().max(dim=1).values / f_cpu.abs().max(dim=1).values).max())
     print("zoo Z5 resnet_v1_50-digits32 bulyan n=7 f=1 batch 2, card vs CPU from one init and batch on %s: worker "
           "gradients %.3g, aggregate %.3g of their largest magnitudes (tolerance %g), Bulyan's selections %s; in "
-          "float64 the worker gradients %.3g (tolerance %g)"
+          "float64 the worker gradients %.3g (tolerance %g); the card's half %.1f s, then %.1f s waiting for the "
+          "CPU's (run on a thread beside the zoo's legs)"
           % (card_line(), row_err, agg_err, ZOO_CARD_CPU_RTOL, "identical" if same else "DIFFER", f64_err,
-             ZOO_CARD_CPU_F64_RTOL))
+             ZOO_CARD_CPU_F64_RTOL, time.perf_counter() - begin - waited, waited))
     check(row_err <= ZOO_CARD_CPU_RTOL and agg_err <= ZOO_CARD_CPU_RTOL, "zoo Z5: card and CPU differ")
     check(same, "zoo Z5: Bulyan's selections differ between the card and the CPU")
     check(f64_err <= ZOO_CARD_CPU_F64_RTOL, "zoo Z5: card and CPU differ in float64")
@@ -4048,9 +4140,11 @@ def zoo_kernel_rows(torch, kernels):
     return rows
 
 
-def zoo_phase(torch, gars, kernels, models, runner, card):
+def zoo_phase(torch, gars, kernels, models, runner, card, beside=None):
     """The model zoo on the card (``models/zoo.py``); returns {kernel:
-    launches} over its legs.
+    launches} over its legs.  ``beside()``, when given, is called before Z4:
+    it waits for work started beside the card legs before it (the digits
+    anchors' child), so that Z4's budget is its own.
 
     - the conv weight gradient: cuDNN's float32 one against float64 at
       every ResNet-50 conv shape of the legs (``zoo_weight_grads``);
@@ -4066,12 +4160,16 @@ def zoo_phase(torch, gars, kernels, models, runner, card):
     - Z4: each of the 34 nets on digits32, median at n = 3, batch 2, 2 steps:
       finite losses, K3 once a step, no vmap fallback, within
       ``ZOO_NAMES_BUDGET_S``;
-    - Z5: card against CPU (``zoo_card_cpu``);
+    - Z5: card against CPU (``zoo_card_cpu``), the CPU's half on a thread
+      from the phase's start, beside the card legs;
     - K1 and K4 at Z1's and Z2's widths (``zoo_kernel_rows``).
     Every leg runs with the vmap fallback's warning turned into an error."""
     from aggregathor_tpu_torch.models import zoo
 
     totals = {name: 0 for name in kernels.KERNELS}
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_half = pool.submit(zoo_z5_half, torch, gars, kernels, models, "cpu")
+    pool.shutdown(wait=False)
     zoo_weight_grads(torch)
     # Z1's memory, reckoned before the run: the (32, d) float32 rows, three
     # more (n, d) buffers in select_combine, and the vmap's activations
@@ -4104,6 +4202,8 @@ def zoo_phase(torch, gars, kernels, models, runner, card):
                   % (d, card, per_step["worker gradients"], per_step["attack + aggregate"],
                      per_step["worker gradients"] / (per_step["worker gradients"] + per_step["attack + aggregate"])))
             zoo_f64_cost(torch, gars, models, argv[1])
+    if beside is not None:
+        beside()
     # Z4: every name of the factory
     start = time.perf_counter()
     for name in sorted(zoo.MODEL_FACTORY):
@@ -4122,7 +4222,7 @@ def zoo_phase(torch, gars, kernels, models, runner, card):
     print("zoo Z4: the %d nets in %.1f s on %s (budget %.0f s)" % (len(zoo.MODEL_FACTORY), elapsed, card,
                                                                     ZOO_NAMES_BUDGET_S))
     check(elapsed <= ZOO_NAMES_BUDGET_S, "zoo Z4 took %.1f s (budget %.0f s)" % (elapsed, ZOO_NAMES_BUDGET_S))
-    zoo_card_cpu(torch, gars, kernels, models)
+    zoo_card_cpu(torch, gars, kernels, models, cpu_half)
     zoo_kernel_rows(torch, kernels)
     return totals
 
@@ -5577,6 +5677,182 @@ def topology_phase(torch, kernels, runner, card, workdir, kernel_rows):
     return totals
 
 
+#: the kernels the GAR contract sweep must reach on the card, and the specs
+#: that reach each (the centring and K2 through bucketing's 4 bucket means)
+ANALYSIS_REACH = {
+    "pairwise_sq_distances": ("krum",),
+    "nanmedian_columns": ("bucketing:s=2,inner=krum",),
+    "pairwise_sq_distances_gram": ("bucketing:s=2,inner=krum",),
+    "coordinate_median": ("median",),
+    "coordinate_averaged_median": ("averaged-median", "bulyan"),
+    "coordinate_trimmed_mean": ("trimmed-mean",),
+    "average_nan_columns": ("average-nan",),
+}
+#: the analysis phase's budget (seconds, both widths on the card)
+ANALYSIS_BUDGET_S = 60.0
+
+
+def gar_sweep_child(out, d):
+    """``chip_smoke.py --gar-sweep-cpu out.json d``: the port's GAR contract
+    sweep on the CPU at width ``d`` (the kernels' plain versions), at the
+    lowest priority and on 4 threads, beside the card's phases; writes its
+    findings' fingerprints."""
+    os.nice(19)
+    import torch
+
+    torch.set_num_threads(4)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from aggregathor_tpu_torch.analysis import gar_contract
+
+    begin = time.perf_counter()
+    findings = gar_contract.check(device="cpu", d=int(d))
+    print("analysis: the CPU sweep at d = %d, %d specs, in %.1f s: %d finding(s)"
+          % (int(d), len(gar_contract.default_specs()), time.perf_counter() - begin, len(findings)))
+    with open(out, "w") as fd:
+        json.dump(sorted(f.fingerprint for f in findings), fd)
+
+
+def analysis_phase(torch, kernels, build, card, cpu_sweep):
+    """The port's GAR contract sweep (``analysis/gar_contract.py``) on the
+    card through K1-K6 and the centring, every spec of JAX's list at d =
+    ``PROBE_D`` and at cnnet's width: its findings must be the CPU's at the
+    same width, fingerprint for fingerprint (``PROBE_D``: in this process;
+    cnnet's width: ``cpu_sweep``, the child started after the build); each
+    kernel of ``ANALYSIS_REACH`` launched by its specs (launch counts read
+    around each spec); no kernel built during the phase (the build
+    listener); within ``ANALYSIS_BUDGET_S``.  Returns {kernel: launches}."""
+    from aggregathor_tpu_torch.analysis import gar_contract
+
+    begin = time.perf_counter()
+    totals = {name: 0 for name in kernels.KERNELS}
+    builds = []
+
+    def note_build(*args):
+        builds.append(args)
+
+    build.add_build_listener(note_build)
+    try:
+        for d in (gar_contract.PROBE_D, CNNET_D):
+            start = time.perf_counter()
+            found, by_spec = [], {}
+            for spec in gar_contract.default_specs():
+                kernels.reset_launch_counts()
+                found += [f.fingerprint for f in gar_contract.check_spec(spec, "cuda", d)]
+                torch.cuda.synchronize()
+                by_spec[spec] = kernels.launch_counts()
+                for name, count in by_spec[spec].items():
+                    totals[name] += count
+            seconds = time.perf_counter() - start
+            if d == gar_contract.PROBE_D:
+                cpu = sorted(f.fingerprint for f in gar_contract.check(device="cpu", d=d))
+            else:
+                cpu = cpu_sweep.join()
+            reached = {name: {spec: by_spec[spec][name] for spec in specs} for name, specs in ANALYSIS_REACH.items()}
+            print("analysis: the GAR contract sweep at d = %d on %s, %d specs in %.1f s: %d finding(s) on the card, "
+                  "%d on the CPU; launches by the reaching specs %s; the sweep's launches %s"
+                  % (d, card, len(by_spec), seconds, len(found), len(cpu), json.dumps(reached, sort_keys=True),
+                     json.dumps({k: sum(c[k] for c in by_spec.values()) for k in kernels.KERNELS}, sort_keys=True)))
+            check(sorted(found) == cpu, "analysis: the card's findings at d = %d differ from the CPU's: card %s, "
+                  "CPU %s" % (d, sorted(set(found) - set(cpu)), sorted(set(cpu) - set(found))))
+            for name, counts in reached.items():
+                for spec, count in counts.items():
+                    check(count > 0, "analysis: %s launched no %s at d = %d" % (spec, name, d))
+    finally:
+        build.remove_build_listener(note_build)
+    check(not builds, "analysis: kernels built during the phase: %s" % builds)
+    seconds = time.perf_counter() - begin
+    print("analysis phase: %.1f s (budget %.0f s) on %s, launches %s"
+          % (seconds, ANALYSIS_BUDGET_S, card, {k: v for k, v in totals.items() if v}))
+    check(seconds <= ANALYSIS_BUDGET_S, "analysis: %.1f s over its budget of %.0f s" % (seconds, ANALYSIS_BUDGET_S))
+    return totals
+
+
+def smoke_phases(torch, gars, models, runner, build, kernels, card, workdir, children):
+    """Every phase from the kernels' to the resumes, in order; returns the
+    kernel rows and the main path's {kernel: launches}.  ``children``: the
+    child processes started beside card work, which the caller stops."""
+    rows = timed_phase("kernels", lambda: kernel_phase(torch, kernels))
+    timed_phase("vmap", lambda: vmap_phase(torch, gars, models))
+    totals = timed_phase("main path", lambda: main_path_phase(torch, kernels, runner, card, workdir, models))
+    timed_phase("reference", lambda: reference_phase(torch, gars, kernels, models))
+    timed_phase("leaf widths", lambda: leaf_width_phase(torch, kernels, models))
+    for kernel, count in timed_phase("options reference", lambda: options_reference_phase(
+            torch, gars, kernels, models)).items():
+        totals[kernel] += count
+    leaf_counts, batched_rows = timed_phase("leaf bucketing", lambda: leaf_bucketing_phase(
+        torch, gars, kernels, models, runner, card))
+    for kernel, count in leaf_counts.items():
+        totals[kernel] += count
+    rows += batched_rows
+    gar_ms = timed_phase("gar", lambda: gar_phase(torch, gars, models))
+    for kernel, count in timed_phase("gar extensions", lambda: gar_extensions_phase(
+            torch, gars, kernels, runner, card, workdir, gar_ms)).items():
+        totals[kernel] += count
+    for kernel, count in timed_phase("analysis", lambda: analysis_phase(torch, kernels, build, card,
+                                                                        children[0])).items():
+        totals[kernel] += count
+    timed_phase("corpus", corpus_phase)
+    tfm_rows, serve_rows, topology_rows, two_ranks = [], [], [], {}
+    phases = (
+        ("pipeline", lambda: pipeline_phase(torch, kernels, runner, card)),
+        ("plane", lambda: plane_phase(torch, kernels, runner, card, workdir, gar_ms)),
+        ("profiler", lambda: profiler_phase(kernels, runner, card, workdir)),
+        ("observability", lambda: observability_phase(kernels, runner, card, workdir)),
+        ("guardian", lambda: guardian_phase(torch, kernels, runner, card, workdir)),
+        ("chaos", lambda: chaos_phase(torch, gars, kernels, models, runner, card, workdir)),
+        ("codec", lambda: codec_phase(torch, kernels, runner, card, workdir)),
+        ("bounded", lambda: bounded_phase(torch, gars, kernels, models, runner, card, workdir)),
+        ("bounded ranks", lambda: bounded_ranks_phase(torch, kernels, card, two_ranks)),
+        ("secure", lambda: secure_phase(torch, kernels, runner, card, workdir)),
+        ("zoo", lambda: zoo_beside_digits(torch, gars, kernels, models, runner, card, workdir, children)),
+        ("transformer", lambda: transformer_phase(torch, gars, kernels, models, runner, card, tfm_rows)),
+        ("serve", lambda: serve_phase(torch, gars, kernels, models, runner, card, workdir, serve_rows)),
+        ("topology", lambda: topology_phase(torch, kernels, runner, card, workdir, topology_rows)),
+        ("multirank", lambda: multirank_phase(torch, kernels, card, two_ranks)))
+    for label, phase in phases:
+        for kernel, count in timed_phase(label, phase).items():
+            totals[kernel] += count
+    for row in rows:
+        check(totals[row["name"]] > 0, "%s was never launched on the main path" % row["name"])
+        row["launches"] = totals[row["name"]]
+        if row["name"] in kernels.KERNELS:
+            row["batched_launches"] = totals[batched(row["name"])]
+        row["transformer_shapes"] = [r for r in tfm_rows if r["name"] == row["name"]]
+        row["serve_shapes"] = [r for r in serve_rows if r["name"] == row["name"]]
+        row["topology_shapes"] = [r for r in topology_rows if r["name"] == row["name"]]
+    timed_phase("attack", lambda: attack_phase(runner, workdir))
+    resume_begin = time.perf_counter()
+    krum = ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2"]
+    resume_phase(torch, runner, os.path.join(workdir, "mlp"), "digits", [], krum + [
+        "--learning-rate-args", "initial-rate:0.1"])
+    resume_phase(torch, runner, os.path.join(workdir, "conv"), "digits-conv", ["batch-size:16"], krum + [
+        "--learning-rate-args", "initial-rate:0.05"])
+    # the batches drawn on the card, 4 steps a call: 10 = 2 calls and a
+    # tail of 2, the resumed 10 the same, the uninterrupted 20 five calls
+    device_input = ("--input-source", "device", "--unroll", "4")
+    resume_phase(torch, runner, os.path.join(workdir, "mlp-device"), "digits", [], krum + [
+        "--learning-rate-args", "initial-rate:0.1"], device_input)
+    resume_phase(torch, runner, os.path.join(workdir, "conv-device"), "digits-conv", ["batch-size:16"], krum + [
+        "--learning-rate-args", "initial-rate:0.05"], device_input)
+    # the int8 wire with error feedback: the residuals resume bit for bit too
+    resume_phase(torch, runner, os.path.join(workdir, "conv-int8"), "digits-conv", ["batch-size:16"], krum + [
+        "--learning-rate-args", "initial-rate:0.05", "--exchange", "int8:ef"])
+    print("phase resume: %.1f s" % (time.perf_counter() - resume_begin))
+    return rows, totals
+
+
+def zoo_beside_digits(torch, gars, kernels, models, runner, card, workdir, children):
+    """The zoo phase with the digits anchors in a child process beside its
+    card legs (joined before Z4, so that Z4's budget is its own) and Z5's
+    CPU half on a thread; returns {kernel: launches} of both."""
+    digits = Child("digits", "--digits-anchors", workdir)
+    children.append(digits)
+    counts = zoo_phase(torch, gars, kernels, models, runner, card, beside=digits.join)
+    for kernel, count in digits.join().items():
+        counts[kernel] += count
+    return counts
+
+
 def timed_phase(label, phase):
     """``phase()``, its seconds printed as ``phase <label>: <s> s``."""
     begin = time.perf_counter()
@@ -5607,73 +5883,13 @@ def main():
     print("built %s in %.1f s into %s" % (sorted(reports) or "nothing (cached)", time.perf_counter() - t0,
                                           build.build_dir()))
 
-    rows = timed_phase("kernels", lambda: kernel_phase(torch, kernels))
-    timed_phase("vmap", lambda: vmap_phase(torch, gars, models))
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
-        totals = timed_phase("main path", lambda: main_path_phase(torch, kernels, runner, card, workdir, models))
-        timed_phase("reference", lambda: reference_phase(torch, gars, kernels, models))
-        timed_phase("leaf widths", lambda: leaf_width_phase(torch, kernels, models))
-        for kernel, count in timed_phase("options reference", lambda: options_reference_phase(
-                torch, gars, kernels, models)).items():
-            totals[kernel] += count
-        leaf_counts, batched_rows = timed_phase("leaf bucketing", lambda: leaf_bucketing_phase(
-            torch, gars, kernels, models, runner, card))
-        for kernel, count in leaf_counts.items():
-            totals[kernel] += count
-        rows += batched_rows
-        gar_ms = timed_phase("gar", lambda: gar_phase(torch, gars, models))
-        for kernel, count in timed_phase("gar extensions", lambda: gar_extensions_phase(
-                torch, gars, kernels, runner, card, workdir, gar_ms)).items():
-            totals[kernel] += count
-        timed_phase("corpus", corpus_phase)
-        tfm_rows, serve_rows, topology_rows, two_ranks = [], [], [], {}
-        for kernel, count in timed_phase("digits", lambda: digits_phase(torch, kernels, runner, card)).items():
-            totals[kernel] += count
-        phases = (
-            ("pipeline", lambda: pipeline_phase(torch, kernels, runner, card)),
-            ("plane", lambda: plane_phase(torch, kernels, runner, card, workdir, gar_ms)),
-            ("profiler", lambda: profiler_phase(kernels, runner, card, workdir)),
-            ("observability", lambda: observability_phase(kernels, runner, card, workdir)),
-            ("guardian", lambda: guardian_phase(torch, kernels, runner, card, workdir)),
-            ("chaos", lambda: chaos_phase(torch, gars, kernels, models, runner, card, workdir)),
-            ("codec", lambda: codec_phase(torch, kernels, runner, card, workdir)),
-            ("bounded", lambda: bounded_phase(torch, gars, kernels, models, runner, card, workdir)),
-            ("bounded ranks", lambda: bounded_ranks_phase(torch, kernels, card, two_ranks)),
-            ("secure", lambda: secure_phase(torch, kernels, runner, card, workdir)),
-            ("zoo", lambda: zoo_phase(torch, gars, kernels, models, runner, card)),
-            ("transformer", lambda: transformer_phase(torch, gars, kernels, models, runner, card, tfm_rows)),
-            ("serve", lambda: serve_phase(torch, gars, kernels, models, runner, card, workdir, serve_rows)),
-            ("topology", lambda: topology_phase(torch, kernels, runner, card, workdir, topology_rows)),
-            ("multirank", lambda: multirank_phase(torch, kernels, card, two_ranks)))
-        for label, phase in phases:
-            for kernel, count in timed_phase(label, phase).items():
-                totals[kernel] += count
-        for row in rows:
-            check(totals[row["name"]] > 0, "%s was never launched on the main path" % row["name"])
-            row["launches"] = totals[row["name"]]
-            if row["name"] in kernels.KERNELS:
-                row["batched_launches"] = totals[batched(row["name"])]
-            row["transformer_shapes"] = [r for r in tfm_rows if r["name"] == row["name"]]
-            row["serve_shapes"] = [r for r in serve_rows if r["name"] == row["name"]]
-            row["topology_shapes"] = [r for r in topology_rows if r["name"] == row["name"]]
-        timed_phase("attack", lambda: attack_phase(runner, workdir))
-        resume_begin = time.perf_counter()
-        krum = ["--aggregator", "krum", "--nb-workers", "8", "--nb-decl-byz-workers", "2"]
-        resume_phase(torch, runner, os.path.join(workdir, "mlp"), "digits", [], krum + [
-            "--learning-rate-args", "initial-rate:0.1"])
-        resume_phase(torch, runner, os.path.join(workdir, "conv"), "digits-conv", ["batch-size:16"], krum + [
-            "--learning-rate-args", "initial-rate:0.05"])
-        # the batches drawn on the card, 4 steps a call: 10 = 2 calls and a
-        # tail of 2, the resumed 10 the same, the uninterrupted 20 five calls
-        device_input = ("--input-source", "device", "--unroll", "4")
-        resume_phase(torch, runner, os.path.join(workdir, "mlp-device"), "digits", [], krum + [
-            "--learning-rate-args", "initial-rate:0.1"], device_input)
-        resume_phase(torch, runner, os.path.join(workdir, "conv-device"), "digits-conv", ["batch-size:16"], krum + [
-            "--learning-rate-args", "initial-rate:0.05"], device_input)
-        # the int8 wire with error feedback: the residuals resume bit for bit too
-        resume_phase(torch, runner, os.path.join(workdir, "conv-int8"), "digits-conv", ["batch-size:16"], krum + [
-            "--learning-rate-args", "initial-rate:0.05", "--exchange", "int8:ef"])
-        print("phase resume: %.1f s" % (time.perf_counter() - resume_begin))
+        children = [Child("analysis CPU sweep", "--gar-sweep-cpu", workdir, CNNET_D)]
+        try:
+            rows, totals = smoke_phases(torch, gars, models, runner, build, kernels, card, workdir, children)
+        finally:
+            for child in children:
+                child.stop()
     breakdown_begin = time.perf_counter()
     for source in ("stream", "device"):
         breakdown_phase(torch, gars, models, input_source=source,
@@ -5693,4 +5909,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--digits-anchors"]:
+        digits_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--gar-sweep-cpu"]:
+        gar_sweep_child(sys.argv[2], sys.argv[3])
+    else:
+        main()

@@ -1457,3 +1457,17 @@ def test_a_submission_past_the_window_on_rank_1_times_out_on_both_ranks(cuda_dev
         assert np.isinf(late["arrivals"][5]) and np.isfinite(np.delete(late["arrivals"], 5)).all()
     assert np.array_equal(ranks[0]["median"]["rounds"][1]["arrivals"], ranks[1]["median"]["rounds"][1]["arrivals"])
 
+
+
+@pytest.mark.gpu
+def test_gar_contract_sweep_on_the_card_is_the_cpu_s(cuda_device):
+    """The port's GAR contract sweep (``analysis/gar_contract.py``) on the
+    card, through K1-K6 and the centring, finds what the CPU sweep finds,
+    fingerprint for fingerprint, and reaches every kernel."""
+    from aggregathor_tpu_torch.analysis import gar_contract
+
+    kernels.reset_launch_counts()
+    card = sorted(f.fingerprint for f in gar_contract.check(device=cuda_device))
+    torch.cuda.synchronize()
+    assert all(count > 0 for count in kernels.launch_counts().values()), kernels.launch_counts()
+    assert card == sorted(f.fingerprint for f in gar_contract.check(device="cpu"))

@@ -389,7 +389,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "serve/frontend.py", "serve/campaign.py", "cli/serve.py", "serve/router.py", "cli/router.py",
                    "obs/fleet.py", "obs/causal.py", "obs/slo.py", "topology/__init__.py", "topology/spec.py",
                    "topology/tree.py", "supervisor/__init__.py", "supervisor/policy.py", "supervisor/actuator.py",
-                   "cli/supervise.py", "cli/postmortem.py"):
+                   "cli/supervise.py", "cli/postmortem.py", "analysis/__init__.py", "analysis/__main__.py",
+                   "analysis/core.py", "analysis/baseline.py", "analysis/report.py", "analysis/retrace.py",
+                   "analysis/prng.py", "analysis/concurrency.py", "analysis/events_check.py",
+                   "analysis/gar_contract.py"):
         assert os.path.join(REPO, "aggregathor_tpu_torch", module) in paths, module
     offenders = [
         (os.path.relpath(path, REPO), module)
